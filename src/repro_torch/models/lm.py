@@ -1,0 +1,168 @@
+"""Whole-model assembly for serving: embeddings -> layer periods -> head.
+
+The port's counterpart of ``repro.models.lm`` for the dense decoder
+families (periods of attention and MLP sublayers).  ``prefill`` populates
+the caches and returns the last token's logits; ``decode_step`` advances
+every slot by one token.  A Python loop over ``n_periods`` replaces
+``lax.scan``; the param tree keeps JAX's nesting, each period leaf stacked
+over ``n_periods``.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ATTN, MLP, ModelConfig
+from repro_torch.params import PV, ParamTree, tree_map
+from . import layers as L
+
+_LATER = ("sublayer kind {!r} is not ported yet: the MoE, Mamba2 and "
+          "cross-attention families come with the other-families slice")
+
+
+# ---------------------------------------------------------------------------
+# Parameter and cache definitions
+# ---------------------------------------------------------------------------
+
+def _stack(defs: dict, n: int) -> dict:
+    return tree_map(lambda pv: PV((n,) + pv.shape, pv.dtype, ("",) + pv.logical,
+                                  pv.init, pv.scale), defs)
+
+
+def _sublayer_defs(kind: str, cfg: ModelConfig) -> dict:
+    if kind == ATTN:
+        return L.attn_defs(cfg)
+    if kind == MLP:
+        return L.mlp_defs(cfg)
+    raise NotImplementedError(_LATER.format(kind))
+
+
+def model_defs(cfg: ModelConfig) -> dict:
+    d, dt = cfg.d_model, cfg.dtype
+    Vp = cfg.padded_vocab
+    defs: dict[str, Any] = {
+        "embed": PV((Vp, d), dt, ("model", ""), "normal", 0.02),
+        "final_norm": PV((d,), torch.float32, ("",), "ones"),
+    }
+    if not cfg.tie_embeddings:
+        defs["head"] = PV((d, Vp), dt, ("", "model"))
+    period = {}
+    for li, layer in enumerate(cfg.layer_period):
+        period[f"l{li}"] = {f"s{si}_{kind}": _stack(_sublayer_defs(kind, cfg),
+                                                   cfg.n_periods)
+                            for si, kind in enumerate(layer)}
+    defs["period"] = period
+    return defs
+
+
+def cache_defs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
+    period = {}
+    for li, layer in enumerate(cfg.layer_period):
+        slots = {}
+        for si, kind in enumerate(layer):
+            if kind == ATTN:
+                slots[f"s{si}_{kind}"] = _stack(
+                    L.attn_cache_defs(cfg, batch, seq_len)._asdict(),
+                    cfg.n_periods)
+            elif kind != MLP:
+                raise NotImplementedError(_LATER.format(kind))
+        period[f"l{li}"] = slots
+    return period
+
+
+class Model(ParamTree):
+    """A model's weights as an ``nn.Module``: ``state_dict`` keys are the
+    JAX tree's dotted paths (``period.l0.s0_attn.wq``)."""
+
+    def __init__(self, cfg: ModelConfig, params: dict):
+        super().__init__(params)
+        self.cfg = cfg
+
+
+# ---------------------------------------------------------------------------
+# Embedding and head
+# ---------------------------------------------------------------------------
+
+def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"][tokens]
+
+
+def _mask_pad_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.padded_vocab == cfg.vocab_size:
+        return logits
+    ids = torch.arange(cfg.padded_vocab, device=logits.device)
+    return logits.masked_fill(ids >= cfg.vocab_size, -1e30)
+
+
+def logits_fn(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    # a plain product, as in the JAX model (XLA's, not a Pallas kernel)
+    return _mask_pad_vocab(torch.matmul(x, head), cfg)
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+def _period(tree: dict, i: int) -> dict:
+    return tree_map(lambda t: t[i], tree)
+
+
+def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, cache_seq_len: int):
+    """tokens (B, S) -> (cache, last-token logits (B, 1, V))."""
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)
+    x = embed_tokens(params, tokens, cfg)
+    W = L.attn_cache_len(cfg, cache_seq_len)
+    per_period = []
+    for i in range(cfg.n_periods):
+        pp = _period(params["period"], i)
+        caches = {}
+        for li, layer in enumerate(cfg.layer_period):
+            lcaches = {}
+            for si, kind in enumerate(layer):
+                key = f"s{si}_{kind}"
+                sp = pp[f"l{li}"][key]
+                if kind == ATTN:
+                    x, c = L.attn_layer_prefill(sp, x, cfg, positions, W)
+                    lcaches[key] = c._asdict()
+                elif kind == MLP:
+                    x = L.mlp_layer(sp, x, cfg)
+                else:
+                    raise NotImplementedError(_LATER.format(kind))
+            caches[f"l{li}"] = lcaches
+        per_period.append(caches)
+    logits = logits_fn(params, x[:, -1:], cfg)
+    return _stack_trees(per_period), logits
+
+
+def _stack_trees(trees: list):
+    """Stack same-shaped trees leaf by leaf along a new leading dim."""
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def decode_step(params, token: torch.Tensor, cache: dict, pos,
+                cfg: ModelConfig):
+    """token (B, 1), pos a scalar or (B,) per-slot positions -> (logits
+    (B, 1, V), cache).  The cache is updated in place and returned."""
+    x = embed_tokens(params, token, cfg)
+    for i in range(cfg.n_periods):
+        pp = _period(params["period"], i)
+        cc = _period(cache, i)              # views: decode writes land in cache
+        for li, layer in enumerate(cfg.layer_period):
+            for si, kind in enumerate(layer):
+                key = f"s{si}_{kind}"
+                sp = pp[f"l{li}"][key]
+                if kind == ATTN:
+                    c = L.AttnCache(**cc[f"l{li}"][key])
+                    x, _ = L.attn_layer_decode(sp, x, c, pos, cfg)
+                elif kind == MLP:
+                    x = L.mlp_layer(sp, x, cfg)
+                else:
+                    raise NotImplementedError(_LATER.format(kind))
+    logits = logits_fn(params, x, cfg)
+    return logits, cache

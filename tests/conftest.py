@@ -31,3 +31,8 @@ if str(_SRC) not in sys.path:
 from repro.testing import hypothesis_compat
 
 hypothesis_compat.install()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips where there is none")
