@@ -13,7 +13,8 @@ Phases, each of which raises on failure (nothing is caught):
      on the CPU;
   5. the main path: llama3-8b at full width and full depth (bf16, seeded
      random weights) serving 8 requests through ``ServingEngine``, with
-     the kernels' launch counts checked per forward;
+     the kernels' launch counts checked per forward; then a profiler trace
+     of a few decode steps (device time per kernel, the device's idle share);
   6. kernel times (CUDA events) beside the plain version, the one PyTorch
      call that computes the same function, and the card's bound.
 The line before the last is a JSON object of the kernels; the last line is
@@ -39,6 +40,53 @@ PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12}
 def _ms_bound(nbytes: float, nops: float, kind: str) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_S, nops / PEAK_OPS_S[kind]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _reading(r: dict) -> str:
+    """One element-wise check (``testing.kernel_checks``): the largest error,
+    the same over the output's scale, and the largest share of its limit."""
+    return (f"max_abs_err={r['max_abs_err']:.3e} rel_to_scale={r['rel_err']:.2e} "
+            f"limit_use={r['limit_use']:.3f} (|err| <= {r['rtol']:.0e}|plain| + "
+            f"{r['atol']:.0e}) {'ok' if r['ok'] else 'FAIL'}")
+
+
+def _trace_decode(engine, steps: int) -> dict:
+    """Device time of ``steps`` decode steps from a torch.profiler trace of
+    the card's activity only (no host-op recording): time per kernel family,
+    and the busy time, the union of the kernels' intervals.  The profiler
+    still slows the host's launches, so the same number of steps is first
+    timed without it; the idle share is read against that time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.testing.timing import now
+
+    torch.cuda.synchronize()
+    t0 = now()
+    for _ in range(steps):
+        engine.step()
+    plain_us = 1e6 * (now() - t0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = now()
+        for _ in range(steps):
+            engine.step()                # ends on a host read of the tokens
+        wall_us = 1e6 * (now() - t0)
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    busy, end = 0.0, -1.0
+    by = {}
+    for e in evs:
+        s, f = e.time_range.start, e.time_range.end
+        busy += max(0.0, f - max(s, end))
+        end = max(end, f)
+        fam = ("matmul (port)" if "matmul_kernel" in e.name else
+               "rmsnorm (port)" if "rms_kernel" in e.name else e.name)
+        n, t = by.get(fam, (0, 0.0))
+        by[fam] = (n + 1, t + (f - s))
+    return {"events": len(evs), "wall_us": wall_us, "plain_us": plain_us,
+            "busy_us": busy,
+            "by": sorted(by.items(), key=lambda kv: -kv[1][1])}
 
 
 def main() -> int:
@@ -97,9 +145,7 @@ def main() -> int:
                 r = kc.check_matmul(M, K, N, dt)
                 errs[("matmul", M, K, N, dt)] = r["max_abs_err"]
                 print(f"[check] matmul {proj:7s} M={M:<4d} K={K:<5d} N={N:<5d} "
-                      f"{str(dt)[6:]:8s} max_abs_err={r['max_abs_err']:.3e} "
-                      f"rel={r['rel_err']:.2e} tol={r['tol']:.0e} "
-                      f"{'ok' if r['ok'] else 'FAIL'}")
+                      f"{str(dt)[6:]:8s} {_reading(r)}")
                 if not r["ok"]:
                     failed.append(("matmul", proj, M, dt))
     for R in kc.RMSNORM_R:
@@ -107,8 +153,7 @@ def main() -> int:
             r = kc.check_rmsnorm(R, kc.D_MODEL, dt)
             errs[("rmsnorm", R, dt)] = r["max_abs_err"]
             print(f"[check] rmsnorm R={R:<4d} D={kc.D_MODEL} {str(dt)[6:]:8s} "
-                  f"max_abs_err={r['max_abs_err']:.3e} rel={r['rel_err']:.2e} "
-                  f"tol={r['tol']:.0e} {'ok' if r['ok'] else 'FAIL'}")
+                  f"{_reading(r)}")
             if not r["ok"]:
                 failed.append(("rmsnorm", R, dt))
     if failed:
@@ -170,37 +215,21 @@ def main() -> int:
                            device=dev)
     prng = np.random.default_rng(0)
     plens = [int(n) for n in prng.integers(32, 257, 8)]
-    for rid, plen in enumerate(plens):
-        engine.submit(Request(rid=rid, max_new_tokens=16,
-                              prompt=prng.integers(1, cfg.vocab_size, plen)))
+    prompts = [prng.integers(1, cfg.vocab_size, n) for n in plens]
     ops.reset_launches()
     torch.cuda.synchronize()
     t_start = now()
-    ttft, prefill_s, decode_s, n_prefill, n_decode = {}, 0.0, 0.0, 0, 0
-    while True:
-        # admission (prefills) first, timed apart from the batched decode
-        # step that follows; the engine's own admit in step() then has
-        # nothing left to admit
-        ta = now()
-        waiting = len(engine.waiting)
-        engine._admit()
-        torch.cuda.synchronize()
-        tb = now()
-        prefill_s += tb - ta
-        n_prefill += waiting - len(engine.waiting)
-        for req in engine.slots:
-            if req is not None and req.rid not in ttft:
-                ttft[req.rid] = tb - t_start
-        stepped = engine.step()
-        torch.cuda.synchronize()
-        if stepped:
-            n_decode += 1
-            decode_s += now() - tb
-        elif not engine.waiting:
-            break
+    for rid, prompt in enumerate(prompts):
+        engine.submit(Request(rid=rid, max_new_tokens=16, prompt=prompt))
+    done = list(engine.run())
     wall = now() - t_start
     launches = dict(ops.LAUNCHES)
-    done = engine.finished
+    # the engine's own spans: prefills and decode steps, each ending on a
+    # host read of tokens; TTFT from submit to the first token's read
+    tm = engine.timing
+    n_prefill, n_decode = tm["prefills"], tm["decode_steps"]
+    prefill_s, decode_s = tm["prefill_s"], tm["decode_s"]
+    ttft = [r.t_first - r.t_submit for r in done]
     forwards = n_prefill + n_decode
     per_fwd = {"matmul": 7 * cfg.n_layers, "rmsnorm": 2 * cfg.n_layers + 1}
     prompt_toks = sum(plens)
@@ -212,8 +241,8 @@ def main() -> int:
           f"({prompt_toks} tokens in {prefill_s:.3f}s); decode "
           f"{decode_toks / decode_s:.1f} tok/s ({decode_toks} tokens in "
           f"{n_decode} steps, {1e3 * decode_s / n_decode:.2f} ms/step); "
-          f"p50 TTFT {1e3 * float(np.median(list(ttft.values()))):.1f} ms "
-          f"(end of the admission round, all 8 submitted at once)")
+          f"p50 TTFT {1e3 * float(np.median(ttft)):.1f} ms "
+          f"(all 8 submitted at once, 4 slots)")
     seen = {k: v / forwards for k, v in launches.items()}
     print(f"[serve] launches {launches}, per forward {seen} "
           f"(expected {per_fwd}); max_memory_allocated "
@@ -226,6 +255,37 @@ def main() -> int:
         if launches[k] != n * forwards:
             raise AssertionError(f"{k}: {launches[k]} launches for {forwards} "
                                  f"forwards, expected {n} each")
+
+    # -- 5b. where a decode step's device time goes --------------------------
+    # four fresh requests fill the 4 slots; the first step admits them, the
+    # timed and traced steps are pure decode at batch 4
+    n_trace = 4
+    for rid, prompt in enumerate(prompts[:4]):
+        engine.submit(Request(rid=100 + rid, max_new_tokens=2 * n_trace + 4,
+                              prompt=prompt))
+    engine.step()
+    tr = _trace_decode(engine, n_trace)
+    if tr["events"]:
+        print(f"[trace] {n_trace} decode steps at batch 4: "
+              f"{tr['plain_us'] / 1e3 / n_trace:.2f} ms/step host clock, "
+              f"{tr['wall_us'] / 1e3 / n_trace:.2f} ms/step under the profiler; "
+              f"device busy {tr['busy_us'] / 1e3 / n_trace:.2f} ms/step; idle "
+              f"share {1 - tr['busy_us'] / tr['plain_us']:.3f} of the unprofiled "
+              f"steps ({1 - tr['busy_us'] / tr['wall_us']:.3f} of the profiled)")
+        port = [kv for kv in tr["by"] if kv[0].endswith("(port)")]
+        other = [kv for kv in tr["by"] if not kv[0].endswith("(port)")]
+        rest = (sum(n for _, (n, _) in other[6:]),
+                sum(t for _, (_, t) in other[6:]))
+        for fam, (n, t) in port + other[:6] + [
+                (f"{len(other[6:])} other kernels", rest)]:
+            print(f"[trace]   {t / 1e3 / n_trace:8.3f} ms/step  "
+                  f"{n / n_trace:6.1f} launches/step  {fam[:90]}")
+    else:
+        print("[trace] the profiler recorded no device activity: device time "
+              "per kernel and idle share not measured")
+    engine.run()
+    if not all(r.done for r in engine.finished):
+        raise AssertionError("a traced request did not finish")
     _, logits = lm.prefill(engine.params,
                            torch.as_tensor(done[0].prompt, device=dev)[None],
                            cfg, 512)

@@ -1,18 +1,12 @@
-"""Architecture registry: the 10 assigned configs + the AraXL paper machine.
+"""Architecture registry: the assigned architectures' published configs.
 
 ``get_config(name)`` returns the full published configuration;
 ``get_smoke_config(name)`` a reduced same-family variant for CPU smoke tests.
 """
 from __future__ import annotations
 
-import dataclasses
-
-from .base import ModelConfig, SHAPES, ShapeSpec
+from .base import ModelConfig
 from . import archs
-
-
-def list_archs() -> list[str]:
-    return sorted(archs.CONFIGS)
 
 
 def get_config(name: str) -> ModelConfig:
@@ -23,5 +17,4 @@ def get_smoke_config(name: str) -> ModelConfig:
     return archs.smoke_variant(archs.CONFIGS[name])
 
 
-__all__ = ["ModelConfig", "SHAPES", "ShapeSpec", "list_archs", "get_config",
-           "get_smoke_config"]
+__all__ = ["ModelConfig", "get_config", "get_smoke_config"]

@@ -1,8 +1,6 @@
 """The assigned architectures (exact published configurations).
 
-Sources are cited per entry; ``skip_shapes`` documents the noted cell skips
-(DESIGN.md §5): ``long_500k`` requires sub-quadratic attention and is run
-only for SWA/SSM/hybrid families.
+Sources are cited per entry.
 """
 from __future__ import annotations
 
@@ -11,9 +9,6 @@ import dataclasses
 import torch
 
 from .base import ATTN, MAMBA, MLP, MOE, XATTN, ModelConfig
-
-_FULL_ATTN_SKIP = {"long_500k": "quadratic full attention at 524288 context"}
-
 
 CONFIGS: dict[str, ModelConfig] = {}
 
@@ -32,8 +27,7 @@ _reg(ModelConfig(
     n_layers=94, d_model=4096, n_heads=64, n_kv_heads=4, d_head=128,
     d_ff=1536, d_ff_expert=1536, vocab_size=151936,
     n_experts=128, experts_per_token=8,
-    rope_theta=1e6, norm_eps=1e-6,
-    skip_shapes=dict(_FULL_ATTN_SKIP)))
+    rope_theta=1e6, norm_eps=1e-6))
 
 # [arXiv:2401.04088; hf] Mixtral 8x7B: 32L d4096 32H kv=8 ff14336,
 # 8 experts top-2, sliding window 4096
@@ -41,7 +35,7 @@ _reg(ModelConfig(
     name="mixtral-8x7b", family="moe",
     n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, d_ff=14336,
     d_ff_expert=14336, vocab_size=32000,
-    n_experts=8, experts_per_token=2, moe_tp=True,
+    n_experts=8, experts_per_token=2,
     window=4096, rope_theta=1e6, norm_eps=1e-5))
 
 # --- enc-dec audio ----------------------------------------------------------
@@ -53,8 +47,7 @@ _reg(ModelConfig(
     n_layers=24, n_enc_layers=24, d_model=1024, n_heads=16, n_kv_heads=16,
     d_ff=8192, vocab_size=256206,
     period=((ATTN, XATTN, MLP),),
-    d_ctx=1024, rope_theta=1e4, norm_eps=1e-5,
-    skip_shapes=dict(_FULL_ATTN_SKIP)))
+    d_ctx=1024, rope_theta=1e4, norm_eps=1e-5))
 
 # --- hybrid -----------------------------------------------------------------
 
@@ -76,29 +69,25 @@ _reg(ModelConfig(
 _reg(ModelConfig(
     name="phi3-mini-3.8b", family="dense",
     n_layers=32, d_model=3072, n_heads=32, n_kv_heads=32, d_ff=8192,
-    vocab_size=32064, rope_theta=1e4, norm_eps=1e-5,
-    skip_shapes=dict(_FULL_ATTN_SKIP)))
+    vocab_size=32064, rope_theta=1e4, norm_eps=1e-5))
 
 # [arXiv:2401.02954; hf] deepseek-llm-7b
 _reg(ModelConfig(
     name="deepseek-7b", family="dense",
     n_layers=30, d_model=4096, n_heads=32, n_kv_heads=32, d_ff=11008,
-    vocab_size=102400, rope_theta=1e4, norm_eps=1e-6,
-    skip_shapes=dict(_FULL_ATTN_SKIP)))
+    vocab_size=102400, rope_theta=1e4, norm_eps=1e-6))
 
 # [hf:THUDM/glm-4-9b; hf] glm4-9b — extreme GQA (kv=2)
 _reg(ModelConfig(
     name="glm4-9b", family="dense",
     n_layers=40, d_model=4096, n_heads=32, n_kv_heads=2, d_ff=13696,
-    vocab_size=151552, rope_theta=1e4, norm_eps=1.5625e-7,
-    skip_shapes=dict(_FULL_ATTN_SKIP)))
+    vocab_size=151552, rope_theta=1e4, norm_eps=1.5625e-7))
 
 # [arXiv:2407.21783; unverified] llama3-8b
 _reg(ModelConfig(
     name="llama3-8b", family="dense",
     n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, d_ff=14336,
-    vocab_size=128256, rope_theta=5e5, norm_eps=1e-5,
-    skip_shapes=dict(_FULL_ATTN_SKIP)))
+    vocab_size=128256, rope_theta=5e5, norm_eps=1e-5))
 
 # --- VLM --------------------------------------------------------------------
 
@@ -112,8 +101,7 @@ _reg(ModelConfig(
     period=((ATTN, MLP), (ATTN, MLP), (XATTN, MLP), (ATTN, MLP),
             (ATTN, MLP)),
     n_ctx_tokens=1601 * 4, d_ctx=7680,
-    rope_theta=5e5, norm_eps=1e-5,
-    skip_shapes=dict(_FULL_ATTN_SKIP)))
+    rope_theta=5e5, norm_eps=1e-5))
 
 # --- SSM --------------------------------------------------------------------
 
@@ -152,9 +140,4 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         ssm_chunk=8,
         window=min(cfg.window, 16) if cfg.window else None,
         dtype=torch.float32,
-        moe_tp=False,
-        # capacity high enough that smoke-scale dispatch never drops —
-        # batched-vs-sequential drop patterns would legitimately diverge
-        capacity_factor=8.0,
-        remat=False,
     )

@@ -1,12 +1,13 @@
 """Model / shape configuration schema for every assigned architecture.
 
-The PyTorch port's copy of ``repro.configs.base``: the same fields and
-derived properties, with ``dtype`` a torch dtype."""
+The PyTorch port's copy of ``repro.configs.base``: the fields the
+architectures set and the derived shapes the serving path reads, with
+``dtype`` a torch dtype.  Training, sharding and MoE-dispatch options come
+with the slices that read them."""
 from __future__ import annotations
 
 import dataclasses
-import math
-from typing import Any, Sequence
+from typing import Any
 
 import torch
 
@@ -14,26 +15,6 @@ import torch
 # sublayer kinds; a layer is a tuple of sublayers, a period a tuple of layers
 ATTN, MAMBA, XATTN = "attn", "mamba", "xattn"
 MLP, MOE = "mlp", "moe"
-
-
-@dataclasses.dataclass(frozen=True)
-class ShapeSpec:
-    name: str
-    seq_len: int
-    global_batch: int
-    kind: str                    # train | prefill | decode
-
-    @property
-    def is_decode(self) -> bool:
-        return self.kind == "decode"
-
-
-SHAPES = {
-    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
-    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
-    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
-    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,10 +38,6 @@ class ModelConfig:
     n_experts: int = 0
     experts_per_token: int = 0
     d_ff_expert: int = 0
-    capacity_factor: float = 1.25
-    moe_tp: bool = False         # experts < |model| axis: shard d_ff instead
-    moe_impl: str = "psum"       # "psum" (tokens replicated over model) |
-    #                              "a2a" (GLSU-style token all-to-all EP)
 
     # attention
     rope_theta: float = 1e4
@@ -71,7 +48,6 @@ class ModelConfig:
     ssm_head_dim: int = 64
     ssm_expand: int = 2
     ssm_chunk: int = 256
-    ssm_conv: int = 4
 
     # enc-dec
     n_enc_layers: int = 0
@@ -79,16 +55,10 @@ class ModelConfig:
     n_ctx_tokens: int = 0        # image patches / audio frames per sample
     d_ctx: int = 0               # frontend embedding dim (projected to d_model)
 
-    # numerics / training
+    # numerics
     dtype: Any = torch.bfloat16
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
-    remat: bool = True
-    unroll_layers: bool = False  # python-loop periods (cost-analysis variants)
-    loss_chunk: int = 0          # chunked cross-entropy (0 = single shot)
-
-    # shape-cell applicability: {shape_name: reason} for noted skips
-    skip_shapes: Any = dataclasses.field(default_factory=dict)
 
     # ---------------------------------------------------------------------
     @property
@@ -113,59 +83,3 @@ class ModelConfig:
         p = len(self.layer_period)
         assert self.n_layers % p == 0, (self.name, self.n_layers, p)
         return self.n_layers // p
-
-    @property
-    def d_inner_ssm(self) -> int:
-        return self.ssm_expand * self.d_model
-
-    @property
-    def n_ssm_heads(self) -> int:
-        return self.d_inner_ssm // self.ssm_head_dim
-
-    def _sublayer_params(self, kind: str) -> int:
-        d, hd = self.d_model, self.head_dim
-        if kind in (ATTN, XATTN):
-            return (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
-                    + self.n_heads * hd * d + d)
-        if kind == MAMBA:
-            di = self.d_inner_ssm
-            H, N = self.n_ssm_heads, self.ssm_state
-            return (d * (2 * di + 2 * N + H) + self.ssm_conv * (di + 2 * N)
-                    + 3 * H + di + di * d + d)
-        if kind == MLP:
-            return 3 * d * self.d_ff + d
-        if kind == MOE:
-            ffe = self.d_ff_expert or self.d_ff
-            return (d * self.n_experts + self.n_experts * 3 * d * ffe + d)
-        raise ValueError(kind)
-
-    def n_params(self) -> int:
-        """Total parameter count (embedding included)."""
-        d = self.d_model
-        n = self.vocab_size * d                       # embed
-        if not self.tie_embeddings:
-            n += d * self.vocab_size                  # head
-        for layer in self.layer_period:
-            for kind in layer:
-                n += self.n_periods * self._sublayer_params(kind)
-        n += d                                        # final norm
-        if self.family == "encdec":
-            n += self.n_enc_layers * (self._sublayer_params(ATTN)
-                                      + self._sublayer_params(MLP)) + d
-        if self.d_ctx:
-            n += self.d_ctx * d                       # frontend projection
-        return n
-
-    def n_active_params(self) -> int:
-        """Active (per-token) parameters — MoE counts top-k experts only."""
-        if not self.n_experts:
-            return self.n_params()
-        ffe = self.d_ff_expert or self.d_ff
-        n_moe = sum(1 for layer in self.layer_period
-                    for k in layer if k == MOE) * self.n_periods
-        inactive = n_moe * (self.n_experts - self.experts_per_token) \
-            * 3 * self.d_model * ffe
-        return self.n_params() - inactive
-
-    def runnable(self, shape_name: str) -> bool:
-        return shape_name not in self.skip_shapes

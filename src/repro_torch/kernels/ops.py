@@ -3,8 +3,9 @@ and ``dense``).
 
 A tensor on the CPU goes to the kernel's plain version (``ref``); a CUDA
 tensor goes to the kernel, or the call raises.  There is no fallback
-between the two.  ``LAUNCHES`` counts the kernel launches each wrapper
-makes, so a run can show that its path went through the kernels.
+between the two.  ``LAUNCHES`` (kept in ``launches``) counts the kernel
+launches the wrappers make, so a run can show that its path went through
+the kernels.
 """
 from __future__ import annotations
 
@@ -13,13 +14,9 @@ import torch
 from . import matmul as _mm
 from . import ref
 from . import rmsnorm as _rms
+from .launches import LAUNCHES, reset as reset_launches
 
-LAUNCHES = {"rmsnorm": 0, "matmul": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+__all__ = ["LAUNCHES", "reset_launches", "rmsnorm", "matmul", "dense"]
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6
@@ -29,7 +26,6 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6
         return ref.rmsnorm(x, gamma, eps)
     shape = x.shape
     out = _rms.rmsnorm(x.reshape(-1, shape[-1]).contiguous(), gamma, eps)
-    LAUNCHES["rmsnorm"] += 1
     return out.reshape(shape)
 
 
@@ -37,9 +33,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a (M, K) @ b (K, N)``, f32 accumulation, result in a's dtype."""
     if a.device.type == "cpu":
         return ref.matmul(a, b)
-    out = _mm.matmul(a.contiguous(), b.contiguous())
-    LAUNCHES["matmul"] += 1
-    return out
+    return _mm.matmul(a.contiguous(), b.contiguous())
 
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,7 @@ import os
 import torch
 
 from . import _build
+from .launches import LAUNCHES
 
 _KERNEL = None
 
@@ -66,11 +67,12 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
         raise ValueError("rmsnorm kernel needs contiguous x and gamma")
     R, D = x.shape
     out = torch.empty_like(x)
-    if R == 0:
+    if R == 0 or D == 0:                # nothing to write: no launch
         return out
     triton, kernel = _kernel()
     block = triton.next_power_of_2(D)
     with torch.cuda.device(x.device):
         kernel[(R,)](x, gamma, out, D, float(eps), BLOCK=block,
                      num_warps=min(16, max(1, block // 512)))
+        LAUNCHES["rmsnorm"] += 1
     return out

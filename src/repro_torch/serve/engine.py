@@ -11,6 +11,11 @@ Engine loop:
      own position;
   3. retire: slots whose request hit EOS/max_tokens free up.
 
+The engine keeps its own host-clock spans (``timing``): seconds spent in
+prefills and in decode steps, and each request's submit and first-token
+times.  Each span ends where the engine reads a token back to the host,
+which waits for the card's work on the stream, so it holds that work.
+
 The engine runs on the card (``device="cuda"``) unless the caller asks for
 the CPU; without CUDA it raises instead of carrying on on the CPU.
 """
@@ -23,6 +28,7 @@ import torch
 
 from repro_torch.models import lm
 from repro_torch.params import tree_map
+from repro_torch.testing.timing import now
 
 
 class PromptTooLongError(ValueError):
@@ -39,6 +45,8 @@ class Request:
     out: list = dataclasses.field(default_factory=list)
     done: bool = False
     slot: int | None = None             # set at admit (observability)
+    t_submit: float = 0.0               # host clock at submit
+    t_first: float = 0.0                # host clock when its first token was read
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,10 +95,13 @@ class ServingEngine:
         self.waiting: list[Request] = []
         self.finished: list[Request] = []
         self.peak_live = 0                  # high-water mark of live slots
+        self.timing = {"prefill_s": 0.0, "prefills": 0,
+                       "decode_s": 0.0, "decode_steps": 0}
 
     # -- admission -----------------------------------------------------------
     def submit(self, req: Request):
         validate_prompt(req.prompt, self.scfg.max_seq)
+        req.t_submit = now()
         self.waiting.append(req)
 
     @property
@@ -103,11 +114,15 @@ class ServingEngine:
             req = self.waiting.pop(0)
             slot = free.pop(0)
             req.slot = slot
+            t0 = now()
             toks = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int64,
                                    device=self.device)[None, :]
             cache, logits = lm.prefill(self.params, toks, self.cfg,
                                        self.scfg.max_seq)
             req.out.append(int(torch.argmax(logits[0, -1])))
+            req.t_first = now()
+            self.timing["prefill_s"] += req.t_first - t0
+            self.timing["prefills"] += 1
             # copy this request's cache rows into the live batch cache in
             # place (JAX builds a new tree with big.at[:, slot].set(...))
             _merge(self.cache, cache, slot)
@@ -124,6 +139,7 @@ class ServingEngine:
         live = self._live()
         if not live:
             return False
+        t0 = now()
         B = self.scfg.max_batch
         tok = np.zeros((B, 1), np.int64)
         for i in live:
@@ -136,6 +152,8 @@ class ServingEngine:
             self.params, torch.as_tensor(tok, device=self.device), self.cache,
             pos, self.cfg)
         nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+        self.timing["decode_s"] += now() - t0
+        self.timing["decode_steps"] += 1
         for i in live:
             req = self.slots[i]
             t = int(nxt[i])

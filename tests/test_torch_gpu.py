@@ -8,6 +8,7 @@ machine with the card with
 import pytest
 import torch
 
+from repro_torch.kernels import launches, matmul, ops, rmsnorm
 from repro_torch.testing import kernel_checks as kc
 
 DTYPES = [torch.bfloat16, torch.float32]
@@ -18,7 +19,11 @@ def cuda():
     # decided here, at run time, so every worker collects the same tests
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
+    # the plain f32 products in full f32, as chip_smoke.py sets them
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 @pytest.mark.gpu
@@ -45,3 +50,27 @@ def test_rmsnorm_kernel_matches_plain(cuda, R, dtype):
 def test_matmul_kernel_ragged_edges(cuda, mkn):
     res = kc.check_matmul(*mkn, torch.float32, cuda)
     assert res["ok"], res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["matmul", "rmsnorm"])
+def test_launch_counted_only_where_a_kernel_launches(cuda, kernel):
+    """An empty output launches nothing and leaves the count as it was; a
+    call that launches adds exactly one."""
+    launches.reset()
+    if kernel == "matmul":
+        empty = matmul.matmul(torch.ones(0, 8, device=cuda),
+                              torch.ones(8, 4, device=cuda))
+        assert empty.shape == (0, 4) and launches.LAUNCHES["matmul"] == 0
+        assert matmul.matmul(torch.ones(3, 8, device=cuda),
+                             torch.ones(8, 0, device=cuda)).shape == (3, 0)
+        assert launches.LAUNCHES["matmul"] == 0
+        ops.dense(torch.ones(2, 3, 8, device=cuda), torch.ones(8, 4, device=cuda))
+    else:
+        empty = rmsnorm.rmsnorm(torch.ones(0, 8, device=cuda),
+                                torch.ones(8, device=cuda), 1e-6)
+        assert empty.shape == (0, 8) and launches.LAUNCHES["rmsnorm"] == 0
+        ops.rmsnorm(torch.ones(2, 3, 8, device=cuda), torch.ones(8, device=cuda))
+    torch.cuda.synchronize()
+    assert launches.LAUNCHES == {**{k: 0 for k in launches.LAUNCHES}, kernel: 1}
+    assert ops.LAUNCHES is launches.LAUNCHES

@@ -74,6 +74,16 @@ def test_cpu_tensors_never_launch():
     assert ops.LAUNCHES == {"rmsnorm": 0, "matmul": 0}
 
 
+def test_wrappers_and_seam_share_one_launch_counter():
+    """The wrappers count where they launch; ``ops`` shows the same dict."""
+    from repro_torch.kernels import launches, matmul, rmsnorm
+    assert ops.LAUNCHES is launches.LAUNCHES is matmul.LAUNCHES \
+        is rmsnorm.LAUNCHES
+    launches.LAUNCHES["matmul"] = 5
+    ops.reset_launches()
+    assert launches.LAUNCHES == {"rmsnorm": 0, "matmul": 0}
+
+
 @pytest.mark.parametrize("kernel", ["matmul", "rmsnorm"])
 def test_kernel_wrappers_refuse_cpu_tensors(kernel):
     """The kernel wrappers themselves never take a CPU tensor: there is no

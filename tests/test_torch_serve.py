@@ -83,6 +83,21 @@ def test_engine_streams_match_jax(case):
     assert eng.peak_live == 2 and len(got) == 5
 
 
+def test_engine_records_its_own_spans():
+    """The engine times its prefills and decode steps itself, and stamps
+    each request's submit and first-token times."""
+    _, cfg, _, tp = _setup("llama3")
+    eng = ServingEngine(lm.Model(cfg, tp), ServeConfig(max_batch=2, max_seq=64),
+                        device="cpu")
+    for rid, prompt in enumerate(_prompts(cfg.vocab_size)):
+        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=4))
+    done = eng.run()
+    tm = eng.timing
+    assert tm["prefills"] == 5 and tm["prefill_s"] > 0
+    assert tm["decode_steps"] >= 3 * 5 / 2 and tm["decode_s"] > 0
+    assert all(0 < r.t_submit <= r.t_first for r in done)
+
+
 def test_bf16_prefill_logits():
     """bf16 storage: the two frameworks round activations to bf16 at
     different points inside each sublayer, so a few bf16 ulps of the logit
