@@ -3,7 +3,8 @@
 ``nvcc`` compiles ``csrc/<name>.cu`` (a plain C interface, no PyTorch
 headers, so the build takes seconds) into ``build/repro_torch/`` at the
 root of the checkout on first use; the library is named by a hash of its
-source, so an edited source is rebuilt.  The result is loaded with
+source, so an edited source is rebuilt.  ``build`` compiles several
+sources at once, one nvcc process each.  The result is loaded with
 ``ctypes``.  Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -36,22 +37,42 @@ def _nvcc() -> str:
                        "built on the machine with the card")
 
 
+def _target(name: str) -> pathlib.Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names) -> None:
+    """Build the libraries of ``names`` that are not built yet, one nvcc
+    process for each, all started together."""
+    todo = [(n, _target(n)) for n in names if not _target(n).exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name, out in todo:
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu:\n{stderr}")
+            continue
+        os.replace(tmp, out)            # atomic: a concurrent build never half-loads
+        BUILD_LOGS[name] = stderr + stdout
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     if name in _LIBS:
         return _LIBS[name]
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-        os.replace(tmp, out)            # atomic: a concurrent build never half-loads
-        BUILD_LOGS[name] = proc.stderr + proc.stdout
-    lib = ctypes.CDLL(str(out))
+    build([name])
+    lib = ctypes.CDLL(str(_target(name)))
     _LIBS[name] = lib
     return lib

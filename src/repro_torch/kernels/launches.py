@@ -7,7 +7,8 @@ path it wants to account for and reads them after it, to show that the
 path went through the kernels."""
 from __future__ import annotations
 
-LAUNCHES = {"rmsnorm": 0, "matmul": 0}
+LAUNCHES = {"rmsnorm": 0, "matmul": 0, "flash_attention": 0,
+            "paged_attention": 0}
 
 
 def reset() -> None:

@@ -1,9 +1,16 @@
 """Serving launcher: batched requests against a (smoke or full) model.
 
-The port's counterpart of ``repro.launch.serve`` in dense mode.  Runs on
-the card unless ``--device cpu``; weights are random, drawn from ``--seed``.
+The port's counterpart of ``repro.launch.serve``.  ``--paged`` swaps the
+dense per-slot KV cache for the block-table pool (``serve.paged``):
+``--block-tokens`` sizes the blocks (0 = 16, lowered to a power-of-two
+divisor of ``--max-seq``) and ``--chunk`` enables chunked prefill.
+``--pods N`` splits the request stream across N engines on the one device,
+sharing one model, behind the prefix-affinity router (``serve.router``).
+Runs on the card unless ``--device cpu``; weights are random, drawn from
+``--seed``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --smoke
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --paged --chunk 16
 """
 from __future__ import annotations
 
@@ -15,37 +22,63 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import lm
 from repro_torch.params import init_params
-from repro_torch.serve import Request, ServeConfig, ServingEngine
+from repro_torch.serve import (PagedServeConfig, PagedServingEngine,
+                               PrefixRouter, Request, ServeConfig,
+                               ServingEngine)
 from repro_torch.serve.engine import resolve_device
 from repro_torch.testing.timing import now
 
 
+def _block_tokens(max_seq: int, default: int = 16) -> int:
+    """``default`` lowered to a power-of-two divisor of ``max_seq``, so the
+    pool tiles ``max_seq`` exactly (the JAX launcher's choice when its
+    autotune table has no entry)."""
+    bt = max(1, min(default, max_seq))
+    while max_seq % bt:
+        bt //= 2
+    return bt
+
+
+def _make_engine(model, device, *, paged: bool, max_batch: int,
+                 max_seq: int, block_tokens: int, chunk: int):
+    if not paged:
+        return ServingEngine(model, ServeConfig(max_batch=max_batch,
+                                                max_seq=max_seq), device=device)
+    bt = block_tokens if block_tokens > 0 else _block_tokens(max_seq)
+    scfg = PagedServeConfig(max_batch=max_batch, max_seq=max_seq,
+                            block_tokens=bt, n_blocks=max_batch * max_seq // bt,
+                            chunk=chunk)
+    return PagedServingEngine(model, scfg, device=device)
+
+
 def run(arch: str, *, smoke: bool = True, n_requests: int = 6,
         max_new: int = 16, max_batch: int = 4, max_seq: int = 128,
-        paged: bool = False, pods: int = 1, seed: int = 0, device="cuda"):
-    if paged:
-        raise NotImplementedError("--paged is not ported yet (the paged "
-                                  "serving slice)")
-    if pods != 1:
-        raise NotImplementedError("--pods is not ported yet (the "
-                                  "distributed slice)")
+        paged: bool = False, block_tokens: int = 0, chunk: int = 0,
+        pods: int = 1, seed: int = 0, device="cuda"):
     device = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     gen = torch.Generator(device=device).manual_seed(seed)
     model = lm.Model(cfg, init_params(lm.model_defs(cfg), gen, device))
-    engine = ServingEngine(model, ServeConfig(max_batch=max_batch,
-                                              max_seq=max_seq), device=device)
+    engines = [_make_engine(model, device, paged=paged, max_batch=max_batch,
+                            max_seq=max_seq, block_tokens=block_tokens,
+                            chunk=chunk)
+               for _ in range(max(pods, 1))]
+    front = engines[0] if len(engines) == 1 else PrefixRouter(engines)
     rng = np.random.default_rng(seed)
     t0 = now()
     for rid in range(n_requests):
         plen = int(rng.integers(4, 24))
         prompt = rng.integers(1, cfg.vocab_size, plen).astype(np.int32)
-        engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=max_new))
-    finished = engine.run()
+        front.submit(Request(rid=rid, prompt=prompt, max_new_tokens=max_new))
+    finished = front.run()
     dt = now() - t0                     # run() ends on a host read of tokens
     toks = sum(len(r.out) for r in finished)
+    mode = ("paged+chunked" if paged and chunk else
+            "paged" if paged else "dense")
+    pods_txt = f" pods={len(engines)}" if len(engines) > 1 else ""
     print(f"[serve] {len(finished)} requests, {toks} tokens in {dt:.2f}s "
-          f"({toks/dt:.1f} tok/s incl. kernel builds) [dense, {device}]")
+          f"({toks/dt:.1f} tok/s incl. kernel builds) [{mode}{pods_txt}, "
+          f"{device}]")
     return finished
 
 
@@ -64,13 +97,20 @@ def main(argv=None):
     size.add_argument("--full", dest="smoke", action="store_false",
                       help="the published configuration")
     ap.add_argument("--paged", action="store_true",
-                    help="block-table KV pool (not ported yet)")
+                    help="block-table KV pool instead of dense slots")
+    ap.add_argument("--block-tokens", type=int, default=0,
+                    help="tokens per KV block (0 = 16, lowered to divide "
+                         "--max-seq)")
+    ap.add_argument("--chunk", type=int, default=0,
+                    help="chunked-prefill chunk size (0 = whole-prompt)")
     ap.add_argument("--pods", type=int, default=1,
-                    help="engines behind a router (not ported yet)")
+                    help="engines behind the prefix-affinity router")
     args = ap.parse_args(argv)
-    run(args.arch, smoke=args.smoke, n_requests=args.requests,
-        max_new=args.max_new, max_batch=args.max_batch, max_seq=args.max_seq,
-        paged=args.paged, pods=args.pods, seed=args.seed, device=args.device)
+    return run(args.arch, smoke=args.smoke, n_requests=args.requests,
+               max_new=args.max_new, max_batch=args.max_batch,
+               max_seq=args.max_seq, paged=args.paged,
+               block_tokens=args.block_tokens, chunk=args.chunk,
+               pods=args.pods, seed=args.seed, device=args.device)
 
 
 if __name__ == "__main__":

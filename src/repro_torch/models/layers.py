@@ -2,10 +2,12 @@
 
 The port's counterpart of the attention and MLP parts of
 ``repro.models.layers``.  Pure functions over param dicts built from ``PV``
-definitions; math in f32, storage in ``cfg.dtype``.  Every RMSNorm and
-every projection goes through ``kernels.ops``; attention itself is plain
-PyTorch, as the JAX model leaves it to XLA.  Decode updates the KV cache
-in place (the JAX layer returns a new cache).
+definitions; math in f32, storage in ``cfg.dtype``.  Every RMSNorm, every
+projection, whole-prompt attention (``ops.attention``, where the JAX model
+leaves it to XLA) and paged attention (``ops.paged_attention``) go through
+``kernels.ops``; dense-cache decode attention is plain PyTorch.  Decode and
+the paged layer update the KV cache or pool in place (the JAX layers
+return new ones).
 """
 from __future__ import annotations
 
@@ -76,43 +78,14 @@ def _qkv(p, x, cfg: ModelConfig, positions, rotate: bool):
     return q, k, v
 
 
-def _expand_kv(k: torch.Tensor, H: int) -> torch.Tensor:
-    """Repeat kv heads up to H: kv0,kv0,kv1,kv1,... (``jnp.repeat``), so
-    query head h reads kv head h // (H / Hkv)."""
-    Hkv = k.shape[2]
-    if Hkv != H:
-        k = torch.repeat_interleave(k, H // Hkv, dim=2)
-    return k
-
-
-def _sdpa_chunked(q, k, v, cfg: ModelConfig, *, causal: bool,
-                  q_chunk: int = 512) -> torch.Tensor:
-    """Exact attention over q blocks of ``q_chunk`` rows against full K/V:
-    f32 softmax, causal and sliding-window masks with -1e30.  Rows are
-    independent, so the block size does not change the result.
-    q (B,S,H,Dh), k/v (B,T,Hkv,Dh) -> (B,S,H,Dh)."""
+def _attention(q, k, v, cfg: ModelConfig, causal: bool) -> torch.Tensor:
+    """q (B,S,H,Dh), k/v (B,T,Hkv,Dh) -> (B,S,H*Dh) through the attention
+    seam, which takes (B,H,S,Dh): transposed views in, a transposed view of
+    the result out, no copies on the card."""
     B, S, H, Dh = q.shape
-    T = k.shape[1]
-    scale = 1.0 / math.sqrt(Dh)
-    kf = _expand_kv(k, H).to(torch.float32)
-    vf = _expand_kv(v, H).to(torch.float32)
-    k_pos = torch.arange(T, device=q.device)
-    outs = []
-    for off in range(0, S, q_chunk):
-        qc = q[:, off:off + q_chunk]
-        cq = qc.shape[1]
-        s = torch.einsum("bqhd,bthd->bhqt", qc.to(torch.float32), kf) * scale
-        q_pos = off + torch.arange(cq, device=q.device)
-        mask = torch.ones((cq, T), dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= q_pos[:, None] >= k_pos[None, :]
-        if cfg.window is not None:
-            mask &= (q_pos[:, None] - k_pos[None, :]) < cfg.window
-        s = torch.where(mask[None, None], s, -1e30)
-        pr = torch.softmax(s, dim=-1)
-        o = torch.einsum("bhqt,bthd->bqhd", pr, vf)
-        outs.append(o.to(q.dtype))
-    return torch.cat(outs, dim=1)
+    o = kops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                       causal=causal, window=cfg.window)
+    return o.transpose(1, 2).reshape(B, S, H * Dh)
 
 
 def attn_layer(p, x, cfg: ModelConfig, positions, *, causal: bool = True
@@ -120,8 +93,7 @@ def attn_layer(p, x, cfg: ModelConfig, positions, *, causal: bool = True
     """Training / prefill self-attention (residual included)."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions, rotate=True)
-    o = _sdpa_chunked(q, k, v, cfg, causal=causal)
-    o = kops.dense(o.reshape(B, S, cfg.n_heads * cfg.head_dim), p["wo"])
+    o = kops.dense(_attention(q, k, v, cfg, causal), p["wo"])
     return x + o.to(x.dtype)
 
 
@@ -202,8 +174,7 @@ def attn_layer_prefill(p, x, cfg: ModelConfig, positions, cache_len: int):
     """Prefill: run attention AND return the populated cache."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions, rotate=True)
-    o = _sdpa_chunked(q, k, v, cfg, causal=True)
-    o = kops.dense(o.reshape(B, S, cfg.n_heads * cfg.head_dim), p["wo"])
+    o = kops.dense(_attention(q, k, v, cfg, causal=True), p["wo"])
     W = cache_len
     if W >= S:
         pad = (0, 0, 0, 0, 0, W - S)        # zero rows after the prompt
@@ -214,6 +185,94 @@ def attn_layer_prefill(p, x, cfg: ModelConfig, positions, cache_len: int):
         ck = torch.roll(k[:, S - W:], shifts=roll, dims=1)
         cv = torch.roll(v[:, S - W:], shifts=roll, dims=1)
     return x + o.to(x.dtype), AttnCache(ck, cv)
+
+
+# ---------------------------------------------------------------------------
+# paged attention (block-table KV pool)
+# ---------------------------------------------------------------------------
+#
+# K/V live in a shared pool of fixed-size token blocks (NB, bt, Hkv, Dh) per
+# layer; each request holds a table of block ids, and attention reads through
+# the table.  Block 0 is a permanent zero block: unallocated table entries
+# read zeros, which is what the dense cache's unwritten rows hold.  The JAX
+# package has two layers, a decode step and a prefill chunk; both are one
+# layer here over a ``PagedBatch`` that says which rows attend over which
+# table, and which pool rows the step writes.  Full attention only (no SWA
+# ring): the paged engine rejects windowed configs.
+
+class PagedBatch(NamedTuple):
+    """What one paged forward needs, on the device, built once per forward
+    (not once per layer) by :func:`decode_batch` or :func:`chunk_batch`.
+    Row r of the step's flattened (B*S) tokens attends as one sequence of
+    ``lens[r]`` tokens through ``tables[r]``."""
+    positions: torch.Tensor   # (B, S) int64 rope positions
+    tables: torch.Tensor      # (B*S, nblk) int32 block table of each row
+    lens: torch.Tensor        # (B*S,) int32 tokens each row attends over
+    src: torch.Tensor         # (n,) int64 rows whose K/V the step writes
+    blk: torch.Tensor         # (n,) int64 ... into these pool blocks
+    off: torch.Tensor         # (n,) int64 ... at these offsets
+    n_valid: int              # rows at or past this write zero K/V
+
+
+def decode_batch(tables, pos, live, bt: int, device) -> PagedBatch:
+    """One decode token per slot: slot b attends over positions <= pos[b]
+    through tables[b] (JAX's ``idx <= pos`` mask), and only live slots write
+    their new K/V.  The JAX layer writes the current value back for dead
+    slots; here several dead slots would index block 0 at once, and the zero
+    block must stay zero, so dead slots write nothing.  Inputs may be numpy
+    arrays or CPU tensors: the live rows are found on the host."""
+    tables = torch.as_tensor(tables).to("cpu", torch.int32)
+    pos = torch.as_tensor(pos).to("cpu", torch.int64)
+    rows = torch.nonzero(torch.as_tensor(live).cpu())[:, 0]
+    p = pos[rows]
+    blk = tables[rows, p // bt].long()
+    return PagedBatch(pos[:, None].to(device), tables.to(device),
+                      (pos + 1).to(device, torch.int32), rows.to(device),
+                      blk.to(device), (p % bt).to(device), len(pos))
+
+
+def chunk_batch(table_row, start: int, valid: int, c: int, bt: int,
+                device) -> PagedBatch:
+    """One prefill chunk of c tokens (B == 1) at positions start..start+c-1,
+    of which the first ``valid`` are real: row t attends over positions
+    <= start + t (JAX's causal mask over the gathered view, which is exactly
+    the paged kernel's ``lens = start + t + 1``).  As in JAX, the chunk's
+    K/V are written into every allocated block it covers, padding rows as
+    zeros; entries still 0 (past the prompt) are not written."""
+    row = torch.as_tensor(table_row).to("cpu", torch.int64)
+    t = torch.arange(c)
+    posn = start + t
+    blk = row[posn // bt]
+    keep = blk != 0
+    return PagedBatch(posn[None].to(device),
+                      row.to(torch.int32)[None].expand(c, -1).contiguous().to(device),
+                      (posn + 1).to(device, torch.int32), t[keep].to(device),
+                      blk[keep].to(device), (posn % bt)[keep].to(device), valid)
+
+
+def attn_layer_paged(p, x, pk: torch.Tensor, pv: torch.Tensor, pb: PagedBatch,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """Attention of a decode step (x (B, 1, d)) or of a prefill chunk
+    (x (1, c, d)) against one layer's block pool pk/pv (NB, bt, Hkv, Dh).
+    The step's K/V are written into the pool in place first, then every row
+    attends through ``ops.paged_attention``, which reads the pool through a
+    permuted view, never a copy."""
+    B, S, _ = x.shape
+    hd, Hkv = cfg.head_dim, cfg.n_kv_heads
+    G = cfg.n_heads // Hkv
+    q, k, v = _qkv(p, x, cfg, pb.positions, rotate=True)
+    k = k.reshape(B * S, Hkv, hd)
+    v = v.reshape(B * S, Hkv, hd)
+    if pb.n_valid < B * S:                  # chunk padding: zero K/V
+        k[pb.n_valid:] = 0
+        v[pb.n_valid:] = 0
+    pk[pb.blk, pb.off] = k[pb.src].to(pk.dtype)
+    pv[pb.blk, pb.off] = v[pb.src].to(pv.dtype)
+    o = kops.paged_attention(q.reshape(B * S, Hkv, G, hd),
+                             pk.permute(2, 0, 1, 3), pv.permute(2, 0, 1, 3),
+                             pb.tables, pb.lens)
+    o = kops.dense(o.reshape(B, S, cfg.n_heads * hd).to(x.dtype), p["wo"])
+    return x + o.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

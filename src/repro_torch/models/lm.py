@@ -3,9 +3,10 @@
 The port's counterpart of ``repro.models.lm`` for the dense decoder
 families (periods of attention and MLP sublayers).  ``prefill`` populates
 the caches and returns the last token's logits; ``decode_step`` advances
-every slot by one token.  A Python loop over ``n_periods`` replaces
-``lax.scan``; the param tree keeps JAX's nesting, each period leaf stacked
-over ``n_periods``.
+every slot by one token; ``decode_step_paged`` and ``prefill_chunk`` do the
+same against a paged block pool (``pool_defs``).  A Python loop over
+``n_periods`` replaces ``lax.scan``; the param tree keeps JAX's nesting,
+each period leaf stacked over ``n_periods``.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ATTN, MLP, ModelConfig
-from repro_torch.params import PV, ParamTree, tree_map
+from repro_torch.params import PV, ParamTree, tree_leaves, tree_map
 from . import layers as L
 
 _LATER = ("sublayer kind {!r} is not ported yet: the MoE, Mamba2 and "
@@ -67,6 +68,32 @@ def cache_defs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
                     cfg.n_periods)
             elif kind != MLP:
                 raise NotImplementedError(_LATER.format(kind))
+        period[f"l{li}"] = slots
+    return period
+
+
+def pool_defs(cfg: ModelConfig, n_blocks: int, block_tokens: int) -> dict:
+    """Paged-KV block pool defs: the tree of :func:`cache_defs` with each
+    ATTN leaf (n_periods, n_blocks, block_tokens, Hkv, Dh), a shared pool of
+    fixed-size token blocks indexed by per-request block tables (block 0 is
+    the reserved zero block).  Attention caches only, and full attention
+    (no SWA ring)."""
+    if cfg.window:
+        raise ValueError("paged KV supports full attention only "
+                         f"(cfg.window={cfg.window})")
+    shp = (n_blocks, block_tokens, cfg.n_kv_heads, cfg.head_dim)
+    period = {}
+    for li, layer in enumerate(cfg.layer_period):
+        slots = {}
+        for si, kind in enumerate(layer):
+            if kind == ATTN:
+                slots[f"s{si}_{kind}"] = _stack(
+                    {"k": PV(shp, cfg.dtype, ("", "", "kv", ""), "zeros"),
+                     "v": PV(shp, cfg.dtype, ("", "", "kv", ""), "zeros")},
+                    cfg.n_periods)
+            elif kind != MLP:
+                raise ValueError(f"paged KV serving supports attention caches "
+                                 f"only, layer period has {kind}")
         period[f"l{li}"] = slots
     return period
 
@@ -166,3 +193,56 @@ def decode_step(params, token: torch.Tensor, cache: dict, pos,
                     raise NotImplementedError(_LATER.format(kind))
     logits = logits_fn(params, x, cfg)
     return logits, cache
+
+
+def _paged_forward(params, x: torch.Tensor, pool: dict, pb: L.PagedBatch,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """The layer periods over a paged pool, written in place."""
+    for i in range(cfg.n_periods):
+        pp = _period(params["period"], i)
+        cc = _period(pool, i)               # views: pool writes land in pool
+        for li, layer in enumerate(cfg.layer_period):
+            for si, kind in enumerate(layer):
+                key = f"s{si}_{kind}"
+                sp = pp[f"l{li}"][key]
+                if kind == ATTN:
+                    c = cc[f"l{li}"][key]
+                    x = L.attn_layer_paged(sp, x, c["k"], c["v"], pb, cfg)
+                elif kind == MLP:
+                    x = L.mlp_layer(sp, x, cfg)
+                else:
+                    raise NotImplementedError(_LATER.format(kind))
+    return x
+
+
+def _block_tokens(pool: dict) -> int:
+    return tree_leaves(pool)[0].shape[2]
+
+
+def decode_step_paged(params, token: torch.Tensor, pool: dict, tables, pos,
+                      live, cfg: ModelConfig):
+    """One-token decode through block tables: token (B, 1); pool the
+    :func:`pool_defs` tree; tables (B, max_blocks); pos (B,) per-slot
+    positions; live (B,) bool -> (logits (B, 1, V), pool).  tables, pos and
+    live may be host arrays: they go to the card once per step.  The pool
+    is updated in place (live slots only) and returned."""
+    pb = L.decode_batch(tables, pos, live, _block_tokens(pool), token.device)
+    x = embed_tokens(params, token, cfg)
+    x = _paged_forward(params, x, pool, pb, cfg)
+    return logits_fn(params, x, cfg), pool
+
+
+def prefill_chunk(params, tokens: torch.Tensor, pool: dict, table_row,
+                  start: int, valid: int, cfg: ModelConfig):
+    """One fixed-size prefill chunk for a single request: tokens (1, c)
+    padded to the chunk length, ``start`` the chunk's base position (a
+    multiple of the block size), ``valid`` the count of real tokens.  Writes
+    the chunk's K/V into the allocated blocks of ``table_row`` in place and
+    returns (logits (1, c, V) of every row, pool); the engine reads
+    logits[0, valid - 1] on the final chunk for the first generated token."""
+    c = tokens.shape[1]
+    pb = L.chunk_batch(table_row, int(start), int(valid), c,
+                       _block_tokens(pool), tokens.device)
+    x = embed_tokens(params, tokens, cfg)
+    x = _paged_forward(params, x, pool, pb, cfg)
+    return logits_fn(params, x, cfg), pool

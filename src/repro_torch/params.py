@@ -35,6 +35,13 @@ def tree_map(fn: Callable, tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a nested-dict tree, in insertion order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
 def _init_one(pv: PV, generator: torch.Generator, device) -> torch.Tensor:
     if pv.init == "zeros":
         return torch.zeros(pv.shape, dtype=pv.dtype, device=device)

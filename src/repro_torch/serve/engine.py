@@ -31,6 +31,15 @@ from repro_torch.params import tree_map
 from repro_torch.testing.timing import now
 
 
+#: prompt tokens that key a request's prefix for routing
+PREFIX_TOKENS = 16
+
+
+def prefix_key(prompt: np.ndarray) -> tuple:
+    """Hashable key of the prompt head (the prefix a pod's cache can reuse)."""
+    return tuple(int(t) for t in np.asarray(prompt)[:PREFIX_TOKENS])
+
+
 class PromptTooLongError(ValueError):
     """Prompt does not fit the engine's cache: the cache holds ``max_seq``
     positions and the first decode writes at position ``len(prompt)``, so
@@ -107,6 +116,14 @@ class ServingEngine:
     @property
     def n_live(self) -> int:
         return sum(s is not None for s in self.slots)
+
+    @property
+    def n_waiting(self) -> int:
+        return len(self.waiting)
+
+    @property
+    def capacity(self) -> int:
+        return self.scfg.max_batch
 
     def _admit(self):
         free = [i for i, s in enumerate(self.slots) if s is None]

@@ -71,29 +71,45 @@ def test_cpu_tensors_never_launch():
     ops.reset_launches()
     ops.dense(torch.ones(3, 8), torch.ones(8, 4))
     ops.rmsnorm(torch.ones(3, 8), torch.ones(8))
-    assert ops.LAUNCHES == {"rmsnorm": 0, "matmul": 0}
+    assert ops.LAUNCHES == {"rmsnorm": 0, "matmul": 0, "flash_attention": 0,
+                            "paged_attention": 0}
 
 
 def test_wrappers_and_seam_share_one_launch_counter():
     """The wrappers count where they launch; ``ops`` shows the same dict."""
-    from repro_torch.kernels import launches, matmul, rmsnorm
+    from repro_torch.kernels import (flash_attention, launches, matmul,
+                                     paged_attention, rmsnorm)
     assert ops.LAUNCHES is launches.LAUNCHES is matmul.LAUNCHES \
-        is rmsnorm.LAUNCHES
+        is rmsnorm.LAUNCHES is flash_attention.LAUNCHES \
+        is paged_attention.LAUNCHES
     launches.LAUNCHES["matmul"] = 5
+    launches.LAUNCHES["paged_attention"] = 2
     ops.reset_launches()
-    assert launches.LAUNCHES == {"rmsnorm": 0, "matmul": 0}
+    assert launches.LAUNCHES == {"rmsnorm": 0, "matmul": 0,
+                                 "flash_attention": 0, "paged_attention": 0}
 
 
-@pytest.mark.parametrize("kernel", ["matmul", "rmsnorm"])
+@pytest.mark.parametrize("kernel", ["matmul", "rmsnorm", "flash_attention",
+                                    "paged_attention"])
 def test_kernel_wrappers_refuse_cpu_tensors(kernel):
     """The kernel wrappers themselves never take a CPU tensor: there is no
     quiet switch to the plain version below ``ops``."""
-    from repro_torch.kernels import matmul, rmsnorm
+    from repro_torch.kernels import (flash_attention, matmul, paged_attention,
+                                     rmsnorm)
     with pytest.raises(ValueError, match="CUDA"):
         if kernel == "matmul":
             matmul.matmul(torch.ones(2, 3), torch.ones(3, 4))
-        else:
+        elif kernel == "rmsnorm":
             rmsnorm.rmsnorm(torch.ones(2, 3), torch.ones(3), 1e-6)
+        elif kernel == "flash_attention":
+            q = torch.ones(1, 2, 3, 16)
+            flash_attention.flash_attention(q, q, q)
+        else:
+            pool = torch.zeros(1, 3, 8, 16)
+            paged_attention.paged_attention(
+                torch.ones(1, 1, 2, 16), pool, pool,
+                torch.zeros(1, 2, dtype=torch.int32),
+                torch.ones(1, dtype=torch.int32))
 
 
 def test_jax_on_cpu():

@@ -14,6 +14,7 @@ from repro.models import layers as JL
 from repro.models import lm as jlm
 from repro.parallel.sharding import default_rules, init_params as jax_init
 from repro_torch.configs import get_smoke_config
+from repro_torch.kernels import ref
 from repro_torch.models import layers as L
 from repro_torch.params import params_from_jax
 
@@ -106,9 +107,11 @@ def test_mlp_layer(case):
 
 
 def test_expand_kv_order_is_jnp_repeat():
-    k = np.arange(2 * 3 * 2 * 4, dtype=np.float32).reshape(2, 3, 2, 4)
-    want = np.repeat(k, 3, axis=2)
-    np.testing.assert_array_equal(L._expand_kv(torch.from_numpy(k), 6).numpy(),
+    """The plain attention's kv heads (B, Hkv, T, D) repeat as jnp.repeat
+    does, so query head h reads kv head h // (H / Hkv)."""
+    k = np.arange(2 * 2 * 3 * 4, dtype=np.float32).reshape(2, 2, 3, 4)
+    want = np.repeat(k, 3, axis=1)
+    np.testing.assert_array_equal(ref.expand_kv(torch.from_numpy(k), 6).numpy(),
                                   want)
 
 

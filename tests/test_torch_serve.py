@@ -120,11 +120,20 @@ def test_model_state_dict_keys_are_jax_paths():
 
 
 def test_launcher_serves_on_the_cpu_and_refuses_unported_modes(capsys):
+    """Dense, paged, paged with chunked prefill, and two pods behind the
+    router all serve on the CPU, with the same streams."""
     from repro_torch.launch import serve
     done = serve.run("llama3-8b", n_requests=3, max_new=4, max_batch=2,
                      device="cpu")
     assert len(done) == 3 and all(1 <= len(r.out) <= 4 for r in done)
     assert "[serve] 3 requests" in capsys.readouterr().out
-    for flag in (["--paged"], ["--pods", "2"]):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            serve.main(["--device", "cpu", *flag])
+    want = None
+    for flags, mode in ((["--paged"], "[paged, cpu]"),
+                        (["--paged", "--chunk", "16"], "[paged+chunked, cpu]"),
+                        (["--pods", "2"], "[dense pods=2, cpu]")):
+        done = serve.main(["--device", "cpu", "--requests", "4",
+                           "--max-new", "4", *flags])
+        assert mode in capsys.readouterr().out
+        streams = {r.rid: r.out for r in done}
+        assert len(streams) == 4 and streams == (want or streams)
+        want = streams
