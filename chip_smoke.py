@@ -5,10 +5,16 @@
 
 Phases, each of which raises on failure (nothing is caught):
   1. device: the card's name, and its name and power limit from nvidia-smi;
-  2. build: the CUDA libraries (matmul, flash_attention, paged_attention;
-     one nvcc each, all at once, sm_90a) and the Triton rmsnorm;
+  2. build: the CUDA libraries (matmul, flash_attention, paged_attention,
+     reduction, stencil; one nvcc each, all at once, sm_90a) and the Triton
+     rmsnorm;
   3. each kernel against its plain PyTorch version on the card, element by
      element, at the llama3-8b serving shapes, in bf16 and f32;
+  3b. the paper's Table I kernels (dotprod, expv, softmax_rows, jacobi2d,
+     fconv2d) against their plain versions at the table1-paper and
+     table1-card shapes and at ragged ones (softmax also on masked rows),
+     in f32 and bf16; dotprod and dotprod_hier against an f64 sum, with
+     dots that round to bf16 as controls that must fail the same check;
   4. the llama3-8b smoke model (f32, seeded weights): logits and greedy
      token streams of the kernel path on the card against the plain path
      on the CPU, for the dense engine and the paged engine (whole-prompt,
@@ -23,10 +29,17 @@ Phases, each of which raises on failure (nothing is caught):
      of 8 synthetic prompts of 64-512 tokens), with launch counts checked
      per forward, the zero block checked and ``shutdown()`` passing; then a
      trace of four paged decode steps at batch 8;
+  5e. the Table I path: each Table I workload once through ``ops`` at both
+     configurations (f32), outputs held against the plain versions, launch
+     counts checked;
   6. kernel times (CUDA events) beside the plain version, the one PyTorch
-     call that computes the same function, and the card's bound.
+     call that computes the same function, and the card's bound, the Table
+     I kernels at both configurations (at table1-paper also their device
+     time from a profiler trace).
 The line before the last is a JSON object of the kernels; the last line is
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX.  Without a card,
+or without the repo's ``src/repro_torch`` beside it, it exits non-zero
+before any phase (2 and 1).
 """
 from __future__ import annotations
 
@@ -42,7 +55,8 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and
 # operations/s by type (bf16 on the tensor cores, f32 on the CUDA cores)
 HBM_BYTES_S = 3.35e12
-CUDA_LIBS = ("matmul", "flash_attention", "paged_attention")
+CUDA_LIBS = ("matmul", "flash_attention", "paged_attention", "reduction",
+             "stencil")
 # open-loop arrival rate of the paged serve phase (requests / second)
 PAGED_RATE = 1.5
 PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12}
@@ -192,6 +206,211 @@ def _smoke_paged(scfg, cpu_params, gpu_params, dev) -> None:
                                  f"dense {dense}")
 
 
+def _table1_checks(kc) -> tuple[dict, list]:
+    """Phase 3b: each Table I kernel against its plain version at both
+    configurations' shapes and at the ragged ones, in bf16 and f32.  Returns
+    the largest error of each f32 check at table1-card, and the failures."""
+    import torch
+
+    errs, failed = {}, []
+    shapes = {k: [] for k in ("jacobi", "conv", "dot", "expv", "softmax", "hier",
+                              *kc.RAGGED)}
+    for cname, cfg in kc.TABLE1.items():
+        shapes["jacobi"].append((cname, cfg["jacobi"]))
+        shapes["conv"].append((cname, cfg["conv"]))
+        shapes["dot"].append((cname, cfg["dot"]))
+        shapes["expv"].append((cname, cfg["dot"]))
+        shapes["softmax"] += [(cname, rw) for rw in cfg["softmax"]]
+        shapes["hier"] += [(cname, (cfg["dot"], C, L, h)) for C, L in cfg["hier"]
+                           for h in kc.HIERARCHIES]
+    for k, cases in kc.RAGGED.items():
+        shapes[k] += [("ragged", c) for c in cases]
+    run = {"jacobi": lambda c, dt: kc.check_jacobi2d(*c, dt),
+           "conv": lambda c, dt: kc.check_fconv2d(*c, dt),
+           "dot": lambda c, dt: kc.check_dotprod(c, dt),
+           "expv": lambda c, dt: kc.check_expv(c, dt),
+           "softmax": lambda c, dt: kc.check_softmax_rows(*c, dt),
+           "softmax_masked": lambda c, dt: kc.check_softmax_rows(*c, dt, masked=True),
+           "hier": lambda c, dt: kc.check_dotprod_hier(*c, dt)}
+    for k, cases in shapes.items():
+        for cname, c in cases:
+            for dt in (torch.bfloat16, torch.float32):
+                r = run[k](c, dt)
+                extra = (f" ulps={r['ulps']}" if k == "expv" else
+                         " resident" if r.get("resident") else
+                         " two-read" if k.startswith("softmax") else
+                         f"; exact on +-1 inputs: {r['exact_on_signs']}; "
+                         "controls' limit_use (must be > 1): " + ", ".join(
+                             f"{w} {u:.1f}" for w, u in r["controls"].items())
+                         if k in ("dot", "hier") else "")
+                print(f"[table1] check {k:14s} {cname:12s} {str(c):32s} "
+                      f"{str(dt)[6:]:8s} {_reading(r)}{extra}")
+                if cname == "table1-card" and dt == torch.float32:
+                    errs[(k, c)] = r["max_abs_err"]
+                if not r["ok"]:
+                    failed.append((k, cname, c, dt))
+                torch.cuda.empty_cache()
+    return errs, failed
+
+
+def _table1_path(kc, ops, ref, dev) -> dict:
+    """Phase 5e: the Table I workloads once each through ``ops`` at both
+    configurations in f32, every output held against its plain version
+    (whose calls launch nothing), the launches checked.  Returns them."""
+    import torch
+
+    ops.reset_launches()
+    want = {k: 0 for k in ops.LAUNCHES}
+    for cname, cfg in kc.TABLE1.items():
+        (H, W), (ch, cw, f), n = cfg["jacobi"], cfg["conv"], cfg["dot"]
+        x = kc.grid_inputs(H, W, torch.float32, dev, seed=1)
+        got = ops.jacobi2d(x)
+        checks = [("jacobi2d", kc.compare(got, ref.jacobi2d(x), kc.JACOBI_TOL))]
+        xc, filt = kc.conv_inputs(ch, cw, f, torch.float32, dev, seed=1)
+        checks.append(("fconv2d", kc.compare(ops.fconv2d(xc, filt),
+                                             ref.fconv2d(xc, filt),
+                                             (0.0, kc.conv_bound(xc, filt)))))
+        del x, got, xc
+        a, b = kc.vec_inputs(n, torch.float32, dev, seed=1)
+        got = ops.dotprod(a, b)
+        checks.append(("dotprod (f64 sum)",
+                       kc.compare_dot(got, got, a, b, kc.dot_chain(n))))
+        for what, r in kc.dot_controls(a, b, kc.dot_chain(n)).items():
+            checks.append((f"dotprod's limit against a dot with {what} (must "
+                           f"read above it)", {**r, "ok": not r["ok"]}))
+        for C, L in cfg["hier"]:
+            for h in kc.HIERARCHIES:
+                got = ops.dotprod_hier(a, b, C=C, L=L, hierarchy=h)
+                checks.append((f"dotprod_hier {C}x{L} {h} (f64 sum)",
+                               kc.compare_dot(got, got, a, b,
+                                              kc.hier_chain(n, C, L))))
+                want["dotprod"] += 1
+        del a, b
+        x = kc.exp_inputs(n, torch.float32, dev, seed=1)
+        checks.append(("expv", kc.compare_expv(ops.expv(x), ref.expv(x))))
+        for R, Wd in cfg["softmax"]:
+            x = kc.softmax_inputs(R, Wd, torch.float32, dev, seed=1)
+            got = ops.softmax_rows(x)
+            r = kc.compare(got, ref.softmax_rows(x), kc.SOFTMAX_TOL[torch.float32])
+            row_sums = (got.double().sum(-1) - 1).abs().max().item()
+            r["ok"] = r["ok"] and row_sums < 1e-4
+            checks.append((f"softmax_rows ({R}, {Wd}) rows sum to 1 within "
+                           f"{row_sums:.1e}", r))
+            del x, got
+        for k in ("dotprod", "expv", "jacobi2d", "fconv2d"):
+            want[k] += 1
+        want["softmax_rows"] += len(cfg["softmax"])
+        for what, r in checks:
+            print(f"[table1] path {cname:12s} {what}: {_reading(r)}")
+            if not r["ok"]:
+                raise AssertionError(f"Table I path, {cname}: {what} disagrees")
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    got = dict(ops.LAUNCHES)
+    print(f"[table1] path launches {got} (expected {want})")
+    if got != want:
+        raise AssertionError(f"Table I path launches {got}, expected {want}")
+    return got
+
+
+def _device_ms(fn, tag: str, calls: int) -> tuple[float, int]:
+    """The mean device time of the kernels named ``tag`` in a torch.profiler
+    trace of the card's activity over ``calls`` calls of ``fn``, and how
+    many of them the trace holds (it may miss the first few); (nan, 0) if
+    it holds none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == DeviceType.CUDA and tag in e.name]
+    if not evs:
+        return float("nan"), 0
+    return sum(e.time_range.end - e.time_range.start for e in evs) / 1e3 / len(evs), len(evs)
+
+
+def _table1_times(kc, kred, kst, ref, time_ms, dev) -> dict:
+    """Phase 6, Table I: kernel, plain, library (one PyTorch call of the same
+    function; cuDNN without TF32 for the convolutions) and the card's bound
+    at both configurations, f32.  Bound: each input read once, each output
+    written once; operations per element as counted in each line.  At
+    table1-paper, where every operand sits in L2, the kernel's own device
+    time from a profiler trace too, to part the host's cost from the
+    card's."""
+    import torch
+    import torch.nn.functional as F
+
+    rows = {}
+    for cname, cfg in kc.TABLE1.items():
+        card = cname == "table1-card"
+        it_k, it_p = (20, 3) if card else (200, 50)
+
+        def row(kname, shape, fk, fp, fl, nbytes, nops, lib, tag):
+            t_k, t_p = time_ms(fk, it_k), time_ms(fp, it_p)
+            t_l = time_ms(fl, it_k)
+            bound, by = _ms_bound(nbytes, nops, "f32")
+            t_d, n_d = (float("nan"), 0) if card else _device_ms(fk, tag, 50)
+            # the first shape of a kernel stands for it in the kernels line
+            rows.setdefault((kname, cname), (t_k, t_p, t_l, bound, by, shape, t_d))
+            device = "" if card else (f"; {tag} {t_d:.4f} ms of device time "
+                                      f"(mean of {n_d} in a trace of 50 calls)")
+            print(f"[time] {kname:12s} {cname:12s} {shape:34s} f32 kernel "
+                  f"{t_k:.4f} ms  plain {t_p:.4f} ms  {lib} {t_l:.4f} ms  "
+                  f"bound {bound:.3g} ms ({by}){device}")
+
+        H, W = cfg["jacobi"]
+        x = kc.grid_inputs(H, W, torch.float32, dev)
+        cross = torch.tensor([[0, .25, 0], [.25, 0, .25], [0, .25, 0]],
+                             device=dev)[None, None]
+        # 3 adds and a multiply an element
+        row("jacobi2d", f"({H}, {W})", lambda: kst.jacobi2d(x),
+            lambda: ref.jacobi2d(x),
+            lambda: F.conv2d(x[None, None], cross, padding=1),
+            8 * H * W, 4 * H * W, "F.conv2d", "jacobi_kernel")
+        del x
+        ch, cw, f = cfg["conv"]
+        x, filt = kc.conv_inputs(ch, cw, f, torch.float32, dev)
+        oh, ow = ch - f + 1, cw - f + 1
+        row("fconv2d", f"({ch}, {cw}) * {f}x{f} -> ({oh}, {ow})",
+            lambda: kst.fconv2d(x, filt), lambda: ref.fconv2d(x, filt),
+            lambda: F.conv2d(x[None, None], filt[None, None]),
+            4 * (ch * cw + oh * ow + f * f), 2 * f * f * oh * ow, "F.conv2d",
+            "conv_kernel")
+        del x
+        n = cfg["dot"]
+        a, b = kc.vec_inputs(n, torch.float32, dev)
+        row("dotprod", f"n={n}", lambda: kred.dotprod(a, b),
+            lambda: ref.dotprod(a, b), lambda: torch.dot(a, b),
+            8 * n + 4, 2 * n, "torch.dot", "dot_kernel")
+        for C, L in cfg["hier"]:
+            for h in kc.HIERARCHIES:
+                row("dotprod_hier", f"n={n} {C}x{L} {h}",
+                    lambda: kred.dotprod_hier(a, b, C=C, L=L, hierarchy=h),
+                    lambda: ref.dotprod(a, b), lambda: torch.dot(a, b),
+                    8 * n + 4, 2 * n, "torch.dot", "dot_kernel")
+        del a, b
+        x = kc.exp_inputs(n, torch.float32, dev)
+        xc = x.clamp(-80, 80)
+        # clip 2, divide 1, round 1, 7 fused multiply-adds 14, ldexp 1, ~20
+        row("expv", f"n={n}", lambda: kred.expv(x), lambda: ref.expv(x),
+            lambda: torch.exp(xc), 8 * n, 20 * n, "torch.exp", "expv_kernel")
+        del x, xc
+        for R, Wd in cfg["softmax"]:
+            x = kc.softmax_inputs(R, Wd, torch.float32, dev)
+            # max, subtract, exp, add, divide: ~5 an element
+            row("softmax_rows", f"({R}, {Wd})", lambda: kred.softmax_rows(x),
+                lambda: ref.softmax_rows(x), lambda: torch.softmax(x, -1),
+                8 * R * Wd, 5 * R * Wd, "torch.softmax", "softmax_kernel")
+            del x
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -201,6 +420,11 @@ def main() -> int:
               "runs on a CUDA card", file=sys.stderr)
         return 2
 
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {ROOT / 'chip_smoke.py'}; "
+              "run it from the root of a checkout of the repo", file=sys.stderr)
+        return 1
+
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import matmul as kmm
@@ -209,6 +433,8 @@ def main() -> int:
     from repro_torch.params import init_params, tree_map
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import paged_attention as kpa
+    from repro_torch.kernels import reduction as kred
+    from repro_torch.kernels import stencil as kst
     from repro_torch.serve import (PagedServeConfig, PagedServingEngine,
                                    Request, ServeConfig, ServingEngine, traffic)
     from repro_torch.testing import kernel_checks as kc
@@ -280,6 +506,9 @@ def main() -> int:
                   f"{str(dt)[6:]:8s} {_reading(r)}")
             if not r["ok"]:
                 failed.append(("flash_attention", S, window, dt))
+    # -- 3b. the paper's Table I kernels vs plain versions -------------------------
+    t1_errs, t1_failed = _table1_checks(kc)
+    failed += t1_failed
     if failed:
         raise AssertionError(f"kernels disagree with their plain versions: {failed}")
 
@@ -360,8 +589,9 @@ def main() -> int:
     # per forward: 7 projections a layer, 2 norms a layer and the final
     # norm; whole-prompt attention once a layer per prefill (dense decode
     # attention is plain torch)
-    want_launches = {"matmul": 7 * L * forwards, "rmsnorm": (2 * L + 1) * forwards,
-                     "flash_attention": L * n_prefill, "paged_attention": 0}
+    want_launches = {**{k: 0 for k in ops.LAUNCHES},
+                     "matmul": 7 * L * forwards, "rmsnorm": (2 * L + 1) * forwards,
+                     "flash_attention": L * n_prefill}
     prompt_toks = sum(plens)
     decode_toks = sum(len(r.out) - 1 for r in done)
     print(f"[serve] {len(done)} of 8 requests finished, prompts {plens}, "
@@ -432,7 +662,8 @@ def main() -> int:
         tm = peng.timing
         n_pf, n_ch, n_dec = tm["prefills"], tm["chunks"], tm["decode_steps"]
         fwd = n_pf + n_ch + n_dec
-        want = {"matmul": 7 * L * fwd, "rmsnorm": (2 * L + 1) * fwd,
+        want = {**{k: 0 for k in ops.LAUNCHES},
+                "matmul": 7 * L * fwd, "rmsnorm": (2 * L + 1) * fwd,
                 "flash_attention": L * n_pf, "paged_attention": L * (n_ch + n_dec)}
         done_p = peng.finished
         dec_toks = sum(len(r.out) - 1 for r in done_p)
@@ -484,6 +715,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     del model
     torch.cuda.empty_cache()
+
+    # -- 5e. the Table I path: both configurations through ops -------------------
+    path_launches["table1"] = _table1_path(kc, ops, ref, dev)
 
     # -- 6. kernel times ---------------------------------------------------------
     def time_ms(fn, iters: int) -> float:
@@ -593,9 +827,10 @@ def main() -> int:
           f"against plain: {_reading(r)}")
     if not r["ok"]:
         raise AssertionError("paged_attention disagrees at the decode inputs")
+    t1_rows = _table1_times(kc, kred, kst, ref, time_ms, dev)
 
     # the decode-step shapes, where serving spends most of its time, and the
-    # longest whole-prompt prefill; launches summed over the three main paths
+    # longest whole-prompt prefill; launches summed over the four main paths
     total = {k: sum(pl[k] for pl in path_launches.values())
              for k in ops.LAUNCHES}
     kernels = []
@@ -623,6 +858,36 @@ def main() -> int:
                         "max_abs_err": errs[err_key or key], "ms": t_k,
                         "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
                         "library_ms": t_l, "shape": shape})
+    # the Table I kernels at table1-card (table1-paper beside them)
+    for kname, key, err_key, source, replaces in (
+            ("dotprod", ("dotprod", kc.TABLE1["table1-card"]["dot"]),
+             ("dot", kc.TABLE1["table1-card"]["dot"]), "reduction.cu",
+             "src/repro/kernels/reduction.py:58"),
+            ("expv", ("expv", kc.TABLE1["table1-card"]["dot"]),
+             ("expv", kc.TABLE1["table1-card"]["dot"]), "reduction.cu",
+             "src/repro/kernels/reduction.py:103"),
+            ("softmax_rows", ("softmax_rows", kc.TABLE1["table1-card"]["softmax"][0]),
+             ("softmax", kc.TABLE1["table1-card"]["softmax"][0]), "reduction.cu",
+             "src/repro/kernels/reduction.py:197"),
+            ("jacobi2d", ("jacobi2d", kc.TABLE1["table1-card"]["jacobi"]),
+             ("jacobi", kc.TABLE1["table1-card"]["jacobi"]), "stencil.cu",
+             "src/repro/kernels/stencil.py:42"),
+            ("fconv2d", ("fconv2d", kc.TABLE1["table1-card"]["conv"]),
+             ("conv", kc.TABLE1["table1-card"]["conv"]), "stencil.cu",
+             "src/repro/kernels/stencil.py:78")):
+        t_k, t_p, t_l, bound, by, shape, _ = t1_rows[(kname, "table1-card")]
+        p_k, p_p, p_l, p_bound, _, p_shape, p_d = t1_rows[(kname, "table1-paper")]
+        kernels.append({"name": kname, "route": "cuda",
+                        "source": f"src/repro_torch/kernels/csrc/{source}",
+                        "replaces": replaces, "launches": total[kname],
+                        "launches_by_path": {p: pl[kname] for p, pl
+                                             in path_launches.items()},
+                        "max_abs_err": t1_errs[err_key], "ms": t_k,
+                        "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
+                        "library_ms": t_l, "shape": f"table1-card {shape},f32",
+                        "table1_paper": {"shape": p_shape, "ms": p_k,
+                                         "device_ms": p_d, "plain_ms": p_p,
+                                         "library_ms": p_l, "bound_ms": p_bound}})
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError(f"a kernel never launched on the main paths: {total}")
     print(json.dumps({"kernels": kernels}))

@@ -8,7 +8,8 @@ path went through the kernels."""
 from __future__ import annotations
 
 LAUNCHES = {"rmsnorm": 0, "matmul": 0, "flash_attention": 0,
-            "paged_attention": 0}
+            "paged_attention": 0, "dotprod": 0, "expv": 0, "softmax_rows": 0,
+            "jacobi2d": 0, "fconv2d": 0}
 
 
 def reset() -> None:

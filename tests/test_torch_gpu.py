@@ -1,6 +1,7 @@
 """The port's kernels against their plain versions on the card, at the
-llama3-8b serving shapes (the checks of ``chip_smoke.py``'s kernel phase),
-their launch counts, and what their wrappers refuse.
+llama3-8b serving shapes and at the paper's Table I shapes (the checks of
+``chip_smoke.py``'s kernel phases), their launch counts, and what their
+wrappers refuse.
 
 Marked ``gpu``: they skip where there is no CUDA card.  Run them on the
 machine with the card with
@@ -10,7 +11,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import (flash_attention, launches, matmul, ops,
-                                 paged_attention, rmsnorm)
+                                 paged_attention, reduction, ref, rmsnorm,
+                                 stencil)
 from repro_torch.testing import kernel_checks as kc
 
 DTYPES = [torch.bfloat16, torch.float32]
@@ -162,3 +164,117 @@ def test_launch_counted_only_where_a_kernel_launches(cuda, kernel):
     torch.cuda.synchronize()
     assert launches.LAUNCHES == {**{k: 0 for k in launches.LAUNCHES}, kernel: 1}
     assert ops.LAUNCHES is launches.LAUNCHES
+
+
+# -- the paper's Table I kernels ------------------------------------------------
+
+RAGGED = [(k, c) for k, cases in kc.RAGGED.items() for c in cases]
+CHECKS = {"jacobi": lambda c, dt, dev: kc.check_jacobi2d(*c, dt, dev),
+          "conv": lambda c, dt, dev: kc.check_fconv2d(*c, dt, dev),
+          "dot": lambda c, dt, dev: kc.check_dotprod(c, dt, dev),
+          "expv": lambda c, dt, dev: kc.check_expv(c, dt, dev),
+          "softmax": lambda c, dt, dev: kc.check_softmax_rows(*c, dt, dev),
+          "softmax_masked": lambda c, dt, dev: kc.check_softmax_rows(
+              *c, dt, dev, masked=True)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind,case", RAGGED, ids=str)
+def test_table1_kernel_matches_plain_at_ragged_shapes(cuda, kind, case, dtype):
+    res = CHECKS[kind](case, dtype, cuda)
+    assert res["ok"], res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hierarchy", kc.HIERARCHIES)
+@pytest.mark.parametrize("n,C,L", [(4099, 16, 4), (5000, 3, 5), (70000, 8, 8)])
+def test_dotprod_hier_kernel_matches_f64(cuda, n, C, L, hierarchy):
+    res = kc.check_dotprod_hier(n, C, L, hierarchy, torch.float32, cuda)
+    assert res["ok"], res
+
+
+@pytest.mark.gpu
+def test_dot_workspace_is_kept_and_left_zeroed(cuda):
+    """One workspace a stream, allocated once: every launch leaves its
+    tickets at zero, whatever its segments, so the next needs no fill."""
+    a, b = kc.vec_inputs(70000, torch.float32, cuda)
+    reduction.dotprod(a, b)
+    key = (a.device, torch.cuda.current_stream(a.device).cuda_stream)
+    work = reduction._DOT_WORK[key]
+    for C, L in ((16, 4), (3, 5), (1, 1)):
+        reduction.dotprod_hier(a, b, C=C, L=L)
+    reduction.dotprod(a[:4099], b[:4099])
+    torch.cuda.synchronize()
+    assert reduction._DOT_WORK[key] is work
+    assert not work[:reduction.DOT_MAX_SEGS].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["dotprod", "expv"])
+def test_vector_kernels_take_unaligned_views(cuda, kernel):
+    """A view one element in is not 16-byte aligned: the scalar loop."""
+    a, b = kc.vec_inputs(4100, torch.float32, cuda)
+    a, b = a[1:], b[1:]
+    assert a.data_ptr() % 16
+    if kernel == "dotprod":
+        res = kc.compare_dot(reduction.dotprod(a, b), reduction.dotprod(a, b),
+                             a, b, kc.dot_chain(a.numel()))
+    else:
+        x = 100 * a
+        res = kc.compare_expv(reduction.expv(x), ref.expv(x))
+    assert res["ok"], res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["dotprod", "dotprod_hier", "expv",
+                                    "softmax_rows", "jacobi2d", "fconv2d"])
+def test_table1_launches_per_call_and_never_the_plain_version(cuda, kernel,
+                                                              monkeypatch):
+    """Each call through ``ops`` launches exactly one kernel (dotprod_hier
+    too: its C*L lanes are one launch) and never reaches ``ref``; an empty
+    output launches nothing."""
+    for name in ("dotprod", "lane_dots", "expv", "softmax_rows", "jacobi2d",
+                 "fconv2d"):
+        monkeypatch.setattr(ref, name, lambda *a, **k: pytest.fail("ref reached"))
+    launches.reset()
+    v = torch.ones(100, device=cuda)
+    g = torch.ones(9, 11, device=cuda)
+    call = {"dotprod": lambda: ops.dotprod(v, v),
+            "dotprod_hier": lambda: ops.dotprod_hier(v, v, C=4, L=2),
+            "expv": lambda: ops.expv(v),
+            "softmax_rows": lambda: ops.softmax_rows(g),
+            "jacobi2d": lambda: ops.jacobi2d(g),
+            "fconv2d": lambda: ops.fconv2d(g, torch.ones(3, 3, device=cuda))}
+    for i in range(3):
+        call[kernel]()
+        torch.cuda.synchronize()
+        counter = "dotprod" if kernel == "dotprod_hier" else kernel
+        assert launches.LAUNCHES == {**{k: 0 for k in launches.LAUNCHES},
+                                     counter: i + 1}
+    empty = {"expv": lambda: reduction.expv(v[:0]),
+             "softmax_rows": lambda: reduction.softmax_rows(g[:0]),
+             "jacobi2d": lambda: stencil.jacobi2d(g[:, :0]),
+             "fconv2d": lambda: stencil.fconv2d(g[:2], torch.ones(3, 3, device=cuda))}
+    if kernel in empty:
+        assert empty[kernel]().numel() == 0
+        assert launches.LAUNCHES[kernel] == 3
+
+
+@pytest.mark.gpu
+def test_table1_kernels_refuse_what_they_do_not_take(cuda):
+    launches.reset()
+    v = torch.ones(16, device=cuda)
+    g = torch.ones(8, 8, device=cuda)
+    for call, args in ((reduction.dotprod, (v, v)), (reduction.expv, (v,)),
+                       (reduction.softmax_rows, (g,)), (stencil.jacobi2d, (g,))):
+        with pytest.raises(ValueError, match="CUDA"):
+            call(*[t.cpu() for t in args])
+        with pytest.raises(TypeError):
+            call(*[t.half() for t in args])
+    with pytest.raises(ValueError, match="taps"):
+        stencil.fconv2d(torch.ones(40, 40, device=cuda), torch.ones(17, 3, device=cuda))
+    with pytest.raises(ValueError, match="one length"):
+        reduction.dotprod(v, v[:8])
+    assert not any(launches.LAUNCHES[k] for k in
+                   ("dotprod", "expv", "softmax_rows", "jacobi2d", "fconv2d"))

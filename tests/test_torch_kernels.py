@@ -72,21 +72,26 @@ def test_cpu_tensors_never_launch():
     ops.dense(torch.ones(3, 8), torch.ones(8, 4))
     ops.rmsnorm(torch.ones(3, 8), torch.ones(8))
     assert ops.LAUNCHES == {"rmsnorm": 0, "matmul": 0, "flash_attention": 0,
-                            "paged_attention": 0}
+                            "paged_attention": 0, "dotprod": 0, "expv": 0,
+                            "softmax_rows": 0, "jacobi2d": 0, "fconv2d": 0}
 
 
 def test_wrappers_and_seam_share_one_launch_counter():
     """The wrappers count where they launch; ``ops`` shows the same dict."""
     from repro_torch.kernels import (flash_attention, launches, matmul,
-                                     paged_attention, rmsnorm)
+                                     paged_attention, reduction, rmsnorm,
+                                     stencil)
     assert ops.LAUNCHES is launches.LAUNCHES is matmul.LAUNCHES \
         is rmsnorm.LAUNCHES is flash_attention.LAUNCHES \
-        is paged_attention.LAUNCHES
+        is paged_attention.LAUNCHES is reduction.LAUNCHES is stencil.LAUNCHES
     launches.LAUNCHES["matmul"] = 5
     launches.LAUNCHES["paged_attention"] = 2
+    launches.LAUNCHES["fconv2d"] = 3
     ops.reset_launches()
     assert launches.LAUNCHES == {"rmsnorm": 0, "matmul": 0,
-                                 "flash_attention": 0, "paged_attention": 0}
+                                 "flash_attention": 0, "paged_attention": 0,
+                                 "dotprod": 0, "expv": 0, "softmax_rows": 0,
+                                 "jacobi2d": 0, "fconv2d": 0}
 
 
 @pytest.mark.parametrize("kernel", ["matmul", "rmsnorm", "flash_attention",
