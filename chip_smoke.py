@@ -9,7 +9,9 @@ Phases, each of which raises on failure (nothing is caught):
      reduction, stencil; one nvcc each, all at once, sm_90a) and the Triton
      rmsnorm;
   3. each kernel against its plain PyTorch version on the card, element by
-     element, at the llama3-8b serving shapes, in bf16 and f32;
+     element, at the llama3-8b serving shapes, in bf16 and f32 (the matmul
+     at every main-path M, 1 to 512, and at ragged shapes, each line naming
+     the kernel variant it took);
   3b. the paper's Table I kernels (dotprod, expv, softmax_rows, jacobi2d,
      fconv2d) against their plain versions at the table1-paper and
      table1-card shapes and at ragged ones (softmax also on masked rows),
@@ -21,8 +23,9 @@ Phases, each of which raises on failure (nothing is caught):
      chunked, and two pods behind the router), paged == dense;
   5. the dense path: llama3-8b at full width and full depth (bf16, seeded
      random weights) serving 8 requests through ``ServingEngine``, with
-     the kernels' launch counts checked per forward; then a profiler trace
-     of a few decode steps (device time per kernel, the device's idle share);
+     the kernels' launch counts checked per forward; then profiler traces
+     of a few decode steps and of two whole-prompt prefills (device time per
+     kernel, the device's idle share);
   5c. the paged path: the same weights through ``PagedServingEngine``,
      whole-prompt and with 128-token chunked prefill, each under
      ``traffic.run_open_loop`` (16 requests, Poisson arrivals, a Zipf pool
@@ -33,7 +36,9 @@ Phases, each of which raises on failure (nothing is caught):
      configurations (f32), outputs held against the plain versions, launch
      counts checked;
   6. kernel times (CUDA events) beside the plain version, the one PyTorch
-     call that computes the same function, and the card's bound, the Table
+     call that computes the same function, and the card's bound (the matmul
+     at every main-path M in both dtypes, and each matmul variant's host
+     cost a call at K = N = 64), the Table
      I kernels at both configurations (at table1-paper also their device
      time from a profiler trace).
 The line before the last is a JSON object of the kernels; the last line is
@@ -67,8 +72,11 @@ def _ms_bound(nbytes: float, nops: float, kind: str) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-# the device-side name of each port kernel, as the profiler shows it
-PORT_KERNELS = {"matmul": "matmul_kernel", "rmsnorm": "rms_kernel",
+# the device-side name of each port kernel, as the profiler shows it (the
+# matmul by variant: kernels.matmul.variant)
+PORT_KERNELS = {"matmul decode": "matmul_decode_kernel",
+                "matmul wgmma": "matmul_wgmma_kernel",
+                "matmul simt": "matmul_kernel", "rmsnorm": "rms_kernel",
                 "flash_attention": "flash_kernel",
                 "paged_attention": "paged_kernel"}
 
@@ -81,9 +89,10 @@ def _reading(r: dict) -> str:
             f"{r['atol']:.0e}) {'ok' if r['ok'] else 'FAIL'}")
 
 
-def _trace_decode(engine, steps: int) -> dict:
-    """Device time of ``steps`` decode steps from a torch.profiler trace of
-    the card's activity only (no host-op recording): time per kernel family,
+def _trace(step, steps: int) -> dict:
+    """Device time of ``steps`` calls of ``step`` (a decode step, or a
+    prefill that ends on a host read) from a torch.profiler trace of the
+    card's activity only (no host-op recording): time per kernel family,
     and the busy time, the union of the kernels' intervals.  The profiler
     still slows the host's launches, so twice as many steps are first timed
     without it; the idle share is read against their mean.  Times are per
@@ -97,12 +106,12 @@ def _trace_decode(engine, steps: int) -> dict:
     torch.cuda.synchronize()
     t0 = now()
     for _ in range(2 * steps):
-        engine.step()
+        step()
     plain_us = 1e6 * (now() - t0) / (2 * steps)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = now()
         for _ in range(steps):
-            engine.step()                # ends on a host read of the tokens
+            step()                       # ends on a host read
         wall_us = 1e6 * (now() - t0) / steps
     evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                  key=lambda e: e.time_range.start)
@@ -132,12 +141,12 @@ def _check_pool(engine) -> None:
             raise AssertionError("the zero block was written")
 
 
-def _print_trace(tr: dict, steps: int, batch: int) -> None:
+def _print_trace(tr: dict, steps: int, what: str) -> None:
     if not tr["events"]:
         print("[trace] the profiler recorded no device activity: device time "
               "per kernel and idle share not measured")
         return
-    print(f"[trace] {steps} decode steps at batch {batch}: "
+    print(f"[trace] {steps} {what}: "
           f"{tr['plain_us'] / 1e3:.2f} ms/step host clock over {2 * steps} "
           f"unprofiled steps, {tr['wall_us'] / 1e3:.2f} ms/step under the "
           f"profiler; device busy {tr['busy_us'] / 1e3:.2f} ms/step; idle "
@@ -334,6 +343,13 @@ def _device_ms(fn, tag: str, calls: int) -> tuple[float, int]:
     return sum(e.time_range.end - e.time_range.start for e in evs) / 1e3 / len(evs), len(evs)
 
 
+def _device_per_call(fn, calls: int) -> float:
+    """Device ms a call of ``fn``: all its kernels in a trace of ``calls``
+    calls (``_device_ms`` with no name filter), summed, over the calls."""
+    ms, n = _device_ms(fn, "", calls)
+    return ms * n / calls if n else float("nan")
+
+
 def _table1_times(kc, kred, kst, ref, time_ms, dev) -> dict:
     """Phase 6, Table I: kernel, plain, library (one PyTorch call of the same
     function; cuDNN without TF32 for the convolutions) and the card's bound
@@ -479,9 +495,15 @@ def main() -> int:
                 r = kc.check_matmul(M, K, N, dt)
                 errs[("matmul", M, K, N, dt)] = r["max_abs_err"]
                 print(f"[check] matmul {proj:7s} M={M:<4d} K={K:<5d} N={N:<5d} "
-                      f"{str(dt)[6:]:8s} {_reading(r)}")
+                      f"{str(dt)[6:]:8s} {kmm.variant(M, K, N, dt):6s} {_reading(r)}")
                 if not r["ok"]:
                     failed.append(("matmul", proj, M, dt))
+    for M, K, N, dt in kc.MATMUL_RAGGED:
+        r = kc.check_matmul(M, K, N, dt)
+        print(f"[check] matmul ragged  M={M:<4d} K={K:<5d} N={N:<5d} "
+              f"{str(dt)[6:]:8s} {kmm.variant(M, K, N, dt):6s} {_reading(r)}")
+        if not r["ok"]:
+            failed.append(("matmul ragged", M, K, N, dt))
     for R in kc.RMSNORM_R:
         for dt in (torch.bfloat16, torch.float32):
             r = kc.check_rmsnorm(R, kc.D_MODEL, dt)
@@ -624,7 +646,7 @@ def main() -> int:
         engine.submit(Request(rid=100 + rid, max_new_tokens=3 * n_trace + 4,
                               prompt=prompt))
     engine.step()
-    _print_trace(_trace_decode(engine, n_trace), n_trace, 4)
+    _print_trace(_trace(engine.step, n_trace), n_trace, "decode steps at batch 4")
     engine.run()
     if not all(r.done for r in engine.finished):
         raise AssertionError("a traced request did not finish")
@@ -634,6 +656,14 @@ def main() -> int:
     if logits.shape != (1, 1, cfg.padded_vocab) or \
             not bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()):
         raise AssertionError(f"bad logits {logits.shape}")
+    # where a whole-prompt prefill's device time goes: the longest prompt
+    longest = torch.as_tensor(prompts[int(np.argmax(plens))], device=dev)[None]
+
+    def prefill_once():
+        _, lg = lm.prefill(engine.params, longest, cfg, 512)
+        lg[0, -1, 0].item()              # a host read, as the engine's
+    _print_trace(_trace(prefill_once, 2), 2,
+                 f"whole-prompt prefills of {longest.shape[1]} tokens")
     del engine, logits
     torch.cuda.empty_cache()
 
@@ -700,7 +730,8 @@ def main() -> int:
                 peng.submit(Request(rid=200 + rid, prompt=prompt,
                                     max_new_tokens=3 * n_trace + 4))
             peng.step()
-            _print_trace(_trace_decode(peng, n_trace), n_trace, 8)
+            _print_trace(_trace(peng.step, n_trace), n_trace,
+                         "decode steps at batch 8")
             # the next step's attention inputs, kept for phase 6: every
             # layer's pool view, the tables and the lens
             paged_case = {
@@ -733,7 +764,7 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / iters
 
-    rows = {}
+    rows, device_rows = {}, {}
     for proj, (K, N) in kc.MATMUL_KN.items():
         for M in kc.MATMUL_M:
             for dt in (torch.bfloat16, torch.float32):
@@ -756,10 +787,48 @@ def main() -> int:
                 bound, by = _ms_bound((M * K + K * N + M * N) * isz,
                                       2.0 * M * N * K, kind)
                 rows[("matmul", M, K, N, dt)] = (t_k, t_p, t_l, bound, by)
+                # between events, back-to-back calls of a small shape time the
+                # host's launches; the trace gives the card's own time a call
+                d_k = _device_per_call(lambda: kmm.matmul(a, pick()), 20)
+                d_l = _device_per_call(lambda: torch.matmul(a, pick()), 20)
+                device_rows[("matmul", M, K, N, dt)] = (d_k, d_l)
                 print(f"[time] matmul {proj:7s} M={M:<4d} K={K:<5d} N={N:<5d} "
-                      f"{kind:4s} kernel {t_k:.4f} ms  plain {t_p:.4f} ms  "
-                      f"torch.matmul {t_l:.4f} ms  bound {bound:.4f} ms ({by})")
+                      f"{kind:4s} {kmm.variant(M, K, N, dt):6s} kernel {t_k:.4f} ms  "
+                      f"plain {t_p:.4f} ms  torch.matmul {t_l:.4f} ms  "
+                      f"bound {bound:.4f} ms ({by}); device: kernel {d_k:.4f} ms, "
+                      f"torch.matmul {d_l:.4f} ms, {d_k / d_l:.2f}x torch.matmul, "
+                      f"{d_k / bound:.2f}x bound")
                 del a, b, bs
+    # the wgmma split plan against every count it may take, at the prefill
+    # shapes where it splits: device ms a call (the plan's cost model,
+    # WGMMA_STEP_US a K step and WGMMA_SPLIT_US a further slice, is read
+    # from these); each count forced by lifting the plan's choice to it
+    plan_knobs = (kmm.WGMMA_MAX_SPLITS, kmm.WGMMA_SPLIT_US)
+    for M, K, N in ((128, 4096, 1024), (128, 4096, 4096), (128, 14336, 4096),
+                    (223, 14336, 4096), (333, 4096, 1024)):
+        a, b = kc.matmul_inputs(M, K, N, torch.bfloat16)
+        chosen = kmm.wgmma_plan(M, K, N)[0]
+        by_count = []
+        for n in range(1, plan_knobs[0] + 1):
+            kmm.WGMMA_MAX_SPLITS, kmm.WGMMA_SPLIT_US = n, 0.0
+            kmm.wgmma_plan.cache_clear()
+            kmm.matmul(a, b)
+            by_count.append((kmm.wgmma_plan(M, K, N)[0],
+                             _device_per_call(lambda: kmm.matmul(a, b), 20)))
+        kmm.WGMMA_MAX_SPLITS, kmm.WGMMA_SPLIT_US = plan_knobs
+        kmm.wgmma_plan.cache_clear()
+        print(f"[time] matmul wgmma split plan M={M} K={K} N={N}: device ms by "
+              f"slices " + ", ".join(f"{n}: {t:.4f}" for n, t in by_count)
+              + f"; the plan takes {chosen}")
+    # each variant's host cost a call: back-to-back calls at K = N = 64, where
+    # the kernel takes a few us, between events (torch.matmul beside it)
+    for M, dt in ((4, torch.bfloat16), (16, torch.bfloat16), (4, torch.float32)):
+        a, b = kc.matmul_inputs(M, 64, 64, dt)
+        t_k = time_ms(lambda: kmm.matmul(a, b), 500)
+        t_l = time_ms(lambda: torch.matmul(a, b), 500)
+        print(f"[time] matmul host cost M={M} K=64 N=64 {str(dt)[6:]:8s} "
+              f"{kmm.variant(M, 64, 64, dt):6s} {1e3 * t_k:.1f} us a call "
+              f"(torch.matmul {1e3 * t_l:.1f} us)")
     for R in kc.RMSNORM_R:
         for dt in (torch.bfloat16, torch.float32):
             x, g = kc.rmsnorm_inputs(R, kc.D_MODEL, dt)
@@ -858,6 +927,19 @@ def main() -> int:
                         "max_abs_err": errs[err_key or key], "ms": t_k,
                         "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
                         "library_ms": t_l, "shape": shape})
+        if kname == "matmul":            # the prefill regime beside decode's
+            p_k, p_p, p_l, p_bound, p_by = rows[("matmul", 333, 4096, 14336,
+                                                 torch.bfloat16)]
+            kernels[-1]["prefill"] = {
+                "shape": "M=333,K=4096,N=14336,bf16", "ms": p_k, "plain_ms": p_p,
+                "library_ms": p_l, "bound_ms": p_bound, "bound_by": p_by,
+                "max_abs_err": errs[("matmul", 333, 4096, 14336, torch.bfloat16)],
+                "device_ms": device_rows[("matmul", 333, 4096, 14336,
+                                          torch.bfloat16)][0],
+                "library_device_ms": device_rows[("matmul", 333, 4096, 14336,
+                                                  torch.bfloat16)][1]}
+            kernels[-1]["device_ms"], kernels[-1]["library_device_ms"] = \
+                device_rows[key]
     # the Table I kernels at table1-card (table1-paper beside them)
     for kname, key, err_key, source, replaces in (
             ("dotprod", ("dotprod", kc.TABLE1["table1-card"]["dot"]),

@@ -8,7 +8,10 @@ Each element is held to ``|kernel - plain| <= rtol * |plain| + atol``:
     orders and round once to bf16.  Rounding two close f32 values can land
     one bf16 ulp apart, and one ulp is at most 2**-7 of the value, so rtol
     8e-3.  atol bounds the f32 sums' own difference: ~1e-5 on the
-    unit-scale matmul outputs these inputs give (atol 1e-3), and ~1e-6 of
+    unit-scale matmul outputs these inputs give (atol 1e-3; the bf16
+    matmul kernels add on the tensor cores, 16 products a step in the
+    unit's own order and rounding, and split-K adds the slices' partials
+    after them: other orders of the same f32 sums), and ~1e-6 of
     the value for rmsnorm, whose error is relative (atol 1e-6);
   * f32 matmul: the order of up to K = 14336 f32 additions differs, which
     moves a unit-scale output by ~sqrt(K) * 2**-24 * (partial sums of a few
@@ -85,8 +88,20 @@ from repro_torch.kernels import stencil as _st
 #: (K, N) of the llama3-8b projections
 MATMUL_KN = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024),
              "wg/wi": (4096, 14336), "mlp.wo": (14336, 4096)}
-#: M: max_batch 4 at decode, and a ragged prefill length
-MATMUL_M = (4, 333)
+#: M on the main paths: decode batches (1, 4 dense, 8 paged), a 128-token
+#: prefill chunk, and whole prompts (333 ragged, 512)
+MATMUL_M = (1, 4, 8, 128, 333, 512)
+#: ragged (M, K, N, dtype): each bf16 kernel's M, N and K edges (K = 4104
+#: leaves an 8-deep last K step, N = 1032 and 4104 an 8-wide last column
+#: tile), tiny K and N, bf16 shapes whose rows are not 16-byte aligned
+#: (the simt kernel), and the f32 edges
+MATMUL_RAGGED = (
+    [(m, 4104, n, torch.bfloat16) for m in (5, 9, 65, 130) for n in (1032, 4104)]
+    + [(1, 8, 8, torch.bfloat16), (16, 8, 8, torch.bfloat16),
+       (5, 130, 33, torch.bfloat16), (9, 130, 33, torch.bfloat16),
+       (12, 4100, 1030, torch.bfloat16)]
+    + [(m, k, n, torch.float32) for m, k, n in
+       ((1, 1, 1), (8, 130, 33), (9, 130, 33), (17, 33, 65), (3, 0, 5))])
 RMSNORM_R = (1, 4, 333)
 D_MODEL = 4096
 EPS = 1e-5                               # llama3-8b's norm_eps

@@ -49,11 +49,53 @@ def test_rmsnorm_kernel_matches_plain(cuda, R, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mkn", [(1, 1, 1), (8, 130, 33), (9, 130, 33),
-                                 (17, 33, 65), (3, 0, 5)])
-def test_matmul_kernel_ragged_edges(cuda, mkn):
-    res = kc.check_matmul(*mkn, torch.float32, cuda)
+@pytest.mark.parametrize("M,K,N,dtype", kc.MATMUL_RAGGED, ids=str)
+def test_matmul_kernel_ragged_edges(cuda, M, K, N, dtype):
+    res = kc.check_matmul(M, K, N, dtype, cuda)
     assert res["ok"], res
+
+
+# one shape of each kernel: decode with one slice and with many, wgmma
+# unsplit and split, simt
+VARIANT_SHAPES = [(4, 4096, 1024, torch.bfloat16), (8, 14336, 4096, torch.bfloat16),
+                  (1, 64, 64, torch.bfloat16), (333, 4096, 14336, torch.bfloat16),
+                  (128, 4096, 1024, torch.bfloat16), (9, 130, 33, torch.bfloat16),
+                  (4, 4096, 1024, torch.float32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N,dtype", VARIANT_SHAPES, ids=str)
+def test_matmul_kernel_gives_the_same_bits_every_call(cuda, M, K, N, dtype):
+    """No float atomics: a second and third call (after another shape has
+    used the decode workspace) give the bits of the first."""
+    a, b = kc.matmul_inputs(M, K, N, dtype, cuda)
+    first = matmul.matmul(a, b)
+    again = matmul.matmul(a, b)
+    matmul.matmul(*kc.matmul_inputs(2, 4096, 4096, torch.bfloat16, cuda, seed=3))
+    third = matmul.matmul(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again) and torch.equal(first, third)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N,dtype", VARIANT_SHAPES, ids=str)
+def test_matmul_kernel_one_launch_per_call(cuda, M, K, N, dtype):
+    """Each variant is one launch a call: over 20 calls the profiler sees
+    matmul kernels only, at most 20 (it may miss the first few), and the
+    count adds 20."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    a, b = kc.matmul_inputs(M, K, N, dtype, cuda)
+    matmul.matmul(a, b)                 # the decode workspace is made here
+    torch.cuda.synchronize()
+    launches.reset()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            matmul.matmul(a, b)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert 1 <= len(names) <= 20 and all("matmul" in n for n in names), names
+    assert launches.LAUNCHES == {**{k: 0 for k in launches.LAUNCHES}, "matmul": 20}
 
 
 @pytest.mark.gpu

@@ -56,6 +56,109 @@ def test_matmul_matches_pallas(mkn, dtype):
     _close(got, want, dtype)
 
 
+# (K, N) of the llama3-8b projections, and the M of the main paths
+_PROJ = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+_MAIN_M = [1, 4, 8, 128, 333, 512]
+
+
+@pytest.mark.parametrize("M", _MAIN_M)
+@pytest.mark.parametrize("K,N", _PROJ)
+def test_matmul_variant_on_the_main_path(K, N, M):
+    """bf16 decode batches take the split-K kernel, prefill the wgmma one;
+    f32 keeps the CUDA-core kernel."""
+    from repro_torch.kernels import matmul
+    want = "decode" if M <= 8 else "wgmma"
+    assert matmul.variant(M, K, N, torch.bfloat16) == want
+    assert matmul.variant(M, K, N, torch.float32) == "simt"
+
+
+@pytest.mark.parametrize("M,K,N,aligned", [(4, 4100, 4096, True),
+                                           (4, 4096, 1030, True),
+                                           (333, 130, 33, True),
+                                           (4, 0, 8, True),
+                                           (4, 4096, 4096, False),
+                                           (333, 4096, 4096, False)])
+def test_matmul_variant_unaligned_shapes_take_simt(M, K, N, aligned):
+    from repro_torch.kernels import matmul
+    assert matmul.variant(M, K, N, torch.bfloat16, aligned) == "simt"
+
+
+@pytest.mark.parametrize("K,N", _PROJ + [(4104, 1032), (8, 8), (64, 64),
+                                         (130 * 8, 33 * 8), (100000, 8),
+                                         (4096, 1 << 20)])
+def test_matmul_split_plan_tiles_k(K, N):
+    """The slices tile K exactly once: each a multiple of the K step and at
+    most the longest slice, the last one ragged but not empty, no more
+    slices or blocks than allowed and more than half as many."""
+    from repro_torch.kernels import matmul as mm
+    splits, slice_len = mm.split_plan(K, N)
+    assert slice_len % mm.DECODE_BK == 0 and 0 < slice_len <= mm.DECODE_SLICE_MAX
+    bounds = [(s * slice_len, min((s + 1) * slice_len, K)) for s in range(splits)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == K
+    assert all(lo < hi for lo, hi in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    cols = -(-N // mm.DECODE_BN)
+    k_steps = -(-K // mm.DECODE_BK)
+    forced = -(-K // mm.DECODE_SLICE_MAX)       # slices the longest slice needs
+    assert splits <= max(mm.DECODE_MAX_SPLITS, forced)
+    assert splits * cols <= mm.DECODE_TARGET_BLOCKS or splits in (1, forced)
+    # cutting K into equal slices keeps more than half the slices allowed
+    allowed = min(k_steps, mm.DECODE_MAX_SPLITS,
+                  max(1, mm.DECODE_TARGET_BLOCKS // cols))
+    assert splits * 2 > allowed or splits >= forced
+
+
+def test_matmul_split_plan_of_the_projections():
+    """The llama3-8b projections: 128-512 blocks, at most 16 slices."""
+    from repro_torch.kernels import matmul as mm
+    assert {kn: mm.split_plan(*kn) for kn in _PROJ} == {
+        (4096, 4096): (16, 256), (4096, 1024): (16, 256),
+        (4096, 14336): (4, 1024), (14336, 4096): (16, 896)}
+
+
+@pytest.mark.parametrize("M", [9, 128, 223, 333, 512, 4096])
+@pytest.mark.parametrize("K,N", _PROJ + [(4104, 1032), (8, 8), (64, 64)])
+def test_matmul_wgmma_plan_tiles_k(K, N, M):
+    """The wgmma kernel's slices tile K in whole 64-deep steps, none empty;
+    it splits only where the output tiles are few, never past one wave, its
+    most slices or its shortest slice, and takes the count of least modelled
+    time among those."""
+    from repro_torch.kernels import matmul as mm
+    splits, slice_len = mm.wgmma_plan(M, K, N)
+    assert slice_len % mm.WGMMA_BK == 0 and slice_len > 0
+    assert (splits - 1) * slice_len < K <= splits * slice_len
+    tiles = -(-M // mm.WGMMA_BM) * -(-N // mm.WGMMA_BN)
+    assert splits <= mm.WGMMA_MAX_SPLITS
+    assert splits == 1 or tiles * splits <= mm.WGMMA_SMS
+    assert splits == 1 or slice_len >= mm.WGMMA_MIN_STEPS * mm.WGMMA_BK
+    if tiles * 2 > mm.WGMMA_SMS:
+        assert splits == 1
+    steps = -(-K // mm.WGMMA_BK)
+    cost = lambda n: -(-steps // n) * mm.WGMMA_STEP_US + (n - 1) * mm.WGMMA_SPLIT_US
+    allowed = [n for n in range(1, mm.WGMMA_MAX_SPLITS + 1)
+               if n == 1 or (tiles * n <= mm.WGMMA_SMS
+                             and steps // n >= mm.WGMMA_MIN_STEPS)]
+    assert cost(splits) <= min(cost(n) for n in allowed) + 1e-9
+    splits_kind, slice_kind, tickets = mm.plan("wgmma", M, K, N)
+    assert (splits_kind, slice_kind) == (splits, slice_len)
+    assert tickets == (tiles if splits > 1 else 0)
+
+
+def test_matmul_plans_of_the_main_path():
+    """The prefill chunk (M = 128) splits every projection but wg/wi, whose
+    112 tiles fill the card, and the long-K mlp.wo most; a 333-token prompt
+    splits only wk/wv."""
+    from repro_torch.kernels import matmul as mm
+    chunk = {kn: mm.wgmma_plan(128, *kn)[0] for kn in _PROJ}
+    assert chunk == {(4096, 4096): 2, (4096, 1024): 2, (4096, 14336): 1,
+                     (14336, 4096): 4}
+    prompt = {kn: mm.wgmma_plan(333, *kn)[0] for kn in _PROJ}
+    assert prompt == {(4096, 4096): 1, (4096, 1024): 2, (4096, 14336): 1,
+                      (14336, 4096): 1}
+    assert mm.plan("simt", 333, 4096, 4096) == (1, 0, 0)
+    assert mm.plan("decode", 4, 4096, 1024) == (16, 256, 8)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_dense_flattens_leading_dims(dtype):
     rng = np.random.default_rng(3)
