@@ -7,11 +7,14 @@ Phases, each of which raises on failure (nothing is caught):
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: the CUDA libraries (matmul, flash_attention, paged_attention,
      reduction, stencil; one nvcc each, all at once, sm_90a) and the Triton
-     rmsnorm;
+     rmsnorm; ptxas's registers and spills (for flash_attention by kernel,
+     with any wgmma serialisation notice);
   3. each kernel against its plain PyTorch version on the card, element by
      element, at the llama3-8b serving shapes, in bf16 and f32 (the matmul
-     at every main-path M, 1 to 512, and at ragged shapes, each line naming
-     the kernel variant it took);
+     at every main-path M, 1 to 512, and at ragged shapes; flash attention
+     at every whole-prompt length of the paths, ragged ones, B = 2,
+     windows across tile edges, and every head dim causal and not; each
+     line naming the kernel variant it took);
   3b. the paper's Table I kernels (dotprod, expv, softmax_rows, jacobi2d,
      fconv2d) against their plain versions at the table1-paper and
      table1-card shapes and at ragged ones (softmax also on masked rows),
@@ -38,7 +41,9 @@ Phases, each of which raises on failure (nothing is caught):
   6. kernel times (CUDA events) beside the plain version, the one PyTorch
      call that computes the same function, and the card's bound (the matmul
      at every main-path M in both dtypes, and each matmul variant's host
-     cost a call at K = N = 64), the Table
+     cost a call at K = N = 64; flash attention at S = 37, 223, 445 and 512
+     with the device's ms a call beside SDPA's from one trace, and each
+     variant's host cost a call), the Table
      I kernels at both configurations (at table1-paper also their device
      time from a profiler trace).
 The line before the last is a JSON object of the kernels; the last line is
@@ -73,11 +78,13 @@ def _ms_bound(nbytes: float, nops: float, kind: str) -> tuple[float, str]:
 
 
 # the device-side name of each port kernel, as the profiler shows it (the
-# matmul by variant: kernels.matmul.variant)
+# matmul and flash attention by variant: kernels.matmul.variant,
+# kernels.flash_attention.variant)
 PORT_KERNELS = {"matmul decode": "matmul_decode_kernel",
                 "matmul wgmma": "matmul_wgmma_kernel",
                 "matmul simt": "matmul_kernel", "rmsnorm": "rms_kernel",
-                "flash_attention": "flash_kernel",
+                "flash_attention wgmma": "flash_wgmma_kernel",
+                "flash_attention simt": "flash_kernel",
                 "paged_attention": "paged_kernel"}
 
 
@@ -128,6 +135,26 @@ def _trace(step, steps: int) -> dict:
     return {"events": len(evs), "wall_us": wall_us, "plain_us": plain_us,
             "busy_us": busy / steps,
             "by": sorted(by.items(), key=lambda kv: -kv[1][1])}
+
+
+def _ptxas_summary(log: str) -> list:
+    """nvcc's ``-Xptxas -v`` lines, one a kernel: its name (template
+    arguments kept), registers, spills, static shared memory, and any
+    ptxas performance notice (C75xx) beside it."""
+    import re
+
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?"
+                      r"_ZN\w*?(\d+)([a-z_]+kernel)I(\w+?)EEEv", line)
+        if m:
+            args = m.group(3).replace("13__nv_bfloat16", "bf16 ").replace("Li", "D=")
+            name = f"{m.group(2)}<{args.replace('fD=', 'f32 D=')}>"
+        if name and ("spill" in line or "registers" in line):
+            out.append(f"{name}: {line.replace('ptxas info    :', '').strip()}")
+        if "C75" in line:
+            out.append(line.strip()[:160])
+    return out
 
 
 def _check_pool(engine) -> None:
@@ -322,11 +349,9 @@ def _table1_path(kc, ops, ref, dev) -> dict:
     return got
 
 
-def _device_ms(fn, tag: str, calls: int) -> tuple[float, int]:
-    """The mean device time of the kernels named ``tag`` in a torch.profiler
-    trace of the card's activity over ``calls`` calls of ``fn``, and how
-    many of them the trace holds (it may miss the first few); (nan, 0) if
-    it holds none."""
+def _kernel_events(fn, calls: int) -> list:
+    """The card's kernels in a torch.profiler trace of ``calls`` calls of
+    ``fn`` (it may miss the first few)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -336,11 +361,30 @@ def _device_ms(fn, tag: str, calls: int) -> tuple[float, int]:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.events()
-           if e.device_type == DeviceType.CUDA and tag in e.name]
-    if not evs:
-        return float("nan"), 0
-    return sum(e.time_range.end - e.time_range.start for e in evs) / 1e3 / len(evs), len(evs)
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _ms(evs) -> float:
+    return sum(e.time_range.end - e.time_range.start for e in evs) / 1e3
+
+
+def _device_ms(fn, tag: str, calls: int) -> tuple[float, int]:
+    """The mean device time of the kernels named ``tag`` in a trace of
+    ``calls`` calls of ``fn``, and how many of them the trace holds; (nan,
+    0) if it holds none."""
+    evs = [e for e in _kernel_events(fn, calls) if tag in e.name]
+    return (_ms(evs) / len(evs), len(evs)) if evs else (float("nan"), 0)
+
+
+def _device_split(fn, tag: str, calls: int) -> tuple[float, float]:
+    """Device ms a call of the kernel named ``tag`` (one launch a call of
+    ``fn``) and of every other kernel, from one trace of ``calls`` calls:
+    both over the calls the trace holds, counted by the tagged kernel."""
+    evs = _kernel_events(fn, calls)
+    mine = [e for e in evs if tag in e.name]
+    if not mine:
+        return float("nan"), float("nan")
+    return _ms(mine) / len(mine), (_ms(evs) - _ms(mine)) / len(mine)
 
 
 def _device_per_call(fn, calls: int) -> float:
@@ -477,6 +521,10 @@ def main() -> int:
     print(f"[build] {', '.join(f'{n}.cu' for n in CUDA_LIBS)} -> "
           f"{_build.BUILD_DIR} in {now() - t0:.1f}s")
     for lib in CUDA_LIBS:
+        if lib == "flash_attention":        # each kernel by name
+            for line in _ptxas_summary(_build.BUILD_LOGS.get(lib, "")):
+                print(f"[build]   {lib}: {line}")
+            continue
         for line in _build.BUILD_LOGS.get(lib, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build]   {lib}: {line.strip()}")
@@ -520,14 +568,22 @@ def main() -> int:
               f"{list(kc.PAGED_LENS)} {str(dt)[6:]:8s} {_reading(r)}")
         if not r["ok"]:
             failed.append(("paged_attention", dt))
-        for S, window in [(S, None) for S in kc.FLASH_S] + [kc.FLASH_WINDOW]:
-            r = kc.check_flash_attention(S, dt, window)
-            errs[("flash_attention", S, window, dt)] = r["max_abs_err"]
-            print(f"[check] flash_attention B=1 Hq={kc.HQ} Hkv={kc.HKV} "
+        for B, S, window in kc.FLASH_CASES:
+            r = kc.check_flash_attention(S, dt, window, B=B)
+            errs[("flash_attention", B, S, window, dt)] = r["max_abs_err"]
+            print(f"[check] flash_attention B={B} Hq={kc.HQ} Hkv={kc.HKV} "
                   f"D={kc.HEAD_DIM} S={S:<4d} causal window={window} "
-                  f"{str(dt)[6:]:8s} {_reading(r)}")
+                  f"{str(dt)[6:]:8s} {r['variant']:5s} {_reading(r)}")
             if not r["ok"]:
-                failed.append(("flash_attention", S, window, dt))
+                failed.append(("flash_attention", B, S, window, dt))
+        for D in kfa.HEAD_DIMS:
+            for causal in (True, False):
+                r = kc.check_flash_head_dim(D, causal, dt)
+                print(f"[check] flash_attention B=2 Hq=4 Hkv=2 D={D:<3d} S=70 "
+                      f"{'causal' if causal else 'full  '} window=9 "
+                      f"{str(dt)[6:]:8s} {r['variant']:5s} {_reading(r)}")
+                if not r["ok"]:
+                    failed.append(("flash_attention head dim", D, causal, dt))
     # -- 3b. the paper's Table I kernels vs plain versions -------------------------
     t1_errs, t1_failed = _table1_checks(kc)
     failed += t1_failed
@@ -846,25 +902,54 @@ def main() -> int:
                   f"plain {t_p:.4f} ms  F.rms_norm {t_l:.4f} ms  "
                   f"bound {bound:.5f} ms ({by})")
 
-    # flash attention at whole-prompt lengths (bf16, the model's dtype; f32
-    # at the longest), beside SDPA on the same causal GQA function
+    # flash attention at whole-prompt lengths (bf16, the model's dtype: the
+    # dense path's 37 and 223, the paged path's 445, and 512; f32 at the
+    # longest), beside SDPA on the same causal GQA function: between events,
+    # and the device's own ms a call from one trace of both
     Hq, Hkv, D = kc.HQ, kc.HKV, kc.HEAD_DIM
-    for S, dt in ((37, torch.bfloat16), (256, torch.bfloat16),
+    for S, dt in ((37, torch.bfloat16), (223, torch.bfloat16), (445, torch.bfloat16),
                   (512, torch.bfloat16), (512, torch.float32)):
         q, k, v = kc.flash_inputs(S, dt)
         iters = 50 if S > 100 else 200
-        t_k = time_ms(lambda: kfa.flash_attention(q, k, v, causal=True), iters)
+        kern = lambda: kfa.flash_attention(q, k, v, causal=True)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+        t_k = time_ms(kern, iters)
         t_p = time_ms(lambda: ref.attention(q, k, v, causal=True), iters)
-        t_l = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), iters)
+        t_l = time_ms(sdpa, iters)
         kind = "bf16" if dt == torch.bfloat16 else "f32"
+        var = kfa.variant(S, S, D, dt)
+        d_k, d_l = _device_split(lambda: (kern(), sdpa()),
+                                 PORT_KERNELS[f"flash_attention {var}"], 20)
         # q and out once, k and v once; 4 D operations per visible (q, k) pair
         bound, by = _ms_bound(q.element_size() * S * D * (2 * Hq + 2 * Hkv),
                               4.0 * D * Hq * S * (S + 1) / 2, kind)
         rows[("flash_attention", S, dt)] = (t_k, t_p, t_l, bound, by)
+        device_rows[("flash_attention", S, dt)] = (d_k, d_l)
         print(f"[time] flash_attention B=1 Hq={Hq} Hkv={Hkv} D={D} S={S:<4d} "
-              f"causal {kind:4s} kernel {t_k:.4f} ms  plain {t_p:.4f} ms  "
-              f"SDPA {t_l:.4f} ms  bound {bound:.5f} ms ({by})")
+              f"causal {kind:4s} {var:5s} kernel {t_k:.4f} ms  plain {t_p:.4f} ms  "
+              f"SDPA {t_l:.4f} ms  bound {bound:.5f} ms ({by}); device: kernel "
+              f"{d_k:.4f} ms, SDPA {d_l:.4f} ms, {d_k / d_l:.2f}x SDPA, "
+              f"{d_k / bound:.1f}x bound")
+    # each variant's host cost a call: back-to-back calls at 2 q heads of 16
+    # rows, where each kernel takes a few us, between events, in turns; the
+    # same bf16 inputs through each variant (the choice forced by lifting
+    # `variant` to it), so the difference is the wgmma launch's own (its three
+    # tensor maps encoded a call), and SDPA beside them
+    q, k, v = (torch.randn((1, 16, h, D), device=dev).to(torch.bfloat16)
+               .transpose(1, 2) for h in (2, 1, 1))
+    chooser, host = kfa.variant, {}
+    for turn in ("wgmma", "simt", "simt", "wgmma"):
+        kfa.variant = lambda *a, _v=turn, **kw: _v
+        host.setdefault(turn, []).append(
+            1e3 * time_ms(lambda: kfa.flash_attention(q, k, v, causal=True), 500))
+    kfa.variant = chooser
+    t_l = 1e3 * time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 500)
+    print(f"[time] flash_attention host cost B=1 Hq=2 Hkv=1 S=16 D={D} bf16, us a "
+          f"call in turns: " + "; ".join(f"{n} " + " / ".join(f"{t:.1f}" for t in ts)
+                                        for n, ts in host.items())
+          + f" (SDPA {t_l:.1f})")
 
     # paged attention at the traced batch-8 decode step's inputs, cycling
     # over the 32 layers' pools so each launch finds its K/V cold in L2, as
@@ -911,7 +996,7 @@ def main() -> int:
              "src/repro_torch/kernels/rmsnorm.py",
              "src/repro/kernels/rmsnorm.py:44", "R=4,D=4096,bf16"),
             ("flash_attention", ("flash_attention", 512, torch.bfloat16),
-             ("flash_attention", 512, None, torch.bfloat16), "cuda",
+             ("flash_attention", 1, 512, None, torch.bfloat16), "cuda",
              "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:118",
              "B=1,Hq=32,Hkv=8,S=512,D=128,causal,bf16"),
@@ -938,6 +1023,9 @@ def main() -> int:
                                           torch.bfloat16)][0],
                 "library_device_ms": device_rows[("matmul", 333, 4096, 14336,
                                                   torch.bfloat16)][1]}
+            kernels[-1]["device_ms"], kernels[-1]["library_device_ms"] = \
+                device_rows[key]
+        if kname == "flash_attention":
             kernels[-1]["device_ms"], kernels[-1]["library_device_ms"] = \
                 device_rows[key]
     # the Table I kernels at table1-card (table1-paper beside them)
@@ -973,7 +1061,8 @@ def main() -> int:
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError(f"a kernel never launched on the main paths: {total}")
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
 

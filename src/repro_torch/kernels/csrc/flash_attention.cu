@@ -1,39 +1,85 @@
 // Causal / sliding-window GQA attention, forward: out[b, h] = softmax(q[b, h]
-// k[b, h / (Hq / Hkv)]^T / sqrt(D) + mask) v[b, h / (Hq / Hkv)].  f32 math,
-// output in q's dtype (bf16 or f32).
+// k[b, h / (Hq / Hkv)]^T / sqrt(D) + mask) v[b, h / (Hq / Hkv)].  f32
+// statistics and accumulation, output in q's dtype (bf16 or f32).
 //
 //   q    (B, Hq, S, D)   by strides, last dim contiguous
 //   k, v (B, Hkv, Sk, D) by strides, last dim contiguous
 //   out  (B, Hq, S, D)   by strides, last dim contiguous
 // Query i and key j are both counted from 0; key j is visible to query i when
-// j < Sk, j <= i (causal) and i - j < window (window > 0).
+// j < Sk, j <= i (causal) and i - j < window (window > 0).  A row with no
+// visible key writes zeros.  Each call is one launch, and the same inputs
+// give the same bits on every run (no atomics).
 //
-// Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
-// (_attn_kernel): a (B*Hq, S/bq, Sk/bk) grid whose innermost, sequential kv
-// axis carries the online softmax's m, l and acc in VMEM scratch, with the
-// GQA head mapping h // (Hq / Hkv) in the index maps.
+// Replaces the TPU kernel repro/kernels/flash_attention.py:118
+// (flash_attention, _attn_kernel at :50-90): a (B*Hq, S/bq, Sk/bk) grid whose
+// innermost, sequential kv axis carries the online softmax's m, l and acc in
+// VMEM scratch, with the GQA head mapping h // (Hq / Hkv) in the index maps.
 //
-// Here one block of threads owns one (b, h, 64-row q tile) and loops over
-// the 32-key k tiles itself, from the window's lower edge up to the causal
-// limit: tiles that the masks hide entirely are never loaded.  q, k, v and
-// out are read and written through their strides, so the model's (B, S, H, D)
-// activations are passed as transposed views, and the kv heads are never
-// repeated up to Hq.  Masked scores get p = 0 explicitly, so a row with no
-// visible key keeps l == 0 and writes zeros (the TPU kernel's flush assumes
-// l == 0 on such rows, which holds only with that mask).
+// Two kernels; kernels/flash_attention.py::variant picks one from (S, Sk, D,
+// dtype):
 //
-// What bounds it on an H100: at prefill lengths each K/V element is used by
-// up to 64 query rows of a tile and 4*D operations a (q, k) pair, so it is
-// bound by operations (causal S = 512, Hq = 32, D = 128: 2.2 GFLOP a layer,
-// 2.2 us at the bf16 tensor-core rate of 989 TFLOP/s).  This first design
-// computes on CUDA cores in f32 (67 TFLOP/s at most): each thread holds a
-// 4 x 4 block of scores and a 4 x (D/8) block of the output in registers,
-// with the q, k, v and p tiles staged in shared memory.  mma.sync/wgmma
-// tensor-core tiles and a TMA pipeline are later work.
+// * wgmma (bf16, D = 64 or 128, Sk > 0): the serving path's prefills
+//   (llama3-8b: B = 1, 32 q heads over 8 kv heads of 128, S = 35-445).
+//   What bounds it on an H100: causal S = 512 is 2.2 GFLOP of Q K^T and P V
+//   (2.2 us at 989 TFLOP/s; 3.3 us with the split P V below) on ~10 MB of
+//   q, k, v and out (3.1 us at 3.35 TB/s): near the ridge, and at these
+//   lengths a block walks at most 8 key tiles, so latency -- TMA round
+//   trips, the softmax between two products, and a wave of blocks that does
+//   not fill 132 SMs -- bounds it as much as bytes or operations.  So:
+//     - one block a (b, q head, 64-row q tile): 4 x 32 = 128 blocks at
+//       S = 223 on 132 SMs (128-row tiles, or one block for the four q heads
+//       of a kv head, would give 64 or 32); the four blocks of a kv head
+//       read its K/V through L2 (0.9 MB at S = 223).  The q tiles run
+//       longest first (the causal walk is longest for the last rows);
+//     - a producer warp issues TMA copies (128-byte swizzle, the 256-byte
+//       rows of D = 128 as two 64-column boxes) of the Q tile once and of
+//       64-key K and V tiles into a 2-stage ring behind mbarriers; tensor
+//       maps are 4-D (D, then H, S and B in the order of their strides), so
+//       the model's transposed (B, S, H, D) views are read in place, and
+//       rows past S or Sk come in as zeros;
+//     - one consumer warpgroup computes S = Q K^T by wgmma.m64n64k16 from
+//       shared memory (K is K-major: no transpose) into f32 registers, and
+//       runs the online softmax on the accumulator fragment: each thread
+//       holds 2 rows x 16 keys, row max and row sum across the 4 lanes of a
+//       row, one FFMA and one ex2.approx a score with the scale folded in
+//       (~2^-22 from the reference's exp).  Only the tiles that cross the
+//       diagonal, Sk or the window's edge are masked (p = 0 exactly); tiles
+//       above the diagonal or below the window are never loaded;
+//     - O += P V by wgmma.m64n{D}k16 with A from registers (the S fragment
+//       is the A fragment: no shuffles) and V read MN-major (transpose bit).
+//       P rounded to bf16 moves near-zero outputs by ~1e-4, 10-200x the
+//       check's atol, so P = P_hi + P_lo, two bf16 halves, and O += P_hi V +
+//       P_lo V: 1.5x the operations, within ~2^-16 of f32 P;
+//     - the next tile's Q K^T is issued with this tile's P V, so the tensor
+//       cores run them back to back.  The softmax does not overlap them: a
+//       read of S while P V is in flight (wait_group 1) makes ptxas
+//       serialise every wgmma (C7514), which cost more than the overlap
+//       gave; with two blocks an SM (from S = 512), one block's softmax runs
+//       beside the other's products;
+//     - the rows are scaled by 1 / (their f32 sum) once, at the store,
+//       through out's strides.
+//   ptxas (-Xptxas -v, printed by chip_smoke.py phase 2) reports no spills
+//   and no wgmma serialisation: 159 registers at D = 128, 82,984 bytes of
+//   shared memory a block.
+//
+// * simt (f32, and any head dim or input the wgmma kernel does not take):
+//   the first port's kernel, unchanged.  One block of threads owns one
+//   (b, h, 64-row q tile) and loops over the 32-key k tiles itself, from the
+//   window's lower edge up to the causal limit; CUDA-core f32 math (each
+//   thread a 4 x 4 block of scores and a 4 x (D/8) block of the output),
+//   tiles staged through shared memory.  Masked scores get p = 0
+//   explicitly, so a row with no visible key keeps l == 0 and writes zeros
+//   (the TPU kernel's flush assumes l == 0 on such rows, which holds only
+//   with that mask).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
+
+#include <algorithm>
 #include <cstdint>
+
 
 namespace {
 
@@ -244,19 +290,554 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int Hq
     }
 }
 
+// ---------------------------------------------------------------------------
+// wgmma: bf16, D = 64 or 128.  PTX helpers (sm_90a)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                 :: "r"(smem_u32(bar)) : "memory");
+}
+// A wait that never ends would hang the card; a tile arrives in microseconds,
+// so after ~4M tries the kernel traps and the launch reports an error.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+    const uint32_t addr = smem_u32(bar);
+    uint32_t done;
+    for (uint32_t tries = 0;; ++tries) {
+        asm volatile("{\n .reg .pred p;\n"
+                     " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     " selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+        if (done) return;
+        if (tries == (1u << 22)) __trap();
+    }
+}
+
+// a 4-D box of a tensor map -> shared memory, counted on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+    asm volatile("cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+                 "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+                 :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+                    "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// a box of 64 D columns from column d and the rows from s of head h of batch
+// b; `pos` holds where the map keeps the h, s and b dims (encode_bhsd)
+__device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* map, int pos, int d,
+                                         int h, int s, int b, uint64_t* bar) {
+    const int ph = pos & 3, ps = (pos >> 2) & 3;
+    auto at = [&](int p) { return ph == p ? h : ps == p ? s : b; };
+    tma_load_4d(dst, map, d, at(1), at(2), at(3), bar);
+}
+
+// a wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+    return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4)
+         | (static_cast<uint64_t>(lbo >> 4) << 16)
+         | (static_cast<uint64_t>(sbo >> 4) << 32)
+         | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// pins registers: no instruction touching them moves across a wgmma fence or
+// wait, and their values stay live until here
+template <int N> __device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[4][4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j]) :: "memory");
+}
+
+// d (64 x 64 f32) = A (64 x 16, K-major, shared) * B (16 x 64, K-major,
+// shared) + (scale_d ? d : 0)
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                                   int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64 f32) += A (64 x 16 bf16, registers) * B (16 x 64, MN-major:
+// trans-b 1); scale_d 0 starts d
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// the same with 128 output columns (D = 128)
+__device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+namespace fw {
+constexpr int BQ = 64, BK = 64;        // q rows of a block, keys of a ring stage
+constexpr int STAGES = 2;
+constexpr int THREADS = 160;           // a consumer warpgroup and a producer warp
+constexpr int BOX = 64 * 64 * 2;       // 8 KB: 64 rows of 64 bf16 (128 bytes)
+constexpr float LOG2E = 1.4426950408889634f;
+template <int D> struct Smem {
+    static constexpr int BOXES = D / 64;          // 64-column boxes of a row
+    static constexpr int TILE = BOXES * BOX;      // Q, or K or V of a stage
+    static constexpr int STAGE = 2 * TILE;
+    static constexpr int BYTES = TILE + STAGES * STAGE + (2 * STAGES + 1) * 8 + 1024;
+};
+}  // namespace fw
+
+// S (64 x 64) = Q K^T, both K-major in boxes of 64 columns: 8-row groups
+// 1024 bytes apart, a k16 step 32 bytes on within a box
+template <int D>
+__device__ __forceinline__ void qk_issue(float (&sc)[32], uint32_t q, uint32_t k) {
+    fence_operands(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * fw::BOX + (kk % 4) * 32;
+        wgmma_m64n64k16_ss(sc, gmma_desc(q + off, 16, 1024), gmma_desc(k + off, 16, 1024),
+                           kk > 0);
+    }
+    wgmma_commit();
+}
+
+// O (64 x D) += P_hi V + P_lo V: V MN-major, a k16 step 16 rows (2048 bytes)
+// on, the second 64 columns one box on (LBO); `start` begins O
+template <int D>
+__device__ __forceinline__ void pv_issue(float (&o)[D / 2], uint32_t (&hi)[4][4],
+                                         uint32_t (&lo)[4][4], uint32_t v, bool start) {
+    fence_operands(o);
+    fence_operands(hi);
+    fence_operands(lo);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dv = gmma_desc(v + kk * 2048, fw::BOX, 1024);
+        wgmma_pv(o, hi[kk], dv, !(start && kk == 0));
+        wgmma_pv(o, lo[kk], dv, 1);
+    }
+    wgmma_commit();
+}
+
+// 2^x on the special function unit (relative error ~2^-22; results below
+// 2^-126 flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// The online softmax on S's fragment: sc[4i + e] is q.k of row r0 + 8 (e >>
+// 1) and key kc + 8 i + (e & 1) (kc = k0 + 2 tig).  Leaves p in sc, updates
+// the row max m (in q.k's units) and this thread's share of the row sum l,
+// and gives the factor the rows' earlier output is to be scaled by.  Only a
+// masked tile tests each key; a masked key's p is 2^(-1e30 sl2 - ...) = 0,
+// and a row that has seen no visible key yet (m = NEG_INF) takes its p
+// against 0, so they are 0 too.
+__device__ __forceinline__ void online_softmax(float (&sc)[32], float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], bool masked, int r0, int kc,
+                                               int Sk, int causal, int window, float sl2) {
+    if (masked) {
+        // row r sees keys kc + lo[r] .. kc + hi[r]
+        int lo[2], hi[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const int qi = r0 + 8 * r;
+            hi[r] = (causal ? min(Sk - 1, qi) : Sk - 1) - kc;
+            lo[r] = window > 0 ? qi - window + 1 - kc : -kc;
+        }
+#pragma unroll
+        for (int x = 0; x < 32; ++x) {
+            const int c = 8 * (x >> 2) + (x & 1), r = (x >> 1) & 1;
+            if (c < lo[r] || c > hi[r]) sc[x] = NEG_INF;
+        }
+    }
+    float mx[2] = {m[0], m[1]}, msl[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int x = 0; x < 32; ++x) mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], sc[x]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        // the 4 threads of a row are lanes 4g .. 4g + 3
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = ex2((m[r] - mx[r]) * sl2);
+        m[r] = mx[r];
+        msl[r] = (mx[r] == NEG_INF ? 0.f : mx[r]) * sl2;
+    }
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+        const float p = ex2(fmaf(sc[x], sl2, -msl[(x >> 1) & 1]));
+        sc[x] = p;
+        sum[(x >> 1) & 1] += p;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+}
+
+// P as wgmma's A fragment, in two bf16 halves: register r of k16 step kk
+// holds keys 16 kk + 2 tig (+ 8 for r >= 2) of row g (+ 8 for odd r), which
+// are sc[8 kk + 2 r] and sc[8 kk + 2 r + 1]
+__device__ __forceinline__ void split_p(const float (&sc)[32], uint32_t (&hi)[4][4],
+                                        uint32_t (&lo)[4][4]) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+            const float x0 = sc[8 * kk + 2 * r], x1 = sc[8 * kk + 2 * r + 1];
+            const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+            const float2 hf = __bfloat1622float2(h);
+            const __nv_bfloat162 w = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+            hi[kk][r] = *reinterpret_cast<const uint32_t*>(&h);
+            lo[kk][r] = *reinterpret_cast<const uint32_t*>(&w);
+        }
+}
+
+// Cycle stamps of the consumer's phases (thread 0 of each block, 32 slots a
+// block), read by repro_flash_cycles; compiled only with -DFLASH_CYCLES
+// (testing/flash_probe.py), so the library the port loads has none
+#ifdef FLASH_CYCLES
+__device__ long long flash_cycles[1 << 20];
+#define STAMP(slot) \
+    if (lt == 0) flash_cycles[(blockIdx.y * gridDim.x + blockIdx.x) * 32 + (slot)] = clock64()
+#else
+#define STAMP(slot)
+#endif
+
+template <int D>
+__global__ void __launch_bounds__(fw::THREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
+                   long long o_sb, long long o_sh, long long o_ss, int Hq, int Hkv, int S,
+                   int Sk, int causal, int window, float sl2, int qpos, int kpos, int vpos) {
+    // the names of fw, not the simt kernel's BQ and BK
+    constexpr int BQ = fw::BQ, BK = fw::BK, STAGES = fw::STAGES, BOX = fw::BOX;
+    using L = fw::Smem<D>;
+    extern __shared__ unsigned char raw[];
+    // TMA's 128-byte swizzle wants each box 1024-byte aligned
+    unsigned char* buf = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+    unsigned char* ring = buf + L::TILE;                 // Q first, then the stages
+    uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * L::STAGE);
+    uint64_t* empty = full + STAGES;
+    uint64_t* qbar = empty + STAGES;
+
+    const int bh = blockIdx.x, b = bh / Hq, h = bh % Hq, hk = h / (Hq / Hkv);
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;    // the longest walks first
+    // the keys this tile can see: from the lowest row's window edge to the
+    // highest row's causal limit (kernels/flash_attention.py::tile_plan)
+    int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+    k_lo = (k_lo / BK) * BK;
+    const int k_hi = causal ? min(Sk, q0 + BQ) : Sk;
+    const int tiles = k_hi > k_lo ? (k_hi - k_lo + BK - 1) / BK : 0;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(&full[s], 1);       // the producer's expect_tx
+            mbar_init(&empty[s], 4);      // each consumer warp, once P V is done
+        }
+        mbar_init(qbar, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (threadIdx.x >= 128) {             // the producer warp
+        if (threadIdx.x == 128 && tiles > 0) {
+            asm volatile("prefetch.tensormap [%0];\n"
+                         :: "l"(reinterpret_cast<uint64_t>(&tk)) : "memory");
+            asm volatile("prefetch.tensormap [%0];\n"
+                         :: "l"(reinterpret_cast<uint64_t>(&tv)) : "memory");
+            mbar_expect_tx(qbar, L::TILE);
+            for (int x = 0; x < L::BOXES; ++x)
+                tma_rows(buf + x * BOX, &tq, qpos, 64 * x, h, q0, b, qbar);
+            for (int j = 0; j < tiles; ++j) {
+                const int s = j % STAGES, k0 = k_lo + j * BK;
+                if (j >= STAGES) mbar_wait(&empty[s], ((j / STAGES) - 1) & 1);
+                unsigned char* st = ring + s * L::STAGE;
+                mbar_expect_tx(&full[s], L::STAGE);   // zero-filled bytes count too
+                for (int x = 0; x < L::BOXES; ++x) {
+                    tma_rows(st + x * BOX, &tk, kpos, 64 * x, hk, k0, b, &full[s]);
+                    tma_rows(st + L::TILE + x * BOX, &tv, vpos, 64 * x, hk, k0, b, &full[s]);
+                }
+            }
+        }
+        return;
+    }
+
+    // the consumer warpgroup: thread (warp, g, tig) holds rows r0 and r0 + 8
+    const int lt = threadIdx.x, warp = lt / 32, g = (lt & 31) >> 2, tig = lt & 3;
+    const int r0 = q0 + warp * 16 + g;
+    STAMP(0);
+    const uint32_t qs = smem_u32(buf), rs = smem_u32(ring);
+    auto needs_mask = [&](int k0) {
+        return k0 + BK > Sk || (causal && k0 + BK - 1 > q0) ||
+               (window > 0 && k0 < q0 + BQ - window);
+    };
+    // no zeroing: O's first wgmma starts it (scale-d 0), and S's each tile
+    float o[D / 2], sc[32];
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
+    uint32_t hi[4][4], lo[4][4];
+    if (tiles > 0) {
+        mbar_wait(qbar, 0);
+        mbar_wait(&full[0], 0);
+        STAMP(1);
+        qk_issue<D>(sc, qs, rs);
+        wgmma_wait<0>();
+        fence_operands(sc);
+        online_softmax(sc, m, l, alpha, needs_mask(k_lo), r0, k_lo + 2 * tig, Sk, causal,
+                       window, sl2);
+        split_p(sc, hi, lo);
+        STAMP(2);
+    }
+    for (int j = 0; j < tiles; ++j) {
+        const int s = j % STAGES;
+        const bool next = j + 1 < tiles;
+        // the next tile's S and this tile's P V in one go, so the tensor cores
+        // run them back to back.  Both are waited for before the softmax: a
+        // read of S while P V is in flight (wait_group 1) makes ptxas
+        // serialise every wgmma (C7514)
+        if (next) {
+            const int sn = (j + 1) % STAGES;
+            mbar_wait(&full[sn], ((j + 1) / STAGES) & 1);
+            qk_issue<D>(sc, qs, rs + sn * L::STAGE);
+        }
+        STAMP(3 + 3 * min(j, 8));
+        pv_issue<D>(o, hi, lo, rs + s * L::STAGE + L::TILE, j == 0);
+        wgmma_wait<0>();                  // this tile's P V is done: free its stage
+        STAMP(4 + 3 * min(j, 8));
+        fence_operands(sc);
+        fence_operands(o);
+        fence_operands(hi);
+        fence_operands(lo);
+        if ((lt & 31) == 0) mbar_arrive(&empty[s]);
+        if (next) {
+            const int k0 = k_lo + (j + 1) * BK;
+            online_softmax(sc, m, l, alpha, needs_mask(k0), r0, k0 + 2 * tig, Sk, causal,
+                           window, sl2);
+#pragma unroll
+            for (int x = 0; x < D / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
+            split_p(sc, hi, lo);
+            STAMP(5 + 3 * min(j, 8));
+        }
+    }
+    STAMP(30);
+
+    // o[4i + e]: row r0 + 8 (e >> 1), column 8 i + 2 tig + (e & 1); the rows'
+    // sums from their 4 threads; a row with no visible key writes zeros
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    }
+    bf16* ob = out + b * o_sb + h * o_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int qi = r0 + 8 * r;
+        if (qi >= S) continue;
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+            // o is never read where no tile ran (l == 0)
+            const float x0 = l[r] > 0.f ? o[4 * i + 2 * r] * inv[r] : 0.f;
+            const float x1 = l[r] > 0.f ? o[4 * i + 2 * r + 1] * inv[r] : 0.f;
+            *reinterpret_cast<__nv_bfloat162*>(ob + qi * o_ss + 8 * i + 2 * tig) =
+                __floats2bfloat162_rn(x0, x1);
+        }
+    }
+    STAMP(31);
+}
+
+// ---------------------------------------------------------------------------
+// host: tensor maps (cuTensorMapEncodeTiled from libcuda.so.1, found at run
+// time, so nothing links against libcuda)
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+    static EncodeTiled fn = [] {
+        void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+        return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"))
+                   : nullptr;
+    }();
+    return fn;
+}
+
+// A bf16 (B, H, S, D) tensor by element strides (sb, sh, ss), D contiguous,
+// as a 4-D tensor map: D innermost, then H, S and B in the order of their
+// strides (a dim of size 1 last, its stride made up), boxes of 64 D columns
+// by `rows` rows of S, 128-byte swizzle, zeros outside.  Returns where the
+// map keeps the h, s and b dims (h | s << 2 | b << 4, each 1-3), or -1.
+int encode_bhsd(CUtensorMap* map, const void* ptr, int B, int H, int S, int D, long long sb,
+                long long sh, long long ss, int rows) {
+    const EncodeTiled fn = encode_fn();
+    if (!fn) return -1;
+    struct Dim { long long size, stride; int which; };   // which: 0 h, 1 s, 2 b
+    Dim dims[3] = {{H, sh, 0}, {S, ss, 1}, {B, sb, 2}};
+    std::sort(dims, dims + 3, [](const Dim& x, const Dim& y) {
+        if ((x.size == 1) != (y.size == 1)) return y.size == 1;
+        return x.stride < y.stride;
+    });
+    cuuint64_t size[4] = {static_cast<cuuint64_t>(D)}, stride[3];
+    cuuint32_t box[4] = {64}, estr[4] = {1, 1, 1, 1};
+    long long span = 2LL * D;             // bytes a step of the last dim covers
+    int pos = 0;
+    for (int i = 0; i < 3; ++i) {
+        const long long st = dims[i].size == 1 ? span : 2 * dims[i].stride;
+        size[i + 1] = static_cast<cuuint64_t>(dims[i].size);
+        stride[i] = static_cast<cuuint64_t>(st);
+        box[i + 1] = dims[i].which == 1 ? rows : 1;
+        span = st * dims[i].size;
+        pos |= (i + 1) << (2 * dims[i].which);
+    }
+    const bool ok = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), size,
+                       stride, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+    return ok ? pos : -1;
+}
+
+// the dynamic shared memory a kernel may take, raised once per device
+bool allow_smem(const void* kernel, int bytes, bool* done) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return false;
+    if (!done[dev]) {
+        if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)
+            != cudaSuccess)
+            return false;
+        done[dev] = true;
+    }
+    return true;
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
+                 int S, int Sk, int causal, int window, const long long* st, cudaStream_t s) {
+    static bool done[64] = {};
+    alignas(64) CUtensorMap tq, tk, tv;
+    const int pq = encode_bhsd(&tq, q, B, Hq, S, D, st[0], st[1], st[2], fw::BQ);
+    const int pk = encode_bhsd(&tk, k, B, Hkv, Sk, D, st[3], st[4], st[5], fw::BK);
+    const int pv = encode_bhsd(&tv, v, B, Hkv, Sk, D, st[6], st[7], st[8], fw::BK);
+    if (pq < 0 || pk < 0 || pv < 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (!allow_smem(reinterpret_cast<const void*>(flash_wgmma_kernel<D>), fw::Smem<D>::BYTES,
+                    done))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid(B * Hq, (S + fw::BQ - 1) / fw::BQ);
+    flash_wgmma_kernel<D><<<grid, fw::THREADS, fw::Smem<D>::BYTES, s>>>(
+        tq, tk, tv, static_cast<bf16*>(o), st[9], st[10], st[11], Hq, Hkv, S, Sk, causal,
+        window, fw::LOG2E / sqrtf(static_cast<float>(D)), pq, pk, pv);
+    return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
+                   int S, int Sk, int D, int causal, int window, const long long* st,
+                   cudaStream_t s) {
+    if (Sk <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    switch (D) {
+        case 64: return launch_wgmma<64>(q, k, v, o, B, Hq, Hkv, S, Sk, causal, window, st, s);
+        case 128: return launch_wgmma<128>(q, k, v, o, B, Hq, Hkv, S, Sk, causal, window, st, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  D is 16, 32, 64 or 128.  `strides` holds
-// 12 element strides: (batch, head, seq) of q, k, v and out, in that order;
-// the last dim of each is contiguous and every pointer and stride is 16-byte
+// dtype: 0 = float32, 1 = bfloat16.  variant: 0 = simt (D 16, 32, 64 or
+// 128), 1 = wgmma (bf16, D 64 or 128, S and Sk > 0).  `strides` holds 12
+// element strides: (batch, head, seq) of q, k, v and out, in that order; the
+// last dim of each is contiguous and every pointer and stride is 16-byte
 // aligned (the caller checks).  window <= 0 means no window.  The launch goes
 // on `stream` and does not synchronise.  Returns cudaGetLastError() after the
-// launch (0 = success).
+// launch (0 = success), or cudaErrorInvalidValue for arguments the variant
+// does not take.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
                                      int B, int Hq, int Hkv, int S, int Sk, int D,
                                      int causal, int window, const long long* strides,
-                                     int dtype, void* stream) {
+                                     int dtype, int variant, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (variant == 1) {
+        if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+        return dispatch_wgmma(q, k, v, out, B, Hq, Hkv, S, Sk, D, causal, window, strides, s);
+    }
+    if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
     if (dtype == 0)
         return dispatch<float>(q, k, v, out, B, Hq, Hkv, S, Sk, D, causal, window, strides, s);
     if (dtype == 1)
@@ -264,3 +845,10 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
                                        strides, s);
     return static_cast<int>(cudaErrorInvalidValue);
 }
+
+#ifdef FLASH_CYCLES
+// the first n stamps of the last launch of the cycle-stamped build
+extern "C" int repro_flash_cycles(long long* host, int n) {
+    return static_cast<int>(cudaMemcpyFromSymbol(host, flash_cycles, n * sizeof(long long)));
+}
+#endif

@@ -119,9 +119,13 @@ PAGED_LENS = (0, 1, 15, 16, 17, 300, 1023, 640)
 PAGED_BT = 16
 PAGED_NBLK = 64                          # max_seq 1024 / 16
 PAGED_NB = 400                           # pool blocks, block 0 the zero block
-#: whole-prompt prefill lengths (causal), and one sliding-window case
-FLASH_S = (1, 37, 256, 512)
-FLASH_WINDOW = (256, 64)                 # (S, window)
+#: whole-prompt prefill lengths (causal): the dense path's 35-223 and the
+#: paged path's 71-445 tokens, ragged against the 64-row and 64-key tiles
+FLASH_S = (1, 37, 223, 256, 333, 445, 512)
+#: (B, S, window): those, two sequences, and sliding windows that end on a
+#: tile edge (64) and inside tiles (100, 37)
+FLASH_CASES = tuple((1, S, None) for S in FLASH_S) + (
+    (2, 223, None), (1, 256, 64), (1, 333, 100), (1, 445, 37))
 
 
 def matmul_inputs(M, K, N, dtype, device="cuda", seed=0):
@@ -212,11 +216,27 @@ def check_paged_attention(dtype, device="cuda") -> dict:
                     ATTN_TOL[dtype])
 
 
-def check_flash_attention(S, dtype, window=None, device="cuda") -> dict:
-    q, k, v = flash_inputs(S, dtype, device)
+def check_flash_attention(S, dtype, window=None, device="cuda", B=1) -> dict:
+    """The llama3-8b heads, causal; ``variant`` names the kernel taken."""
+    q, k, v = flash_inputs(S, dtype, device, B=B)
     got = _fa.flash_attention(q, k, v, causal=True, window=window)
     want = ref.attention(q, k, v, causal=True, window=window)
-    return compare(got, want, ATTN_TOL[dtype])
+    res = compare(got, want, ATTN_TOL[dtype])
+    res["variant"] = _fa.variant(S, S, HEAD_DIM, dtype)
+    return res
+
+
+def check_flash_head_dim(D, causal, dtype, device="cuda") -> dict:
+    """Two sequences of 70 over 4 q and 2 kv heads of D, window 9 (a masked
+    edge in every tile), as (B, S, H, D) views."""
+    g = torch.Generator(device=device).manual_seed(1)
+    q, k, v = (torch.randn((2, 70, h, D), generator=g, device=device)
+               .to(dtype).transpose(1, 2) for h in (4, 2, 2))
+    got = _fa.flash_attention(q, k, v, causal=causal, window=9)
+    want = ref.attention(q, k, v, causal=causal, window=9)
+    res = compare(got, want, ATTN_TOL[dtype])
+    res["variant"] = _fa.variant(70, 70, D, dtype)
+    return res
 
 
 # -- the paper's Table I kernels ------------------------------------------------

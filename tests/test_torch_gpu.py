@@ -107,11 +107,11 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("S,window", [(S, None) for S in kc.FLASH_S]
-                         + [kc.FLASH_WINDOW])
-def test_flash_attention_kernel_matches_plain(cuda, S, window, dtype):
-    res = kc.check_flash_attention(S, dtype, window, cuda)
+@pytest.mark.parametrize("B,S,window", kc.FLASH_CASES, ids=str)
+def test_flash_attention_kernel_matches_plain(cuda, B, S, window, dtype):
+    res = kc.check_flash_attention(S, dtype, window, cuda, B=B)
     assert res["ok"], res
+    assert res["variant"] == ("wgmma" if dtype == torch.bfloat16 else "simt")
 
 
 @pytest.mark.gpu
@@ -126,16 +126,66 @@ def test_paged_attention_kernel_small_shapes(cuda, G, D, bt):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("D", flash_attention.HEAD_DIMS)
-def test_flash_attention_kernel_head_dims(cuda, D, causal):
-    g = torch.Generator(device=cuda).manual_seed(1)
-    q, k, v = (torch.randn((2, 70, h, D), generator=g, device=cuda)
-               .transpose(1, 2) for h in (4, 2, 2))
-    got = flash_attention.flash_attention(q, k, v, causal=causal, window=9)
-    want = kc.ref.attention(q, k, v, causal=causal, window=9)
-    res = kc.compare(got, want, kc.ATTN_TOL[torch.float32])
+def test_flash_attention_kernel_head_dims(cuda, D, causal, dtype):
+    res = kc.check_flash_head_dim(D, causal, dtype, cuda)
     assert res["ok"], res
+
+
+# one shape of each flash kernel: wgmma at D = 128 (ragged S) and 64, a B = 2
+# window case, simt in f32 and at a head dim wgmma does not take
+FLASH_VARIANT_SHAPES = [(1, 32, 8, 223, 128, None, torch.bfloat16),
+                        (2, 4, 2, 70, 64, 9, torch.bfloat16),
+                        (1, 32, 8, 445, 128, 100, torch.bfloat16),
+                        (1, 32, 8, 223, 128, None, torch.float32),
+                        (2, 4, 2, 70, 32, 9, torch.bfloat16)]
+
+
+def _flash_case(B, Hq, Hkv, S, D, dtype, device):
+    g = torch.Generator(device=device).manual_seed(2)
+    return [torch.randn((B, S, h, D), generator=g, device=device).to(dtype)
+            .transpose(1, 2) for h in (Hq, Hkv, Hkv)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,window,dtype", FLASH_VARIANT_SHAPES, ids=str)
+def test_flash_attention_kernel_gives_the_same_bits_every_call(cuda, B, Hq, Hkv, S,
+                                                                D, window, dtype):
+    """No atomics: a second and a third call (after another shape) give the
+    bits of the first."""
+    q, k, v = _flash_case(B, Hq, Hkv, S, D, dtype, cuda)
+    first = flash_attention.flash_attention(q, k, v, window=window)
+    again = flash_attention.flash_attention(q, k, v, window=window)
+    flash_attention.flash_attention(*_flash_case(1, 8, 2, 100, D, dtype, cuda))
+    third = flash_attention.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again) and torch.equal(first, third)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,window,dtype", FLASH_VARIANT_SHAPES, ids=str)
+def test_flash_attention_kernel_one_launch_per_call(cuda, B, Hq, Hkv, S, D, window,
+                                                    dtype):
+    """Each variant is one launch a call: over 20 calls the profiler sees the
+    variant's kernel only, at most 20 times, and the count adds 20."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v = _flash_case(B, Hq, Hkv, S, D, dtype, cuda)
+    flash_attention.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    launches.reset()
+    tag = {"wgmma": "flash_wgmma_kernel", "simt": "flash_kernel"}[
+        flash_attention.variant(S, S, D, dtype)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            flash_attention.flash_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert 1 <= len(names) <= 20 and all(tag in n for n in names), names
+    assert launches.LAUNCHES == {**{k: 0 for k in launches.LAUNCHES},
+                                 "flash_attention": 20}
 
 
 @pytest.mark.gpu

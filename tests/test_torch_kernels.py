@@ -159,6 +159,84 @@ def test_matmul_plans_of_the_main_path():
     assert mm.plan("decode", 4, 4096, 1024) == (16, 256, 8)
 
 
+# the whole-prompt lengths of the dense (35-223) and paged (71-445) paths
+_PREFILL_S = [1, 35, 37, 64, 65, 223, 256, 333, 445, 512]
+
+
+@pytest.mark.parametrize("S", _PREFILL_S)
+def test_flash_variant_on_the_main_path(S):
+    """bf16 prefills at llama3-8b's head dim take the wgmma kernel; f32
+    keeps the CUDA-core kernel."""
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.variant(S, S, 128, torch.bfloat16) == "wgmma"
+    assert fa.variant(S, S, 128, torch.float32) == "simt"
+
+
+@pytest.mark.parametrize("S,Sk,D,dtype,aligned,want", [
+    (70, 70, 64, torch.bfloat16, True, "wgmma"),
+    (70, 70, 16, torch.bfloat16, True, "simt"),
+    (70, 70, 32, torch.bfloat16, True, "simt"),
+    (70, 70, 64, torch.float32, True, "simt"),
+    (70, 0, 128, torch.bfloat16, True, "simt"),
+    (223, 223, 128, torch.bfloat16, False, "simt"),
+    (5, 300, 128, torch.bfloat16, True, "wgmma")])
+def test_flash_variant_by_dtype_head_dim_and_alignment(S, Sk, D, dtype, aligned, want):
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.variant(S, Sk, D, dtype, aligned) == want
+    assert set(fa.WGMMA_HEAD_DIMS) <= set(fa.HEAD_DIMS)
+
+
+def _visible(q0, Sk, causal, window, bq=64, n_keys=600):
+    rows = torch.arange(q0, q0 + bq)[:, None]
+    keys = torch.arange(n_keys)[None]
+    vis = keys < Sk
+    if causal:
+        vis = vis & (keys <= rows)
+    if window:
+        vis = vis & (rows - keys < window)
+    return vis
+
+
+@pytest.mark.parametrize("window", [None, 1, 9, 37, 64, 100])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sk", [1, 37, 64, 65, 223, 445])
+def test_flash_tile_plan_walks_every_visible_key(Sk, causal, window):
+    """Over every q tile: the tiles start on 64-key edges in order, cover
+    every key some row of the tile sees, start no later than the window's
+    edge tile and end at the causal limit, and are masked exactly where a
+    row of the tile must not see one of their keys."""
+    from repro_torch.kernels import flash_attention as fa
+    for q0 in range(0, 512, fa.WGMMA_BQ):
+        plan = fa.tile_plan(q0, Sk, causal, window)
+        vis = _visible(q0, Sk, causal, window)
+        starts = [k0 for k0, _ in plan]
+        assert starts == sorted(starts) and all(k0 % fa.WGMMA_BK == 0 for k0 in starts)
+        assert all(k0 < Sk for k0 in starts)
+        covered = torch.zeros(vis.shape[1], dtype=torch.bool)
+        for k0, masked in plan:
+            covered[k0:k0 + fa.WGMMA_BK] = True
+            tile = vis[:, k0:k0 + fa.WGMMA_BK]
+            assert masked == (k0 + fa.WGMMA_BK > Sk or not bool(tile.all()))
+        assert not bool((vis.any(0) & ~covered).any())
+        # no tile past the causal limit, none wholly below every row's window
+        if plan:
+            assert plan[-1][0] < (min(Sk, q0 + fa.WGMMA_BQ) if causal else Sk)
+            assert bool(vis[:, plan[-1][0]:].any()) or not bool(vis.any())
+
+
+def test_flash_tile_plan_of_a_223_token_prompt():
+    """The dense path's longest prompt: q tile t walks t + 1 tiles, and only
+    its diagonal tile is masked; a 100-token window drops the tiles wholly
+    below it."""
+    from repro_torch.kernels import flash_attention as fa
+    assert [fa.tile_plan(q0, 223, True, None) for q0 in (0, 64, 128, 192)] == [
+        [(0, True)], [(0, False), (64, True)],
+        [(0, False), (64, False), (128, True)],
+        [(0, False), (64, False), (128, False), (192, True)]]
+    assert fa.tile_plan(192, 223, True, 100) == [(64, True), (128, True), (192, True)]
+    assert fa.tile_plan(192, 223, False, None)[-1] == (192, True)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_dense_flattens_leading_dims(dtype):
     rng = np.random.default_rng(3)

@@ -67,6 +67,22 @@ def test_no_source_imports_jax_or_repro(path):
                 f"{path}:{node.lineno} imports {name}"
 
 
+def test_chip_smoke_last_line_names_the_card():
+    """The last line's ``device`` object reads the card's name and count
+    where it is printed, so no variable of the script can stand in for
+    them."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    devices = [n for n in ast.walk(tree) if isinstance(n, ast.Dict)
+               and any(isinstance(k, ast.Constant) and k.value == "platform"
+                       for k in n.keys)]
+    assert len(devices) == 1
+    fields = {k.value: ast.unparse(v) for k, v in zip(devices[0].keys,
+                                                      devices[0].values)}
+    assert fields == {"platform": "'gpu'",
+                      "kind": "torch.cuda.get_device_name(0)",
+                      "count": "torch.cuda.device_count()"}
+
+
 def test_engine_refuses_to_run_on_the_cpu_unasked():
     if torch.cuda.is_available():
         pytest.skip("this box has a card: the default device is usable")
