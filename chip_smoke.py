@@ -20,6 +20,9 @@ Phases, each of which raises on failure (nothing is caught):
      table1-card shapes and at ragged ones (softmax also on masked rows),
      in f32 and bf16; dotprod and dotprod_hier against an f64 sum, with
      dots that round to bf16 as controls that must fail the same check;
+     expv on every f32 bit pattern (2**32, in chunks of 2**28), every bf16
+     one and the round-half edges of its range reduction, the bits that
+     differ counted (``kernel_checks.sweep_expv``);
   4. the llama3-8b smoke model (f32, seeded weights): logits and greedy
      token streams of the kernel path on the card against the plain path
      on the CPU, for the dense engine and the paged engine (whole-prompt,
@@ -43,9 +46,10 @@ Phases, each of which raises on failure (nothing is caught):
      at every main-path M in both dtypes, and each matmul variant's host
      cost a call at K = N = 64; flash attention at S = 37, 223, 445 and 512
      with the device's ms a call beside SDPA's from one trace, and each
-     variant's host cost a call), the Table
-     I kernels at both configurations (at table1-paper also their device
-     time from a profiler trace).
+     variant's host cost a call), the Table I kernels at both
+     configurations (at table1-paper also their device time and the
+     library call's from profiler traces, and dotprod's and expv's host
+     cost a call in turns with torch.dot and torch.exp).
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.  Without a card,
 or without the repo's ``src/repro_torch`` beside it, it exits non-zero
@@ -139,17 +143,21 @@ def _trace(step, steps: int) -> dict:
 
 def _ptxas_summary(log: str) -> list:
     """nvcc's ``-Xptxas -v`` lines, one a kernel: its name (template
-    arguments kept), registers, spills, static shared memory, and any
-    ptxas performance notice (C75xx) beside it."""
+    arguments kept: dtype, head dim, vec or scalar loads), registers,
+    spills, static shared memory, and any ptxas performance notice (C75xx)
+    beside it."""
     import re
 
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?"
-                      r"_ZN\w*?(\d+)([a-z_]+kernel)I(\w+?)EEEv", line)
+                      r"_ZN\w*?(\d+)([a-z_]+kernel)I(\w+?)E+v", line)
         if m:
-            args = m.group(3).replace("13__nv_bfloat16", "bf16 ").replace("Li", "D=")
-            name = f"{m.group(2)}<{args.replace('fD=', 'f32 D=')}>"
+            args = (m.group(3).replace("13__nv_bfloat16", "bf16 ").replace("Li", "D=")
+                    .replace("Lb1", "vec").replace("Lb0", "scalar"))
+            if args.startswith("f"):
+                args = "f32 " + args[1:]
+            name = f"{m.group(2)}<{args.strip()}>"
         if name and ("spill" in line or "registers" in line):
             out.append(f"{name}: {line.replace('ptxas info    :', '').strip()}")
         if "C75" in line:
@@ -400,8 +408,9 @@ def _table1_times(kc, kred, kst, ref, time_ms, dev) -> dict:
     at both configurations, f32.  Bound: each input read once, each output
     written once; operations per element as counted in each line.  At
     table1-paper, where every operand sits in L2, the kernel's own device
-    time from a profiler trace too, to part the host's cost from the
-    card's."""
+    time and the library call's from profiler traces too, to part the
+    host's cost from the card's, and dotprod's and expv's host cost a call
+    in turns with the library's."""
     import torch
     import torch.nn.functional as F
 
@@ -414,11 +423,17 @@ def _table1_times(kc, kred, kst, ref, time_ms, dev) -> dict:
             t_k, t_p = time_ms(fk, it_k), time_ms(fp, it_p)
             t_l = time_ms(fl, it_k)
             bound, by = _ms_bound(nbytes, nops, "f32")
-            t_d, n_d = (float("nan"), 0) if card else _device_ms(fk, tag, 50)
+            if card:
+                t_d, n_d, t_ld = float("nan"), 0, float("nan")
+            else:
+                t_d, n_d = _device_ms(fk, tag, 50)
+                t_ld = _device_per_call(fl, 50)
             # the first shape of a kernel stands for it in the kernels line
-            rows.setdefault((kname, cname), (t_k, t_p, t_l, bound, by, shape, t_d))
-            device = "" if card else (f"; {tag} {t_d:.4f} ms of device time "
-                                      f"(mean of {n_d} in a trace of 50 calls)")
+            rows.setdefault((kname, cname),
+                            (t_k, t_p, t_l, bound, by, shape, t_d, t_ld))
+            device = "" if card else (f"; device: {tag} {t_d:.4f} ms (mean of "
+                                      f"{n_d} in a trace of 50 calls), {lib} "
+                                      f"{t_ld:.4f} ms a call")
             print(f"[time] {kname:12s} {cname:12s} {shape:34s} f32 kernel "
                   f"{t_k:.4f} ms  plain {t_p:.4f} ms  {lib} {t_l:.4f} ms  "
                   f"bound {bound:.3g} ms ({by}){device}")
@@ -456,7 +471,7 @@ def _table1_times(kc, kred, kst, ref, time_ms, dev) -> dict:
         del a, b
         x = kc.exp_inputs(n, torch.float32, dev)
         xc = x.clamp(-80, 80)
-        # clip 2, divide 1, round 1, 7 fused multiply-adds 14, ldexp 1, ~20
+        # clip 2, multiply 1, round 1, 7 fused multiply-adds 14, exponent 2
         row("expv", f"n={n}", lambda: kred.expv(x), lambda: ref.expv(x),
             lambda: torch.exp(xc), 8 * n, 20 * n, "torch.exp", "expv_kernel")
         del x, xc
@@ -468,6 +483,25 @@ def _table1_times(kc, kred, kst, ref, time_ms, dev) -> dict:
                 8 * R * Wd, 5 * R * Wd, "torch.softmax", "softmax_kernel")
             del x
         torch.cuda.empty_cache()
+    # dotprod's and expv's host cost a call: back-to-back calls at
+    # table1-paper, where the kernel takes a few us of device time, between
+    # events, in turns with the library call (kernel, library, library,
+    # kernel)
+    n = kc.TABLE1["table1-paper"]["dot"]
+    a, b = kc.vec_inputs(n, torch.float32, dev)
+    x = kc.exp_inputs(n, torch.float32, dev)
+    xc = x.clamp(-80, 80)
+    for kname, fk, lib, fl in (
+            ("dotprod", lambda: kred.dotprod(a, b), "torch.dot", lambda: torch.dot(a, b)),
+            ("expv", lambda: kred.expv(x), "torch.exp", lambda: torch.exp(xc))):
+        host = {"kernel": [], "library": []}
+        for turn, fn in (("kernel", fk), ("library", fl), ("library", fl),
+                         ("kernel", fk)):
+            host[turn].append(1e3 * time_ms(fn, 500))
+        rows[(kname, "host")] = host
+        print(f"[time] {kname} host cost n={n} f32, us a call in turns: kernel "
+              + " / ".join(f"{t:.1f}" for t in host["kernel"]) + f"; {lib} "
+              + " / ".join(f"{t:.1f}" for t in host["library"]))
     return rows
 
 
@@ -521,7 +555,7 @@ def main() -> int:
     print(f"[build] {', '.join(f'{n}.cu' for n in CUDA_LIBS)} -> "
           f"{_build.BUILD_DIR} in {now() - t0:.1f}s")
     for lib in CUDA_LIBS:
-        if lib == "flash_attention":        # each kernel by name
+        if lib in ("flash_attention", "reduction"):     # each kernel by name
             for line in _ptxas_summary(_build.BUILD_LOGS.get(lib, "")):
                 print(f"[build]   {lib}: {line}")
             continue
@@ -587,6 +621,15 @@ def main() -> int:
     # -- 3b. the paper's Table I kernels vs plain versions -------------------------
     t1_errs, t1_failed = _table1_checks(kc)
     failed += t1_failed
+    # expv on every f32 and bf16 bit pattern and at the round-half edges
+    t0 = now()
+    for what, r in kc.sweep_expv(kred.expv, ref.expv, dev).items():
+        print(f"[sweep] expv kernel vs plain, {what}: {r['n']} inputs, {r['differ']} "
+              f"differ in their bits, {r['nan_mismatch']} NaN on one side only, at "
+              f"most {r['ulps']} ulp apart: {'ok' if r['ok'] else 'FAIL'}")
+        if not r["ok"]:
+            failed.append(("expv sweep", what))
+    print(f"[sweep] in {now() - t0:.1f}s")
     if failed:
         raise AssertionError(f"kernels disagree with their plain versions: {failed}")
 
@@ -1045,8 +1088,8 @@ def main() -> int:
             ("fconv2d", ("fconv2d", kc.TABLE1["table1-card"]["conv"]),
              ("conv", kc.TABLE1["table1-card"]["conv"]), "stencil.cu",
              "src/repro/kernels/stencil.py:78")):
-        t_k, t_p, t_l, bound, by, shape, _ = t1_rows[(kname, "table1-card")]
-        p_k, p_p, p_l, p_bound, _, p_shape, p_d = t1_rows[(kname, "table1-paper")]
+        t_k, t_p, t_l, bound, by, shape, _, _ = t1_rows[(kname, "table1-card")]
+        p_k, p_p, p_l, p_bound, _, p_shape, p_d, p_ld = t1_rows[(kname, "table1-paper")]
         kernels.append({"name": kname, "route": "cuda",
                         "source": f"src/repro_torch/kernels/csrc/{source}",
                         "replaces": replaces, "launches": total[kname],
@@ -1057,7 +1100,11 @@ def main() -> int:
                         "library_ms": t_l, "shape": f"table1-card {shape},f32",
                         "table1_paper": {"shape": p_shape, "ms": p_k,
                                          "device_ms": p_d, "plain_ms": p_p,
-                                         "library_ms": p_l, "bound_ms": p_bound}})
+                                         "library_ms": p_l,
+                                         "library_device_ms": p_ld,
+                                         "bound_ms": p_bound}})
+        if (kname, "host") in t1_rows:
+            kernels[-1]["table1_paper"]["host_us"] = t1_rows[(kname, "host")]
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError(f"a kernel never launched on the main paths: {total}")
     print(json.dumps({"kernels": kernels}))

@@ -12,25 +12,40 @@
 // inputs once and writes its output once, doing a few operations (dot: 2,
 // exp: ~20, softmax: ~5) per 4-byte element against the card's ~20 f32
 // operations per byte.  So each streams: coalesced loads, 16-byte vectors
-// where the pointers allow it (dot and exp), enough blocks to fill 132 SMs,
-// 64-bit sizes and indices throughout, the ragged edge masked in the kernel.
+// where the pointers allow it (dot and exp), enough bytes in flight to
+// cover the memory's latency, 64-bit sizes and indices throughout, the
+// ragged edge masked in the kernel.  At the paper's sizes (4096 elements) a
+// call is a few microseconds of device time, so there the cost is the
+// launch: no work a launch does not need.
 //
 // dot: a grid has no order on the card, so nothing carries over between
 // blocks.  Each thread keeps an f32 partial over a grid-stride loop (fused
-// multiply-adds, in element order), the block reduces its threads' partials
-// (warp shuffles, then shared memory, in a fixed tree), and writes its own
-// partial; the segment's last block to finish (an atomic ticket) sums the
-// block partials in a fixed order.  Partial sums are never added
-// atomically, so a result is the same from run to run.  One launch a call.
-// A launch reduces `nseg` contiguous segments of `seg_len` elements at once
-// (blockIdx.y is the segment; elements past n count as zeros): dotprod is
-// one segment, dotprod_hier's C*L lanes are C*L segments.
+// multiply-adds, in element order), loading DOT_UNROLL 16-byte vectors of
+// each operand past L1 before it multiplies them; the block reduces its
+// threads' partials (warp shuffles, then shared memory, in a fixed tree).
+// A segment of one block (every dotprod up to 4096 elements) writes that
+// sum and is done.  In a segment of more blocks each writes its partial and
+// the last block to finish (an atomic ticket) sums the block partials in a
+// fixed order.  Partial sums are never added atomically, so a result is the
+// same from run to run.  The grid is at most DOT_MIN_BLOCKS blocks on each
+// of 132 SMs, which __launch_bounds__ makes resident at once (one wave).
+// One launch a call.  A launch reduces `nseg` contiguous segments of
+// `seg_len` elements at once (blockIdx.y is the segment; elements past n
+// count as zeros): dotprod is one segment, dotprod_hier's C*L lanes are C*L
+// segments.
 //
 // exp: the TPU kernel's polynomial, not expf, with its roundings made
-// explicit: the clip keeps a NaN (as jnp.clip), k = rintf(x / ln2) with an
-// IEEE division and round-half-even (jnp.round), r = fmaf(-k, ln2, x), six
-// Horner fmaf steps on f32 coefficients, ldexpf (exact), one rounding to
-// the output dtype.  Never built with --use_fast_math.
+// explicit: the clip keeps a NaN (as jnp.clip), k = rintf(x * (1/ln2)) with
+// the reciprocal rounded to f32 (XLA compiles the reference's x / ln2 so)
+// and round-half-even (jnp.round), r = fmaf(-k, ln2, x), six Horner fmaf
+// steps on f32 coefficients, k added to the exponent (exact, ldexpf's
+// bits), one rounding to the output dtype.  Never built with
+// --use_fast_math.  Loads and stores are 16-byte vectors and streaming
+// (evict first: the data passes through L2 once), one vector a thread and
+// a block for each EXP_THREADS vectors, which the block scheduler hands
+// out in address order.  On the H100 this streamed 2^28 elements faster
+// than a grid of only the resident blocks walking the vectors by grid
+// stride with four vectors a thread in flight.
 //
 // softmax: one block a row.  A row of up to RESIDENT_MAX elements is read
 // once into shared memory (f32) and kept there: max, exp(x - m), sum, e / d
@@ -47,11 +62,15 @@
 namespace {
 
 constexpr int DOT_THREADS = 256;
+constexpr int DOT_MIN_BLOCKS = 8;      // blocks an SM holds: 32 registers a thread at most
+constexpr int DOT_UNROLL = 2;          // 16-byte vectors of each operand a thread has in flight
+constexpr int DOT_MAX_SEGS = 65535;    // segments a launch takes (gridDim.y)
 constexpr int EXP_THREADS = 256;
 constexpr int SOFTMAX_THREADS_RESIDENT = 512;
 constexpr int SOFTMAX_THREADS_STREAM = 1024;
 constexpr int64_t RESIDENT_MAX = 32768;      // f32 row elements: 128 KB of shared memory
-constexpr float LN2 = 0x1.62e430p-1f;  // ln 2 rounded to f32
+constexpr float LN2 = 0x1.62e430p-1f;      // ln 2 rounded to f32
+constexpr float INV_LN2 = 0x1.715476p+0f;  // 1 / LN2 rounded to f32
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -67,11 +86,6 @@ template <typename T> struct alignas(16) Vec16 {
     static constexpr int N = 16 / sizeof(T);
     T v[N];
 };
-
-template <typename T>
-__device__ __forceinline__ Vec16<T> load16(const T* p) {  // p is 16-byte aligned
-    return *reinterpret_cast<const Vec16<T>*>(p);
-}
 
 // Reduce v over the block (blockDim.x a multiple of 32, at most 1024) and
 // give every thread the result.  The tree is fixed: xor shuffles within a
@@ -108,10 +122,26 @@ __device__ __forceinline__ float block_reduce(float v, float* red) {
 // dot product over nseg segments
 // ---------------------------------------------------------------------------
 
+// 16 bytes of a read-only input, past L1 (each byte is read once)
+__device__ __forceinline__ uint4 load16_nc(const void* p) {
+    uint4 v;
+    asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+        : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+        : "l"(p));
+    return v;
+}
+
+template <typename T>
+__device__ __forceinline__ Vec16<T> load16_dot(const T* p) {  // p is 16-byte aligned
+    Vec16<T> v;
+    *reinterpret_cast<uint4*>(&v) = load16_nc(p);
+    return v;
+}
+
 template <typename T, bool VEC>
-__global__ void __launch_bounds__(DOT_THREADS)
+__global__ void __launch_bounds__(DOT_THREADS, DOT_MIN_BLOCKS)
 dot_kernel(const T* __restrict__ a, const T* __restrict__ b, int64_t n, int64_t seg_len,
-           float* __restrict__ block_part, unsigned int* __restrict__ tickets,
+           unsigned int* __restrict__ tickets, float* __restrict__ block_part,
            float* __restrict__ out) {
     __shared__ float red[33];
     __shared__ bool last;
@@ -126,9 +156,25 @@ dot_kernel(const T* __restrict__ a, const T* __restrict__ b, int64_t n, int64_t 
         // lo is a multiple of the vector width (the wrapper's segments are)
         constexpr int V = Vec16<T>::N;
         const int64_t nvec = hi > lo ? (hi - lo) / V : 0;
-#pragma unroll 4
-        for (int64_t i = first; i < nvec; i += stride) {
-            const Vec16<T> x = load16(a + lo + i * V), y = load16(b + lo + i * V);
+        const T* pa = a + lo;
+        const T* pb = b + lo;
+        int64_t i = first;
+        // DOT_UNROLL vectors of each operand in flight, then their products
+        // in element order: the thread's chain is the same as one at a time
+        for (; i + (DOT_UNROLL - 1) * stride < nvec; i += DOT_UNROLL * stride) {
+            Vec16<T> x[DOT_UNROLL], y[DOT_UNROLL];
+#pragma unroll
+            for (int u = 0; u < DOT_UNROLL; ++u) {
+                x[u] = load16_dot(pa + (i + u * stride) * V);
+                y[u] = load16_dot(pb + (i + u * stride) * V);
+            }
+#pragma unroll
+            for (int u = 0; u < DOT_UNROLL; ++u)
+#pragma unroll
+                for (int k = 0; k < V; ++k) acc = fmaf(to_f32(x[u].v[k]), to_f32(y[u].v[k]), acc);
+        }
+        for (; i < nvec; i += stride) {
+            const Vec16<T> x = load16_dot(pa + i * V), y = load16_dot(pb + i * V);
 #pragma unroll
             for (int k = 0; k < V; ++k) acc = fmaf(to_f32(x.v[k]), to_f32(y.v[k]), acc);
         }
@@ -139,6 +185,10 @@ dot_kernel(const T* __restrict__ a, const T* __restrict__ b, int64_t n, int64_t 
             acc = fmaf(to_f32(a[i]), to_f32(b[i]), acc);
     }
     acc = block_reduce<false>(acc, red);
+    if (bps == 1) {                                // the block's sum is the segment's
+        if (threadIdx.x == 0) out[seg] = acc;
+        return;
+    }
     if (threadIdx.x == 0) {
         block_part[seg * bps + blockIdx.x] = acc;
         __threadfence();                           // the partial is visible before the ticket
@@ -158,19 +208,20 @@ dot_kernel(const T* __restrict__ a, const T* __restrict__ b, int64_t n, int64_t 
 }
 
 template <typename T>
-int launch_dot(const void* a, const void* b, int64_t n, int64_t seg_len, int nseg, int bps,
-               int vec, void* ticket_work, void* part_work, void* out, cudaStream_t s) {
-    auto* tickets = static_cast<unsigned int*>(ticket_work);
-    auto* part = static_cast<float*>(part_work);
+void launch_dot(const void* a, const void* b, int64_t n, int64_t seg_len, int nseg, int bps,
+                void* work, void* out, cudaStream_t s) {
+    auto* tickets = static_cast<unsigned int*>(work);
+    float* part = reinterpret_cast<float*>(tickets + DOT_MAX_SEGS);
     const dim3 grid(bps, nseg);
     const T* pa = static_cast<const T*>(a);
     const T* pb = static_cast<const T*>(b);
     float* po = static_cast<float*>(out);
+    const bool vec = (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) % 16 == 0
+                     && seg_len % Vec16<T>::N == 0;
     if (vec)
-        dot_kernel<T, true><<<grid, DOT_THREADS, 0, s>>>(pa, pb, n, seg_len, part, tickets, po);
+        dot_kernel<T, true><<<grid, DOT_THREADS, 0, s>>>(pa, pb, n, seg_len, tickets, part, po);
     else
-        dot_kernel<T, false><<<grid, DOT_THREADS, 0, s>>>(pa, pb, n, seg_len, part, tickets, po);
-    return 0;
+        dot_kernel<T, false><<<grid, DOT_THREADS, 0, s>>>(pa, pb, n, seg_len, tickets, part, po);
 }
 
 // ---------------------------------------------------------------------------
@@ -179,7 +230,9 @@ int launch_dot(const void* a, const void* b, int64_t n, int64_t seg_len, int nse
 
 __device__ __forceinline__ float exp_poly(float x) {
     x = x < -80.f ? -80.f : (x > 80.f ? 80.f : x);   // a NaN stays a NaN
-    const float k = rintf(__fdiv_rn(x, LN2));        // round half to even
+    // x / ln2 as XLA computes it: the product by the f32 reciprocal, rounded
+    // once; then round half to even
+    const float k = rintf(x * INV_LN2);
     const float r = fmaf(-k, LN2, x);
     // 1/720, 1/120, 1/24, 1/6, 1/2, 1, 1 rounded to f32
     float p = 0x1.6c16c2p-10f;
@@ -189,41 +242,66 @@ __device__ __forceinline__ float exp_poly(float x) {
     p = fmaf(p, r, 0.5f);
     p = fmaf(p, r, 1.f);
     p = fmaf(p, r, 1.f);
-    return ldexpf(p, static_cast<int>(k));
+    // 2^k * p by adding k to p's exponent: p lies in [0.7, 1.5) and |k| <=
+    // 116, so the result is a normal f32 and the sum exact (ldexpf's bits);
+    // a NaN's k converts to 0 and leaves the NaN
+    return __int_as_float(__float_as_int(p) + __float2int_rz(k) * (1 << 23));
 }
 
+// 16 bytes loaded and stored streaming (evict first); p is 16-byte aligned
+template <typename T>
+__device__ __forceinline__ Vec16<T> load16_cs(const T* p) {
+    Vec16<T> v;
+    *reinterpret_cast<float4*>(&v) = __ldcs(reinterpret_cast<const float4*>(p));
+    return v;
+}
+
+template <typename T>
+__device__ __forceinline__ void store16_cs(T* p, const Vec16<T>& v) {
+    __stcs(reinterpret_cast<float4*>(p), *reinterpret_cast<const float4*>(&v));
+}
+
+// One 16-byte vector a thread, neighbouring threads on neighbouring
+// vectors, a block for each EXP_THREADS of them; the grid walks on by grid
+// stride only past the grid's limit.
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(EXP_THREADS)
 expv_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n) {
     const int64_t stride = static_cast<int64_t>(gridDim.x) * EXP_THREADS;
     const int64_t first = static_cast<int64_t>(blockIdx.x) * EXP_THREADS + threadIdx.x;
-    int64_t done = 0;
     if (VEC) {
         constexpr int V = Vec16<T>::N;
         const int64_t nvec = n / V;
-        for (int64_t i = first; i < nvec; i += stride) {
-            Vec16<T> v = load16(x + i * V);
+        for (int64_t c = first; c < nvec; c += stride) {
+            Vec16<T> v = load16_cs(x + c * V);
 #pragma unroll
             for (int k = 0; k < V; ++k) v.v[k] = from_f32<T>(exp_poly(to_f32(v.v[k])));
-            *reinterpret_cast<Vec16<T>*>(y + i * V) = v;
+            store16_cs(y + c * V, v);
         }
-        done = nvec * V;
+        // the < V elements past the last whole vector, in block 0
+        const int64_t t = nvec * V + threadIdx.x;
+        if (blockIdx.x == 0 && t < n) y[t] = from_f32<T>(exp_poly(to_f32(x[t])));
+    } else {
+        for (int64_t i = first; i < n; i += stride) y[i] = from_f32<T>(exp_poly(to_f32(x[i])));
     }
-    for (int64_t i = done + first; i < n; i += stride) y[i] = from_f32<T>(exp_poly(to_f32(x[i])));
+}
+
+template <typename T, bool VEC>
+void launch_expv_as(const T* x, T* y, int64_t n, cudaStream_t s) {
+    const int64_t per_block = VEC ? static_cast<int64_t>(EXP_THREADS) * Vec16<T>::N : EXP_THREADS;
+    int64_t blocks = (n + per_block - 1) / per_block;
+    if (blocks > (1LL << 31) - 1) blocks = (1LL << 31) - 1;   // the grid's limit
+    expv_kernel<T, VEC><<<static_cast<unsigned>(blocks), EXP_THREADS, 0, s>>>(x, y, n);
 }
 
 template <typename T>
-int launch_expv(const void* x, void* y, int64_t n, int vec, cudaStream_t s) {
-    const int64_t per_block = static_cast<int64_t>(EXP_THREADS) * (vec ? Vec16<T>::N : 1);
-    int64_t blocks = (n + per_block - 1) / per_block;
-    if (blocks > 132 * 16) blocks = 132 * 16;        // 16 blocks an SM, then grid-stride
+void launch_expv(const void* x, void* y, int64_t n, cudaStream_t s) {
     const T* px = static_cast<const T*>(x);
     T* py = static_cast<T*>(y);
-    if (vec)
-        expv_kernel<T, true><<<static_cast<unsigned>(blocks), EXP_THREADS, 0, s>>>(px, py, n);
+    if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16 == 0)
+        launch_expv_as<T, true>(px, py, n, s);
     else
-        expv_kernel<T, false><<<static_cast<unsigned>(blocks), EXP_THREADS, 0, s>>>(px, py, n);
-    return 0;
+        launch_expv_as<T, false>(px, py, n, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -294,32 +372,34 @@ int launch_softmax(const void* x, void* y, int64_t R, int64_t W, cudaStream_t s)
 // Each returns cudaGetLastError() after the launch (0 = success).
 
 // out[s] = sum of a[i]*b[i] over i in [s*seg_len, (s+1)*seg_len) and i < n,
-// for s < nseg, in f32.  bps blocks a segment; tickets holds nseg zeroed
-// uint32 counters, which the launch leaves at zero again, and part room
-// for nseg*bps floats.  vec != 0: a and b 16-byte aligned and seg_len a
-// multiple of 8.
+// for s < nseg, in f32; seg_len a multiple of 8.  bps blocks a segment.
+// work holds DOT_MAX_SEGS zeroed uint32 tickets, which the launch leaves at
+// zero again, then room for DOT_MAX_SEGS floats (nseg*bps block partials).
+// 16-byte vectors where a and b are 16-byte aligned.
 extern "C" int repro_dot(const void* a, const void* b, int64_t n, int64_t seg_len, int nseg,
-                         int bps, int vec, void* tickets, void* part, void* out, int dtype,
-                         void* stream) {
+                         int bps, void* work, void* out, int dtype, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (nseg <= 0 || bps <= 0 || nseg > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    if (nseg <= 0 || bps <= 0 || nseg > DOT_MAX_SEGS ||
+        (bps > 1 && static_cast<int64_t>(nseg) * bps > DOT_MAX_SEGS))
+        return static_cast<int>(cudaErrorInvalidValue);
     if (dtype == 0)
-        launch_dot<float>(a, b, n, seg_len, nseg, bps, vec, tickets, part, out, s);
+        launch_dot<float>(a, b, n, seg_len, nseg, bps, work, out, s);
     else if (dtype == 1)
-        launch_dot<__nv_bfloat16>(a, b, n, seg_len, nseg, bps, vec, tickets, part, out, s);
+        launch_dot<__nv_bfloat16>(a, b, n, seg_len, nseg, bps, work, out, s);
     else
         return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(cudaGetLastError());
 }
 
-// y = the TPU kernel's exp of x, n elements; vec != 0: x and y 16-byte aligned.
-extern "C" int repro_expv(const void* x, void* y, int64_t n, int vec, int dtype, void* stream) {
+// y = the TPU kernel's exp of x, n elements; 16-byte vectors where x and y
+// are 16-byte aligned.
+extern "C" int repro_expv(const void* x, void* y, int64_t n, int dtype, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (n > 0) {
         if (dtype == 0)
-            launch_expv<float>(x, y, n, vec, s);
+            launch_expv<float>(x, y, n, s);
         else if (dtype == 1)
-            launch_expv<__nv_bfloat16>(x, y, n, vec, s);
+            launch_expv<__nv_bfloat16>(x, y, n, s);
         else
             return static_cast<int>(cudaErrorInvalidValue);
     }

@@ -28,7 +28,7 @@ import ctypes
 import torch
 
 from . import _build
-from .launches import LAUNCHES
+from .launches import LAUNCHES, refuse_autograd
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
@@ -79,14 +79,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Launch the kernel on the current stream; raises on what it does not
     take."""
     ts = (q, k, v)
+    refuse_autograd("flash_attention", *ts)
     if not all(t.is_cuda and t.device == q.device for t in ts):
         raise ValueError(f"flash_attention kernel needs q, k, v on one CUDA "
                          f"device, got {[str(t.device) for t in ts]}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes f32 or bf16 q, k, v of "
                         f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise RuntimeError("flash_attention kernel has no backward yet")
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention kernel needs q (B, Hq, S, D) and k/v "
                          f"(B, Hkv, Sk, D), got {tuple(q.shape)}, "

@@ -27,7 +27,7 @@ import math
 import torch
 
 from . import _build
-from .launches import LAUNCHES
+from .launches import LAUNCHES, refuse_autograd
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = {"simt": 0, "decode": 1, "wgmma": 2}
@@ -160,7 +160,9 @@ def _launch(a, b, c, kind: str, idx: int) -> int:
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launch the kernel on the current stream; raises on what it does not
-    take (a CPU tensor, another dtype, a non-contiguous operand)."""
+    take (a CPU tensor, another dtype, a non-contiguous operand, an
+    operand autograd would have to differentiate)."""
+    refuse_autograd("matmul", a, b)
     if not (a.is_cuda and b.is_cuda and a.device == b.device):
         raise ValueError(f"matmul kernel needs both operands on one CUDA "
                          f"device, got {a.device} and {b.device}")

@@ -15,7 +15,7 @@ import ctypes
 import torch
 
 from . import _build
-from .launches import LAUNCHES
+from .launches import LAUNCHES, refuse_autograd
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FN = None
@@ -57,6 +57,7 @@ def paged_attention(q: torch.Tensor, kpool: torch.Tensor, vpool: torch.Tensor,
     take.  Table entries must index the pool: they are not checked, since
     that would read them back from the card."""
     ts = (q, kpool, vpool, tables, lens)
+    refuse_autograd("paged_attention", *ts)
     if not all(t.is_cuda and t.device == q.device for t in ts):
         raise ValueError(f"paged_attention kernel needs every operand on one "
                          f"CUDA device, got {[str(t.device) for t in ts]}")

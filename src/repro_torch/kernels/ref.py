@@ -112,6 +112,9 @@ def lane_dots(a: torch.Tensor, b: torch.Tensor, seg_len: int, nseg: int
 
 
 LN2_F32 = 0.693147182464599609375          # ln 2 rounded to f32
+#: 1 / LN2_F32 rounded to f32 (0x1.715476p+0): XLA compiles the reference's
+#: ``x / ln2`` as the product by this reciprocal
+INV_LN2_F32 = 1.44269502162933349609375
 #: degree-6 Taylor coefficients of e^r, highest first (the TPU kernel's
 #: ``_EXP_COEFFS``), each rounded to f32 as the kernel uses them
 EXP_COEFFS = tuple(float(torch.tensor(c, dtype=torch.float32))
@@ -128,12 +131,13 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
 
 def expv(x: torch.Tensor) -> torch.Tensor:
     """exp(x) as the TPU kernel computes it (``_exp_poly``): clip to
-    [-80, 80], ``k = round_half_even(x / ln2)``, ``r = fma(-k, ln2, x)``, six
-    Horner steps ``p = fma(p, r, c)``, ``2**k * p``; f32 math, the result
-    rounded once to x's dtype.  Not ``torch.exp``: this is the polynomial."""
+    [-80, 80], ``k = round_half_even(x / ln2)`` with the quotient as XLA
+    forms it (``x * INV_LN2_F32``, rounded once), ``r = fma(-k, ln2, x)``,
+    six Horner steps ``p = fma(p, r, c)``, ``2**k * p``; f32 math, the
+    result rounded once to x's dtype.  Not ``torch.exp``: this is the
+    polynomial."""
     xf = torch.clamp(x.float(), -80.0, 80.0)
-    # a full tensor divisor: a scalar one may become a multiply by 1/ln2
-    k = torch.round(xf / torch.full_like(xf, LN2_F32))
+    k = torch.round(xf * INV_LN2_F32)
     r = _fma(-k, torch.full_like(k, LN2_F32), xf.double())
     p = torch.full_like(r, EXP_COEFFS[0])
     for c in EXP_COEFFS[1:]:

@@ -22,7 +22,7 @@ import os
 import torch
 
 from . import _build
-from .launches import LAUNCHES
+from .launches import LAUNCHES, refuse_autograd
 
 _KERNEL = None
 
@@ -53,6 +53,7 @@ def _kernel():
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
     """Launch on the current stream; raises on what the kernel does not
     take."""
+    refuse_autograd("rmsnorm", x, gamma)
     if not (x.is_cuda and gamma.is_cuda and x.device == gamma.device):
         raise ValueError(f"rmsnorm kernel needs x and gamma on one CUDA "
                          f"device, got {x.device} and {gamma.device}")

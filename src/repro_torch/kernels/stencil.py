@@ -12,7 +12,7 @@ import ctypes
 import torch
 
 from . import _build
-from .launches import LAUNCHES
+from .launches import LAUNCHES, refuse_autograd
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FNS: dict = {}
@@ -50,6 +50,7 @@ def _raise_on(err: int, name: str) -> None:
 def jacobi2d(x: torch.Tensor) -> torch.Tensor:
     """One Jacobi sweep of x (H, W) with a zero boundary -> (H, W); one
     launch, none for an empty grid."""
+    refuse_autograd("jacobi2d", x)
     _check("jacobi2d", x)
     H, W = x.shape
     if H > MAX_ROWS:
@@ -71,6 +72,7 @@ def fconv2d(x: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
     """Valid cross-correlation of x (H + fr - 1, W + fc - 1) with filt
     (fr, fc), fr and fc at most ``MAX_TAPS``: (H, W) in x's dtype, f32
     accumulation; one launch, none for an empty output."""
+    refuse_autograd("fconv2d", x, filt)
     _check("fconv2d", x)
     if filt.ndim != 2 or filt.device != x.device:
         raise ValueError(f"fconv2d kernel needs an (fr, fc) filter on {x.device}, "

@@ -44,7 +44,7 @@ def main(argv: list | None = None) -> int:
     print(f"smoke rc={smoke.returncode}")
     lines = (out / "smoke.txt").read_text().splitlines()
     for ln in lines[:-2]:
-        if ln.startswith(("[table1]", "[time]", "[build]")):
+        if ln.startswith(("[table1]", "[sweep]", "[time]", "[build]")):
             print(ln[:400])
     print("\n".join(ln[:400] for ln in lines[-2:]))
     print("\n".join((out / "smoke.err").read_text().splitlines()[-5:]))

@@ -37,7 +37,9 @@ The paper's Table I kernels, at the shapes of two configurations
   * expv: the same f32 operations, each rounded once (the plain version
     emulates every fused multiply-add in f64), so at most one ulp of the
     output dtype apart, and 0 is expected; inputs span +-100 to reach the
-    clip;
+    clip.  ``sweep_expv`` holds the kernel to the same rule on every f32
+    and bf16 bit pattern (a NaN where the plain version gives one) and on
+    ``expv_edge_inputs``, the inputs where k = round(x / ln2) turns;
   * fconv2d: each side sums fr*fc taps in one order, the kernel by fused
     multiply-adds, the plain version by a product and an add, so each is
     within (fr*fc + 1) * 2**-24 * sum|f x| of the exact sum and the two
@@ -370,6 +372,78 @@ def compare_expv(got, want) -> dict:
 def check_expv(n, dtype, device="cuda") -> dict:
     x = exp_inputs(n, dtype, device)
     return compare_expv(_red.expv(x), ref.expv(x))
+
+
+#: the round-half edges of expv's range reduction, where k = round(x / ln2)
+#: turns from n to n + 1: the f32 values within EXPV_EDGE_ULPS ulps of
+#: (n + 1/2) ln 2 for every n in [-116, 116] (those past +-80 clip), then
+#: +-80, +-inf and NaN
+EXPV_EDGE_ULPS = 64
+EXPV_EDGE_N = range(-116, 117)
+
+
+def expv_edge_inputs(device="cuda") -> torch.Tensor:
+    centre = torch.tensor([(n + 0.5) * math.log(2) for n in EXPV_EDGE_N],
+                          dtype=torch.float32)
+    steps = torch.arange(-EXPV_EDGE_ULPS, EXPV_EDGE_ULPS + 1, dtype=torch.int32)
+    near = (centre.view(torch.int32)[:, None] + steps).reshape(-1).view(torch.float32)
+    ends = torch.tensor([80.0, -80.0, math.inf, -math.inf, math.nan])
+    return torch.cat([near, ends]).to(device)
+
+
+def bit_diff(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Two f32 or bf16 tensors of positive values or NaNs, element by
+    element: ``differ``, the elements whose bits differ (a NaN counts as
+    equal to a NaN); ``nan_mismatch``, those a NaN on one side only;
+    ``ulps``, the largest distance in ulps of the dtype over the others.
+    ``ok`` is ``compare_expv``'s rule: at most one ulp, NaN where NaN."""
+    if got.is_cuda:
+        torch.cuda.synchronize()
+    itype = torch.int32 if got.dtype == torch.float32 else torch.int16
+    g, w = got.view(itype), want.view(itype)
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    res = {"n": got.numel(),
+           "differ": int(((g != w) & ~(nan_g & nan_w)).sum()),
+           "nan_mismatch": int((nan_g != nan_w).sum())}
+    dist = torch.where(nan_g | nan_w, 0, (g.long() - w.long()).abs())
+    res["ulps"] = int(dist.max()) if dist.numel() else 0
+    res["ok"] = (got.shape == want.shape and got.dtype == want.dtype
+                 and res["nan_mismatch"] == 0 and res["ulps"] <= 1)
+    return res
+
+
+def _merge(acc: dict, r: dict) -> dict:
+    if not acc:
+        return dict(r)
+    return {"n": acc["n"] + r["n"], "differ": acc["differ"] + r["differ"],
+            "nan_mismatch": acc["nan_mismatch"] + r["nan_mismatch"],
+            "ulps": max(acc["ulps"], r["ulps"]), "ok": acc["ok"] and r["ok"]}
+
+
+def f32_patterns(lo: int, count: int, device="cuda") -> torch.Tensor:
+    """The f32 values of the ``count`` int32 bit patterns from ``lo``."""
+    return (torch.arange(lo, lo + count, dtype=torch.int64, device=device)
+            .to(torch.int32).view(torch.float32))
+
+
+def bf16_patterns(device="cuda") -> torch.Tensor:
+    """All 65,536 bf16 bit patterns."""
+    return (torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32, device=device)
+            .to(torch.int16).view(torch.bfloat16))
+
+
+def sweep_expv(run, want, device="cuda", chunk: int = 2 ** 28) -> dict:
+    """``run`` against ``want`` (each an expv) on every f32 bit pattern,
+    ``chunk`` at a time, on every bf16 one and on ``expv_edge_inputs``:
+    ``bit_diff`` of each."""
+    f32 = {}
+    for lo in range(-2 ** 31, 2 ** 31, chunk):
+        x = f32_patterns(lo, chunk, device)
+        f32 = _merge(f32, bit_diff(run(x), want(x)))
+        del x
+    x, edges = bf16_patterns(device), expv_edge_inputs(device)
+    return {"f32": f32, "bf16": bit_diff(run(x), want(x)),
+            "f32 round-half edges": bit_diff(run(edges), want(edges))}
 
 
 def dot_chain(n) -> int:

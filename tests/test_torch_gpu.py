@@ -292,14 +292,89 @@ def test_dot_workspace_is_kept_and_left_zeroed(cuda):
     tickets at zero, whatever its segments, so the next needs no fill."""
     a, b = kc.vec_inputs(70000, torch.float32, cuda)
     reduction.dotprod(a, b)
-    key = (a.device, torch.cuda.current_stream(a.device).cuda_stream)
+    idx = a.get_device()
+    key = (idx, torch._C._cuda_getCurrentRawStream(idx))
     work = reduction._DOT_WORK[key]
+    assert work[1] == work[0].data_ptr()
     for C, L in ((16, 4), (3, 5), (1, 1)):
         reduction.dotprod_hier(a, b, C=C, L=L)
     reduction.dotprod(a[:4099], b[:4099])
     torch.cuda.synchronize()
     assert reduction._DOT_WORK[key] is work
-    assert not work[:reduction.DOT_MAX_SEGS].any()
+    assert not work[0][:reduction.DOT_MAX_SEGS].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,C,L", [(16, 1, 1), (100, 1, 1), (4093, 1, 1),
+                                   (4096, 1, 1), (4096, 16, 4), (5000, 3, 5)],
+                         ids=str)
+def test_one_block_dot_segments(cuda, n, C, L, dtype):
+    """Segments of one block (every dotprod up to 4096 elements, and
+    dotprod_hier's lanes at the paper's size) write their block's sum with
+    no ticket: the same bits every call, also after other shapes, exact on
+    {-1, 0, 1} inputs, and within the f64 bound at their chain."""
+    if C * L == 1:
+        seg, run = max(8, -(-n // 8) * 8), reduction.dotprod
+        chain = kc.dot_chain(n)
+    else:
+        seg = reduction.lane_len(n, C, L)
+        run = lambda a, b: reduction.dotprod_hier(a, b, C=C, L=L)
+        chain = kc.hier_chain(n, C, L)
+    assert reduction.dot_blocks(seg, C * L) == 1
+    a, b = kc.vec_inputs(n, dtype, cuda)
+    first = run(a, b)
+    reduction.dotprod(*kc.vec_inputs(70000, dtype, cuda, seed=2))
+    res = kc.compare_dot(first, run(a, b), a, b, chain)
+    assert res["ok"], res
+    sa, sb = kc.sign_inputs(n, dtype, cuda)
+    assert run(sa, sb).item() == (sa.double() * sb.double()).sum().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_expv_kernel_equals_plain_at_the_round_half_edges(cuda, dtype):
+    x = kc.expv_edge_inputs(cuda).to(dtype)
+    res = kc.bit_diff(reduction.expv(x), ref.expv(x))
+    assert res["ok"] and res["differ"] == 0, res
+
+
+WRAPPER_CALLS = {
+    "matmul": lambda t, d: matmul.matmul(t(2, 8), torch.ones(8, 8, device=d)),
+    "rmsnorm": lambda t, d: rmsnorm.rmsnorm(t(2, 8), torch.ones(8, device=d), 1e-6),
+    "flash_attention": lambda t, d: flash_attention.flash_attention(
+        t(1, 2, 4, 16), torch.ones(1, 2, 4, 16, device=d),
+        torch.ones(1, 2, 4, 16, device=d)),
+    "paged_attention": lambda t, d: paged_attention.paged_attention(
+        t(2, 1, 2, 16), torch.zeros(1, 3, 8, 16, device=d),
+        torch.zeros(1, 3, 8, 16, device=d),
+        torch.zeros(2, 2, dtype=torch.int32, device=d),
+        torch.ones(2, dtype=torch.int32, device=d)),
+    "dotprod": lambda t, d: reduction.dotprod(t(64), torch.ones(64, device=d)),
+    "dotprod_hier": lambda t, d: reduction.lane_partials(
+        t(64), torch.ones(64, device=d), C=2, L=2),
+    "expv": lambda t, d: reduction.expv(t(64)),
+    "softmax_rows": lambda t, d: reduction.softmax_rows(t(2, 8)),
+    "jacobi2d": lambda t, d: stencil.jacobi2d(t(4, 4)),
+    "fconv2d": lambda t, d: stencil.fconv2d(t(6, 6), torch.ones(3, 3, device=d)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", list(WRAPPER_CALLS))
+def test_every_kernel_refuses_a_call_autograd_would_differentiate(cuda, kernel):
+    """A trainable CUDA input raises "no backward" and nothing launches; the
+    same call under no_grad launches once."""
+    counter = "dotprod" if kernel == "dotprod_hier" else kernel
+    trainable = lambda *shape: torch.ones(*shape, device=cuda, requires_grad=True)
+    launches.reset()
+    with pytest.raises(RuntimeError, match="no backward"):
+        WRAPPER_CALLS[kernel](trainable, cuda)
+    assert not any(launches.LAUNCHES.values())
+    with torch.no_grad():
+        WRAPPER_CALLS[kernel](trainable, cuda)
+    torch.cuda.synchronize()
+    assert launches.LAUNCHES == {**{k: 0 for k in launches.LAUNCHES}, counter: 1}
 
 
 @pytest.mark.gpu

@@ -26,6 +26,8 @@ Tolerances, each with its reason:
     rtol 1e-5, atol 1e-6 (the JAX test's), and rows summing to 1 within
     1e-5; masked (-inf) elements give 0 on both sides.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -171,6 +173,84 @@ def test_expv_equals_pallas_bit_for_bit_f32():
     got = ops.expv(torch.from_numpy(x))
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+def test_expv_equals_pallas_bit_for_bit_at_the_round_half_edges():
+    """Within 64 ulps of (n + 1/2) ln 2 for every n in [-116, 116], where
+    k = round(x / ln2) turns, and at +-80, +-inf and NaN.  The reference's
+    x / ln2 is compiled by XLA as a product with the f32 reciprocal; an
+    IEEE quotient rounds 34 of these inputs to the other k, 2-3 ulps off."""
+    x = kc.expv_edge_inputs("cpu").numpy()
+    want = np.asarray(jops.expv(jnp.asarray(x), use_pallas=True))
+    got = ops.expv(torch.from_numpy(x)).numpy()
+    nan = np.isnan(x)
+    assert nan.sum() == 1 and np.isnan(want[nan]).all() and np.isnan(got[nan]).all()
+    np.testing.assert_array_equal(_bits(got[~nan]), _bits(want[~nan]))
+
+
+# case: (ulps added to element 1, a NaN in `got` at element 2;
+#        then differ, nan_mismatch, ulps, ok as bit_diff should read them)
+_BIT_DIFF_CASES = {
+    "same": (0, False, 0, 0, 0, True),
+    "one ulp": (1, False, 1, 0, 1, True),
+    "two ulps": (2, False, 1, 0, 2, False),
+    "nan on one side": (0, True, 1, 1, 0, False),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(_BIT_DIFF_CASES))
+def test_bit_diff_reads_the_sweep_rule(case, dtype):
+    """``kernel_checks.bit_diff``, which the sweep of every expv input
+    reads: a NaN equals a NaN, a NaN on one side only fails, one ulp
+    passes and two fail."""
+    step, nan_one_side, differ, nan_mismatch, ulps, ok = _BIT_DIFF_CASES[case]
+    want = torch.tensor([1.0, 2.5, 3.0, math.nan], dtype=dtype)
+    got = want.clone()
+    got.view(torch.int32 if dtype == torch.float32 else torch.int16)[1] += step
+    if nan_one_side:
+        got[2] = math.nan
+    r = kc.bit_diff(got, want)
+    assert (r["n"], r["differ"], r["nan_mismatch"], r["ulps"], r["ok"]) == (
+        4, differ, nan_mismatch, ulps, ok)
+
+
+def _dot_chain_pr15(seg_len: int, nseg: int = 1) -> int:
+    """The dot chain as the kernel before the one-block path counted it:
+    every segment paid the last block's pass."""
+    want = max(1, math.ceil(seg_len / (256 * 16)))
+    bps = min(want, max(1, 132 * 8 // nseg))
+    per_thread = math.ceil(seg_len / (bps * 256 * 8)) * 8 + 1
+    return per_thread + 10 + math.ceil(bps / 256) + 10
+
+
+# every dotprod length and (n, C, L) that the checks use: TABLE1, RAGGED,
+# the gpu tests and this file's
+DOT_NS = sorted({cfg["dot"] for cfg in kc.TABLE1.values()} | set(kc.RAGGED["dot"])
+                | {8, 16, 100, 4099, 4100, 5000, 16384, 8 * 2048 * 3, 2 ** 16, 70000})
+HIER_NLC = sorted({(cfg["dot"], C, L) for cfg in kc.TABLE1.values()
+                   for C, L in cfg["hier"]}
+                  | {(4099, 16, 4), (5000, 3, 5), (70000, 8, 8), (100, 4, 2),
+                     (4096, 16, 4)})
+
+
+@pytest.mark.parametrize("n", DOT_NS)
+def test_dot_chain_is_no_longer_than_before(n):
+    """The bound ``compare_dot`` holds a dot to grows with the chain: it
+    must not loosen.  One-block segments lose the last block's pass."""
+    seg = max(8, -(-n // 8) * 8)
+    assert kc.dot_chain(n) <= _dot_chain_pr15(seg)
+    if reduction.dot_blocks(seg) == 1:
+        assert kc.dot_chain(n) == _dot_chain_pr15(seg) - 11
+    else:
+        assert kc.dot_chain(n) == _dot_chain_pr15(seg)
+
+
+@pytest.mark.parametrize("n,C,L", HIER_NLC)
+def test_hier_chain_is_no_longer_than_before(n, C, L):
+    S = reduction.lane_len(n, C, L)
+    old = _dot_chain_pr15(S, C * L) + 2 * (C * L).bit_length()
+    assert kc.hier_chain(n, C, L) <= old
 
 
 def test_expv_bf16_within_one_ulp_of_pallas():
