@@ -6,9 +6,9 @@
 Phases, each of which raises on failure (nothing is caught):
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: the CUDA libraries (matmul, flash_attention, paged_attention,
-     reduction, stencil; one nvcc each, all at once, sm_90a) and the Triton
-     rmsnorm; ptxas's registers and spills (for flash_attention by kernel,
-     with any wgmma serialisation notice);
+     reduction, stencil, rmsnorm; one nvcc each, all at once, sm_90a);
+     ptxas's registers and spills (for flash_attention, reduction and
+     rmsnorm by kernel, with any wgmma serialisation notice);
   3. each kernel against its plain PyTorch version on the card, element by
      element, at the llama3-8b serving shapes, in bf16 and f32 (the matmul
      at every main-path M, 1 to 512, and at ragged shapes; flash attention
@@ -17,7 +17,8 @@ Phases, each of which raises on failure (nothing is caught):
      line naming the kernel variant it took);
   3b. the paper's Table I kernels (dotprod, expv, softmax_rows, jacobi2d,
      fconv2d) against their plain versions at the table1-paper and
-     table1-card shapes and at ragged ones (softmax also on masked rows),
+     table1-card shapes and at ragged ones (softmax also on masked rows,
+     each line naming the branch of ``reduction.softmax_plan`` it took),
      in f32 and bf16; dotprod and dotprod_hier against an f64 sum, with
      dots that round to bf16 as controls that must fail the same check;
      expv on every f32 bit pattern (2**32, in chunks of 2**28), every bf16
@@ -42,14 +43,17 @@ Phases, each of which raises on failure (nothing is caught):
      configurations (f32), outputs held against the plain versions, launch
      counts checked;
   6. kernel times (CUDA events) beside the plain version, the one PyTorch
-     call that computes the same function, and the card's bound (the matmul
+     call that computes the same function, and the card's bound (rmsnorm at
+     every main-path R in both dtypes, with its device ms a call beside
+     F.rms_norm's from one trace and its host cost a call in turns; the matmul
      at every main-path M in both dtypes, and each matmul variant's host
      cost a call at K = N = 64; flash attention at S = 37, 223, 445 and 512
      with the device's ms a call beside SDPA's from one trace, and each
      variant's host cost a call), the Table I kernels at both
      configurations (at table1-paper also their device time and the
-     library call's from profiler traces, and dotprod's and expv's host
-     cost a call in turns with torch.dot and torch.exp).
+     library call's from profiler traces, and dotprod's, expv's and
+     softmax_rows' host cost a call in turns with torch.dot, torch.exp and
+     torch.softmax).
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.  Without a card,
 or without the repo's ``src/repro_torch`` beside it, it exits non-zero
@@ -70,7 +74,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # operations/s by type (bf16 on the tensor cores, f32 on the CUDA cores)
 HBM_BYTES_S = 3.35e12
 CUDA_LIBS = ("matmul", "flash_attention", "paged_attention", "reduction",
-             "stencil")
+             "stencil", "rmsnorm")
 # open-loop arrival rate of the paged serve phase (requests / second)
 PAGED_RATE = 1.5
 PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12}
@@ -86,10 +90,13 @@ def _ms_bound(nbytes: float, nops: float, kind: str) -> tuple[float, str]:
 # kernels.flash_attention.variant)
 PORT_KERNELS = {"matmul decode": "matmul_decode_kernel",
                 "matmul wgmma": "matmul_wgmma_kernel",
-                "matmul simt": "matmul_kernel", "rmsnorm": "rms_kernel",
+                "matmul simt": "matmul_kernel", "rmsnorm": "rms_vec_kernel",
+                "rmsnorm scalar": "rms_scalar_kernel",
                 "flash_attention wgmma": "flash_wgmma_kernel",
                 "flash_attention simt": "flash_kernel",
-                "paged_attention": "paged_kernel"}
+                "paged_attention": "paged_kernel",
+                "softmax_rows regs": "softmax_regs_kernel",
+                "softmax_rows slices": "softmax_slices_kernel"}
 
 
 def _reading(r: dict) -> str:
@@ -281,8 +288,7 @@ def _table1_checks(kc) -> tuple[dict, list]:
             for dt in (torch.bfloat16, torch.float32):
                 r = run[k](c, dt)
                 extra = (f" ulps={r['ulps']}" if k == "expv" else
-                         " resident" if r.get("resident") else
-                         " two-read" if k.startswith("softmax") else
+                         f" {r['branch']}" if k.startswith("softmax") else
                          f"; exact on +-1 inputs: {r['exact_on_signs']}; "
                          "controls' limit_use (must be > 1): " + ", ".join(
                              f"{w} {u:.1f}" for w, u in r["controls"].items())
@@ -477,29 +483,61 @@ def _table1_times(kc, kred, kst, ref, time_ms, dev) -> dict:
         del x, xc
         for R, Wd in cfg["softmax"]:
             x = kc.softmax_inputs(R, Wd, torch.float32, dev)
+            branch = kc.softmax_branch(x)
+            tag = PORT_KERNELS["softmax_rows regs" if branch == "regs"
+                               else "softmax_rows slices"]
             # max, subtract, exp, add, divide: ~5 an element
-            row("softmax_rows", f"({R}, {Wd})", lambda: kred.softmax_rows(x),
+            row("softmax_rows", f"({R}, {Wd}) {branch}", lambda: kred.softmax_rows(x),
                 lambda: ref.softmax_rows(x), lambda: torch.softmax(x, -1),
-                8 * R * Wd, 5 * R * Wd, "torch.softmax", "softmax_kernel")
+                8 * R * Wd, 5 * R * Wd, "torch.softmax", tag)
             del x
         torch.cuda.empty_cache()
-    # dotprod's and expv's host cost a call: back-to-back calls at
-    # table1-paper, where the kernel takes a few us of device time, between
-    # events, in turns with the library call (kernel, library, library,
-    # kernel)
+    # softmax_rows at table1-card's long rows by blocks a row: the plan's
+    # choice against each cluster size, forced by replacing the plan (slices
+    # of W / C whole vectors, none staged: none fits), and one block a row
+    # staging all that fits of it
+    R, Wd = kc.TABLE1["table1-card"]["softmax"][1]
+    x = kc.softmax_inputs(R, Wd, torch.float32, dev)
+    planner, by_c = kred.softmax_plan, []
+    chosen = planner(R, Wd, 4, True).cluster
+    for C, stage in ((1, False), (2, False), (4, False), (8, False), (16, False),
+                     (1, True)):
+        def forced(R_, W_, item, aligned, _C=C, _stage=stage):
+            V = 16 // item
+            sl = -(-W_ // (_C * V)) * V
+            staged = min(sl, kred.SOFTMAX_MAX_SMEM // item // V * V) if _stage else 0
+            return kred.SoftmaxPlan("smem" if _C == 1 else "cluster", 1024, _C, sl,
+                                    staged, staged * item)
+        kred.softmax_plan = forced
+        kred._softmax_handle.cache_clear()
+        by_c.append((f"{C}{' staging what fits' if stage else ''}",
+                     time_ms(lambda: kred.softmax_rows(x), 20)))
+    kred.softmax_plan = planner
+    kred._softmax_handle.cache_clear()
+    print(f"[time] softmax_rows ({R}, {Wd}) f32 by blocks a row: "
+          + ", ".join(f"{c}: {t:.4f} ms" for c, t in by_c) + f"; the plan takes {chosen}")
+    del x
+    # dotprod's, expv's and softmax_rows' host cost a call: back-to-back
+    # calls at table1-paper, where the kernel takes a few us of device time,
+    # between events, in turns with the library call (kernel, library,
+    # library, kernel)
     n = kc.TABLE1["table1-paper"]["dot"]
     a, b = kc.vec_inputs(n, torch.float32, dev)
     x = kc.exp_inputs(n, torch.float32, dev)
     xc = x.clamp(-80, 80)
+    xs = kc.softmax_inputs(*kc.TABLE1["table1-paper"]["softmax"][0], torch.float32, dev)
     for kname, fk, lib, fl in (
             ("dotprod", lambda: kred.dotprod(a, b), "torch.dot", lambda: torch.dot(a, b)),
-            ("expv", lambda: kred.expv(x), "torch.exp", lambda: torch.exp(xc))):
+            ("expv", lambda: kred.expv(x), "torch.exp", lambda: torch.exp(xc)),
+            ("softmax_rows", lambda: kred.softmax_rows(xs), "torch.softmax",
+             lambda: torch.softmax(xs, -1))):
         host = {"kernel": [], "library": []}
         for turn, fn in (("kernel", fk), ("library", fl), ("library", fl),
                          ("kernel", fk)):
             host[turn].append(1e3 * time_ms(fn, 500))
         rows[(kname, "host")] = host
-        print(f"[time] {kname} host cost n={n} f32, us a call in turns: kernel "
+        what = f"{tuple(xs.shape)}" if kname == "softmax_rows" else f"n={n}"
+        print(f"[time] {kname} host cost {what} f32, us a call in turns: kernel "
               + " / ".join(f"{t:.1f}" for t in host["kernel"]) + f"; {lib} "
               + " / ".join(f"{t:.1f}" for t in host["library"]))
     return rows
@@ -555,18 +593,13 @@ def main() -> int:
     print(f"[build] {', '.join(f'{n}.cu' for n in CUDA_LIBS)} -> "
           f"{_build.BUILD_DIR} in {now() - t0:.1f}s")
     for lib in CUDA_LIBS:
-        if lib in ("flash_attention", "reduction"):     # each kernel by name
+        if lib in ("flash_attention", "reduction", "rmsnorm"):   # each kernel by name
             for line in _ptxas_summary(_build.BUILD_LOGS.get(lib, "")):
                 print(f"[build]   {lib}: {line}")
             continue
         for line in _build.BUILD_LOGS.get(lib, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build]   {lib}: {line.strip()}")
-    t0 = now()
-    x, g = kc.rmsnorm_inputs(4, kc.D_MODEL, torch.bfloat16)
-    krms.rmsnorm(x, g, kc.EPS)
-    torch.cuda.synchronize()
-    print(f"[build] triton rmsnorm first launch (compile) in {now() - t0:.1f}s")
 
     # -- 3. kernels vs plain versions ------------------------------------------
     errs = {}
@@ -941,9 +974,30 @@ def main() -> int:
             bound, by = _ms_bound(2 * R * D * x.element_size() + 4 * D,
                                   4.0 * R * D, "f32")
             rows[("rmsnorm", R, dt)] = (t_k, t_p, t_l, bound, by)
+            # between events, back-to-back calls time the host's launches;
+            # one trace of both gives the card's own time a call
+            d_k, d_l = _device_split(
+                lambda: (krms.rmsnorm(x, g, kc.EPS), torch.nn.functional.rms_norm(
+                    x, (D,), g_lib, kc.EPS)), PORT_KERNELS["rmsnorm"], 50)
+            device_rows[("rmsnorm", R, dt)] = (d_k, d_l)
             print(f"[time] rmsnorm R={R:<4d} D={D} {kind:4s} kernel {t_k:.4f} ms  "
                   f"plain {t_p:.4f} ms  F.rms_norm {t_l:.4f} ms  "
-                  f"bound {bound:.5f} ms ({by})")
+                  f"bound {bound:.5f} ms ({by}); device: kernel {d_k:.4f} ms, "
+                  f"F.rms_norm {d_l:.4f} ms")
+    # rmsnorm's host cost a call at the decode shape: back-to-back calls
+    # between events, in turns with F.rms_norm (kernel, library, library,
+    # kernel)
+    x, g = kc.rmsnorm_inputs(4, kc.D_MODEL, torch.bfloat16)
+    g_lib = g.to(torch.bfloat16)
+    fk = lambda: krms.rmsnorm(x, g, kc.EPS)
+    fl = lambda: torch.nn.functional.rms_norm(x, (kc.D_MODEL,), g_lib, kc.EPS)
+    host = {"kernel": [], "library": []}
+    for turn, fn in (("kernel", fk), ("library", fl), ("library", fl), ("kernel", fk)):
+        host[turn].append(1e3 * time_ms(fn, 500))
+    print(f"[time] rmsnorm host cost R=4 D={kc.D_MODEL} bf16, us a call in turns: "
+          "kernel " + " / ".join(f"{t:.1f}" for t in host["kernel"])
+          + "; F.rms_norm " + " / ".join(f"{t:.1f}" for t in host["library"]))
+    device_rows[("rmsnorm", "host")] = host
 
     # flash attention at whole-prompt lengths (bf16, the model's dtype: the
     # dense path's 37 and 223, the paged path's 445, and 512; f32 at the
@@ -1035,8 +1089,8 @@ def main() -> int:
             ("matmul", ("matmul", 4, 4096, 14336, torch.bfloat16), None, "cuda",
              "src/repro_torch/kernels/csrc/matmul.cu",
              "src/repro/kernels/matmul.py:84", "M=4,K=4096,N=14336,bf16"),
-            ("rmsnorm", ("rmsnorm", 4, torch.bfloat16), None, "triton",
-             "src/repro_torch/kernels/rmsnorm.py",
+            ("rmsnorm", ("rmsnorm", 4, torch.bfloat16), None, "cuda",
+             "src/repro_torch/kernels/csrc/rmsnorm.cu",
              "src/repro/kernels/rmsnorm.py:44", "R=4,D=4096,bf16"),
             ("flash_attention", ("flash_attention", 512, torch.bfloat16),
              ("flash_attention", 1, 512, None, torch.bfloat16), "cuda",
@@ -1068,9 +1122,11 @@ def main() -> int:
                                                   torch.bfloat16)][1]}
             kernels[-1]["device_ms"], kernels[-1]["library_device_ms"] = \
                 device_rows[key]
-        if kname == "flash_attention":
+        if kname in ("flash_attention", "rmsnorm"):
             kernels[-1]["device_ms"], kernels[-1]["library_device_ms"] = \
                 device_rows[key]
+        if kname == "rmsnorm":
+            kernels[-1]["host_us"] = device_rows[("rmsnorm", "host")]
     # the Table I kernels at table1-card (table1-paper beside them)
     for kname, key, err_key, source, replaces in (
             ("dotprod", ("dotprod", kc.TABLE1["table1-card"]["dot"]),

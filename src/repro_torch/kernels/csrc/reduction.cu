@@ -47,17 +47,30 @@
 // than a grid of only the resident blocks walking the vectors by grid
 // stride with four vectors a thread in flight.
 //
-// softmax: one block a row.  A row of up to RESIDENT_MAX elements is read
-// once into shared memory (f32) and kept there: max, exp(x - m), sum, e / d
-// as a true division, one write.  A longer row streams twice: an online
-// (max, sum) pass, each thread rescaling its sum when its max grows, the
-// threads' pairs merged, then a pass that reads the row again and writes
-// exp(x - m) / d.  That branch moves 3 bytes for every 2 the bound counts.
-// Masked (-inf) elements give 0 in both branches, as in the TPU kernel.
+// softmax: three branches of two kernels, picked by reduction.softmax_plan
+// from (R, W, dtype, alignment), one launch a call.  "regs": a row of up to
+// SOFTMAX_REG_VECS 16-byte vectors a thread (16 f32 or 32 bf16 values, 1024
+// threads) is held in registers, every load issued before any is used, the
+// max and the sum each one warp-shuffle tree and one exchange in shared
+// memory.  "smem": a longer row that fits in one block's shared memory is
+// staged there in x's dtype by bulk copies of the Tensor Memory Accelerator
+// (completed on an mbarrier).  "cluster": a row longer still, or one of only
+// a few rows, is split over a thread-block cluster of up to 16 blocks; each
+// stages what fits of its slice, streams the rest into a running (max, sum),
+// and the blocks' pairs are merged through distributed shared memory.  Rows
+// that are not 16-byte aligned take the smem/cluster kernel with plain
+// loads.  exp is expf and e / d a true division; never built with
+// --use_fast_math.  Every order of reduction is fixed and nothing is added
+// atomically, so a result is the same on every run.  Masked (-inf) elements
+// give 0, as in the TPU kernel.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <mutex>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -66,9 +79,6 @@ constexpr int DOT_MIN_BLOCKS = 8;      // blocks an SM holds: 32 registers a thr
 constexpr int DOT_UNROLL = 2;          // 16-byte vectors of each operand a thread has in flight
 constexpr int DOT_MAX_SEGS = 65535;    // segments a launch takes (gridDim.y)
 constexpr int EXP_THREADS = 256;
-constexpr int SOFTMAX_THREADS_RESIDENT = 512;
-constexpr int SOFTMAX_THREADS_STREAM = 1024;
-constexpr int64_t RESIDENT_MAX = 32768;      // f32 row elements: 128 KB of shared memory
 constexpr float LN2 = 0x1.62e430p-1f;      // ln 2 rounded to f32
 constexpr float INV_LN2 = 0x1.715476p+0f;  // 1 / LN2 rounded to f32
 
@@ -87,29 +97,22 @@ template <typename T> struct alignas(16) Vec16 {
     T v[N];
 };
 
-// Reduce v over the block (blockDim.x a multiple of 32, at most 1024) and
+// Sum v over the block (blockDim.x a multiple of 32, at most 1024) and
 // give every thread the result.  The tree is fixed: xor shuffles within a
 // warp (commutative, so every lane holds the same value), then the warps'
 // values in warp order, so the result does not depend on timing.  red
 // holds 33 floats; the function ends with a barrier, so it may be reused.
-template <bool MAX>
-__device__ __forceinline__ float block_reduce(float v, float* red) {
+__device__ __forceinline__ float block_sum(float v, float* red) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int nw = blockDim.x >> 5;
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-        const float w = __shfl_xor_sync(0xffffffffu, v, o);
-        v = MAX ? fmaxf(v, w) : v + w;
-    }
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
     if (lane == 0) red[warp] = v;
     __syncthreads();
     if (warp == 0) {
-        v = lane < nw ? red[lane] : (MAX ? -INFINITY : 0.f);
+        v = lane < nw ? red[lane] : 0.f;
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-            const float w = __shfl_xor_sync(0xffffffffu, v, o);
-            v = MAX ? fmaxf(v, w) : v + w;
-        }
+        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
         if (lane == 0) red[32] = v;
     }
     __syncthreads();
@@ -184,7 +187,7 @@ dot_kernel(const T* __restrict__ a, const T* __restrict__ b, int64_t n, int64_t 
         for (int64_t i = lo + first; i < hi; i += stride)
             acc = fmaf(to_f32(a[i]), to_f32(b[i]), acc);
     }
-    acc = block_reduce<false>(acc, red);
+    acc = block_sum(acc, red);
     if (bps == 1) {                                // the block's sum is the segment's
         if (threadIdx.x == 0) out[seg] = acc;
         return;
@@ -200,7 +203,7 @@ dot_kernel(const T* __restrict__ a, const T* __restrict__ b, int64_t n, int64_t 
     // the segment's last block: its bps partials in a fixed order (read past L1)
     float s = 0.f;
     for (int i = threadIdx.x; i < bps; i += DOT_THREADS) s += __ldcg(&block_part[seg * bps + i]);
-    s = block_reduce<false>(s, red);
+    s = block_sum(s, red);
     if (threadIdx.x == 0) {
         out[seg] = s;
         tickets[seg] = 0;
@@ -308,61 +311,449 @@ void launch_expv(const void* x, void* y, int64_t n, cudaStream_t s) {
 // row softmax
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void softmax_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t W,
-                               int resident) {
-    extern __shared__ float row[];               // W floats when resident
-    __shared__ float red[33];
-    const T* xr = x + static_cast<int64_t>(blockIdx.x) * W;
-    T* yr = y + static_cast<int64_t>(blockIdx.x) * W;
-    const int64_t tid = threadIdx.x, nt = blockDim.x;
-    if (resident) {
-        float m = -INFINITY;
-        for (int64_t j = tid; j < W; j += nt) {
-            const float v = to_f32(xr[j]);
-            row[j] = v;
-            m = fmaxf(m, v);
-        }
-        m = block_reduce<true>(m, red);
-        float d = 0.f;
-        for (int64_t j = tid; j < W; j += nt) {   // each thread its own elements
-            const float e = expf(row[j] - m);
-            row[j] = e;
-            d += e;
-        }
-        d = block_reduce<false>(d, red);
-        for (int64_t j = tid; j < W; j += nt) yr[j] = from_f32<T>(row[j] / d);
-    } else {
-        float m = -INFINITY, d = 0.f;
-        for (int64_t j = tid; j < W; j += nt) {
-            const float v = to_f32(xr[j]);
-            if (v > m) {
-                d = d * expf(m - v) + 1.f;
-                m = v;
-            } else if (v != -INFINITY) {  // a masked element adds 0, also while m is -inf
-                d += expf(v - m);
-            }
-        }
-        const float mr = block_reduce<true>(m, red);
-        d = m == -INFINITY ? 0.f : d * expf(m - mr);   // a thread with no element adds 0
-        d = block_reduce<false>(d, red);
-        for (int64_t j = tid; j < W; j += nt) yr[j] = from_f32<T>(expf(to_f32(xr[j]) - mr) / d);
+constexpr int SOFTMAX_REG_VECS = 4;          // 16-byte vectors a thread holds (regs)
+constexpr int SOFTMAX_MAX_THREADS = 1024;
+constexpr int SOFTMAX_MAX_CLUSTER = 16;
+constexpr int SOFTMAX_MAX_SMEM = 227 * 1024 - 1024;  // dynamic bytes: 227 KB less the static
+constexpr int SOFTMAX_CHUNK = 16384;        // bytes of one bulk copy
+constexpr int SOFTMAX_MAX_CHUNKS = 16;      // chunks a block stages: 256 KB
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A wait that never ends would hang the card; a slice arrives in
+// microseconds, so after ~4M tries the kernel traps and the launch fails.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+    const uint32_t addr = smem_u32(bar);
+    uint32_t done;
+    for (uint32_t tries = 0;; ++tries) {
+        asm volatile("{\n .reg .pred p;\n"
+                     " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     " selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+        if (done) return;
+        if (tries == (1u << 22)) __trap();
     }
 }
 
-template <typename T>
-int launch_softmax(const void* x, void* y, int64_t R, int64_t W, cudaStream_t s) {
-    const int resident = W <= RESIDENT_MAX;
-    const size_t smem = resident ? static_cast<size_t>(W) * sizeof(float) : 0;
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            softmax_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-        if (e != cudaSuccess) return static_cast<int>(e);
+// (m, d) (+) (m2, d2): the larger max, each sum rescaled to it.  Either
+// order forms the same two products and IEEE addition commutes, so the
+// merge gives the same bits both ways round; two empty pairs stay (-inf, 0).
+__device__ __forceinline__ void md_merge(float& m, float& d, float m2, float d2) {
+    const float mm = fmaxf(m, m2);
+    if (mm == -INFINITY) return;
+    d = d * expf(m - mm) + d2 * expf(m2 - mm);
+    m = mm;
+}
+
+// one element into a running (max, sum of exp(x - max)); a masked (-inf)
+// element adds 0, also while the max is still -inf
+__device__ __forceinline__ void md_add(float& m, float& d, float v) {
+    if (v > m) {
+        d = d * expf(m - v) + 1.f;
+        m = v;
+    } else if (v != -INFINITY) {
+        d += expf(v - m);
     }
-    const int threads = resident ? SOFTMAX_THREADS_RESIDENT : SOFTMAX_THREADS_STREAM;
-    softmax_kernel<T><<<static_cast<unsigned>(R), threads, smem, s>>>(
-        static_cast<const T*>(x), static_cast<T*>(y), W, resident);
-    return 0;
+}
+
+// The block's (m, d) pairs merged in a fixed order and given to every
+// thread: xor shuffles within a warp (the merge commutes, so every lane
+// holds the same pair), then the warps' pairs in warp order.
+__device__ __forceinline__ void block_md(float& m, float& d, float* red_m, float* red_d) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+        const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
+        const float d2 = __shfl_xor_sync(0xffffffffu, d, o);
+        md_merge(m, d, m2, d2);
+    }
+    if (lane == 0) {
+        red_m[warp] = m;
+        red_d[warp] = d;
+    }
+    __syncthreads();
+    m = red_m[0];
+    d = red_d[0];
+    for (int w = 1; w < nw; ++w) md_merge(m, d, red_m[w], red_d[w]);
+}
+
+// "regs": one block a row, the row in registers.  Every thread issues its
+// up to SOFTMAX_REG_VECS 16-byte loads (neighbouring threads on
+// neighbouring vectors) before it uses any; then the row max (shuffles, one
+// exchange in shared memory), e = exp(x - m) kept in place, the row sum (the
+// same, in a fixed order), and e / d as a true division, each vector out by
+// one 16-byte store.  Two barriers in all; one exp an element.
+template <typename T>
+__global__ void __launch_bounds__(SOFTMAX_MAX_THREADS)
+softmax_regs_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t W) {
+    constexpr int V = Vec16<T>::N;
+    __shared__ float red_m[32], red_s[32];
+    const int nvec = static_cast<int>(W / V);
+    const int64_t row = blockIdx.x;
+    const T* xr = x + row * W;
+    Vec16<T>* yr = reinterpret_cast<Vec16<T>*>(y + row * W);
+    const int t = threadIdx.x, nt = blockDim.x;
+    const int lane = t & 31, warp = t >> 5, nw = nt >> 5;
+    Vec16<T> raw[SOFTMAX_REG_VECS];
+#pragma unroll
+    for (int k = 0; k < SOFTMAX_REG_VECS; ++k)
+        if (t + k * nt < nvec) raw[k] = load16_dot(xr + static_cast<int64_t>(t + k * nt) * V);
+    float v[SOFTMAX_REG_VECS][V];
+    float m = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < SOFTMAX_REG_VECS; ++k)
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+            v[k][j] = t + k * nt < nvec ? to_f32(raw[k].v[j]) : -INFINITY;
+            m = fmaxf(m, v[k][j]);
+        }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (lane == 0) red_m[warp] = m;
+    __syncthreads();
+    m = red_m[0];
+    for (int w = 1; w < nw; ++w) m = fmaxf(m, red_m[w]);
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < SOFTMAX_REG_VECS; ++k)
+#pragma unroll
+        for (int j = 0; j < V; ++j) {              // past the row: exp(-inf) = 0
+            v[k][j] = expf(v[k][j] - m);
+            s += v[k][j];
+        }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) red_s[warp] = s;
+    __syncthreads();
+    s = red_s[0];
+    for (int w = 1; w < nw; ++w) s += red_s[w];
+#pragma unroll
+    for (int k = 0; k < SOFTMAX_REG_VECS; ++k) {
+        if (t + k * nt >= nvec) continue;
+        Vec16<T> o;
+#pragma unroll
+        for (int j = 0; j < V; ++j) o.v[j] = from_f32<T>(v[k][j] / s);
+        yr[t + k * nt] = o;
+    }
+}
+
+// "smem" (C = 1) and "cluster" (C > 1): the C blocks of a cluster share a
+// row, block `rank` the elements [rank * slice, (rank + 1) * slice), and a
+// cluster walks the rows cluster_id, cluster_id + G, ... of a grid of only
+// as many clusters as the card holds at once (G).  A block stages the first
+// `staged` elements of its slice in shared memory, in x's dtype, and
+// streams the rest into a running (max, sum).  With BULK (16-byte aligned
+// rows) the staged part comes by the Tensor Memory Accelerator in
+// SOFTMAX_CHUNK-byte bulk copies, each completed on its own mbarrier, all
+// issued by one thread; the threads stream the rest meanwhile, then take
+// each chunk into their pair as it lands.  The block merges its threads'
+// pairs and the cluster its blocks' pairs through distributed shared
+// memory (warp 0 reads the C pairs at once and merges them in rank order),
+// so every block holds the same (m, d).  Then each chunk is normalised in
+// place and leaves by a bulk store, and once a chunk's store has read it,
+// the next row's chunk is loaded into its place, so the next row's bytes
+// are in flight under this row's arithmetic and stores.  The streamed rest
+// is read again and written.  reduction.softmax_plan stages a whole slice
+// or none: a slice too long for shared memory streams twice with no shared
+// memory, so two blocks share an SM and one's reads run under the other's
+// writes (on the H100 that beat staging part of it).  HBM sees a staged
+// byte read once.  Without BULK (a row that is not 16-byte aligned) the
+// same steps run on plain loads and stores, element by element, with no
+// prefetch.
+template <typename T, bool BULK>
+__global__ void __launch_bounds__(SOFTMAX_MAX_THREADS)
+softmax_slices_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t R, int64_t W,
+                      int64_t slice, int64_t staged, int C) {
+    constexpr int V = Vec16<T>::N;
+    constexpr int CHUNK_VECS = SOFTMAX_CHUNK / 16;
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    T* stage = reinterpret_cast<T*>(smem_raw);
+    Vec16<T>* stage_v = reinterpret_cast<Vec16<T>*>(smem_raw);
+    __shared__ __align__(8) uint64_t bars[SOFTMAX_MAX_CHUNKS];
+    // by the row's parity: a warp may start the next row's merge while a
+    // slower one still reads this row's
+    __shared__ float red_m[2][32], red_d[2][32];
+    __shared__ float pair[2], merged[2];
+    const int rank = static_cast<int>(blockIdx.x % C);
+    const int64_t G = gridDim.x / C;
+    const int64_t lo = rank * slice;
+    const int64_t n = lo < W ? (W - lo < slice ? W - lo : slice) : 0;
+    const int64_t ns = n < staged ? n : staged;
+    const int t = threadIdx.x, nt = blockDim.x;
+    // BULK: ns is whole vectors, and so is the rest
+    const int nsv = static_cast<int>(ns / V);
+    const int nchunks = (nsv + CHUNK_VECS - 1) / CHUNK_VECS;
+    const int64_t first = blockIdx.x / C;
+
+    // chunk c of row r's slice into its place, counted on bars[c]
+    auto load_chunk = [&](int64_t r, int c) {
+        const int v0 = c * CHUNK_VECS;
+        const uint32_t bytes =
+            16u * static_cast<uint32_t>(nsv - v0 < CHUNK_VECS ? nsv - v0 : CHUNK_VECS);
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                     :: "r"(smem_u32(&bars[c])), "r"(bytes) : "memory");
+        asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+                     "[%0], [%1], %2, [%3];\n"
+                     :: "r"(smem_u32(stage_v + v0)),
+                        "l"(x + r * W + lo + static_cast<int64_t>(v0) * V), "r"(bytes),
+                        "r"(smem_u32(&bars[c]))
+                     : "memory");
+    };
+    if constexpr (BULK) {
+        if (t == 0) {
+            for (int c = 0; c < nchunks; ++c)
+                asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                             :: "r"(smem_u32(&bars[c])) : "memory");
+            asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        }
+        __syncthreads();
+        if (t == 0 && first < R)
+            for (int c = 0; c < nchunks; ++c) load_chunk(first, c);
+    }
+    unsigned parity = 0;
+    for (int64_t row = first; row < R; row += G, parity ^= 1u) {
+        const T* xs = x + row * W + lo;
+        T* ys = y + row * W + lo;
+        const bool next = row + G < R;
+        float m = -INFINITY, d = 0.f;
+        if constexpr (BULK) {
+            const T* rest = xs + ns;
+            const int64_t nv = (n - ns) / V;
+            for (int64_t c = t; c < nv; c += nt) {
+                const Vec16<T> a = load16_dot(rest + c * V);
+#pragma unroll
+                for (int j = 0; j < V; ++j) md_add(m, d, to_f32(a.v[j]));
+            }
+            // each chunk as it lands: a vector's max first, so the running
+            // sum is rescaled at most once a vector and its V exps are
+            // independent
+            for (int c = 0; c < nchunks; ++c) {
+                mbar_wait(&bars[c], parity);
+                const int v1 = (c + 1) * CHUNK_VECS < nsv ? (c + 1) * CHUNK_VECS : nsv;
+                for (int i = c * CHUNK_VECS + t; i < v1; i += nt) {
+                    const Vec16<T> a = stage_v[i];
+                    float f[V], vm = -INFINITY;
+#pragma unroll
+                    for (int j = 0; j < V; ++j) {
+                        f[j] = to_f32(a.v[j]);
+                        vm = fmaxf(vm, f[j]);
+                    }
+                    if (vm > m) {
+                        d *= expf(m - vm);
+                        m = vm;
+                    }
+                    if (m != -INFINITY) {
+#pragma unroll
+                        for (int j = 0; j < V; ++j) d += expf(f[j] - m);
+                    }
+                }
+            }
+        } else {
+            for (int64_t i = t; i < ns; i += nt) stage[i] = xs[i];
+            for (int64_t i = ns + t; i < n; i += nt) md_add(m, d, to_f32(xs[i]));
+            __syncthreads();
+            for (int64_t i = t; i < ns; i += nt) md_add(m, d, to_f32(stage[i]));
+        }
+        block_md(m, d, red_m[parity], red_d[parity]);
+        if (C > 1) {
+            cg::cluster_group cluster = cg::this_cluster();
+            if (t == 0) {
+                pair[0] = m;
+                pair[1] = d;
+            }
+            cluster.sync();
+            if (t < 32) {                          // lane r reads block r's pair
+                float mr = -INFINITY, dr = 0.f;
+                if (t < C) {
+                    const float* p = cluster.map_shared_rank(&pair[0], t);
+                    mr = p[0];
+                    dr = p[1];
+                }
+                m = -INFINITY;
+                d = 0.f;
+                for (int r = 0; r < C; ++r)
+                    md_merge(m, d, __shfl_sync(0xffffffffu, mr, r),
+                             __shfl_sync(0xffffffffu, dr, r));
+                if (t == 0) {
+                    merged[0] = m;
+                    merged[1] = d;
+                }
+            }
+            // done reading the others' pairs: no block writes its next pair,
+            // or leaves, before every block is
+            asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+            __syncthreads();
+            m = merged[0];
+            d = merged[1];
+        }
+        if constexpr (BULK) {
+            for (int c = 0; c < nchunks; ++c) {
+                const int v0 = c * CHUNK_VECS;
+                const int v1 = v0 + CHUNK_VECS < nsv ? v0 + CHUNK_VECS : nsv;
+                for (int i = v0 + t; i < v1; i += nt) {
+                    Vec16<T> a = stage_v[i];
+#pragma unroll
+                    for (int j = 0; j < V; ++j)
+                        a.v[j] = from_f32<T>(expf(to_f32(a.v[j]) - m) / d);
+                    stage_v[i] = a;
+                }
+                // the chunk's writes visible to the bulk copy; one thread
+                // sends it, and loads the next row's previous chunk into the
+                // place its store has finished reading
+                asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+                __syncthreads();
+                if (t == 0) {
+                    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+                                 :: "l"(ys + static_cast<int64_t>(v0) * V),
+                                    "r"(smem_u32(stage_v + v0)),
+                                    "r"(16u * static_cast<uint32_t>(v1 - v0))
+                                 : "memory");
+                    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+                    if (next && c > 0) {
+                        asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+                        load_chunk(row + G, c - 1);
+                    }
+                }
+            }
+            if (t == 0 && next && nchunks > 0) {
+                asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+                load_chunk(row + G, nchunks - 1);
+            }
+            const T* rest = xs + ns;
+            Vec16<T>* yv = reinterpret_cast<Vec16<T>*>(ys + ns);
+            const int64_t nv = (n - ns) / V;
+            for (int64_t c = t; c < nv; c += nt) {
+                Vec16<T> a = load16_cs(rest + c * V);
+#pragma unroll
+                for (int j = 0; j < V; ++j) a.v[j] = from_f32<T>(expf(to_f32(a.v[j]) - m) / d);
+                yv[c] = a;
+            }
+        } else {
+            for (int64_t i = t; i < ns; i += nt)
+                ys[i] = from_f32<T>(expf(to_f32(stage[i]) - m) / d);
+            for (int64_t i = ns + t; i < n; i += nt)
+                ys[i] = from_f32<T>(expf(to_f32(xs[i]) - m) / d);
+            __syncthreads();                       // stage is reused by the next row
+        }
+        if (C > 1) asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    }
+    if constexpr (BULK)
+        if (t == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// the dynamic shared memory a kernel may take, raised once per device to
+// the largest a launch has asked for; a cluster over 8 blocks allowed once
+bool allow_softmax(const void* kernel, int smem, int C, int* smem_set, bool* wide_set) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return false;
+    if (smem > 48 * 1024 && smem > smem_set[dev]) {
+        if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
+            != cudaSuccess)
+            return false;
+        smem_set[dev] = smem;
+    }
+    if (C > 8 && !wide_set[dev]) {
+        if (cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)
+            != cudaSuccess)
+            return false;
+        wide_set[dev] = true;
+    }
+    return true;
+}
+
+// The clusters of a launch: as many as the card holds at once
+// (cudaOccupancyMaxActiveClusters, asked once per device and shape of
+// block), at most one a row; 0 if none fits.
+struct ClusterFit {
+    int dev, threads, C, smem, active;
+};
+
+template <typename T, bool BULK>
+int launch_slices(const T* x, T* y, int64_t R, int64_t W, int threads, int C, int64_t slice,
+                  int64_t staged, int smem, cudaStream_t s) {
+    static int smem_set[64] = {};
+    static bool wide_set[64] = {};
+    static ClusterFit fits[64];
+    static int nfits = 0;
+    auto kernel = softmax_slices_kernel<T, BULK>;
+    if (!allow_softmax(reinterpret_cast<const void*>(kernel), smem, C, smem_set, wide_set))
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaLaunchConfig_t cfg = {};
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int dev = 0;
+    cudaGetDevice(&dev);
+    int active = -1;
+    for (int i = 0; i < nfits; ++i)
+        if (fits[i].dev == dev && fits[i].threads == threads && fits[i].C == C
+            && fits[i].smem == smem)
+            active = fits[i].active;
+    if (active < 0) {
+        cfg.gridDim = dim3(C);
+        const cudaError_t e = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        if (nfits < 64) fits[nfits++] = {dev, threads, C, smem, active};
+    }
+    if (active <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const int64_t G = R < active ? R : active;
+    cfg.gridDim = dim3(static_cast<unsigned>(G * C));
+    return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, x, y, R, W, slice, staged, C));
+}
+
+// A softmax plan (reduction.softmax_plan): branch 0 "regs", 1 "smem", 2
+// "cluster", threads a block, blocks a row (C), row elements a block
+// (slice), of them staged in shared memory, dynamic shared memory bytes.
+// The wrapper registers each plan once and launches by its index, so a
+// launch converts five ctypes arguments, not twelve (a few microseconds of
+// host time a call).
+struct SoftmaxPlanC {
+    int64_t W, slice, staged;
+    int dtype, branch, threads, C, smem;
+};
+constexpr int SOFTMAX_MAX_PLANS = 4096;
+SoftmaxPlanC softmax_plans[SOFTMAX_MAX_PLANS];
+int softmax_nplans = 0;
+
+// what each kernel takes, but the pointers' alignment (checked at launch)
+bool softmax_plan_ok(const SoftmaxPlanC& p) {
+    if (p.dtype != 0 && p.dtype != 1) return false;
+    const int V = p.dtype == 0 ? 4 : 8;
+    if (p.W <= 0 || p.threads < 32 || p.threads > SOFTMAX_MAX_THREADS || p.threads % 32)
+        return false;
+    if (p.branch == 0)
+        return p.C == 1 && p.W % V == 0 && (p.W / V + p.threads - 1) / p.threads <= SOFTMAX_REG_VECS;
+    return (p.branch == 1) == (p.C == 1) && p.branch <= 2 && p.C >= 1
+           && p.C <= SOFTMAX_MAX_CLUSTER && p.slice > 0 && p.slice * p.C >= p.W
+           && p.staged >= 0 && p.staged <= p.slice && p.smem <= SOFTMAX_MAX_SMEM
+           && p.staged * (p.dtype == 0 ? 4 : 2) <= p.smem;
+}
+
+template <typename T>
+int launch_softmax(const void* x, void* y, int64_t R, const SoftmaxPlanC& p, cudaStream_t s) {
+    constexpr int V = Vec16<T>::N;
+    const T* px = static_cast<const T*>(x);
+    T* py = static_cast<T*>(y);
+    const bool aligned = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16 == 0
+                         && p.W % V == 0;
+    if (p.branch == 0) {
+        if (!aligned) return static_cast<int>(cudaErrorInvalidValue);
+        softmax_regs_kernel<T><<<static_cast<unsigned>(R), p.threads, 0, s>>>(px, py, p.W);
+        return 0;
+    }
+    if (aligned && p.slice % V == 0 && p.staged % V == 0)
+        return launch_slices<T, true>(px, py, R, p.W, p.threads, p.C, p.slice, p.staged, p.smem,
+                                      s);
+    return launch_slices<T, false>(px, py, R, p.W, p.threads, p.C, p.slice, p.staged, p.smem, s);
 }
 
 }  // namespace
@@ -406,18 +797,35 @@ extern "C" int repro_expv(const void* x, void* y, int64_t n, int dtype, void* st
     return static_cast<int>(cudaGetLastError());
 }
 
-// y (R, W) = softmax of each row of x (R, W), f32 math.
-extern "C" int repro_softmax_rows(const void* x, void* y, int64_t R, int64_t W, int dtype,
-                                  void* stream) {
+// The index of a softmax plan (W, dtype, then as softmax_plan gives it),
+// registered on first sight; -1 where the kernels do not take it or the
+// table is full.
+extern "C" int repro_softmax_plan(int64_t W, int dtype, int branch, int threads, int C,
+                                  int64_t slice, int64_t staged, int smem) {
+    static std::mutex lock;
+    const SoftmaxPlanC p = {W, slice, staged, dtype, branch, threads, C, smem};
+    if (!softmax_plan_ok(p)) return -1;
+    const std::lock_guard<std::mutex> hold(lock);
+    for (int i = 0; i < softmax_nplans; ++i) {
+        const SoftmaxPlanC& q = softmax_plans[i];
+        if (q.W == W && q.slice == slice && q.staged == staged && q.dtype == dtype
+            && q.branch == branch && q.threads == threads && q.C == C && q.smem == smem)
+            return i;
+    }
+    if (softmax_nplans == SOFTMAX_MAX_PLANS) return -1;
+    softmax_plans[softmax_nplans] = p;
+    return softmax_nplans++;
+}
+
+// y (R, W) = softmax of each row of x (R, W), f32 math, by a registered
+// plan (W and the dtype are the plan's).
+extern "C" int repro_softmax_rows(const void* x, void* y, int64_t R, int plan, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (R > 0 && W > 0) {
-        int err = 0;
-        if (dtype == 0)
-            err = launch_softmax<float>(x, y, R, W, s);
-        else if (dtype == 1)
-            err = launch_softmax<__nv_bfloat16>(x, y, R, W, s);
-        else
-            return static_cast<int>(cudaErrorInvalidValue);
+    if (plan < 0 || plan >= softmax_nplans) return static_cast<int>(cudaErrorInvalidValue);
+    const SoftmaxPlanC& p = softmax_plans[plan];
+    if (R > 0) {
+        const int err = p.dtype == 0 ? launch_softmax<float>(x, y, R, p, s)
+                                     : launch_softmax<__nv_bfloat16>(x, y, R, p, s);
         if (err) return err;
     }
     return static_cast<int>(cudaGetLastError());

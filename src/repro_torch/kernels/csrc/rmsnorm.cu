@@ -1,0 +1,175 @@
+// RMSNorm: y = x * rsqrt(mean(x^2) + eps) * gamma, row by row.
+//
+// Replaces the TPU kernel of repro/kernels/rmsnorm.py (_rms_kernel): x (R,
+// D) in f32 or bf16, gamma (D,) in f32 even when x is bf16, f32 math, the
+// output in x's dtype.
+//
+// Bound by bytes on an H100: each row is read once and written once (2 D
+// itemsize bytes) for ~4 operations an element.  At decode R is the batch
+// (1 to 8), so a call is one round trip to memory plus the launch: every
+// load of a row is issued before any is used, and nothing else waits.
+//
+// One block a row.  A thread holds up to RMS_VECS 16-byte vectors of the
+// row in registers (neighbouring threads on neighbouring vectors), loaded
+// at once with gamma's f32 vectors beside them (read-only, shared by every
+// row, so it stays in cache): one round trip to memory before the sum.  The
+// sum of squares runs in a fixed order: each thread's elements in order,
+// xor shuffles within a warp, then the warps' sums in warp order, read by
+// every thread; so a row's scale, and the result, are the same on every
+// run.  The products are taken in the reference's order, (x * r) * g, and
+// each vector leaves by one 16-byte store.  A row that is not whole
+// 16-byte vectors (D not a multiple of the vector, an unaligned view, or a
+// row longer than the registers hold) takes the scalar path: the same
+// order of operations, element by element, the row read a second time for
+// the store (from L1).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <cstdint>
+
+namespace {
+
+constexpr int RMS_VECS = 2;             // 16-byte vectors of x a thread holds
+constexpr int RMS_MAX_THREADS = 1024;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+    return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
+}
+
+template <typename T> struct alignas(16) Vec16 {
+    static constexpr int N = 16 / sizeof(T);
+    T v[N];
+};
+
+// component i of w; i is a constant once the loops are unrolled
+__device__ __forceinline__ float lane4(const float4& w, int i) {
+    return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
+}
+
+// The block's sum of v in a fixed order, given to every thread.  red holds
+// 32 floats and is written once a launch.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (lane == 0) red[warp] = v;
+    __syncthreads();
+    float s = 0.f;
+    const int nw = blockDim.x >> 5;
+    for (int w = 0; w < nw; ++w) s += red[w];
+    return s;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(RMS_MAX_THREADS)
+rms_vec_kernel(const T* __restrict__ x, const float* __restrict__ g, T* __restrict__ y,
+               int D, float eps) {
+    constexpr int V = Vec16<T>::N;
+    __shared__ float red[32];
+    const int64_t row = blockIdx.x;
+    const int nvec = D / V;
+    const Vec16<T>* xr = reinterpret_cast<const Vec16<T>*>(x + row * D);
+    Vec16<T>* yr = reinterpret_cast<Vec16<T>*>(y + row * D);
+    const float4* g4 = reinterpret_cast<const float4*>(g);
+    const int t = threadIdx.x, nt = blockDim.x;
+    // every load of the row and of gamma issued before any is used: one
+    // round trip to memory
+    Vec16<T> v[RMS_VECS];
+    float4 gv[RMS_VECS][V / 4];
+#pragma unroll
+    for (int k = 0; k < RMS_VECS; ++k)
+        if (t + k * nt < nvec) {
+            v[k] = xr[t + k * nt];
+#pragma unroll
+            for (int q = 0; q < V / 4; ++q) gv[k][q] = __ldg(&g4[(t + k * nt) * (V / 4) + q]);
+        }
+    float ss = 0.f;
+#pragma unroll
+    for (int k = 0; k < RMS_VECS; ++k)
+        if (t + k * nt < nvec)
+#pragma unroll
+            for (int j = 0; j < V; ++j) {
+                const float f = to_f32(v[k].v[j]);
+                ss = fmaf(f, f, ss);
+            }
+    ss = block_sum(ss, red);
+    const float r = rsqrtf(ss / static_cast<float>(D) + eps);
+#pragma unroll
+    for (int k = 0; k < RMS_VECS; ++k) {
+        if (t + k * nt >= nvec) continue;
+        Vec16<T> o;
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+            o.v[j] = from_f32<T>(to_f32(v[k].v[j]) * r * lane4(gv[k][j / 4], j % 4));
+        yr[t + k * nt] = o;
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(RMS_MAX_THREADS)
+rms_scalar_kernel(const T* __restrict__ x, const float* __restrict__ g, T* __restrict__ y,
+                  int D, float eps) {
+    __shared__ float red[32];
+    const T* xr = x + static_cast<int64_t>(blockIdx.x) * D;
+    T* yr = y + static_cast<int64_t>(blockIdx.x) * D;
+    float ss = 0.f;
+    for (int j = threadIdx.x; j < D; j += blockDim.x) {
+        const float f = to_f32(xr[j]);
+        ss = fmaf(f, f, ss);
+    }
+    ss = block_sum(ss, red);
+    const float r = rsqrtf(ss / static_cast<float>(D) + eps);
+    for (int j = threadIdx.x; j < D; j += blockDim.x)
+        yr[j] = from_f32<T>(to_f32(xr[j]) * r * g[j]);
+}
+
+// Threads for a row of nvec whole vectors: enough that each holds at most
+// RMS_VECS, a whole number of warps, at least one.
+int vec_threads(int nvec) {
+    const int want = (nvec + RMS_VECS - 1) / RMS_VECS;
+    return ((want + 31) / 32) * 32;
+}
+
+template <typename T>
+void launch_rms(const void* x, const void* g, void* y, int R, int D, float eps,
+                cudaStream_t s) {
+    constexpr int V = Vec16<T>::N;
+    const T* px = static_cast<const T*>(x);
+    T* py = static_cast<T*>(y);
+    const float* pg = static_cast<const float*>(g);
+    const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)
+                           | reinterpret_cast<uintptr_t>(g)) % 16 == 0) && D % V == 0;
+    if (aligned && vec_threads(D / V) <= RMS_MAX_THREADS) {
+        rms_vec_kernel<T><<<R, vec_threads(D / V), 0, s>>>(px, pg, py, D, eps);
+    } else {
+        const int threads = D >= 1024 ? 1024 : ((D + 31) / 32) * 32;
+        rms_scalar_kernel<T><<<R, threads, 0, s>>>(px, pg, py, D, eps);
+    }
+}
+
+}  // namespace
+
+// y (R, D) = x * rsqrt(mean(x^2) + eps) * gamma for each row of x (R, D);
+// dtype 0 = float32, 1 = bfloat16 (x and y); gamma f32 (D,).  Pointers are
+// device pointers to contiguous tensors; the launch goes on `stream` and
+// does not synchronise.  Returns cudaGetLastError() after the launch (0 =
+// success).
+extern "C" int repro_rmsnorm(const void* x, const void* gamma, void* y, int R, int D,
+                             float eps, int dtype, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (R < 0 || D < 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (R > 0 && D > 0) {
+        if (dtype == 0)
+            launch_rms<float>(x, gamma, y, R, D, eps, s);
+        else if (dtype == 1)
+            launch_rms<__nv_bfloat16>(x, gamma, y, R, D, eps, s);
+        else
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
+}

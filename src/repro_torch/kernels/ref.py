@@ -5,6 +5,7 @@ Table I kernels ``jacobi2d``, ``fconv2d``, ``dotprod``, ``expv`` and
 kernel is held against."""
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -147,10 +148,26 @@ def expv(x: torch.Tensor) -> torch.Tensor:
     return (p * scale).to(x.dtype)
 
 
+@functools.cache
+def _cpu_exp_ready() -> None:
+    """Complete MKL's one-time set-up of its exp on one thread.
+
+    On the CPU ``torch.exp`` of f32 is MKL's ``vmsExp``, called once for
+    each 2048-element chunk on torch's intra-op threads.  In a process's
+    first call that splits over threads, MKL's set-up races between them,
+    and a worker's chunk can come back from a shorter polynomial: up to
+    ~2e-4 relative, every element of the chunk.  The next call is right.
+    One call on a single element, which runs on the calling thread alone,
+    completes the set-up first."""
+    torch.exp(torch.zeros(1))
+
+
 def softmax_rows(x: torch.Tensor) -> torch.Tensor:
     """Row softmax of (R, W) in f32, as the TPU kernel writes it: the row
     max, ``e = exp(x - m)``, the row sum ``d``, then ``e / d``; the result in
     x's dtype."""
+    if x.device.type == "cpu":
+        _cpu_exp_ready()
     xf = x.float()
     e = torch.exp(xf - xf.amax(dim=-1, keepdim=True))
     return (e / e.sum(dim=-1, keepdim=True)).to(x.dtype)

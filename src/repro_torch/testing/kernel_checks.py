@@ -66,7 +66,7 @@ The paper's Table I kernels, at the shapes of two configurations
     ~2,000 terms, so ~2e-6 of the sum by a random walk): rtol 2e-5; bf16
     one ulp more, rtol 8e-3; atol 1e-30 only so that an exact 0 divides.
     Masked inputs (-inf at the head of each row and at every eighth
-    element) reach both branches' handling of -inf: those elements are 0;
+    element) reach each branch's handling of -inf: those elements are 0;
 A jacobi2d that drops a neighbour, an exp off by 2 ulp, a dot that loses
 one product or rounds to bf16, or a softmax row normalised to 1 +- 1e-4
 fails.
@@ -248,8 +248,9 @@ def check_flash_head_dim(D, causal, dtype, device="cuda") -> dict:
 #: 64-lane AraXL at 512 bytes a lane: 64 * 512 / 8) and the trace builders'
 #: row counts, the C x L = 16 x 4 machine; "table1-card" streams about 1 GiB
 #: an operand from HBM.  Keys: jacobi (H, W); conv (H, W) of the input and
-#: the filter side; dot n; softmax (R, W), each row resident, and "wide"
-#: rows past the resident limit; hier (C, L) machines, each under both
+#: the filter side; dot n; softmax (R, W), rows held in registers, and
+#: "wide" rows past shared memory, streamed twice
+#: (``reduction.softmax_plan``); hier (C, L) machines, each under both
 #: hierarchies.
 TABLE1 = {
     "table1-paper": {"jacobi": (256, 4096), "conv": (256, 4096, 7),
@@ -260,11 +261,18 @@ TABLE1 = {
                     "hier": [(16, 4), (8, 8)]},
 }
 HIERARCHIES = ("two-level", "flat")
-#: ragged shapes: tile and vector edges, a row past the resident limit;
+#: softmax_rows at each branch of ``reduction.softmax_plan`` beside
+#: table1's: a short row in registers (7, 1000); rows staged whole in one
+#: block's shared memory (200, 40000); rows not 16-byte aligned, split over
+#: a 16-block cluster (3, 300001); and aligned rows whose f32 slices overflow
+#: shared memory, so each block streams its slice twice (2, 2**20 + 4096; in
+#: bf16 the slices fit)
+SOFTMAX_RAGGED = [(7, 1000), (3, 300001), (200, 40000), (2, 2 ** 20 + 4096)]
+#: ragged shapes: tile and vector edges, each softmax branch;
 #: "softmax_masked" takes masked rows (``softmax_inputs(masked=True)``)
 RAGGED = {"jacobi": [(333, 1001)], "conv": [(72, 519, 3), (76, 523, 7)],
-          "dot": [4099], "expv": [4099], "softmax": [(7, 1000), (3, 300001)],
-          "softmax_masked": [(7, 1000), (3, 300001)]}
+          "dot": [4099], "expv": [4099], "softmax": SOFTMAX_RAGGED,
+          "softmax_masked": SOFTMAX_RAGGED}
 JACOBI_TOL = (0.0, 0.0)
 SOFTMAX_TOL = {torch.bfloat16: (8e-3, 1e-30), torch.float32: (2e-5, 1e-30)}
 U32 = 2.0 ** -24                        # f32 unit roundoff
@@ -306,8 +314,7 @@ def exp_inputs(n, dtype, device="cuda", seed=0):
 
 def softmax_inputs(R, W, dtype, device="cuda", seed=0, masked=False):
     """4 * randn; ``masked``: -inf in each row's first min(2048, W // 2)
-    elements (the first two of every thread of the two-read branch's 1024)
-    and at every eighth element."""
+    elements and at every eighth element."""
     x = 4 * torch.randn((R, W), generator=_gen(device, seed), device=device)
     if masked:
         x[:, :min(2048, W // 2)] = -math.inf
@@ -356,8 +363,16 @@ def check_fconv2d(H, W, f, dtype, device="cuda") -> dict:
 def check_softmax_rows(R, W, dtype, device="cuda", masked=False) -> dict:
     x = softmax_inputs(R, W, dtype, device, masked=masked)
     res = compare(_red.softmax_rows(x), ref.softmax_rows(x), SOFTMAX_TOL[dtype])
-    res["resident"] = W <= _red.SOFTMAX_RESIDENT_MAX
+    res["branch"] = softmax_branch(x)
     return res
+
+
+def softmax_branch(x) -> str:
+    """The branch of ``reduction.softmax_plan`` that x takes."""
+    R, W = x.shape
+    item = x.element_size()
+    aligned = x.data_ptr() % 16 == 0 and W * item % 16 == 0
+    return _red.softmax_plan(R, W, item, aligned).branch
 
 
 def compare_expv(got, want) -> dict:

@@ -41,6 +41,8 @@ WRAPPERS = {
                                       torch.ones(3, 4)),
     "rmsnorm": lambda g: rmsnorm.rmsnorm(torch.ones(2, 8), torch.ones(8, requires_grad=g),
                                          1e-6),
+    "rmsnorm_x": lambda g: rmsnorm.rmsnorm(torch.ones(2, 8, requires_grad=g), torch.ones(8),
+                                           1e-6),
     "flash_attention": lambda g: flash_attention.flash_attention(
         torch.ones(1, 2, 3, 16, requires_grad=g), torch.ones(1, 2, 3, 16),
         torch.ones(1, 2, 3, 16)),

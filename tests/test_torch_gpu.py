@@ -49,6 +49,25 @@ def test_rmsnorm_kernel_matches_plain(cuda, R, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("R", kc.RMSNORM_R)
+@pytest.mark.parametrize("case", ["unaligned", "ragged D"])
+def test_rmsnorm_kernel_scalar_path(cuda, case, R, dtype):
+    """A view one element into its buffer (contiguous, not 16-byte aligned)
+    and a row that is not whole 16-byte vectors take the scalar path: within
+    the limit of the plain version, and the same bits on a second call."""
+    D = kc.D_MODEL if case == "unaligned" else kc.D_MODEL + 3
+    flat, gamma = kc.rmsnorm_inputs(1, R * D + 1, dtype, cuda)
+    x = flat[0, 1:].view(R, D) if case == "unaligned" else flat[0, :R * D].view(R, D)
+    gamma = gamma[:D].contiguous()
+    assert (x.data_ptr() % 16 != 0) == (case == "unaligned")
+    got = rmsnorm.rmsnorm(x, gamma, kc.EPS)
+    res = kc.compare(got, ref.rmsnorm(x, gamma, kc.EPS), kc.RMSNORM_TOL[dtype])
+    assert res["ok"], res
+    assert torch.equal(got, rmsnorm.rmsnorm(x, gamma, kc.EPS))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("M,K,N,dtype", kc.MATMUL_RAGGED, ids=str)
 def test_matmul_kernel_ragged_edges(cuda, M, K, N, dtype):
     res = kc.check_matmul(M, K, N, dtype, cuda)
@@ -276,6 +295,34 @@ CHECKS = {"jacobi": lambda c, dt, dev: kc.check_jacobi2d(*c, dt, dev),
 def test_table1_kernel_matches_plain_at_ragged_shapes(cuda, kind, case, dtype):
     res = CHECKS[kind](case, dtype, cuda)
     assert res["ok"], res
+
+
+# one shape of each softmax branch: rows in registers, rows staged whole in
+# one block, rows split over a cluster (not aligned), and a cluster whose
+# f32 slices overflow shared memory
+SOFTMAX_BRANCH_SHAPES = [((64, 4096), "regs"), ((200, 40000), "smem"),
+                         ((3, 300001), "cluster"), ((2, 2 ** 20 + 4096), "cluster")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("half_masked", [False, True])
+@pytest.mark.parametrize("rw,branch", SOFTMAX_BRANCH_SHAPES, ids=str)
+def test_softmax_rows_branches_match_plain_and_repeat(cuda, rw, branch, half_masked,
+                                                      dtype):
+    """Masked rows through each branch: within ``SOFTMAX_TOL`` of the plain
+    version, masked elements exactly 0, the same bits on a second call.
+    ``half_masked`` masks each row's first half too, so whole slices of a
+    cluster hold no finite element."""
+    x = kc.softmax_inputs(*rw, dtype, cuda, masked=True)
+    if half_masked:
+        x[:, :rw[1] // 2] = -float("inf")
+    assert kc.softmax_branch(x) == branch
+    got = reduction.softmax_rows(x)
+    res = kc.compare(got, ref.softmax_rows(x), kc.SOFTMAX_TOL[dtype])
+    assert res["ok"], res
+    assert bool((got[torch.isneginf(x)] == 0).all())
+    assert torch.equal(got, reduction.softmax_rows(x))
 
 
 @pytest.mark.gpu

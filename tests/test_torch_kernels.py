@@ -298,5 +298,27 @@ def test_kernel_wrappers_refuse_cpu_tensors(kernel):
                 torch.ones(1, dtype=torch.int32))
 
 
+@pytest.mark.parametrize("x,gamma,err,match", [
+    (torch.ones(2, 8, dtype=torch.float16), torch.ones(8), TypeError, "f32/bf16"),
+    (torch.ones(2, 8), torch.ones(8, dtype=torch.bfloat16), TypeError, "f32 gamma"),
+    (torch.ones(8, 2).t(), torch.ones(8), ValueError, "contiguous"),
+    (torch.ones(2, 8, dtype=torch.bfloat16)[:, ::2], torch.ones(4), ValueError,
+     "contiguous"),
+    (torch.ones(2, 8), torch.ones(8, 2)[:, 0], ValueError, "contiguous"),
+    (torch.ones(2, 2, 8), torch.ones(8), ValueError, r"\(R, D\)"),
+    (torch.ones(2, 8), torch.ones(7), ValueError, r"\(R, D\)"),
+], ids=["f16", "bf16 gamma", "transposed", "strided bf16", "strided gamma", "3-d",
+        "short gamma"])
+def test_rmsnorm_kernel_refuses_what_it_does_not_take(x, gamma, err, match):
+    """The CUDA rmsnorm's checks come before its device check (autograd's
+    refusal first of all), so they hold here on CPU tensors; nothing
+    launches."""
+    from repro_torch.kernels import launches, rmsnorm
+    launches.reset()
+    with pytest.raises(err, match=match):
+        rmsnorm.rmsnorm(x, gamma, 1e-6)
+    assert not any(launches.LAUNCHES.values())
+
+
 def test_jax_on_cpu():
     assert jax.devices()[0].platform == "cpu"

@@ -1,5 +1,5 @@
 """The port stands alone: it imports neither jax, nor the JAX package, nor
-triton at import time; its entry points refuse to drift onto the CPU; and
+triton (not even inside a function); its entry points refuse to drift onto the CPU; and
 the JAX weight carry-over is exact."""
 import ast
 import os
@@ -63,7 +63,8 @@ def test_no_source_imports_jax_or_repro(path):
         else:
             continue
         for name in names:
-            assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+            # no triton either: every kernel of the port is CUDA C++
+            assert name.split(".")[0] not in ("jax", "jaxlib", "repro", "triton"), \
                 f"{path}:{node.lineno} imports {name}"
 
 
