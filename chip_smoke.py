@@ -96,7 +96,7 @@ PORT_KERNELS = {"matmul decode": "matmul_decode_kernel",
                 "flash_attention simt": "flash_kernel",
                 "paged_attention": "paged_kernel",
                 "softmax_rows regs": "softmax_regs_kernel",
-                "softmax_rows slices": "softmax_slices_kernel"}
+                "softmax_rows stream": "softmax_stream_kernel"}
 
 
 def _reading(r: dict) -> str:
@@ -484,39 +484,13 @@ def _table1_times(kc, kred, kst, ref, time_ms, dev) -> dict:
         for R, Wd in cfg["softmax"]:
             x = kc.softmax_inputs(R, Wd, torch.float32, dev)
             branch = kc.softmax_branch(x)
-            tag = PORT_KERNELS["softmax_rows regs" if branch == "regs"
-                               else "softmax_rows slices"]
+            tag = PORT_KERNELS[f"softmax_rows {branch}"]
             # max, subtract, exp, add, divide: ~5 an element
             row("softmax_rows", f"({R}, {Wd}) {branch}", lambda: kred.softmax_rows(x),
                 lambda: ref.softmax_rows(x), lambda: torch.softmax(x, -1),
                 8 * R * Wd, 5 * R * Wd, "torch.softmax", tag)
             del x
         torch.cuda.empty_cache()
-    # softmax_rows at table1-card's long rows by blocks a row: the plan's
-    # choice against each cluster size, forced by replacing the plan (slices
-    # of W / C whole vectors, none staged: none fits), and one block a row
-    # staging all that fits of it
-    R, Wd = kc.TABLE1["table1-card"]["softmax"][1]
-    x = kc.softmax_inputs(R, Wd, torch.float32, dev)
-    planner, by_c = kred.softmax_plan, []
-    chosen = planner(R, Wd, 4, True).cluster
-    for C, stage in ((1, False), (2, False), (4, False), (8, False), (16, False),
-                     (1, True)):
-        def forced(R_, W_, item, aligned, _C=C, _stage=stage):
-            V = 16 // item
-            sl = -(-W_ // (_C * V)) * V
-            staged = min(sl, kred.SOFTMAX_MAX_SMEM // item // V * V) if _stage else 0
-            return kred.SoftmaxPlan("smem" if _C == 1 else "cluster", 1024, _C, sl,
-                                    staged, staged * item)
-        kred.softmax_plan = forced
-        kred._softmax_handle.cache_clear()
-        by_c.append((f"{C}{' staging what fits' if stage else ''}",
-                     time_ms(lambda: kred.softmax_rows(x), 20)))
-    kred.softmax_plan = planner
-    kred._softmax_handle.cache_clear()
-    print(f"[time] softmax_rows ({R}, {Wd}) f32 by blocks a row: "
-          + ", ".join(f"{c}: {t:.4f} ms" for c, t in by_c) + f"; the plan takes {chosen}")
-    del x
     # dotprod's, expv's and softmax_rows' host cost a call: back-to-back
     # calls at table1-paper, where the kernel takes a few us of device time,
     # between events, in turns with the library call (kernel, library,

@@ -47,28 +47,24 @@
 // than a grid of only the resident blocks walking the vectors by grid
 // stride with four vectors a thread in flight.
 //
-// softmax: three branches of two kernels, picked by reduction.softmax_plan
-// from (R, W, dtype, alignment), one launch a call.  "regs": a row of up to
+// softmax: two kernels, picked by reduction.softmax_plan from (R, W,
+// dtype, alignment), one launch a call.  "regs": a row of up to
 // SOFTMAX_REG_VECS 16-byte vectors a thread (16 f32 or 32 bf16 values, 1024
 // threads) is held in registers, every load issued before any is used, the
 // max and the sum each one warp-shuffle tree and one exchange in shared
-// memory.  "smem": a longer row that fits in one block's shared memory is
-// staged there in x's dtype by bulk copies of the Tensor Memory Accelerator
-// (completed on an mbarrier).  "cluster": a row longer still, or one of only
-// a few rows, is split over a thread-block cluster of up to 16 blocks; each
-// stages what fits of its slice, streams the rest into a running (max, sum),
-// and the blocks' pairs are merged through distributed shared memory.  Rows
-// that are not 16-byte aligned take the smem/cluster kernel with plain
-// loads.  exp is expf and e / d a true division; never built with
-// --use_fast_math.  Every order of reduction is fixed and nothing is added
-// atomically, so a result is the same on every run.  Masked (-inf) elements
-// give 0, as in the TPU kernel.
+// memory: one read, one write.  "stream": a longer row, or one that is not
+// 16-byte aligned, is read twice, once into a running (max, sum) and once to
+// write it, SOFTMAX_UNROLL 16-byte loads a thread in flight (plain loads
+// where unaligned); C blocks of a thread-block cluster may share a row,
+// their pairs merged through distributed shared memory.  exp is expf and
+// e / d a true division; never built with --use_fast_math.  Every order of
+// reduction is fixed and nothing is added atomically, so a result is the
+// same on every run.  Masked (-inf) elements give 0, as in the TPU kernel.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
-#include <mutex>
 
 namespace cg = cooperative_groups;
 
@@ -314,28 +310,7 @@ void launch_expv(const void* x, void* y, int64_t n, cudaStream_t s) {
 constexpr int SOFTMAX_REG_VECS = 4;          // 16-byte vectors a thread holds (regs)
 constexpr int SOFTMAX_MAX_THREADS = 1024;
 constexpr int SOFTMAX_MAX_CLUSTER = 16;
-constexpr int SOFTMAX_MAX_SMEM = 227 * 1024 - 1024;  // dynamic bytes: 227 KB less the static
-constexpr int SOFTMAX_CHUNK = 16384;        // bytes of one bulk copy
-constexpr int SOFTMAX_MAX_CHUNKS = 16;      // chunks a block stages: 256 KB
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// A wait that never ends would hang the card; a slice arrives in
-// microseconds, so after ~4M tries the kernel traps and the launch fails.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-    const uint32_t addr = smem_u32(bar);
-    uint32_t done;
-    for (uint32_t tries = 0;; ++tries) {
-        asm volatile("{\n .reg .pred p;\n"
-                     " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                     " selp.u32 %0, 1, 0, p;\n}\n"
-                     : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-        if (done) return;
-        if (tries == (1u << 22)) __trap();
-    }
-}
+constexpr int SOFTMAX_UNROLL = 4;            // 16-byte vectors a thread has in flight (stream)
 
 // (m, d) (+) (m2, d2): the larger max, each sum rescaled to it.  Either
 // order forms the same two products and IEEE addition commutes, so the
@@ -355,6 +330,27 @@ __device__ __forceinline__ void md_add(float& m, float& d, float v) {
         m = v;
     } else if (v != -INFINITY) {
         d += expf(v - m);
+    }
+}
+
+// one 16-byte vector into a running (max, sum): the vector's max first, so
+// the sum is rescaled at most once a vector and its V exps are independent
+template <typename T>
+__device__ __forceinline__ void md_add_vec(float& m, float& d, const Vec16<T>& a) {
+    constexpr int V = Vec16<T>::N;
+    float f[V], vm = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+        f[j] = to_f32(a.v[j]);
+        vm = fmaxf(vm, f[j]);
+    }
+    if (vm > m) {
+        d *= expf(m - vm);
+        m = vm;
+    }
+    if (m != -INFINITY) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) d += expf(f[j] - m);
     }
 }
 
@@ -439,39 +435,25 @@ softmax_regs_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t W) {
     }
 }
 
-// "smem" (C = 1) and "cluster" (C > 1): the C blocks of a cluster share a
-// row, block `rank` the elements [rank * slice, (rank + 1) * slice), and a
-// cluster walks the rows cluster_id, cluster_id + G, ... of a grid of only
-// as many clusters as the card holds at once (G).  A block stages the first
-// `staged` elements of its slice in shared memory, in x's dtype, and
-// streams the rest into a running (max, sum).  With BULK (16-byte aligned
-// rows) the staged part comes by the Tensor Memory Accelerator in
-// SOFTMAX_CHUNK-byte bulk copies, each completed on its own mbarrier, all
-// issued by one thread; the threads stream the rest meanwhile, then take
-// each chunk into their pair as it lands.  The block merges its threads'
-// pairs and the cluster its blocks' pairs through distributed shared
-// memory (warp 0 reads the C pairs at once and merges them in rank order),
-// so every block holds the same (m, d).  Then each chunk is normalised in
-// place and leaves by a bulk store, and once a chunk's store has read it,
-// the next row's chunk is loaded into its place, so the next row's bytes
-// are in flight under this row's arithmetic and stores.  The streamed rest
-// is read again and written.  reduction.softmax_plan stages a whole slice
-// or none: a slice too long for shared memory streams twice with no shared
-// memory, so two blocks share an SM and one's reads run under the other's
-// writes (on the H100 that beat staging part of it).  HBM sees a staged
-// byte read once.  Without BULK (a row that is not 16-byte aligned) the
-// same steps run on plain loads and stores, element by element, with no
-// prefetch.
-template <typename T, bool BULK>
+// "stream": a row too long for registers, or not 16-byte aligned, read
+// twice.  C blocks share a row, block `rank` the elements [rank * slice,
+// (rank + 1) * slice); C = 1 is one block a row.  A grid of G * C blocks
+// walks the rows cluster_id, cluster_id + G, ...  Pass 1 streams the slice
+// into each thread's running (max, sum), SOFTMAX_UNROLL 16-byte loads
+// issued before any is used (VEC: x and y 16-byte aligned, rows and slices
+// whole vectors; otherwise element by element); the block merges its
+// threads' pairs, and where C > 1 the cluster its blocks' pairs through
+// distributed shared memory (warp 0 reads the C pairs and merges them in
+// rank order), so every block holds the same (m, d).  Pass 2 reads the
+// slice again (evict first: its last use) and writes exp(x - m) / d by
+// streaming stores.  With C > 1 the plan keeps G * (row bytes) under L2, so
+// the second read finds the slice there.
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(SOFTMAX_MAX_THREADS)
-softmax_slices_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t R, int64_t W,
-                      int64_t slice, int64_t staged, int C) {
+softmax_stream_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t R, int64_t W,
+                      int64_t slice, int C) {
     constexpr int V = Vec16<T>::N;
-    constexpr int CHUNK_VECS = SOFTMAX_CHUNK / 16;
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    T* stage = reinterpret_cast<T*>(smem_raw);
-    Vec16<T>* stage_v = reinterpret_cast<Vec16<T>*>(smem_raw);
-    __shared__ __align__(8) uint64_t bars[SOFTMAX_MAX_CHUNKS];
+    constexpr int U = SOFTMAX_UNROLL;
     // by the row's parity: a warp may start the next row's merge while a
     // slower one still reads this row's
     __shared__ float red_m[2][32], red_d[2][32];
@@ -480,81 +462,25 @@ softmax_slices_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t R, int
     const int64_t G = gridDim.x / C;
     const int64_t lo = rank * slice;
     const int64_t n = lo < W ? (W - lo < slice ? W - lo : slice) : 0;
-    const int64_t ns = n < staged ? n : staged;
     const int t = threadIdx.x, nt = blockDim.x;
-    // BULK: ns is whole vectors, and so is the rest
-    const int nsv = static_cast<int>(ns / V);
-    const int nchunks = (nsv + CHUNK_VECS - 1) / CHUNK_VECS;
-    const int64_t first = blockIdx.x / C;
-
-    // chunk c of row r's slice into its place, counted on bars[c]
-    auto load_chunk = [&](int64_t r, int c) {
-        const int v0 = c * CHUNK_VECS;
-        const uint32_t bytes =
-            16u * static_cast<uint32_t>(nsv - v0 < CHUNK_VECS ? nsv - v0 : CHUNK_VECS);
-        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                     :: "r"(smem_u32(&bars[c])), "r"(bytes) : "memory");
-        asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-                     "[%0], [%1], %2, [%3];\n"
-                     :: "r"(smem_u32(stage_v + v0)),
-                        "l"(x + r * W + lo + static_cast<int64_t>(v0) * V), "r"(bytes),
-                        "r"(smem_u32(&bars[c]))
-                     : "memory");
-    };
-    if constexpr (BULK) {
-        if (t == 0) {
-            for (int c = 0; c < nchunks; ++c)
-                asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-                             :: "r"(smem_u32(&bars[c])) : "memory");
-            asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-        }
-        __syncthreads();
-        if (t == 0 && first < R)
-            for (int c = 0; c < nchunks; ++c) load_chunk(first, c);
-    }
     unsigned parity = 0;
-    for (int64_t row = first; row < R; row += G, parity ^= 1u) {
+    for (int64_t row = blockIdx.x / C; row < R; row += G, parity ^= 1u) {
         const T* xs = x + row * W + lo;
         T* ys = y + row * W + lo;
-        const bool next = row + G < R;
         float m = -INFINITY, d = 0.f;
-        if constexpr (BULK) {
-            const T* rest = xs + ns;
-            const int64_t nv = (n - ns) / V;
-            for (int64_t c = t; c < nv; c += nt) {
-                const Vec16<T> a = load16_dot(rest + c * V);
+        if constexpr (VEC) {
+            const int64_t nv = n / V;
+            for (int64_t c0 = t; c0 < nv; c0 += U * nt) {
+                Vec16<T> a[U];
 #pragma unroll
-                for (int j = 0; j < V; ++j) md_add(m, d, to_f32(a.v[j]));
-            }
-            // each chunk as it lands: a vector's max first, so the running
-            // sum is rescaled at most once a vector and its V exps are
-            // independent
-            for (int c = 0; c < nchunks; ++c) {
-                mbar_wait(&bars[c], parity);
-                const int v1 = (c + 1) * CHUNK_VECS < nsv ? (c + 1) * CHUNK_VECS : nsv;
-                for (int i = c * CHUNK_VECS + t; i < v1; i += nt) {
-                    const Vec16<T> a = stage_v[i];
-                    float f[V], vm = -INFINITY;
+                for (int k = 0; k < U; ++k)
+                    if (c0 + k * nt < nv) a[k] = load16_dot(xs + (c0 + k * nt) * V);
 #pragma unroll
-                    for (int j = 0; j < V; ++j) {
-                        f[j] = to_f32(a.v[j]);
-                        vm = fmaxf(vm, f[j]);
-                    }
-                    if (vm > m) {
-                        d *= expf(m - vm);
-                        m = vm;
-                    }
-                    if (m != -INFINITY) {
-#pragma unroll
-                        for (int j = 0; j < V; ++j) d += expf(f[j] - m);
-                    }
-                }
+                for (int k = 0; k < U; ++k)
+                    if (c0 + k * nt < nv) md_add_vec(m, d, a[k]);
             }
         } else {
-            for (int64_t i = t; i < ns; i += nt) stage[i] = xs[i];
-            for (int64_t i = ns + t; i < n; i += nt) md_add(m, d, to_f32(xs[i]));
-            __syncthreads();
-            for (int64_t i = t; i < ns; i += nt) md_add(m, d, to_f32(stage[i]));
+            for (int64_t i = t; i < n; i += nt) md_add(m, d, to_f32(xs[i]));
         }
         block_md(m, d, red_m[parity], red_d[parity]);
         if (C > 1) {
@@ -588,101 +514,47 @@ softmax_slices_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t R, int
             m = merged[0];
             d = merged[1];
         }
-        if constexpr (BULK) {
-            for (int c = 0; c < nchunks; ++c) {
-                const int v0 = c * CHUNK_VECS;
-                const int v1 = v0 + CHUNK_VECS < nsv ? v0 + CHUNK_VECS : nsv;
-                for (int i = v0 + t; i < v1; i += nt) {
-                    Vec16<T> a = stage_v[i];
+        if constexpr (VEC) {
+            const int64_t nv = n / V;
+            for (int64_t c0 = t; c0 < nv; c0 += U * nt) {
+                Vec16<T> a[U];
+#pragma unroll
+                for (int k = 0; k < U; ++k)
+                    if (c0 + k * nt < nv) a[k] = load16_cs(xs + (c0 + k * nt) * V);
+#pragma unroll
+                for (int k = 0; k < U; ++k) {
+                    if (c0 + k * nt >= nv) continue;
 #pragma unroll
                     for (int j = 0; j < V; ++j)
-                        a.v[j] = from_f32<T>(expf(to_f32(a.v[j]) - m) / d);
-                    stage_v[i] = a;
+                        a[k].v[j] = from_f32<T>(expf(to_f32(a[k].v[j]) - m) / d);
+                    store16_cs(ys + (c0 + k * nt) * V, a[k]);
                 }
-                // the chunk's writes visible to the bulk copy; one thread
-                // sends it, and loads the next row's previous chunk into the
-                // place its store has finished reading
-                asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-                __syncthreads();
-                if (t == 0) {
-                    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-                                 :: "l"(ys + static_cast<int64_t>(v0) * V),
-                                    "r"(smem_u32(stage_v + v0)),
-                                    "r"(16u * static_cast<uint32_t>(v1 - v0))
-                                 : "memory");
-                    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-                    if (next && c > 0) {
-                        asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
-                        load_chunk(row + G, c - 1);
-                    }
-                }
-            }
-            if (t == 0 && next && nchunks > 0) {
-                asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-                load_chunk(row + G, nchunks - 1);
-            }
-            const T* rest = xs + ns;
-            Vec16<T>* yv = reinterpret_cast<Vec16<T>*>(ys + ns);
-            const int64_t nv = (n - ns) / V;
-            for (int64_t c = t; c < nv; c += nt) {
-                Vec16<T> a = load16_cs(rest + c * V);
-#pragma unroll
-                for (int j = 0; j < V; ++j) a.v[j] = from_f32<T>(expf(to_f32(a.v[j]) - m) / d);
-                yv[c] = a;
             }
         } else {
-            for (int64_t i = t; i < ns; i += nt)
-                ys[i] = from_f32<T>(expf(to_f32(stage[i]) - m) / d);
-            for (int64_t i = ns + t; i < n; i += nt)
-                ys[i] = from_f32<T>(expf(to_f32(xs[i]) - m) / d);
-            __syncthreads();                       // stage is reused by the next row
+            for (int64_t i = t; i < n; i += nt) ys[i] = from_f32<T>(expf(to_f32(xs[i]) - m) / d);
         }
         if (C > 1) asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
     }
-    if constexpr (BULK)
-        if (t == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// the dynamic shared memory a kernel may take, raised once per device to
-// the largest a launch has asked for; a cluster over 8 blocks allowed once
-bool allow_softmax(const void* kernel, int smem, int C, int* smem_set, bool* wide_set) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return false;
-    if (smem > 48 * 1024 && smem > smem_set[dev]) {
-        if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
-            != cudaSuccess)
-            return false;
-        smem_set[dev] = smem;
+template <typename T, bool VEC>
+int launch_stream(const T* x, T* y, int64_t R, int64_t W, int threads, int C, int G,
+                  cudaStream_t s) {
+    constexpr int V = Vec16<T>::N;
+    const int64_t slice = (W + static_cast<int64_t>(C) * V - 1) / (static_cast<int64_t>(C) * V) * V;
+    auto kernel = softmax_stream_kernel<T, VEC>;
+    if (C == 1) {
+        kernel<<<static_cast<unsigned>(G), threads, 0, s>>>(x, y, R, W, slice, 1);
+        return 0;
     }
-    if (C > 8 && !wide_set[dev]) {
-        if (cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)
-            != cudaSuccess)
-            return false;
-        wide_set[dev] = true;
+    if (C > 8) {                                   // past the portable cluster size
+        const cudaError_t e = cudaFuncSetAttribute(
+            reinterpret_cast<const void*>(kernel), cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (e != cudaSuccess) return static_cast<int>(e);
     }
-    return true;
-}
-
-// The clusters of a launch: as many as the card holds at once
-// (cudaOccupancyMaxActiveClusters, asked once per device and shape of
-// block), at most one a row; 0 if none fits.
-struct ClusterFit {
-    int dev, threads, C, smem, active;
-};
-
-template <typename T, bool BULK>
-int launch_slices(const T* x, T* y, int64_t R, int64_t W, int threads, int C, int64_t slice,
-                  int64_t staged, int smem, cudaStream_t s) {
-    static int smem_set[64] = {};
-    static bool wide_set[64] = {};
-    static ClusterFit fits[64];
-    static int nfits = 0;
-    auto kernel = softmax_slices_kernel<T, BULK>;
-    if (!allow_softmax(reinterpret_cast<const void*>(kernel), smem, C, smem_set, wide_set))
-        return static_cast<int>(cudaErrorInvalidValue);
     cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(G) * C);
     cfg.blockDim = dim3(threads);
-    cfg.dynamicSmemBytes = static_cast<size_t>(smem);
     cfg.stream = s;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -691,69 +563,35 @@ int launch_slices(const T* x, T* y, int64_t R, int64_t W, int threads, int C, in
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    int dev = 0;
-    cudaGetDevice(&dev);
-    int active = -1;
-    for (int i = 0; i < nfits; ++i)
-        if (fits[i].dev == dev && fits[i].threads == threads && fits[i].C == C
-            && fits[i].smem == smem)
-            active = fits[i].active;
-    if (active < 0) {
-        cfg.gridDim = dim3(C);
-        const cudaError_t e = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
-        if (e != cudaSuccess) return static_cast<int>(e);
-        if (nfits < 64) fits[nfits++] = {dev, threads, C, smem, active};
-    }
-    if (active <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-    const int64_t G = R < active ? R : active;
-    cfg.gridDim = dim3(static_cast<unsigned>(G * C));
-    return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, x, y, R, W, slice, staged, C));
+    return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, x, y, R, W, slice, C));
 }
 
-// A softmax plan (reduction.softmax_plan): branch 0 "regs", 1 "smem", 2
-// "cluster", threads a block, blocks a row (C), row elements a block
-// (slice), of them staged in shared memory, dynamic shared memory bytes.
-// The wrapper registers each plan once and launches by its index, so a
-// launch converts five ctypes arguments, not twelve (a few microseconds of
-// host time a call).
-struct SoftmaxPlanC {
-    int64_t W, slice, staged;
-    int dtype, branch, threads, C, smem;
-};
-constexpr int SOFTMAX_MAX_PLANS = 4096;
-SoftmaxPlanC softmax_plans[SOFTMAX_MAX_PLANS];
-int softmax_nplans = 0;
-
-// what each kernel takes, but the pointers' alignment (checked at launch)
-bool softmax_plan_ok(const SoftmaxPlanC& p) {
-    if (p.dtype != 0 && p.dtype != 1) return false;
-    const int V = p.dtype == 0 ? 4 : 8;
-    if (p.W <= 0 || p.threads < 32 || p.threads > SOFTMAX_MAX_THREADS || p.threads % 32)
-        return false;
-    if (p.branch == 0)
-        return p.C == 1 && p.W % V == 0 && (p.W / V + p.threads - 1) / p.threads <= SOFTMAX_REG_VECS;
-    return (p.branch == 1) == (p.C == 1) && p.branch <= 2 && p.C >= 1
-           && p.C <= SOFTMAX_MAX_CLUSTER && p.slice > 0 && p.slice * p.C >= p.W
-           && p.staged >= 0 && p.staged <= p.slice && p.smem <= SOFTMAX_MAX_SMEM
-           && p.staged * (p.dtype == 0 ? 4 : 2) <= p.smem;
-}
-
+// A plan (reduction.softmax_plan) checked and launched: branch 0 "regs"
+// (one block of `threads` a row, an aligned row of at most SOFTMAX_REG_VECS
+// vectors a thread), 1 "stream" (C blocks a row, a cluster where C > 1, G
+// rows in flight).
 template <typename T>
-int launch_softmax(const void* x, void* y, int64_t R, const SoftmaxPlanC& p, cudaStream_t s) {
+int launch_softmax(const void* x, void* y, int64_t R, int64_t W, int branch, int threads, int C,
+                   int G, cudaStream_t s) {
     constexpr int V = Vec16<T>::N;
     const T* px = static_cast<const T*>(x);
     T* py = static_cast<T*>(y);
-    const bool aligned = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16 == 0
-                         && p.W % V == 0;
-    if (p.branch == 0) {
-        if (!aligned) return static_cast<int>(cudaErrorInvalidValue);
-        softmax_regs_kernel<T><<<static_cast<unsigned>(R), p.threads, 0, s>>>(px, py, p.W);
+    const bool aligned =
+        (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16 == 0 && W % V == 0;
+    if (threads < 32 || threads > SOFTMAX_MAX_THREADS || threads % 32 || W <= 0
+        || R >= (1LL << 31))
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (branch == 0) {
+        if (!aligned || C != 1 || (W / V + threads - 1) / threads > SOFTMAX_REG_VECS)
+            return static_cast<int>(cudaErrorInvalidValue);
+        softmax_regs_kernel<T><<<static_cast<unsigned>(R), threads, 0, s>>>(px, py, W);
         return 0;
     }
-    if (aligned && p.slice % V == 0 && p.staged % V == 0)
-        return launch_slices<T, true>(px, py, R, p.W, p.threads, p.C, p.slice, p.staged, p.smem,
-                                      s);
-    return launch_slices<T, false>(px, py, R, p.W, p.threads, p.C, p.slice, p.staged, p.smem, s);
+    if (branch != 1 || C < 1 || C > SOFTMAX_MAX_CLUSTER || G < 1
+        || static_cast<int64_t>(G) * C >= (1LL << 31))
+        return static_cast<int>(cudaErrorInvalidValue);
+    return aligned ? launch_stream<T, true>(px, py, R, W, threads, C, G, s)
+                   : launch_stream<T, false>(px, py, R, W, threads, C, G, s);
 }
 
 }  // namespace
@@ -797,35 +635,16 @@ extern "C" int repro_expv(const void* x, void* y, int64_t n, int dtype, void* st
     return static_cast<int>(cudaGetLastError());
 }
 
-// The index of a softmax plan (W, dtype, then as softmax_plan gives it),
-// registered on first sight; -1 where the kernels do not take it or the
-// table is full.
-extern "C" int repro_softmax_plan(int64_t W, int dtype, int branch, int threads, int C,
-                                  int64_t slice, int64_t staged, int smem) {
-    static std::mutex lock;
-    const SoftmaxPlanC p = {W, slice, staged, dtype, branch, threads, C, smem};
-    if (!softmax_plan_ok(p)) return -1;
-    const std::lock_guard<std::mutex> hold(lock);
-    for (int i = 0; i < softmax_nplans; ++i) {
-        const SoftmaxPlanC& q = softmax_plans[i];
-        if (q.W == W && q.slice == slice && q.staged == staged && q.dtype == dtype
-            && q.branch == branch && q.threads == threads && q.C == C && q.smem == smem)
-            return i;
-    }
-    if (softmax_nplans == SOFTMAX_MAX_PLANS) return -1;
-    softmax_plans[softmax_nplans] = p;
-    return softmax_nplans++;
-}
-
-// y (R, W) = softmax of each row of x (R, W), f32 math, by a registered
-// plan (W and the dtype are the plan's).
-extern "C" int repro_softmax_rows(const void* x, void* y, int64_t R, int plan, void* stream) {
+// y (R, W) = softmax of each row of x (R, W), f32 math, by the plan
+// reduction.softmax_plan gives (launch_softmax says what each value is).
+extern "C" int repro_softmax_rows(const void* x, void* y, int64_t R, int64_t W, int dtype,
+                                  int branch, int threads, int C, int G, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (plan < 0 || plan >= softmax_nplans) return static_cast<int>(cudaErrorInvalidValue);
-    const SoftmaxPlanC& p = softmax_plans[plan];
     if (R > 0) {
-        const int err = p.dtype == 0 ? launch_softmax<float>(x, y, R, p, s)
-                                     : launch_softmax<__nv_bfloat16>(x, y, R, p, s);
+        const int err =
+            dtype == 0   ? launch_softmax<float>(x, y, R, W, branch, threads, C, G, s)
+            : dtype == 1 ? launch_softmax<__nv_bfloat16>(x, y, R, W, branch, threads, C, G, s)
+                         : static_cast<int>(cudaErrorInvalidValue);
         if (err) return err;
     }
     return static_cast<int>(cudaGetLastError());

@@ -17,8 +17,8 @@ composes the same way on the CPU, its lane partials from the plain version.
 ctypes function and its argument types resolved once, the raw handle of
 the current stream (no Stream object), a device guard only off the current
 device, the dot workspace's address kept per (device, stream), dotprod's
-0-d result written by the kernel, and softmax's plan registered once a
-shape and launched by its index.  No kernel has a backward: a call that
+0-d result written by the kernel, and softmax's plan (``softmax_plan``,
+cached by shape) passed by value.  No kernel has a backward: a call that
 autograd would have to differentiate raises before anything is checked.
 """
 from __future__ import annotations
@@ -45,17 +45,10 @@ DOT_THREADS = 256
 DOT_BLOCKS_PER_SM = 8
 DOT_MAX_BLOCKS = 132 * DOT_BLOCKS_PER_SM
 #: softmax_rows' limits (csrc SOFTMAX_*): 16-byte vectors a thread holds in
-#: the "regs" branch, threads a block, blocks a cluster, and the dynamic
-#: shared memory a block may stage a slice of a row in (227 KB less 1 KB
-#: for the kernel's own)
+#: the "regs" branch, threads a block, blocks a cluster
 SOFTMAX_REG_VECS = 4
 SOFTMAX_MAX_THREADS = 1024
 SOFTMAX_MAX_CLUSTER = 16
-SOFTMAX_MAX_SMEM = 227 * 1024 - 1024
-#: the card's SMs, which a few long rows are spread over, and the shortest
-#: slice a row is split into for that
-SMS = 132
-SOFTMAX_MIN_SLICE = 8192
 #: the most segments a dot launch takes (blockIdx.y), which also bounds its
 #: block partials (nseg * blocks a segment <= max(nseg, DOT_MAX_BLOCKS))
 DOT_MAX_SEGS = 65535
@@ -74,12 +67,10 @@ _ARGTYPES = {
     + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p],
     "repro_expv": [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int,
                                            ctypes.c_void_p],
-    "repro_softmax_plan": [ctypes.c_int64] + [ctypes.c_int] * 4 + [ctypes.c_int64] * 2
-    + [ctypes.c_int],
-    "repro_softmax_rows": [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int,
-                                                   ctypes.c_void_p],
+    "repro_softmax_rows": [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 }
-_BRANCHES = {"regs": 0, "smem": 1, "cluster": 2}
+_BRANCHES = {"regs": 0, "stream": 1}
 _FNS: dict = {}
 
 
@@ -210,15 +201,13 @@ def expv(x: torch.Tensor) -> torch.Tensor:
 
 
 class SoftmaxPlan(NamedTuple):
-    """How ``softmax_rows`` runs a call: the branch, the threads a block, the
-    blocks a row (a cluster), the row elements a block takes, of them the
-    ones staged in shared memory, and the dynamic shared memory bytes."""
+    """How ``softmax_rows`` runs a call: the branch, the threads a block,
+    the blocks a row (a cluster where more than one), and the rows in
+    flight (the grid is ``rows * cluster`` blocks)."""
     branch: str
     threads: int
     cluster: int
-    slice: int
-    staged: int
-    smem: int
+    rows: int
 
 
 @functools.lru_cache(maxsize=1024)
@@ -228,59 +217,34 @@ def softmax_plan(R: int, W: int, itemsize: int, aligned: bool) -> SoftmaxPlan:
     16-byte vectors.
 
     * ``regs``: an aligned row of at most ``SOFTMAX_REG_VECS`` vectors a
-      thread over 1024 threads, held in registers; as few threads as hold it
-      (a whole number of warps).
-    * ``smem``: one block a row, which stages the row in shared memory
-      where it fits (512 threads), and otherwise streams it twice, once for
-      its (max, sum) and once to write it (1024 threads, no shared memory,
-      so two blocks share an SM and one's reads run under the other's
-      writes); an unaligned row too, by plain loads.
-    * ``cluster``: C > 1 blocks of 1024 threads a row, C a power of two up
-      to 16, doubled while the rows fill fewer than the card's SMs and the
-      slices stay at least ``SOFTMAX_MIN_SLICE`` long; each block stages
-      its slice where it fits, and streams it twice where it does not.
-      On the H100 a cluster was slower than one block a row where the rows
-      already fill the SMs, and staging part of a slice slower than
-      staging none (``chip_smoke.py`` phase 6 times 256 rows of 2**20 at
-      each cluster size), so clusters only spread a few rows.  Slices are
-      whole vectors.
+      thread over 1024 threads, held in registers: one read.  As few
+      threads as hold it (a whole number of warps), one block a row.
+    * ``stream``: any other row, read twice (an unaligned one by plain
+      loads), one block of 1024 threads a row.
     """
     V = 16 // itemsize
     nvec = -(-W // V)
     if aligned and nvec <= SOFTMAX_REG_VECS * SOFTMAX_MAX_THREADS:
         threads = max(32, -(-nvec // (SOFTMAX_REG_VECS * 32)) * 32)
-        return SoftmaxPlan("regs", threads, 1, W, 0, 0)
-    cap = SOFTMAX_MAX_SMEM // itemsize // V * V
-    C = 1
-    while (C < SOFTMAX_MAX_CLUSTER and C * R < SMS
-           and W // (2 * C) >= SOFTMAX_MIN_SLICE):
-        C *= 2
-    sl = -(-W // (C * V)) * V
-    staged = sl if sl <= cap else 0
-    threads = 512 if C == 1 and staged else 1024
-    return SoftmaxPlan("smem" if C == 1 else "cluster", threads, C, sl, staged,
-                       staged * itemsize)
+        return SoftmaxPlan("regs", threads, 1, R)
+    return SoftmaxPlan("stream", SOFTMAX_MAX_THREADS, 1, R)
 
 
-@functools.lru_cache(maxsize=1024)
-def _softmax_handle(R: int, W: int, dtype: torch.dtype, aligned: bool) -> int:
-    """The C side's index of the plan for this call, registered once: a
-    launch then passes five arguments, which ctypes converts in a fraction
-    of the time the plan's own eight more would take."""
-    p = softmax_plan(R, W, _ITEMSIZE[dtype], aligned)
-    handle = _fn("repro_softmax_plan")(W, _DTYPES[dtype], _BRANCHES[p.branch],
-                                       p.threads, p.cluster, p.slice, p.staged, p.smem)
-    if handle < 0:
-        raise RuntimeError(f"softmax_rows kernel refused the plan {p} for ({R}, {W})")
-    return handle
+def _launch_softmax(x: torch.Tensor, y: torch.Tensor, plan: SoftmaxPlan, idx: int) -> int:
+    """One launch of ``plan`` on x (R, W) into y on the current stream of
+    device ``idx`` (the current device); the CUDA error, 0 on success.
+    The C side checks the plan against the pointers."""
+    R, W = x.shape
+    return _fn("repro_softmax_rows")(
+        x.data_ptr(), y.data_ptr(), R, W, _DTYPES[x.dtype], _BRANCHES[plan.branch],
+        plan.threads, plan.cluster, plan.rows, torch._C._cuda_getCurrentRawStream(idx))
 
 
-def _launch_softmax(x, y, R: int, W: int, idx: int) -> int:
-    xp = x.data_ptr()
-    handle = _softmax_handle(R, W, x.dtype,
-                             xp % 16 == 0 and W * _ITEMSIZE[x.dtype] % 16 == 0)
-    return _fn("repro_softmax_rows")(xp, y.data_ptr(), R, handle,
-                                     torch._C._cuda_getCurrentRawStream(idx))
+def _softmax_now(x, y, idx: int) -> int:
+    R, W = x.shape
+    item = _ITEMSIZE[x.dtype]
+    plan = softmax_plan(R, W, item, x.data_ptr() % 16 == 0 and W * item % 16 == 0)
+    return _launch_softmax(x, y, plan, idx)
 
 
 def softmax_rows(x: torch.Tensor) -> torch.Tensor:
@@ -298,10 +262,10 @@ def softmax_rows(x: torch.Tensor) -> torch.Tensor:
         return y
     idx = x.get_device()
     if idx == torch._C._cuda_getDevice():
-        err = _launch_softmax(x, y, R, W, idx)
+        err = _softmax_now(x, y, idx)
     else:
         with torch.cuda.device(idx):
-            err = _launch_softmax(x, y, R, W, idx)
+            err = _softmax_now(x, y, idx)
     _raise_on(err, "softmax_rows")
     LAUNCHES["softmax_rows"] += 1
     return y

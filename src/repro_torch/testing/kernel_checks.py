@@ -249,9 +249,8 @@ def check_flash_head_dim(D, causal, dtype, device="cuda") -> dict:
 #: row counts, the C x L = 16 x 4 machine; "table1-card" streams about 1 GiB
 #: an operand from HBM.  Keys: jacobi (H, W); conv (H, W) of the input and
 #: the filter side; dot n; softmax (R, W), rows held in registers, and
-#: "wide" rows past shared memory, streamed twice
-#: (``reduction.softmax_plan``); hier (C, L) machines, each under both
-#: hierarchies.
+#: "wide" rows past them, streamed twice (``reduction.softmax_plan``);
+#: hier (C, L) machines, each under both hierarchies.
 TABLE1 = {
     "table1-paper": {"jacobi": (256, 4096), "conv": (256, 4096, 7),
                      "dot": 4096, "softmax": [(64, 4096)],
@@ -262,12 +261,10 @@ TABLE1 = {
 }
 HIERARCHIES = ("two-level", "flat")
 #: softmax_rows at each branch of ``reduction.softmax_plan`` beside
-#: table1's: a short row in registers (7, 1000); rows staged whole in one
-#: block's shared memory (200, 40000); rows not 16-byte aligned, split over
-#: a 16-block cluster (3, 300001); and aligned rows whose f32 slices overflow
-#: shared memory, so each block streams its slice twice (2, 2**20 + 4096; in
-#: bf16 the slices fit)
-SOFTMAX_RAGGED = [(7, 1000), (3, 300001), (200, 40000), (2, 2 ** 20 + 4096)]
+#: table1's: a short row in registers (7, 1000); aligned rows too long for
+#: registers, streamed twice by one block a row (200, 40000); and rows that
+#: are not 16-byte aligned, streamed by plain loads (3, 300001)
+SOFTMAX_RAGGED = [(7, 1000), (3, 300001), (200, 40000)]
 #: ragged shapes: tile and vector edges, each softmax branch;
 #: "softmax_masked" takes masked rows (``softmax_inputs(masked=True)``)
 RAGGED = {"jacobi": [(333, 1001)], "conv": [(72, 519, 3), (76, 523, 7)],

@@ -318,70 +318,60 @@ def test_stencil_kernels_refuse_cpu_tensors(call):
 
 
 def test_softmax_checks_take_both_kernel_branches():
-    """The softmax checks (phase 3b, the gpu tests) reach every branch of
-    ``softmax_plan`` in both dtypes: rows in registers, rows staged in one
-    block, rows split over a cluster, aligned and not; and in f32 rows and
-    slices that overflow shared memory, so they stream."""
+    """The softmax checks (phase 3b, the gpu tests) reach both branches of
+    ``softmax_plan`` in both dtypes: rows in registers, and rows streamed
+    twice, aligned and not."""
     assert kc.RAGGED["softmax_masked"] == kc.RAGGED["softmax"]
     shapes = kc.RAGGED["softmax"] + [rw for cfg in kc.TABLE1.values()
                                      for rw in cfg["softmax"]]
     for item in (4, 2):
         plans = {rw: reduction.softmax_plan(*rw, item, rw[1] * item % 16 == 0)
                  for rw in shapes}
-        assert {p.branch for p in plans.values()} == {"regs", "smem", "cluster"}
+        assert {p.branch for p in plans.values()} == {"regs", "stream"}
         assert plans[(64, 4096)].branch == plans[(7, 1000)].branch == "regs"
-        assert plans[(200, 40000)].branch == "smem"
-        assert plans[(3, 300001)].branch == "cluster"          # not aligned
-        assert plans[(2, 2 ** 20 + 4096)].branch == "cluster"
-        assert plans[(256, 2 ** 20)].branch == "smem"
-    for rw in ((2, 2 ** 20 + 4096), (256, 2 ** 20)):
-        streamed = reduction.softmax_plan(*rw, 4, True)
-        assert streamed.staged == streamed.smem == 0 and streamed.threads == 1024
+        assert plans[(32768, 8192)].branch == "regs"
+        assert plans[(200, 40000)].branch == "stream"
+        assert plans[(3, 300001)].branch == "stream"          # not aligned
+        assert plans[(256, 2 ** 20)].branch == "stream"
 
 
 def _plan_shapes():
-    """(R, W, itemsize) at every branch's edges: the longest row in
-    registers and one vector more, the longest row one block stages and one
-    vector more, a few rows spread over the SMs, rows of one element, and
-    rows past what a 16-block cluster stages."""
+    """(R, W, itemsize) at the branches' edge and beyond: the longest row in
+    registers and one vector more, rows of one element and of one vector,
+    a few long rows and many short ones, rows that are not whole vectors,
+    and table1's."""
     out = []
     for item in (4, 2):
         V = 16 // item
         regs = reduction.SOFTMAX_REG_VECS * reduction.SOFTMAX_MAX_THREADS * V
-        cap = reduction.SOFTMAX_MAX_SMEM // item
         out += [(R, W, item) for R, W in (
-            (1, 1), (5, V), (64, regs), (64, regs + V), (200, cap // V * V),
-            (200, cap // V * V + V), (1, 2 ** 16), (3, 300001), (131, 40000),
-            (132, 40000), (4, 2 ** 22), (2 ** 20, 16), (7, 1000))]
+            (1, 1), (5, V), (64, regs), (64, regs + V), (200, 40000),
+            (200, 40000 + 1), (1, 2 ** 16), (3, 300001), (131, 40000),
+            (256, 2 ** 20), (4, 2 ** 22), (2 ** 20, 16), (7, 1000))]
     return out
 
 
 @pytest.mark.parametrize("R,W,item", _plan_shapes(), ids=str)
 def test_softmax_plan_stays_within_hopper_limits(R, W, item):
-    """Every plan covers its row and stays within what a Hopper block and
-    cluster take: at most 1,024 threads in whole warps, 227 KB of shared
-    memory (the kernel's own 1 KB beside it), a cluster of at most 16
-    blocks; the regs branch at most ``SOFTMAX_REG_VECS`` vectors a thread;
-    aligned slices whole 16-byte vectors, and what is staged fits."""
+    """Every plan covers its rows and stays within what a Hopper block and
+    cluster take: at most 1,024 threads in whole warps, a cluster of at
+    most 16 blocks, a grid under 2**31 blocks; the regs branch aligned rows
+    of at most ``SOFTMAX_REG_VECS`` vectors a thread, in as few warps as
+    hold them; every other row streamed by 1,024 threads."""
     V = 16 // item
     for aligned in (True, False) if W * item % 16 == 0 else (False,):
         p = reduction.softmax_plan(R, W, item, aligned)
         assert 32 <= p.threads <= 1024 and p.threads % 32 == 0
         assert p.cluster in (1, 2, 4, 8, 16)
-        assert p.smem + 1024 <= 227 * 1024 and p.smem == p.staged * item
+        assert 1 <= p.rows <= R and p.rows * p.cluster < 2 ** 31
+        in_regs = aligned and -(-W // V) <= reduction.SOFTMAX_REG_VECS * 1024
+        assert p.branch == ("regs" if in_regs else "stream")
         if p.branch == "regs":
-            assert aligned and p.cluster == 1 and p.staged == 0
+            assert p.cluster == 1 and p.rows == R
             assert -(-W // V) <= reduction.SOFTMAX_REG_VECS * p.threads
             assert -(-W // V) > reduction.SOFTMAX_REG_VECS * (p.threads - 32)
-            continue
-        assert (p.branch == "smem") == (p.cluster == 1)
-        assert p.slice * p.cluster >= W > p.slice * (p.cluster - 1)
-        assert p.slice % V == 0
-        # the whole slice staged where it fits, else none of it
-        fits = p.slice * item <= reduction.SOFTMAX_MAX_SMEM
-        assert p.staged == (p.slice if fits else 0)
-        # a cluster only where the rows alone leave SMs idle
-        assert p.cluster == 1 or R * p.cluster // 2 < reduction.SMS
+        else:
+            assert p.threads == 1024
 
 
 def test_kern_twin_prints_its_three_rows(capsys):
