@@ -55,18 +55,14 @@
 // memory: one read, one write.  "stream": a longer row, or one that is not
 // 16-byte aligned, is read twice, once into a running (max, sum) and once to
 // write it, SOFTMAX_UNROLL 16-byte loads a thread in flight (plain loads
-// where unaligned); C blocks of a thread-block cluster may share a row,
-// their pairs merged through distributed shared memory.  exp is expf and
-// e / d a true division; never built with --use_fast_math.  Every order of
-// reduction is fixed and nothing is added atomically, so a result is the
-// same on every run.  Masked (-inf) elements give 0, as in the TPU kernel.
+// where unaligned), one block a row.  exp is expf and e / d a true
+// division; never built with --use_fast_math.  Every order of reduction is
+// fixed and nothing is added atomically, so a result is the same on every
+// run.  Masked (-inf) elements give 0, as in the TPU kernel.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -309,7 +305,6 @@ void launch_expv(const void* x, void* y, int64_t n, cudaStream_t s) {
 
 constexpr int SOFTMAX_REG_VECS = 4;          // 16-byte vectors a thread holds (regs)
 constexpr int SOFTMAX_MAX_THREADS = 1024;
-constexpr int SOFTMAX_MAX_CLUSTER = 16;
 constexpr int SOFTMAX_UNROLL = 4;            // 16-byte vectors a thread has in flight (stream)
 
 // (m, d) (+) (m2, d2): the larger max, each sum rescaled to it.  Either
@@ -436,143 +431,64 @@ softmax_regs_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t W) {
 }
 
 // "stream": a row too long for registers, or not 16-byte aligned, read
-// twice.  C blocks share a row, block `rank` the elements [rank * slice,
-// (rank + 1) * slice); C = 1 is one block a row.  A grid of G * C blocks
-// walks the rows cluster_id, cluster_id + G, ...  Pass 1 streams the slice
-// into each thread's running (max, sum), SOFTMAX_UNROLL 16-byte loads
-// issued before any is used (VEC: x and y 16-byte aligned, rows and slices
-// whole vectors; otherwise element by element); the block merges its
-// threads' pairs, and where C > 1 the cluster its blocks' pairs through
-// distributed shared memory (warp 0 reads the C pairs and merges them in
-// rank order), so every block holds the same (m, d).  Pass 2 reads the
-// slice again (evict first: its last use) and writes exp(x - m) / d by
-// streaming stores.  With C > 1 the plan keeps G * (row bytes) under L2, so
-// the second read finds the slice there.
+// twice by one block a row.  Pass 1 streams the row into each thread's
+// running (max, sum), SOFTMAX_UNROLL 16-byte loads issued before any is used
+// (VEC: x and y 16-byte aligned and rows whole vectors; otherwise element
+// by element); the block merges its threads' pairs.  Pass 2 reads the row
+// again (evict first: its last use) and writes exp(x - m) / d by streaming
+// stores.  On the H100 this beat a row split over a thread-block cluster
+// with few enough rows in flight that the second read finds them in L2:
+// a block's exps and divisions cap its rate well under its share of HBM's,
+// so the few SMs such a grid keeps busy cannot reach the memory's rate.
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(SOFTMAX_MAX_THREADS)
-softmax_stream_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t R, int64_t W,
-                      int64_t slice, int C) {
+softmax_stream_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t W) {
     constexpr int V = Vec16<T>::N;
     constexpr int U = SOFTMAX_UNROLL;
-    // by the row's parity: a warp may start the next row's merge while a
-    // slower one still reads this row's
-    __shared__ float red_m[2][32], red_d[2][32];
-    __shared__ float pair[2], merged[2];
-    const int rank = static_cast<int>(blockIdx.x % C);
-    const int64_t G = gridDim.x / C;
-    const int64_t lo = rank * slice;
-    const int64_t n = lo < W ? (W - lo < slice ? W - lo : slice) : 0;
+    __shared__ float red_m[32], red_d[32];
+    const T* xs = x + static_cast<int64_t>(blockIdx.x) * W;
+    T* ys = y + static_cast<int64_t>(blockIdx.x) * W;
     const int t = threadIdx.x, nt = blockDim.x;
-    unsigned parity = 0;
-    for (int64_t row = blockIdx.x / C; row < R; row += G, parity ^= 1u) {
-        const T* xs = x + row * W + lo;
-        T* ys = y + row * W + lo;
-        float m = -INFINITY, d = 0.f;
-        if constexpr (VEC) {
-            const int64_t nv = n / V;
-            for (int64_t c0 = t; c0 < nv; c0 += U * nt) {
-                Vec16<T> a[U];
+    float m = -INFINITY, d = 0.f;
+    if constexpr (VEC) {
+        const int64_t nv = W / V;
+        for (int64_t c0 = t; c0 < nv; c0 += U * nt) {
+            Vec16<T> a[U];
 #pragma unroll
-                for (int k = 0; k < U; ++k)
-                    if (c0 + k * nt < nv) a[k] = load16_dot(xs + (c0 + k * nt) * V);
+            for (int k = 0; k < U; ++k)
+                if (c0 + k * nt < nv) a[k] = load16_dot(xs + (c0 + k * nt) * V);
 #pragma unroll
-                for (int k = 0; k < U; ++k)
-                    if (c0 + k * nt < nv) md_add_vec(m, d, a[k]);
-            }
-        } else {
-            for (int64_t i = t; i < n; i += nt) md_add(m, d, to_f32(xs[i]));
+            for (int k = 0; k < U; ++k)
+                if (c0 + k * nt < nv) md_add_vec(m, d, a[k]);
         }
-        block_md(m, d, red_m[parity], red_d[parity]);
-        if (C > 1) {
-            cg::cluster_group cluster = cg::this_cluster();
-            if (t == 0) {
-                pair[0] = m;
-                pair[1] = d;
+        block_md(m, d, red_m, red_d);
+        for (int64_t c0 = t; c0 < nv; c0 += U * nt) {
+            Vec16<T> a[U];
+#pragma unroll
+            for (int k = 0; k < U; ++k)
+                if (c0 + k * nt < nv) a[k] = load16_cs(xs + (c0 + k * nt) * V);
+#pragma unroll
+            for (int k = 0; k < U; ++k) {
+                if (c0 + k * nt >= nv) continue;
+#pragma unroll
+                for (int j = 0; j < V; ++j)
+                    a[k].v[j] = from_f32<T>(expf(to_f32(a[k].v[j]) - m) / d);
+                store16_cs(ys + (c0 + k * nt) * V, a[k]);
             }
-            cluster.sync();
-            if (t < 32) {                          // lane r reads block r's pair
-                float mr = -INFINITY, dr = 0.f;
-                if (t < C) {
-                    const float* p = cluster.map_shared_rank(&pair[0], t);
-                    mr = p[0];
-                    dr = p[1];
-                }
-                m = -INFINITY;
-                d = 0.f;
-                for (int r = 0; r < C; ++r)
-                    md_merge(m, d, __shfl_sync(0xffffffffu, mr, r),
-                             __shfl_sync(0xffffffffu, dr, r));
-                if (t == 0) {
-                    merged[0] = m;
-                    merged[1] = d;
-                }
-            }
-            // done reading the others' pairs: no block writes its next pair,
-            // or leaves, before every block is
-            asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-            __syncthreads();
-            m = merged[0];
-            d = merged[1];
         }
-        if constexpr (VEC) {
-            const int64_t nv = n / V;
-            for (int64_t c0 = t; c0 < nv; c0 += U * nt) {
-                Vec16<T> a[U];
-#pragma unroll
-                for (int k = 0; k < U; ++k)
-                    if (c0 + k * nt < nv) a[k] = load16_cs(xs + (c0 + k * nt) * V);
-#pragma unroll
-                for (int k = 0; k < U; ++k) {
-                    if (c0 + k * nt >= nv) continue;
-#pragma unroll
-                    for (int j = 0; j < V; ++j)
-                        a[k].v[j] = from_f32<T>(expf(to_f32(a[k].v[j]) - m) / d);
-                    store16_cs(ys + (c0 + k * nt) * V, a[k]);
-                }
-            }
-        } else {
-            for (int64_t i = t; i < n; i += nt) ys[i] = from_f32<T>(expf(to_f32(xs[i]) - m) / d);
-        }
-        if (C > 1) asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    } else {
+        for (int64_t i = t; i < W; i += nt) md_add(m, d, to_f32(xs[i]));
+        block_md(m, d, red_m, red_d);
+        for (int64_t i = t; i < W; i += nt) ys[i] = from_f32<T>(expf(to_f32(xs[i]) - m) / d);
     }
 }
 
-template <typename T, bool VEC>
-int launch_stream(const T* x, T* y, int64_t R, int64_t W, int threads, int C, int G,
-                  cudaStream_t s) {
-    constexpr int V = Vec16<T>::N;
-    const int64_t slice = (W + static_cast<int64_t>(C) * V - 1) / (static_cast<int64_t>(C) * V) * V;
-    auto kernel = softmax_stream_kernel<T, VEC>;
-    if (C == 1) {
-        kernel<<<static_cast<unsigned>(G), threads, 0, s>>>(x, y, R, W, slice, 1);
-        return 0;
-    }
-    if (C > 8) {                                   // past the portable cluster size
-        const cudaError_t e = cudaFuncSetAttribute(
-            reinterpret_cast<const void*>(kernel), cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-        if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(static_cast<unsigned>(G) * C);
-    cfg.blockDim = dim3(threads);
-    cfg.stream = s;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = C;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, x, y, R, W, slice, C));
-}
-
-// A plan (reduction.softmax_plan) checked and launched: branch 0 "regs"
-// (one block of `threads` a row, an aligned row of at most SOFTMAX_REG_VECS
-// vectors a thread), 1 "stream" (C blocks a row, a cluster where C > 1, G
-// rows in flight).
+// A plan (reduction.softmax_plan) checked and launched, one block of
+// `threads` a row: branch 0 "regs" (an aligned row of at most
+// SOFTMAX_REG_VECS vectors a thread), 1 "stream".
 template <typename T>
-int launch_softmax(const void* x, void* y, int64_t R, int64_t W, int branch, int threads, int C,
-                   int G, cudaStream_t s) {
+int launch_softmax(const void* x, void* y, int64_t R, int64_t W, int branch, int threads,
+                   cudaStream_t s) {
     constexpr int V = Vec16<T>::N;
     const T* px = static_cast<const T*>(x);
     T* py = static_cast<T*>(y);
@@ -581,17 +497,20 @@ int launch_softmax(const void* x, void* y, int64_t R, int64_t W, int branch, int
     if (threads < 32 || threads > SOFTMAX_MAX_THREADS || threads % 32 || W <= 0
         || R >= (1LL << 31))
         return static_cast<int>(cudaErrorInvalidValue);
+    const unsigned grid = static_cast<unsigned>(R);
     if (branch == 0) {
-        if (!aligned || C != 1 || (W / V + threads - 1) / threads > SOFTMAX_REG_VECS)
+        if (!aligned || (W / V + threads - 1) / threads > SOFTMAX_REG_VECS)
             return static_cast<int>(cudaErrorInvalidValue);
-        softmax_regs_kernel<T><<<static_cast<unsigned>(R), threads, 0, s>>>(px, py, W);
-        return 0;
-    }
-    if (branch != 1 || C < 1 || C > SOFTMAX_MAX_CLUSTER || G < 1
-        || static_cast<int64_t>(G) * C >= (1LL << 31))
+        softmax_regs_kernel<T><<<grid, threads, 0, s>>>(px, py, W);
+    } else if (branch == 1) {
+        if (aligned)
+            softmax_stream_kernel<T, true><<<grid, threads, 0, s>>>(px, py, W);
+        else
+            softmax_stream_kernel<T, false><<<grid, threads, 0, s>>>(px, py, W);
+    } else {
         return static_cast<int>(cudaErrorInvalidValue);
-    return aligned ? launch_stream<T, true>(px, py, R, W, threads, C, G, s)
-                   : launch_stream<T, false>(px, py, R, W, threads, C, G, s);
+    }
+    return 0;
 }
 
 }  // namespace
@@ -638,12 +557,12 @@ extern "C" int repro_expv(const void* x, void* y, int64_t n, int dtype, void* st
 // y (R, W) = softmax of each row of x (R, W), f32 math, by the plan
 // reduction.softmax_plan gives (launch_softmax says what each value is).
 extern "C" int repro_softmax_rows(const void* x, void* y, int64_t R, int64_t W, int dtype,
-                                  int branch, int threads, int C, int G, void* stream) {
+                                  int branch, int threads, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (R > 0) {
         const int err =
-            dtype == 0   ? launch_softmax<float>(x, y, R, W, branch, threads, C, G, s)
-            : dtype == 1 ? launch_softmax<__nv_bfloat16>(x, y, R, W, branch, threads, C, G, s)
+            dtype == 0   ? launch_softmax<float>(x, y, R, W, branch, threads, s)
+            : dtype == 1 ? launch_softmax<__nv_bfloat16>(x, y, R, W, branch, threads, s)
                          : static_cast<int>(cudaErrorInvalidValue);
         if (err) return err;
     }

@@ -45,10 +45,9 @@ DOT_THREADS = 256
 DOT_BLOCKS_PER_SM = 8
 DOT_MAX_BLOCKS = 132 * DOT_BLOCKS_PER_SM
 #: softmax_rows' limits (csrc SOFTMAX_*): 16-byte vectors a thread holds in
-#: the "regs" branch, threads a block, blocks a cluster
+#: the "regs" branch, and threads a block
 SOFTMAX_REG_VECS = 4
 SOFTMAX_MAX_THREADS = 1024
-SOFTMAX_MAX_CLUSTER = 16
 #: the most segments a dot launch takes (blockIdx.y), which also bounds its
 #: block partials (nseg * blocks a segment <= max(nseg, DOT_MAX_BLOCKS))
 DOT_MAX_SEGS = 65535
@@ -68,7 +67,7 @@ _ARGTYPES = {
     "repro_expv": [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int,
                                            ctypes.c_void_p],
     "repro_softmax_rows": [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2
-    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
 _BRANCHES = {"regs": 0, "stream": 1}
 _FNS: dict = {}
@@ -201,50 +200,40 @@ def expv(x: torch.Tensor) -> torch.Tensor:
 
 
 class SoftmaxPlan(NamedTuple):
-    """How ``softmax_rows`` runs a call: the branch, the threads a block,
-    the blocks a row (a cluster where more than one), and the rows in
-    flight (the grid is ``rows * cluster`` blocks)."""
+    """How ``softmax_rows`` runs a call: the branch, and the threads of the
+    one block a row."""
     branch: str
     threads: int
-    cluster: int
-    rows: int
 
 
 @functools.lru_cache(maxsize=1024)
-def softmax_plan(R: int, W: int, itemsize: int, aligned: bool) -> SoftmaxPlan:
-    """The branch of ``csrc/reduction.cu``'s softmax for (R, W) rows of
-    ``itemsize`` bytes; ``aligned``: x is 16-byte aligned and a row is whole
-    16-byte vectors.
+def softmax_plan(W: int, itemsize: int, aligned: bool) -> SoftmaxPlan:
+    """The branch of ``csrc/reduction.cu``'s softmax for rows of W elements
+    of ``itemsize`` bytes; ``aligned``: x is 16-byte aligned and a row is
+    whole 16-byte vectors.
 
     * ``regs``: an aligned row of at most ``SOFTMAX_REG_VECS`` vectors a
       thread over 1024 threads, held in registers: one read.  As few
-      threads as hold it (a whole number of warps), one block a row.
-    * ``stream``: any other row, read twice (an unaligned one by plain
-      loads), one block of 1024 threads a row.
+      threads as hold it, a whole number of warps.
+    * ``stream``: any other row, read twice by 1024 threads (an unaligned
+      one by plain loads).  On the H100 a row split over a thread-block
+      cluster, with few enough rows in flight for the second read to come
+      from L2, was slower at 256 rows of 2**20 f32 (PERF.md, section 6).
     """
     V = 16 // itemsize
     nvec = -(-W // V)
     if aligned and nvec <= SOFTMAX_REG_VECS * SOFTMAX_MAX_THREADS:
-        threads = max(32, -(-nvec // (SOFTMAX_REG_VECS * 32)) * 32)
-        return SoftmaxPlan("regs", threads, 1, R)
-    return SoftmaxPlan("stream", SOFTMAX_MAX_THREADS, 1, R)
+        return SoftmaxPlan("regs", max(32, -(-nvec // (SOFTMAX_REG_VECS * 32)) * 32))
+    return SoftmaxPlan("stream", SOFTMAX_MAX_THREADS)
 
 
-def _launch_softmax(x: torch.Tensor, y: torch.Tensor, plan: SoftmaxPlan, idx: int) -> int:
-    """One launch of ``plan`` on x (R, W) into y on the current stream of
-    device ``idx`` (the current device); the CUDA error, 0 on success.
-    The C side checks the plan against the pointers."""
-    R, W = x.shape
-    return _fn("repro_softmax_rows")(
-        x.data_ptr(), y.data_ptr(), R, W, _DTYPES[x.dtype], _BRANCHES[plan.branch],
-        plan.threads, plan.cluster, plan.rows, torch._C._cuda_getCurrentRawStream(idx))
-
-
-def _softmax_now(x, y, idx: int) -> int:
+def _launch_softmax(x, y, idx: int) -> int:
     R, W = x.shape
     item = _ITEMSIZE[x.dtype]
-    plan = softmax_plan(R, W, item, x.data_ptr() % 16 == 0 and W * item % 16 == 0)
-    return _launch_softmax(x, y, plan, idx)
+    plan = softmax_plan(W, item, x.data_ptr() % 16 == 0 and W * item % 16 == 0)
+    return _fn("repro_softmax_rows")(
+        x.data_ptr(), y.data_ptr(), R, W, _DTYPES[x.dtype], _BRANCHES[plan.branch],
+        plan.threads, torch._C._cuda_getCurrentRawStream(idx))
 
 
 def softmax_rows(x: torch.Tensor) -> torch.Tensor:
@@ -262,10 +251,10 @@ def softmax_rows(x: torch.Tensor) -> torch.Tensor:
         return y
     idx = x.get_device()
     if idx == torch._C._cuda_getDevice():
-        err = _softmax_now(x, y, idx)
+        err = _launch_softmax(x, y, idx)
     else:
         with torch.cuda.device(idx):
-            err = _softmax_now(x, y, idx)
+            err = _launch_softmax(x, y, idx)
     _raise_on(err, "softmax_rows")
     LAUNCHES["softmax_rows"] += 1
     return y

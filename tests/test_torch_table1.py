@@ -325,7 +325,7 @@ def test_softmax_checks_take_both_kernel_branches():
     shapes = kc.RAGGED["softmax"] + [rw for cfg in kc.TABLE1.values()
                                      for rw in cfg["softmax"]]
     for item in (4, 2):
-        plans = {rw: reduction.softmax_plan(*rw, item, rw[1] * item % 16 == 0)
+        plans = {rw: reduction.softmax_plan(rw[1], item, rw[1] * item % 16 == 0)
                  for rw in shapes}
         assert {p.branch for p in plans.values()} == {"regs", "stream"}
         assert plans[(64, 4096)].branch == plans[(7, 1000)].branch == "regs"
@@ -353,21 +353,17 @@ def _plan_shapes():
 
 @pytest.mark.parametrize("R,W,item", _plan_shapes(), ids=str)
 def test_softmax_plan_stays_within_hopper_limits(R, W, item):
-    """Every plan covers its rows and stays within what a Hopper block and
-    cluster take: at most 1,024 threads in whole warps, a cluster of at
-    most 16 blocks, a grid under 2**31 blocks; the regs branch aligned rows
-    of at most ``SOFTMAX_REG_VECS`` vectors a thread, in as few warps as
-    hold them; every other row streamed by 1,024 threads."""
+    """Every plan is one block a row within what a Hopper block takes: at
+    most 1,024 threads in whole warps; the regs branch aligned rows of at
+    most ``SOFTMAX_REG_VECS`` vectors a thread, in as few warps as hold
+    them; every other row streamed by 1,024 threads."""
     V = 16 // item
     for aligned in (True, False) if W * item % 16 == 0 else (False,):
-        p = reduction.softmax_plan(R, W, item, aligned)
+        p = reduction.softmax_plan(W, item, aligned)
         assert 32 <= p.threads <= 1024 and p.threads % 32 == 0
-        assert p.cluster in (1, 2, 4, 8, 16)
-        assert 1 <= p.rows <= R and p.rows * p.cluster < 2 ** 31
         in_regs = aligned and -(-W // V) <= reduction.SOFTMAX_REG_VECS * 1024
         assert p.branch == ("regs" if in_regs else "stream")
         if p.branch == "regs":
-            assert p.cluster == 1 and p.rows == R
             assert -(-W // V) <= reduction.SOFTMAX_REG_VECS * p.threads
             assert -(-W // V) > reduction.SOFTMAX_REG_VECS * (p.threads - 32)
         else:
