@@ -111,6 +111,28 @@ __device__ __forceinline__ float warp_max(float x) {
     return x;
 }
 
+
+// Cycle stamps of a block's phases (thread 0; slot 0 the count, then
+// (phase, clock64) pairs, phase -1 the start), read by repro_paged_cycles;
+// compiled only with -DPAGED_CYCLES (testing/paged_probe.py), so the
+// library the port loads has none
+#ifdef PAGED_CYCLES
+constexpr int STAMP_SLOTS = 128;
+__device__ long long paged_cycles[1 << 20];
+#define STAMP(phase)                                                                   \
+    if (tid == 0 && 2 * n_stamps + 2 < STAMP_SLOTS) {                                  \
+        long long* st_ = paged_cycles + (long long)(blockIdx.x + gridDim.x *           \
+                         (blockIdx.y + gridDim.y * blockIdx.z)) * STAMP_SLOTS;          \
+        st_[1 + 2 * n_stamps] = (phase);                                               \
+        st_[2 + 2 * n_stamps] = clock64();                                             \
+        st_[0] = ++n_stamps;                                                           \
+    }
+#define STAMP_DECL int n_stamps = 0
+#else
+#define STAMP(phase)
+#define STAMP_DECL
+#endif
+
 template <typename T>
 __global__ void __launch_bounds__(NT)
 paged_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
@@ -133,6 +155,8 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
 
     const int b = blockIdx.x, h = blockIdx.y;
     const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+    STAMP_DECL;
+    STAMP(-1);
     const int len = min(lens[b], nblk * bt);       // the table holds nblk * bt tokens
     const int nb = (len + bt - 1) / bt;            // blocks that hold a visible token
     const int rounds = (len + TOK - 1) / TOK;
@@ -149,6 +173,7 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
 #pragma unroll
     for (int k = 0; k < ACC4; ++k) acc[k] = make_float4(0.f, 0.f, 0.f, 0.f);
     __syncthreads();
+    STAMP(0);
 
     // round r's K and V into tile `st`; tokens of blocks past nb read zeros
     const int row_chunks = D / EPC;
@@ -175,6 +200,7 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
             cp_async_wait<0>();
         }
         __syncthreads();
+        STAMP(1);
         const T* Kr = Ks + st * TOK * LD;
         const T* Vr = Vs + st * TOK * LD;
         const int t0 = r * TOK;
@@ -212,6 +238,7 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
             }
         }
         __syncthreads();
+        STAMP(2);
 
         // online softmax: one warp per row, two tokens a lane
         for (int g = warp; g < G; g += NW) {
@@ -233,6 +260,7 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
             }
         }
         __syncthreads();
+        STAMP(3);
 
         // acc[g][d..d+3] = acc * alpha + sum_t p[g][t] * V[t][d..d+3]
 #pragma unroll
@@ -256,6 +284,7 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
             }
         }
         __syncthreads();                 // the next round's copies overwrite this tile
+        STAMP(4);
     }
 
     T* ob = out + ((long long)b * Hkv + h) * GD;
@@ -271,6 +300,7 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
             ob[g * D + d + 3] = from_f32<T>(acc[k].w * inv);
         }
     }
+    STAMP(5);
 }
 
 template <typename T>
@@ -321,3 +351,17 @@ extern "C" int repro_paged_attention(const void* q, const void* kpool, const voi
                                      q_sb, q_sh, q_sg, p_sh, p_sn, p_st, s);
     return static_cast<int>(cudaErrorInvalidValue);
 }
+
+#ifdef PAGED_CYCLES
+// the first n stamps of the cycle-stamped build's launches since the last
+// clear (clear != 0 zeroes them first and copies nothing)
+extern "C" int repro_paged_cycles(long long* host, int n, int clear) {
+    if (clear) {
+        void* p = nullptr;
+        cudaError_t e = cudaGetSymbolAddress(&p, paged_cycles);
+        if (e == cudaSuccess) e = cudaMemset(p, 0, sizeof(long long) << 20);
+        return static_cast<int>(e);
+    }
+    return static_cast<int>(cudaMemcpyFromSymbol(host, paged_cycles, n * sizeof(long long)));
+}
+#endif

@@ -121,6 +121,10 @@ PAGED_LENS = (0, 1, 15, 16, 17, 300, 1023, 640)
 PAGED_BT = 16
 PAGED_NBLK = 64                          # max_seq 1024 / 16
 PAGED_NB = 400                           # pool blocks, block 0 the zero block
+#: the lens of chip_smoke.py's traced batch-8 paged decode step (phase 5d:
+#: the 8 pool prompts of 71-445 tokens after their first decode tokens),
+#: 1,836 tokens; testing/paged_probe.py and the gpu tests take them
+DECODE_LENS = (459, 363, 307, 199, 216, 96, 111, 85)
 #: whole-prompt prefill lengths (causal): the dense path's 35-223 and the
 #: paged path's 71-445 tokens, ragged against the 64-row and 64-key tiles
 FLASH_S = (1, 37, 223, 256, 333, 445, 512)
