@@ -7,19 +7,25 @@ Phases, each of which raises on failure (nothing is caught):
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: the CUDA libraries (matmul, flash_attention, paged_attention,
      reduction, stencil, rmsnorm; one nvcc each, all at once, sm_90a);
-     ptxas's registers and spills (for flash_attention, reduction and
-     rmsnorm by kernel, with any wgmma serialisation notice);
+     ptxas's registers and spills (by kernel and template arguments for
+     every library but the matmul, with any wgmma serialisation notice);
   3. each kernel against its plain PyTorch version on the card, element by
      element, at the llama3-8b serving shapes, in bf16 and f32 (the matmul
      at every main-path M, 1 to 512, and at ragged shapes; flash attention
      at every whole-prompt length of the paths, ragged ones, B = 2,
-     windows across tile edges, and every head dim causal and not; each
-     line naming the kernel variant it took);
+     windows across tile edges, and every head dim causal and not; paged
+     attention at ``PAGED_LENS`` and at ``kernel_checks.PAGED_CASES``
+     (split and one-slice plans, slice edges, empty sequences, a 128-row
+     chunk on one table, the smoke heads, G = 8), called twice for the same
+     bits; each line naming the kernel variant or plan it took);
   3b. the paper's Table I kernels (dotprod, expv, softmax_rows, jacobi2d,
      fconv2d) against their plain versions at the table1-paper and
      table1-card shapes and at ragged ones (softmax also on masked rows,
      each line naming the branch of ``reduction.softmax_plan`` it took),
-     in f32 and bf16; dotprod and dotprod_hier against an f64 sum, with
+     in f32 and bf16; fconv2d also at every filter side 1 to 16, square and
+     not, unrolled and generic, from aligned and unaligned bases
+     (``kernel_checks.CONV_FILTERS``; each line naming ``conv_plan``'s
+     choice); dotprod and dotprod_hier against an f64 sum, with
      dots that round to bf16 as controls that must fail the same check;
      expv on every f32 bit pattern (2**32, in chunks of 2**28), every bf16
      one and the round-half edges of its range reduction, the bits that
@@ -49,11 +55,13 @@ Phases, each of which raises on failure (nothing is caught):
      at every main-path M in both dtypes, and each matmul variant's host
      cost a call at K = N = 64; flash attention at S = 37, 223, 445 and 512
      with the device's ms a call beside SDPA's from one trace, and each
-     variant's host cost a call), the Table I kernels at both
+     variant's host cost a call; paged attention at the traced batch-8
+     decode step's inputs with its device ms a call from a trace, its plan,
+     and its host cost a call alone), the Table I kernels at both
      configurations (at table1-paper also their device time and the
-     library call's from profiler traces, and dotprod's, expv's and
-     softmax_rows' host cost a call in turns with torch.dot, torch.exp and
-     torch.softmax).
+     library call's from profiler traces, fconv2d's at table1-card too,
+     and each one's host cost a call in turns with torch.dot, torch.exp,
+     torch.softmax or F.conv2d).
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.  Without a card,
 or without the repo's ``src/repro_torch`` beside it, it exits non-zero
@@ -150,7 +158,8 @@ def _trace(step, steps: int) -> dict:
 
 def _ptxas_summary(log: str) -> list:
     """nvcc's ``-Xptxas -v`` lines, one a kernel: its name (template
-    arguments kept: dtype, head dim, vec or scalar loads), registers,
+    arguments kept: dtype, then the integers (a head dim, a filter's sides,
+    stages) and vec or scalar loads), registers,
     spills, static shared memory, and any ptxas performance notice (C75xx)
     beside it."""
     import re
@@ -160,11 +169,11 @@ def _ptxas_summary(log: str) -> list:
         m = re.search(r"(?:Compiling entry function|Function properties for) '?"
                       r"_ZN\w*?(\d+)([a-z_]+kernel)I(\w+?)E+v", line)
         if m:
-            args = (m.group(3).replace("13__nv_bfloat16", "bf16 ").replace("Li", "D=")
-                    .replace("Lb1", "vec").replace("Lb0", "scalar"))
+            args = re.sub(r"Li(\d+)E?", r" \1", m.group(3).replace("13__nv_bfloat16", "bf16")
+                          .replace("Lb1", " vec").replace("Lb0", " scalar"))
             if args.startswith("f"):
-                args = "f32 " + args[1:]
-            name = f"{m.group(2)}<{args.strip()}>"
+                args = "f32" + args[1:]
+            name = f"{m.group(2)}<{', '.join(args.split())}>"
         if name and ("spill" in line or "registers" in line):
             out.append(f"{name}: {line.replace('ptxas info    :', '').strip()}")
         if "C75" in line:
@@ -276,6 +285,23 @@ def _table1_checks(kc) -> tuple[dict, list]:
                            for h in kc.HIERARCHIES]
     for k, cases in kc.RAGGED.items():
         shapes[k] += [("ragged", c) for c in cases]
+    # fconv2d at every filter side, unrolled and generic, square and not,
+    # from aligned and unaligned bases: one line a (variant, dtype)
+    for dt in (torch.bfloat16, torch.float32):
+        worst = {}
+        for fr, fc, off in kc.CONV_FILTERS:
+            r = kc.check_fconv2d_filter(fr, fc, off, dt)
+            key = r["plan"].variant
+            n, use = worst.get(key, (0, 0.0))
+            worst[key] = (n + 1, max(use, r["limit_use"]))
+            if not r["ok"]:
+                failed.append(("conv filter", fr, fc, off, dt))
+                print(f"[table1] check conv filter {fr}x{fc} offset {off} "
+                      f"{str(dt)[6:]} {r['plan']} {_reading(r)}")
+        for key, (n, use) in sorted(worst.items()):
+            print(f"[table1] check conv filters 1..16 a side {str(dt)[6:]:8s} variant "
+                  f"{key or 'generic'}: {n} filters, all ok: {not failed}, largest "
+                  f"limit_use {use:.3f}")
     run = {"jacobi": lambda c, dt: kc.check_jacobi2d(*c, dt),
            "conv": lambda c, dt: kc.check_fconv2d(*c, dt),
            "dot": lambda c, dt: kc.check_dotprod(c, dt),
@@ -289,6 +315,7 @@ def _table1_checks(kc) -> tuple[dict, list]:
                 r = run[k](c, dt)
                 extra = (f" ulps={r['ulps']}" if k == "expv" else
                          f" {r['branch']}" if k.startswith("softmax") else
+                         f" {r['plan']}" if k == "conv" else
                          f"; exact on +-1 inputs: {r['exact_on_signs']}; "
                          "controls' limit_use (must be > 1): " + ", ".join(
                              f"{w} {u:.1f}" for w, u in r["controls"].items())
@@ -363,19 +390,36 @@ def _table1_path(kc, ops, ref, dev) -> dict:
     return got
 
 
+def _json_numbers(v):
+    """``v`` with every NaN (a time a trace did not give) as None: JSON has
+    no NaN."""
+    if isinstance(v, float) and math.isnan(v):
+        return None
+    if isinstance(v, dict):
+        return {k: _json_numbers(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_json_numbers(x) for x in v]
+    return v
+
+
 def _kernel_events(fn, calls: int) -> list:
     """The card's kernels in a torch.profiler trace of ``calls`` calls of
-    ``fn`` (it may miss the first few)."""
+    ``fn`` (it may miss the first few; a trace that holds no kernel at all
+    is taken again, up to twice)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if evs:
+            break
+    return evs
 
 
 def _ms(evs) -> float:
@@ -429,17 +473,18 @@ def _table1_times(kc, kred, kst, ref, time_ms, dev) -> dict:
             t_k, t_p = time_ms(fk, it_k), time_ms(fp, it_p)
             t_l = time_ms(fl, it_k)
             bound, by = _ms_bound(nbytes, nops, "f32")
-            if card:
+            calls = 10 if card else 50
+            if card and kname != "fconv2d":
                 t_d, n_d, t_ld = float("nan"), 0, float("nan")
             else:
-                t_d, n_d = _device_ms(fk, tag, 50)
-                t_ld = _device_per_call(fl, 50)
+                t_d, n_d = _device_ms(fk, tag, calls)
+                t_ld = _device_per_call(fl, calls)
             # the first shape of a kernel stands for it in the kernels line
             rows.setdefault((kname, cname),
                             (t_k, t_p, t_l, bound, by, shape, t_d, t_ld))
-            device = "" if card else (f"; device: {tag} {t_d:.4f} ms (mean of "
-                                      f"{n_d} in a trace of 50 calls), {lib} "
-                                      f"{t_ld:.4f} ms a call")
+            device = "" if n_d == 0 else (f"; device: {tag} {t_d:.4f} ms (mean of "
+                                          f"{n_d} in a trace of {calls} calls), {lib} "
+                                          f"{t_ld:.4f} ms a call")
             print(f"[time] {kname:12s} {cname:12s} {shape:34s} f32 kernel "
                   f"{t_k:.4f} ms  plain {t_p:.4f} ms  {lib} {t_l:.4f} ms  "
                   f"bound {bound:.3g} ms ({by}){device}")
@@ -491,11 +536,15 @@ def _table1_times(kc, kred, kst, ref, time_ms, dev) -> dict:
                 8 * R * Wd, 5 * R * Wd, "torch.softmax", tag)
             del x
         torch.cuda.empty_cache()
-    # dotprod's, expv's and softmax_rows' host cost a call: back-to-back
-    # calls at table1-paper, where the kernel takes a few us of device time,
-    # between events, in turns with the library call (kernel, library,
-    # library, kernel)
+    # each Table I kernel's host cost a call: back-to-back calls at
+    # table1-paper, where the kernel takes a few us of device time, between
+    # events, in turns with the library call (kernel, library, library,
+    # kernel); F.conv2d's own device time is ~0.036 ms there, so its number
+    # is that, not its host's
     n = kc.TABLE1["table1-paper"]["dot"]
+    xj = kc.grid_inputs(*kc.TABLE1["table1-paper"]["jacobi"], torch.float32, dev)
+    cross = torch.tensor([[0, .25, 0], [.25, 0, .25], [0, .25, 0]], device=dev)[None, None]
+    xconv, fconv = kc.conv_inputs(*kc.TABLE1["table1-paper"]["conv"], torch.float32, dev)
     a, b = kc.vec_inputs(n, torch.float32, dev)
     x = kc.exp_inputs(n, torch.float32, dev)
     xc = x.clamp(-80, 80)
@@ -504,13 +553,18 @@ def _table1_times(kc, kred, kst, ref, time_ms, dev) -> dict:
             ("dotprod", lambda: kred.dotprod(a, b), "torch.dot", lambda: torch.dot(a, b)),
             ("expv", lambda: kred.expv(x), "torch.exp", lambda: torch.exp(xc)),
             ("softmax_rows", lambda: kred.softmax_rows(xs), "torch.softmax",
-             lambda: torch.softmax(xs, -1))):
+             lambda: torch.softmax(xs, -1)),
+            ("jacobi2d", lambda: kst.jacobi2d(xj), "F.conv2d",
+             lambda: F.conv2d(xj[None, None], cross, padding=1)),
+            ("fconv2d", lambda: kst.fconv2d(xconv, fconv), "F.conv2d",
+             lambda: F.conv2d(xconv[None, None], fconv[None, None]))):
         host = {"kernel": [], "library": []}
         for turn, fn in (("kernel", fk), ("library", fl), ("library", fl),
                          ("kernel", fk)):
             host[turn].append(1e3 * time_ms(fn, 500))
         rows[(kname, "host")] = host
-        what = f"{tuple(xs.shape)}" if kname == "softmax_rows" else f"n={n}"
+        what = {"softmax_rows": f"{tuple(xs.shape)}", "jacobi2d": f"{tuple(xj.shape)}",
+                "fconv2d": f"{tuple(xconv.shape)} * 7x7"}.get(kname, f"n={n}")
         print(f"[time] {kname} host cost {what} f32, us a call in turns: kernel "
               + " / ".join(f"{t:.1f}" for t in host["kernel"]) + f"; {lib} "
               + " / ".join(f"{t:.1f}" for t in host["library"]))
@@ -567,7 +621,7 @@ def main() -> int:
     print(f"[build] {', '.join(f'{n}.cu' for n in CUDA_LIBS)} -> "
           f"{_build.BUILD_DIR} in {now() - t0:.1f}s")
     for lib in CUDA_LIBS:
-        if lib in ("flash_attention", "reduction", "rmsnorm"):   # each kernel by name
+        if lib != "matmul":                                     # each kernel by name
             for line in _ptxas_summary(_build.BUILD_LOGS.get(lib, "")):
                 print(f"[build]   {lib}: {line}")
             continue
@@ -606,9 +660,19 @@ def main() -> int:
         errs[("paged_attention", dt)] = r["max_abs_err"]
         print(f"[check] paged_attention B={len(kc.PAGED_LENS)} Hkv={kc.HKV} "
               f"G={kc.HQ // kc.HKV} D={kc.HEAD_DIM} bt={kc.PAGED_BT} lens="
-              f"{list(kc.PAGED_LENS)} {str(dt)[6:]:8s} {_reading(r)}")
+              f"{list(kc.PAGED_LENS)} {str(dt)[6:]:8s} "
+              f"{kpa.plan(len(kc.PAGED_LENS), kc.HKV, kc.HQ // kc.HKV, kc.PAGED_NBLK * kc.PAGED_BT)} "
+              f"{_reading(r)}")
         if not r["ok"]:
             failed.append(("paged_attention", dt))
+        for case in kc.PAGED_CASES:
+            r = kc.check_paged_case(case, dt)
+            name, lens, G, D, bt, shared = case
+            print(f"[check] paged_attention {name}: B={len(lens)} G={G} D={D} "
+                  f"bt={bt}{' one table' if shared else ''} {str(dt)[6:]:8s} "
+                  f"{r['plan']} same bits twice: {r['same_bits']} {_reading(r)}")
+            if not r["ok"]:
+                failed.append(("paged_attention", name, dt))
         for B, S, window in kc.FLASH_CASES:
             r = kc.check_flash_attention(S, dt, window, B=B)
             errs[("flash_attention", B, S, window, dt)] = r["max_abs_err"]
@@ -1040,16 +1104,27 @@ def main() -> int:
         return views[it[0] % len(views)]
     t_k = time_ms(lambda: kpa.paged_attention(q, *pick(), tables, lens), 128)
     t_p = time_ms(lambda: ref.paged_attention(q, *pick(), tables, lens), 32)
+    d_k, n_d = _device_ms(lambda: kpa.paged_attention(q, *pick(), tables, lens),
+                          PORT_KERNELS["paged_attention"], 64)
+    paged_plan = kpa.plan(B, Hkv, G, nb * views[0][0].shape[2])
     n_tok = int(lens.sum())
     bound, by = _ms_bound(n_tok * Hkv * D * 2 * 2 + 2 * q.numel() * 2
                           + tables.numel() * 4 + B * 4,
                           4.0 * n_tok * Hkv * G * D, "bf16")
+    # the host's cost a call alone: back-to-back calls on one sequence of one
+    # token (a few us of device time), between events
+    one = (q[:1], *views[0], tables[:1], torch.ones(1, dtype=torch.int32, device=dev))
+    paged_host = [1e3 * time_ms(lambda: kpa.paged_attention(*one), 500) for _ in range(2)]
     rows[("paged_attention",)] = (t_k, t_p, None, bound, by)
     errs[("paged_attention",)] = r["max_abs_err"]
+    device_rows[("paged_attention",)] = (d_k, None)
     print(f"[time] paged_attention B={B} Hkv={Hkv} G={G} D={D} bt=16 lens="
-          f"{lens.tolist()} bf16 kernel {t_k:.4f} ms  plain {t_p:.4f} ms  "
-          f"(no one-call PyTorch counterpart)  bound {bound:.5f} ms ({by}); "
-          f"against plain: {_reading(r)}")
+          f"{lens.tolist()} bf16 {paged_plan} kernel {t_k:.4f} ms  plain {t_p:.4f} ms  "
+          f"(no one-call PyTorch counterpart)  bound {bound:.5f} ms ({by}); device: "
+          f"kernel {d_k:.4f} ms (mean of {n_d} in a trace of 64 calls), "
+          f"{d_k / bound:.1f}x bound; against plain: {_reading(r)}")
+    print(f"[time] paged_attention host cost B=1 lens=[1] bf16, us a call: "
+          + " / ".join(f"{t:.1f}" for t in paged_host))
     if not r["ok"]:
         raise AssertionError("paged_attention disagrees at the decode inputs")
     t1_rows = _table1_times(kc, kred, kst, ref, time_ms, dev)
@@ -1099,6 +1174,10 @@ def main() -> int:
         if kname in ("flash_attention", "rmsnorm"):
             kernels[-1]["device_ms"], kernels[-1]["library_device_ms"] = \
                 device_rows[key]
+        if kname == "paged_attention":
+            kernels[-1]["device_ms"] = device_rows[key][0]
+            kernels[-1]["host_us"] = paged_host
+            kernels[-1]["plan"] = paged_plan._asdict()
         if kname == "rmsnorm":
             kernels[-1]["host_us"] = device_rows[("rmsnorm", "host")]
     # the Table I kernels at table1-card (table1-paper beside them)
@@ -1118,7 +1197,7 @@ def main() -> int:
             ("fconv2d", ("fconv2d", kc.TABLE1["table1-card"]["conv"]),
              ("conv", kc.TABLE1["table1-card"]["conv"]), "stencil.cu",
              "src/repro/kernels/stencil.py:78")):
-        t_k, t_p, t_l, bound, by, shape, _, _ = t1_rows[(kname, "table1-card")]
+        t_k, t_p, t_l, bound, by, shape, c_d, c_ld = t1_rows[(kname, "table1-card")]
         p_k, p_p, p_l, p_bound, _, p_shape, p_d, p_ld = t1_rows[(kname, "table1-paper")]
         kernels.append({"name": kname, "route": "cuda",
                         "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -1135,9 +1214,11 @@ def main() -> int:
                                          "bound_ms": p_bound}})
         if (kname, "host") in t1_rows:
             kernels[-1]["table1_paper"]["host_us"] = t1_rows[(kname, "host")]
+        if not math.isnan(c_d):
+            kernels[-1]["device_ms"], kernels[-1]["library_device_ms"] = c_d, c_ld
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError(f"a kernel never launched on the main paths: {total}")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": _json_numbers(kernels)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -14,29 +14,39 @@
 // axis carries the online softmax's m, l and acc in VMEM scratch while
 // scalar-prefetched tables steer each step's DMA to pool block tables[b, j].
 //
-// Here blocks of threads run in no order, so nothing can be carried from one
-// to the next: one block per (sequence, kv head) walks that sequence's table
-// itself, in rounds of 64 tokens (64 / bt pool blocks), and stops at
-// ceil(lens[b] / 64) rounds, which is exact because masked tokens add
-// nothing.  The G query rows of a kv head share each K/V tile.  The pool is
-// read in place through its strides: the model keeps it as (NB, bt, Hkv, D)
-// per layer and passes a permuted view, never a copy.  Scores past lens[b]
-// are masked and their p set to 0 explicitly, so a row with lens[b] == 0
-// keeps l == 0 and writes zeros.
-//
 // What bounds it on an H100 (3.35 TB/s): each K and V element is read once
-// and used for 2*G operations, so it is bound by bytes:
-// sum(lens) * Hkv * D * 2 * itemsize for K and V (llama3-8b, batch 8 at
-// ~225 tokens each: 7.4 MB a layer, ~2.2 us).  What the design does about
-// it: cp.async copies the next round's K and V (16 bytes a thread a copy)
-// into the second of two shared-memory tiles while the current round is
-// computed, and every phase of a round runs without serial chains: a thread
-// forms whole dot products of one token against its query rows, one warp
-// per row takes the softmax, and a thread accumulates four output columns.
-// It does not split a long sequence over several blocks (flash-decoding): at
-// decode only B * Hkv blocks run (64 for batch 8), too few to keep enough
-// bytes in flight for the card's bandwidth.  That split, and tensor-core
-// math, are later work.
+// and used for 2*G operations, so bytes: sum(lens) * Hkv * D * 2 * itemsize
+// for K and V (llama3-8b, batch 8 at 1,836 tokens: 7.5 MB a layer, 2.3 us).
+// A decode step has few sequences, so the grid must not be one block a
+// (sequence, kv head): 64 blocks at batch 8 leave half the card idle and
+// walk each sequence serially.  The design (flash-decoding):
+//
+//  * Each sequence's token range is split into `splits` slices of
+//    `split_tokens` (a multiple of the 64-token tile), from shapes only
+//    (kernels/paged_attention.py::plan: about 8 blocks an SM over the
+//    card, at most 16 slices; one slice when the (sequence, kv head)
+//    pairs alone fill the card, as a 128-row prefill chunk's do).  lens
+//    stays on the card: a block whose slice starts at or past lens[b]
+//    exits at once, writing nothing.  A block takes 4 query rows of a kv
+//    head (G > 4 takes several row groups).
+//  * Inside a block, a warp owns one query row: its lanes form the scores
+//    of two tokens each over the whole head (no dead accumulators, no
+//    shared scores), its softmax is warp shuffles, and its P.V takes p
+//    from the lanes by shuffle while each lane accumulates four columns.
+//    So the warps meet only where a tile of K or V lands: two barriers a
+//    tile.  K and V arrive by 16-byte cp.async in separate groups, so the
+//    scores run while V is in flight; a slice of several tiles prefetches
+//    the next tile's K and V into a second buffer.  The pool is read in
+//    place through its strides (the model's (NB, bt, Hkv, D) pool is passed
+//    as a permuted view); rows past the slice or lens[b] are zero-filled
+//    copies, masked with p = 0.
+//  * A sequence of one slice writes its rows directly.  Otherwise each
+//    slice writes its (m, l, acc) partial to a workspace, takes an atomic
+//    ticket for its (sequence, kv head, row group), and the last to arrive
+//    merges the partials in slice order (so two calls give the same bits),
+//    then leaves the ticket at zero.  One launch a call; no float atomics.
+//    The tickets and partials are kept per (device, stream) by the wrapper.
+//  * A sequence with lens[b] == 0 gives zeros: its first slice writes them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,21 +55,10 @@
 namespace {
 
 constexpr int NT = 128;                  // threads per block: 4 warps
-constexpr int NW = NT / 32;
-constexpr int TOK = 64;                  // tokens of a round
-constexpr int NG = NT / TOK;             // threads per token in the score phase
-constexpr int MAX_G = 32;                // query rows per kv head, at most
-constexpr int GK = MAX_G / NG;           // score accumulators per thread
-constexpr int MAX_QD = 4096;             // G * D, at most
-constexpr int ACC4 = MAX_QD / 4 / NT;    // 4-column accumulators per thread
-constexpr int SMEM_MAX = 232448;         // the H100's dynamic shared memory per block
+constexpr int ROWS = NT / 32;            // query rows a block: one a warp
+constexpr int TOK = 64;                  // tokens of a tile
 constexpr float NEG_INF = -1e30f;
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);         // round to nearest even, as torch's .to(bfloat16)
-}
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
@@ -88,6 +87,17 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
     const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
     return make_float4(a.x, a.y, b.x, b.y);
 }
+// 4 f32 values to 4 consecutive T in global memory (bf16 rounded to nearest
+// even, as torch's .to(bfloat16))
+__device__ __forceinline__ void store4(float* p, float4 v) {
+    *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+    uint2 r;
+    *reinterpret_cast<__nv_bfloat162*>(&r.x) = __floats2bfloat162_rn(v.x, v.y);
+    *reinterpret_cast<__nv_bfloat162*>(&r.y) = __floats2bfloat162_rn(v.z, v.w);
+    *reinterpret_cast<uint2*>(p) = r;
+}
 
 // 16 bytes global -> shared, asynchronously; zeros instead when !pred
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
@@ -111,11 +121,11 @@ __device__ __forceinline__ float warp_max(float x) {
     return x;
 }
 
-
 // Cycle stamps of a block's phases (thread 0; slot 0 the count, then
 // (phase, clock64) pairs, phase -1 the start), read by repro_paged_cycles;
 // compiled only with -DPAGED_CYCLES (testing/paged_probe.py), so the
-// library the port loads has none
+// library the port loads has none.  Phases: 0 prologue, 1 staging wait,
+// 2 scores, 3 softmax, 4 P.V, 5 epilogue (output or partial), 6 merge.
 #ifdef PAGED_CYCLES
 constexpr int STAMP_SLOTS = 128;
 __device__ long long paged_cycles[1 << 20];
@@ -133,222 +143,324 @@ __device__ long long paged_cycles[1 << 20];
 #define STAMP_DECL
 #endif
 
-template <typename T>
-__global__ void __launch_bounds__(NT)
-paged_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
-             const T* __restrict__ vpool, const int* __restrict__ tables,
-             const int* __restrict__ lens, T* __restrict__ out,
-             int Hkv, int G, int D, int bt, int nblk,
-             long long q_sb, long long q_sh, long long q_sg,
-             long long p_sh, long long p_sn, long long p_st, float scale) {
-    constexpr int EPC = 16 / sizeof(T);            // elements per 16-byte copy
-    const int LD = D + EPC;                        // staged row stride: 16 bytes of pad
-    extern __shared__ __align__(16) unsigned char smem[];
-    T* Ks = reinterpret_cast<T*>(smem);            // [2][TOK][LD] K tiles, raw
-    T* Vs = Ks + 2 * TOK * LD;                     // [2][TOK][LD] V tiles, raw
-    float* Qs = reinterpret_cast<float*>(Vs + 2 * TOK * LD);   // [G][D]
-    float* Ps = Qs + G * D;                        // [G][TOK]: scores, then p
-    float* Ms = Ps + G * TOK;                      // [G] running max
-    float* Ls = Ms + G;                            // [G] running sum
-    float* As = Ls + G;                            // [G] this round's rescale
-    int* ids = reinterpret_cast<int*>(As + G);     // [nblk] this sequence's table
+struct Args {
+    const void* q;
+    const void* kpool;
+    const void* vpool;
+    const int* tables;
+    const int* lens;
+    void* out;
+    unsigned* tickets;                  // [B * Hkv * row groups], zero between launches
+    float* part;                        // [pairs][splits][ROWS][D] acc, then [..][ROWS][2] (m, l)
+    int Hkv, G, bt_log2, nblk, splits, split_tokens;
+    long long q_sb, q_sh, q_sg, p_sh, p_sn, p_st;
+    float scale;
+};
 
-    const int b = blockIdx.x, h = blockIdx.y;
+// grid (splits, Hkv * row groups, B); block (slice, kv head and row group,
+// sequence).  STAGES 2 where a slice has more than one tile.
+template <typename T, int D, int STAGES>
+__global__ void __launch_bounds__(NT)
+paged_kernel(const Args a) {
+    constexpr int EPC = 16 / sizeof(T);            // elements per 16-byte copy
+    constexpr int LD = D + EPC;                    // staged row stride: 16 bytes of pad
+    constexpr int CPR = D / EPC;                   // 16-byte copies a row
+    constexpr int RPP = NT / CPR;                  // rows a pass of the block
+    constexpr int PASSES = (TOK + RPP - 1) / RPP;
+    constexpr int DL = D / 4;                      // lanes that hold output columns
+    extern __shared__ __align__(16) unsigned char smem[];
+    T* Ks = reinterpret_cast<T*>(smem);            // [STAGES][TOK][LD]
+    T* Vs = Ks + STAGES * TOK * LD;                // [STAGES][TOK][LD]
+    float* Qs = reinterpret_cast<float*>(Vs + STAGES * TOK * LD);   // [ROWS][D]
+    __shared__ bool last;
+
+    const int split = blockIdx.x, b = blockIdx.z;
+    const int groups = (a.G + ROWS - 1) / ROWS;
+    const int h = blockIdx.y / groups, rg = blockIdx.y % groups;
     const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+    const int g = rg * ROWS + warp;                // this warp's query row
+    const bool row_live = g < a.G;
     STAMP_DECL;
     STAMP(-1);
-    const int len = min(lens[b], nblk * bt);       // the table holds nblk * bt tokens
-    const int nb = (len + bt - 1) / bt;            // blocks that hold a visible token
-    const int rounds = (len + TOK - 1) / TOK;
-    const int GD = G * D, D4 = D / 4;
 
-    for (int j = tid; j < nb; j += NT) ids[j] = tables[(long long)b * nblk + j];
-    const T* qb = q + b * q_sb + h * q_sh;
-    for (int e = tid; e < GD; e += NT) Qs[e] = to_f32(qb[(e / D) * q_sg + e % D]);
-    if (tid < G) {
-        Ms[tid] = NEG_INF;
-        Ls[tid] = 0.f;
-    }
-    float4 acc[ACC4];
+    // lens[b], this warp's query row and the first tile's table entries
+    // are independent loads: all in flight at once
+    const int len_in = __ldg(a.lens + b);
+    const int start = split * a.split_tokens;
+    const int* tab = a.tables + (long long)b * a.nblk;
+    // a thread's copies: 16 bytes `col` of rows r0 + p RPP (threads past
+    // RPP whole rows copy nothing)
+    const int col = tid % CPR, r0 = tid < RPP * CPR ? tid / CPR : TOK;
+    int ids[PASSES];
 #pragma unroll
-    for (int k = 0; k < ACC4; ++k) acc[k] = make_float4(0.f, 0.f, 0.f, 0.f);
-    __syncthreads();
-    STAMP(0);
+    for (int p = 0; p < PASSES; ++p) {
+        const int j = (start + r0 + p * RPP) >> a.bt_log2;
+        ids[p] = r0 + p * RPP < TOK && j < a.nblk ? __ldg(tab + j) : 0;
+    }
+    float qv[(D + 31) / 32];
+    if (row_live) {
+        const T* qr = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh + g * a.q_sg;
+#pragma unroll
+        for (int k = 0; k < (D + 31) / 32; ++k)
+            qv[k] = lane + 32 * k < D ? to_f32(qr[lane + 32 * k]) : 0.f;
+    }
 
-    // round r's K and V into tile `st`; tokens of blocks past nb read zeros
-    const int row_chunks = D / EPC;
-    auto stage = [&](int r, int st) {
-        for (int c = tid; c < TOK * row_chunks; c += NT) {
-            const int t = c / row_chunks, d = (c % row_chunks) * EPC;
-            const int tok = r * TOK + t, j = tok / bt;
-            const bool in = j < nb;
-            const long long off =
-                in ? (long long)ids[j] * p_sn + h * p_sh + (tok % bt) * p_st + d : 0;
-            cp_async16(Ks + (st * TOK + t) * LD + d, kpool + off, in);
-            cp_async16(Vs + (st * TOK + t) * LD + d, vpool + off, in);
+    const int len = max(0, min(len_in, a.nblk << a.bt_log2));   // the table holds nblk * bt
+    const int n_act = (len + a.split_tokens - 1) / a.split_tokens;   // slices with tokens
+    T* out = static_cast<T*>(a.out);
+    const long long orow = ((long long)b * a.Hkv + h) * a.G + g;
+    if (start >= len) {
+        // an empty slice writes nothing; an empty sequence's first writes zeros
+        if (len == 0 && split == 0 && row_live && lane < DL)
+            store4(out + orow * D + lane * 4, make_float4(0.f, 0.f, 0.f, 0.f));
+        return;
+    }
+    const int end = min(start + a.split_tokens, len);
+    const int tiles = (end - start + TOK - 1) / TOK;
+
+    const T* kbase = static_cast<const T*>(a.kpool) + h * a.p_sh + col * EPC;
+    const T* vbase = static_cast<const T*>(a.vpool) + h * a.p_sh + col * EPC;
+    const int bt_mask = (1 << a.bt_log2) - 1;
+    // tile j's K and V into buffer j % STAGES, each its own group of 16-byte
+    // copies (a pass of the block RPP rows); rows past `end` read zeros.
+    // The table entries of tile 0 are the ones loaded above.
+    auto stage = [&](int j) {
+        long long off[PASSES];
+#pragma unroll
+        for (int p = 0; p < PASSES; ++p) {
+            const int tok = start + j * TOK + r0 + p * RPP;
+            const int id = j == 0 ? ids[p] : (tok < end ? __ldg(tab + (tok >> a.bt_log2)) : 0);
+            off[p] = tok < end ? (long long)id * a.p_sn + (tok & bt_mask) * a.p_st : -1;
         }
+        const int o = (j % STAGES) * TOK * LD + r0 * LD + col * EPC;
+#pragma unroll
+        for (int p = 0; p < PASSES; ++p)
+            if (r0 + p * RPP < TOK)
+                cp_async16(Ks + o + p * RPP * LD, kbase + max(off[p], 0ll), off[p] >= 0);
+        cp_async_commit();
+#pragma unroll
+        for (int p = 0; p < PASSES; ++p)
+            if (r0 + p * RPP < TOK)
+                cp_async16(Vs + o + p * RPP * LD, vbase + max(off[p], 0ll), off[p] >= 0);
         cp_async_commit();
     };
+    stage(0);
+    if (row_live) {
+#pragma unroll
+        for (int k = 0; k < (D + 31) / 32; ++k)
+            if (lane + 32 * k < D) Qs[warp * D + lane + 32 * k] = qv[k];
+    }
+    STAMP(0);
 
-    if (rounds > 0) stage(0, 0);
-    for (int r = 0; r < rounds; ++r) {
-        const int st = r & 1;
-        if (r + 1 < rounds) {
-            stage(r + 1, st ^ 1);
-            cp_async_wait<1>();                    // round r's copies have landed
+    float m = NEG_INF, l = 0.f;                    // running max; this lane's share of the sum
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);  // columns 4 lane .. 4 lane + 3
+    const float* qrow = Qs + warp * D;
+    for (int j = 0; j < tiles; ++j) {
+        const bool ahead = STAGES > 1 && j + 1 < tiles;
+        if (ahead) {                               // its buffer was freed at the end of j - 1
+            stage(j + 1);
+            cp_async_wait<3>();                    // tile j's K has landed
         } else {
-            cp_async_wait<0>();
+            cp_async_wait<1>();
         }
         __syncthreads();
         STAMP(1);
-        const T* Kr = Ks + st * TOK * LD;
-        const T* Vr = Vs + st * TOK * LD;
-        const int t0 = r * TOK;
-
-        // scores: thread (t, gh) forms token t's dot products with rows
-        // g = gh, gh + NG, ...
-        {
-            const int t = tid % TOK, gh = tid / TOK;
-            float s[GK];
+        const T* Kt = Ks + (j % STAGES) * TOK * LD;
+        const T* Vt = Vs + (j % STAGES) * TOK * LD;
+        const int t0 = start + j * TOK;
+        float p0 = 0.f, p1 = 0.f;
+        if (row_live) {
+            // scores of tokens lane and lane + 32 against this warp's row
+            float s0a = 0.f, s0b = 0.f, s1a = 0.f, s1b = 0.f;
+            const T* k0 = Kt + lane * LD;
+            const T* k1 = Kt + (lane + 32) * LD;
 #pragma unroll
-            for (int k = 0; k < GK; ++k) s[k] = 0.f;
-            for (int d = 0; d < D; d += EPC) {
-                float kf[EPC];
-                load16(Kr + t * LD + d, kf);
+            for (int c = 0; c < D; c += EPC) {
+                float x0[EPC], x1[EPC];
+                load16(k0 + c, x0);
+                load16(k1 + c, x1);
 #pragma unroll
-                for (int k = 0; k < GK; ++k) {
-                    const int g = gh + k * NG;
-                    if (g < G) {
-#pragma unroll
-                        for (int i = 0; i < EPC; i += 4) {
-                            const float4 qv = load4(Qs + g * D + d + i);
-                            s[k] = fmaf(qv.x, kf[i], s[k]);
-                            s[k] = fmaf(qv.y, kf[i + 1], s[k]);
-                            s[k] = fmaf(qv.z, kf[i + 2], s[k]);
-                            s[k] = fmaf(qv.w, kf[i + 3], s[k]);
-                        }
-                    }
+                for (int i = 0; i < EPC; i += 4) {
+                    const float4 qv = *reinterpret_cast<const float4*>(qrow + c + i);
+                    float& a0 = (c + i) / 4 % 2 ? s0b : s0a;    // two chains a token
+                    float& a1 = (c + i) / 4 % 2 ? s1b : s1a;
+                    a0 = fmaf(qv.x, x0[i], a0); a0 = fmaf(qv.y, x0[i + 1], a0);
+                    a0 = fmaf(qv.z, x0[i + 2], a0); a0 = fmaf(qv.w, x0[i + 3], a0);
+                    a1 = fmaf(qv.x, x1[i], a1); a1 = fmaf(qv.y, x1[i + 1], a1);
+                    a1 = fmaf(qv.z, x1[i + 2], a1); a1 = fmaf(qv.w, x1[i + 3], a1);
                 }
             }
-            const bool vis = t0 + t < len;
-#pragma unroll
-            for (int k = 0; k < GK; ++k) {
-                const int g = gh + k * NG;
-                if (g < G) Ps[g * TOK + t] = vis ? s[k] * scale : NEG_INF;
-            }
+            STAMP(2);
+            // online softmax over the tile, in the warp; masked tokens get
+            // p = 0 explicitly (exp(NEG_INF - m) is 1 while m is NEG_INF)
+            const bool v0 = t0 + lane < end, v1 = t0 + lane + 32 < end;
+            const float x0 = v0 ? (s0a + s0b) * a.scale : NEG_INF;
+            const float x1 = v1 ? (s1a + s1b) * a.scale : NEG_INF;
+            const float m_new = fmaxf(m, warp_max(fmaxf(x0, x1)));
+            const float alpha = expf(m - m_new);
+            p0 = v0 ? expf(x0 - m_new) : 0.f;
+            p1 = v1 ? expf(x1 - m_new) : 0.f;
+            l = l * alpha + (p0 + p1);
+            acc = make_float4(acc.x * alpha, acc.y * alpha, acc.z * alpha, acc.w * alpha);
+            m = m_new;
+            STAMP(3);
         }
+        if (ahead)
+            cp_async_wait<2>();                    // tile j's V has landed
+        else
+            cp_async_wait<0>();
         __syncthreads();
-        STAMP(2);
-
-        // online softmax: one warp per row, two tokens a lane
-        for (int g = warp; g < G; g += NW) {
-            float* pr = Ps + g * TOK;
-            const float x0 = pr[lane], x1 = pr[lane + 32];
-            const float m_prev = Ms[g], m_new = fmaxf(m_prev, warp_max(fmaxf(x0, x1)));
-            // masked explicitly: exp(NEG_INF - m_new) is 1, not 0, when every
-            // score so far is masked
-            const float p0 = (t0 + lane < len) ? expf(x0 - m_new) : 0.f;
-            const float p1 = (t0 + lane + 32 < len) ? expf(x1 - m_new) : 0.f;
-            pr[lane] = p0;
-            pr[lane + 32] = p1;
-            const float sum = warp_sum(p0 + p1);
-            if (lane == 0) {
-                const float a = expf(m_prev - m_new);
-                As[g] = a;
-                Ls[g] = Ls[g] * a + sum;
-                Ms[g] = m_new;
-            }
-        }
-        __syncthreads();
-        STAMP(3);
-
-        // acc[g][d..d+3] = acc * alpha + sum_t p[g][t] * V[t][d..d+3]
-#pragma unroll
-        for (int k = 0; k < ACC4; ++k) {
-            const int e = tid + k * NT;
-            if (e < G * D4) {
-                const int g = e / D4, d = (e % D4) * 4;
-                const float a = As[g];
-                float4 o = make_float4(acc[k].x * a, acc[k].y * a, acc[k].z * a, acc[k].w * a);
-                const float* pr = Ps + g * TOK;
+        STAMP(1);
+        if (row_live) {
+            // acc += sum_t p_t V[t][4 lane ..]: p_t from lane t % 32, two
+            // chains of sums (even and odd t); lanes past D read column 0
+            // and keep nothing, so that every lane takes the shuffles
+            float4 e = make_float4(0.f, 0.f, 0.f, 0.f), o = e;
+            const T* vp = Vt + (lane < DL ? lane * 4 : 0);
 #pragma unroll 8
-                for (int t = 0; t < TOK; ++t) {
-                    const float p = pr[t];
-                    const float4 v = load4(Vr + t * LD + d);
-                    o.x = fmaf(p, v.x, o.x);
-                    o.y = fmaf(p, v.y, o.y);
-                    o.z = fmaf(p, v.z, o.z);
-                    o.w = fmaf(p, v.w, o.w);
-                }
-                acc[k] = o;
+            for (int t = 0; t < TOK; t += 2) {
+                const float pa = __shfl_sync(0xffffffffu, t < 32 ? p0 : p1, t % 32);
+                const float pb = __shfl_sync(0xffffffffu, t < 32 ? p0 : p1, (t + 1) % 32);
+                const float4 va = load4(vp + t * LD), vb = load4(vp + (t + 1) * LD);
+                e.x = fmaf(pa, va.x, e.x); e.y = fmaf(pa, va.y, e.y);
+                e.z = fmaf(pa, va.z, e.z); e.w = fmaf(pa, va.w, e.w);
+                o.x = fmaf(pb, vb.x, o.x); o.y = fmaf(pb, vb.y, o.y);
+                o.z = fmaf(pb, vb.z, o.z); o.w = fmaf(pb, vb.w, o.w);
             }
+            acc = make_float4(acc.x + (e.x + o.x), acc.y + (e.y + o.y),
+                              acc.z + (e.z + o.z), acc.w + (e.w + o.w));
         }
-        __syncthreads();                 // the next round's copies overwrite this tile
+        if (STAGES > 1 && j + 2 < tiles)
+            __syncthreads();                       // tile j + 2's copies reuse this buffer
         STAMP(4);
     }
+    l = warp_sum(l);
 
-    T* ob = out + ((long long)b * Hkv + h) * GD;
-#pragma unroll
-    for (int k = 0; k < ACC4; ++k) {
-        const int e = tid + k * NT;
-        if (e < G * D4) {
-            const int g = e / D4, d = (e % D4) * 4;
-            const float l = Ls[g], inv = l == 0.f ? 0.f : 1.f / l;
-            ob[g * D + d] = from_f32<T>(acc[k].x * inv);
-            ob[g * D + d + 1] = from_f32<T>(acc[k].y * inv);
-            ob[g * D + d + 2] = from_f32<T>(acc[k].z * inv);
-            ob[g * D + d + 3] = from_f32<T>(acc[k].w * inv);
+    if (n_act == 1) {                              // the sequence's only slice
+        if (row_live && lane < DL) {
+            const float inv = 1.f / l;             // l >= 1: the slice holds a visible token
+            store4(out + orow * D + lane * 4,
+                   make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv));
+        }
+        STAMP(5);
+        return;
+    }
+    // this slice's partial, then a ticket; the last slice to arrive merges
+    const long long pair = (long long)b * gridDim.y + blockIdx.y;
+    float* pacc = a.part + pair * a.splits * ROWS * D;          // [splits][ROWS][D]
+    float* pml = a.part + gridDim.z * (long long)gridDim.y * a.splits * ROWS * D
+                 + pair * a.splits * ROWS * 2;                  // [splits][ROWS][2]
+    if (row_live) {
+        if (lane < DL) *reinterpret_cast<float4*>(pacc + (split * ROWS + warp) * D + lane * 4) = acc;
+        if (lane == 0) {
+            pml[(split * ROWS + warp) * 2] = m;
+            pml[(split * ROWS + warp) * 2 + 1] = l;
         }
     }
+    __threadfence();                               // the partial is visible before the ticket
+    __syncthreads();
     STAMP(5);
+    if (tid == 0) last = atomicAdd(a.tickets + pair, 1u) == static_cast<unsigned>(n_act - 1);
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    if (row_live) {
+        // lane s holds slice s's (m, l) for this warp's row; the weights and
+        // sums in a fixed order (a shuffle tree, then the slices in order)
+        const float* ml = pml + (lane * ROWS + warp) * 2;
+        const float ms = lane < n_act ? __ldcg(ml) : NEG_INF;
+        const float ls = lane < n_act ? __ldcg(ml + 1) : 0.f;
+        const float mx = warp_max(ms);
+        const float ws = lane < n_act ? expf(ms - mx) : 0.f;
+        const float L = warp_sum(ws * ls);
+        float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+        const float* pa = pacc + warp * D + (lane < DL ? lane * 4 : 0);
+        for (int s0 = 0; s0 < n_act; s0 += 4) {
+            float4 v[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+                if (s0 + u < n_act)
+                    v[u] = __ldcg(reinterpret_cast<const float4*>(pa + (s0 + u) * ROWS * D));
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                const float w = __shfl_sync(0xffffffffu, ws, (s0 + u) % 32);
+                if (s0 + u < n_act)
+                    o = make_float4(fmaf(w, v[u].x, o.x), fmaf(w, v[u].y, o.y),
+                                    fmaf(w, v[u].z, o.z), fmaf(w, v[u].w, o.w));
+            }
+        }
+        if (lane < DL) {
+            const float inv = 1.f / L;
+            store4(out + orow * D + lane * 4,
+                   make_float4(o.x * inv, o.y * inv, o.z * inv, o.w * inv));
+        }
+    }
+    if (tid == 0) a.tickets[pair] = 0;             // ready for the next launch
+    STAMP(6);
 }
 
-template <typename T>
-int launch(const void* q, const void* kp, const void* vp, const int* tables,
-           const int* lens, void* out, int B, int Hkv, int G, int D, int bt, int nblk,
-           long long q_sb, long long q_sh, long long q_sg, long long p_sh,
-           long long p_sn, long long p_st, cudaStream_t s) {
+template <typename T, int D, int STAGES>
+int launch(const Args& a, int B, int groups, cudaStream_t s) {
+    constexpr size_t LD = D + 16 / sizeof(T);
+    constexpr size_t smem = 2 * STAGES * TOK * LD * sizeof(T) + sizeof(float) * ROWS * D;
     static bool opted_in = false;              // above 48 KB only after this
-    if (!opted_in) {
+    if (smem > 48 * 1024 && !opted_in) {
         const cudaError_t e = cudaFuncSetAttribute(
-            paged_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+            paged_kernel<T, D, STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
         if (e != cudaSuccess) return static_cast<int>(e);
         opted_in = true;
     }
-    const size_t LD = D + 16 / sizeof(T);
-    const size_t smem = 4 * TOK * LD * sizeof(T)
-        + sizeof(float) * ((size_t)G * D + (size_t)G * TOK + 3 * G) + sizeof(int) * nblk;
-    const dim3 grid(B, Hkv);
-    paged_kernel<T><<<grid, NT, smem, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
-        tables, lens, static_cast<T*>(out), Hkv, G, D, bt, nblk, q_sb, q_sh, q_sg,
-        p_sh, p_sn, p_st, 1.0f / sqrtf((float)D));
+    paged_kernel<T, D, STAGES><<<dim3(a.splits, a.Hkv * groups, B), NT, smem, s>>>(a);
     return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int STAGES>
+int launch(const Args& a, int B, int D, int groups, cudaStream_t s) {
+    switch (D) {
+        case 16: return launch<T, 16, STAGES>(a, B, groups, s);
+        case 32: return launch<T, 32, STAGES>(a, B, groups, s);
+        case 64: return launch<T, 64, STAGES>(a, B, groups, s);
+        case 96: return launch<T, 96, STAGES>(a, B, groups, s);
+        case 128: return launch<T, 128, STAGES>(a, B, groups, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last dim of
 // q and of the pools is contiguous, and out is contiguous.  The caller checks
-// the limits (bt divides 64, G <= 32, G * D <= 4096, D a multiple of 8 up to
-// 128, 16-byte alignment, shared memory within the card's 227 KB).  The
-// launch goes on `stream` and does not synchronise.  Returns
-// cudaGetLastError() after the launch (0 = success).
+// the limits and passes the plan (kernels/paged_attention.py: D in {16, 32,
+// 64, 96, 128}, bt = 2**bt_log2 dividing 64, 16-byte alignment; `splits` slices
+// of `split_tokens`, a multiple of 64, at most 32 (a warp merges them);
+// `stages` 2 where a slice has several tiles).  With splits > 1, `tickets`
+// holds B * Hkv * ceil(G / 4) zeros and `part` B * Hkv * ceil(G / 4) *
+// splits * 4 * (D + 2) floats, both used by no other launch in flight.  The launch goes on `stream` and does not
+// synchronise.  Returns cudaGetLastError() after the launch (0 = success).
 extern "C" int repro_paged_attention(const void* q, const void* kpool, const void* vpool,
                                      const void* tables, const void* lens, void* out,
-                                     int B, int Hkv, int G, int D, int bt, int nblk,
+                                     int B, int Hkv, int G, int D, int bt_log2, int nblk,
                                      long long q_sb, long long q_sh, long long q_sg,
                                      long long p_sh, long long p_sn, long long p_st,
-                                     int dtype, void* stream) {
+                                     int splits, int split_tokens, int stages,
+                                     void* tickets, void* part, int dtype, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int* t = static_cast<const int*>(tables);
-    const int* l = static_cast<const int*>(lens);
+    if (B < 1 || Hkv < 1 || G < 1 || splits < 1 || split_tokens % TOK || bt_log2 < 0
+        || bt_log2 > 6 || (stages != 1 && stages != 2) || splits > 32
+        || (splits > 1 && (tickets == nullptr || part == nullptr)))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const Args a{q, kpool, vpool, static_cast<const int*>(tables),
+                 static_cast<const int*>(lens), out, static_cast<unsigned*>(tickets),
+                 static_cast<float*>(part), Hkv, G, bt_log2, nblk, splits, split_tokens,
+                 q_sb, q_sh, q_sg, p_sh, p_sn, p_st, 1.0f / sqrtf(static_cast<float>(D))};
+    const int groups = (G + ROWS - 1) / ROWS;
     if (dtype == 0)
-        return launch<float>(q, kpool, vpool, t, l, out, B, Hkv, G, D, bt, nblk,
-                             q_sb, q_sh, q_sg, p_sh, p_sn, p_st, s);
+        return stages == 1 ? launch<float, 1>(a, B, D, groups, s)
+                           : launch<float, 2>(a, B, D, groups, s);
     if (dtype == 1)
-        return launch<__nv_bfloat16>(q, kpool, vpool, t, l, out, B, Hkv, G, D, bt, nblk,
-                                     q_sb, q_sh, q_sg, p_sh, p_sn, p_st, s);
+        return stages == 1 ? launch<__nv_bfloat16, 1>(a, B, D, groups, s)
+                           : launch<__nv_bfloat16, 2>(a, B, D, groups, s);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -7,10 +7,21 @@ kernel's: q (B, Hkv, G, D), pools (Hkv, NB, bt, D), tables (B, nblk) int32,
 lens (B,) int32 -> (B, Hkv, G, D) in q's dtype.  The pools are taken through
 their strides, so the model's (NB, bt, Hkv, D) pool is passed as a permuted
 view and read in place.
+
+Each sequence's tokens are split over ``plan(...).splits`` blocks
+(flash-decoding), from shapes only: ``lens`` stays on the card.  A split
+launch merges its slices' partials in the same launch, through tickets and
+partials kept per (device, stream); the tickets are zeroed once here and
+left at zero by every launch.  The wrapper takes the lean launch path of
+``reduction.py``: the ctypes function and its argument types set once, the
+raw handle of the current stream, a device guard only off the current
+device.  No backward: a call autograd would differentiate raises first.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -20,24 +31,63 @@ from .launches import LAUNCHES, refuse_autograd
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FN = None
 
-#: the kernel's limits (csrc TOK, MAX_G, MAX_QD): it walks a sequence in
-#: rounds of 64 tokens, so a pool block must divide 64 tokens; the G query
-#: rows and their G * D accumulators live in registers; a round's K and V
-#: are staged twice over in shared memory, up to the card's 227 KB
+#: the kernel's limits (csrc TOK, ROWS, the D templates): a block walks its
+#: slice in tiles of 64 tokens, so a pool block (a power of two) divides 64
+#: tokens; a warp owns a query row, four a block, so G > 4 takes
+#: ceil(G / 4) blocks a kv head; D is one of the kernel's head dims
 TOKENS_PER_ROUND = 64
+ROWS_PER_BLOCK = 4
 MAX_G = 32
-MAX_QD = 4096
-MAX_D = 128
+HEAD_DIMS = (16, 32, 64, 96, 128)
 SMEM_BYTES = 232448
+#: the split plan: the H100's SMs; one slice when the (sequence, kv head,
+#: row group) blocks reach FILL_BLOCKS (4 an SM); else about TARGET_BLOCKS
+#: (8 an SM) over all slices, at most MAX_SPLITS a sequence
+SMS = 132
+FILL_BLOCKS = 4 * SMS
+TARGET_BLOCKS = 8 * SMS
+MAX_SPLITS = 16
+#: the tickets and partials of each (device index, raw stream): launches on
+#: one stream run in order, so they share them
+_WORK: dict = {}
 
 
-def smem_bytes(G: int, D: int, nblk: int, itemsize: int) -> int:
-    """Shared memory of one block: two staged K and V tiles of 64 rows of D
-    values (16 bytes of pad a row), q, the scores and three per-row scalars
-    in f32, and the sequence's block table."""
-    ld = D + 16 // itemsize
-    return (4 * TOKENS_PER_ROUND * ld * itemsize
-            + 4 * (G * D + G * TOKENS_PER_ROUND + 3 * G) + 4 * nblk)
+class PagedPlan(NamedTuple):
+    """How a call runs: ``splits`` slices of ``split_tokens`` tokens a
+    sequence (``splits * split_tokens >= nblk * bt``), ``stages`` 2 where a
+    slice has more than one tile (the next tile's K and V prefetched), and
+    ``groups`` blocks of four query rows a kv head."""
+    splits: int
+    split_tokens: int
+    stages: int
+    groups: int
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(B: int, Hkv: int, G: int, max_tokens: int) -> PagedPlan:
+    """The plan for B sequences of Hkv kv heads of G query rows whose tables
+    hold ``max_tokens`` (nblk * bt) tokens: shapes only, so the same shapes
+    take the same slices and give the same bits."""
+    groups = -(-G // ROWS_PER_BLOCK)
+    blocks = B * Hkv * groups
+    tiles = max(1, -(-max_tokens // TOKENS_PER_ROUND))
+    want = 1 if blocks >= FILL_BLOCKS else min(tiles, MAX_SPLITS,
+                                                -(-TARGET_BLOCKS // blocks))
+    per = -(-tiles // want)             # tiles a slice
+    return PagedPlan(-(-tiles // per), per * TOKENS_PER_ROUND, 2 if per > 1 else 1,
+                     groups)
+
+
+def smem_bytes(D: int, itemsize: int, stages: int) -> int:
+    """Dynamic shared memory of one block: ``stages`` K and V tiles of 64
+    rows of D values (16 bytes of pad a row), and four query rows in f32."""
+    return (2 * stages * TOKENS_PER_ROUND * (D + 16 // itemsize) * itemsize
+            + 4 * ROWS_PER_BLOCK * D)
+
+
+def workspace_floats(B: int, Hkv: int, D: int, p: PagedPlan) -> int:
+    """f32 partials of a split launch: (acc, m, l) of four rows a block."""
+    return B * Hkv * p.groups * p.splits * ROWS_PER_BLOCK * (D + 2)
 
 
 def _fn():
@@ -45,10 +95,37 @@ def _fn():
     if _FN is None:
         fn = _build.library("paged_attention").repro_paged_attention
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
+
+
+def _workspace(idx: int, stream: int, tickets: int, floats: int) -> tuple[int, int]:
+    """The (tickets, partials) addresses of a split launch on ``stream`` of
+    device ``idx``, grown as a call needs."""
+    work = _WORK.get((idx, stream))
+    if work is None or work[0].numel() < tickets or work[1].numel() < floats:
+        old = (0, 0) if work is None else (work[0].numel(), work[1].numel())
+        t = torch.zeros(max(tickets, old[0]), dtype=torch.int32, device=idx)
+        f = torch.empty(max(floats, old[1]), dtype=torch.float32, device=idx)
+        work = _WORK[(idx, stream)] = (t, f, t.data_ptr(), f.data_ptr())
+    return work[2], work[3]
+
+
+def _launch(q, kpool, vpool, tables, lens, out, ps, p: PagedPlan, idx: int) -> int:
+    B, Hkv, G, D = q.shape
+    qs = q.stride()
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    tickets, part = (_workspace(idx, stream, B * Hkv * p.groups,
+                                workspace_floats(B, Hkv, D, p))
+                     if p.splits > 1 else (None, None))
+    return _fn()(q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(), tables.data_ptr(),
+                 lens.data_ptr(), out.data_ptr(), B, Hkv, G, D,
+                 kpool.shape[2].bit_length() - 1, tables.shape[1], qs[0], qs[1], qs[2],
+                 ps[0], ps[1], ps[2], p.splits, p.split_tokens, p.stages, tickets, part,
+                 _DTYPES[q.dtype], stream)
 
 
 def paged_attention(q: torch.Tensor, kpool: torch.Tensor, vpool: torch.Tensor,
@@ -56,11 +133,7 @@ def paged_attention(q: torch.Tensor, kpool: torch.Tensor, vpool: torch.Tensor,
     """Launch the kernel on the current stream; raises on what it does not
     take.  Table entries must index the pool: they are not checked, since
     that would read them back from the card."""
-    ts = (q, kpool, vpool, tables, lens)
-    refuse_autograd("paged_attention", *ts)
-    if not all(t.is_cuda and t.device == q.device for t in ts):
-        raise ValueError(f"paged_attention kernel needs every operand on one "
-                         f"CUDA device, got {[str(t.device) for t in ts]}")
+    refuse_autograd("paged_attention", q, kpool, vpool, tables, lens)
     if q.dtype not in _DTYPES or kpool.dtype != q.dtype or vpool.dtype != q.dtype:
         raise TypeError(f"paged_attention kernel takes f32 or bf16 q and pools "
                         f"of one dtype, got {q.dtype}, {kpool.dtype}, {vpool.dtype}")
@@ -78,31 +151,35 @@ def paged_attention(q: torch.Tensor, kpool: torch.Tensor, vpool: torch.Tensor,
         raise ValueError(f"paged_attention kernel: shapes disagree: q "
                          f"{tuple(q.shape)}, pool {tuple(kpool.shape)}, tables "
                          f"{tuple(tables.shape)}, lens {tuple(lens.shape)}")
-    if kpool.stride() != vpool.stride() or q.stride(3) != 1 or kpool.stride(3) != 1:
+    ps = kpool.stride()
+    if ps != vpool.stride() or q.stride(3) != 1 or ps[3] != 1:
         raise ValueError("paged_attention kernel needs the last dim of q and of "
                          "the pools contiguous, and one set of pool strides")
     if not (tables.is_contiguous() and lens.is_contiguous()):
         raise ValueError("paged_attention kernel needs contiguous tables and lens")
     epc = 16 // q.element_size()        # elements of one 16-byte copy
-    if D % epc or any(s % epc for s in (*q.stride()[:3], *kpool.stride()[:3])) \
-            or any(t.data_ptr() % 16 for t in (q, kpool, vpool)):
-        raise ValueError("paged_attention kernel needs 16-byte aligned q and "
-                         "pools, with D and every stride a multiple of 16 bytes")
-    if TOKENS_PER_ROUND % bt or G > MAX_G or G * D > MAX_QD or D > MAX_D \
-            or smem_bytes(G, D, tables.shape[1], q.element_size()) > SMEM_BYTES:
-        raise ValueError(f"paged_attention kernel: G={G}, D={D}, bt={bt}, nblk="
-                         f"{tables.shape[1]} exceed its limits (bt divides "
-                         f"{TOKENS_PER_ROUND}, G <= {MAX_G}, G*D <= {MAX_QD}, "
-                         f"D <= {MAX_D})")
+    if (ps[0] | ps[1] | ps[2]) % epc or (kpool.data_ptr() | vpool.data_ptr()) % 16:
+        raise ValueError("paged_attention kernel needs 16-byte aligned pools "
+                         "with every stride a multiple of 16 bytes")
+    if D not in HEAD_DIMS or G > MAX_G or bt > TOKENS_PER_ROUND \
+            or TOKENS_PER_ROUND % bt or B >= 2 ** 16 or Hkv * -(-G // 4) >= 2 ** 16:
+        raise ValueError(f"paged_attention kernel: G={G}, D={D}, bt={bt}, B={B} "
+                         f"exceed its limits (D in {HEAD_DIMS}, G <= {MAX_G}, bt "
+                         f"a power of two dividing {TOKENS_PER_ROUND}, B and "
+                         f"Hkv * ceil(G / 4) below 2**16)")
+    idx = q.get_device()                # -1 on the CPU
+    if idx < 0 or any(t.get_device() != idx for t in (kpool, vpool, tables, lens)):
+        raise ValueError(f"paged_attention kernel needs every operand on one "
+                         f"CUDA device, got {[str(t.device) for t in (q, kpool, vpool, tables, lens)]}")
     out = torch.empty((B, Hkv, G, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:                # nothing to write: no launch
         return out
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _fn()(q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
-                    tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                    B, Hkv, G, D, bt, tables.shape[1], *q.stride()[:3],
-                    *kpool.stride()[:3], _DTYPES[q.dtype], stream)
+    p = plan(B, Hkv, G, tables.shape[1] * bt)
+    if idx == torch._C._cuda_getDevice():
+        err = _launch(q, kpool, vpool, tables, lens, out, ps, p, idx)
+    else:
+        with torch.cuda.device(idx):
+            err = _launch(q, kpool, vpool, tables, lens, out, ps, p, idx)
     if err != 0:                        # the launch was refused; it never ran
         raise RuntimeError(f"paged_attention kernel: CUDA error {err} at launch")
     LAUNCHES["paged_attention"] += 1

@@ -149,11 +149,12 @@ def rmsnorm_inputs(R, D, dtype, device="cuda", seed=0):
 
 
 def paged_inputs(dtype, device="cuda", seed=0, lens=PAGED_LENS, G=HQ // HKV,
-                 D=HEAD_DIM, bt=PAGED_BT, nblk=PAGED_NBLK, nb=PAGED_NB):
+                 D=HEAD_DIM, bt=PAGED_BT, nblk=PAGED_NBLK, nb=PAGED_NB, shared=False):
     """q (B, Hkv, G, D); the pools as the model holds them, (NB, bt, Hkv, D)
     with block 0 zero, passed as (Hkv, NB, bt, D) views; tables whose rows
     share blocks with each other and point at the zero block inside their
-    lengths; lens."""
+    lengths (``shared``: every row on the longest row's table, as a prefill
+    chunk's rows are); lens."""
     B = len(lens)
     g = torch.Generator(device=device).manual_seed(seed)
     q = torch.randn((B, HKV, G, D), generator=g, device=device).to(dtype)
@@ -168,7 +169,10 @@ def paged_inputs(dtype, device="cuda", seed=0, lens=PAGED_LENS, G=HQ // HKV,
         used = -(-n // bt)
         tables[b, :used] = rng.integers(1, nb, used)
         tables[b, 3:used:7] = 0                  # the zero block, inside the length
-    tables[-1, :8] = tables[-2, :8]              # a shared prefix of blocks
+    if shared:
+        tables[:] = tables[int(np.argmax(lens))]
+    elif B > 1:
+        tables[-1, :8] = tables[-2, :8]          # a shared prefix of blocks
     return (q, *pools, torch.from_numpy(tables).to(device),
             torch.tensor(lens, dtype=torch.int32, device=device))
 
@@ -220,6 +224,38 @@ def check_paged_attention(dtype, device="cuda") -> dict:
     args = paged_inputs(dtype, device)
     return compare(_pa.paged_attention(*args), ref.paged_attention(*args),
                     ATTN_TOL[dtype])
+
+
+#: paged attention beyond PAGED_LENS, (name, lens, G, D, bt, shared): the
+#: traced decode step; lens that fill one 64-token slice exactly, end one
+#: token into the next, or are 0, beside full tables; one sequence; one
+#: 128-row prefill chunk on one block table (the plan's one-slice case);
+#: the smoke models' heads; G = 8 (two blocks of four rows a kv head);
+#: phi3-mini's head of 96 (16-byte copies that are not whole passes)
+PAGED_CASES = (
+    ("decode", DECODE_LENS, 4, 128, 16, False),
+    ("slice edges", (64, 65, 0, 128, 129, 1, 1024, 63), 4, 128, 16, False),
+    ("B=1", (1000,), 4, 128, 16, False),
+    ("chunk", tuple(range(318, 446)), 4, 128, 16, True),
+    ("smoke G=1 D=16 bt=8", (0, 5, 8, 9, 40, 64, 65), 1, 16, 8, False),
+    ("smoke G=2 D=16 bt=8", (0, 5, 8, 9, 40, 64, 65), 2, 16, 8, False),
+    ("G=8 D=64 bt=32", (0, 5, 64, 65, 300), 8, 64, 32, False),
+    ("G=1 D=96", (0, 7, 64, 200), 1, 96, 16, False),
+)
+
+
+def check_paged_case(case, dtype, device="cuda") -> dict:
+    """One of ``PAGED_CASES`` against the plain version, called twice: the
+    second call must give the same bits; ``plan`` names the split taken."""
+    _, lens, G, D, bt, shared = case
+    args = paged_inputs(dtype, device, lens=lens, G=G, D=D, bt=bt, shared=shared)
+    got = _pa.paged_attention(*args)
+    again = _pa.paged_attention(*args)
+    res = compare(got, ref.paged_attention(*args), ATTN_TOL[dtype])
+    res["same_bits"] = bool(torch.equal(got, again))
+    res["ok"] = res["ok"] and res["same_bits"]
+    res["plan"] = _pa.plan(len(lens), HKV, G, PAGED_NBLK * bt)
+    return res
 
 
 def check_flash_attention(S, dtype, window=None, device="cuda", B=1) -> dict:
@@ -354,11 +390,35 @@ def check_jacobi2d(H, W, dtype, device="cuda") -> dict:
     return compare(_st.jacobi2d(x), ref.jacobi2d(x), JACOBI_TOL)
 
 
+def _conv_check(x, filt) -> dict:
+    rtol = 8e-3 if x.dtype == torch.bfloat16 else 0.0
+    res = compare(_st.fconv2d(x, filt), ref.fconv2d(x, filt),
+                  (rtol, conv_bound(x, filt)))
+    (Hx, Wx), (fr, fc) = x.shape, filt.shape
+    res["plan"] = _st.conv_plan(Hx - fr + 1, Wx - fc + 1, fr, fc, x.element_size())
+    return res
+
+
 def check_fconv2d(H, W, f, dtype, device="cuda") -> dict:
-    x, filt = conv_inputs(H, W, f, dtype, device)
-    rtol = 8e-3 if dtype == torch.bfloat16 else 0.0
-    return compare(_st.fconv2d(x, filt), ref.fconv2d(x, filt),
-                   (rtol, conv_bound(x, filt)))
+    return _conv_check(*conv_inputs(H, W, f, dtype, device))
+
+
+#: fconv2d's filters beside table1's 7x7, (fr, fc, offset): every side from
+#: 1 to 16, square (3, 5 and 7 unrolled, the rest the generic loop) and not
+#: (fr x (17 - fr), fr x 3), over ragged outputs (32 + fr rows, 131 + 2 fc
+#: + offset columns: partial tiles both ways, rows starting at every
+#: alignment, so every copy width), from a base 16-byte aligned and one
+#: element past it
+CONV_FILTERS = tuple((fr, fc, off) for fr in range(1, 17)
+                     for fc in sorted({fr, 17 - fr, 3}) for off in (0, 1))
+
+
+def check_fconv2d_filter(fr, fc, off, dtype, device="cuda") -> dict:
+    g = _gen(device, 3)
+    Hx, Wx = 40 + fr, 131 + 2 * fc + off
+    buf = torch.randn(Hx * Wx + off, generator=g, device=device).to(dtype)
+    return _conv_check(buf[off:].view(Hx, Wx),
+                       torch.randn((fr, fc), generator=g, device=device))
 
 
 def check_softmax_rows(R, W, dtype, device="cuda", masked=False) -> dict:

@@ -132,9 +132,12 @@ def _report(case: str, blocks: list) -> None:
             line.append(f"{name} {med(tot)}{per_txt}")
     rounds = [b["rounds"] for b in blocks]
     wholes = [b["whole"] for b in blocks]
+    slow = max(blocks, key=lambda b: b["whole"])
     print(f"[probe] {case}: {len(blocks)} blocks stamped, rounds a block median "
           f"{med(rounds)} (max {max(rounds)}); cycles a block (median): "
-          + "; ".join(line) + f"; whole {med(wholes)} (max {max(wholes)})")
+          + "; ".join(line) + f"; whole {med(wholes)} (max {max(wholes)}); the "
+          f"slowest block: " + ", ".join(f"{PHASES[p]} {c}" for p, c in
+                                         sorted(slow["by"].items())))
 
 
 def main() -> int:
@@ -163,8 +166,7 @@ def main() -> int:
         # each visible K and V row read once, q read and out written once
         tokens = int(lens.sum()) if case == "decode" else int(lens.max())
         nbytes = tokens * Hkv * D * 2 * 2 + 2 * q.numel() * 2 + tables.numel() * 4 + B * 4
-        plan = (kpa.plan(B, Hkv, tables.shape[1], pools[0][0].shape[2])
-                if hasattr(kpa, "plan") else "one block a (sequence, kv head)")
+        plan = kpa.plan(B, Hkv, G, tables.shape[1] * pools[0][0].shape[2])
         print(f"[probe] {case}: B={B} Hkv={Hkv} G={G} D={D} lens {lens.min().item()}.."
               f"{lens.max().item()} (sum {int(lens.sum())}); plan {plan}; kernel "
               f"{ms:.4f} ms between events, device {dev_ms:.4f} ms a call; bound "

@@ -126,6 +126,50 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", kc.PAGED_CASES, ids=lambda c: c[0])
+def test_paged_attention_kernel_cases(cuda, case, dtype):
+    """Split and unsplit launches (the traced decode step, slice edges and
+    empty sequences, one sequence, a 128-row chunk on one table, the smoke
+    heads, two row groups) match the plain version, and a second call gives
+    the same bits."""
+    res = kc.check_paged_case(case, dtype, cuda)
+    assert res["ok"], res
+    if case[0] == "chunk":
+        assert res["plan"].splits == 1
+    elif case[0] in ("decode", "B=1", "slice edges"):
+        assert res["plan"].splits > 1
+
+
+@pytest.mark.gpu
+def test_paged_attention_second_stream_gets_its_own_workspace(cuda):
+    """A split launch on another stream takes its own tickets and partials,
+    gives the same bits, and leaves every ticket at zero."""
+    args = kc.paged_inputs(torch.bfloat16, cuda, lens=kc.DECODE_LENS)
+    first = paged_attention.paged_attention(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        second = paged_attention.paged_attention(*args)
+    torch.cuda.synchronize()
+    keys = [k for k in paged_attention._WORK if k[0] == torch.cuda.current_device()]
+    assert len({k[1] for k in keys}) >= 2
+    assert torch.equal(first, second)
+    assert all(int(w[0].abs().sum()) == 0 for w in paged_attention._WORK.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("fr,fc,off", kc.CONV_FILTERS, ids=str)
+def test_fconv2d_kernel_every_filter(cuda, fr, fc, off, dtype):
+    """Every filter side 1..16, square (unrolled at 3, 5, 7) and not, over
+    ragged outputs, from an aligned base and one element off it."""
+    res = kc.check_fconv2d_filter(fr, fc, off, dtype, cuda)
+    assert res["ok"], res
+    assert res["plan"].variant == (fr if fr == fc and fr in (3, 5, 7) else 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,S,window", kc.FLASH_CASES, ids=str)
 def test_flash_attention_kernel_matches_plain(cuda, B, S, window, dtype):
     res = kc.check_flash_attention(S, dtype, window, cuda, B=B)

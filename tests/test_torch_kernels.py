@@ -322,3 +322,87 @@ def test_rmsnorm_kernel_refuses_what_it_does_not_take(x, gamma, err, match):
 
 def test_jax_on_cpu():
     assert jax.devices()[0].platform == "cpu"
+
+
+# -- paged attention's split plan and refusals (CPU side) ------------------------
+
+def _paged_plan_shapes():
+    """(B, Hkv, G, max_tokens): decode batches from 1 to 64 over the serving
+    pool's 1,024-token tables and a 32K one; the 128-row prefill chunk;
+    every smoke shape; G from 1 to 32 (1 to 8 blocks of rows); a table of
+    one tile, and one of a single token."""
+    return [(8, 8, 4, 1024), (1, 8, 4, 1024), (4, 8, 4, 1024), (32, 8, 4, 1024),
+            (64, 8, 4, 1024), (1, 8, 4, 32768), (128, 8, 4, 1024), (128, 8, 4, 16),
+            (2, 1, 2, 64), (4, 2, 1, 64), (3, 8, 32, 2048), (5, 4, 8, 512),
+            (1, 1, 1, 1), (65535, 1, 1, 64), (1, 16383, 16, 64)]
+
+
+@pytest.mark.parametrize("B,Hkv,G,T", _paged_plan_shapes(), ids=str)
+def test_paged_plan_stays_within_hopper_limits(B, Hkv, G, T):
+    """Every plan covers the table with whole 64-token tiles and no slice
+    past it, launches a grid Hopper takes, keeps its shared memory within
+    the 227 KB a block may have at every head dim and dtype, prefetches only
+    where a slice has several tiles, and splits only while the card is not
+    already full; the decode shapes fill it."""
+    from repro_torch.kernels import paged_attention as pa
+    p = pa.plan(B, Hkv, G, T)
+    assert p.groups == -(-G // 4) and p.split_tokens % 64 == 0
+    assert 1 <= p.splits <= pa.MAX_SPLITS
+    assert p.splits * p.split_tokens >= T > (p.splits - 1) * p.split_tokens
+    assert p.stages == (2 if p.split_tokens > 64 else 1)
+    assert B < 2 ** 16 and Hkv * p.groups < 2 ** 16
+    for D in pa.HEAD_DIMS:
+        for item in (2, 4):
+            assert pa.smem_bytes(D, item, p.stages) <= pa.SMEM_BYTES
+    blocks = B * Hkv * p.groups
+    if blocks >= pa.FILL_BLOCKS:
+        assert p.splits == 1
+    elif T >= 64 * pa.MAX_SPLITS:
+        assert blocks * p.splits >= min(pa.TARGET_BLOCKS, blocks * pa.MAX_SPLITS) / 2
+    assert pa.plan(B, Hkv, G, T) == p                   # shapes only
+
+
+def test_paged_plan_at_the_serving_shapes():
+    """Batch-8 decode over 1,024-token tables takes 16 slices of one tile;
+    the 128-row chunk one slice over the whole table, prefetching."""
+    from repro_torch.kernels import paged_attention as pa
+    assert pa.plan(8, 8, 4, 1024) == pa.PagedPlan(16, 64, 1, 1)
+    assert pa.plan(128, 8, 4, 1024) == pa.PagedPlan(1, 1024, 2, 1)
+
+
+def _paged_args(**kw):
+    a = {"q": torch.ones(2, 1, 2, 16), "kpool": torch.zeros(1, 3, 8, 16),
+         "vpool": torch.zeros(1, 3, 8, 16),
+         "tables": torch.zeros(2, 2, dtype=torch.int32),
+         "lens": torch.ones(2, dtype=torch.int32)}
+    a.update(kw)
+    return a
+
+
+@pytest.mark.parametrize("kw,err,match", [
+    ({"q": torch.ones(2, 1, 2, 16, dtype=torch.float16)}, TypeError, "f32 or bf16"),
+    ({"tables": torch.zeros(2, 2, dtype=torch.int64)}, TypeError, "int32"),
+    ({"q": torch.ones(2, 1, 2, 24), "kpool": torch.zeros(1, 3, 8, 24),
+      "vpool": torch.zeros(1, 3, 8, 24)}, ValueError, "limits"),
+    ({"kpool": torch.zeros(1, 3, 3, 16), "vpool": torch.zeros(1, 3, 3, 16)},
+     ValueError, "limits"),
+    ({"kpool": torch.zeros(1, 3, 128, 16), "vpool": torch.zeros(1, 3, 128, 16)},
+     ValueError, "limits"),
+    ({"q": torch.ones(2, 1, 33, 16)}, ValueError, "limits"),
+    ({"vpool": torch.zeros(1, 3, 16, 8).transpose(2, 3)}, ValueError,
+     "one set of pool strides"),
+    ({"lens": torch.ones(3, dtype=torch.int32)}, ValueError, "disagree"),
+    ({}, ValueError, "CUDA"),
+], ids=["f16", "int64 tables", "D=24", "bt=3", "bt=128", "G=33", "strides",
+        "lens", "cpu"])
+def test_paged_wrapper_refuses_what_it_does_not_take(kw, err, match):
+    """The paged wrapper's checks come before its device check (autograd's
+    refusal first of all), so they hold here on CPU tensors; nothing
+    launches."""
+    from repro_torch.kernels import launches, paged_attention as pa
+    launches.reset()
+    with pytest.raises(err, match=match):
+        pa.paged_attention(**_paged_args(**kw))
+    with pytest.raises(RuntimeError, match="no backward"):
+        pa.paged_attention(**_paged_args(q=torch.ones(2, 1, 2, 16, requires_grad=True)))
+    assert not any(launches.LAUNCHES.values())

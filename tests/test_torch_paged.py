@@ -421,8 +421,11 @@ def test_block_sizing_is_the_kernels_limit():
     for cfg in (full, get_smoke_config("llama3-8b"), get_smoke_config("glm4-9b")):
         assert max_block_tokens(cfg) == pa.TOKENS_PER_ROUND == 64
         G = cfg.n_heads // cfg.n_kv_heads
-        for isz in (2, 4):
-            assert pa.smem_bytes(G, cfg.head_dim, 1024 // 16, isz) <= pa.SMEM_BYTES
+        assert cfg.head_dim in pa.HEAD_DIMS and G <= pa.MAX_G
+        for B in (1, 8, 128):                   # decode batches, a 128-row chunk
+            p = pa.plan(B, cfg.n_kv_heads, G, 1024)
+            for isz in (2, 4):
+                assert pa.smem_bytes(cfg.head_dim, isz, p.stages) <= pa.SMEM_BYTES
     assert kv_token_bytes(full) == 2 * 8 * 128 * 4 * full.n_layers
 
 

@@ -379,3 +379,64 @@ def test_kern_twin_prints_its_three_rows(capsys):
     for ln in lines[1:]:
         _, us, plain = ln.split(",")
         assert float(us) > 0 and plain.startswith("plain=") and plain.endswith("us")
+
+
+# -- fconv2d's plan and refusals (CPU side) ---------------------------------------
+
+def _conv_plan_shapes():
+    """(H, W, fr, fc, itemsize): table1's two in both dtypes, the ragged
+    checks', every filter side at its edges (1 and 16, square and not), one
+    output element, and a wide grid of the largest filter."""
+    return [(8192, 8192, 7, 7, 4), (8192, 8192, 7, 7, 2), (250, 4090, 7, 7, 4),
+            (250, 4090, 7, 7, 2), (70, 517, 3, 3, 4), (70, 517, 7, 7, 2),
+            (1, 1, 1, 1, 4), (1, 1, 16, 16, 2), (33, 129, 16, 1, 4), (33, 129, 1, 16, 2),
+            (100, 1001, 5, 5, 2), (3, 3, 12, 5, 4), (40000, 40000, 16, 16, 4)]
+
+
+@pytest.mark.parametrize("H,W,fr,fc,item", _conv_plan_shapes(), ids=str)
+def test_conv_plan_stays_within_hopper_limits(H, W, fr, fc, item):
+    """Every plan unrolls only the square 3, 5 and 7 filters; stages rows
+    in a stride of whole 16-byte blocks that holds a row's copies (the last
+    may reach to the end of the 16 bytes that hold its last element) and the
+    last lane's window; needs
+    at most the 227 KB of shared memory a block may have; and runs a
+    persistent grid of as many blocks as fit the H100's 132 SMs at once (at
+    most four an SM, each with its share of the SM's 228 KB), no more than
+    tiles: four an SM at every unrolled filter."""
+    p = stencil.conv_plan(H, W, fr, fc, item)
+    assert p.variant == (fr if fr == fc and fr in (3, 5, 7) else 0)
+    assert p.tiles == -(-H // 32) * -(-W // 128)
+    assert p.smem <= 232448
+    per_sm = min(4, 233472 // (p.smem + 1024))
+    assert per_sm >= (4 if p.variant else 3)
+    assert p.grid == max(1, min(p.tiles, per_sm * 132))
+    fcm = fc if p.variant else 16
+    sw = (p.smem - (0 if p.variant else 1024)) // (2 * item * (32 + fr - 1))
+    assert p.smem == 2 * item * (32 + fr - 1) * sw + (0 if p.variant else 1024)
+    assert sw * item % 16 == 0
+    assert sw * item >= -(-(128 + fcm - 1) * item // 16) * 16           # a row's copies
+    assert sw >= 124 + -(-(3 + fcm) // 4) * 4                           # the last lane's reads
+
+
+@pytest.mark.parametrize("call,err,match", [
+    (lambda: stencil.fconv2d(torch.ones(6, 6, dtype=torch.float16), torch.ones(3, 3)),
+     TypeError, "f32 or bf16"),
+    (lambda: stencil.fconv2d(torch.ones(6, 6).t()[:, :5], torch.ones(3, 3)),
+     ValueError, "contiguous"),
+    (lambda: stencil.fconv2d(torch.ones(40, 40), torch.ones(17, 3)), ValueError, "taps"),
+    (lambda: stencil.fconv2d(torch.ones(40, 40), torch.ones(3, 0)), ValueError, "taps"),
+    (lambda: stencil.fconv2d(torch.ones(40, 40), torch.ones(3, 3, 1)), ValueError,
+     r"\(fr, fc\)"),
+    (lambda: stencil.jacobi2d(torch.ones(2, 4, 4)), ValueError, r"\(H, W\)"),
+    (lambda: stencil.jacobi2d(torch.ones(4, 4, dtype=torch.int32)), TypeError, "f32"),
+], ids=["f16", "strided", "17 taps", "0 taps", "3-d filter", "3-d grid", "int32"])
+def test_stencil_wrappers_refuse_what_they_do_not_take(call, err, match):
+    """The stencil wrappers' checks come before their device check, so they
+    hold here on CPU tensors; nothing launches."""
+    from repro_torch.kernels import launches
+    launches.reset()
+    with pytest.raises(err, match=match):
+        call()
+    with pytest.raises(RuntimeError, match="no backward"):
+        stencil.fconv2d(torch.ones(6, 6, requires_grad=True), torch.ones(3, 3))
+    assert not any(launches.LAUNCHES.values())
