@@ -18,6 +18,13 @@ Phases, each of which raises on failure (nothing is caught):
      (split and one-slice plans, slice edges, empty sequences, a 128-row
      chunk on one table, the smoke heads, G = 8), called twice for the same
      bits; each line naming the kernel variant or plan it took);
+  3c. the backward kernels against their plain versions (the gradient
+     formulas of ``kernels/ref.py``), element by element, each called twice
+     for the same bits: rmsnorm's dx and dgamma at (4096, 4096) and ragged
+     rows, the matmul's dA and dB at each llama3-8b projection over 4096
+     tokens and at ragged shapes, flash attention's dq, dk, dv at (4, 32/8
+     heads, S = 1024, D = 128) causal, ragged and windowed, and at every
+     head dim (``kernel_checks.*_BWD_*``), in bf16 and f32;
   3b. the paper's Table I kernels (dotprod, expv, softmax_rows, jacobi2d,
      fconv2d) against their plain versions at the table1-paper and
      table1-card shapes and at ragged ones (softmax also on masked rows,
@@ -34,6 +41,11 @@ Phases, each of which raises on failure (nothing is caught):
      token streams of the kernel path on the card against the plain path
      on the CPU, for the dense engine and the paged engine (whole-prompt,
      chunked, and two pods behind the router), paged == dense;
+  4b. the smoke model's training (f32, the JAX initialiser's weights from
+     ``testing/llama3-8b-smoke-jax-seed0.npz``): the loss and every
+     gradient leaf, then two ``make_train_step`` steps, on the card through
+     the kernels against the CPU's plain path (``testing/train_checks.py``'s
+     limits);
   5. the dense path: llama3-8b at full width and full depth (bf16, seeded
      random weights) serving 8 requests through ``ServingEngine``, with
      the kernels' launch counts checked per forward; then profiler traces
@@ -48,6 +60,14 @@ Phases, each of which raises on failure (nothing is caught):
   5e. the Table I path: each Table I workload once through ``ops`` at both
      configurations (f32), outputs held against the plain versions, launch
      counts checked;
+  7. the training path: llama3-8b at full width and 8 of its 32 layers
+     (bf16, seeded random weights, remat on, ``OptConfig`` defaults), 3
+     steps of ``make_train_step`` at batch 4 x 1024 tokens from
+     ``SyntheticCorpus``: finite losses, the launch counts of every kernel
+     forward and backward exactly ``trainer.step_launches``' formula, step
+     ms, tok/s and peak memory, a profiler trace of one step beside the
+     step's bound, the embedding's gradient taken twice for the same bits,
+     and one more step split into its gradient and its update;
   6. kernel times (CUDA events) beside the plain version, the one PyTorch
      call that computes the same function, and the card's bound (rmsnorm at
      every main-path R in both dtypes, with its device ms a call beside
@@ -61,7 +81,12 @@ Phases, each of which raises on failure (nothing is caught):
      configurations (at table1-paper also their device time and the
      library call's from profiler traces, fconv2d's at table1-card too,
      and each one's host cost a call in turns with torch.dot, torch.exp,
-     torch.softmax or F.conv2d).
+     torch.softmax or F.conv2d); the backward kernels at the training
+     shapes (rmsnorm's at (4096, 4096), the matmul's two products at each
+     projection, flash attention's at (4, 32/8, 1024, 128)) beside their
+     plain versions, the library call (autograd of ``F.rms_norm``,
+     ``torch.matmul`` for each product, autograd of SDPA), the bound, and
+     the device's ms a call from a trace.
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.  Without a card,
 or without the repo's ``src/repro_torch`` beside it, it exits non-zero
@@ -81,8 +106,8 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and
 # operations/s by type (bf16 on the tensor cores, f32 on the CUDA cores)
 HBM_BYTES_S = 3.35e12
-CUDA_LIBS = ("matmul", "flash_attention", "paged_attention", "reduction",
-             "stencil", "rmsnorm")
+CUDA_LIBS = ("matmul", "flash_attention", "flash_attention_bwd",
+             "paged_attention", "reduction", "stencil", "rmsnorm")
 # open-loop arrival rate of the paged serve phase (requests / second)
 PAGED_RATE = 1.5
 PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12}
@@ -96,7 +121,15 @@ def _ms_bound(nbytes: float, nops: float, kind: str) -> tuple[float, str]:
 # the device-side name of each port kernel, as the profiler shows it (the
 # matmul and flash attention by variant: kernels.matmul.variant,
 # kernels.flash_attention.variant)
-PORT_KERNELS = {"matmul decode": "matmul_decode_kernel",
+# (names without spaces: the profiler's are compared with theirs taken out;
+# the backward's matmul forms before the forward's, whose name they extend)
+PORT_KERNELS = {"matmul_bwd dX wgmma": "matmul_wgmma_kernel<0,0>",
+                "matmul_bwd dW wgmma": "matmul_wgmma_kernel<1,1>",
+                "rmsnorm_bwd": "rms_bwd_kernel",
+                "rmsnorm_bwd dgamma": "rms_dgamma_kernel",
+                "flash_attention_bwd dq": "flash_bwd_dq_kernel",
+                "flash_attention_bwd dkv": "flash_bwd_dkv_kernel",
+                "matmul decode": "matmul_decode_kernel",
                 "matmul wgmma": "matmul_wgmma_kernel",
                 "matmul simt": "matmul_kernel", "rmsnorm": "rms_vec_kernel",
                 "rmsnorm scalar": "rms_scalar_kernel",
@@ -147,8 +180,9 @@ def _trace(step, steps: int) -> dict:
         s, f = e.time_range.start, e.time_range.end
         busy += max(0.0, f - max(s, end))
         end = max(end, f)
+        bare = e.name.replace(" ", "")
         fam = next((f"{k} (port)" for k, tag in PORT_KERNELS.items()
-                    if tag in e.name), e.name)
+                    if tag in bare), e.name)
         n, t = by.get(fam, (0, 0.0))
         by[fam] = (n + 1 / steps, t + (f - s) / steps)
     return {"events": len(evs), "wall_us": wall_us, "plain_us": plain_us,
@@ -571,6 +605,296 @@ def _table1_times(kc, kred, kst, ref, time_ms, dev) -> dict:
     return rows
 
 
+def _backward_checks(kc, kfa) -> tuple[dict, list]:
+    """Phase 3c: each backward kernel against its plain version, twice for
+    the same bits; one line a case.  Returns the largest errors and the
+    failed cases."""
+    import torch
+
+    errs, failed = {}, []
+    dts = (torch.bfloat16, torch.float32)
+
+    def line(tag, r, extra=""):
+        parts = " ".join(f"{k} {v['limit_use']:.3f}" for k, v in r["parts"].items()) \
+            if "parts" in r else ""
+        print(f"[check] {tag} {extra}same bits twice: {r['same_bits']} "
+              f"{_reading(r)}{' (limit use ' + parts + ')' if parts else ''}")
+
+    for R, D in kc.RMSNORM_BWD_CASES:
+        for dt in dts:
+            r = kc.check_rmsnorm_bwd(R, D, dt)
+            errs[("rmsnorm_bwd", R, D, dt)] = r["max_abs_err"]
+            line(f"rmsnorm_bwd R={R:<4d} D={D} {str(dt)[6:]:8s}", r)
+            if not r["ok"]:
+                failed.append(("rmsnorm_bwd", R, D, dt))
+    shapes = [(proj, kc.TRAIN_TOKENS, K, N) for proj, (K, N) in kc.MATMUL_KN.items()]
+    shapes += [("ragged", M, K, N) for M, K, N in kc.MATMUL_BWD_RAGGED]
+    for proj, M, K, N in shapes:
+        for dt in dts:
+            for which in "ab":
+                r = kc.check_matmul_bwd(M, K, N, dt, which)
+                errs[("matmul_bwd", which, M, K, N, dt)] = r["max_abs_err"]
+                line(f"matmul_bwd d{which.upper()} {proj:7s} M={M:<4d} K={K:<5d} "
+                     f"N={N:<5d} {str(dt)[6:]:8s} {r['variant']:5s}", r)
+                if not r["ok"]:
+                    failed.append(("matmul_bwd", which, proj, M, K, N, dt))
+    for B, S, window in kc.FLASH_BWD_CASES:
+        for dt in dts:
+            r = kc.check_flash_bwd(B, S, dt, window)
+            errs[("flash_attention_bwd", B, S, window, dt)] = r["max_abs_err"]
+            line(f"flash_attention_bwd B={B} Hq={kc.HQ} Hkv={kc.HKV} D={kc.HEAD_DIM} "
+                 f"S={S:<4d} causal window={window} {str(dt)[6:]:8s}", r)
+            if not r["ok"]:
+                failed.append(("flash_attention_bwd", B, S, window, dt))
+    for D in kfa.HEAD_DIMS:
+        for causal in (True, False):
+            for dt in dts:
+                r = kc.check_flash_bwd(2, 70, dt, 9, causal, 4, 2, D)
+                line(f"flash_attention_bwd B=2 Hq=4 Hkv=2 D={D:<3d} S=70 "
+                     f"{'causal' if causal else 'full  '} window=9 {str(dt)[6:]:8s}", r)
+                if not r["ok"]:
+                    failed.append(("flash_attention_bwd head dim", D, causal, dt))
+    return errs, failed
+
+
+def _smoke_train(dev) -> None:
+    """Phase 4b: the smoke model's loss, gradients and two train steps on
+    the card against the CPU."""
+    from repro_torch.kernels import ops
+    from repro_torch.testing import train_checks as tc
+
+    ops.reset_launches()
+    card = tc.run_smoke(dev, steps=2)
+    got = {k: v for k, v in ops.LAUNCHES.items() if v}
+    cpu = tc.run_smoke("cpu", steps=2)
+    r = tc.compare_runs(card, cpu)
+    print(f"[train-smoke] llama3-8b-smoke f32 from the JAX init "
+          f"({tc.SMOKE_WEIGHTS.name}), loss {card['loss0']:.6f} (CPU "
+          f"{cpu['loss0']:.6f}), 2 steps: losses "
+          f"{[round(m['loss'], 6) for m in card['metrics']]} (CPU "
+          f"{[round(m['loss'], 6) for m in cpu['metrics']]}); card vs CPU: "
+          f"scalars {r['scalar_rel']:.2e} (rtol {tc.SCALAR_RTOL:.0e}), gradient "
+          f"leaves' limit use {r['grad_limit_use']:.3f}, params p99.9 "
+          f"{r['param_p999']:.2e} (<= {tc.PARAM_P999:.0e}) max {r['param_max']:.2e} "
+          f"(<= {tc.PARAM_MAX:.0e}), m/v {r['state_rel']:.2e} (<= "
+          f"{tc.STATE_TOL:.0e}): {'ok' if r['ok'] else 'FAIL'}; launches on the "
+          f"card {got}")
+    if not r["ok"]:
+        raise AssertionError(f"smoke training differs between card and CPU: {r}")
+    need = ("rmsnorm", "matmul", "flash_attention", "rmsnorm_bwd", "matmul_bwd",
+            "flash_attention_bwd")
+    if not all(got.get(k) for k in need):
+        raise AssertionError(f"the smoke train step missed a kernel: {got}")
+
+
+def _step_bound(cfg, B: int, S: int, n_params: int) -> tuple[float, str, float]:
+    """The least time of one train step (ms, what bounds it, FLOP): the
+    projections' 2 K N a token forward, 4 K N backward and 2 K N again
+    under remat; the head's 6 d V a token (no remat); causal attention's
+    Q K^T and P V forward (twice under remat) and the five products of its
+    backward over the visible pairs; against each parameter's 16 bytes
+    (bf16 weight and gradient, f32 master, m and v) read and written once
+    by the update."""
+    T = B * S
+    d, hd = cfg.d_model, cfg.head_dim
+    per_layer = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d \
+        + 3 * d * cfg.d_ff
+    r = 2 if cfg.remat else 1
+    proj = (2 * r + 4) * per_layer * cfg.n_layers * T
+    head = 6 * d * cfg.padded_vocab * T
+    pairs = B * cfg.n_heads * S * (S + 1) / 2
+    attn = (2 * r + 5) * 2 * pairs * hd * cfg.n_layers
+    flop = proj + head + attn
+    ms, by = _ms_bound(2 * 16 * n_params, flop, "bf16")
+    return ms, by, flop
+
+
+def _train_path(cfg, dev, n_layers: int = 8, batch: int = 4, seq: int = 1024,
+                steps: int = 3) -> dict:
+    """Phase 7: the full-width model cut to ``n_layers``, ``steps`` train
+    steps through the kernels; returns the launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.kernels import ops
+    from repro_torch.params import tree_leaves
+    from repro_torch.testing.timing import now
+    from repro_torch.train import OptConfig, adamw_update, make_train_step
+    from repro_torch.train.trainer import (init_train_state, loss_and_grads,
+                                           step_launches)
+
+    tcfg = dataclasses.replace(cfg, n_layers=n_layers)
+    opt_cfg = OptConfig()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = now()
+    state = init_train_state(tcfg, opt_cfg, torch.Generator(dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    print(f"[train] {tcfg.name}: {n_layers} layers of {cfg.n_layers}, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {str(cfg.dtype)[6:]}, remat "
+          f"{tcfg.remat}, loss_chunk {tcfg.loss_chunk}; {n_params / 1e9:.3f} B "
+          f"params, state {torch.cuda.memory_allocated() / 1e9:.2f} GB, drawn in "
+          f"{now() - t0:.1f}s; batch {batch} x {seq} tokens, OptConfig defaults")
+    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                        global_batch=batch, seed=0))
+    batches = [torch.from_numpy(corpus.batch(i)).to(dev, torch.int64)
+               for i in range(steps)]
+    step_fn = make_train_step(tcfg, opt_cfg)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    losses, step_s, metrics = [], [], []
+    for b in batches:
+        t0 = now()
+        state, m = step_fn(state, {"tokens": b})
+        losses.append(float(m["loss"]))          # a host read: the step is done
+        step_s.append(now() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = dict(ops.LAUNCHES)
+    want = {**{k: 0 for k in ops.LAUNCHES},
+            **{k: steps * v for k, v in step_launches(tcfg).items()}}
+    peak = torch.cuda.max_memory_allocated()
+    steady = step_s[1:] or step_s
+    step_ms = 1e3 * sum(steady) / len(steady)
+    bound, by, flop = _step_bound(tcfg, batch, seq, n_params)
+    print(f"[train] {steps} steps: losses {losses}, grad_norm "
+          f"{[round(m['grad_norm'], 4) for m in metrics]}, lr "
+          f"{[m['lr'] for m in metrics]}")
+    print(f"[train] step ms (host clock, ending on a host read of the loss) "
+          f"{[round(1e3 * t, 2) for t in step_s]}; steady (steps 2-{steps}) "
+          f"{step_ms:.2f} ms/step, {batch * seq / (step_ms / 1e3):.1f} tok/s; peak "
+          f"device memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); bound "
+          f"{bound:.2f} ms ({by}: {flop:.3e} FLOP at 989 TFLOP/s, or "
+          f"{32 * n_params / 1e9:.1f} GB of state at 3.35 TB/s), "
+          f"{step_ms / bound:.2f}x the bound")
+    print(f"[train] launches {launches} (expected {steps} x step_launches: {want})")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train losses not finite: {losses}")
+    if launches != want:
+        raise AssertionError(f"train path launches {launches}, expected {want}")
+    # one step traced: device ms by kernel, forward and backward apart
+    def step_once():
+        nonlocal state
+        state, m = step_fn(state, {"tokens": batches[0]})
+        m["loss"].item()
+    _print_trace(_trace(step_once, 1), 1, "train step (batch 4 x 1024)")
+    # the embedding's gradient, taken twice: its backward is an indexed
+    # accumulate (aten index_put_ with accumulate=True)
+    emb = state.params["embed"]
+    w = torch.randn((batch, seq, cfg.d_model), generator=torch.Generator(dev).manual_seed(1),
+                    device=dev).to(emb.dtype)
+    g1, g2 = (torch.autograd.grad((emb[batches[0]] * w).sum(), emb)[0] for _ in range(2))
+    print(f"[train] embedding gradient ({batch}x{seq} tokens into "
+          f"{tuple(emb.shape)} bf16, IndexBackward: index_put_ with "
+          f"accumulate=True), same bits twice: {bool(torch.equal(g1, g2))}")
+    # one more step, split at a synchronise: the gradient (forward, remat and
+    # backward) and the AdamW update (plain torch), each on the host clock
+    del g1, g2, emb
+    torch.cuda.synchronize()
+    t0 = now()
+    _, grads = loss_and_grads(state.params, batches[1], tcfg)
+    torch.cuda.synchronize()
+    t1 = now()
+    adamw_update(state.params, grads, state.opt, opt_cfg)
+    torch.cuda.synchronize()
+    t2 = now()
+    print(f"[train] one step split at a synchronise: gradient {1e3 * (t1 - t0):.2f} ms "
+          f"(forward, remat and backward), AdamW update {1e3 * (t2 - t1):.2f} ms")
+    del state, grads, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _backward_times(kc, kfa, kmm, krms, ref, time_ms) -> dict:
+    """Phase 6, the backward kernels at the training shapes: kernel, plain,
+    the library call and the bound between CUDA events, and device ms a
+    call from a trace (every kernel of one call: two grids for rmsnorm's
+    and flash attention's).  Returns rows by name."""
+    import torch
+    import torch.nn.functional as F
+
+    rows = {}
+
+    def dev_ms(fn):
+        return _device_per_call(fn, 10)
+
+    # rmsnorm: x and dy read, dx written, gamma read and dgamma written
+    R, D = kc.TRAIN_TOKENS, kc.D_MODEL
+    x, g, dy = kc.rmsnorm_bwd_inputs(R, D, torch.bfloat16)
+    xl = x.detach().requires_grad_()
+    gl = g.to(torch.bfloat16).requires_grad_()
+    yl = F.rms_norm(xl, (D,), gl, kc.EPS)
+    fk = lambda: krms.backward(dy, x, g, kc.EPS)
+    fl = lambda: torch.autograd.grad(yl, (xl, gl), dy, retain_graph=True)
+    t_k, t_p, t_l = (time_ms(fk, 50), time_ms(lambda: ref.rmsnorm_bwd(dy, x, g, kc.EPS), 20),
+                     time_ms(fl, 50))
+    bound, by = _ms_bound(3 * R * D * 2 + 8 * D, 10.0 * R * D, "f32")
+    rows["rmsnorm_bwd"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound,
+                               bound_by=by, device_ms=dev_ms(fk),
+                               library_device_ms=dev_ms(fl),
+                               shape=f"R={R},D={D},bf16")
+    print(f"[time] rmsnorm_bwd R={R} D={D} bf16 kernel {t_k:.4f} ms  plain {t_p:.4f} ms  "
+          f"F.rms_norm backward (autograd) {t_l:.4f} ms  bound {bound:.5f} ms ({by}); "
+          f"device: kernel {rows['rmsnorm_bwd']['device_ms']:.4f} ms, library "
+          f"{rows['rmsnorm_bwd']['library_device_ms']:.4f} ms")
+    del x, dy, xl, yl
+    # the matmul's backward of each projection: dA and dB, one launch each
+    per = {}
+    for proj, (K, N) in kc.MATMUL_KN.items():
+        M = kc.TRAIN_TOKENS
+        dc, b = kc.matmul_bwd_inputs(M, K, N, torch.bfloat16, "a")
+        a, dc2 = kc.matmul_bwd_inputs(M, K, N, torch.bfloat16, "b")
+        ka = lambda: kmm.grad_a(dc, b)
+        kb = lambda: kmm.grad_b(a, dc2)
+        la = lambda: torch.matmul(dc, b.T)
+        lb = lambda: torch.matmul(a.T, dc2)
+        t = {n: time_ms(f, 20) for n, f in (("dA", ka), ("dB", kb), ("lib dA", la),
+                                            ("lib dB", lb))}
+        t_p = time_ms(lambda: (ref.matmul_grad_a(dc, b), ref.matmul_grad_b(a, dc2)), 5)
+        bound, by = _ms_bound(2 * 2 * (M * N + K * N + M * K), 4.0 * M * N * K, "bf16")
+        d_k = dev_ms(lambda: (ka(), kb()))
+        d_l = dev_ms(lambda: (la(), lb()))
+        per[proj] = dict(ms=t["dA"] + t["dB"], dA_ms=t["dA"], dB_ms=t["dB"], plain_ms=t_p,
+                         library_ms=t["lib dA"] + t["lib dB"], bound_ms=bound,
+                         bound_by=by, device_ms=d_k, library_device_ms=d_l,
+                         shape=f"M={M},K={K},N={N},bf16")
+        print(f"[time] matmul_bwd {proj:7s} M={M} K={K:<5d} N={N:<5d} bf16 kernel dA "
+              f"{t['dA']:.4f} + dB {t['dB']:.4f} ms  plain {t_p:.4f} ms  torch.matmul "
+              f"{t['lib dA']:.4f} + {t['lib dB']:.4f} ms  bound {bound:.4f} ms ({by}); "
+              f"device: kernel {d_k:.4f} ms, torch.matmul {d_l:.4f} ms, "
+              f"{d_k / d_l:.2f}x torch.matmul, {d_k / bound:.2f}x bound")
+        del dc, b, a, dc2
+    rows["matmul_bwd"] = per
+    # flash attention at the training shape, causal: q, k, v, do read, dq, dk,
+    # dv written; the five products of the backward over the visible pairs
+    B, S = 4, 1024
+    Hq, Hkv, Dh = kc.HQ, kc.HKV, kc.HEAD_DIM
+    q, k, v, do = kc.attention_bwd_inputs(B, S, torch.bfloat16)
+    fk = lambda: kfa.backward(q, k, v, do, causal=True)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+    fl = lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True)
+    t_k, t_l = time_ms(fk, 5), time_ms(fl, 20)
+    t_p = time_ms(lambda: ref.attention_bwd(q, k, v, do, causal=True), 2)
+    pairs = B * Hq * S * (S + 1) / 2
+    bound, by = _ms_bound(2 * B * S * Dh * (2 * Hq + 2 * Hkv) * 2, 5 * 2.0 * pairs * Dh,
+                          "bf16")
+    rows["flash_attention_bwd"] = dict(
+        ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound, bound_by=by,
+        device_ms=dev_ms(fk), library_device_ms=dev_ms(fl),
+        shape=f"B={B},Hq={Hq},Hkv={Hkv},S={S},D={Dh},causal,bf16")
+    r = rows["flash_attention_bwd"]
+    print(f"[time] flash_attention_bwd B={B} Hq={Hq} Hkv={Hkv} S={S} D={Dh} causal bf16 "
+          f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms  SDPA backward (autograd) "
+          f"{t_l:.4f} ms  bound {bound:.4f} ms ({by}); device: kernel "
+          f"{r['device_ms']:.4f} ms, SDPA backward {r['library_device_ms']:.4f} ms, "
+          f"{r['device_ms'] / r['library_device_ms']:.2f}x SDPA, "
+          f"{r['device_ms'] / bound:.1f}x bound")
+    return rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -600,6 +924,7 @@ def main() -> int:
     from repro_torch.testing import kernel_checks as kc
     from repro_torch.testing.timing import now
 
+    t_all = now()
     # f32 products in full f32 on both sides of every comparison
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -689,6 +1014,10 @@ def main() -> int:
                       f"{str(dt)[6:]:8s} {r['variant']:5s} {_reading(r)}")
                 if not r["ok"]:
                     failed.append(("flash_attention head dim", D, causal, dt))
+    # -- 3c. the backward kernels vs plain versions -----------------------------
+    bwd_errs, bwd_failed = _backward_checks(kc, kfa)
+    errs.update(bwd_errs)
+    failed += bwd_failed
     # -- 3b. the paper's Table I kernels vs plain versions -------------------------
     t1_errs, t1_failed = _table1_checks(kc)
     failed += t1_failed
@@ -742,6 +1071,8 @@ def main() -> int:
     if streams["cpu"] != streams["cuda"] or len(streams["cpu"]) != 5:
         raise AssertionError(f"smoke streams differ: {streams}")
     _smoke_paged(scfg, cpu_params, gpu_params, dev)
+    # -- 4b. smoke training: kernel path on the card vs plain path on the CPU --
+    _smoke_train(dev)
 
     # -- 5. main path: llama3-8b at full width, full depth --------------------
     cfg = get_config("llama3-8b")
@@ -919,6 +1250,9 @@ def main() -> int:
 
     # -- 5e. the Table I path: both configurations through ops -------------------
     path_launches["table1"] = _table1_path(kc, ops, ref, dev)
+
+    # -- 7. the training path: llama3-8b at full width, 8 of 32 layers -------
+    path_launches["train"] = _train_path(cfg, dev)
 
     # -- 6. kernel times ---------------------------------------------------------
     def time_ms(fn, iters: int) -> float:
@@ -1128,6 +1462,7 @@ def main() -> int:
     if not r["ok"]:
         raise AssertionError("paged_attention disagrees at the decode inputs")
     t1_rows = _table1_times(kc, kred, kst, ref, time_ms, dev)
+    bwd_rows = _backward_times(kc, kfa, kmm, krms, ref, time_ms)
 
     # the decode-step shapes, where serving spends most of its time, and the
     # longest whole-prompt prefill; launches summed over the four main paths
@@ -1216,8 +1551,33 @@ def main() -> int:
             kernels[-1]["table1_paper"]["host_us"] = t1_rows[(kname, "host")]
         if not math.isnan(c_d):
             kernels[-1]["device_ms"], kernels[-1]["library_device_ms"] = c_d, c_ld
+    # the backward kernels at the training shapes (the matmul's at wg/wi, the
+    # other projections beside it)
+    for kname, src, replaces, err_key in (
+            ("rmsnorm_bwd", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:44",
+             ("rmsnorm_bwd", kc.TRAIN_TOKENS, kc.D_MODEL, torch.bfloat16)),
+            ("matmul_bwd", "matmul.cu", "src/repro/kernels/matmul.py:84",
+             ("matmul_bwd", "b", kc.TRAIN_TOKENS, 4096, 14336, torch.bfloat16)),
+            ("flash_attention_bwd", "flash_attention_bwd.cu",
+             "src/repro/kernels/flash_attention.py:118",
+             ("flash_attention_bwd", 4, 1024, None, torch.bfloat16))):
+        row = bwd_rows[kname]
+        if kname == "matmul_bwd":
+            row = {**row["wg/wi"], "projections": row}
+        if kname == "matmul_bwd":
+            worst = max(errs[("matmul_bwd", w, kc.TRAIN_TOKENS, 4096, 14336,
+                              torch.bfloat16)] for w in "ab")
+        else:
+            worst = errs[err_key]
+        kernels.append({"name": kname, "route": "cuda",
+                        "source": f"src/repro_torch/kernels/csrc/{src}",
+                        "replaces": replaces, "launches": total[kname],
+                        "launches_by_path": {p: pl[kname] for p, pl
+                                             in path_launches.items()},
+                        "max_abs_err": worst, **row})
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError(f"a kernel never launched on the main paths: {total}")
+    print(f"[done] chip_smoke.py in {now() - t_all:.1f}s")
     print(json.dumps({"kernels": _json_numbers(kernels)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -140,4 +140,5 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         ssm_chunk=8,
         window=min(cfg.window, 16) if cfg.window else None,
         dtype=torch.float32,
+        remat=False,
     )

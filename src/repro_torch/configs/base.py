@@ -2,8 +2,9 @@
 
 The PyTorch port's copy of ``repro.configs.base``: the fields the
 architectures set and the derived shapes the serving path reads, with
-``dtype`` a torch dtype.  Training, sharding and MoE-dispatch options come
-with the slices that read them."""
+``dtype`` a torch dtype, and the training options of the dense trainer
+(``remat``, ``loss_chunk``).  Sharding and MoE-dispatch options come with
+the slices that read them."""
 from __future__ import annotations
 
 import dataclasses
@@ -55,10 +56,12 @@ class ModelConfig:
     n_ctx_tokens: int = 0        # image patches / audio frames per sample
     d_ctx: int = 0               # frontend embedding dim (projected to d_model)
 
-    # numerics
+    # numerics / training
     dtype: Any = torch.bfloat16
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    remat: bool = True           # recompute each layer period in the backward
+    loss_chunk: int = 0          # chunked cross-entropy (0 = single shot)
 
     # ---------------------------------------------------------------------
     @property

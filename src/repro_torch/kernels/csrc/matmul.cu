@@ -103,7 +103,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 template <typename T, int BM, int BN, int BK, int TM, int TN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 matmul_kernel(const T* __restrict__ A, const T* __restrict__ B, T* __restrict__ C,
-              int M, int N, int K) {
+              int M, int N, int K, long long sam, long long sak, long long sbk,
+              long long sbn) {
     constexpr int TX = BN / TN;            // threads along N
     constexpr int TY = BM / TM;            // threads along M
     constexpr int NT = TX * TY;
@@ -129,21 +130,27 @@ matmul_kernel(const T* __restrict__ A, const T* __restrict__ B, T* __restrict__ 
     // masked element keeps the zero it was given.
     constexpr int LA = (BM * BK) / NT, LB = (BK * BN) / NT;
     T ra[LA], rb[LB];
+    // element i of a thread's share of the A tile is (row, k) = a_rc(i), of
+    // the B tile (k, column) = b_rc(i): consecutive threads on consecutive
+    // addresses, along the operand's unit stride (a transposed operand of
+    // the backward's products walks the other way)
+    const bool a_rows = sak == 1, b_rows = sbn == 1;
+    auto a_rc = [&](int i) { return a_rows ? make_int2(i / BK, i % BK) : make_int2(i % BM, i / BM); };
+    auto b_rc = [&](int i) { return b_rows ? make_int2(i / BN, i % BN) : make_int2(i % BK, i / BK); };
     auto fetch = [&](int k0) {
-        // consecutive threads read consecutive addresses of A's rows and B's rows
 #pragma unroll
         for (int s = 0; s < LA; ++s) {
-            const int i = tid + s * NT;
-            const int gr = row0 + i / BK, gc = k0 + i % BK;
+            const int2 rc = a_rc(tid + s * NT);
+            const int gr = row0 + rc.x, gc = k0 + rc.y;
             ra[s] = from_f32<T>(0.f);
-            if (gr < M && gc < K) ra[s] = A[(size_t)gr * K + gc];
+            if (gr < M && gc < K) ra[s] = A[(size_t)gr * sam + (size_t)gc * sak];
         }
 #pragma unroll
         for (int s = 0; s < LB; ++s) {
-            const int i = tid + s * NT;
-            const int gr = k0 + i / BN, gc = col0 + i % BN;
+            const int2 rc = b_rc(tid + s * NT);
+            const int gr = k0 + rc.x, gc = col0 + rc.y;
             rb[s] = from_f32<T>(0.f);
-            if (gr < K && gc < N) rb[s] = B[(size_t)gr * N + gc];
+            if (gr < K && gc < N) rb[s] = B[(size_t)gr * sbk + (size_t)gc * sbn];
         }
     };
 
@@ -151,13 +158,13 @@ matmul_kernel(const T* __restrict__ A, const T* __restrict__ B, T* __restrict__ 
     for (int k0 = 0; k0 < K; k0 += BK) {
 #pragma unroll
         for (int s = 0; s < LA; ++s) {
-            const int i = tid + s * NT;
-            As[i % BK][i / BK] = to_f32(ra[s]);
+            const int2 rc = a_rc(tid + s * NT);
+            As[rc.y][rc.x] = to_f32(ra[s]);
         }
 #pragma unroll
         for (int s = 0; s < LB; ++s) {
-            const int i = tid + s * NT;
-            Bs[i / BN][i % BN] = to_f32(rb[s]);
+            const int2 rc = b_rc(tid + s * NT);
+            Bs[rc.x][rc.y] = to_f32(rb[s]);
         }
         __syncthreads();
         if (k0 + BK < K) fetch(k0 + BK);
@@ -188,20 +195,26 @@ matmul_kernel(const T* __restrict__ A, const T* __restrict__ B, T* __restrict__ 
     }
 }
 
+// element strides of A (sam along M, sak along K) and B (sbk, sbn): (K, 1,
+// N, 1) for the forward's row-major operands; the backward's products pass
+// a transposed operand's strides
 template <typename T, int BM, int BN, int BK, int TM, int TN>
-void launch_simt(const void* a, const void* b, void* c, int M, int N, int K, cudaStream_t s) {
+void launch_simt(const void* a, const void* b, void* c, int M, int N, int K,
+                 const long long* st, cudaStream_t s) {
     const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
     const dim3 block((BM / TM) * (BN / TN));
     matmul_kernel<T, BM, BN, BK, TM, TN><<<grid, block, 0, s>>>(
-        static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(c), M, N, K);
+        static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(c), M, N, K,
+        st[0], st[1], st[2], st[3]);
 }
 
 template <typename T>
-void dispatch_simt(const void* a, const void* b, void* c, int M, int N, int K, cudaStream_t s) {
+void dispatch_simt(const void* a, const void* b, void* c, int M, int N, int K,
+                   const long long* st, cudaStream_t s) {
     if (M <= 8)
-        launch_simt<T, 8, 32, 128, 1, 1>(a, b, c, M, N, K, s);   // decode: 256 threads
+        launch_simt<T, 8, 32, 128, 1, 1>(a, b, c, M, N, K, st, s);   // decode: 256 threads
     else
-        launch_simt<T, 64, 64, 16, 4, 4>(a, b, c, M, N, K, s);   // prefill: 256 threads
+        launch_simt<T, 64, 64, 16, 4, 4>(a, b, c, M, N, K, st, s);   // prefill: 256 threads
 }
 
 // ---------------------------------------------------------------------------
@@ -452,8 +465,10 @@ template <int N> __device__ __forceinline__ void wgmma_wait() {
     asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
-// d (64 x 128 f32 of the warpgroup) = A (64 x 16, K-major) * B (16 x 128,
-// MN-major: trans-b 1) + (scale_d ? d : 0)
+// d (64 x 128 f32 of the warpgroup) = A (64 x 16) * B (16 x 128) + (scale_d ?
+// d : 0); TA, TB the transpose bits: A K-major (0) or MN-major (1), B
+// MN-major (1, the forward's row-major weight) or K-major (0)
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
                                                  int scale_d) {
     asm volatile(
@@ -465,7 +480,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 1;\n"
+        "%64, %65, p, 1, 1, %67, %68;\n"
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -478,7 +493,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 // pins the accumulators: no other instruction touching d moves across the
@@ -492,6 +507,13 @@ __device__ __forceinline__ void consumers_sync() {   // the two consumer warpgro
     asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
 
+// TA: A is given as A^T, a row-major (K, M) matrix (dW = X^T dY: the
+// activations X as they lie), its tile two 64 x 64 boxes (64 k rows of 64
+// m columns, 128-byte rows) read MN-major, one a consumer warpgroup.  TB
+// == 0: B is given as B^T, a row-major (N, K) matrix (dX = dY W^T: the
+// weight W as it lies), its tile one 128 x 64 box read K-major, as A's.
+// Neither is copied.
+template <int TA, int TB>
 __global__ void __launch_bounds__(wg::THREADS, 1)
 matmul_wgmma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
                     bf16* __restrict__ C, int M, int N, int K, int slice,
@@ -526,9 +548,18 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constan
                 if (j >= STAGES) mbar_wait(&empty[s], ((j / STAGES) - 1) & 1);
                 unsigned char* a = buf + s * STAGE_BYTES;
                 mbar_expect_tx(&full[s], STAGE_BYTES);   // zero-filled bytes count too
-                tma_load_2d(a, &ta, k, m0, &full[s]);
-                tma_load_2d(a + A_BYTES, &tb, n0, k, &full[s]);
-                tma_load_2d(a + A_BYTES + B_HALF, &tb, n0 + 64, k, &full[s]);
+                if (TA) {
+                    tma_load_2d(a, &ta, m0, k, &full[s]);
+                    tma_load_2d(a + A_BYTES / 2, &ta, m0 + 64, k, &full[s]);
+                } else {
+                    tma_load_2d(a, &ta, k, m0, &full[s]);
+                }
+                if (TB) {
+                    tma_load_2d(a + A_BYTES, &tb, n0, k, &full[s]);
+                    tma_load_2d(a + A_BYTES + B_HALF, &tb, n0 + 64, k, &full[s]);
+                } else {
+                    tma_load_2d(a + A_BYTES, &tb, k, n0, &full[s]);
+                }
             }
         }
         return;
@@ -542,17 +573,21 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constan
     for (int j = 0; j < steps; ++j) {
         const int s = j % STAGES;
         mbar_wait(&full[s], (j / STAGES) & 1);
+        // this warpgroup's 64 rows of A: 64 K-major rows of 128 bytes, or
+        // (TA) one of the two 64 x 64 MN-major boxes, 8 KB each
         const uint32_t a = smem_u32(buf + s * STAGE_BYTES) + cw * 64 * 128;
         const uint32_t b = smem_u32(buf + s * STAGE_BYTES + A_BYTES);
         fence_operands(d);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
-            // A: K-major, 8-row groups 1024 bytes apart, k16 = 32 bytes on;
-            // B: MN-major, 8-row k groups 1024 bytes apart, the second 64
+            // K-major: 8-row groups 1024 bytes apart, k16 = 32 bytes on;
+            // MN-major: 8-row k groups 1024 bytes apart, the next 64
             // columns 8 KB on (LBO), k16 = 16 rows of 128 bytes on
-            wgmma_m64n128k16(d, gmma_desc(a + kk * 32, 16, 1024),
-                             gmma_desc(b + kk * 2048, B_HALF, 1024), j > 0 || kk > 0);
+            wgmma_m64n128k16<TA, TB>(
+                d, TA ? gmma_desc(a + kk * 2048, A_BYTES / 2, 1024) : gmma_desc(a + kk * 32, 16, 1024),
+                TB ? gmma_desc(b + kk * 2048, B_HALF, 1024) : gmma_desc(b + kk * 32, 16, 1024),
+                j > 0 || kk > 0);
         wgmma_commit();
         wgmma_wait<1>();                  // step j - 1's products are done
         fence_operands(d);
@@ -666,19 +701,20 @@ bool encode(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows,
               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// B's map by (address, K, N): a weight's map is encoded once.  The key fixes
-// every field of the map, so an entry is never stale, even for a new tensor
-// at a freed one's address.
-bool weight_map(CUtensorMap* map, const void* b, int K, int N) {
-    using Key = std::tuple<uintptr_t, int, int>;
+// B's map by (address, rows, cols, box rows): a weight's map is encoded
+// once (the forward's (K, N) in 64 x 64 boxes, the backward's W as B^T in
+// 128 x 64 boxes).  The key fixes every field of the map, so an entry is
+// never stale, even for a new tensor at a freed one's address.
+bool weight_map(CUtensorMap* map, const void* b, int rows, int cols, int box_rows) {
+    using Key = std::tuple<uintptr_t, int, int, int>;
     using Raw = std::array<unsigned char, sizeof(CUtensorMap)>;
     static std::mutex mu;
     static std::map<Key, Raw> cache;
-    const Key key{reinterpret_cast<uintptr_t>(b), K, N};
+    const Key key{reinterpret_cast<uintptr_t>(b), rows, cols, box_rows};
     std::lock_guard<std::mutex> lock(mu);
     auto it = cache.find(key);
     if (it == cache.end()) {
-        if (!encode(map, b, K, N, wg::BK, 64)) return false;
+        if (!encode(map, b, rows, cols, box_rows, 64)) return false;
         if (cache.size() >= 4096) cache.clear();
         Raw bytes;
         std::memcpy(bytes.data(), map, sizeof(CUtensorMap));
@@ -728,21 +764,36 @@ int launch_decode(const void* a, const void* b, void* c, int M, int N, int K, in
     return static_cast<int>(cudaGetLastError());
 }
 
-int launch_wgmma(const void* a, const void* b, void* c, int M, int N, int K, int splits,
-                 int slice, void* tickets, void* partials, cudaStream_t s) {
+// trans 0: C = A B (the forward); 1: C = A B^T with b the row-major (N, K)
+// B^T; 2: C = A^T B with a the row-major (K, M) A^T
+template <int TA, int TB>
+int launch_wgmma_t(const CUtensorMap& ta, const CUtensorMap& tb, void* c, int M, int N, int K,
+                   int splits, int slice, void* tickets, void* partials, cudaStream_t s) {
     static bool done[64] = {};
-    if (!plan_ok(K, splits, slice, wg::BK, tickets, partials))
-        return static_cast<int>(cudaErrorInvalidValue);
-    alignas(64) CUtensorMap ta, tb;
-    if (!encode(&ta, a, M, K, wg::BM, wg::BK) || !weight_map(&tb, b, K, N))
-        return static_cast<int>(cudaErrorInvalidValue);
-    if (!allow_smem(reinterpret_cast<const void*>(matmul_wgmma_kernel), wg::SMEM, done))
+    if (!allow_smem(reinterpret_cast<const void*>(matmul_wgmma_kernel<TA, TB>), wg::SMEM, done))
         return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid((M + wg::BM - 1) / wg::BM, (N + wg::BN - 1) / wg::BN, splits);
-    matmul_wgmma_kernel<<<grid, wg::THREADS, wg::SMEM, s>>>(
+    matmul_wgmma_kernel<TA, TB><<<grid, wg::THREADS, wg::SMEM, s>>>(
         ta, tb, static_cast<bf16*>(c), M, N, K, slice, static_cast<float*>(partials),
         static_cast<unsigned*>(tickets));
     return static_cast<int>(cudaGetLastError());
+}
+
+int launch_wgmma(const void* a, const void* b, void* c, int M, int N, int K, int trans,
+                 int splits, int slice, void* tickets, void* partials, cudaStream_t s) {
+    if (!plan_ok(K, splits, slice, wg::BK, tickets, partials))
+        return static_cast<int>(cudaErrorInvalidValue);
+    alignas(64) CUtensorMap ta, tb;
+    const bool ok_a = trans == 2 ? encode(&ta, a, K, M, 64, 64)
+                                 : encode(&ta, a, M, K, wg::BM, wg::BK);
+    const bool ok_b = trans == 1 ? weight_map(&tb, b, N, K, wg::BN)
+                                 : weight_map(&tb, b, K, N, wg::BK);
+    if (!ok_a || !ok_b) return static_cast<int>(cudaErrorInvalidValue);
+    if (trans == 1)
+        return launch_wgmma_t<0, 0>(ta, tb, c, M, N, K, splits, slice, tickets, partials, s);
+    if (trans == 2)
+        return launch_wgmma_t<1, 1>(ta, tb, c, M, N, K, splits, slice, tickets, partials, s);
+    return launch_wgmma_t<0, 1>(ta, tb, c, M, N, K, splits, slice, tickets, partials, s);
 }
 
 }  // namespace
@@ -763,10 +814,11 @@ extern "C" int repro_matmul(const void* a, const void* b, void* c, int M, int N,
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (M <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
     if (variant == 0) {
+        const long long st[4] = {K, 1, N, 1};
         if (dtype == 0)
-            dispatch_simt<float>(a, b, c, M, N, K, s);
+            dispatch_simt<float>(a, b, c, M, N, K, st, s);
         else if (dtype == 1)
-            dispatch_simt<bf16>(a, b, c, M, N, K, s);
+            dispatch_simt<bf16>(a, b, c, M, N, K, st, s);
         else
             return static_cast<int>(cudaErrorInvalidValue);
         return static_cast<int>(cudaGetLastError());
@@ -778,6 +830,39 @@ extern "C" int repro_matmul(const void* a, const void* b, void* c, int M, int N,
     if (variant == 1)
         return launch_decode(a, b, c, M, N, K, splits, slice, tickets, partials, s);
     if (variant == 2)
-        return launch_wgmma(a, b, c, M, N, K, splits, slice, tickets, partials, s);
+        return launch_wgmma(a, b, c, M, N, K, 0, splits, slice, tickets, partials, s);
     return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward's two products of C = A B, on the operands as they lie
+// (no transposed copy): trans 1, dA (M, K') = dC (M, N') B^T, passed as a =
+// dC (M rows of K = N'), b = B (N = K' rows of K); trans 2, dB (K', N') =
+// A^T dC, passed as a = A (K = M' rows of M = K' columns), b = dC (K rows
+// of N).  variant 0 = simt (any dtype), 2 = wgmma (bf16, K > 0, N and K
+// multiples of 8, M too for trans 2, 16-byte aligned), with the split-K plan
+// and workspace of repro_matmul.  Returns as repro_matmul.
+extern "C" int repro_matmul_t(const void* a, const void* b, void* c, int M, int N, int K,
+                              int trans, int dtype, int variant, int splits, int slice,
+                              void* tickets, void* partials, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (trans != 1 && trans != 2) return static_cast<int>(cudaErrorInvalidValue);
+    if (M <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
+    if (variant == 0) {
+        // element strides: A (M, K) or A^T's (K, M); B (K, N) or B^T's (N, K)
+        const long long st[4] = {trans == 2 ? 1 : K, trans == 2 ? M : 1,
+                                 trans == 1 ? 1 : N, trans == 1 ? K : 1};
+        if (dtype == 0)
+            dispatch_simt<float>(a, b, c, M, N, K, st, s);
+        else if (dtype == 1)
+            dispatch_simt<bf16>(a, b, c, M, N, K, st, s);
+        else
+            return static_cast<int>(cudaErrorInvalidValue);
+        return static_cast<int>(cudaGetLastError());
+    }
+    const bool aligned = (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)
+                          | reinterpret_cast<uintptr_t>(c)) % 16 == 0;
+    if (variant != 2 || dtype != 1 || K <= 0 || K % 8 || N % 8 || (trans == 2 && M % 8) ||
+        !aligned)
+        return static_cast<int>(cudaErrorInvalidValue);
+    return launch_wgmma(a, b, c, M, N, K, trans, splits, slice, tickets, partials, s);
 }

@@ -152,6 +152,86 @@ void launch_rms(const void* x, const void* g, void* y, int R, int D, float eps,
     }
 }
 
+constexpr int BWD_THREADS = 256;
+
+// Two sums of the block in the fixed order of block_sum, given to every
+// thread; red holds 64 floats.  The caller syncs before a second call.
+__device__ __forceinline__ float2 block_sum2(float a, float b, float* red) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+        a += __shfl_xor_sync(0xffffffffu, a, o);
+        b += __shfl_xor_sync(0xffffffffu, b, o);
+    }
+    if (lane == 0) {
+        red[2 * warp] = a;
+        red[2 * warp + 1] = b;
+    }
+    __syncthreads();
+    float sa = 0.f, sb = 0.f;
+    const int nw = blockDim.x >> 5;
+    for (int w = 0; w < nw; ++w) {
+        sa += red[2 * w];
+        sb += red[2 * w + 1];
+    }
+    return make_float2(sa, sb);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BWD_THREADS)
+rms_bwd_kernel(const T* __restrict__ x, const float* __restrict__ g, const T* __restrict__ dy,
+               T* __restrict__ dx, float* __restrict__ part, int R, int D, float eps) {
+    __shared__ float red[64];
+    const int t = threadIdx.x, nt = blockDim.x;
+    const int P = gridDim.x;
+    float* mine = part + static_cast<int64_t>(blockIdx.x) * D;
+    for (int j = t; j < D; j += nt) mine[j] = 0.f;       // each thread its own columns
+    for (int64_t row = blockIdx.x; row < R; row += P) {
+        const T* xr = x + row * D;
+        const T* dr = dy + row * D;
+        float ss = 0.f, dot = 0.f;
+        for (int j = t; j < D; j += nt) {
+            const float f = to_f32(xr[j]);
+            ss = fmaf(f, f, ss);
+            dot = fmaf(to_f32(dr[j]) * __ldg(&g[j]), f, dot);
+        }
+        __syncthreads();                  // every thread has read the last row's sums
+        const float2 s = block_sum2(ss, dot, red);
+        const float r = rsqrtf(s.x / static_cast<float>(D) + eps);
+        const float c = r * s.y / static_cast<float>(D);   // mean(gy xh)
+        T* out = dx + row * D;
+        for (int j = t; j < D; j += nt) {
+            const float d = to_f32(dr[j]);
+            const float xh = to_f32(xr[j]) * r;
+            out[j] = from_f32<T>(r * (d * __ldg(&g[j]) - xh * c));
+            mine[j] = fmaf(d, xh, mine[j]);
+        }
+    }
+}
+
+// dgamma[j] = the P partials of column j summed in block order
+__global__ void __launch_bounds__(BWD_THREADS)
+rms_dgamma_kernel(const float* __restrict__ part, float* __restrict__ dgamma, int P, int D) {
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= D) return;
+    float s = 0.f;
+    for (int p = 0; p < P; ++p) s += part[static_cast<int64_t>(p) * D + j];
+    dgamma[j] = s;
+}
+
+template <typename T>
+int launch_rms_bwd(const void* x, const void* g, const void* dy, void* dx, void* dgamma,
+                   void* part, int R, int D, int P, float eps, cudaStream_t s) {
+    rms_bwd_kernel<T><<<P, BWD_THREADS, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const float*>(g), static_cast<const T*>(dy),
+        static_cast<T*>(dx), static_cast<float*>(part), R, D, eps);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    rms_dgamma_kernel<<<(D + BWD_THREADS - 1) / BWD_THREADS, BWD_THREADS, 0, s>>>(
+        static_cast<const float*>(part), static_cast<float*>(dgamma), P, D);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // y (R, D) = x * rsqrt(mean(x^2) + eps) * gamma for each row of x (R, D);
@@ -172,4 +252,20 @@ extern "C" int repro_rmsnorm(const void* x, const void* gamma, void* y, int R, i
             return static_cast<int>(cudaErrorInvalidValue);
     }
     return static_cast<int>(cudaGetLastError());
+}
+
+// The backward of repro_rmsnorm for the output's gradient dy (R, D): dx (R, D)
+// in x's dtype (dtype as above) and dgamma (D,) f32, through `part`, a
+// workspace of P * D floats (P, 1 <= P <= R, the blocks of the first grid).
+// Contiguous device tensors; the launches go on `stream` and do not
+// synchronise.  Returns the first launch error (0 = success).
+extern "C" int repro_rmsnorm_bwd(const void* x, const void* gamma, const void* dy, void* dx,
+                                 void* dgamma, void* part, int R, int D, int P, float eps,
+                                 int dtype, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (R <= 0 || D <= 0 || P < 1 || P > R) return static_cast<int>(cudaErrorInvalidValue);
+    if (dtype == 0) return launch_rms_bwd<float>(x, gamma, dy, dx, dgamma, part, R, D, P, eps, s);
+    if (dtype == 1)
+        return launch_rms_bwd<__nv_bfloat16>(x, gamma, dy, dx, dgamma, part, R, D, P, eps, s);
+    return static_cast<int>(cudaErrorInvalidValue);
 }

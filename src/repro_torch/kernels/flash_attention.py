@@ -1,5 +1,5 @@
-"""The CUDA flash-attention kernel's wrapper: causal / sliding-window GQA
-attention, forward only.
+"""The CUDA flash-attention kernels' wrapper: causal / sliding-window GQA
+attention, forward and backward.
 
 Counterpart of ``repro.kernels.flash_attention.flash_attention``; the kernel
 and its design notes are in ``csrc/flash_attention.cu``.  Shapes are the JAX
@@ -7,9 +7,17 @@ kernel's: q (B, Hq, S, D), k/v (B, Hkv, Sk, D) -> (B, Hq, S, D) in q's
 dtype.  Every operand is taken through its strides, so the model passes its
 (B, S, H, D) activations as ``transpose(1, 2)`` views; the result is a
 (B, Hq, S, D) view of a (B, S, Hq, D) tensor, which the model transposes
-back without a copy.  There is no backward yet: a call that autograd would
-have to differentiate raises, as the TPU kernel has no VJP either.  Each
-call is exactly one launch, and the same inputs give the same bits.
+back without a copy.  Each call is exactly one launch, and the same inputs
+give the same bits.
+
+Where autograd records the call, the wrapper is :class:`FlashAttention`,
+whose backward is ``csrc/flash_attention_bwd.cu`` (:func:`backward`: dq,
+dk, dv from q, k, v and the output's gradient, each in the (B, S, H, D)
+layout of the model's activations, read back as (B, H, S, D) views; one
+call, two grids; counted in ``LAUNCHES["flash_attention_bwd"]``).  It
+recomputes each row's softmax statistics, so the forward keeps nothing but
+q, k and v.  The TPU kernel has no VJP: the reference trains through jnp
+attention under ``jax.grad``.
 
 Which of the two kernels a call takes is ``variant(S, Sk, D, dtype,
 aligned)``, a pure function of the shapes and the dtype:
@@ -27,8 +35,8 @@ import ctypes
 
 import torch
 
-from . import _build
-from .launches import LAUNCHES, refuse_autograd
+from . import _build, ref
+from .launches import LAUNCHES, wants_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
@@ -38,6 +46,7 @@ VARIANTS = {"simt": 0, "wgmma": 1}
 WGMMA_HEAD_DIMS = (64, 128)
 WGMMA_BQ, WGMMA_BK = 64, 64
 _FN = None
+_BWD = None
 
 
 def variant(S: int, Sk: int, D: int, dtype: torch.dtype, aligned: bool = True) -> str:
@@ -73,13 +82,28 @@ def _fn():
     return _FN
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int | None = None
-                    ) -> torch.Tensor:
-    """Launch the kernel on the current stream; raises on what it does not
-    take."""
+def _bwd_fn():
+    global _BWD
+    if _BWD is None:
+        fn = _build.library("flash_attention_bwd").repro_flash_attention_bwd
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _BWD = fn
+    return _BWD
+
+
+def _aligned(*ts: torch.Tensor) -> bool:
+    """16-byte aligned rows with a contiguous last dim, as the kernels read
+    them."""
+    epc = 16 // ts[0].element_size()    # elements of one 16-byte load
+    return not any(t.stride(3) != 1 or any(s % epc for s in t.stride()[:3])
+                   or t.data_ptr() % 16 for t in ts)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: int | None) -> None:
     ts = (q, k, v)
-    refuse_autograd("flash_attention", *ts)
     if not all(t.is_cuda and t.device == q.device for t in ts):
         raise ValueError(f"flash_attention kernel needs q, k, v on one CUDA "
                          f"device, got {[str(t.device) for t in ts]}")
@@ -100,14 +124,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"got {D}")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
-    epc = 16 // q.element_size()        # elements of one 16-byte load
-    if any(t.stride(3) != 1 or any(s % epc for s in t.stride()[:3])
-           or t.data_ptr() % 16 for t in ts):
+    if not _aligned(*ts):
         raise ValueError("flash_attention kernel needs 16-byte aligned q, k, v "
                          "with a contiguous last dim and strides a multiple of "
                          "16 bytes")
     if max(B * Hq, S, Sk) >= 2 ** 31:
         raise ValueError("flash_attention kernel dims must fit int32")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None
+                    ) -> torch.Tensor:
+    """Launch the kernel on the current stream; raises on what it does not
+    take.  Where autograd records the call, it goes through
+    :class:`FlashAttention`."""
+    _check(q, k, v, window)
+    if wants_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window)
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+             window: int | None) -> torch.Tensor:
+    """The forward launch, on inputs :func:`_check` has passed."""
+    B, Hq, S, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
     out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     if out.numel() == 0:                # nothing to write: no launch
         return out
@@ -131,3 +172,62 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"at launch")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             do: torch.Tensor, *, causal: bool = True,
+             window: int | None = None):
+    """dq, dk, dv of the forward on (q, k, v) for the output's gradient do
+    (B, Hq, S, D), by one call of the backward kernels; q, k, v as
+    :func:`flash_attention` takes them, do any strides."""
+    _check(q, k, v, window)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"flash_attention backward needs do like q, got "
+                         f"{tuple(do.shape)} {do.dtype} for {tuple(q.shape)} "
+                         f"{q.dtype}")
+    if not _aligned(do):
+        do = do.contiguous()
+    B, Hq, S, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    opts = dict(dtype=q.dtype, device=q.device)
+    dq = torch.empty((B, S, Hq, D), **opts).transpose(1, 2)
+    dk = torch.empty((B, Sk, Hkv, D), **opts).transpose(1, 2)
+    dv = torch.empty((B, Sk, Hkv, D), **opts).transpose(1, 2)
+    if S == 0 or Sk == 0 or B == 0:     # nothing seen: no launch
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    dd = torch.empty_like(lse)
+    ts = (q, k, v, do, dq, dk, dv)
+    strides = (ctypes.c_longlong * 21)(*[s for t in ts for s in t.stride()[:3]])
+    idx = q.device.index
+    with torch.cuda.device(idx):
+        err = _bwd_fn()(*[t.data_ptr() for t in ts], lse.data_ptr(),
+                        dd.data_ptr(), B, Hq, Hkv, S, Sk, D, int(causal),
+                        window or 0, ctypes.addressof(strides),
+                        _DTYPES[q.dtype], torch._C._cuda_getCurrentRawStream(idx))
+    if err != 0:                        # the launch was refused; it never ran
+        raise RuntimeError(f"flash_attention backward kernel: CUDA error {err} "
+                           f"at launch")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with its backward: the kernels for CUDA tensors (checked by
+    :func:`flash_attention`), the plain versions ``ref.attention`` and
+    ``ref.attention_bwd`` for CPU tensors (``ops.attention``'s CPU path)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = (ref.attention(q, k, v, causal=causal, window=window)
+               if q.device.type == "cpu" else _forward(q, k, v, causal, window))
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        bwd = ref.attention_bwd if q.device.type == "cpu" else backward
+        dq, dk, dv = bwd(q, k, v, do, causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None

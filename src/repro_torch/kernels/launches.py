@@ -1,5 +1,5 @@
-"""Launch counters of the port's kernels, and the refusal every kernel
-wrapper makes before it checks or launches anything.
+"""Launch counters of the port's kernels, the test for a call that autograd
+will differentiate, and the refusal of the wrappers that have no backward.
 
 Each kernel wrapper adds one to its count on the line that launches its
 kernel, and nowhere else: a call that returns without launching (an empty
@@ -12,7 +12,11 @@ import torch
 
 LAUNCHES = {"rmsnorm": 0, "matmul": 0, "flash_attention": 0,
             "paged_attention": 0, "dotprod": 0, "expv": 0, "softmax_rows": 0,
-            "jacobi2d": 0, "fconv2d": 0}
+            "jacobi2d": 0, "fconv2d": 0,
+            # the backward kernels: rmsnorm's dx and dgamma (one call), each
+            # of the matmul's two products (dA and dB apart), flash
+            # attention's dq, dk and dv (one call)
+            "rmsnorm_bwd": 0, "matmul_bwd": 0, "flash_attention_bwd": 0}
 
 
 def reset() -> None:
@@ -20,11 +24,19 @@ def reset() -> None:
         LAUNCHES[k] = 0
 
 
+def wants_grad(*ts: torch.Tensor) -> bool:
+    """True where autograd records the call: grad mode on and an input
+    that needs a gradient."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def refuse_autograd(name: str, *ts: torch.Tensor) -> None:
     """Raise where autograd would have to differentiate the kernel's call:
     a kernel fills a fresh tensor, which has no ``grad_fn``, so a trainable
-    input would get no gradient.  No kernel has a backward yet; the plain
-    versions (the CPU path) differentiate."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+    input would get no gradient.  rmsnorm, the matmul and flash attention
+    have backward kernels (their wrappers are ``autograd.Function``s); the
+    others have none, and their plain versions (the CPU path)
+    differentiate."""
+    if wants_grad(*ts):
         raise RuntimeError(f"{name} kernel has no backward yet: call it under "
                            f"torch.no_grad() or on inputs that need no gradient")

@@ -17,6 +17,15 @@ aligned)``, a pure function of the shapes and the dtype:
     product), and bf16 with K or N not a multiple of 8, K = 0, or an
     operand whose address is not 16-byte aligned (``aligned`` False; only a
     view can be).  CUDA-core FMAs, as the first port had them.
+
+Where autograd records the call, the wrapper is :class:`Matmul`, whose
+backward makes the two products of the gradient with the same kernels, on
+the operands as they lie (no transposed copy): dA = dC B^T reads the
+weight B (K, N) as B^T, a K-major operand, and dB = A^T dC reads the
+activations A (M, K) as A^T, an MN-major one (``grad_a``, ``grad_b``:
+``variant_t`` picks wgmma or simt; each product is one launch, counted in
+``LAUNCHES["matmul_bwd"]``).  The TPU kernel has no backward: the reference
+trains by ``jax.grad`` of ``x @ w``.
 """
 from __future__ import annotations
 
@@ -26,12 +35,13 @@ import math
 
 import torch
 
-from . import _build
-from .launches import LAUNCHES, refuse_autograd
+from . import _build, ref
+from .launches import LAUNCHES, wants_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = {"simt": 0, "decode": 1, "wgmma": 2}
 _FN = None
+_FN_T = None
 
 #: the decode kernel's column tile and K step (csrc ``dec::BN``, ``dec::BK``)
 DECODE_BN = 128
@@ -70,6 +80,18 @@ def variant(M: int, K: int, N: int, dtype: torch.dtype, aligned: bool = True) ->
     if dtype != torch.bfloat16 or K <= 0 or K % 8 or N % 8 or not aligned:
         return "simt"
     return "decode" if M <= 8 else "wgmma"
+
+
+def variant_t(M: int, K: int, N: int, dtype: torch.dtype, trans: int,
+              aligned: bool = True) -> str:
+    """The kernel of a backward product (``trans`` 1: A B^T, 2: A^T B; C is
+    (M, N), K the contraction): ``"wgmma"`` for bf16 with K > 0, K and N
+    multiples of 8 (and M, A^T's row, for trans 2) and aligned operands,
+    else ``"simt"``."""
+    if (dtype != torch.bfloat16 or K <= 0 or K % 8 or N % 8 or not aligned
+            or (trans == 2 and M % 8)):
+        return "simt"
+    return "wgmma"
 
 
 @functools.lru_cache(maxsize=1024)
@@ -132,6 +154,17 @@ def _fn():
     return _FN
 
 
+def _fn_t():
+    global _FN_T
+    if _FN_T is None:
+        fn = _build.library("matmul").repro_matmul_t
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p] * 3)
+        fn.restype = ctypes.c_int
+        _FN_T = fn
+    return _FN_T
+
+
 def _workspace(device, stream: int, tiles: int, floats: int):
     """The (tickets, partials) pointers of a split launch on ``stream``."""
     key = (device, stream)
@@ -158,11 +191,7 @@ def _launch(a, b, c, kind: str, idx: int) -> int:
                  partials, stream)
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on the current stream; raises on what it does not
-    take (a CPU tensor, another dtype, a non-contiguous operand, an
-    operand autograd would have to differentiate)."""
-    refuse_autograd("matmul", a, b)
+def _check(a: torch.Tensor, b: torch.Tensor) -> None:
     if not (a.is_cuda and b.is_cuda and a.device == b.device):
         raise ValueError(f"matmul kernel needs both operands on one CUDA "
                          f"device, got {a.device} and {b.device}")
@@ -174,10 +203,25 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("matmul kernel needs contiguous operands")
+    if max(*a.shape, b.shape[1]) >= 2 ** 31:
+        raise ValueError(f"matmul kernel dims must fit int32, got "
+                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel on the current stream; raises on what it does not
+    take (a CPU tensor, another dtype, a non-contiguous operand).  Where
+    autograd records the call, it goes through :class:`Matmul`."""
+    _check(a, b)
+    if wants_grad(a, b):
+        return Matmul.apply(a, b)
+    return _forward(a, b)
+
+
+def _forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The forward launch, on operands :func:`_check` has passed."""
     M, K = a.shape
     N = b.shape[1]
-    if max(M, N, K) >= 2 ** 31:
-        raise ValueError(f"matmul kernel dims must fit int32, got {M, K, N}")
     c = torch.empty((M, N), dtype=a.dtype, device=a.device)
     if M == 0 or N == 0:                # nothing to write: no launch
         return c
@@ -194,3 +238,81 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"matmul kernel ({kind}): CUDA error {err} at launch")
     LAUNCHES["matmul"] += 1
     return c
+
+
+def _product(a: torch.Tensor, b: torch.Tensor, trans: int) -> torch.Tensor:
+    """One backward product on the current stream: trans 1, ``a (M, K) @
+    b.T`` with b (N, K); trans 2, ``a.T @ b`` with a (K, M), b (K, N)."""
+    if not (a.is_cuda and b.is_cuda and a.device == b.device):
+        raise ValueError(f"matmul backward kernel needs both operands on one "
+                         f"CUDA device, got {a.device} and {b.device}")
+    if a.dtype != b.dtype or a.dtype not in _DTYPES:
+        raise TypeError(f"matmul backward kernel takes f32 or bf16 operands "
+                        f"of one dtype, got {a.dtype} and {b.dtype}")
+    if not (a.ndim == b.ndim == 2 and a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("matmul backward kernel needs contiguous 2-d operands")
+    if trans == 1:
+        (M, K), N = a.shape, b.shape[0]
+        ok = b.shape[1] == K
+    else:
+        (K, M), N = a.shape, b.shape[1]
+        ok = b.shape[0] == K
+    if not ok or max(M, N, K) >= 2 ** 31:
+        raise ValueError(f"matmul backward kernel (trans {trans}): shapes "
+                         f"{tuple(a.shape)} and {tuple(b.shape)} disagree or "
+                         f"do not fit int32")
+    c = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    if M == 0 or N == 0:                # nothing to write: no launch
+        return c
+    kind = variant_t(M, K, N, a.dtype, trans,
+                     (a.data_ptr() | b.data_ptr()) % 16 == 0)
+    idx = a.device.index
+    with torch.cuda.device(idx):
+        stream = torch._C._cuda_getCurrentRawStream(idx)
+        splits, slice_len, tiles = plan(kind, M, K, N)
+        tickets, partials = (_workspace(a.device, stream, tiles, splits * M * N)
+                             if tiles else (0, 0))
+        err = _fn_t()(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K, trans,
+                      _DTYPES[a.dtype], VARIANTS[kind], splits, slice_len,
+                      tickets, partials, stream)
+    if err != 0:                        # the launch was refused; it never ran
+        raise RuntimeError(f"matmul backward kernel ({kind}, trans {trans}): "
+                           f"CUDA error {err} at launch")
+    LAUNCHES["matmul_bwd"] += 1
+    return c
+
+
+def grad_a(dc: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """dA = dC B^T of ``c = a @ b``: dc (M, N), b (K, N) -> (M, K)."""
+    return _product(dc, b, 1)
+
+
+def grad_b(a: torch.Tensor, dc: torch.Tensor) -> torch.Tensor:
+    """dB = A^T dC of ``c = a @ b``: a (M, K), dc (M, N) -> (K, N)."""
+    return _product(a, dc, 2)
+
+
+class Matmul(torch.autograd.Function):
+    """``a @ b`` with its backward: the kernels for CUDA tensors (checked by
+    :func:`matmul`), the plain versions ``ref.matmul``, ``ref.matmul_grad_a``
+    and ``ref.matmul_grad_b`` for CPU tensors (``ops.matmul``'s CPU path).
+    Only the products autograd asks for are made."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        c = ref.matmul(a, b) if a.device.type == "cpu" else _forward(a, b)
+        ctx.save_for_backward(a, b)
+        return c
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, b = ctx.saved_tensors
+        cpu = a.device.type == "cpu"
+        if not cpu:
+            dc = dc.contiguous()
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = ref.matmul_grad_a(dc, b) if cpu else grad_a(dc, b)
+        if ctx.needs_input_grad[1]:
+            db = ref.matmul_grad_b(a, dc) if cpu else grad_b(a, dc)
+        return da, db

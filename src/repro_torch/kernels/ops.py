@@ -10,7 +10,12 @@ lane's slice.
 
 A tensor on the CPU goes to the kernel's plain version (``ref``); a CUDA
 tensor goes to the kernel, or the call raises.  There is no fallback
-between the two.  ``LAUNCHES`` (kept in ``launches``) counts the kernel
+between the two.  ``rmsnorm``, ``matmul``/``dense`` and ``attention``
+differentiate: on the CPU they are their kernel module's
+``autograd.Function`` over the plain versions, forward and backward (the
+gradient formulas of ``ref``); on the card, where autograd records the
+call, the same Function over the kernels.  The other kernels have no
+backward and refuse autograd on the card.  ``LAUNCHES`` (kept in ``launches``) counts the kernel
 launches the wrappers make, so a run can show that its path went through
 the kernels.
 """
@@ -36,7 +41,7 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6
             ) -> torch.Tensor:
     """RMSNorm over the last dim of ``x``; gamma f32, result in x's dtype."""
     if x.device.type == "cpu":
-        return ref.rmsnorm(x, gamma, eps)
+        return _rms.RMSNorm.apply(x, gamma, eps)
     shape = x.shape
     out = _rms.rmsnorm(x.reshape(-1, shape[-1]).contiguous(), gamma, eps)
     return out.reshape(shape)
@@ -45,7 +50,7 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a (M, K) @ b (K, N)``, f32 accumulation, result in a's dtype."""
     if a.device.type == "cpu":
-        return ref.matmul(a, b)
+        return _mm.Matmul.apply(a, b)
     return _mm.matmul(a.contiguous(), b.contiguous())
 
 
@@ -62,7 +67,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Causal / sliding-window GQA attention: q (B, Hq, S, D), k/v
     (B, Hkv, Sk, D) -> (B, Hq, S, D), any strides."""
     if q.device.type == "cpu":
-        return ref.attention(q, k, v, causal=causal, window=window)
+        return _fa.FlashAttention.apply(q, k, v, causal, window)
     return _fa.flash_attention(q, k, v, causal=causal, window=window)
 
 

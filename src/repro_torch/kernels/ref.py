@@ -1,8 +1,10 @@
 """Plain PyTorch versions of the port's kernels (``repro.kernels.ref``'s
 ``matmul``, ``rmsnorm``, ``attention``, ``paged_attention`` and the paper's
 Table I kernels ``jacobi2d``, ``fconv2d``, ``dotprod``, ``expv`` and
-``softmax_rows``).  The CPU path runs them; on the card they are what each
-kernel is held against."""
+``softmax_rows``), and of the three backward kernels (``matmul_grad_a``,
+``matmul_grad_b``, ``rmsnorm_bwd``, ``attention_bwd``), written as the
+formulas of the gradients, not as autograd of the forward.  The CPU path
+runs them; on the card they are what each kernel is held against."""
 from __future__ import annotations
 
 import functools
@@ -15,11 +17,36 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.float() @ b.float()).to(a.dtype)
 
 
+def matmul_grad_a(dc: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """dA = dC B^T of ``c = a @ b``: dc (M, N), b (K, N) -> (M, K)."""
+    return (dc.float() @ b.float().T).to(dc.dtype)
+
+
+def matmul_grad_b(a: torch.Tensor, dc: torch.Tensor) -> torch.Tensor:
+    """dB = A^T dC of ``c = a @ b``: a (M, K), dc (M, N) -> (K, N)."""
+    return (a.float().T @ dc.float()).to(dc.dtype)
+
+
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6
             ) -> torch.Tensor:
     xf = x.float()
     ms = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * gamma.float()).to(x.dtype)
+
+
+def rmsnorm_bwd(dy: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
+                eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradients of ``y = x * r * gamma``, ``r = rsqrt(mean(x^2) + eps)``
+    over the last dim, in f32: with ``xh = x r`` and ``gy = dy gamma``,
+    ``dx = r (gy - xh mean(gy xh))`` (in x's dtype) and ``dgamma = sum over
+    rows of dy xh`` (in gamma's dtype)."""
+    xf = x.float()
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    xh = xf * r
+    gy = dy.float() * gamma.float()
+    dx = r * (gy - xh * torch.mean(gy * xh, dim=-1, keepdim=True))
+    dgamma = (dy.float() * xh).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dgamma.to(gamma.dtype)
 
 
 def expand_kv(k: torch.Tensor, H: int) -> torch.Tensor:
@@ -50,6 +77,41 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.einsum("bhst,bhtd->bhsd", p, vq)
     out = torch.where(mask.any(-1)[:, None], out, 0.0)
     return out.to(q.dtype)
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, *, causal: bool = True,
+                  window: int | None = None):
+    """dq, dk, dv of :func:`attention` for the output's gradient ``do``, in
+    f32: P the masked softmax of ``s = q k^T / sqrt(D)`` (rows with no
+    visible key all zero), ``dv = P^T do``, ``dP = do v^T``, ``dS = P (dP -
+    rowsum(P dP))``, ``dq = dS k / sqrt(D)``, ``dk = dS^T q / sqrt(D)``; dk
+    and dv of a kv head summed over its query heads.  Each in its input's
+    dtype."""
+    B, Hq, S, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    kq = expand_kv(k, Hq).float()
+    vq = expand_kv(v, Hq).float()
+    qf, dof = q.float(), do.float()
+    s = torch.einsum("bhsd,bhtd->bhst", qf, kq) / math.sqrt(D)
+    q_pos = torch.arange(S, device=q.device)[:, None]
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((S, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window is not None:
+        mask &= (q_pos - k_pos) < window
+    p = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
+    p = torch.where(mask & mask.any(-1, keepdim=True), p, 0.0)
+    dp = torch.einsum("bhsd,bhtd->bhst", dof, vq)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bhst,bhtd->bhsd", ds, kq) / math.sqrt(D)
+    dk = torch.einsum("bhst,bhsd->bhtd", ds, qf) / math.sqrt(D)
+    dv = torch.einsum("bhst,bhsd->bhtd", p, dof)
+    G = Hq // Hkv
+    dk = dk.reshape(B, Hkv, G, Sk, D).sum(dim=2)
+    dv = dv.reshape(B, Hkv, G, Sk, D).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def paged_attention(q: torch.Tensor, kpool: torch.Tensor, vpool: torch.Tensor,

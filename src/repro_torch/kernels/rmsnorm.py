@@ -11,6 +11,15 @@ The wrapper takes the lean launch path of ``reduction.expv``: the ctypes
 function resolved once, the raw handle of the current stream (no Stream
 object), a device guard only off the current device.  At decode the call
 is a few microseconds of device time, so the host's cost is most of it.
+
+Where autograd records the call, the wrapper is :class:`RMSNorm`, whose
+backward is the kernel ``rms_bwd_kernel`` (``csrc/rmsnorm.cu``): dx in x's
+dtype and dgamma in f32, from x, gamma and dy (nothing but x and gamma is
+kept from the forward).  The TPU kernel has no backward: the reference
+trains by ``jax.grad`` of its jnp path, whose gradient is
+``ref.rmsnorm_bwd``'s formula.  dgamma sums over rows in a fixed order
+(``bwd_blocks`` partials, then one sum of them in block order), so the
+bits do not vary between runs.
 """
 from __future__ import annotations
 
@@ -18,11 +27,15 @@ import ctypes
 
 import torch
 
-from . import _build
-from .launches import LAUNCHES, refuse_autograd
+from . import _build, ref
+from .launches import LAUNCHES, wants_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FN = []
+_BWD = []
+#: the backward's blocks: block p takes rows p, p + P, ... and keeps their
+#: dgamma partial (f32, D columns); two an H100 SM
+BWD_BLOCKS = 264
 
 
 def _fn():
@@ -35,11 +48,25 @@ def _fn():
     return _FN[0]
 
 
+def _bwd_fn():
+    if not _BWD:
+        fn = _build.library("rmsnorm").repro_rmsnorm_bwd
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _BWD.append(fn)
+    return _BWD[0]
+
+
+def bwd_blocks(R: int) -> int:
+    """The backward's blocks for R rows: one a row up to ``BWD_BLOCKS``."""
+    return max(1, min(R, BWD_BLOCKS))
+
+
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
     """Launch on the current stream; raises on what the kernel does not
-    take (autograd first, the device last), and launches nothing for an
-    empty x."""
-    refuse_autograd("rmsnorm", x, gamma)
+    take (the device last), and launches nothing for an empty x.  Where
+    autograd records the call, it goes through :class:`RMSNorm`."""
     if x.ndim != 2 or gamma.shape != (x.shape[1],):
         raise ValueError(f"rmsnorm kernel needs x (R, D) and gamma (D,), got "
                          f"{tuple(x.shape)} and {tuple(gamma.shape)}")
@@ -55,6 +82,14 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
     if R >= 2 ** 31 or D >= 2 ** 31:
         raise ValueError(f"rmsnorm kernel takes fewer than 2**31 rows and "
                          f"columns, got {tuple(x.shape)}")
+    if wants_grad(x, gamma):
+        return RMSNorm.apply(x, gamma, eps)
+    return _forward(x, gamma, eps)
+
+
+def _forward(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
+    """The forward launch, on inputs :func:`rmsnorm` has checked."""
+    R, D = x.shape
     out = torch.empty_like(x)
     if R == 0 or D == 0:                # nothing to write: no launch
         return out
@@ -70,3 +105,58 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
         raise RuntimeError(f"rmsnorm kernel: CUDA error {err} at launch")
     LAUNCHES["rmsnorm"] += 1
     return out
+
+
+def backward(dy: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
+             eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """dx (x's dtype) and dgamma (f32) of the forward on (x, gamma) for the
+    output's gradient dy, by one call of the backward kernel (two grids:
+    the rows, then dgamma's sum of the blocks' partials).  x and gamma as
+    :func:`rmsnorm` takes them; dy like x."""
+    if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous():
+        raise ValueError(f"rmsnorm backward needs a contiguous dy like x, got "
+                         f"{tuple(dy.shape)} {dy.dtype} for {tuple(x.shape)} "
+                         f"{x.dtype}")
+    if not (x.is_cuda and dy.device == x.device and gamma.device == x.device):
+        raise ValueError(f"rmsnorm backward needs dy, x and gamma on one CUDA "
+                         f"device, got {dy.device}, {x.device}, {gamma.device}")
+    R, D = x.shape
+    dx = torch.empty_like(x)
+    dgamma = torch.zeros(D, dtype=torch.float32, device=x.device)
+    if R == 0 or D == 0:                # nothing to write: no launch
+        return dx, dgamma
+    P = bwd_blocks(R)
+    part = torch.empty((P, D), dtype=torch.float32, device=x.device)
+    idx = x.get_device()
+    args = (x.data_ptr(), gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            dgamma.data_ptr(), part.data_ptr(), R, D, P, eps, _DTYPES[x.dtype])
+    with torch.cuda.device(idx):
+        err = _bwd_fn()(*args, torch._C._cuda_getCurrentRawStream(idx))
+    if err != 0:                        # the launch was refused; it never ran
+        raise RuntimeError(f"rmsnorm backward kernel: CUDA error {err} at launch")
+    LAUNCHES["rmsnorm_bwd"] += 1
+    return dx, dgamma
+
+
+class RMSNorm(torch.autograd.Function):
+    """RMSNorm with its backward: the kernels for CUDA tensors (checked by
+    :func:`rmsnorm`), the plain versions ``ref.rmsnorm`` and
+    ``ref.rmsnorm_bwd`` for CPU tensors (``ops.rmsnorm``'s CPU path); x of
+    any shape on the CPU, (R, D) on the card."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, eps):
+        y = ref.rmsnorm(x, gamma, eps) if x.device.type == "cpu" \
+            else _forward(x, gamma, eps)
+        ctx.save_for_backward(x, gamma)
+        ctx.eps = eps
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma = ctx.saved_tensors
+        if x.device.type == "cpu":
+            dx, dgamma = ref.rmsnorm_bwd(dy, x, gamma, ctx.eps)
+        else:
+            dx, dgamma = backward(dy.contiguous(), x, gamma, ctx.eps)
+        return dx, dgamma, None

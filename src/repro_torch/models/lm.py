@@ -1,18 +1,22 @@
-"""Whole-model assembly for serving: embeddings -> layer periods -> head.
+"""Whole-model assembly: embeddings -> layer periods -> head.
 
 The port's counterpart of ``repro.models.lm`` for the dense decoder
-families (periods of attention and MLP sublayers).  ``prefill`` populates
-the caches and returns the last token's logits; ``decode_step`` advances
-every slot by one token; ``decode_step_paged`` and ``prefill_chunk`` do the
-same against a paged block pool (``pool_defs``).  A Python loop over
-``n_periods`` replaces ``lax.scan``; the param tree keeps JAX's nesting,
-each period leaf stacked over ``n_periods``.
+families (periods of attention and MLP sublayers).  ``forward_train``
+gives the mean next-token cross-entropy, which autograd differentiates
+through the kernels' backwards; ``prefill`` populates the caches and
+returns the last token's logits; ``decode_step`` advances every slot by
+one token; ``decode_step_paged`` and ``prefill_chunk`` do the same against
+a paged block pool (``pool_defs``).  A Python loop over ``n_periods``
+replaces ``lax.scan``; the param tree keeps JAX's nesting, each period leaf
+stacked over ``n_periods``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ATTN, MLP, ModelConfig
 from repro_torch.params import PV, ParamTree, tree_leaves, tree_map
@@ -100,10 +104,11 @@ def pool_defs(cfg: ModelConfig, n_blocks: int, block_tokens: int) -> dict:
 
 class Model(ParamTree):
     """A model's weights as an ``nn.Module``: ``state_dict`` keys are the
-    JAX tree's dotted paths (``period.l0.s0_attn.wq``)."""
+    JAX tree's dotted paths (``period.l0.s0_attn.wq``).  Frozen for serving
+    unless ``trainable``."""
 
-    def __init__(self, cfg: ModelConfig, params: dict):
-        super().__init__(params)
+    def __init__(self, cfg: ModelConfig, params: dict, trainable: bool = False):
+        super().__init__(params, trainable)
         self.cfg = cfg
 
 
@@ -127,6 +132,99 @@ def logits_fn(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
     # a plain product, as in the JAX model (XLA's, not a Pallas kernel)
     return _mask_pad_vocab(torch.matmul(x, head), cfg)
+
+
+# ---------------------------------------------------------------------------
+# Training: trunk, loss
+# ---------------------------------------------------------------------------
+
+def _unstack(tree: dict, n: int) -> list:
+    """The n period slices of a stacked tree, by one ``unbind`` a leaf: its
+    gradient is one stack of the n slices' gradients, not n full-size
+    buffers (``t[i]`` would scatter each slice's into a zero leaf)."""
+    parts = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda p: p[i], parts) for i in range(n)]
+
+
+def _apply_period(pp: dict, x: torch.Tensor, cfg: ModelConfig,
+                  positions: torch.Tensor) -> torch.Tensor:
+    for li, layer in enumerate(cfg.layer_period):
+        for si, kind in enumerate(layer):
+            sp = pp[f"l{li}"][f"s{si}_{kind}"]
+            if kind == ATTN:
+                x = L.attn_layer(sp, x, cfg, positions, causal=True)
+            elif kind == MLP:
+                x = L.mlp_layer(sp, x, cfg)
+            else:
+                raise NotImplementedError(_LATER.format(kind))
+    return x
+
+
+def trunk(params, x: torch.Tensor, cfg: ModelConfig,
+          positions: torch.Tensor) -> torch.Tensor:
+    """The layer periods in order.  With ``cfg.remat`` each period is one
+    ``torch.utils.checkpoint`` (non-reentrant, as ``jax.checkpoint`` of the
+    JAX period body): its activations are recomputed in the backward, the
+    whole period, so every forward kernel of a period launches once more
+    (early stop off: the count does not depend on which tensor autograd
+    asks for last)."""
+    for pp in _unstack(params["period"], cfg.n_periods):
+        body = functools.partial(_apply_period, pp, cfg=cfg, positions=positions)
+        if cfg.remat and torch.is_grad_enabled():
+            with _ckpt.set_checkpoint_early_stop(False):
+                x = _ckpt.checkpoint(body, x, use_reentrant=False)
+        else:
+            x = body(x)
+    return x
+
+
+def _ce_terms(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-token CE, ``logsumexp - picked``, in f32."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    picked = torch.gather(lf, -1, targets[..., None].long())[..., 0]
+    return lse - picked
+
+
+def ce_loss(params, x: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
+            cfg: ModelConfig) -> torch.Tensor:
+    """Mean masked next-token CE.  With ``cfg.loss_chunk`` dividing S the
+    sequence goes in checkpointed blocks, so the f32 logits (B, S, V) are
+    never whole; the head stays ``torch.matmul``, as the JAX model leaves
+    ``x @ head`` to XLA."""
+    B, S, _ = x.shape
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    chunk = cfg.loss_chunk
+    if chunk <= 0 or S <= chunk or S % chunk:
+        logits = _mask_pad_vocab(torch.matmul(x, head), cfg)
+        return torch.sum(_ce_terms(logits, targets) * mask) / torch.sum(mask)
+
+    def block(xc, tc, mc):
+        logits = _mask_pad_vocab(torch.matmul(xc, head), cfg)
+        return torch.sum(_ce_terms(logits, tc) * mc)
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, c0 + chunk)
+        args = (x[:, sl], targets[:, sl], mask[:, sl])
+        total = total + (_ckpt.checkpoint(block, *args, use_reentrant=False)
+                         if torch.is_grad_enabled() else block(*args))
+    return total / torch.sum(mask)
+
+
+def forward_train(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """tokens (B, S) -> the mean next-token cross-entropy (a 0-d f32
+    tensor); targets are the tokens shifted left by one, wrapped, and the
+    last position is masked out."""
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)
+    x = embed_tokens(params, tokens, cfg)
+    x = trunk(params, x, cfg, positions)
+    targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    mask = torch.ones((B, S), dtype=torch.float32, device=tokens.device)
+    mask[:, -1] = 0.0
+    return ce_loss(params, x, targets, mask, cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -42,6 +42,16 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_unflatten(tree, leaves) -> dict:
+    """A tree shaped like ``tree`` whose leaves are ``leaves``, in the
+    order of :func:`tree_leaves`."""
+    it = iter(leaves)
+    out = tree_map(lambda _: next(it), tree)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has")
+    return out
+
+
 def _init_one(pv: PV, generator: torch.Generator, device) -> torch.Tensor:
     if pv.init == "zeros":
         return torch.zeros(pv.shape, dtype=pv.dtype, device=device)
@@ -76,17 +86,33 @@ def params_from_jax(tree) -> dict:
     return tree_map(_leaf_from_numpy, tree)
 
 
+def params_from_dotted(flat) -> dict:
+    """A tree from ``{dotted path: array}`` (an ``np.load`` of an ``.npz``
+    written by ``scripts/make_torch_smoke_weights.py``), each leaf copied as
+    :func:`params_from_jax` copies it."""
+    tree: dict = {}
+    for key in flat:
+        *parents, leaf = key.split(".")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = _leaf_from_numpy(flat[key])
+    return tree
+
+
 class ParamTree(nn.Module):
     """A param tree as nested modules: ``state_dict`` keys are the tree's
-    dotted paths, and ``.to(device)`` moves every leaf."""
+    dotted paths, and ``.to(device)`` moves every leaf.  Leaves are frozen
+    (no autograd, as serving wants) unless the caller asks for
+    ``trainable=True``, as the trainer does."""
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree: dict, trainable: bool = False):
         super().__init__()
         for k, v in tree.items():
             if isinstance(v, dict):
-                self.add_module(k, ParamTree(v))
+                self.add_module(k, ParamTree(v, trainable))
             else:
-                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+                self.register_parameter(k, nn.Parameter(v, requires_grad=trainable))
 
     def tree(self) -> dict:
         """The nested dict of this module's tensors (shared, not copied)."""

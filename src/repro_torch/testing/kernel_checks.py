@@ -29,6 +29,25 @@ an rmsnorm that mis-scales a row by 1 % moves each element by 1e-2 of its
 value, and an attention that drops or adds one key of a few hundred moves a
 row by ~1e-3: each fails in either dtype.
 
+The backward kernels (``BWD_*``), each also called twice for the same
+bits, at the training shapes (llama3-8b, 4 x 1024 tokens) and ragged ones:
+  * the matmul's two products take the forward's tolerances: their inputs
+    are drawn so that each output is of unit scale (dA = dC B^T with B at
+    1/sqrt(N), dB = A^T dC with dC at 1/sqrt(M)), the sums run over up to
+    14336 terms, as the forward's;
+  * rmsnorm dx: the forward's rtol (one bf16 ulp, or f32 ~1e-6 of the
+    value from the two D-long sums), atol 1e-5 on outputs of ~0.3;
+  * rmsnorm dgamma (f32 from both dtypes): a sum over R = 4096 rows of
+    unit-scale terms, values ~64, whose f32 sums in other orders differ by
+    ~sqrt(R) 2**-24 64 ~ 3e-4: rtol 1e-4, atol 2e-3.  One row left out
+    moves an element by ~1;
+  * flash dq, dk, dv: f32 dot products of D terms, the softmax over up to
+    1024 keys rebuilt from (m, l), dP - rowsum(P dP) and sums over up to
+    1024 keys (and 4 query heads) in other orders: ~1e-5 on outputs of
+    order 1, so rtol 1e-4, atol 1e-4 in f32, and one bf16 ulp (rtol 8e-3)
+    on the same atol in bf16.  A key tile of 32 left out moves dq by ~0.2,
+    and a 1 % error in rowsum(P dP) by ~1e-2.
+
 The paper's Table I kernels, at the shapes of two configurations
 (``TABLE1``) and at ragged ones:
   * jacobi2d: kernel and plain version do the same f32 operations in the
@@ -585,3 +604,113 @@ def check_dotprod_hier(n, C, L, hierarchy, dtype, device="cuda") -> dict:
     """The whole pipeline: lane partials and the log-tree."""
     run = lambda a, b: _red.dotprod_hier(a, b, C=C, L=L, hierarchy=hierarchy)
     return _check_dot(run, n, hier_chain(n, C, L), dtype, device)
+
+
+
+# -- the backward kernels -------------------------------------------------------
+
+#: tokens a training step's matmuls see (batch 4 x seq 1024)
+TRAIN_TOKENS = 4096
+#: (rtol, atol) of the backward outputs, by output dtype
+RMSNORM_BWD_TOL = {"dx": {torch.bfloat16: (8e-3, 1e-5), torch.float32: (1e-5, 1e-5)},
+                   "dgamma": (1e-4, 2e-3)}
+ATTN_BWD_TOL = {torch.bfloat16: (8e-3, 1e-4), torch.float32: (1e-4, 1e-4)}
+#: rmsnorm backward (R, D): the training shape, rows not a multiple of the
+#: kernel's blocks, one row, and a row that is not whole vectors
+RMSNORM_BWD_CASES = ((TRAIN_TOKENS, D_MODEL), (333, D_MODEL), (1, D_MODEL),
+                     (333, D_MODEL + 3))
+#: matmul backward products (M, K, N) besides the projections at
+#: TRAIN_TOKENS: ragged edges, and bf16 shapes the wgmma forms do not take
+#: (K or N not a multiple of 8: simt)
+MATMUL_BWD_RAGGED = ((333, 4096, 1024), (130, 4104, 1032), (72, 4100, 1030),
+                     (9, 130, 33))
+#: flash backward (B, S, window) at the llama3-8b heads, causal: the
+#: training shape, a ragged prompt, windows
+FLASH_BWD_CASES = ((4, 1024, None), (1, 223, None), (1, 445, 100), (2, 256, 64))
+
+
+def _pair(got, again, want, tol) -> dict:
+    res = compare(got, want, tol)
+    res["same_bits"] = bool(torch.equal(got, again))
+    res["ok"] = res["ok"] and res["same_bits"]
+    return res
+
+
+def worst(parts: dict) -> dict:
+    """One reading of several outputs: the largest error and limit use, ok
+    and same bits if every output is; ``parts`` keeps each."""
+    res = {"max_abs_err": max(r["max_abs_err"] for r in parts.values()),
+           "rel_err": max(r["rel_err"] for r in parts.values()),
+           "limit_use": max(r["limit_use"] for r in parts.values()),
+           "ok": all(r["ok"] for r in parts.values()),
+           "same_bits": all(r["same_bits"] for r in parts.values()),
+           "parts": parts}
+    first = next(iter(parts.values()))
+    res["rtol"], res["atol"] = first["rtol"], first["atol"]
+    return res
+
+
+def matmul_bwd_inputs(M, K, N, dtype, which, device="cuda", seed=0):
+    """``which`` "a": (dc (M, N), b (K, N) at 1/sqrt(N)); "b": (a (M, K),
+    dc (M, N) at 1/sqrt(M)): unit-scale products."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    if which == "a":
+        dc = torch.randn((M, N), generator=g, device=device).to(dtype)
+        b = (torch.randn((K, N), generator=g, device=device) / N ** 0.5).to(dtype)
+        return dc, b
+    a = torch.randn((M, K), generator=g, device=device).to(dtype)
+    dc = (torch.randn((M, N), generator=g, device=device) / M ** 0.5).to(dtype)
+    return a, dc
+
+
+def check_matmul_bwd(M, K, N, dtype, which, device="cuda") -> dict:
+    """dA = dC B^T (``which`` "a") or dB = A^T dC ("b") of ``(M, K) @ (K,
+    N)``, twice; ``variant`` names the kernel taken."""
+    x, y = matmul_bwd_inputs(M, K, N, dtype, which, device)
+    if which == "a":
+        run, want = _mm.grad_a, ref.matmul_grad_a(x, y)
+        kind = _mm.variant_t(M, N, K, dtype, 1)
+    else:
+        run, want = _mm.grad_b, ref.matmul_grad_b(x, y)
+        kind = _mm.variant_t(K, M, N, dtype, 2)
+    res = _pair(run(x, y), run(x, y), want, MATMUL_TOL[dtype])
+    res["variant"] = kind
+    return res
+
+
+def rmsnorm_bwd_inputs(R, D, dtype, device="cuda", seed=0):
+    x, gamma = rmsnorm_inputs(R, D, dtype, device, seed)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    dy = torch.randn((R, D), generator=g, device=device).to(dtype)
+    return x, gamma, dy
+
+
+def check_rmsnorm_bwd(R, D, dtype, device="cuda") -> dict:
+    x, gamma, dy = rmsnorm_bwd_inputs(R, D, dtype, device)
+    got = _rms.backward(dy, x, gamma, EPS)
+    again = _rms.backward(dy, x, gamma, EPS)
+    want = ref.rmsnorm_bwd(dy, x, gamma, EPS)
+    tols = (RMSNORM_BWD_TOL["dx"][dtype], RMSNORM_BWD_TOL["dgamma"])
+    return worst({name: _pair(g, a, w, t) for name, g, a, w, t in
+                  zip(("dx", "dgamma"), got, again, want, tols)})
+
+
+def attention_bwd_inputs(B, S, dtype, Hq=HQ, Hkv=HKV, D=HEAD_DIM, device="cuda",
+                         seed=0):
+    """q, k, v as the model holds them, (B, S, H, D) as (B, H, S, D) views,
+    and the output's gradient do, a (B, H, S, D) view likewise."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn((B, S, h, D), generator=g, device=device)
+                   .to(dtype).transpose(1, 2) for h in (Hq, Hkv, Hkv, Hq))
+    return q, k, v, do
+
+
+def check_flash_bwd(B, S, dtype, window=None, causal=True, Hq=HQ, Hkv=HKV,
+                    D=HEAD_DIM, device="cuda") -> dict:
+    """dq, dk, dv against ``ref.attention_bwd``, twice."""
+    q, k, v, do = attention_bwd_inputs(B, S, dtype, Hq, Hkv, D, device)
+    run = lambda: _fa.backward(q, k, v, do, causal=causal, window=window)
+    got, again = run(), run()
+    want = ref.attention_bwd(q, k, v, do, causal=causal, window=window)
+    return worst({name: _pair(g, a, w, ATTN_BWD_TOL[dtype]) for name, g, a, w in
+                  zip(("dq", "dk", "dv"), got, again, want)})

@@ -1,0 +1,114 @@
+"""The train step: microbatched gradient accumulation, then AdamW.
+
+The port's counterpart of ``repro.train.trainer`` (``TrainState``,
+``train_state_defs``, ``make_train_step``, ``init_train_state``) for one
+device.  Gradients come from ``torch.autograd.grad`` of
+``lm.forward_train``, through the kernels' backwards on the card; they are
+in each parameter's dtype, and microbatches accumulate them in
+``acc_dtype``.  The gradient-sync hook and the sharding helpers come with
+the distributed slice.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ATTN, MLP, ModelConfig
+from repro_torch.models import lm
+from repro_torch.params import init_params, tree_leaves, tree_map, tree_unflatten
+from .optimizer import OptConfig, adamw_init, adamw_update, opt_state_defs
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt: Any
+
+
+def train_state_defs(cfg: ModelConfig, opt_cfg: OptConfig):
+    pdefs = lm.model_defs(cfg)
+    return pdefs, opt_state_defs(pdefs, opt_cfg)
+
+
+def trainable(params: dict) -> dict:
+    """The same tensors, each a leaf that autograd gives a gradient."""
+    return tree_map(lambda t: t.detach().requires_grad_(True), params)
+
+
+def loss_and_grads(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
+    """(loss, gradient tree) of ``lm.forward_train`` at ``params``."""
+    loss = lm.forward_train(params, tokens, cfg)
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    return loss.detach(), tree_unflatten(params, grads)
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
+                    n_microbatches: int = 1, acc_dtype=torch.float32):
+    """Returns ``train_step(state, batch) -> (state, metrics)``.
+
+    batch: ``{"tokens": (B, S) int tensor}`` on the parameters' device.
+    Microbatches split the batch dim in order and accumulate gradients in
+    ``acc_dtype``; the gradient is their mean, and so is the loss.  The
+    update is written into ``state``'s tensors in place (``adamw_update``);
+    metrics are ``{"lr", "grad_norm", "loss"}``, 0-d f32 tensors."""
+
+    def train_step(state: TrainState, batch):
+        tokens = batch["tokens"]
+        B = tokens.shape[0]
+        if n_microbatches == 1:
+            loss, grads = loss_and_grads(state.params, tokens, cfg)
+        else:
+            if B % n_microbatches:
+                raise ValueError(f"batch {B} does not split into "
+                                 f"{n_microbatches} microbatches")
+            mb = B // n_microbatches
+            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype,
+                                                 device=p.device), state.params)
+            lsum = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            for i in range(n_microbatches):
+                l, g = loss_and_grads(state.params, tokens[i * mb:(i + 1) * mb], cfg)
+                for a, gi in zip(tree_leaves(acc), tree_leaves(g)):
+                    a.add_(gi.to(acc_dtype))
+                lsum = lsum + l
+                del g
+            grads = tree_map(lambda a: a / n_microbatches, acc)
+            loss = lsum / n_microbatches
+        params, opt, metrics = adamw_update(state.params, grads, state.opt,
+                                            opt_cfg)
+        metrics["loss"] = loss
+        return TrainState(params, opt), metrics
+
+    return train_step
+
+
+def step_launches(cfg: ModelConfig, n_microbatches: int = 1) -> dict:
+    """The kernel launches of one train step on the card, by counter.
+
+    A microbatch's forward makes, for each of the A attention and M MLP
+    sublayers, one rmsnorm and its projections (4 an attention, 3 an MLP)
+    and, for attention, one flash attention; the loss adds the final
+    rmsnorm.  Under ``cfg.remat`` the backward runs every period's forward
+    again (the final norm is outside the periods).  The backward makes one
+    rmsnorm backward a norm, two matmul products a projection (dX and dW:
+    every projection's input and weight need a gradient) and one flash
+    backward an attention.  So, with r = 2 under remat, else 1, and n
+    microbatches: rmsnorm n ((A + M) r + 1), matmul n (4A + 3M) r,
+    flash_attention n A r, rmsnorm_bwd n (A + M + 1), matmul_bwd
+    2 n (4A + 3M), flash_attention_bwd n A; the rest 0."""
+    kinds = [k for layer in cfg.layer_period for k in layer]
+    A = kinds.count(ATTN) * cfg.n_periods
+    M = kinds.count(MLP) * cfg.n_periods
+    if len(kinds) != kinds.count(ATTN) + kinds.count(MLP):
+        raise NotImplementedError("the dense decoder family only")
+    r, n = (2 if cfg.remat else 1), n_microbatches
+    return {"rmsnorm": n * ((A + M) * r + 1), "matmul": n * (4 * A + 3 * M) * r,
+            "flash_attention": n * A * r, "rmsnorm_bwd": n * (A + M + 1),
+            "matmul_bwd": 2 * n * (4 * A + 3 * M), "flash_attention_bwd": n * A}
+
+
+def init_train_state(cfg: ModelConfig, opt_cfg: OptConfig,
+                     generator: torch.Generator, device="cuda") -> TrainState:
+    """Random trainable weights for ``cfg`` (``generator`` on ``device``)
+    and their fresh optimizer state."""
+    params = trainable(init_params(lm.model_defs(cfg), generator, device))
+    return TrainState(params, adamw_init(params, opt_cfg))

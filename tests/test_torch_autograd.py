@@ -1,10 +1,15 @@
 """Autograd through the port's kernel seam on the CPU.
 
-No kernel has a backward yet, so every kernel wrapper refuses a call that
-autograd would have to differentiate, before it checks the device, and
-launches nothing.  The CPU path (the plain versions) differentiates as the
-reference's jnp path does: its gradients are held against ``jax.grad`` of
-``repro.kernels.ops`` (``use_pallas=False``) on the same numpy inputs.
+rmsnorm, the matmul and flash attention have backward kernels: their
+wrappers differentiate (``autograd.Function``s whose backward is the kernel
+on the card and the plain backward formula on the CPU), so a trainable
+input reaches the device check and nothing launches here; the Functions
+themselves, on CPU tensors, give ``jax.grad``'s gradients.  Every other
+kernel wrapper refuses a call that autograd would have to differentiate,
+before it checks the device, and launches nothing.  The CPU path (the
+plain versions) differentiates as the reference's jnp path does: its
+gradients are held against ``jax.grad`` of ``repro.kernels.ops``
+(``use_pallas=False``) on the same numpy inputs.
 
 Tolerance: rtol 1e-4, atol 1e-5.  Both sides compute in f32 with sums in
 different orders (a few ulp on these unit-scale gradients); expv's
@@ -58,13 +63,58 @@ WRAPPERS = {
 }
 
 
+# the wrappers with a backward kernel: each one's autograd.Function, and
+# the reference op whose jax.grad it must give, on small CPU inputs
+DIFFERENTIATE = {
+    "matmul": (lambda r: [_draw(r, 5, 12), _draw(r, 12, 7)],
+               matmul.Matmul.apply,
+               lambda a, b: jops.matmul(a, b, use_pallas=False)),
+    "rmsnorm": (lambda r: [_draw(r, 3, 32), _draw(r, 32)],
+                lambda x, g: rmsnorm.RMSNorm.apply(x, g, 1e-6),
+                lambda x, g: jops.rmsnorm(x, g, eps=1e-6, use_pallas=False)),
+    "rmsnorm_x": (lambda r: [_draw(r, 2, 3, 16), _draw(r, 16)],
+                  lambda x, g: rmsnorm.RMSNorm.apply(x, g, 1e-5),
+                  lambda x, g: jops.rmsnorm(x, g, eps=1e-5, use_pallas=False)),
+    "flash_attention": (
+        lambda r: [_draw(r, 2, 4, 11, 16), _draw(r, 2, 2, 11, 16),
+                   _draw(r, 2, 2, 11, 16)],
+        lambda q, k, v: flash_attention.FlashAttention.apply(q, k, v, True, 4),
+        lambda q, k, v: jops.attention(q, k, v, causal=True, window=4,
+                                       use_pallas=False)),
+}
+
+
+def _grads_match(port, jax_op, floats, seed):
+    """d/d(inputs) of sum(op(inputs) * w), the port's through torch autograd
+    and the reference's through jax.grad, within TOL."""
+    w = np.random.default_rng(seed).normal(
+        size=np.shape(jax_op(*floats))).astype(np.float32)
+    ts = [torch.tensor(x, requires_grad=True) for x in floats]
+    (port(*ts) * torch.from_numpy(w)).sum().backward()
+    want = jax.grad(lambda *fs: jnp.sum(jax_op(*fs) * w),
+                    argnums=tuple(range(len(floats))))(*floats)
+    for t, g in zip(ts, want):
+        assert t.grad is not None and t.grad.shape == t.shape
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), **TOL)
+
+
 @pytest.mark.parametrize("kernel", list(WRAPPERS))
 def test_kernel_wrappers_refuse_autograd_before_the_device_check(kernel):
-    """A trainable input raises "no backward" before anything else is
-    checked (these are CPU tensors, which the kernels never take), and
-    nothing launches; the same call under no_grad reaches the device
-    check."""
+    """A wrapper without a backward: a trainable input raises "no backward"
+    before anything else is checked (these are CPU tensors, which the
+    kernels never take), and nothing launches; the same call under no_grad
+    reaches the device check.  A wrapper with a backward kernel (rmsnorm,
+    the matmul, flash attention) differentiates, and matches: a trainable
+    input reaches the device check, nothing launches, and its Function on
+    CPU tensors gives jax.grad's gradients."""
     launches.reset()
+    if kernel in DIFFERENTIATE:
+        with pytest.raises(ValueError, match="CUDA"):
+            WRAPPERS[kernel](True)
+        make, port, jax_op = DIFFERENTIATE[kernel]
+        _grads_match(port, jax_op, make(np.random.default_rng(7)), len(kernel))
+        assert not any(launches.LAUNCHES.values())
+        return
     with pytest.raises(RuntimeError, match="no backward"):
         WRAPPERS[kernel](True)
     assert not any(launches.LAUNCHES.values())

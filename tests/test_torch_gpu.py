@@ -1,7 +1,8 @@
 """The port's kernels against their plain versions on the card, at the
 llama3-8b serving shapes and at the paper's Table I shapes (the checks of
-``chip_smoke.py``'s kernel phases), their launch counts, and what their
-wrappers refuse.
+``chip_smoke.py``'s kernel phases), the backward kernels at the training
+shapes (phase 3c) and the smoke train step against the CPU (phase 4b),
+their launch counts, and what their wrappers refuse.
 
 Marked ``gpu``: they skip where there is no CUDA card.  Run them on the
 machine with the card with
@@ -254,8 +255,9 @@ def test_flash_attention_kernel_one_launch_per_call(cuda, B, Hq, Hkv, S, D, wind
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["flash_attention", "paged_attention"])
 def test_attention_kernels_refuse_what_they_do_not_take(cuda, kernel):
-    """CPU tensors, float16, and (flash) a call autograd would have to
-    differentiate all raise before anything launches."""
+    """CPU tensors and float16 raise before anything launches (paged
+    attention also refuses a call autograd would have to differentiate);
+    flash attention differentiates instead, through its backward kernel."""
     launches.reset()
     if kernel == "flash_attention":
         q = torch.ones(1, 2, 4, 16, device=cuda)
@@ -272,10 +274,14 @@ def test_attention_kernels_refuse_what_they_do_not_take(cuda, kernel):
         call(*[t.cpu() for t in args])
     with pytest.raises(TypeError):
         call(*[t.half() if t.is_floating_point() else t for t in args])
-    if kernel == "flash_attention":
+    if kernel == "paged_attention":
         with pytest.raises(RuntimeError, match="no backward"):
-            call(q.clone().requires_grad_(), q, q)
+            call(q.clone().requires_grad_(), *args[1:])
     assert launches.LAUNCHES[kernel] == 0
+    if kernel == "flash_attention":
+        call(q.clone().requires_grad_(), q, q).sum().backward()
+        torch.cuda.synchronize()
+        assert launches.LAUNCHES[kernel] == launches.LAUNCHES[kernel + "_bwd"] == 1
 
 
 @pytest.mark.gpu
@@ -450,14 +456,48 @@ WRAPPER_CALLS = {
 }
 
 
+#: the wrappers with a backward kernel, and the plain version their
+#: gradients are held against
+DIFFERENTIABLE = {"matmul": lambda a, b: ref.matmul(a, b),
+                  "rmsnorm": lambda x, g: ref.rmsnorm(x, g, 1e-6),
+                  "flash_attention": lambda q, k, v: ref.attention(q, k, v)}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", list(WRAPPER_CALLS))
 def test_every_kernel_refuses_a_call_autograd_would_differentiate(cuda, kernel):
-    """A trainable CUDA input raises "no backward" and nothing launches; the
-    same call under no_grad launches once."""
+    """A wrapper without a backward: a trainable CUDA input raises "no
+    backward" and nothing launches; the same call under no_grad launches
+    once.  A wrapper with one (rmsnorm, the matmul, flash attention)
+    differentiates, and matches: one forward launch, one backward launch,
+    and the gradient of the plain version (autograd of it, f32; rtol 1e-4,
+    atol 1e-5 on unit-scale gradients of sums of at most 8 terms)."""
     counter = "dotprod" if kernel == "dotprod_hier" else kernel
     trainable = lambda *shape: torch.ones(*shape, device=cuda, requires_grad=True)
     launches.reset()
+    if kernel in DIFFERENTIABLE:
+        g = torch.Generator(device=cuda).manual_seed(0)
+        made = []
+
+        def drawn(*shape):
+            made.append(torch.randn(*shape, generator=g, device=cuda).requires_grad_())
+            return made[-1]
+        out = WRAPPER_CALLS[kernel](drawn, cuda)
+        w = torch.randn(out.shape, generator=g, device=cuda)
+        (out * w).sum().backward()
+        torch.cuda.synchronize()
+        # one backward launch: only the first input needs a gradient (the
+        # matmul makes dA alone)
+        assert launches.LAUNCHES == {**{k: 0 for k in launches.LAUNCHES},
+                                     counter: 1, counter + "_bwd": 1}
+        x = made[0].detach().clone().requires_grad_()
+        rest = {"matmul": [torch.ones(8, 8, device=cuda)],
+                "rmsnorm": [torch.ones(8, device=cuda)],
+                "flash_attention": [torch.ones(1, 2, 4, 16, device=cuda)] * 2}[kernel]
+        (DIFFERENTIABLE[kernel](x, *rest) * w).sum().backward()
+        res = kc.compare(made[0].grad, x.grad, (1e-4, 1e-5))
+        assert res["ok"], res
+        return
     with pytest.raises(RuntimeError, match="no backward"):
         WRAPPER_CALLS[kernel](trainable, cuda)
     assert not any(launches.LAUNCHES.values())
@@ -535,3 +575,48 @@ def test_table1_kernels_refuse_what_they_do_not_take(cuda):
         reduction.dotprod(v, v[:8])
     assert not any(launches.LAUNCHES[k] for k in
                    ("dotprod", "expv", "softmax_rows", "jacobi2d", "fconv2d"))
+
+
+# -- the backward kernels (phase 3c) and the smoke train step (phase 4b) -------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("R,D", kc.RMSNORM_BWD_CASES)
+def test_rmsnorm_backward_kernel_matches_plain(cuda, R, D, dtype):
+    res = kc.check_rmsnorm_bwd(R, D, dtype, cuda)
+    assert res["ok"], res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["a", "b"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mkn", [(kc.TRAIN_TOKENS, *kn) for kn in kc.MATMUL_KN.values()]
+                         + list(kc.MATMUL_BWD_RAGGED))
+def test_matmul_backward_products_match_plain(cuda, mkn, dtype, which):
+    res = kc.check_matmul_bwd(*mkn, dtype, which, cuda)
+    assert res["ok"], res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,window", kc.FLASH_BWD_CASES)
+def test_flash_backward_kernel_matches_plain(cuda, B, S, window, dtype):
+    res = kc.check_flash_bwd(B, S, dtype, window, device=cuda)
+    assert res["ok"], res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", flash_attention.HEAD_DIMS)
+def test_flash_backward_kernel_head_dims(cuda, D, causal, dtype):
+    """Two sequences of 70 over 4 q and 2 kv heads, window 9."""
+    res = kc.check_flash_bwd(2, 70, dtype, 9, causal, 4, 2, D, cuda)
+    assert res["ok"], res
+
+
+@pytest.mark.gpu
+def test_smoke_train_step_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.testing import train_checks as tc
+    res = tc.compare_runs(tc.run_smoke(cuda), tc.run_smoke("cpu"))
+    assert res["ok"], res

@@ -254,7 +254,9 @@ def test_cpu_tensors_never_launch():
     ops.rmsnorm(torch.ones(3, 8), torch.ones(8))
     assert ops.LAUNCHES == {"rmsnorm": 0, "matmul": 0, "flash_attention": 0,
                             "paged_attention": 0, "dotprod": 0, "expv": 0,
-                            "softmax_rows": 0, "jacobi2d": 0, "fconv2d": 0}
+                            "softmax_rows": 0, "jacobi2d": 0, "fconv2d": 0,
+                            "rmsnorm_bwd": 0, "matmul_bwd": 0,
+                            "flash_attention_bwd": 0}
 
 
 def test_wrappers_and_seam_share_one_launch_counter():
@@ -268,11 +270,13 @@ def test_wrappers_and_seam_share_one_launch_counter():
     launches.LAUNCHES["matmul"] = 5
     launches.LAUNCHES["paged_attention"] = 2
     launches.LAUNCHES["fconv2d"] = 3
+    launches.LAUNCHES["matmul_bwd"] = 4
     ops.reset_launches()
     assert launches.LAUNCHES == {"rmsnorm": 0, "matmul": 0,
                                  "flash_attention": 0, "paged_attention": 0,
                                  "dotprod": 0, "expv": 0, "softmax_rows": 0,
-                                 "jacobi2d": 0, "fconv2d": 0}
+                                 "jacobi2d": 0, "fconv2d": 0, "rmsnorm_bwd": 0,
+                                 "matmul_bwd": 0, "flash_attention_bwd": 0}
 
 
 @pytest.mark.parametrize("kernel", ["matmul", "rmsnorm", "flash_attention",
