@@ -800,8 +800,15 @@ def _train_path(cfg, dev, n_layers: int = 8, batch: int = 4, seq: int = 1024,
     adamw_update(state.params, grads, state.opt, opt_cfg)
     torch.cuda.synchronize()
     t2 = now()
+    # the update's floor: each gradient read, each parameter written, and its
+    # m, v and master read and written, once
+    nbytes = lambda tree: sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    moved = nbytes(grads) + nbytes(state.params) + 2 * nbytes(state.opt["params"])
+    upd_bound, _ = _ms_bound(moved, 0, "f32")
     print(f"[train] one step split at a synchronise: gradient {1e3 * (t1 - t0):.2f} ms "
-          f"(forward, remat and backward), AdamW update {1e3 * (t2 - t1):.2f} ms")
+          f"(forward, remat and backward), AdamW update {1e3 * (t2 - t1):.2f} ms "
+          f"against its bound {upd_bound:.2f} ms ({moved / 1e9:.2f} GB at 3.35 TB/s), "
+          f"{1e3 * (t2 - t1) / upd_bound:.2f}x")
     del state, grads, batches
     torch.cuda.empty_cache()
     return launches

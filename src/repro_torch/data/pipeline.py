@@ -3,9 +3,10 @@
 The port's copy of ``repro.data.pipeline``: ``DataConfig``,
 ``SyntheticCorpus`` (Zipfian unigrams with per-document Markov structure),
 ``global_batch``, and ``Pipeline`` / ``make_pipeline`` (a prefetching
-iterator with a checkpointable cursor).  Each host's rows are a pure
-function of (seed, step, global row), the same numbers as the JAX
-package's for the same config.
+iterator from step 0).  Rows are a pure function of (seed, step, row), the
+same numbers as the JAX package's global batch for the same config.  The
+port trains on one host from step 0: the host split and the resumable
+cursor come with the distributed and the state-and-resilience slices.
 """
 from __future__ import annotations
 
@@ -23,16 +24,13 @@ class DataConfig:
     seq_len: int
     global_batch: int
     seed: int = 0
-    n_hosts: int = 1
-    host_id: int = 0
     zipf_a: float = 1.2
     mean_doc_len: int = 512
-    prefetch: int = 2
 
-    @property
-    def per_host(self) -> int:
-        assert self.global_batch % self.n_hosts == 0
-        return self.global_batch // self.n_hosts
+
+#: the batches the pipeline's worker makes ahead of the trainer (the JAX
+#: ``DataConfig.prefetch`` default)
+PREFETCH = 2
 
 
 class SyntheticCorpus:
@@ -62,14 +60,13 @@ class SyntheticCorpus:
         return toks.astype(np.int32)
 
     def batch(self, step: int) -> np.ndarray:
-        """The (per_host, seq_len) shard of global batch ``step`` for this
-        host: global row g is a pure function of (seed, step, g)."""
+        """The (global_batch, seq_len) batch ``step``: row r is a pure
+        function of (seed, step, r)."""
         cfg = self.cfg
-        out = np.empty((cfg.per_host, cfg.seq_len), np.int32)
-        for r in range(cfg.per_host):
-            gidx = cfg.host_id * cfg.per_host + r      # global row id
+        out = np.empty((cfg.global_batch, cfg.seq_len), np.int32)
+        for r in range(cfg.global_batch):
             rng = np.random.default_rng(
-                np.random.SeedSequence([cfg.seed, step, gidx]))
+                np.random.SeedSequence([cfg.seed, step, r]))
             buf = []
             need = cfg.seq_len
             while need > 0:
@@ -81,35 +78,27 @@ class SyntheticCorpus:
 
 
 def global_batch(cfg: DataConfig, step: int) -> np.ndarray:
-    """The full ``(global_batch, seq_len)`` batch at ``step``, the same
-    whatever the host split: every host's shard, in host order."""
-    full = dataclasses.replace(cfg, n_hosts=1, host_id=0)
-    return SyntheticCorpus(full).batch(step)
+    """The full ``(global_batch, seq_len)`` batch at ``step``."""
+    return SyntheticCorpus(cfg).batch(step)
 
 
 class Pipeline:
-    """Prefetching iterator over this host's batches with an explicit,
-    checkpointable ``cursor``: the step of the next batch ``__next__``
-    hands out (batches waiting in the prefetch queue do not advance it), so
-    ``Pipeline(cfg, start_step=cursor)`` replays the stream from there.
-    The worker thread carries (step, batch) pairs and ``__next__`` checks
-    the pairing."""
+    """Iterator over the batches from step 0 on, a worker thread making the
+    next ``PREFETCH`` of them ahead of the trainer."""
 
-    def __init__(self, cfg: DataConfig, start_step: int = 0):
+    def __init__(self, cfg: DataConfig):
         self.cfg = cfg
-        self.cursor = start_step
         self._corpus = SyntheticCorpus(cfg)
-        self._q: queue.Queue = queue.Queue(maxsize=cfg.prefetch)
+        self._q: queue.Queue = queue.Queue(maxsize=PREFETCH)
         self._stop = threading.Event()
-        self._worker = threading.Thread(target=self._produce,
-                                        args=(start_step,), daemon=True)
+        self._worker = threading.Thread(target=self._produce, daemon=True)
         self._worker.start()
 
-    def _produce(self, start_step: int):
-        step = start_step
+    def _produce(self):
+        step = 0
         while not self._stop.is_set():
             try:
-                self._q.put((step, self._corpus.batch(step)), timeout=1.0)
+                self._q.put(self._corpus.batch(step), timeout=1.0)
                 step += 1
             except queue.Full:
                 continue
@@ -120,18 +109,13 @@ class Pipeline:
     def __next__(self) -> np.ndarray:
         if self._stop.is_set():
             raise StopIteration
-        step, batch = self._q.get()
-        assert step == self.cursor, \
-            f"pipeline desync: queued step {step} != cursor {self.cursor}"
-        self.cursor += 1
-        return batch
+        return self._q.get()
 
     def close(self):
         """Stop the worker; it exits within its one-second put timeout."""
         self._stop.set()
 
 
-def make_pipeline(cfg: DataConfig, start_step: int = 0) -> Iterator[np.ndarray]:
-    """Prefetching iterator over this host's batches, resumable at any
-    step."""
-    return Pipeline(cfg, start_step=start_step)
+def make_pipeline(cfg: DataConfig) -> Iterator[np.ndarray]:
+    """Prefetching iterator over the batches from step 0."""
+    return Pipeline(cfg)

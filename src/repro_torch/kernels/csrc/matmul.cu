@@ -786,8 +786,11 @@ int launch_wgmma(const void* a, const void* b, void* c, int M, int N, int K, int
     alignas(64) CUtensorMap ta, tb;
     const bool ok_a = trans == 2 ? encode(&ta, a, K, M, 64, 64)
                                  : encode(&ta, a, M, K, wg::BM, wg::BK);
-    const bool ok_b = trans == 1 ? weight_map(&tb, b, N, K, wg::BN)
-                                 : weight_map(&tb, b, K, N, wg::BK);
+    // b is a weight for trans 0 and 1, whose map is cached; for trans 2 it
+    // is dC, new on every call, encoded as A's map is
+    const bool ok_b = trans == 1   ? weight_map(&tb, b, N, K, wg::BN)
+                      : trans == 0 ? weight_map(&tb, b, K, N, wg::BK)
+                                   : encode(&tb, b, K, N, wg::BK, 64);
     if (!ok_a || !ok_b) return static_cast<int>(cudaErrorInvalidValue);
     if (trans == 1)
         return launch_wgmma_t<0, 0>(ta, tb, c, M, N, K, splits, slice, tickets, partials, s);
@@ -798,54 +801,27 @@ int launch_wgmma(const void* a, const void* b, void* c, int M, int N, int K, int
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  variant: 0 = simt, 1 = decode (bf16,
-// M <= 8), 2 = wgmma (bf16); decode and wgmma need K > 0, K and N multiples
-// of 8 and 16-byte aligned operands, and take a split-K plan (splits slices
-// of slice elements of K) and, for splits > 1, the workspace: tickets (one
-// per output tile: 128 columns for decode, 128 x 128 for wgmma; zero, and
-// left zero) and splits * M * N f32 partials.
+// C (M, N) = op(A) op(B), K the contraction; trans names the product, on
+// the operands as they lie (no transposed copy): 0, the forward C = A B
+// with a (M, K) and b (K, N); 1, the backward's dA = dC B^T, passed as a =
+// dC (M, K) and b = B, the row-major (N, K) B^T; 2, its dB = A^T dC, passed
+// as a = A, the row-major (K, M) A^T, and b = dC (K, N).
+// dtype: 0 = float32, 1 = bfloat16.  variant: 0 = simt (any dtype, any
+// trans), 1 = decode (bf16, trans 0, M <= 8), 2 = wgmma (bf16); decode and
+// wgmma need K > 0, K and N multiples of 8 (M too for trans 2) and 16-byte
+// aligned operands, and take a split-K plan (splits slices of slice
+// elements of K) and, for splits > 1, the workspace: tickets (one per
+// output tile: 128 columns for decode, 128 x 128 for wgmma; zero, and left
+// zero) and splits * M * N f32 partials.
 // Pointers are device pointers to contiguous row-major tensors; the launch
 // goes on `stream` and does not synchronise.  Returns cudaGetLastError()
 // after the launch (0 = success), or cudaErrorInvalidValue for arguments
 // the variant does not take.
 extern "C" int repro_matmul(const void* a, const void* b, void* c, int M, int N, int K,
-                            int dtype, int variant, int splits, int slice, void* tickets,
-                            void* partials, void* stream) {
+                            int trans, int dtype, int variant, int splits, int slice,
+                            void* tickets, void* partials, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (M <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
-    if (variant == 0) {
-        const long long st[4] = {K, 1, N, 1};
-        if (dtype == 0)
-            dispatch_simt<float>(a, b, c, M, N, K, st, s);
-        else if (dtype == 1)
-            dispatch_simt<bf16>(a, b, c, M, N, K, st, s);
-        else
-            return static_cast<int>(cudaErrorInvalidValue);
-        return static_cast<int>(cudaGetLastError());
-    }
-    const bool aligned = (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)
-                          | reinterpret_cast<uintptr_t>(c)) % 16 == 0;
-    if (dtype != 1 || K <= 0 || K % 8 || N % 8 || !aligned)
-        return static_cast<int>(cudaErrorInvalidValue);
-    if (variant == 1)
-        return launch_decode(a, b, c, M, N, K, splits, slice, tickets, partials, s);
-    if (variant == 2)
-        return launch_wgmma(a, b, c, M, N, K, 0, splits, slice, tickets, partials, s);
-    return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The backward's two products of C = A B, on the operands as they lie
-// (no transposed copy): trans 1, dA (M, K') = dC (M, N') B^T, passed as a =
-// dC (M rows of K = N'), b = B (N = K' rows of K); trans 2, dB (K', N') =
-// A^T dC, passed as a = A (K = M' rows of M = K' columns), b = dC (K rows
-// of N).  variant 0 = simt (any dtype), 2 = wgmma (bf16, K > 0, N and K
-// multiples of 8, M too for trans 2, 16-byte aligned), with the split-K plan
-// and workspace of repro_matmul.  Returns as repro_matmul.
-extern "C" int repro_matmul_t(const void* a, const void* b, void* c, int M, int N, int K,
-                              int trans, int dtype, int variant, int splits, int slice,
-                              void* tickets, void* partials, void* stream) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (trans != 1 && trans != 2) return static_cast<int>(cudaErrorInvalidValue);
+    if (trans < 0 || trans > 2) return static_cast<int>(cudaErrorInvalidValue);
     if (M <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
     if (variant == 0) {
         // element strides: A (M, K) or A^T's (K, M); B (K, N) or B^T's (N, K)
@@ -861,8 +837,11 @@ extern "C" int repro_matmul_t(const void* a, const void* b, void* c, int M, int 
     }
     const bool aligned = (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)
                           | reinterpret_cast<uintptr_t>(c)) % 16 == 0;
-    if (variant != 2 || dtype != 1 || K <= 0 || K % 8 || N % 8 || (trans == 2 && M % 8) ||
-        !aligned)
+    if (dtype != 1 || K <= 0 || K % 8 || N % 8 || (trans == 2 && M % 8) || !aligned)
         return static_cast<int>(cudaErrorInvalidValue);
-    return launch_wgmma(a, b, c, M, N, K, trans, splits, slice, tickets, partials, s);
+    if (variant == 1 && trans == 0)
+        return launch_decode(a, b, c, M, N, K, splits, slice, tickets, partials, s);
+    if (variant == 2)
+        return launch_wgmma(a, b, c, M, N, K, trans, splits, slice, tickets, partials, s);
+    return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,7 +6,8 @@ bf16 or f32.  Ragged edges are masked in the kernels, so nothing is padded.
 Each call is exactly one launch, and the same inputs give the same bits.
 
 Which of the three kernels a call takes is ``variant(M, K, N, dtype,
-aligned)``, a pure function of the shapes and the dtype:
+aligned, trans)``, a pure function of the shapes, the dtype and the
+product (``trans`` 0 the forward ``A B``):
   * ``"decode"``: bf16, M <= 8 (the engines' decode batches), K and N
     multiples of 8, K > 0: split-K weight streaming on the tensor cores,
     the slices given by ``split_plan(K, N)``;
@@ -23,9 +24,10 @@ backward makes the two products of the gradient with the same kernels, on
 the operands as they lie (no transposed copy): dA = dC B^T reads the
 weight B (K, N) as B^T, a K-major operand, and dB = A^T dC reads the
 activations A (M, K) as A^T, an MN-major one (``grad_a``, ``grad_b``:
-``variant_t`` picks wgmma or simt; each product is one launch, counted in
-``LAUNCHES["matmul_bwd"]``).  The TPU kernel has no backward: the reference
-trains by ``jax.grad`` of ``x @ w``.
+trans 1 and 2 of the same entry point, wgmma or simt, as ``variant``
+picks; each product is one launch, counted in ``LAUNCHES["matmul_bwd"]``).
+The TPU kernel has no backward: the reference trains by ``jax.grad`` of
+``x @ w``.
 """
 from __future__ import annotations
 
@@ -41,7 +43,6 @@ from .launches import LAUNCHES, wants_grad
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = {"simt": 0, "decode": 1, "wgmma": 2}
 _FN = None
-_FN_T = None
 
 #: the decode kernel's column tile and K step (csrc ``dec::BN``, ``dec::BK``)
 DECODE_BN = 128
@@ -75,23 +76,17 @@ WGMMA_SPLIT_US = 5.0
 _WORK: dict = {}
 
 
-def variant(M: int, K: int, N: int, dtype: torch.dtype, aligned: bool = True) -> str:
-    """The kernel a call takes: ``"decode"``, ``"wgmma"`` or ``"simt"``."""
-    if dtype != torch.bfloat16 or K <= 0 or K % 8 or N % 8 or not aligned:
-        return "simt"
-    return "decode" if M <= 8 else "wgmma"
-
-
-def variant_t(M: int, K: int, N: int, dtype: torch.dtype, trans: int,
-              aligned: bool = True) -> str:
-    """The kernel of a backward product (``trans`` 1: A B^T, 2: A^T B; C is
-    (M, N), K the contraction): ``"wgmma"`` for bf16 with K > 0, K and N
-    multiples of 8 (and M, A^T's row, for trans 2) and aligned operands,
-    else ``"simt"``."""
+def variant(M: int, K: int, N: int, dtype: torch.dtype, aligned: bool = True,
+            trans: int = 0) -> str:
+    """The kernel a call takes: ``"decode"``, ``"wgmma"`` or ``"simt"``.
+    C is (M, N) and K the contraction of the product ``trans`` names: 0 the
+    forward A B, 1 the backward's A B^T, 2 its A^T B.  Only the forward has
+    the decode form, and A^T B takes wgmma only where M, A^T's row, is a
+    multiple of 8 too."""
     if (dtype != torch.bfloat16 or K <= 0 or K % 8 or N % 8 or not aligned
             or (trans == 2 and M % 8)):
         return "simt"
-    return "wgmma"
+    return "decode" if trans == 0 and M <= 8 else "wgmma"
 
 
 @functools.lru_cache(maxsize=1024)
@@ -147,22 +142,11 @@ def _fn():
     global _FN
     if _FN is None:
         fn = _build.library("matmul").repro_matmul
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
-
-
-def _fn_t():
-    global _FN_T
-    if _FN_T is None:
-        fn = _build.library("matmul").repro_matmul_t
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p] * 3)
-        fn.restype = ctypes.c_int
-        _FN_T = fn
-    return _FN_T
 
 
 def _workspace(device, stream: int, tiles: int, floats: int):
@@ -177,119 +161,90 @@ def _workspace(device, stream: int, tiles: int, floats: int):
     return work[0].data_ptr(), work[1].data_ptr()
 
 
-def _launch(a, b, c, kind: str, idx: int) -> int:
+def _call(a, b, c, M: int, K: int, N: int, trans: int, kind: str, idx: int) -> int:
     """One launch of ``kind`` on the current stream of device ``idx`` (the
     current device); returns the CUDA error code."""
-    (M, K), N = a.shape, b.shape[1]
     # the raw handle of the current stream, without a Stream object
     stream = torch._C._cuda_getCurrentRawStream(idx)
     splits, slice_len, tiles = plan(kind, M, K, N)
     tickets, partials = (_workspace(a.device, stream, tiles, splits * M * N)
                          if tiles else (0, 0))
-    return _fn()(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K,
+    return _fn()(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K, trans,
                  _DTYPES[a.dtype], VARIANTS[kind], splits, slice_len, tickets,
                  partials, stream)
 
 
-def _check(a: torch.Tensor, b: torch.Tensor) -> None:
+def _dims(a: torch.Tensor, b: torch.Tensor, trans: int = 0) -> tuple[int, int, int]:
+    """``(M, K, N)`` of the product ``trans`` names: 0, ``a (M, K) @ b (K,
+    N)``; 1, ``a (M, K) @ b.T`` with b (N, K); 2, ``a.T @ b`` with a (K, M)
+    and b (K, N).  Raises on what the kernels do not take (a CPU tensor,
+    another dtype, a non-contiguous operand)."""
     if not (a.is_cuda and b.is_cuda and a.device == b.device):
         raise ValueError(f"matmul kernel needs both operands on one CUDA "
                          f"device, got {a.device} and {b.device}")
     if a.dtype != b.dtype or a.dtype not in _DTYPES:
         raise TypeError(f"matmul kernel takes f32 or bf16 operands of one "
                         f"dtype, got {a.dtype} and {b.dtype}")
-    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
-        raise ValueError(f"matmul kernel needs (M, K) @ (K, N), got "
-                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    if a.ndim != 2 or b.ndim != 2:
+        raise ValueError(f"matmul kernel needs 2-d operands, got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    M, K = reversed(a.shape) if trans == 2 else a.shape
+    Kb, N = reversed(b.shape) if trans == 1 else b.shape
+    if K != Kb:
+        raise ValueError(f"matmul kernel (trans {trans}): shapes "
+                         f"{tuple(a.shape)} and {tuple(b.shape)} disagree")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("matmul kernel needs contiguous operands")
-    if max(*a.shape, b.shape[1]) >= 2 ** 31:
+    if max(M, K, N) >= 2 ** 31:
         raise ValueError(f"matmul kernel dims must fit int32, got "
-                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    return M, K, N
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launch the kernel on the current stream; raises on what it does not
     take (a CPU tensor, another dtype, a non-contiguous operand).  Where
     autograd records the call, it goes through :class:`Matmul`."""
-    _check(a, b)
+    dims = _dims(a, b)
     if wants_grad(a, b):
         return Matmul.apply(a, b)
-    return _forward(a, b)
+    return _launch(a, b, 0, dims)
 
 
-def _forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The forward launch, on operands :func:`_check` has passed."""
-    M, K = a.shape
-    N = b.shape[1]
+def _launch(a: torch.Tensor, b: torch.Tensor, trans: int,
+            dims: tuple[int, int, int]) -> torch.Tensor:
+    """The product ``trans`` names (see :func:`_dims`, which gave ``dims``)
+    on the current stream: one launch, counted in ``LAUNCHES["matmul"]``
+    for the forward and ``LAUNCHES["matmul_bwd"]`` for the backward's."""
+    M, K, N = dims
     c = torch.empty((M, N), dtype=a.dtype, device=a.device)
     if M == 0 or N == 0:                # nothing to write: no launch
         return c
-    kind = variant(M, K, N, a.dtype, (a.data_ptr() | b.data_ptr()) % 16 == 0)
+    kind = variant(M, K, N, a.dtype, (a.data_ptr() | b.data_ptr()) % 16 == 0,
+                   trans)
     # the device guard only where the operands are not on the current
     # device: on the decode path the host's time a call is what a step pays
     idx = a.device.index
     if idx == torch.cuda.current_device():
-        err = _launch(a, b, c, kind, idx)
+        err = _call(a, b, c, M, K, N, trans, kind, idx)
     else:
         with torch.cuda.device(idx):
-            err = _launch(a, b, c, kind, idx)
+            err = _call(a, b, c, M, K, N, trans, kind, idx)
     if err != 0:                        # the launch was refused; it never ran
-        raise RuntimeError(f"matmul kernel ({kind}): CUDA error {err} at launch")
-    LAUNCHES["matmul"] += 1
-    return c
-
-
-def _product(a: torch.Tensor, b: torch.Tensor, trans: int) -> torch.Tensor:
-    """One backward product on the current stream: trans 1, ``a (M, K) @
-    b.T`` with b (N, K); trans 2, ``a.T @ b`` with a (K, M), b (K, N)."""
-    if not (a.is_cuda and b.is_cuda and a.device == b.device):
-        raise ValueError(f"matmul backward kernel needs both operands on one "
-                         f"CUDA device, got {a.device} and {b.device}")
-    if a.dtype != b.dtype or a.dtype not in _DTYPES:
-        raise TypeError(f"matmul backward kernel takes f32 or bf16 operands "
-                        f"of one dtype, got {a.dtype} and {b.dtype}")
-    if not (a.ndim == b.ndim == 2 and a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("matmul backward kernel needs contiguous 2-d operands")
-    if trans == 1:
-        (M, K), N = a.shape, b.shape[0]
-        ok = b.shape[1] == K
-    else:
-        (K, M), N = a.shape, b.shape[1]
-        ok = b.shape[0] == K
-    if not ok or max(M, N, K) >= 2 ** 31:
-        raise ValueError(f"matmul backward kernel (trans {trans}): shapes "
-                         f"{tuple(a.shape)} and {tuple(b.shape)} disagree or "
-                         f"do not fit int32")
-    c = torch.empty((M, N), dtype=a.dtype, device=a.device)
-    if M == 0 or N == 0:                # nothing to write: no launch
-        return c
-    kind = variant_t(M, K, N, a.dtype, trans,
-                     (a.data_ptr() | b.data_ptr()) % 16 == 0)
-    idx = a.device.index
-    with torch.cuda.device(idx):
-        stream = torch._C._cuda_getCurrentRawStream(idx)
-        splits, slice_len, tiles = plan(kind, M, K, N)
-        tickets, partials = (_workspace(a.device, stream, tiles, splits * M * N)
-                             if tiles else (0, 0))
-        err = _fn_t()(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K, trans,
-                      _DTYPES[a.dtype], VARIANTS[kind], splits, slice_len,
-                      tickets, partials, stream)
-    if err != 0:                        # the launch was refused; it never ran
-        raise RuntimeError(f"matmul backward kernel ({kind}, trans {trans}): "
-                           f"CUDA error {err} at launch")
-    LAUNCHES["matmul_bwd"] += 1
+        raise RuntimeError(f"matmul kernel ({kind}, trans {trans}): CUDA "
+                           f"error {err} at launch")
+    LAUNCHES["matmul" if trans == 0 else "matmul_bwd"] += 1
     return c
 
 
 def grad_a(dc: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """dA = dC B^T of ``c = a @ b``: dc (M, N), b (K, N) -> (M, K)."""
-    return _product(dc, b, 1)
+    return _launch(dc, b, 1, _dims(dc, b, 1))
 
 
 def grad_b(a: torch.Tensor, dc: torch.Tensor) -> torch.Tensor:
     """dB = A^T dC of ``c = a @ b``: a (M, K), dc (M, N) -> (K, N)."""
-    return _product(a, dc, 2)
+    return _launch(a, dc, 2, _dims(a, dc, 2))
 
 
 class Matmul(torch.autograd.Function):
@@ -300,7 +255,8 @@ class Matmul(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, b):
-        c = ref.matmul(a, b) if a.device.type == "cpu" else _forward(a, b)
+        c = (ref.matmul(a, b) if a.device.type == "cpu"
+             else _launch(a, b, 0, _dims(a, b)))
         ctx.save_for_backward(a, b)
         return c
 

@@ -75,8 +75,7 @@ def run(arch: str, *, smoke: bool = True, steps: int = 50,
                       f"({dt * 1e3:.0f} ms) [{device}]", flush=True)
     finally:
         pipe.close()
-    return {"losses": losses, "final_loss": losses[-1] if losses else None,
-            "start_step": 0}
+    return {"losses": losses, "final_loss": losses[-1] if losses else None}
 
 
 def main(argv=None):

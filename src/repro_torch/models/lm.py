@@ -104,11 +104,11 @@ def pool_defs(cfg: ModelConfig, n_blocks: int, block_tokens: int) -> dict:
 
 class Model(ParamTree):
     """A model's weights as an ``nn.Module``: ``state_dict`` keys are the
-    JAX tree's dotted paths (``period.l0.s0_attn.wq``).  Frozen for serving
-    unless ``trainable``."""
+    JAX tree's dotted paths (``period.l0.s0_attn.wq``).  Its leaves are
+    frozen, as serving wants."""
 
-    def __init__(self, cfg: ModelConfig, params: dict, trainable: bool = False):
-        super().__init__(params, trainable)
+    def __init__(self, cfg: ModelConfig, params: dict):
+        super().__init__(params)
         self.cfg = cfg
 
 

@@ -103,16 +103,16 @@ def params_from_dotted(flat) -> dict:
 class ParamTree(nn.Module):
     """A param tree as nested modules: ``state_dict`` keys are the tree's
     dotted paths, and ``.to(device)`` moves every leaf.  Leaves are frozen
-    (no autograd, as serving wants) unless the caller asks for
-    ``trainable=True``, as the trainer does."""
+    (no autograd, as serving wants); ``repro_torch.train.trainer.trainable``
+    gives a tree of trainable leaves."""
 
-    def __init__(self, tree: dict, trainable: bool = False):
+    def __init__(self, tree: dict):
         super().__init__()
         for k, v in tree.items():
             if isinstance(v, dict):
-                self.add_module(k, ParamTree(v, trainable))
+                self.add_module(k, ParamTree(v))
             else:
-                self.register_parameter(k, nn.Parameter(v, requires_grad=trainable))
+                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
 
     def tree(self) -> dict:
         """The nested dict of this module's tensors (shared, not copied)."""

@@ -669,10 +669,10 @@ def check_matmul_bwd(M, K, N, dtype, which, device="cuda") -> dict:
     x, y = matmul_bwd_inputs(M, K, N, dtype, which, device)
     if which == "a":
         run, want = _mm.grad_a, ref.matmul_grad_a(x, y)
-        kind = _mm.variant_t(M, N, K, dtype, 1)
+        kind = _mm.variant(M, N, K, dtype, trans=1)
     else:
         run, want = _mm.grad_b, ref.matmul_grad_b(x, y)
-        kind = _mm.variant_t(K, M, N, dtype, 2)
+        kind = _mm.variant(K, M, N, dtype, trans=2)
     res = _pair(run(x, y), run(x, y), want, MATMUL_TOL[dtype])
     res["variant"] = kind
     return res

@@ -10,9 +10,10 @@ does in the reference.
 The reference returns new trees; :func:`adamw_update` writes the new values
 into the tensors of ``params`` and ``state`` in place (one copy of the
 model's state, not two, on the card) and returns the same trees.  A
-layer-stacked leaf (``ndim >= 3``, leading axis >= 8) is updated one slice
-at a time, as the reference's ``fori_loop`` does, so the f32 temporaries
-are one slice, not the leaf.
+layer-stacked leaf (``ndim >= 3``) is updated one slice of its leading axis
+at a time, as the reference's ``fori_loop`` does for a stack of 8 or more,
+so the f32 temporaries are one slice, not the leaf; the math is
+element-wise, so the slicing changes no value.
 """
 from __future__ import annotations
 
@@ -119,6 +120,8 @@ def adamw_update(params, grads, state, cfg: OptConfig):
         return torch.tensor(x, dtype=mdt, device=gnorm.device)
 
     b1, nb1, b2, nb2, eps = c(cfg.b1), c(1 - cfg.b1), c(cfg.b2), c(1 - cfg.b2), c(cfg.eps)
+    # weight decay applies to matrices (and stacks of them) only
+    decays = (c(0.0), c(cfg.weight_decay))
     lr_m, scale_m, b1c_m, b2c_m = lr.to(mdt), scale.to(mdt), b1c.to(mdt), b2c.to(mdt)
 
     def upd_leaf(p, g, s, decay):
@@ -136,8 +139,8 @@ def adamw_update(params, grads, state, cfg: OptConfig):
 
     for p, g, s in zip(tree_leaves(params), tree_leaves(grads),
                        _leaf_states(state["params"], params)):
-        decay = c(cfg.weight_decay if p.ndim >= 2 else 0.0)
-        if p.ndim >= 3 and p.shape[0] >= 8:
+        decay = decays[p.ndim >= 2]
+        if p.ndim >= 3:
             for i in range(p.shape[0]):
                 upd_leaf(p[i], g[i], {k: t[i] for k, t in s.items()}, decay)
         else:

@@ -107,7 +107,7 @@ def test_attention_bwd_gives_no_gradient_to_rows_that_see_no_key():
     (4, 4096, 4096, 1, torch.bfloat16, True, "wgmma"),       # no decode form
 ])
 def test_backward_products_pick_their_kernel(M, K, N, trans, dtype, aligned, want):
-    assert matmul.variant_t(M, K, N, dtype, trans, aligned) == want
+    assert matmul.variant(M, K, N, dtype, aligned, trans) == want
 
 
 @pytest.mark.parametrize("R,want", [(1, 1), (2, 2), (263, 263), (264, 264),

@@ -197,22 +197,23 @@ def test_launcher_refuses_the_card_where_there_is_none():
 
 @pytest.mark.parametrize("n_hosts", [1, 2, 4])
 def test_pipeline_batches_match_jax(n_hosts):
-    """Each host's shard, the global batch and the prefetching iterator's
-    cursor, as the JAX pipeline gives them."""
+    """The port's one-host batch is JAX's global batch, and every JAX host's
+    shard of it in host order; the prefetching iterator gives steps 0, 1, 2
+    in order."""
     kw = dict(vocab_size=512, seq_len=40, global_batch=8, seed=3)
-    for h in range(n_hosts):
-        cfg = DataConfig(**kw, n_hosts=n_hosts, host_id=h)
-        jcfg = jpipe.DataConfig(**kw, n_hosts=n_hosts, host_id=h)
-        np.testing.assert_array_equal(SyntheticCorpus(cfg).batch(2),
-                                      jpipe.SyntheticCorpus(jcfg).batch(2))
-    cfg = DataConfig(**kw, n_hosts=n_hosts)
+    cfg = DataConfig(**kw)
+    shards = [jpipe.SyntheticCorpus(jpipe.DataConfig(**kw, n_hosts=n_hosts,
+                                                     host_id=h)).batch(2)
+              for h in range(n_hosts)]
+    np.testing.assert_array_equal(SyntheticCorpus(cfg).batch(2),
+                                  np.concatenate(shards))
     np.testing.assert_array_equal(global_batch(cfg, 1),
                                   jpipe.global_batch(jpipe.DataConfig(**kw), 1))
-    pipe = Pipeline(cfg, start_step=5)
+    pipe = Pipeline(cfg)
     try:
-        first = next(pipe)
-        assert pipe.cursor == 6
-        np.testing.assert_array_equal(first, SyntheticCorpus(cfg).batch(5))
+        for step in range(3):
+            np.testing.assert_array_equal(next(pipe),
+                                          SyntheticCorpus(cfg).batch(step))
     finally:
         pipe.close()
 
@@ -265,10 +266,13 @@ def test_step_launches_is_the_count_of_a_train_step(monkeypatch, remat,
 
 def test_serving_leaves_stay_frozen():
     """Serving keeps frozen leaves (no autograd on the serve paths); the
-    trainer asks for trainable ones."""
+    trainer's ``trainable`` gives the same tensors as trainable leaves."""
     cfg = get_smoke_config("llama3-8b")
     params = tc.smoke_params()
-    assert not any(p.requires_grad for p in lm.Model(cfg, params).parameters())
-    assert all(p.requires_grad for p in
-               lm.Model(cfg, params, trainable=True).parameters())
-    assert all(t.requires_grad for t in tree_leaves(trainer.trainable(params)))
+    model = lm.Model(cfg, params)
+    assert not any(p.requires_grad for p in model.parameters())
+    leaves = tree_leaves(trainer.trainable(model.tree()))
+    assert all(t.requires_grad and t.is_leaf for t in leaves)
+    assert all(a.data_ptr() == b.data_ptr()
+               for a, b in zip(leaves, tree_leaves(model.tree())))
+    assert not any(p.requires_grad for p in model.parameters())
