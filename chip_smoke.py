@@ -23,8 +23,11 @@ Phases, each of which raises on failure (nothing is caught):
      for the same bits: rmsnorm's dx and dgamma at (4096, 4096) and ragged
      rows, the matmul's dA and dB at each llama3-8b projection over 4096
      tokens and at ragged shapes, flash attention's dq, dk, dv at (4, 32/8
-     heads, S = 1024, D = 128) causal, ragged and windowed, and at every
-     head dim (``kernel_checks.*_BWD_*``), in bf16 and f32;
+     heads, S = 1024, D = 128) causal, ragged and windowed, at D = 64 and
+     the training length, and at every head dim (``kernel_checks.*_BWD_*``),
+     in bf16 and f32; each line naming the kernels taken (flash attention's
+     ``bwd_variant``: bf16 at these heads must take wgmma, f32 simt;
+     rmsnorm's ``bwd_path``);
   3b. the paper's Table I kernels (dotprod, expv, softmax_rows, jacobi2d,
      fconv2d) against their plain versions at the table1-paper and
      table1-card shapes and at ragged ones (softmax also on masked rows,
@@ -86,7 +89,8 @@ Phases, each of which raises on failure (nothing is caught):
      projection, flash attention's at (4, 32/8, 1024, 128)) beside their
      plain versions, the library call (autograd of ``F.rms_norm``,
      ``torch.matmul`` for each product, autograd of SDPA), the bound, and
-     the device's ms a call from a trace.
+     the device's ms a call from a trace, each naming its kernels (flash
+     attention's also through the simt kernels, forced, for the same call).
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.  Without a card,
 or without the repo's ``src/repro_torch`` beside it, it exits non-zero
@@ -125,10 +129,13 @@ def _ms_bound(nbytes: float, nops: float, kind: str) -> tuple[float, str]:
 # the backward's matmul forms before the forward's, whose name they extend)
 PORT_KERNELS = {"matmul_bwd dX wgmma": "matmul_wgmma_kernel<0,0>",
                 "matmul_bwd dW wgmma": "matmul_wgmma_kernel<1,1>",
-                "rmsnorm_bwd": "rms_bwd_kernel",
+                "rmsnorm_bwd vec": "rms_bwd_vec_kernel",
+                "rmsnorm_bwd scalar": "rms_bwd_kernel",
                 "rmsnorm_bwd dgamma": "rms_dgamma_kernel",
-                "flash_attention_bwd dq": "flash_bwd_dq_kernel",
-                "flash_attention_bwd dkv": "flash_bwd_dkv_kernel",
+                "flash_attention_bwd dq wgmma": "flash_bwd_dq_wgmma_kernel",
+                "flash_attention_bwd dkv wgmma": "flash_bwd_dkv_wgmma_kernel",
+                "flash_attention_bwd dq simt": "flash_bwd_dq_kernel",
+                "flash_attention_bwd dkv simt": "flash_bwd_dkv_kernel",
                 "matmul decode": "matmul_decode_kernel",
                 "matmul wgmma": "matmul_wgmma_kernel",
                 "matmul simt": "matmul_kernel", "rmsnorm": "rms_vec_kernel",
@@ -624,7 +631,7 @@ def _backward_checks(kc, kfa) -> tuple[dict, list]:
         for dt in dts:
             r = kc.check_rmsnorm_bwd(R, D, dt)
             errs[("rmsnorm_bwd", R, D, dt)] = r["max_abs_err"]
-            line(f"rmsnorm_bwd R={R:<4d} D={D} {str(dt)[6:]:8s}", r)
+            line(f"rmsnorm_bwd R={R:<4d} D={D} {str(dt)[6:]:8s} {r['path']:6s}", r)
             if not r["ok"]:
                 failed.append(("rmsnorm_bwd", R, D, dt))
     shapes = [(proj, kc.TRAIN_TOKENS, K, N) for proj, (K, N) in kc.MATMUL_KN.items()]
@@ -643,15 +650,24 @@ def _backward_checks(kc, kfa) -> tuple[dict, list]:
             r = kc.check_flash_bwd(B, S, dt, window)
             errs[("flash_attention_bwd", B, S, window, dt)] = r["max_abs_err"]
             line(f"flash_attention_bwd B={B} Hq={kc.HQ} Hkv={kc.HKV} D={kc.HEAD_DIM} "
-                 f"S={S:<4d} causal window={window} {str(dt)[6:]:8s}", r)
-            if not r["ok"]:
+                 f"S={S:<4d} causal window={window} {str(dt)[6:]:8s} {r['variant']:5s}", r)
+            # bf16 at these heads through the tensor cores, f32 through simt
+            if not r["ok"] or r["variant"] != ("wgmma" if dt == torch.bfloat16 else "simt"):
                 failed.append(("flash_attention_bwd", B, S, window, dt))
+    # the wgmma kernels' other head dim at the training length
+    B, S, D = kc.FLASH_BWD_D64
+    r = kc.check_flash_bwd(B, S, torch.bfloat16, None, True, kc.HQ, kc.HKV, D)
+    line(f"flash_attention_bwd B={B} Hq={kc.HQ} Hkv={kc.HKV} D={D} S={S:<4d} causal "
+         f"window=None bfloat16 {r['variant']:5s}", r)
+    if not r["ok"] or r["variant"] != "wgmma":
+        failed.append(("flash_attention_bwd", B, S, D))
     for D in kfa.HEAD_DIMS:
         for causal in (True, False):
             for dt in dts:
                 r = kc.check_flash_bwd(2, 70, dt, 9, causal, 4, 2, D)
                 line(f"flash_attention_bwd B=2 Hq=4 Hkv=2 D={D:<3d} S=70 "
-                     f"{'causal' if causal else 'full  '} window=9 {str(dt)[6:]:8s}", r)
+                     f"{'causal' if causal else 'full  '} window=9 {str(dt)[6:]:8s} "
+                     f"{r['variant']:5s}", r)
                 if not r["ok"]:
                     failed.append(("flash_attention_bwd head dim", D, causal, dt))
     return errs, failed
@@ -838,14 +854,17 @@ def _backward_times(kc, kfa, kmm, krms, ref, time_ms) -> dict:
     t_k, t_p, t_l = (time_ms(fk, 50), time_ms(lambda: ref.rmsnorm_bwd(dy, x, g, kc.EPS), 20),
                      time_ms(fl, 50))
     bound, by = _ms_bound(3 * R * D * 2 + 8 * D, 10.0 * R * D, "f32")
+    path = krms.bwd_path(D, torch.bfloat16)
     rows["rmsnorm_bwd"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound,
                                bound_by=by, device_ms=dev_ms(fk),
-                               library_device_ms=dev_ms(fl),
+                               library_device_ms=dev_ms(fl), variant=path,
                                shape=f"R={R},D={D},bf16")
-    print(f"[time] rmsnorm_bwd R={R} D={D} bf16 kernel {t_k:.4f} ms  plain {t_p:.4f} ms  "
-          f"F.rms_norm backward (autograd) {t_l:.4f} ms  bound {bound:.5f} ms ({by}); "
-          f"device: kernel {rows['rmsnorm_bwd']['device_ms']:.4f} ms, library "
-          f"{rows['rmsnorm_bwd']['library_device_ms']:.4f} ms")
+    r = rows["rmsnorm_bwd"]
+    print(f"[time] rmsnorm_bwd R={R} D={D} bf16 {path} kernel {t_k:.4f} ms  plain "
+          f"{t_p:.4f} ms  F.rms_norm backward (autograd) {t_l:.4f} ms  bound {bound:.5f} ms "
+          f"({by}); device: kernel {r['device_ms']:.4f} ms, library "
+          f"{r['library_device_ms']:.4f} ms, {r['device_ms'] / r['library_device_ms']:.2f}x "
+          f"the library, {r['device_ms'] / bound:.2f}x bound")
     del x, dy, xl, yl
     # the matmul's backward of each projection: dA and dB, one launch each
     per = {}
@@ -883,22 +902,30 @@ def _backward_times(kc, kfa, kmm, krms, ref, time_ms) -> dict:
     ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
     ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
     fl = lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True)
-    t_k, t_l = time_ms(fk, 5), time_ms(fl, 20)
+    t_k, t_l = time_ms(fk, 20), time_ms(fl, 20)
     t_p = time_ms(lambda: ref.attention_bwd(q, k, v, do, causal=True), 2)
     pairs = B * Hq * S * (S + 1) / 2
     bound, by = _ms_bound(2 * B * S * Dh * (2 * Hq + 2 * Hkv) * 2, 5 * 2.0 * pairs * Dh,
                           "bf16")
+    kind = kfa.bwd_variant(S, S, Dh, torch.bfloat16)
+    # the same call through the CUDA-core kernels (the choice forced by
+    # lifting `bwd_variant` to them), in the same run
+    chooser = kfa.bwd_variant
+    kfa.bwd_variant = lambda *a, **kw: "simt"
+    simt_dev = dev_ms(fk)
+    kfa.bwd_variant = chooser
     rows["flash_attention_bwd"] = dict(
         ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound, bound_by=by,
-        device_ms=dev_ms(fk), library_device_ms=dev_ms(fl),
+        device_ms=dev_ms(fk), library_device_ms=dev_ms(fl), variant=kind,
+        simt_device_ms=simt_dev,
         shape=f"B={B},Hq={Hq},Hkv={Hkv},S={S},D={Dh},causal,bf16")
     r = rows["flash_attention_bwd"]
     print(f"[time] flash_attention_bwd B={B} Hq={Hq} Hkv={Hkv} S={S} D={Dh} causal bf16 "
-          f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms  SDPA backward (autograd) "
+          f"{kind} kernel {t_k:.4f} ms  plain {t_p:.4f} ms  SDPA backward (autograd) "
           f"{t_l:.4f} ms  bound {bound:.4f} ms ({by}); device: kernel "
-          f"{r['device_ms']:.4f} ms, SDPA backward {r['library_device_ms']:.4f} ms, "
-          f"{r['device_ms'] / r['library_device_ms']:.2f}x SDPA, "
-          f"{r['device_ms'] / bound:.1f}x bound")
+          f"{r['device_ms']:.4f} ms (simt kernels {simt_dev:.4f} ms), SDPA backward "
+          f"{r['library_device_ms']:.4f} ms, {r['device_ms'] / r['library_device_ms']:.2f}x "
+          f"SDPA, {r['device_ms'] / bound:.1f}x bound")
     return rows
 
 

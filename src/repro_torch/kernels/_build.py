@@ -3,7 +3,8 @@
 ``nvcc`` compiles ``csrc/<name>.cu`` (a plain C interface, no PyTorch
 headers, so the build takes seconds) into ``build/repro_torch/`` at the
 root of the checkout on first use; the library is named by a hash of its
-source, so an edited source is rebuilt.  ``build`` compiles several
+source and of ``csrc/``'s headers (``*.cuh``), so an edited source or
+header is rebuilt.  ``build`` compiles several
 sources at once, one nvcc process each.  The result is loaded with
 ``ctypes``.  Nothing here runs at import time.
 """
@@ -38,9 +39,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source and
+    of every header of ``csrc/`` (a shared header edited rebuilds each
+    source that may include it)."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names) -> None:

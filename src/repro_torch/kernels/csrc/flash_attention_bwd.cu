@@ -1,6 +1,7 @@
 // Causal / sliding-window GQA attention, backward: dq, dk, dv of
-// csrc/flash_attention.cu's forward for the output's gradient do.  f32 math,
-// each gradient in its input's dtype (bf16 or f32).
+// csrc/flash_attention.cu's forward for the output's gradient do.  f32
+// statistics and accumulation, each gradient in its input's dtype (bf16 or
+// f32).
 //
 //   q, do, dq    (B, Hq, S, D)   by strides, last dim contiguous
 //   k, v, dk, dv (B, Hkv, Sk, D) by strides, last dim contiguous
@@ -8,50 +9,95 @@
 // (causal) and i - j < window (window > 0); a row with no visible key has
 // no gradient.
 //
-// The TPU kernel (repro/kernels/flash_attention.py:118) has no VJP: the
-// reference trains through jnp attention (_sdpa_chunked) under jax.grad,
-// whose gradient is kernels/ref.py::attention_bwd: with P the masked
-// softmax of s = q k^T / sqrt(D), dv = P^T do, dP = do v^T, dS = P (dP -
-// rowsum(P dP)), dq = dS k / sqrt(D), dk = dS^T q / sqrt(D); dk and dv of a
-// kv head summed over its G query heads.
+// What it stands for: the TPU kernel (repro/kernels/flash_attention.py:118)
+// has no VJP; the reference trains through jnp attention (_sdpa_chunked,
+// repro/models/layers.py) under jax.grad, whose gradient is
+// kernels/ref.py::attention_bwd: with P the masked softmax of s = q k^T /
+// sqrt(D), dv = P^T do, dP = do v^T, dS = P (dP - rowsum(P dP)), dq = dS k /
+// sqrt(D), dk = dS^T q / sqrt(D); dk and dv of a kv head summed over its G
+// query heads.
 //
-// What bounds it on an H100: at the training shapes (B = 4, 32 q heads over
-// 8 kv heads of 128, S = 1024, causal) the products are ~2.2 GFLOP each and
-// the bytes ~0.1 GB, so operations, far above the ridge.  This is the
-// simple kernel that is right (CUDA-core f32 FMAs, FlashAttention-2's
-// two-kernel split); the tensor-core (wgmma) form is later work.  It keeps
-// no P or dS of a whole row in memory, and no atomics: every sum runs in a
+// Two kernels each for two variants; kernels/flash_attention.py::bwd_variant
+// picks one from (S, Sk, D, dtype), by the forward's rule.  Both keep the
+// same two-kernel split and order: the dq kernel first, writing each row's
+// L (log-sum-exp) and Dd = rowsum(P dP) to two f32 workspaces, then the dkv
+// kernel, reading them.  The forward keeps m and l in registers, so the dq
+// kernel's first pass recomputes them, with rowsum(P dP) online beside them:
+// one more pass than FlashAttention-2 (which saves L in the forward and
+// takes Dd = rowsum(do o) from the bf16 output), but no change to the
+// serving forward and no rounded o in Dd.  No atomics: every sum runs in a
 // fixed order, so the bits do not vary between runs.
 //
-// * flash_bwd_dq_kernel: one block a (b, q head, 64-row q tile), over the
-//   32-key tiles the forward's walk visits.  A first pass over them
-//   recomputes the rows' softmax statistics online -- the max m, the sum l
-//   and rowsum(P dP) (the forward keeps m and l in registers, so nothing is
-//   saved from it) -- and writes L = m + log l and Dd = rowsum(P dP) for the
-//   second kernel; a second pass forms P = exp(s - L), dS = P (dP - Dd) and
-//   dq += dS k, the key tiles in order.  rowsum(P dP) costs one more product
-//   than FlashAttention-2's rowsum(do o), and takes no rounded o.
-// * flash_bwd_dkv_kernel: one block a (b, kv head, 64-key tile); it walks
-//   the kv head's G query heads in order and, for each, the 32-row q tiles
-//   that see the tile, forming P^T and dS^T from L and Dd and adding P^T do
-//   into dv and dS^T q into dk in registers.  The GQA sum is this loop: no
-//   copy of k or v per query head and no atomics.
-// Thread layout of both, as the forward simt kernel: 128 threads, 16 rows
-// by 8 columns; a thread holds a 4 x 4 block of scores and 4 rows of D / 8
-// accumulator columns; tiles staged through shared memory in f32.
+// * wgmma (bf16, D = 64 or 128; the training path).  What bounds it on an
+//   H100: at the training shape (B = 4, 32 q heads over 8 kv heads of 128,
+//   S = 1024, causal) the 12 products below are ~206 GFLOP (0.21 ms at 989
+//   TFLOP/s) on ~0.1 GB of inputs and outputs (0.03 ms): operations.  So
+//   every product is on the tensor cores, in one of the forward's two
+//   wgmma forms (flash_wgmma.cuh): qk_issue (A B^T, both K-major from
+//   shared memory) and pv_issue (a score fragment from registers, times a
+//   tile read MN-major by the transpose bit):
+//     dq  (a block a (b, q head, 64-row q tile), the forward's tile_plan
+//         walk, longest walks first):
+//           pass 1  S = Q K^T, dP = dO V^T (qk_issue); online m, l and
+//                   rowsum(P dP) as the forward's softmax;
+//           pass 2  S, dP again (qk_issue); P = 2^(s sl2 - L2), dS = P (dP -
+//                   Dd); dQ += dS K (pv_issue, K read MN-major), the next
+//                   tile's S and dP issued with it, as the forward does.
+//     dkv (a block a (b, kv head, 64-key tile); it walks the kv head's G
+//         query heads in order, then the q tiles bwd_q_plan gives):
+//           S^T = K Q^T, dP^T = V dO^T (qk_issue); P^T and dS^T from each
+//           q row's L2 and Dd; dV += P^T dO, dK += dS^T Q (pv_issue, dO and
+//           Q read MN-major).
+//   12 products a tile pair (dq 2 + 2 + 2 split, dkv 2 + 2 + 2 x 2 split).
+//   P and dS enter their products exact to ~2^-16 as two bf16 halves, hi +
+//   lo: P rounded once to bf16 moves near-zero gradients by ~1e-4, the
+//   check's atol (the forward found the same for P V).  Q, K, V and dO are
+//   bf16 inputs, exact as they are.  A producer warp feeds each block by
+//   TMA (128-byte swizzle, 4-D tensor maps over the model's strided views,
+//   rows past S or Sk as zeros) into a 2-stage ring behind mbarriers: the
+//   dq kernel's K and V tiles, walked twice; the dkv kernel's Q and dO
+//   tiles with their 64 L2 and Dd (a 512-byte bulk copy from workspaces
+//   whose rows are padded to 64).  One consumer warpgroup holds the
+//   accumulators in registers: dq's 64 x D, dkv's dK and dV (D f32 a
+//   thread at D = 128) beside S^T and dP^T, so the dkv block takes its next
+//   tile's products only after this tile's, and leans on the other blocks
+//   of the SM, where registers allow two, to fill the tensor cores.  ptxas
+//   (-Xptxas -v, printed by chip_smoke.py phase 2) reports no spills and no
+//   wgmma serialisation: dq 191 / 160 registers at D = 128 / 64 (two blocks
+//   an SM), dkv 255 / 200 (one block an SM at D = 128, two at 64), 100,392
+//   bytes of shared memory a block at D = 128.  Only tiles that cross the
+//   diagonal, S's or Sk's edge or the window's edge are masked.  A causal
+//   dkv grid is lopsided (the first key tile sees every q row of G heads,
+//   the last one tile), so the key tiles are numbered heavy first along
+//   blockIdx.y and the scheduler fills the 132 SMs with them (no
+//   persistent walk); the dq grid runs its longest walks first.  L2
+//   is L in log2 units (m sl2 + log2 l), so P is one FFMA and one
+//   ex2.approx a score (~2^-22 from the reference's exp).
+// * simt (f32, D = 16 and 32, and what the wgmma kernels do not take): the
+//   first port's kernels, unchanged.  CUDA-core f32 FMAs; 32-key tiles
+//   staged through shared memory in f32; a thread holds a 4 x 4 block of
+//   scores and 4 rows of D / 8 accumulator columns (128 threads, 16 rows by
+//   8 columns).
+//     flash_bwd_dq_kernel   one block a (b, q head, 64-row q tile): a first
+//                           pass of m, l and rowsum(P dP), a second of dq
+//                           += dS k, the key tiles in order;
+//     flash_bwd_dkv_kernel  one block a (b, kv head, 64-key tile), the G
+//                           query heads in order, then their 32-row q
+//                           tiles: dv += P^T do, dk += dS^T q.
+//   Its workspaces hold L in natural log units, rows of S.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "flash_wgmma.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// simt: f32 or bf16, D = 16, 32, 64 or 128
+// ---------------------------------------------------------------------------
 
 constexpr int NT = 128;                  // 16 thread rows x 8 thread columns
 constexpr int TR = 16, TC = 8;
 constexpr int BQ = 64, BK = 32;          // dq kernel: q rows, keys of a tile
 constexpr int BKV = 64, BQ2 = 32;        // dkv kernel: keys, q rows of a tile
-constexpr float NEG_INF = -1e30f;
 #define POS_INF __int_as_float(0x7f800000)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -433,21 +479,434 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout, void
     }
 }
 
+// ---------------------------------------------------------------------------
+// wgmma: bf16, D = 64 or 128 (the products and PTX helpers: flash_wgmma.cuh)
+// ---------------------------------------------------------------------------
+
+namespace bw {
+constexpr int BQ = 64, BK = 64;        // q rows and keys of a tile
+constexpr int STAGES = 2;
+constexpr int THREADS = 160;           // a consumer warpgroup and a producer warp
+template <int D> struct Smem {
+    static constexpr int TILE = (D / 64) * wg::BOX;   // 64 rows of D bf16
+    // dq: Q and dO; dkv: K and V; loaded once
+    static constexpr int FIXED = 2 * TILE;
+    // dq: K and V; dkv: Q and dO
+    static constexpr int STAGE = 2 * TILE;
+    // dkv: a stage's 64 L2 and 64 Dd (f32), after the stages
+    static constexpr int ROWS = 2 * BQ * 4;
+    static constexpr int BYTES = FIXED + STAGES * (STAGE + ROWS) + (2 * STAGES + 1) * 8 + 1024;
+};
+}  // namespace bw
+
+// `bytes` (a multiple of 16) from global memory to shared, counted on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+                 "[%0], [%1], %2, [%3];\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+// pass 2 of the dq kernel on a tile's S (sc) and dP fragments: P = 2^(s sl2
+// - L2) (0 where masked, and on a row with no visible key, whose L2 is +inf),
+// and dS = P (dP - Dd) left in sc
+__device__ __forceinline__ void ds_rows(float (&sc)[32], const float (&dp)[32],
+                                        const float (&L2)[2], const float (&Dd)[2], bool masked,
+                                        int r0, int kc, int Sk, int causal, int window,
+                                        float sl2) {
+    if (masked) mask_scores(sc, r0, kc, Sk, causal, window);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+        const int r = (x >> 1) & 1;
+        sc[x] = ex2(fmaf(sc[x], sl2, -L2[r])) * (dp[x] - Dd[r]);
+    }
+}
+
+// The dkv kernel's S^T fragment with every pair the masks hide set to
+// NEG_INF: st[4i + e] pairs key j0 + 8 (e >> 1) with q row qc + 8 i + (e &
+// 1) (qc = q0 + 2 tig); the row is seen when it is < S, >= the key
+// (causal) and < key + window, and the key when it is < Sk.
+__device__ __forceinline__ void mask_pairs_t(float (&st)[32], int j0, int qc, int S, int Sk,
+                                             int causal, int window) {
+    // key r is seen by q rows qc + lo[r] .. qc + hi[r]
+    int lo[2], hi[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int j = j0 + 8 * r;
+        lo[r] = causal ? j - qc : -qc;
+        hi[r] = S - 1 - qc;
+        if (window > 0) hi[r] = min(hi[r], j + window - 1 - qc);
+        if (j >= Sk) hi[r] = lo[r] - 1;
+    }
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+        const int c = 8 * (x >> 2) + (x & 1), r = (x >> 1) & 1;
+        if (c < lo[r] || c > hi[r]) st[x] = NEG_INF;
+    }
+}
+
+// Shared memory of a block (both kernels): the fixed tiles, the ring's
+// stages, the stages' rows, the barriers; TMA's 128-byte swizzle wants each
+// box 1024-byte aligned
+struct Ring {
+    unsigned char* fixed;
+    unsigned char* ring;
+    float* rows;
+    uint64_t* full;
+    uint64_t* empty;
+    uint64_t* fixed_bar;
+};
+
+template <int D> __device__ __forceinline__ Ring carve(unsigned char* raw) {
+    using L = bw::Smem<D>;
+    Ring r;
+    r.fixed = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+    r.ring = r.fixed + L::FIXED;
+    r.rows = reinterpret_cast<float*>(r.ring + bw::STAGES * L::STAGE);
+    r.full = reinterpret_cast<uint64_t*>(r.ring + bw::STAGES * (L::STAGE + L::ROWS));
+    r.empty = r.full + bw::STAGES;
+    r.fixed_bar = r.empty + bw::STAGES;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < bw::STAGES; ++s) {
+            mbar_init(&r.full[s], 1);      // the producer's expect_tx
+            mbar_init(&r.empty[s], 4);     // each consumer warp, once the stage is read
+        }
+        mbar_init(r.fixed_bar, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    return r;
+}
+
+// the 64 x D f32 fragment acc (o[4i + e]: row r0 + 8 (e >> 1), column 8 i +
+// 2 tig + (e & 1)) times `scale` into rows r0 and r0 + 8 of a bf16 (rows, D)
+// tile by row stride `rs`, rows at or past `valid` skipped; zeros where
+// nothing was accumulated
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* out, long long rs, const float (&acc)[D / 2],
+                                           int r0, int valid, int tig, float scale, bool any) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 8 * r;
+        if (row >= valid) continue;
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+            const float x0 = any ? acc[4 * i + 2 * r] * scale : 0.f;
+            const float x1 = any ? acc[4 * i + 2 * r + 1] * scale : 0.f;
+            *reinterpret_cast<__nv_bfloat162*>(out + row * rs + 8 * i + 2 * tig) =
+                __floats2bfloat162_rn(x0, x1);
+        }
+    }
+}
+
+// pos: where each tensor map keeps its h, s and b dims (encode_bhsd), of q,
+// k, v and do in turn
+struct MapPos {
+    int q, k, v, o;
+};
+
+template <int D>
+__global__ void __launch_bounds__(bw::THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo, bf16* __restrict__ dq,
+                          long long dq_sb, long long dq_sh, long long dq_ss,
+                          float* __restrict__ lse, float* __restrict__ dd, int Sp, int Hq,
+                          int Hkv, int S, int Sk, int causal, int window, float sl2,
+                          float scale, const MapPos pos) {
+    constexpr int BQ = bw::BQ, BK = bw::BK, STAGES = bw::STAGES, BOX = wg::BOX;
+    using L = bw::Smem<D>;
+    extern __shared__ unsigned char raw[];
+    const Ring sm = carve<D>(raw);
+
+    const int bh = blockIdx.x, b = bh / Hq, h = bh % Hq, hk = h / (Hq / Hkv);
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;    // the longest walks first
+    // the forward's walk (kernels/flash_attention.py::tile_plan)
+    int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+    k_lo = (k_lo / BK) * BK;
+    const int k_hi = causal ? min(Sk, q0 + BQ) : Sk;
+    const int tiles = k_hi > k_lo ? (k_hi - k_lo + BK - 1) / BK : 0;
+
+    if (threadIdx.x >= 128) {             // the producer warp: Q and dO, then
+        if (threadIdx.x == 128 && tiles > 0) {   // the K/V tiles twice
+            asm volatile("prefetch.tensormap [%0];\n"
+                         :: "l"(reinterpret_cast<uint64_t>(&tk)) : "memory");
+            asm volatile("prefetch.tensormap [%0];\n"
+                         :: "l"(reinterpret_cast<uint64_t>(&tv)) : "memory");
+            mbar_expect_tx(sm.fixed_bar, L::FIXED);
+            for (int x = 0; x < D / 64; ++x) {
+                tma_rows(sm.fixed + x * BOX, &tq, pos.q, 64 * x, h, q0, b, sm.fixed_bar);
+                tma_rows(sm.fixed + L::TILE + x * BOX, &tdo, pos.o, 64 * x, h, q0, b,
+                         sm.fixed_bar);
+            }
+            for (int n = 0; n < 2 * tiles; ++n) {
+                const int s = n % STAGES, k0 = k_lo + (n % tiles) * BK;
+                if (n >= STAGES) mbar_wait(&sm.empty[s], ((n / STAGES) - 1) & 1);
+                unsigned char* st = sm.ring + s * L::STAGE;
+                mbar_expect_tx(&sm.full[s], L::STAGE);   // zero-filled bytes count too
+                for (int x = 0; x < D / 64; ++x) {
+                    tma_rows(st + x * BOX, &tk, pos.k, 64 * x, hk, k0, b, &sm.full[s]);
+                    tma_rows(st + L::TILE + x * BOX, &tv, pos.v, 64 * x, hk, k0, b,
+                             &sm.full[s]);
+                }
+            }
+        }
+        return;
+    }
+
+    // the consumer warpgroup: thread (warp, g, tig) holds rows r0 and r0 + 8
+    const int lt = threadIdx.x, g = (lt & 31) >> 2, tig = lt & 3;
+    const int r0 = q0 + (lt / 32) * 16 + g;
+    const uint32_t qs = smem_u32(sm.fixed), os = qs + L::TILE, rs = smem_u32(sm.ring);
+    auto needs_mask = [&](int k0) {
+        return k0 + BK > Sk || (causal && k0 + BK - 1 > q0) ||
+               (window > 0 && k0 < q0 + BQ - window);
+    };
+    float sc[32], dp[32], acc[D / 2];
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, pd[2] = {0.f, 0.f}, alpha[2];
+    uint32_t hi[4][4], lo[4][4];
+    if (tiles > 0) mbar_wait(sm.fixed_bar, 0);
+
+    // pass 1: m, l and rowsum(P dP) of each row, online over the key tiles
+    for (int j = 0; j < tiles; ++j) {
+        const int s = j % STAGES, k0 = k_lo + j * BK;
+        mbar_wait(&sm.full[s], (j / STAGES) & 1);
+        qk_issue<D>(sc, qs, rs + s * L::STAGE);
+        qk_issue<D>(dp, os, rs + s * L::STAGE + L::TILE);
+        wgmma_wait<0>();
+        fence_operands(sc);
+        fence_operands(dp);
+        if ((lt & 31) == 0) mbar_arrive(&sm.empty[s]);
+        online_softmax(sc, m, l, alpha, needs_mask(k0), r0, k0 + 2 * tig, Sk, causal, window,
+                       sl2);
+        float t[2] = {0.f, 0.f};
+#pragma unroll
+        for (int x = 0; x < 32; ++x) t[(x >> 1) & 1] = fmaf(sc[x], dp[x], t[(x >> 1) & 1]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) pd[r] = pd[r] * alpha[r] + t[r];
+    }
+    // each row's L2 = L log2(e) and Dd = rowsum(P dP), from its 4 threads;
+    // rows past S (the workspace's padding) read as no row: L2 = +inf, Dd = 0
+    float L2[2], Dd[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        pd[r] += __shfl_xor_sync(0xffffffffu, pd[r], 1);
+        pd[r] += __shfl_xor_sync(0xffffffffu, pd[r], 2);
+        const int qi = r0 + 8 * r;
+        L2[r] = l[r] > 0.f && qi < S ? m[r] * sl2 + log2f(l[r]) : POS_INF;
+        Dd[r] = l[r] > 0.f && qi < S ? pd[r] / l[r] : 0.f;
+        if (tig == 0) {
+            const long long row = static_cast<long long>(bh) * Sp + qi;
+            lse[row] = L2[r];
+            dd[row] = Dd[r];
+        }
+    }
+
+    // pass 2: dQ = sum over the key tiles of dS K, in tile order; the next
+    // tile's S and dP issued with this tile's dS K, so the tensor cores run
+    // them back to back, and both waited for before dS is formed (a read of
+    // S while dS K is in flight makes ptxas serialise every wgmma, C7514)
+    if (tiles > 0) {
+        const int s = tiles % STAGES;
+        mbar_wait(&sm.full[s], (tiles / STAGES) & 1);
+        qk_issue<D>(sc, qs, rs + s * L::STAGE);
+        qk_issue<D>(dp, os, rs + s * L::STAGE + L::TILE);
+        wgmma_wait<0>();
+        fence_operands(sc);
+        fence_operands(dp);
+        ds_rows(sc, dp, L2, Dd, needs_mask(k_lo), r0, k_lo + 2 * tig, Sk, causal, window, sl2);
+        split_p(sc, hi, lo);
+    }
+    for (int j = 0; j < tiles; ++j) {
+        const int n = tiles + j, s = n % STAGES;
+        const bool next = j + 1 < tiles;
+        if (next) {
+            const int sn = (n + 1) % STAGES;
+            mbar_wait(&sm.full[sn], ((n + 1) / STAGES) & 1);
+            qk_issue<D>(sc, qs, rs + sn * L::STAGE);
+            qk_issue<D>(dp, os, rs + sn * L::STAGE + L::TILE);
+        }
+        pv_issue<D>(acc, hi, lo, rs + s * L::STAGE, j == 0);     // K read MN-major
+        wgmma_wait<0>();                  // this tile's dS K is done: free its stage
+        fence_operands(sc);
+        fence_operands(dp);
+        fence_operands(acc);
+        fence_operands(hi);
+        fence_operands(lo);
+        if ((lt & 31) == 0) mbar_arrive(&sm.empty[s]);
+        if (next) {
+            const int k0 = k_lo + (j + 1) * BK;
+            ds_rows(sc, dp, L2, Dd, needs_mask(k0), r0, k0 + 2 * tig, Sk, causal, window, sl2);
+            split_p(sc, hi, lo);
+        }
+    }
+    store_rows<D>(dq + b * dq_sb + h * dq_sh, dq_ss, acc, r0, S, tig, scale, tiles > 0);
+}
+
+template <int D>
+__global__ void __launch_bounds__(bw::THREADS, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo, bf16* __restrict__ dk,
+                           long long dk_sb, long long dk_sh, long long dk_ss,
+                           bf16* __restrict__ dv, long long dv_sb, long long dv_sh,
+                           long long dv_ss, const float* __restrict__ lse,
+                           const float* __restrict__ dd, int Sp, int Hq, int Hkv, int S, int Sk,
+                           int causal, int window, float sl2, float scale, const MapPos pos) {
+    constexpr int BQ = bw::BQ, BK = bw::BK, STAGES = bw::STAGES, BOX = wg::BOX;
+    using L = bw::Smem<D>;
+    extern __shared__ unsigned char raw[];
+    const Ring sm = carve<D>(raw);
+
+    const int bh = blockIdx.x, b = bh / Hkv, hk = bh % Hkv, G = Hq / Hkv;
+    const int k0 = blockIdx.y * BK;      // causal: the first keys, the heaviest, first
+    // the q tiles that see a key of this tile, from the diagonal (causal) to
+    // the window's far edge (kernels/flash_attention.py::bwd_q_plan), for
+    // each of the G query heads in turn
+    const int q_lo = causal ? (k0 / BQ) * BQ : 0;
+    const int q_hi = window > 0 ? min(S, k0 + BK - 1 + window) : S;
+    const int per = q_hi > q_lo ? (q_hi - q_lo + BQ - 1) / BQ : 0;
+    const int tiles = G * per;
+
+    if (threadIdx.x >= 128) {             // the producer warp: K and V, then
+        if (threadIdx.x == 128 && tiles > 0) {   // each q tile's Q, dO, L2, Dd
+            asm volatile("prefetch.tensormap [%0];\n"
+                         :: "l"(reinterpret_cast<uint64_t>(&tq)) : "memory");
+            asm volatile("prefetch.tensormap [%0];\n"
+                         :: "l"(reinterpret_cast<uint64_t>(&tdo)) : "memory");
+            mbar_expect_tx(sm.fixed_bar, L::FIXED);
+            for (int x = 0; x < D / 64; ++x) {
+                tma_rows(sm.fixed + x * BOX, &tk, pos.k, 64 * x, hk, k0, b, sm.fixed_bar);
+                tma_rows(sm.fixed + L::TILE + x * BOX, &tv, pos.v, 64 * x, hk, k0, b,
+                         sm.fixed_bar);
+            }
+            for (int n = 0; n < tiles; ++n) {
+                const int s = n % STAGES, h = hk * G + n / per, q0 = q_lo + (n % per) * BQ;
+                if (n >= STAGES) mbar_wait(&sm.empty[s], ((n / STAGES) - 1) & 1);
+                unsigned char* st = sm.ring + s * L::STAGE;
+                float* rows = sm.rows + s * 2 * BQ;
+                mbar_expect_tx(&sm.full[s], L::STAGE + L::ROWS);
+                for (int x = 0; x < D / 64; ++x) {
+                    tma_rows(st + x * BOX, &tq, pos.q, 64 * x, h, q0, b, &sm.full[s]);
+                    tma_rows(st + L::TILE + x * BOX, &tdo, pos.o, 64 * x, h, q0, b,
+                             &sm.full[s]);
+                }
+                const long long row = static_cast<long long>(b * Hq + h) * Sp + q0;
+                bulk_load(rows, lse + row, BQ * 4, &sm.full[s]);
+                bulk_load(rows + BQ, dd + row, BQ * 4, &sm.full[s]);
+            }
+        }
+        return;
+    }
+
+    // the consumer warpgroup: thread (warp, g, tig) holds keys j0 and j0 + 8
+    const int lt = threadIdx.x, g = (lt & 31) >> 2, tig = lt & 3;
+    const int j0 = k0 + (lt / 32) * 16 + g;
+    const uint32_t ks = smem_u32(sm.fixed), vs = ks + L::TILE, rs = smem_u32(sm.ring);
+    float st[32], dpt[32], gk[D / 2], gv[D / 2];
+    uint32_t hp[4][4], lp[4][4], hs[4][4], ls[4][4];
+    if (tiles > 0) mbar_wait(sm.fixed_bar, 0);
+    for (int n = 0; n < tiles; ++n) {
+        const int s = n % STAGES, q0 = q_lo + (n % per) * BQ;
+        mbar_wait(&sm.full[s], (n / STAGES) & 1);
+        const uint32_t qs = rs + s * L::STAGE, os = qs + L::TILE;
+        qk_issue<D>(st, ks, qs);          // S^T = K Q^T
+        qk_issue<D>(dpt, vs, os);         // dP^T = V dO^T
+        wgmma_wait<0>();
+        fence_operands(st);
+        fence_operands(dpt);
+        if (q0 + BQ > S || k0 + BK > Sk || (causal && k0 + BK - 1 > q0) ||
+            (window > 0 && k0 < q0 + BQ - window))
+            mask_pairs_t(st, j0, q0 + 2 * tig, S, Sk, causal, window);
+        // P^T and dS^T: column 8 i + 2 tig + e of the fragment is q row q0 + it
+        const float* Ls = sm.rows + s * 2 * BQ;
+        const float* Ds = Ls + BQ;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            const float2 l2 = *reinterpret_cast<const float2*>(Ls + 8 * i + 2 * tig);
+            const float2 d2 = *reinterpret_cast<const float2*>(Ds + 8 * i + 2 * tig);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int x = 4 * i + e;
+                const float p = ex2(fmaf(st[x], sl2, -((e & 1) ? l2.y : l2.x)));
+                dpt[x] = p * (dpt[x] - ((e & 1) ? d2.y : d2.x));
+                st[x] = p;
+            }
+        }
+        split_p(st, hp, lp);
+        split_p(dpt, hs, ls);
+        pv_issue<D>(gv, hp, lp, os, n == 0);     // dV += P^T dO, dO read MN-major
+        pv_issue<D>(gk, hs, ls, qs, n == 0);     // dK += dS^T Q, Q read MN-major
+        wgmma_wait<0>();                  // both done: free the stage
+        fence_operands(gv);
+        fence_operands(gk);
+        fence_operands(hp);
+        fence_operands(lp);
+        fence_operands(hs);
+        fence_operands(ls);
+        if ((lt & 31) == 0) mbar_arrive(&sm.empty[s]);
+    }
+    store_rows<D>(dk + b * dk_sb + hk * dk_sh, dk_ss, gk, j0, Sk, tig, scale, tiles > 0);
+    store_rows<D>(dv + b * dv_sb + hk * dv_sh, dv_ss, gv, j0, Sk, tig, 1.f, tiles > 0);
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                 void* dk, void* dv, float* lse, float* dd, int B, int Hq, int Hkv, int S,
+                 int Sk, int causal, int window, const Strides& st, cudaStream_t s) {
+    static bool done_dq[64] = {}, done_dkv[64] = {};
+    alignas(64) CUtensorMap tq, tk, tv, tdo;
+    MapPos pos;
+    pos.q = encode_bhsd(&tq, q, B, Hq, S, D, st.q[0], st.q[1], st.q[2], bw::BQ);
+    pos.k = encode_bhsd(&tk, k, B, Hkv, Sk, D, st.k[0], st.k[1], st.k[2], bw::BK);
+    pos.v = encode_bhsd(&tv, v, B, Hkv, Sk, D, st.v[0], st.v[1], st.v[2], bw::BK);
+    pos.o = encode_bhsd(&tdo, dout, B, Hq, S, D, st.dout[0], st.dout[1], st.dout[2], bw::BQ);
+    if (pos.q < 0 || pos.k < 0 || pos.v < 0 || pos.o < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    constexpr int bytes = bw::Smem<D>::BYTES;
+    if (!allow_smem(reinterpret_cast<const void*>(flash_bwd_dq_wgmma_kernel<D>), bytes,
+                    done_dq) ||
+        !allow_smem(reinterpret_cast<const void*>(flash_bwd_dkv_wgmma_kernel<D>), bytes,
+                    done_dkv))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int Sp = (S + bw::BQ - 1) / bw::BQ * bw::BQ;
+    const float sl2 = wg::LOG2E / sqrtf(static_cast<float>(D));
+    const float scale = 1.0f / sqrtf(static_cast<float>(D));
+    flash_bwd_dq_wgmma_kernel<D><<<dim3(B * Hq, Sp / bw::BQ), bw::THREADS, bytes, s>>>(
+        tq, tk, tv, tdo, static_cast<bf16*>(dq), st.dq[0], st.dq[1], st.dq[2], lse, dd, Sp, Hq,
+        Hkv, S, Sk, causal, window, sl2, scale, pos);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    flash_bwd_dkv_wgmma_kernel<D><<<dim3(B * Hkv, (Sk + bw::BK - 1) / bw::BK), bw::THREADS,
+                                    bytes, s>>>(
+        tq, tk, tv, tdo, static_cast<bf16*>(dk), st.dk[0], st.dk[1], st.dk[2],
+        static_cast<bf16*>(dv), st.dv[0], st.dv[1], st.dv[2], lse, dd, Sp, Hq, Hkv, S, Sk,
+        causal, window, sl2, scale, pos);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dq (B, Hq, S, D), dk and dv (B, Hkv, Sk, D) of the forward on q, k, v for the
-// output's gradient dout; lse and dd are f32 workspaces of B * Hq * S floats
-// (each row's log-sum-exp and rowsum(P dP), written by the first kernel and
-// read by the second).  strides: 21 element strides, (batch, head, row) of
-// q, k, v, dout, dq, dk, dv in turn; every row 16-byte aligned with a
-// contiguous last dim.  dtype 0 = float32, 1 = bfloat16; D in {16, 32, 64,
-// 128}; window 0 = none.  Two launches on `stream`, no synchronisation.
-// Returns the first launch error (0 = success).
+// output's gradient dout; lse and dd are f32 workspaces of each row's
+// log-sum-exp and rowsum(P dP), written by the first kernel and read by the
+// second: B * Hq * S floats for variant 0 (simt; natural log), B * Hq * Sp
+// for variant 1 (wgmma; log2 units, rows padded to Sp = S rounded up to 64).
+// strides: 21 element strides, (batch, head, row) of q, k, v, dout, dq, dk,
+// dv in turn; every row 16-byte aligned with a contiguous last dim.  dtype 0
+// = float32, 1 = bfloat16; variant 0 = simt (D in {16, 32, 64, 128}), 1 =
+// wgmma (bf16, D 64 or 128); window 0 = none.  Two launches on `stream`, no
+// synchronisation.  Returns the first launch error (0 = success).
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* dout, void* dq, void* dk, void* dv,
                                          void* lse, void* dd, int B, int Hq, int Hkv, int S,
                                          int Sk, int D, int causal, int window,
-                                         const long long* strides, int dtype, void* stream) {
+                                         const long long* strides, int dtype, int variant,
+                                         void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (B <= 0 || Hkv <= 0 || Hq % Hkv || S <= 0 || Sk <= 0 || window < 0)
         return static_cast<int>(cudaErrorInvalidValue);
@@ -463,6 +922,17 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
     }
     float* pl = static_cast<float*>(lse);
     float* pd = static_cast<float*>(dd);
+    if (variant == 1) {
+        if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+        switch (D) {
+            case 64: return launch_wgmma<64>(q, k, v, dout, dq, dk, dv, pl, pd, B, Hq, Hkv, S,
+                                             Sk, causal, window, st, s);
+            case 128: return launch_wgmma<128>(q, k, v, dout, dq, dk, dv, pl, pd, B, Hq, Hkv,
+                                               S, Sk, causal, window, st, s);
+            default: return static_cast<int>(cudaErrorInvalidValue);
+        }
+    }
+    if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
     if (dtype == 0)
         return dispatch<float>(q, k, v, dout, dq, dk, dv, pl, pd, B, Hq, Hkv, S, Sk, D, causal,
                                window, st, s);

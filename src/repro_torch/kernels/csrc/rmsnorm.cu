@@ -152,7 +152,40 @@ void launch_rms(const void* x, const void* g, void* y, int R, int D, float eps,
     }
 }
 
-constexpr int BWD_THREADS = 256;
+// ---------------------------------------------------------------------------
+// Backward: dx = r (gy - xh c) and dgamma = sum over rows of dy xh, with r =
+// rsqrt(mean(x^2) + eps), xh = x r, gy = dy gamma, c = mean(gy xh).
+//
+// What it stands for: the TPU kernel has no backward; the reference trains
+// by jax.grad of kops.rmsnorm's jnp path, whose gradient is the formula of
+// kernels/ref.py::rmsnorm_bwd.
+//
+// Bound by bytes on an H100: x and dy read and dx written once (3 R D
+// itemsize bytes; 0.030 ms at the training shape (4096, 4096) bf16) for ~10
+// operations an element.  Two grids: P blocks (rmsnorm.py::bwd_blocks), block
+// p taking rows p, p + P, ..., then one thread a column summing the P
+// dgamma partials in block order, so the bits do not vary between runs (no
+// atomics).
+//
+// * rms_bwd_vec_kernel, rows of whole 16-byte vectors that the registers
+//   hold (BWD_VECS vectors of x and of dy a thread): a thread owns the same
+//   vectors of every row, so it loads their gamma once a block and keeps
+//   their dgamma partial in registers, one f32 a column, written once when
+//   the block's rows are done (P D floats in all).  Each row is read once,
+//   as 16-byte vectors kept in registers across the two row sums and the dx
+//   store, and the next row's loads are issued before this row's sums, so
+//   a block has a row in flight while it reduces the last.
+// * rms_bwd_kernel, the scalar path (a row that is not whole vectors, an
+//   unaligned view, or one wider than the registers hold): element by
+//   element, each row read twice, the block's partial in device memory.
+// ---------------------------------------------------------------------------
+
+constexpr int BWD_THREADS = 256;        // the scalar path's and the dgamma sum's
+constexpr int BWD_VECS = 2;             // 16-byte vectors of x (and of dy) a thread holds
+// the vector path's most threads: 128 registers a thread, so x, dy, the next
+// row's x and dy, gamma and the dgamma partial stay in registers (a bound
+// of 1024 would cap them at 64 and spill); rows of up to 1024 vectors
+constexpr int BWD_VEC_MAX_THREADS = 512;
 
 // Two sums of the block in the fixed order of block_sum, given to every
 // thread; red holds 64 floats.  The caller syncs before a second call.
@@ -175,6 +208,95 @@ __device__ __forceinline__ float2 block_sum2(float a, float b, float* red) {
         sb += red[2 * w + 1];
     }
     return make_float2(sa, sb);
+}
+
+// the thread's vectors t + k nt (k < BWD_VECS, those < nvec) of row `row`
+// of x and dy
+template <typename T>
+__device__ __forceinline__ void load_row(Vec16<T> (&xv)[BWD_VECS], Vec16<T> (&dv)[BWD_VECS],
+                                         const T* x, const T* dy, int64_t row, int D, int t,
+                                         int nt, int nvec) {
+    const Vec16<T>* xr = reinterpret_cast<const Vec16<T>*>(x + row * D);
+    const Vec16<T>* dr = reinterpret_cast<const Vec16<T>*>(dy + row * D);
+#pragma unroll
+    for (int k = 0; k < BWD_VECS; ++k)
+        if (t + k * nt < nvec) {
+            xv[k] = xr[t + k * nt];
+            dv[k] = dr[t + k * nt];
+        }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BWD_VEC_MAX_THREADS)
+rms_bwd_vec_kernel(const T* __restrict__ x, const float* __restrict__ g,
+                   const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ part, int R,
+                   int D, float eps) {
+    constexpr int V = Vec16<T>::N;
+    __shared__ float red[64];
+    const int t = threadIdx.x, nt = blockDim.x, P = gridDim.x;
+    const int nvec = D / V;
+    const float4* g4 = reinterpret_cast<const float4*>(g);
+    // this thread's columns: their gamma, and dgamma's partial over the
+    // block's rows
+    float4 gv[BWD_VECS][V / 4];
+    float acc[BWD_VECS][V];
+#pragma unroll
+    for (int k = 0; k < BWD_VECS; ++k) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) acc[k][j] = 0.f;
+        if (t + k * nt < nvec)
+#pragma unroll
+            for (int q = 0; q < V / 4; ++q) gv[k][q] = __ldg(&g4[(t + k * nt) * (V / 4) + q]);
+    }
+    Vec16<T> xv[BWD_VECS], dv[BWD_VECS];
+    int64_t row = blockIdx.x;
+    if (row < R) load_row(xv, dv, x, dy, row, D, t, nt, nvec);
+    for (; row < R; row += P) {
+        Vec16<T> xn[BWD_VECS], dn[BWD_VECS];
+        if (row + P < R) load_row(xn, dn, x, dy, row + P, D, t, nt, nvec);
+        float ss = 0.f, dot = 0.f;
+#pragma unroll
+        for (int k = 0; k < BWD_VECS; ++k)
+            if (t + k * nt < nvec)
+#pragma unroll
+                for (int j = 0; j < V; ++j) {
+                    const float f = to_f32(xv[k].v[j]);
+                    ss = fmaf(f, f, ss);
+                    dot = fmaf(to_f32(dv[k].v[j]) * lane4(gv[k][j / 4], j % 4), f, dot);
+                }
+        __syncthreads();                  // every thread has read the last row's sums
+        const float2 s = block_sum2(ss, dot, red);
+        const float r = rsqrtf(s.x / static_cast<float>(D) + eps);
+        const float c = r * s.y / static_cast<float>(D);   // mean(gy xh)
+        Vec16<T>* out = reinterpret_cast<Vec16<T>*>(dx + row * D);
+#pragma unroll
+        for (int k = 0; k < BWD_VECS; ++k) {
+            if (t + k * nt >= nvec) continue;
+            Vec16<T> o;
+#pragma unroll
+            for (int j = 0; j < V; ++j) {
+                const float d = to_f32(dv[k].v[j]);
+                const float xh = to_f32(xv[k].v[j]) * r;
+                o.v[j] = from_f32<T>(r * (d * lane4(gv[k][j / 4], j % 4) - xh * c));
+                acc[k][j] = fmaf(d, xh, acc[k][j]);
+            }
+            out[t + k * nt] = o;
+        }
+#pragma unroll
+        for (int k = 0; k < BWD_VECS; ++k) {
+            xv[k] = xn[k];
+            dv[k] = dn[k];
+        }
+    }
+    float4* mine = reinterpret_cast<float4*>(part + static_cast<int64_t>(blockIdx.x) * D);
+#pragma unroll
+    for (int k = 0; k < BWD_VECS; ++k)
+        if (t + k * nt < nvec)
+#pragma unroll
+            for (int q = 0; q < V / 4; ++q)
+                mine[(t + k * nt) * (V / 4) + q] =
+                    make_float4(acc[k][4 * q], acc[k][4 * q + 1], acc[k][4 * q + 2],
+                                acc[k][4 * q + 3]);
 }
 
 template <typename T>
@@ -219,12 +341,33 @@ rms_dgamma_kernel(const float* __restrict__ part, float* __restrict__ dgamma, in
     dgamma[j] = s;
 }
 
+// Threads of the backward's vector path for a row of nvec whole vectors:
+// enough that each holds at most BWD_VECS, a whole number of warps
+int bwd_vec_threads(int nvec) {
+    const int want = (nvec + BWD_VECS - 1) / BWD_VECS;
+    return ((want + 31) / 32) * 32;
+}
+
 template <typename T>
 int launch_rms_bwd(const void* x, const void* g, const void* dy, void* dx, void* dgamma,
-                   void* part, int R, int D, int P, float eps, cudaStream_t s) {
-    rms_bwd_kernel<T><<<P, BWD_THREADS, 0, s>>>(
-        static_cast<const T*>(x), static_cast<const float*>(g), static_cast<const T*>(dy),
-        static_cast<T*>(dx), static_cast<float*>(part), R, D, eps);
+                   void* part, int R, int D, int P, float eps, int vec, cudaStream_t s) {
+    constexpr int V = Vec16<T>::N;
+    const T* px = static_cast<const T*>(x);
+    const T* pdy = static_cast<const T*>(dy);
+    const float* pg = static_cast<const float*>(g);
+    T* pdx = static_cast<T*>(dx);
+    float* pp = static_cast<float*>(part);
+    if (vec) {
+        const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy)
+                               | reinterpret_cast<uintptr_t>(dx) | reinterpret_cast<uintptr_t>(g)
+                               | reinterpret_cast<uintptr_t>(part)) % 16 == 0) && D % V == 0;
+        if (!aligned || bwd_vec_threads(D / V) > BWD_VEC_MAX_THREADS)
+            return static_cast<int>(cudaErrorInvalidValue);
+        rms_bwd_vec_kernel<T><<<P, bwd_vec_threads(D / V), 0, s>>>(px, pg, pdy, pdx, pp, R, D,
+                                                                   eps);
+    } else {
+        rms_bwd_kernel<T><<<P, BWD_THREADS, 0, s>>>(px, pg, pdy, pdx, pp, R, D, eps);
+    }
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     rms_dgamma_kernel<<<(D + BWD_THREADS - 1) / BWD_THREADS, BWD_THREADS, 0, s>>>(
@@ -257,15 +400,19 @@ extern "C" int repro_rmsnorm(const void* x, const void* gamma, void* y, int R, i
 // The backward of repro_rmsnorm for the output's gradient dy (R, D): dx (R, D)
 // in x's dtype (dtype as above) and dgamma (D,) f32, through `part`, a
 // workspace of P * D floats (P, 1 <= P <= R, the blocks of the first grid).
-// Contiguous device tensors; the launches go on `stream` and do not
-// synchronise.  Returns the first launch error (0 = success).
+// vec 1 takes rms_bwd_vec_kernel (refused where the rows are not whole
+// aligned vectors that fit), 0 the scalar rms_bwd_kernel.  Contiguous device
+// tensors; the launches go on `stream` and do not synchronise.  Returns the
+// first launch error (0 = success).
 extern "C" int repro_rmsnorm_bwd(const void* x, const void* gamma, const void* dy, void* dx,
                                  void* dgamma, void* part, int R, int D, int P, float eps,
-                                 int dtype, void* stream) {
+                                 int dtype, int vec, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (R <= 0 || D <= 0 || P < 1 || P > R) return static_cast<int>(cudaErrorInvalidValue);
-    if (dtype == 0) return launch_rms_bwd<float>(x, gamma, dy, dx, dgamma, part, R, D, P, eps, s);
+    if (dtype == 0)
+        return launch_rms_bwd<float>(x, gamma, dy, dx, dgamma, part, R, D, P, eps, vec, s);
     if (dtype == 1)
-        return launch_rms_bwd<__nv_bfloat16>(x, gamma, dy, dx, dgamma, part, R, D, P, eps, s);
+        return launch_rms_bwd<__nv_bfloat16>(x, gamma, dy, dx, dgamma, part, R, D, P, eps, vec,
+                                             s);
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -14,10 +14,14 @@ Where autograd records the call, the wrapper is :class:`FlashAttention`,
 whose backward is ``csrc/flash_attention_bwd.cu`` (:func:`backward`: dq,
 dk, dv from q, k, v and the output's gradient, each in the (B, S, H, D)
 layout of the model's activations, read back as (B, H, S, D) views; one
-call, two grids; counted in ``LAUNCHES["flash_attention_bwd"]``).  It
-recomputes each row's softmax statistics, so the forward keeps nothing but
-q, k and v.  The TPU kernel has no VJP: the reference trains through jnp
-attention under ``jax.grad``.
+call, two grids -- dq, then dk and dv; counted in
+``LAUNCHES["flash_attention_bwd"]``).  It recomputes each row's softmax
+statistics, so the forward keeps nothing but q, k and v.  The TPU kernel
+has no VJP: the reference trains through jnp attention under
+``jax.grad``.  ``bwd_variant`` picks the backward's kernels by the
+forward's rule: ``"wgmma"`` (every product on the tensor cores, P and dS
+as two bf16 halves; the dq grid walks ``tile_plan``'s key tiles, the dkv
+grid ``bwd_q_plan``'s q tiles) or ``"simt"`` (CUDA-core f32).
 
 Which of the two kernels a call takes is ``variant(S, Sk, D, dtype,
 aligned)``, a pure function of the shapes and the dtype:
@@ -56,6 +60,13 @@ def variant(S: int, Sk: int, D: int, dtype: torch.dtype, aligned: bool = True) -
     return "wgmma"
 
 
+def bwd_variant(S: int, Sk: int, D: int, dtype: torch.dtype,
+                aligned: bool = True) -> str:
+    """The backward's kernels for a call: ``"wgmma"`` or ``"simt"``, by the
+    forward's rule (bf16, D in ``WGMMA_HEAD_DIMS``, Sk > 0, aligned)."""
+    return variant(S, Sk, D, dtype, aligned)
+
+
 def tile_plan(q0: int, Sk: int, causal: bool, window: int | None,
               bq: int = WGMMA_BQ, bk: int = WGMMA_BK) -> list[tuple[int, bool]]:
     """The key tiles the block of q rows ``q0 .. q0 + bq - 1`` walks, as
@@ -69,6 +80,23 @@ def tile_plan(q0: int, Sk: int, causal: bool, window: int | None,
     return [(k0, k0 + bk > Sk or (causal and k0 + bk - 1 > q0)
              or bool(window and k0 < q0 + bq - window))
             for k0 in range(k_lo, k_hi, bk)]
+
+
+def bwd_q_plan(k0: int, S: int, causal: bool, window: int | None, *,
+               Sk: int | None = None, bq: int = WGMMA_BQ, bk: int = WGMMA_BK
+               ) -> list[tuple[int, bool]]:
+    """The q tiles the backward's dkv block of keys ``k0 .. k0 + bk - 1``
+    walks for each query head, as ``(q0, masked)``: from the diagonal
+    (causal), or row 0, to the last row some key of the tile is in the
+    window of; ``masked`` where the tile holds a (q row, key) pair the masks
+    hide (the diagonal, S's or Sk's edge -- Sk defaults to S -- or the
+    window's edge), the only tiles the kernel masks."""
+    Sk = S if Sk is None else Sk
+    q_lo = k0 // bq * bq if causal else 0
+    q_hi = min(S, k0 + bk - 1 + window) if window else S
+    return [(q0, q0 + bq > S or k0 + bk > Sk or (causal and k0 + bk - 1 > q0)
+             or bool(window and k0 < q0 + bq - window))
+            for q0 in range(q_lo, q_hi, bq)]
 
 
 def _fn():
@@ -87,7 +115,7 @@ def _bwd_fn():
     if _BWD is None:
         fn = _build.library("flash_attention_bwd").repro_flash_attention_bwd
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _BWD = fn
     return _BWD
@@ -195,19 +223,27 @@ def backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty((B, Sk, Hkv, D), **opts).transpose(1, 2)
     if S == 0 or Sk == 0 or B == 0:     # nothing seen: no launch
         return dq.zero_(), dk.zero_(), dv.zero_()
-    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    kind = bwd_variant(S, Sk, D, q.dtype)   # aligned: checked above
+    # each row's L and Dd, from the dq grid to the dkv grid; the wgmma
+    # kernels' rows padded to whole 64-row tiles (one bulk copy a tile)
+    rows = -(-S // WGMMA_BQ) * WGMMA_BQ if kind == "wgmma" else S
+    lse = torch.empty((B, Hq, rows), dtype=torch.float32, device=q.device)
     dd = torch.empty_like(lse)
     ts = (q, k, v, do, dq, dk, dv)
     strides = (ctypes.c_longlong * 21)(*[s for t in ts for s in t.stride()[:3]])
+    args = (*[t.data_ptr() for t in ts], lse.data_ptr(), dd.data_ptr(), B, Hq,
+            Hkv, S, Sk, D, int(causal), window or 0, ctypes.addressof(strides),
+            _DTYPES[q.dtype], VARIANTS[kind])
+    # the forward's lean path: a device guard only off the current device
     idx = q.device.index
-    with torch.cuda.device(idx):
-        err = _bwd_fn()(*[t.data_ptr() for t in ts], lse.data_ptr(),
-                        dd.data_ptr(), B, Hq, Hkv, S, Sk, D, int(causal),
-                        window or 0, ctypes.addressof(strides),
-                        _DTYPES[q.dtype], torch._C._cuda_getCurrentRawStream(idx))
+    if idx == torch.cuda.current_device():
+        err = _bwd_fn()(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            err = _bwd_fn()(*args, torch._C._cuda_getCurrentRawStream(idx))
     if err != 0:                        # the launch was refused; it never ran
-        raise RuntimeError(f"flash_attention backward kernel: CUDA error {err} "
-                           f"at launch")
+        raise RuntimeError(f"flash_attention backward kernel ({kind}): CUDA "
+                           f"error {err} at launch")
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv
 

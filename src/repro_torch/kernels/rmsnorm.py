@@ -13,13 +13,15 @@ object), a device guard only off the current device.  At decode the call
 is a few microseconds of device time, so the host's cost is most of it.
 
 Where autograd records the call, the wrapper is :class:`RMSNorm`, whose
-backward is the kernel ``rms_bwd_kernel`` (``csrc/rmsnorm.cu``): dx in x's
-dtype and dgamma in f32, from x, gamma and dy (nothing but x and gamma is
-kept from the forward).  The TPU kernel has no backward: the reference
-trains by ``jax.grad`` of its jnp path, whose gradient is
-``ref.rmsnorm_bwd``'s formula.  dgamma sums over rows in a fixed order
-(``bwd_blocks`` partials, then one sum of them in block order), so the
-bits do not vary between runs.
+backward is the kernel ``rms_bwd_vec_kernel`` (``csrc/rmsnorm.cu``; rows
+that are not whole 16-byte vectors take the scalar ``rms_bwd_kernel``):
+dx in x's dtype and dgamma in f32, from x, gamma and dy (nothing but x and
+gamma is kept from the forward).  Each row is read once into registers,
+and a block keeps its columns' gamma and dgamma partial in registers.  The
+TPU kernel has no backward: the reference trains by ``jax.grad`` of its
+jnp path, whose gradient is ``ref.rmsnorm_bwd``'s formula.  dgamma sums
+over rows in a fixed order (``bwd_blocks`` partials, then one sum of them
+in block order), so the bits do not vary between runs.
 """
 from __future__ import annotations
 
@@ -34,8 +36,12 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FN = []
 _BWD = []
 #: the backward's blocks: block p takes rows p, p + P, ... and keeps their
-#: dgamma partial (f32, D columns); two an H100 SM
+#: dgamma partial (f32, D columns) in registers; two an H100 SM
 BWD_BLOCKS = 264
+#: the vector path's 16-byte vectors of x (and of dy) a thread, and its most
+#: threads a block (csrc ``BWD_VECS``, ``BWD_VEC_MAX_THREADS``)
+BWD_VECS, BWD_VEC_MAX_THREADS = 2, 512
+_PATHS = {"scalar": 0, "vec": 1}
 
 
 def _fn():
@@ -52,10 +58,21 @@ def _bwd_fn():
     if not _BWD:
         fn = _build.library("rmsnorm").repro_rmsnorm_bwd
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _BWD.append(fn)
     return _BWD[0]
+
+
+def bwd_path(D: int, dtype: torch.dtype, aligned: bool = True) -> str:
+    """The backward's kernel for rows of D: ``"vec"`` (whole 16-byte
+    vectors, at most ``BWD_VECS`` of x and of dy a thread over at most
+    ``BWD_VEC_MAX_THREADS``, every operand 16-byte aligned) or
+    ``"scalar"``."""
+    per = 16 // (2 if dtype == torch.bfloat16 else 4)      # elements a vector
+    nvec = D // per
+    fits = -(-nvec // BWD_VECS) <= BWD_VEC_MAX_THREADS
+    return "vec" if aligned and D % per == 0 and fits else "scalar"
 
 
 def bwd_blocks(R: int) -> int:
@@ -122,18 +139,25 @@ def backward(dy: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
                          f"device, got {dy.device}, {x.device}, {gamma.device}")
     R, D = x.shape
     dx = torch.empty_like(x)
-    dgamma = torch.zeros(D, dtype=torch.float32, device=x.device)
     if R == 0 or D == 0:                # nothing to write: no launch
-        return dx, dgamma
+        return dx, torch.zeros(D, dtype=torch.float32, device=x.device)
+    dgamma = torch.empty(D, dtype=torch.float32, device=x.device)
     P = bwd_blocks(R)
     part = torch.empty((P, D), dtype=torch.float32, device=x.device)
     idx = x.get_device()
+    aligned = not (x.data_ptr() | dy.data_ptr() | gamma.data_ptr()) % 16
+    path = bwd_path(D, x.dtype, aligned)
     args = (x.data_ptr(), gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-            dgamma.data_ptr(), part.data_ptr(), R, D, P, eps, _DTYPES[x.dtype])
-    with torch.cuda.device(idx):
+            dgamma.data_ptr(), part.data_ptr(), R, D, P, eps, _DTYPES[x.dtype],
+            _PATHS[path])
+    if idx == torch._C._cuda_getDevice():
         err = _bwd_fn()(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            err = _bwd_fn()(*args, torch._C._cuda_getCurrentRawStream(idx))
     if err != 0:                        # the launch was refused; it never ran
-        raise RuntimeError(f"rmsnorm backward kernel: CUDA error {err} at launch")
+        raise RuntimeError(f"rmsnorm backward kernel ({path}): CUDA error {err} "
+                           f"at launch")
     LAUNCHES["rmsnorm_bwd"] += 1
     return dx, dgamma
 

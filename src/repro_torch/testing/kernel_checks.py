@@ -627,6 +627,9 @@ MATMUL_BWD_RAGGED = ((333, 4096, 1024), (130, 4104, 1032), (72, 4100, 1030),
 #: flash backward (B, S, window) at the llama3-8b heads, causal: the
 #: training shape, a ragged prompt, windows
 FLASH_BWD_CASES = ((4, 1024, None), (1, 223, None), (1, 445, 100), (2, 256, 64))
+#: flash backward at the training length with the wgmma kernels' other head
+#: dim (B, S, D), causal, the llama3-8b heads
+FLASH_BWD_D64 = (4, 1024, 64)
 
 
 def _pair(got, again, want, tol) -> dict:
@@ -691,8 +694,10 @@ def check_rmsnorm_bwd(R, D, dtype, device="cuda") -> dict:
     again = _rms.backward(dy, x, gamma, EPS)
     want = ref.rmsnorm_bwd(dy, x, gamma, EPS)
     tols = (RMSNORM_BWD_TOL["dx"][dtype], RMSNORM_BWD_TOL["dgamma"])
-    return worst({name: _pair(g, a, w, t) for name, g, a, w, t in
-                  zip(("dx", "dgamma"), got, again, want, tols)})
+    res = worst({name: _pair(g, a, w, t) for name, g, a, w, t in
+                 zip(("dx", "dgamma"), got, again, want, tols)})
+    res["path"] = _rms.bwd_path(D, dtype)
+    return res
 
 
 def attention_bwd_inputs(B, S, dtype, Hq=HQ, Hkv=HKV, D=HEAD_DIM, device="cuda",
@@ -707,10 +712,13 @@ def attention_bwd_inputs(B, S, dtype, Hq=HQ, Hkv=HKV, D=HEAD_DIM, device="cuda",
 
 def check_flash_bwd(B, S, dtype, window=None, causal=True, Hq=HQ, Hkv=HKV,
                     D=HEAD_DIM, device="cuda") -> dict:
-    """dq, dk, dv against ``ref.attention_bwd``, twice."""
+    """dq, dk, dv against ``ref.attention_bwd``, twice; ``variant`` names
+    the kernels taken."""
     q, k, v, do = attention_bwd_inputs(B, S, dtype, Hq, Hkv, D, device)
     run = lambda: _fa.backward(q, k, v, do, causal=causal, window=window)
     got, again = run(), run()
     want = ref.attention_bwd(q, k, v, do, causal=causal, window=window)
-    return worst({name: _pair(g, a, w, ATTN_BWD_TOL[dtype]) for name, g, a, w in
-                  zip(("dq", "dk", "dv"), got, again, want)})
+    res = worst({name: _pair(g, a, w, ATTN_BWD_TOL[dtype]) for name, g, a, w in
+                 zip(("dq", "dk", "dv"), got, again, want)})
+    res["variant"] = _fa.bwd_variant(S, S, D, dtype)
+    return res

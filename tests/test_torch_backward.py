@@ -117,6 +117,19 @@ def test_rmsnorm_backward_blocks(R, want):
     assert rmsnorm.bwd_blocks(R) == want
 
 
+@pytest.mark.parametrize("D,dtype,aligned,want", [
+    (4096, torch.bfloat16, True, "vec"),       # the training rows: 2 vectors a thread
+    (4096, torch.float32, True, "vec"),
+    (8192, torch.bfloat16, True, "vec"),       # 512 threads, the most
+    (8192, torch.float32, True, "scalar"),     # 1024 threads: wider than it holds
+    (4099, torch.bfloat16, True, "scalar"),    # not whole vectors
+    (4096, torch.bfloat16, False, "scalar"),   # an unaligned view
+    (8, torch.bfloat16, True, "vec"),
+])
+def test_rmsnorm_backward_path(D, dtype, aligned, want):
+    assert rmsnorm.bwd_path(D, dtype, aligned) == want
+
+
 @pytest.mark.parametrize("call,err,match", [
     (lambda: matmul.grad_a(torch.ones(4, 8), torch.ones(6, 8)), ValueError, "CUDA"),
     (lambda: matmul.grad_b(torch.ones(4, 8), torch.ones(4, 6)), ValueError, "CUDA"),

@@ -1,0 +1,264 @@
+"""The CPU side of the flash-attention backward's kernels
+(``csrc/flash_attention_bwd.cu``): which kernels a call takes
+(``bwd_variant``), the q tiles the dkv kernel walks (``bwd_q_plan``), and a
+torch emulation of the wgmma kernels' arithmetic held to the plain gradient
+``ref.attention_bwd``.
+
+The emulation follows the kernels step by step: bf16 q, k, v and do; each
+product of bf16 operands summed in f32; the dq kernel's first pass (online
+max, sum and rowsum(P dP) over the key tiles ``tile_plan`` gives, in
+order, with 2^x and the log2-scaled scores), its second (P = 2^(s sl2 -
+L2), dS = P (dP - Dd), dQ += dS K); the dkv kernel's walk over the G query
+heads and ``bwd_q_plan``'s q tiles (dV += P^T dO, dK += dS^T Q); every sum
+over tiles in the kernels' order.  P and dS enter their products as two
+bf16 halves, hi + lo, as the kernels' ``split_p`` gives them.  Tolerance:
+``kernel_checks.ATTN_BWD_TOL`` for bf16 (rtol 8e-3, atol 1e-4), the
+card's check.  The split reads 0.90-0.93 of that limit at ``EMU_CASES``;
+with P and dS rounded once to bf16 instead, the same comparison reads
+28-67x it (the last test holds one case of each head dim).
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ref
+from repro_torch.testing import kernel_checks as kc
+
+BQ, BK = fa.WGMMA_BQ, fa.WGMMA_BK
+TOL = kc.ATTN_BWD_TOL[torch.bfloat16]
+NEG = -1e30                             # the kernels' NEG_INF
+
+
+# -- which kernels ----------------------------------------------------------------
+
+@pytest.mark.parametrize("S,Sk,D,dtype,aligned,want", [
+    (1024, 1024, 128, torch.bfloat16, True, "wgmma"),    # the training shape
+    (1024, 1024, 64, torch.bfloat16, True, "wgmma"),
+    (70, 70, 128, torch.bfloat16, True, "wgmma"),
+    (1, 1, 64, torch.bfloat16, True, "wgmma"),
+    (1024, 1024, 128, torch.float32, True, "simt"),
+    (70, 70, 32, torch.bfloat16, True, "simt"),
+    (70, 70, 16, torch.bfloat16, True, "simt"),
+    (223, 223, 128, torch.bfloat16, False, "simt"),
+    (70, 0, 128, torch.bfloat16, True, "simt"),
+])
+def test_bwd_variant_by_dtype_head_dim_and_alignment(S, Sk, D, dtype, aligned, want):
+    assert fa.bwd_variant(S, Sk, D, dtype, aligned) == want
+
+
+def test_every_bf16_backward_check_case_takes_the_wgmma_kernels():
+    """Phase 3c's bf16 cases at the llama3-8b heads, and its D = 64 case at
+    the training length, go through wgmma; their f32 twins through simt."""
+    for _, S, _ in kc.FLASH_BWD_CASES:
+        assert fa.bwd_variant(S, S, kc.HEAD_DIM, torch.bfloat16) == "wgmma"
+        assert fa.bwd_variant(S, S, kc.HEAD_DIM, torch.float32) == "simt"
+    _, S, D = kc.FLASH_BWD_D64
+    assert fa.bwd_variant(S, S, D, torch.bfloat16) == "wgmma"
+
+
+# -- the dkv kernel's walk --------------------------------------------------------
+
+def _mask(S, Sk, causal, window):
+    """ref's mask: (S, Sk), True where query i sees key j."""
+    i = torch.arange(S)[:, None]
+    j = torch.arange(Sk)[None]
+    vis = torch.ones((S, Sk), dtype=torch.bool)
+    if causal:
+        vis &= i >= j
+    if window:
+        vis &= i - j < window
+    return vis
+
+
+@pytest.mark.parametrize("window", [None, 1, 9, 37, 64, 100])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 37, 64, 65, 223, 445])
+def test_bwd_q_plan_visits_every_visible_pair_once(S, causal, window):
+    """Over every key tile: the q tiles start on 64-row edges, in order,
+    each once; together they hold every (q row, key) pair ref's mask makes
+    visible; none is one the masks hide entirely; and a tile is masked
+    exactly where it holds a hidden pair (past S or Sk included)."""
+    vis = _mask(S, S, causal, window)
+    seen = torch.zeros_like(vis, dtype=torch.int32)
+    for k0 in range(0, S, BK):
+        plan = fa.bwd_q_plan(k0, S, causal, window)
+        starts = [q0 for q0, _ in plan]
+        assert starts == sorted(set(starts)) and all(q0 % BQ == 0 for q0 in starts)
+        assert all(0 <= q0 < S for q0 in starts)
+        for q0, masked in plan:
+            tile = vis[q0:q0 + BQ, k0:k0 + BK]
+            assert bool(tile.any()), (k0, q0)
+            whole = tile.shape == (BQ, BK) and bool(tile.all())
+            assert masked == (not whole), (k0, q0)
+            seen[q0:q0 + BQ, k0:k0 + BK] += 1
+    assert bool((seen[vis] == 1).all())
+
+
+def test_bwd_q_plan_of_a_223_token_prompt():
+    """Causal: key tile t is seen by q tiles t.. (the diagonal one and the
+    ragged last one masked); a 100-token window stops at the rows the
+    tile's last key can reach; without causality every q tile."""
+    assert fa.bwd_q_plan(0, 223, True, None) == [(0, True), (64, False), (128, False),
+                                                 (192, True)]
+    assert fa.bwd_q_plan(192, 223, True, None) == [(192, True)]
+    assert fa.bwd_q_plan(0, 223, True, 100) == [(0, True), (64, True), (128, True)]
+    assert [q0 for q0, _ in fa.bwd_q_plan(128, 223, False, None)] == [0, 64, 128, 192]
+    # keys of a shorter key sequence: the tile past Sk's edge is masked
+    assert fa.bwd_q_plan(64, 223, True, None, Sk=100) == [(64, True), (128, True),
+                                                          (192, True)]
+
+
+# -- the wgmma kernels' arithmetic ------------------------------------------------
+
+def _split(x: torch.Tensor, rounding: str):
+    """x as the bf16 operands the kernel feeds its product: hi + lo (the
+    kernel's split_p), or one rounding."""
+    hi = x.bfloat16().float()
+    if rounding == "single":
+        return (hi,)
+    return hi, (x - hi).bfloat16().float()
+
+
+def _tile(t: torch.Tensor, r0: int, n: int) -> torch.Tensor:
+    """Rows r0 .. r0 + n - 1 of t (..., rows, D), zeros past its end (TMA's
+    fill)."""
+    out = t.new_zeros((*t.shape[:-2], n, t.shape[-1]))
+    part = t[..., r0:r0 + n, :]
+    out[..., :part.shape[-2], :] = part
+    return out
+
+
+def _visible(r0, rows, c0, cols, S, Sk, causal, window):
+    i = torch.arange(r0, r0 + rows)[:, None]
+    j = torch.arange(c0, c0 + cols)[None]
+    vis = (i < S) & (j < Sk)
+    if causal:
+        vis &= i >= j
+    if window:
+        vis &= i - j < window
+    return vis
+
+
+def emulate_bwd(q, k, v, do, causal, window, rounding="split"):
+    """dq, dk, dv as the wgmma kernels compute them (module docstring)."""
+    B, Hq, S, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    sl2 = math.log2(math.e) / math.sqrt(D)
+    scale = 1.0 / math.sqrt(D)
+    qf, kf, vf, of = (t.float() for t in (q, k, v, do))
+    kq = kf.repeat_interleave(G, dim=1)               # kv head of each q head
+    vq = vf.repeat_interleave(G, dim=1)
+    Sp = -(-S // BQ) * BQ
+    L2 = torch.full((B, Hq, Sp), math.inf)
+    Dd = torch.zeros((B, Hq, Sp))
+    dq = torch.zeros((B, Hq, Sp, D))
+    # the dq kernel: a block a (b, h, q tile)
+    for q0 in range(0, S, BQ):
+        Qt, Ot = _tile(qf, q0, BQ), _tile(of, q0, BQ)
+        plan = fa.tile_plan(q0, Sk, causal, window)
+        m = torch.full((B, Hq, BQ, 1), NEG)
+        l = torch.zeros((B, Hq, BQ, 1))
+        pd = torch.zeros((B, Hq, BQ, 1))
+        tiles = []
+        for k0, masked in plan:                       # pass 1
+            Kt, Vt = _tile(kq, k0, BK), _tile(vq, k0, BK)
+            s = Qt @ Kt.transpose(-1, -2)
+            dp = Ot @ Vt.transpose(-1, -2)
+            if masked:
+                vis = _visible(q0, BQ, k0, BK, 1 << 30, Sk, causal, window)
+                s = torch.where(vis, s, NEG)
+            mx = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp2((m - mx) * sl2)
+            msl = torch.where(mx == NEG, 0.0, mx) * sl2
+            p = torch.exp2(s * sl2 - msl)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            pd = pd * alpha + (p * dp).sum(-1, keepdim=True)
+            m = mx
+            tiles.append((k0, masked, Kt, s, dp))
+        rows = (torch.arange(q0, q0 + BQ) < S)[:, None]
+        ok = (l > 0) & rows
+        L2[:, :, q0:q0 + BQ] = torch.where(ok, m * sl2 + torch.log2(l), math.inf)[..., 0]
+        Dd[:, :, q0:q0 + BQ] = torch.where(ok, pd / torch.where(ok, l, 1.0), 0.0)[..., 0]
+        acc = torch.zeros((B, Hq, BQ, D))
+        for k0, masked, Kt, s, dp in tiles:           # pass 2
+            p = torch.exp2(s * sl2 - L2[:, :, q0:q0 + BQ, None])
+            ds = p * (dp - Dd[:, :, q0:q0 + BQ, None])
+            for part in _split(ds, rounding):
+                acc = acc + part @ Kt
+        dq[:, :, q0:q0 + BQ] = acc * scale
+    # the dkv kernel: a block a (b, kv head, key tile); G heads, then q tiles
+    dk = torch.zeros((B, Hkv, Sk, D))
+    dv = torch.zeros((B, Hkv, Sk, D))
+    for k0 in range(0, Sk, BK):
+        Kt, Vt = _tile(kf, k0, BK), _tile(vf, k0, BK)
+        gk = torch.zeros((B, Hkv, BK, D))
+        gv = torch.zeros((B, Hkv, BK, D))
+        for g in range(G):
+            heads = torch.arange(Hkv) * G + g
+            for q0, masked in fa.bwd_q_plan(k0, S, causal, window, Sk=Sk):
+                Qt = _tile(qf[:, heads], q0, BQ)
+                Ot = _tile(of[:, heads], q0, BQ)
+                st = Kt @ Qt.transpose(-1, -2)
+                dpt = Vt @ Ot.transpose(-1, -2)
+                if masked:
+                    vis = _visible(q0, BQ, k0, BK, S, Sk, causal, window).T
+                    st = torch.where(vis, st, NEG)
+                l2 = L2[:, heads, q0:q0 + BQ][:, :, None]
+                p = torch.exp2(st * sl2 - l2)
+                ds = p * (dpt - Dd[:, heads, q0:q0 + BQ][:, :, None])
+                for part in _split(p, rounding):
+                    gv = gv + part @ Ot
+                for part in _split(ds, rounding):
+                    gk = gk + part @ Qt
+        dk[:, :, k0:k0 + BK] = (gk * scale)[:, :, :Sk - k0]
+        dv[:, :, k0:k0 + BK] = gv[:, :, :Sk - k0]
+    return (dq[:, :, :S].to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
+def _inputs(B, S, D, Hq=4, Hkv=1, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal((B, h, S, D), dtype=np.float32))
+                 .bfloat16() for h in (Hq, Hkv, Hkv, Hq))
+
+
+#: FLASH_BWD_CASES at 4 q heads over 1 kv head (G = 4), the training length
+#: cut to 256
+EMU_CASES = [(1, 256, None), (1, 223, None), (1, 445, 100), (2, 256, 64)]
+
+
+def _reading(got, want) -> float:
+    return max(kc.compare(g, w, TOL)["limit_use"] for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("D", fa.WGMMA_HEAD_DIMS)
+@pytest.mark.parametrize("B,S,window", EMU_CASES)
+def test_wgmma_arithmetic_is_within_the_cards_limit(B, S, window, D):
+    q, k, v, do = _inputs(B, S, D)
+    got = emulate_bwd(q, k, v, do, True, window)
+    want = ref.attention_bwd(q, k, v, do, causal=True, window=window)
+    for g, w in zip(got, want):
+        res = kc.compare(g, w, TOL)
+        assert res["ok"], res
+
+
+def test_wgmma_arithmetic_without_causality():
+    q, k, v, do = _inputs(2, 70, 64, Hq=4, Hkv=2)
+    got = emulate_bwd(q, k, v, do, False, 9)
+    want = ref.attention_bwd(q, k, v, do, causal=False, window=9)
+    assert _reading(got, want) <= 1
+
+
+@pytest.mark.parametrize("D", fa.WGMMA_HEAD_DIMS)
+def test_one_bf16_rounding_of_p_and_ds_is_not_enough(D):
+    """The reason P and dS go in as two halves: rounded once to bf16, the
+    same comparison at the training case's cut (1, 256, causal) reads past
+    its limit, while the split stays inside."""
+    q, k, v, do = _inputs(1, 256, D)
+    want = ref.attention_bwd(q, k, v, do, causal=True)
+    split = _reading(emulate_bwd(q, k, v, do, True, None), want)
+    single = _reading(emulate_bwd(q, k, v, do, True, None, "single"), want)
+    assert split <= 1 < single

@@ -598,11 +598,52 @@ def test_matmul_backward_products_match_plain(cuda, mkn, dtype, which):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("R,D", [(333, kc.D_MODEL), (4, 2 * kc.D_MODEL)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_backward_scalar_path_matches_the_vector_path(cuda, dtype, R, D):
+    """The same rows through the scalar path (an unaligned view of them) and
+    the vector path: both within the plain version's limit; rows of 8192
+    f32 are wider than the vector path holds and take the scalar one."""
+    x, gamma, dy = kc.rmsnorm_bwd_inputs(R, D, dtype, cuda)
+    buf = torch.empty(R * D + 1, dtype=dtype, device=cuda)
+    xu = buf[1:].view(R, D)
+    xu.copy_(x)
+    assert rmsnorm.bwd_path(D, dtype, aligned=False) == "scalar"
+    want = ref.rmsnorm_bwd(dy, x, gamma, kc.EPS)
+    tols = (kc.RMSNORM_BWD_TOL["dx"][dtype], kc.RMSNORM_BWD_TOL["dgamma"])
+    for got in (rmsnorm.backward(dy, x, gamma, kc.EPS), rmsnorm.backward(dy, xu, gamma, kc.EPS)):
+        for g, w, t in zip(got, want, tols):
+            res = kc.compare(g, w, t)
+            assert res["ok"], res
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,S,window", kc.FLASH_BWD_CASES)
 def test_flash_backward_kernel_matches_plain(cuda, B, S, window, dtype):
     res = kc.check_flash_bwd(B, S, dtype, window, device=cuda)
     assert res["ok"], res
+    assert res["variant"] == ("wgmma" if dtype == torch.bfloat16 else "simt")
+
+
+@pytest.mark.gpu
+def test_flash_backward_wgmma_at_the_training_length_d64(cuda):
+    B, S, D = kc.FLASH_BWD_D64
+    res = kc.check_flash_bwd(B, S, torch.bfloat16, None, True, kc.HQ, kc.HKV, D, cuda)
+    assert res["ok"] and res["variant"] == "wgmma", res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", flash_attention.WGMMA_HEAD_DIMS)
+def test_flash_backward_wgmma_reads_any_layout(cuda, D):
+    """(B, H, S, D)-contiguous operands and the model's (B, S, H, D) views
+    give the same bits: the kernels read both through their tensor maps."""
+    q, k, v, do = kc.attention_bwd_inputs(2, 200, torch.bfloat16, 8, 2, D, cuda)
+    views = flash_attention.backward(q, k, v, do, causal=True, window=77)
+    dense = flash_attention.backward(*(t.contiguous() for t in (q, k, v, do)),
+                                     causal=True, window=77)
+    for a, b in zip(views, dense):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
