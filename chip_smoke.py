@@ -13,7 +13,9 @@ Phases, each of which raises on failure (nothing is caught):
      element, at the llama3-8b serving shapes, in bf16 and f32 (the matmul
      at every main-path M, 1 to 512, and at ragged shapes; flash attention
      at every whole-prompt length of the paths, ragged ones, B = 2,
-     windows across tile edges, and every head dim causal and not; paged
+     windows across tile edges, every head dim causal and not, and
+     phi3-mini's heads (32 over 32 of 96) at S = 512, twice for the same
+     bits; paged
      attention at ``PAGED_LENS`` and at ``kernel_checks.PAGED_CASES``
      (split and one-slice plans, slice edges, empty sequences, a 128-row
      chunk on one table, the smoke heads, G = 8), called twice for the same
@@ -24,9 +26,10 @@ Phases, each of which raises on failure (nothing is caught):
      rows, the matmul's dA and dB at each llama3-8b projection over 4096
      tokens and at ragged shapes, flash attention's dq, dk, dv at (4, 32/8
      heads, S = 1024, D = 128) causal, ragged and windowed, at D = 64 and
-     the training length, and at every head dim (``kernel_checks.*_BWD_*``),
-     in bf16 and f32; each line naming the kernels taken (flash attention's
-     ``bwd_variant``: bf16 at these heads must take wgmma, f32 simt;
+     the training length, at every head dim (``kernel_checks.*_BWD_*``),
+     and at phi3-mini's heads (1, 32/32, 1024, 96), in bf16 and f32; each
+     line naming the kernels taken (flash attention's ``bwd_variant``: bf16
+     at the llama3-8b heads must take wgmma, f32 simt, and D = 96 simt;
      rmsnorm's ``bwd_path``);
   3b. the paper's Table I kernels (dotprod, expv, softmax_rows, jacobi2d,
      fconv2d) against their plain versions at the table1-paper and
@@ -71,14 +74,21 @@ Phases, each of which raises on failure (nothing is caught):
      ms, tok/s and peak memory, a profiler trace of one step beside the
      step's bound, the embedding's gradient taken twice for the same bits,
      and one more step split into its gradient and its update;
+  7b. phi3-mini-3.8b at its published width (head dim 96: the simt flash
+     kernels) cut to 2 of its 32 layers (bf16, seeded random weights): a
+     512-token whole-prompt prefill and decode steps through
+     ``ServingEngine``, then one train step at batch 4 x 1024 tokens, with
+     a finite loss and launch counts exactly as counted
+     (``trainer.step_launches`` for the step);
   6. kernel times (CUDA events) beside the plain version, the one PyTorch
      call that computes the same function, and the card's bound (rmsnorm at
      every main-path R in both dtypes, with its device ms a call beside
      F.rms_norm's from one trace and its host cost a call in turns; the matmul
      at every main-path M in both dtypes, and each matmul variant's host
      cost a call at K = N = 64; flash attention at S = 37, 223, 445 and 512
-     with the device's ms a call beside SDPA's from one trace, and each
-     variant's host cost a call; paged attention at the traced batch-8
+     with the device's ms a call beside SDPA's from one trace, phi3-mini's
+     heads at S = 512 the same way, and each variant's host cost a call;
+     paged attention at the traced batch-8
      decode step's inputs with its device ms a call from a trace, its plan,
      and its host cost a call alone), the Table I kernels at both
      configurations (at table1-paper also their device time and the
@@ -86,7 +96,9 @@ Phases, each of which raises on failure (nothing is caught):
      and each one's host cost a call in turns with torch.dot, torch.exp,
      torch.softmax or F.conv2d); the backward kernels at the training
      shapes (rmsnorm's at (4096, 4096), the matmul's two products at each
-     projection, flash attention's at (4, 32/8, 1024, 128)) beside their
+     projection, each product's device ms beside torch.matmul's and the
+     forward's at M = 4,096 beside it, flash attention's at (4, 32/8, 1024,
+     128) and phi3-mini's (1, 32/32, 1024, 96)) beside their
      plain versions, the library call (autograd of ``F.rms_norm``,
      ``torch.matmul`` for each product, autograd of SDPA), the bound, and
      the device's ms a call from a trace, each naming its kernels (flash
@@ -126,9 +138,9 @@ def _ms_bound(nbytes: float, nops: float, kind: str) -> tuple[float, str]:
 # matmul and flash attention by variant: kernels.matmul.variant,
 # kernels.flash_attention.variant)
 # (names without spaces: the profiler's are compared with theirs taken out;
-# the backward's matmul forms before the forward's, whose name they extend)
-PORT_KERNELS = {"matmul_bwd dX wgmma": "matmul_wgmma_kernel<0,0>",
-                "matmul_bwd dW wgmma": "matmul_wgmma_kernel<1,1>",
+# the backward's matmul products are matmul_bwd_kernel's two forms)
+PORT_KERNELS = {"matmul_bwd dX wgmma": "matmul_bwd_kernel<0,0>",
+                "matmul_bwd dW wgmma": "matmul_bwd_kernel<1,1>",
                 "rmsnorm_bwd vec": "rms_bwd_vec_kernel",
                 "rmsnorm_bwd scalar": "rms_bwd_kernel",
                 "rmsnorm_bwd dgamma": "rms_dgamma_kernel",
@@ -493,6 +505,15 @@ def _device_per_call(fn, calls: int) -> float:
     return ms * n / calls if n else float("nan")
 
 
+def _device_one(fn, calls: int) -> float:
+    """Device ms a call of ``fn``, which launches one kernel a call: the mean
+    of the kernels a trace of ``calls`` calls holds (``_device_per_call``
+    divides by the calls made, and reads low when the trace misses some);
+    a trace with more kernels than calls is read as ``_device_per_call``."""
+    ms, n = _device_ms(fn, "", calls)
+    return ms if n <= calls else ms * n / calls
+
+
 def _table1_times(kc, kred, kst, ref, time_ms, dev) -> dict:
     """Phase 6, Table I: kernel, plain, library (one PyTorch call of the same
     function; cuDNN without TF32 for the convolutions) and the card's bound
@@ -661,6 +682,16 @@ def _backward_checks(kc, kfa) -> tuple[dict, list]:
          f"window=None bfloat16 {r['variant']:5s}", r)
     if not r["ok"] or r["variant"] != "wgmma":
         failed.append(("flash_attention_bwd", B, S, D))
+    # phi3-mini's heads (32 over 32 of 96) at the training length: simt
+    B, S = kc.PHI3_FLASH_BWD
+    for dt in dts:
+        r = kc.check_flash_bwd(B, S, dt, None, True, kc.PHI3_HQ, kc.PHI3_HKV, kc.PHI3_HEAD_DIM)
+        errs[("flash_attention_bwd phi3", B, S, dt)] = r["max_abs_err"]
+        line(f"flash_attention_bwd B={B} Hq={kc.PHI3_HQ} Hkv={kc.PHI3_HKV} "
+             f"D={kc.PHI3_HEAD_DIM} S={S:<4d} causal window=None {str(dt)[6:]:8s} "
+             f"{r['variant']:5s}", r)
+        if not r["ok"] or r["variant"] != "simt":
+            failed.append(("flash_attention_bwd phi3", B, S, dt))
     for D in kfa.HEAD_DIMS:
         for causal in (True, False):
             for dt in dts:
@@ -830,6 +861,95 @@ def _train_path(cfg, dev, n_layers: int = 8, batch: int = 4, seq: int = 1024,
     return launches
 
 
+def _phi3_path(dev, n_layers: int = 2, prompt: int = 512, batch: int = 4,
+               seq: int = 1024) -> dict:
+    """Phase 7b: phi3-mini-3.8b at its published width (head dim 96, the
+    simt flash kernels) cut to ``n_layers``: one whole-prompt prefill and a
+    few decode steps through the dense engine, then one train step; the
+    launches of each exactly as counted.  Returns the launches by run."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.params import init_params
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+    from repro_torch.testing.timing import now
+    from repro_torch.train import OptConfig, make_train_step
+    from repro_torch.train.trainer import init_train_state, step_launches
+
+    cfg = dataclasses.replace(get_config("phi3-mini-3.8b"), n_layers=n_layers)
+    L, D = cfg.n_layers, cfg.head_dim
+    print(f"[phi3] {cfg.name}: {L} layers of 32, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {D}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {str(cfg.dtype)[6:]}; flash variant at S={prompt}: "
+          f"{kfa.variant(prompt, prompt, D, cfg.dtype)}, backward "
+          f"{kfa.bwd_variant(seq, seq, D, cfg.dtype)}")
+    gc.collect()                             # what earlier phases left in cycles
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = lm.Model(cfg, init_params(lm.model_defs(cfg),
+                                      torch.Generator(dev).manual_seed(0), dev))
+    engine = ServingEngine(model, ServeConfig(max_batch=1, max_seq=prompt + 64), device=dev)
+    toks = np.random.default_rng(0).integers(1, cfg.vocab_size, prompt)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = now()
+    engine.submit(Request(rid=0, max_new_tokens=8, prompt=toks))
+    done = list(engine.run())
+    wall = now() - t0
+    serve = dict(ops.LAUNCHES)
+    tm = engine.timing
+    fwd = tm["prefills"] + tm["decode_steps"]
+    want = {**{k: 0 for k in ops.LAUNCHES}, "matmul": 7 * L * fwd,
+            "rmsnorm": (2 * L + 1) * fwd, "flash_attention": L * tm["prefills"]}
+    out = done[0].out if done else []
+    print(f"[phi3] dense engine: a {prompt}-token prompt, {tm['prefills']} whole-prompt "
+          f"prefill ({1e3 * tm['prefill_s']:.2f} ms) and {tm['decode_steps']} decode "
+          f"steps in {wall:.2f}s, tokens {out}; launches {serve} (expected {want})")
+    if not 1 <= len(out) <= 8 or max(out) >= cfg.vocab_size or tm["prefills"] != 1:
+        raise AssertionError(f"phi3 serve: tokens {out}, prefills {tm['prefills']}")
+    if serve != want:
+        raise AssertionError(f"phi3 serve launches {serve}, expected {want}")
+    del engine, model
+    torch.cuda.empty_cache()
+    opt_cfg = OptConfig()
+    state = init_train_state(cfg, opt_cfg, torch.Generator(dev).manual_seed(0), dev)
+    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                        global_batch=batch, seed=0))
+    tokens = torch.from_numpy(corpus.batch(0)).to(dev, torch.int64)
+    step_fn = make_train_step(cfg, opt_cfg)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = now()
+    state, m = step_fn(state, {"tokens": tokens})
+    loss = float(m["loss"])                  # a host read: the step is done
+    step_s = now() - t0
+    train = dict(ops.LAUNCHES)
+    want = {**{k: 0 for k in ops.LAUNCHES}, **step_launches(cfg)}
+    print(f"[phi3] one train step at batch {batch} x {seq} (remat {cfg.remat}): loss "
+          f"{loss:.4f}, grad_norm {float(m['grad_norm']):.4f}, {1e3 * step_s:.2f} ms on "
+          f"the host clock (the first step: builds and allocations included); peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+          f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB above the "
+          f"{base / 1e9:.2f} GB live when the phase began; launches "
+          f"{train} (expected step_launches: {want})")
+    if not math.isfinite(loss):
+        raise AssertionError(f"phi3 train loss not finite: {loss}")
+    if train != want:
+        raise AssertionError(f"phi3 train launches {train}, expected {want}")
+    del state, tokens
+    torch.cuda.empty_cache()
+    return {"phi3_serve": serve, "phi3_train": train}
+
+
 def _backward_times(kc, kfa, kmm, krms, ref, time_ms) -> dict:
     """Phase 6, the backward kernels at the training shapes: kernel, plain,
     the library call and the bound between CUDA events, and device ms a
@@ -866,7 +986,9 @@ def _backward_times(kc, kfa, kmm, krms, ref, time_ms) -> dict:
           f"{r['library_device_ms']:.4f} ms, {r['device_ms'] / r['library_device_ms']:.2f}x "
           f"the library, {r['device_ms'] / bound:.2f}x bound")
     del x, dy, xl, yl
-    # the matmul's backward of each projection: dA and dB, one launch each
+    # the matmul's backward of each projection: dA (dX) and dB (dW), one
+    # launch each, and each product's device ms beside torch.matmul's of it;
+    # then the forward at the same M (the train step's), beside torch.matmul
     per = {}
     for proj, (K, N) in kc.MATMUL_KN.items():
         M = kc.TRAIN_TOKENS
@@ -880,18 +1002,33 @@ def _backward_times(kc, kfa, kmm, krms, ref, time_ms) -> dict:
                                             ("lib dB", lb))}
         t_p = time_ms(lambda: (ref.matmul_grad_a(dc, b), ref.matmul_grad_b(a, dc2)), 5)
         bound, by = _ms_bound(2 * 2 * (M * N + K * N + M * K), 4.0 * M * N * K, "bf16")
-        d_k = dev_ms(lambda: (ka(), kb()))
-        d_l = dev_ms(lambda: (la(), lb()))
+        one, _ = _ms_bound(2 * (M * N + K * N + M * K), 2.0 * M * N * K, "bf16")
+        dev = {n: _device_one(f, 20) for n, f in (("dA", ka), ("dB", kb),
+                                                    ("lib dA", la), ("lib dB", lb))}
+        d_k, d_l = dev["dA"] + dev["dB"], dev["lib dA"] + dev["lib dB"]
+        fwd_a, fwd_b = kc.matmul_inputs(M, K, N, torch.bfloat16)
+        f_k = _device_one(lambda: kmm.matmul(fwd_a, fwd_b), 20)
+        f_l = _device_one(lambda: torch.matmul(fwd_a, fwd_b), 20)
         per[proj] = dict(ms=t["dA"] + t["dB"], dA_ms=t["dA"], dB_ms=t["dB"], plain_ms=t_p,
                          library_ms=t["lib dA"] + t["lib dB"], bound_ms=bound,
                          bound_by=by, device_ms=d_k, library_device_ms=d_l,
+                         dA_device_ms=dev["dA"], dB_device_ms=dev["dB"],
+                         dA_library_device_ms=dev["lib dA"],
+                         dB_library_device_ms=dev["lib dB"], product_bound_ms=one,
+                         forward_device_ms=f_k, forward_library_device_ms=f_l,
                          shape=f"M={M},K={K},N={N},bf16")
         print(f"[time] matmul_bwd {proj:7s} M={M} K={K:<5d} N={N:<5d} bf16 kernel dA "
               f"{t['dA']:.4f} + dB {t['dB']:.4f} ms  plain {t_p:.4f} ms  torch.matmul "
               f"{t['lib dA']:.4f} + {t['lib dB']:.4f} ms  bound {bound:.4f} ms ({by}); "
               f"device: kernel {d_k:.4f} ms, torch.matmul {d_l:.4f} ms, "
               f"{d_k / d_l:.2f}x torch.matmul, {d_k / bound:.2f}x bound")
-        del dc, b, a, dc2
+        print(f"[time] matmul_bwd {proj:7s} device ms a product (bound {one:.4f} each): "
+              f"dX {dev['dA']:.4f} (torch.matmul {dev['lib dA']:.4f}, "
+              f"{dev['dA'] / dev['lib dA']:.3f}x), dW {dev['dB']:.4f} (torch.matmul "
+              f"{dev['lib dB']:.4f}, {dev['dB'] / dev['lib dB']:.3f}x); dW / dX "
+              f"{dev['dB'] / dev['dA']:.3f}; the forward at M={M}: kernel {f_k:.4f}, "
+              f"torch.matmul {f_l:.4f}, {f_k / f_l:.3f}x")
+        del dc, b, a, dc2, fwd_a, fwd_b
     rows["matmul_bwd"] = per
     # flash attention at the training shape, causal: q, k, v, do read, dq, dk,
     # dv written; the five products of the backward over the visible pairs
@@ -926,6 +1063,30 @@ def _backward_times(kc, kfa, kmm, krms, ref, time_ms) -> dict:
           f"{r['device_ms']:.4f} ms (simt kernels {simt_dev:.4f} ms), SDPA backward "
           f"{r['library_device_ms']:.4f} ms, {r['device_ms'] / r['library_device_ms']:.2f}x "
           f"SDPA, {r['device_ms'] / bound:.1f}x bound")
+    # the same at phi3-mini's heads (32 over 32 of 96), the simt kernels
+    B, S = kc.PHI3_FLASH_BWD
+    Hq, Hkv, Dh = kc.PHI3_HQ, kc.PHI3_HKV, kc.PHI3_HEAD_DIM
+    q, k, v, do = kc.attention_bwd_inputs(B, S, torch.bfloat16, Hq, Hkv, Dh)
+    fk = lambda: kfa.backward(q, k, v, do, causal=True)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+    fl = lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True)
+    t_k, t_l = time_ms(fk, 10), time_ms(fl, 20)
+    t_p = time_ms(lambda: ref.attention_bwd(q, k, v, do, causal=True), 2)
+    pairs = B * Hq * S * (S + 1) / 2
+    bound, by = _ms_bound(2 * B * S * Dh * (2 * Hq + 2 * Hkv) * 2, 5 * 2.0 * pairs * Dh,
+                          "bf16")
+    kind = kfa.bwd_variant(S, S, Dh, torch.bfloat16)
+    rows["flash_attention_bwd phi3"] = r = dict(
+        ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound, bound_by=by,
+        device_ms=dev_ms(fk), library_device_ms=dev_ms(fl), variant=kind,
+        shape=f"B={B},Hq={Hq},Hkv={Hkv},S={S},D={Dh},causal,bf16")
+    print(f"[time] flash_attention_bwd B={B} Hq={Hq} Hkv={Hkv} S={S} D={Dh} causal bf16 "
+          f"{kind} kernel {t_k:.4f} ms  plain {t_p:.4f} ms  SDPA backward (autograd) "
+          f"{t_l:.4f} ms  bound {bound:.4f} ms ({by}); device: kernel "
+          f"{r['device_ms']:.4f} ms, SDPA backward {r['library_device_ms']:.4f} ms, "
+          f"{r['device_ms'] / r['library_device_ms']:.2f}x SDPA, "
+          f"{r['device_ms'] / bound:.1f}x bound")
     return rows
 
 
@@ -1048,6 +1209,15 @@ def main() -> int:
                       f"{str(dt)[6:]:8s} {r['variant']:5s} {_reading(r)}")
                 if not r["ok"]:
                     failed.append(("flash_attention head dim", D, causal, dt))
+        # phi3-mini's heads (32 over 32 of 96) at a whole prompt: the simt kernel
+        S = kc.PHI3_FLASH_S
+        r = kc.check_flash_phi3(S, dt)
+        errs[("flash_attention phi3", S, dt)] = r["max_abs_err"]
+        print(f"[check] flash_attention B=1 Hq={kc.PHI3_HQ} Hkv={kc.PHI3_HKV} "
+              f"D={kc.PHI3_HEAD_DIM} S={S:<4d} causal window=None {str(dt)[6:]:8s} "
+              f"{r['variant']:5s} same bits twice: {r['same_bits']} {_reading(r)}")
+        if not r["ok"] or r["variant"] != "simt":
+            failed.append(("flash_attention phi3", S, dt))
     # -- 3c. the backward kernels vs plain versions -----------------------------
     bwd_errs, bwd_failed = _backward_checks(kc, kfa)
     errs.update(bwd_errs)
@@ -1287,6 +1457,8 @@ def main() -> int:
 
     # -- 7. the training path: llama3-8b at full width, 8 of 32 layers -------
     path_launches["train"] = _train_path(cfg, dev)
+    # -- 7b. phi3-mini at full width, 2 of 32 layers: head dim 96 --------------
+    path_launches.update(_phi3_path(dev))
 
     # -- 6. kernel times ---------------------------------------------------------
     def time_ms(fn, iters: int) -> float:
@@ -1434,6 +1606,27 @@ def main() -> int:
               f"SDPA {t_l:.4f} ms  bound {bound:.5f} ms ({by}); device: kernel "
               f"{d_k:.4f} ms, SDPA {d_l:.4f} ms, {d_k / d_l:.2f}x SDPA, "
               f"{d_k / bound:.1f}x bound")
+    # phi3-mini's heads (32 over 32 of 96: the simt kernel) at a whole prompt
+    S, dt = kc.PHI3_FLASH_S, torch.bfloat16
+    Hq3, Hkv3, D3 = kc.PHI3_HQ, kc.PHI3_HKV, kc.PHI3_HEAD_DIM
+    q, k, v = kc.phi3_flash_inputs(S, dt)
+    kern = lambda: kfa.flash_attention(q, k, v, causal=True)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True)
+    t_k, t_l = time_ms(kern, 50), time_ms(sdpa, 50)
+    t_p = time_ms(lambda: ref.attention(q, k, v, causal=True), 20)
+    var = kfa.variant(S, S, D3, dt)
+    d_k, d_l = _device_split(lambda: (kern(), sdpa()),
+                             PORT_KERNELS[f"flash_attention {var}"], 20)
+    bound, by = _ms_bound(q.element_size() * S * D3 * (2 * Hq3 + 2 * Hkv3),
+                          4.0 * D3 * Hq3 * S * (S + 1) / 2, "bf16")
+    rows[("flash_attention phi3", S, dt)] = (t_k, t_p, t_l, bound, by)
+    device_rows[("flash_attention phi3", S, dt)] = (d_k, d_l)
+    print(f"[time] flash_attention B=1 Hq={Hq3} Hkv={Hkv3} D={D3} S={S:<4d} causal bf16 "
+          f"{var:5s} kernel {t_k:.4f} ms  plain {t_p:.4f} ms  SDPA {t_l:.4f} ms  bound "
+          f"{bound:.5f} ms ({by}); device: kernel {d_k:.4f} ms, SDPA {d_l:.4f} ms, "
+          f"{d_k / d_l:.2f}x SDPA, {d_k / bound:.1f}x bound")
+    del q, k, v
     # each variant's host cost a call: back-to-back calls at 2 q heads of 16
     # rows, where each kernel takes a few us, between events, in turns; the
     # same bf16 inputs through each variant (the choice forced by lifting
@@ -1543,6 +1736,18 @@ def main() -> int:
         if kname in ("flash_attention", "rmsnorm"):
             kernels[-1]["device_ms"], kernels[-1]["library_device_ms"] = \
                 device_rows[key]
+        if kname == "flash_attention":   # phi3-mini's head dim, the simt kernel
+            key3 = ("flash_attention phi3", kc.PHI3_FLASH_S, torch.bfloat16)
+            p_k, p_p, p_l, p_bound, p_by = rows[key3]
+            kernels[-1]["phi3"] = {
+                "shape": f"B=1,Hq={kc.PHI3_HQ},Hkv={kc.PHI3_HKV},S={kc.PHI3_FLASH_S},"
+                         f"D={kc.PHI3_HEAD_DIM},causal,bf16",
+                "variant": kfa.variant(kc.PHI3_FLASH_S, kc.PHI3_FLASH_S,
+                                       kc.PHI3_HEAD_DIM, torch.bfloat16),
+                "ms": p_k, "plain_ms": p_p, "library_ms": p_l, "bound_ms": p_bound,
+                "bound_by": p_by, "max_abs_err": errs[key3],
+                "device_ms": device_rows[key3][0],
+                "library_device_ms": device_rows[key3][1]}
         if kname == "paged_attention":
             kernels[-1]["device_ms"] = device_rows[key][0]
             kernels[-1]["host_us"] = paged_host
@@ -1598,6 +1803,10 @@ def main() -> int:
         row = bwd_rows[kname]
         if kname == "matmul_bwd":
             row = {**row["wg/wi"], "projections": row}
+        if kname == "flash_attention_bwd":   # phi3-mini's head dim, the simt kernels
+            row = {**row, "phi3": {**bwd_rows["flash_attention_bwd phi3"], "max_abs_err":
+                                   errs[("flash_attention_bwd phi3", *kc.PHI3_FLASH_BWD,
+                                         torch.bfloat16)]}}
         if kname == "matmul_bwd":
             worst = max(errs[("matmul_bwd", w, kc.TRAIN_TOKENS, 4096, 14336,
                               torch.bfloat16)] for w in "ab")

@@ -73,8 +73,10 @@
 //   persistent walk); the dq grid runs its longest walks first.  L2
 //   is L in log2 units (m sl2 + log2 l), so P is one FFMA and one
 //   ex2.approx a score (~2^-22 from the reference's exp).
-// * simt (f32, D = 16 and 32, and what the wgmma kernels do not take): the
-//   first port's kernels, unchanged.  CUDA-core f32 FMAs; 32-key tiles
+// * simt (f32, D = 16, 32 and 96, and what the wgmma kernels do not take):
+//   the first port's kernels, unchanged but for the D = 96 instances
+//   (phi3-mini: 12 accumulator columns a thread; the dkv block takes
+//   91,648 bytes of shared memory).  CUDA-core f32 FMAs; 32-key tiles
 //   staged through shared memory in f32; a thread holds a 4 x 4 block of
 //   scores and 4 rows of D / 8 accumulator columns (128 threads, 16 rows by
 //   8 columns).
@@ -91,7 +93,7 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// simt: f32 or bf16, D = 16, 32, 64 or 128
+// simt: f32 or bf16, D = 16, 32, 64, 96 or 128
 // ---------------------------------------------------------------------------
 
 constexpr int NT = 128;                  // 16 thread rows x 8 thread columns
@@ -472,6 +474,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout, void
         case 32: return launch<T, 32>(q, k, v, dout, dq, dk, dv, lse, dd, B, Hq, Hkv, S, Sk,
                                       causal, window, st, s);
         case 64: return launch<T, 64>(q, k, v, dout, dq, dk, dv, lse, dd, B, Hq, Hkv, S, Sk,
+                                      causal, window, st, s);
+        case 96: return launch<T, 96>(q, k, v, dout, dq, dk, dv, lse, dd, B, Hq, Hkv, S, Sk,
                                       causal, window, st, s);
         case 128: return launch<T, 128>(q, k, v, dout, dq, dk, dv, lse, dd, B, Hq, Hkv, S, Sk,
                                         causal, window, st, s);
@@ -898,7 +902,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* dout, 
 // for variant 1 (wgmma; log2 units, rows padded to Sp = S rounded up to 64).
 // strides: 21 element strides, (batch, head, row) of q, k, v, dout, dq, dk,
 // dv in turn; every row 16-byte aligned with a contiguous last dim.  dtype 0
-// = float32, 1 = bfloat16; variant 0 = simt (D in {16, 32, 64, 128}), 1 =
+// = float32, 1 = bfloat16; variant 0 = simt (D in {16, 32, 64, 96, 128}), 1 =
 // wgmma (bf16, D 64 or 128); window 0 = none.  Two launches on `stream`, no
 // synchronisation.  Returns the first launch error (0 = success).
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,

@@ -8,7 +8,8 @@
 // the kernels, so the caller never pads.  Each call is one launch, and the
 // same inputs give the same bits on every run.
 //
-// Three kernels; kernels/matmul.py::variant picks one from (M, K, N, dtype):
+// Three variants (four kernels); kernels/matmul.py::variant picks one from
+// (M, K, N, dtype, trans):
 //
 // * decode (bf16, M <= 8, K and N multiples of 8).  Bound on an H100 by the
 //   weight bytes: 2*M*K*N operations on K*N*2 bytes is <= 8 FLOP a byte,
@@ -64,6 +65,53 @@
 //     - ragged M, N and K edges come from TMA's zero fill, and the store
 //       is masked; B's tensor map is cached per (address, K, N) on the
 //       host, since weights do not move; A's is encoded per call.
+//
+// * wgmma, the backward's two products (bf16, the training step): dX = dY
+//   W^T (trans 1: A K-major, W read as B^T, K-major) and dW = X^T dY
+//   (trans 2: X read as A^T and dY as B, both MN-major), on the operands
+//   as they lie, no transposed copy.  At the training shapes (4,096 tokens
+//   of llama3-8b) each product is 34-481 GFLOP on 42-160 MB: operations
+//   bound, 0.04-0.49 ms at 989 TFLOP/s.  The forward's walk (a 128 x 128
+//   tile a block, blockIdx.x along M), which these products took at
+//   first, reads one whole operand from HBM for every 128-column strip
+//   where that operand outgrows L2: dW of the MLP's down projection reads
+//   its 117 MB X once for each of dY's 32 strips, 3.76 GB, 1.12 ms of
+//   bytes for 0.49 ms of operations.  So matmul_bwd_kernel (the
+//   forward keeps matmul_wgmma_kernel and its walk):
+//     - is persistent: one block an SM (the grid is min(SMs, tiles x
+//       slices)), each walking the output tiles t = blockIdx.x, + gridDim.x,
+//       ... of a grouped order: GROUP_M M-tiles by every N-tile, M fastest
+//       (kernels/matmul.py::bwd_walk, its twin).  The 132 tiles in flight
+//       are 16 M-tiles by ~8 N-tiles: 2,048 rows of A and ~2,300 columns
+//       of B, 18-26 MB over a 2,048-deep stretch of K, so each strip is
+//       read from HBM about once a wave and reused from L2 by the wave's
+//       other tiles (dW at mlp.wo: the strips its waves of 132 tiles read
+//       come to 0.58 GB, where the forward's walk's, counted so, come to
+//       3.25 GB);
+//     - runs its producer ahead across tile boundaries: one TMA ring of
+//       4 stages walks (tile, K step) without a break, so the next tile's
+//       stages load while the consumers store this tile's outputs, and no
+//       tile starts from an empty ring;
+//     - takes 128 x 256 tiles: each consumer warpgroup holds 64 x 256 f32
+//       accumulators (128 registers a thread; with a producer warp, not a
+//       warpgroup, a block is 288 threads and each may hold 224) and runs
+//       wgmma.m64n256k16, which reads 10 KB of shared memory for 512 K FLOP
+//       where two m64n128k16 read 12 KB: the tensor cores, not shared
+//       memory, set the pace.  MN-major operands come as 64 x 64 boxes (two
+//       for A^T, four for B), K-major ones as one box (128 or 256 rows of
+//       128 bytes);
+//     - stores its outputs through shared memory: each consumer writes its
+//       64 x 256 bf16 a 64 x 64 box at a time into one of two buffers and
+//       one thread stores the box by TMA, so the next tile's products start
+//       while the stores drain (stored from registers, as the forward
+//       does, the products took 1.05-1.44x torch.matmul's time at the
+//       training shapes on an H100, against 1.00-1.10x this way;
+//       testing/matmul_probe.py);
+//     - keeps the forward's rules: TMA's zero fill for ragged edges and a
+//       masked store, and split-K (kernels/matmul.py::wgmma_plan with
+//       trans) where the tiles are too few for the SMs, each slice's f32
+//       partial out and the tile's last slice summing them in slice order:
+//       no float atomics, the same bits on every run.
 //
 // * simt: f32 (the tensor cores have no full-f32 product, and TF32 would
 //   break the f32 tolerance) and bf16 shapes whose rows are not 16-byte
@@ -291,6 +339,27 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
                     "r"(smem_u32(bar)), "r"(c0), "r"(c1) : "memory");
 }
 
+// a 2-D box of shared memory -> a tensor map's box in global memory (the
+// edges past the tensor are not written), counted in this thread's bulk
+// group
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+    asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+                 :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1)
+                 : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until at most N of this thread's bulk groups are still reading shared memory
+template <int N> __device__ __forceinline__ void bulk_wait_read() {
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+// this thread's shared-memory writes, made visible to the TMA unit
+__device__ __forceinline__ void fence_async_smem() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------------------
 // decode: split-K, cp.async ring, mma.sync on B^T A^T
 // ---------------------------------------------------------------------------
@@ -498,22 +567,19 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
 
 // pins the accumulators: no other instruction touching d moves across the
 // wgmma fence or a wait
-__device__ __forceinline__ void fence_operands(float (&d)[64]) {
+template <int R> __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+    for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
 __device__ __forceinline__ void consumers_sync() {   // the two consumer warpgroups only
     asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
+__device__ __forceinline__ void bar_sync(int id, int threads) {   // a named barrier
+    asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
 
-// TA: A is given as A^T, a row-major (K, M) matrix (dW = X^T dY: the
-// activations X as they lie), its tile two 64 x 64 boxes (64 k rows of 64
-// m columns, 128-byte rows) read MN-major, one a consumer warpgroup.  TB
-// == 0: B is given as B^T, a row-major (N, K) matrix (dX = dY W^T: the
-// weight W as it lies), its tile one 128 x 64 box read K-major, as A's.
-// Neither is copied.
-template <int TA, int TB>
+// the forward, C = A B: A K-major, B (the row-major weight) MN-major
 __global__ void __launch_bounds__(wg::THREADS, 1)
 matmul_wgmma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
                     bf16* __restrict__ C, int M, int N, int K, int slice,
@@ -548,18 +614,9 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constan
                 if (j >= STAGES) mbar_wait(&empty[s], ((j / STAGES) - 1) & 1);
                 unsigned char* a = buf + s * STAGE_BYTES;
                 mbar_expect_tx(&full[s], STAGE_BYTES);   // zero-filled bytes count too
-                if (TA) {
-                    tma_load_2d(a, &ta, m0, k, &full[s]);
-                    tma_load_2d(a + A_BYTES / 2, &ta, m0 + 64, k, &full[s]);
-                } else {
-                    tma_load_2d(a, &ta, k, m0, &full[s]);
-                }
-                if (TB) {
-                    tma_load_2d(a + A_BYTES, &tb, n0, k, &full[s]);
-                    tma_load_2d(a + A_BYTES + B_HALF, &tb, n0 + 64, k, &full[s]);
-                } else {
-                    tma_load_2d(a + A_BYTES, &tb, k, n0, &full[s]);
-                }
+                tma_load_2d(a, &ta, k, m0, &full[s]);
+                tma_load_2d(a + A_BYTES, &tb, n0, k, &full[s]);
+                tma_load_2d(a + A_BYTES + B_HALF, &tb, n0 + 64, k, &full[s]);
             }
         }
         return;
@@ -573,21 +630,18 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constan
     for (int j = 0; j < steps; ++j) {
         const int s = j % STAGES;
         mbar_wait(&full[s], (j / STAGES) & 1);
-        // this warpgroup's 64 rows of A: 64 K-major rows of 128 bytes, or
-        // (TA) one of the two 64 x 64 MN-major boxes, 8 KB each
+        // this warpgroup's 64 rows of A: 64 K-major rows of 128 bytes
         const uint32_t a = smem_u32(buf + s * STAGE_BYTES) + cw * 64 * 128;
         const uint32_t b = smem_u32(buf + s * STAGE_BYTES + A_BYTES);
         fence_operands(d);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
-            // K-major: 8-row groups 1024 bytes apart, k16 = 32 bytes on;
-            // MN-major: 8-row k groups 1024 bytes apart, the next 64
+            // K-major A: 8-row groups 1024 bytes apart, k16 = 32 bytes on;
+            // MN-major B: 8-row k groups 1024 bytes apart, the next 64
             // columns 8 KB on (LBO), k16 = 16 rows of 128 bytes on
-            wgmma_m64n128k16<TA, TB>(
-                d, TA ? gmma_desc(a + kk * 2048, A_BYTES / 2, 1024) : gmma_desc(a + kk * 32, 16, 1024),
-                TB ? gmma_desc(b + kk * 2048, B_HALF, 1024) : gmma_desc(b + kk * 32, 16, 1024),
-                j > 0 || kk > 0);
+            wgmma_m64n128k16<0, 1>(d, gmma_desc(a + kk * 32, 16, 1024),
+                                   gmma_desc(b + kk * 2048, B_HALF, 1024), j > 0 || kk > 0);
         wgmma_commit();
         wgmma_wait<1>();                  // step j - 1's products are done
         fence_operands(d);
@@ -664,6 +718,274 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constan
             *reinterpret_cast<__nv_bfloat162*>(C + (size_t)(row + 8) * N + col) =
                 __floats2bfloat162_rn(d[4 * i + 2], d[4 * i + 3]);
     }
+}
+
+// ---------------------------------------------------------------------------
+// the backward's products: a persistent walk of 128 x 256 tiles
+// ---------------------------------------------------------------------------
+
+namespace pw {
+constexpr int BM = 128, BN = 256, BK = 64;
+constexpr int STAGES = 4;
+constexpr int THREADS = 288;                      // two consumer warpgroups and a producer warp
+constexpr int GROUP_M = 16;                       // M-tiles of a group of the walk
+constexpr int A_BYTES = BM * BK * 2;              // 16 KB
+constexpr int B_BYTES = BN * BK * 2;              // 32 KB
+constexpr int BOX = 64 * BK * 2;                  // 8 KB: an MN-major box, 64 k rows of 64
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+// the epilogue: each consumer's 64 x 256 outputs leave in four 64 x 64
+// boxes, through two 8 KB buffers of its own
+constexpr int OUT_BOX = 64 * 64 * 2;
+constexpr int OUT_BYTES = 2 * 2 * OUT_BOX;
+constexpr int SMEM = STAGES * STAGE_BYTES + OUT_BYTES + 2 * STAGES * 8 + 1024;   // + barriers, align
+}  // namespace pw
+
+// d (64 x 256 f32 of the warpgroup) = A (64 x 16) * B (16 x 256) + (scale_d ?
+// d : 0); TA, TB the transpose bits, as wgmma_m64n128k16's
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "%128, %129, p, 1, 1, %131, %132;\n"
+        "}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+          "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+          "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+          "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// unit u of the walk: output tile u / splits in the grouped order (GROUP_M
+// M-tiles by every N-tile, M fastest; kernels/matmul.py::bwd_walk), K slice
+// u % splits; its first K step and its count
+struct Unit {
+    int tile, split, m0, n0, kt0, steps;
+};
+__device__ __forceinline__ Unit unit_at(int u, int tiles_m, int tiles_n, int splits, int per,
+                                        int k_steps) {
+    Unit w;
+    w.tile = u / splits;
+    w.split = u % splits;
+    const int group = pw::GROUP_M * tiles_n;
+    const int first = w.tile / group * pw::GROUP_M;
+    const int rows = min(tiles_m - first, pw::GROUP_M);
+    const int in = w.tile % group;
+    w.m0 = (first + in % rows) * pw::BM;
+    w.n0 = (in / rows) * pw::BN;
+    w.kt0 = w.split * per;
+    w.steps = min(w.kt0 + per, k_steps) - w.kt0;
+    return w;
+}
+
+// TA == 0: A row-major (M, K), one 128 x 64 box a stage, K-major; TA == 1:
+// A given as A^T, row-major (K, M) (dW = X^T dY: the activations X as they
+// lie), two 64 x 64 boxes read MN-major, one a consumer warpgroup.  TB ==
+// 0: B given as B^T, row-major (N, K) (dX = dY W^T: the weight W as it
+// lies), one 256 x 64 box, K-major; TB == 1: B row-major (K, N), four 64 x
+// 64 boxes, MN-major.  Neither is copied.
+// tc: C's map, 64 x 64 boxes, 128-byte swizzle, for the epilogue's stores
+// (a split-K sum writes C itself).
+template <int TA, int TB>
+__global__ void __launch_bounds__(pw::THREADS, 1)
+matmul_bwd_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                  const __grid_constant__ CUtensorMap tc, bf16* __restrict__ C, int M, int N,
+                  int K, int splits, int slice, float* __restrict__ part,
+                  unsigned* __restrict__ tickets) {
+    using namespace pw;
+    extern __shared__ unsigned char raw[];
+    __shared__ bool last;
+    // TMA's 128-byte swizzle wants each tile 1024-byte aligned
+    unsigned char* buf = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+    unsigned char* out = buf + STAGES * STAGE_BYTES;
+    uint64_t* full = reinterpret_cast<uint64_t*>(out + OUT_BYTES);
+    uint64_t* empty = full + STAGES;
+    const int group = threadIdx.x / 128, lt = threadIdx.x % 128;
+    const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
+    const int units = tiles_m * tiles_n * splits;
+    const int k_steps = (K + BK - 1) / BK, per = slice / BK;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(&full[s], 1);       // the producer's expect_tx
+            mbar_init(&empty[s], 8);      // each consumer warp, once its wgmma is done
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (group == 2) {                     // producer: one ring over every unit's K steps
+        if (lt == 0) {
+            int it = 0;
+            for (int u = blockIdx.x; u < units; u += gridDim.x) {
+                const Unit w = unit_at(u, tiles_m, tiles_n, splits, per, k_steps);
+                for (int j = 0; j < w.steps; ++j, ++it) {
+                    const int s = it % STAGES, k = (w.kt0 + j) * BK;
+                    if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
+                    unsigned char* a = buf + s * STAGE_BYTES;
+                    unsigned char* b = a + A_BYTES;
+                    mbar_expect_tx(&full[s], STAGE_BYTES);   // zero-filled bytes count too
+                    if (TA) {
+                        tma_load_2d(a, &ta, w.m0, k, &full[s]);
+                        tma_load_2d(a + BOX, &ta, w.m0 + 64, k, &full[s]);
+                    } else {
+                        tma_load_2d(a, &ta, k, w.m0, &full[s]);
+                    }
+                    if (TB) {
+#pragma unroll
+                        for (int q = 0; q < BN / 64; ++q)
+                            tma_load_2d(b + q * BOX, &tb, w.n0 + 64 * q, k, &full[s]);
+                    } else {
+                        tma_load_2d(b, &tb, k, w.n0, &full[s]);
+                    }
+                }
+            }
+        }
+        return;
+    }
+
+    const int cw = group;                 // consumer: rows 64 cw .. of each tile
+    const int warp = lt / 32, g = (lt & 31) >> 2, tig = lt & 3;
+    int it = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const Unit w = unit_at(u, tiles_m, tiles_n, splits, per, k_steps);
+        // no zeroing: the unit's first wgmma starts d (scale-d 0), and no
+        // other instruction writes d (ptxas would serialise the wgmmas)
+        float d[128];
+        for (int j = 0; j < w.steps; ++j, ++it) {
+            const int s = it % STAGES;
+            mbar_wait(&full[s], (it / STAGES) & 1);
+            // this warpgroup's 64 rows of A: 64 K-major rows of 128 bytes,
+            // or (TA) one of the two 64 x 64 MN-major boxes
+            const uint32_t a = smem_u32(buf + s * STAGE_BYTES) + cw * BOX;
+            const uint32_t b = smem_u32(buf + s * STAGE_BYTES + A_BYTES);
+            fence_operands(d);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < BK / 16; ++kk)
+                // K-major: 8-row groups 1024 bytes apart, k16 = 32 bytes on;
+                // MN-major: 8-row k groups 1024 bytes apart, the next 64
+                // columns one box on (LBO), k16 = 16 rows of 128 bytes on
+                wgmma_m64n256k16<TA, TB>(
+                    d, TA ? gmma_desc(a + kk * 2048, BOX, 1024) : gmma_desc(a + kk * 32, 16, 1024),
+                    TB ? gmma_desc(b + kk * 2048, BOX, 1024) : gmma_desc(b + kk * 32, 16, 1024),
+                    j > 0 || kk > 0);
+            wgmma_commit();
+            wgmma_wait<1>();              // step j - 1's products are done
+            fence_operands(d);
+            if (j > 0 && (lt & 31) == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+        }
+        wgmma_wait<0>();
+        fence_operands(d);
+        if ((lt & 31) == 0) mbar_arrive(&empty[(it - 1) % STAGES]);   // the unit's last stage
+
+        // d[4i + e]: row 16 warp + g + 8 (e >> 1), column 8 i + 2 tig + (e & 1)
+        const int row = w.m0 + cw * 64 + warp * 16 + g;
+        if (splits == 1) {
+            // the outputs in bf16 through shared memory, a 64 x 64 box at a
+            // time into this warpgroup's two buffers, each box stored by TMA
+            // (which drops what lies past M and N) while the next tile's
+            // products run.  A box's rows are 128 bytes, their 16-byte chunks
+            // swizzled by the row (chunk i ^ row % 8, as TMA's 128-byte
+            // swizzle reads them): the 8 rows a warp writes at once fall in
+            // 8 chunks, so the writes take every bank once
+#pragma unroll
+            for (int q = 0; q < BN / 64; ++q) {
+                unsigned char* box = out + (cw * 2 + (q & 1)) * OUT_BOX;
+                if (lt == 0) bulk_wait_read<1>();   // this buffer's last store has read it
+                bar_sync(2 + cw, 128);
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    const float* e = d + 4 * (8 * q + i);
+                    const int r = warp * 16 + g, off = ((i ^ g) << 4) + 4 * tig;
+                    *reinterpret_cast<__nv_bfloat162*>(box + r * 128 + off) =
+                        __floats2bfloat162_rn(e[0], e[1]);
+                    *reinterpret_cast<__nv_bfloat162*>(box + (r + 8) * 128 + off) =
+                        __floats2bfloat162_rn(e[2], e[3]);
+                }
+                fence_async_smem();
+                bar_sync(2 + cw, 128);
+                if (lt == 0) {
+                    tma_store_2d(&tc, box, w.n0 + 64 * q, w.m0 + cw * 64);
+                    bulk_commit();
+                }
+            }
+            continue;
+        }
+        // split-K: the f32 partial out, a ticket for the tile, and the tile's
+        // last slice to finish sums the partials in slice order
+        float* mine = part + (size_t)w.split * M * N;
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i) {
+            const int col = w.n0 + 8 * i + 2 * tig;
+            if (col >= N) continue;
+            if (row < M)
+                *reinterpret_cast<float2*>(mine + (size_t)row * N + col) =
+                    make_float2(d[4 * i], d[4 * i + 1]);
+            if (row + 8 < M)
+                *reinterpret_cast<float2*>(mine + (size_t)(row + 8) * N + col) =
+                    make_float2(d[4 * i + 2], d[4 * i + 3]);
+        }
+        __threadfence();                  // the partial is visible before the ticket
+        consumers_sync();
+        if (threadIdx.x == 0)
+            last = atomicAdd(&tickets[w.tile], 1u) == static_cast<unsigned>(splits - 1);
+        consumers_sync();
+        if (!last) continue;
+        __threadfence();
+        // the sum in rows, four columns a thread: element (r, 4 q .. 4 q + 3)
+        // of the tile for r * 64 + q = 256 v + t, so a warp reads 512
+        // contiguous bytes of a row; four such sums in flight (d is left
+        // to the wgmmas)
+        const int t = threadIdx.x;
+#pragma unroll 4
+        for (int v = 0; v < BM * BN / 4 / 256; ++v) {
+            const int r = w.m0 + (v * 256 + t) / (BN / 4), c = w.n0 + ((v * 256 + t) % (BN / 4)) * 4;
+            if (r >= M || c >= N) continue;   // N % 4 == 0: four columns all in or all out
+            const float* p = part + (size_t)r * N + c;
+            float4 sum = __ldcg(reinterpret_cast<const float4*>(p));
+            for (int z = 1; z < splits; ++z) {
+                const float4 x = __ldcg(reinterpret_cast<const float4*>(p + (size_t)z * M * N));
+                sum.x += x.x; sum.y += x.y; sum.z += x.z; sum.w += x.w;
+            }
+            __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(C + (size_t)r * N + c);
+            o[0] = __floats2bfloat162_rn(sum.x, sum.y);
+            o[1] = __floats2bfloat162_rn(sum.z, sum.w);
+        }
+        if (threadIdx.x == 0) tickets[w.tile] = 0;
+    }
+    if (lt == 0) bulk_wait_read<0>();    // shared memory outlives the stores' reads
 }
 
 // ---------------------------------------------------------------------------
@@ -764,18 +1086,34 @@ int launch_decode(const void* a, const void* b, void* c, int M, int N, int K, in
     return static_cast<int>(cudaGetLastError());
 }
 
-// trans 0: C = A B (the forward); 1: C = A B^T with b the row-major (N, K)
-// B^T; 2: C = A^T B with a the row-major (K, M) A^T
+// the device's SMs, read once per device: the persistent grid's size
+int sm_count() {
+    static int count[64] = {};
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+    if (!count[dev] &&
+        cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+        count[dev] = 0;
+    return count[dev];
+}
+
+// the backward's products: trans 1, C = A B^T with b the row-major (N, K)
+// B^T; trans 2, C = A^T B with a the row-major (K, M) A^T
 template <int TA, int TB>
-int launch_wgmma_t(const CUtensorMap& ta, const CUtensorMap& tb, void* c, int M, int N, int K,
-                   int splits, int slice, void* tickets, void* partials, cudaStream_t s) {
+int launch_bwd(const CUtensorMap& ta, const CUtensorMap& tb, const CUtensorMap& tc, void* c,
+               int M, int N, int K, int splits, int slice, void* tickets, void* partials,
+               cudaStream_t s) {
     static bool done[64] = {};
-    if (!allow_smem(reinterpret_cast<const void*>(matmul_wgmma_kernel<TA, TB>), wg::SMEM, done))
+    if (!allow_smem(reinterpret_cast<const void*>(matmul_bwd_kernel<TA, TB>), pw::SMEM, done))
         return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((M + wg::BM - 1) / wg::BM, (N + wg::BN - 1) / wg::BN, splits);
-    matmul_wgmma_kernel<TA, TB><<<grid, wg::THREADS, wg::SMEM, s>>>(
-        ta, tb, static_cast<bf16*>(c), M, N, K, slice, static_cast<float*>(partials),
-        static_cast<unsigned*>(tickets));
+    const long long units = static_cast<long long>((M + pw::BM - 1) / pw::BM) *
+                            ((N + pw::BN - 1) / pw::BN) * splits;
+    const int sms = sm_count();
+    if (sms <= 0 || units >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
+    matmul_bwd_kernel<TA, TB><<<static_cast<int>(units < sms ? units : sms), pw::THREADS,
+                                pw::SMEM, s>>>(
+        ta, tb, tc, static_cast<bf16*>(c), M, N, K, splits, slice,
+        static_cast<float*>(partials), static_cast<unsigned*>(tickets));
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -784,19 +1122,30 @@ int launch_wgmma(const void* a, const void* b, void* c, int M, int N, int K, int
     if (!plan_ok(K, splits, slice, wg::BK, tickets, partials))
         return static_cast<int>(cudaErrorInvalidValue);
     alignas(64) CUtensorMap ta, tb;
-    const bool ok_a = trans == 2 ? encode(&ta, a, K, M, 64, 64)
-                                 : encode(&ta, a, M, K, wg::BM, wg::BK);
-    // b is a weight for trans 0 and 1, whose map is cached; for trans 2 it
-    // is dC, new on every call, encoded as A's map is
-    const bool ok_b = trans == 1   ? weight_map(&tb, b, N, K, wg::BN)
-                      : trans == 0 ? weight_map(&tb, b, K, N, wg::BK)
-                                   : encode(&tb, b, K, N, wg::BK, 64);
-    if (!ok_a || !ok_b) return static_cast<int>(cudaErrorInvalidValue);
-    if (trans == 1)
-        return launch_wgmma_t<0, 0>(ta, tb, c, M, N, K, splits, slice, tickets, partials, s);
-    if (trans == 2)
-        return launch_wgmma_t<1, 1>(ta, tb, c, M, N, K, splits, slice, tickets, partials, s);
-    return launch_wgmma_t<0, 1>(ta, tb, c, M, N, K, splits, slice, tickets, partials, s);
+    if (trans == 0) {                     // the forward: a block a tile
+        static bool done[64] = {};
+        // b is the weight, whose map is cached
+        if (!encode(&ta, a, M, K, wg::BM, wg::BK) || !weight_map(&tb, b, K, N, wg::BK) ||
+            !allow_smem(reinterpret_cast<const void*>(matmul_wgmma_kernel), wg::SMEM, done))
+            return static_cast<int>(cudaErrorInvalidValue);
+        const dim3 grid((M + wg::BM - 1) / wg::BM, (N + wg::BN - 1) / wg::BN, splits);
+        matmul_wgmma_kernel<<<grid, wg::THREADS, wg::SMEM, s>>>(
+            ta, tb, static_cast<bf16*>(c), M, N, K, slice, static_cast<float*>(partials),
+            static_cast<unsigned*>(tickets));
+        return static_cast<int>(cudaGetLastError());
+    }
+    // trans 1: a = dC as A (M, K), b = the weight as B^T (N, K), cached;
+    // trans 2: a = the activations as A^T (K, M), b = dC (K, N), new on
+    // every call, encoded as A's map is; C's map for the epilogue's stores
+    alignas(64) CUtensorMap tc;
+    const bool ok = (trans == 1
+        ? encode(&ta, a, M, K, pw::BM, pw::BK) && weight_map(&tb, b, N, K, pw::BN)
+        : encode(&ta, a, K, M, 64, 64) && encode(&tb, b, K, N, pw::BK, 64))
+        && encode(&tc, c, M, N, 64, 64);
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    return trans == 1
+        ? launch_bwd<0, 0>(ta, tb, tc, c, M, N, K, splits, slice, tickets, partials, s)
+        : launch_bwd<1, 1>(ta, tb, tc, c, M, N, K, splits, slice, tickets, partials, s);
 }
 
 }  // namespace
@@ -811,8 +1160,10 @@ int launch_wgmma(const void* a, const void* b, void* c, int M, int N, int K, int
 // wgmma need K > 0, K and N multiples of 8 (M too for trans 2) and 16-byte
 // aligned operands, and take a split-K plan (splits slices of slice
 // elements of K) and, for splits > 1, the workspace: tickets (one per
-// output tile: 128 columns for decode, 128 x 128 for wgmma; zero, and left
-// zero) and splits * M * N f32 partials.
+// output tile: 128 columns for decode, 128 x 128 for the forward's wgmma,
+// 128 x 256 for the backward's; zero, and left zero) and splits * M * N
+// f32 partials.  wgmma takes matmul_wgmma_kernel for trans 0 and
+// matmul_bwd_kernel, persistent, for trans 1 and 2.
 // Pointers are device pointers to contiguous row-major tensors; the launch
 // goes on `stream` and does not synchronise.  Returns cudaGetLastError()
 // after the launch (0 = success), or cudaErrorInvalidValue for arguments

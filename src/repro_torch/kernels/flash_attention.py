@@ -28,8 +28,8 @@ aligned)``, a pure function of the shapes and the dtype:
   * ``"wgmma"``: bf16, D in ``WGMMA_HEAD_DIMS`` (64, 128), Sk > 0, every
     operand 16-byte aligned: a 64-row q tile a block, TMA-fed 64-key K/V
     tiles, Q K^T and P V on the tensor cores (the serving path's prefills);
-  * ``"simt"``: everything else: f32, the head dims 16 and 32, Sk = 0.
-    CUDA-core FMAs, as the first port had them.
+  * ``"simt"``: everything else: f32, the head dims 16, 32 and 96
+    (phi3-mini's), Sk = 0.  CUDA-core FMAs, as the first port had them.
 The wgmma kernel walks the key tiles ``tile_plan`` gives; the simt kernel
 takes the same walk in 32-key tiles.
 """
@@ -43,10 +43,11 @@ from . import _build, ref
 from .launches import LAUNCHES, wants_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 96, 128)
 VARIANTS = {"simt": 0, "wgmma": 1}
-#: the head dims the wgmma kernel takes, and its q rows a block and keys a
-#: tile (csrc ``fw::BQ``, ``fw::BK``)
+#: the head dims the wgmma kernel takes (it carves a row into 64-column
+#: boxes of 128 bytes, so D = 96 goes to simt), and its q rows a block and
+#: keys a tile (csrc ``fw::BQ``, ``fw::BK``)
 WGMMA_HEAD_DIMS = (64, 128)
 WGMMA_BQ, WGMMA_BK = 64, 64
 _FN = None

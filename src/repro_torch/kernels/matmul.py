@@ -12,16 +12,18 @@ product (``trans`` 0 the forward ``A B``):
     multiples of 8, K > 0: split-K weight streaming on the tensor cores,
     the slices given by ``split_plan(K, N)``;
   * ``"wgmma"``: bf16, M > 8 (prefill), the same alignment: TMA tiles and
-    wgmma, K split by ``wgmma_plan(M, K, N)`` where the tiles alone leave
-    SMs idle;
+    wgmma, K split by ``wgmma_plan(M, K, N, trans)`` where the tiles alone
+    leave SMs idle; the forward (``matmul_wgmma_kernel``) a block a 128 x
+    128 tile, the backward's products (``matmul_bwd_kernel``) a persistent
+    block an SM walking 128 x 256 tiles in ``bwd_walk``'s grouped order;
   * ``"simt"``: everything else: f32 (the tensor cores have no full-f32
     product), and bf16 with K or N not a multiple of 8, K = 0, or an
     operand whose address is not 16-byte aligned (``aligned`` False; only a
     view can be).  CUDA-core FMAs, as the first port had them.
 
 Where autograd records the call, the wrapper is :class:`Matmul`, whose
-backward makes the two products of the gradient with the same kernels, on
-the operands as they lie (no transposed copy): dA = dC B^T reads the
+backward makes the two products of the gradient with the backward's wgmma
+kernel or simt, on the operands as they lie (no transposed copy): dA = dC B^T reads the
 weight B (K, N) as B^T, a K-major operand, and dB = A^T dC reads the
 activations A (M, K) as A^T, an MN-major one (``grad_a``, ``grad_b``:
 trans 1 and 2 of the same entry point, wgmma or simt, as ``variant``
@@ -59,6 +61,11 @@ DECODE_MAX_SPLITS = 16
 #: the wgmma kernel's output tile and K step (csrc ``wg::BM``, ``wg::BN``,
 #: ``wg::BK``)
 WGMMA_BM, WGMMA_BN, WGMMA_BK = 128, 128, 64
+#: the backward's persistent wgmma kernel: its output tile (csrc ``pw::BM``,
+#: ``pw::BN``; the K step is ``WGMMA_BK``) and the M-tiles of a group of
+#: its walk (``pw::GROUP_M``)
+BWD_BM, BWD_BN = 128, 256
+BWD_GROUP_M = 16
 #: the wgmma plan: tiles times slices within one wave (one block on each of
 #: an H100's 132 SMs), at most 4 slices of at least 16 K steps, and of
 #: those the count that minimises a block's time as measured on the H100:
@@ -106,33 +113,62 @@ def split_plan(K: int, N: int) -> tuple[int, int]:
     return math.ceil(k_tiles / slice_tiles), slice_tiles * DECODE_BK
 
 
+def wgmma_tile(trans: int = 0) -> tuple[int, int]:
+    """The wgmma kernels' output tile (rows, columns) for product ``trans``:
+    the forward's 128 x 128, the backward's 128 x 256."""
+    return (WGMMA_BM, WGMMA_BN) if trans == 0 else (BWD_BM, BWD_BN)
+
+
 @functools.lru_cache(maxsize=1024)
-def wgmma_plan(M: int, K: int, N: int) -> tuple[int, int]:
-    """``(splits, slice)`` of the wgmma kernel: one slice where the 128 x 128
-    output tiles fill the card; where they are few (prefill chunks, short
-    prompts, narrow projections), K is cut into the count of slices that
-    minimises ``WGMMA_STEP_US`` a K step plus ``WGMMA_SPLIT_US`` a further
-    slice, among those that keep tiles times slices within ``WGMMA_SMS``,
-    at most ``WGMMA_MAX_SPLITS``, each of at least ``WGMMA_MIN_STEPS``."""
-    tiles = math.ceil(M / WGMMA_BM) * math.ceil(N / WGMMA_BN)
+def wgmma_plan(M: int, K: int, N: int, trans: int = 0) -> tuple[int, int]:
+    """``(splits, slice)`` of the wgmma kernels: one slice where the output
+    tiles (``wgmma_tile(trans)``) fill the card; where they are few (prefill
+    chunks, short prompts, narrow projections), K is cut into the count of
+    slices that minimises ``WGMMA_STEP_US`` a K step (scaled by the tile's
+    width) plus ``WGMMA_SPLIT_US`` a further slice, among those that keep
+    tiles times slices within ``WGMMA_SMS``, at most ``WGMMA_MAX_SPLITS``,
+    each of at least ``WGMMA_MIN_STEPS``."""
+    bm, bn = wgmma_tile(trans)
+    tiles = math.ceil(M / bm) * math.ceil(N / bn)
     k_steps = max(1, math.ceil(K / WGMMA_BK))
     most = max(1, min(WGMMA_SMS // tiles, k_steps // WGMMA_MIN_STEPS,
                       WGMMA_MAX_SPLITS))
+    step_us = WGMMA_STEP_US * bn / WGMMA_BN
     splits = min(range(1, most + 1), key=lambda n: math.ceil(k_steps / n)
-                 * WGMMA_STEP_US + (n - 1) * WGMMA_SPLIT_US)
+                 * step_us + (n - 1) * WGMMA_SPLIT_US)
     per = math.ceil(k_steps / splits)
     return math.ceil(k_steps / per), per * WGMMA_BK
 
 
-def plan(kind: str, M: int, K: int, N: int) -> tuple[int, int, int]:
+def bwd_walk(M: int, N: int) -> list[tuple[int, int]]:
+    """The output tiles of the backward's wgmma kernel (C (M, N)) in the
+    order its persistent blocks take them, as ``(m0, n0)``: groups of
+    ``BWD_GROUP_M`` M-tiles by every N-tile, M fastest within a group (the
+    last group as many M-tiles as are left).  Block b of a grid of G takes
+    tiles b, b + G, b + 2G, ...; so the tiles in flight at once are a run of
+    the list.  csrc ``unit_at`` is its twin."""
+    tm, tn = math.ceil(M / BWD_BM), math.ceil(N / BWD_BN)
+    group = BWD_GROUP_M * tn
+    out = []
+    for t in range(tm * tn):
+        first = t // group * BWD_GROUP_M
+        rows = min(tm - first, BWD_GROUP_M)
+        i = t % group
+        out.append(((first + i % rows) * BWD_BM, i // rows * BWD_BN))
+    return out
+
+
+def plan(kind: str, M: int, K: int, N: int, trans: int = 0) -> tuple[int, int, int]:
     """``(splits, slice, tickets)`` of a launch: the split-K plan of its
-    variant and the tickets its workspace needs (0 unsplit)."""
+    variant and the tickets its workspace needs (one an output tile; 0
+    unsplit)."""
     if kind == "decode":
         splits, slice_len = split_plan(K, N)
         tiles = math.ceil(N / DECODE_BN)
     elif kind == "wgmma":
-        splits, slice_len = wgmma_plan(M, K, N)
-        tiles = math.ceil(M / WGMMA_BM) * math.ceil(N / WGMMA_BN)
+        splits, slice_len = wgmma_plan(M, K, N, trans)
+        bm, bn = wgmma_tile(trans)
+        tiles = math.ceil(M / bm) * math.ceil(N / bn)
     else:
         return 1, 0, 0
     return splits, slice_len, tiles if splits > 1 else 0
@@ -166,7 +202,7 @@ def _call(a, b, c, M: int, K: int, N: int, trans: int, kind: str, idx: int) -> i
     current device); returns the CUDA error code."""
     # the raw handle of the current stream, without a Stream object
     stream = torch._C._cuda_getCurrentRawStream(idx)
-    splits, slice_len, tiles = plan(kind, M, K, N)
+    splits, slice_len, tiles = plan(kind, M, K, N, trans)
     tickets, partials = (_workspace(a.device, stream, tiles, splits * M * N)
                          if tiles else (0, 0))
     return _fn()(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K, trans,

@@ -287,6 +287,31 @@ def check_flash_attention(S, dtype, window=None, device="cuda", B=1) -> dict:
     return res
 
 
+#: phi3-mini-3.8b's attention (d_model 3072): 32 query heads over 32 kv
+#: heads of 96, the simt kernels' head dim; its forward at a whole prompt of
+#: PHI3_FLASH_S and its backward at (B, S) = PHI3_FLASH_BWD, causal
+PHI3_HQ, PHI3_HKV, PHI3_HEAD_DIM = 32, 32, 96
+PHI3_FLASH_S = 512
+PHI3_FLASH_BWD = (1, 1024)
+
+
+def phi3_flash_inputs(S, dtype, device="cuda", seed=0, B=1):
+    """q, k, v at phi3-mini's heads, (B, S, H, D) as (B, H, S, D) views."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn((B, S, h, PHI3_HEAD_DIM), generator=g, device=device)
+                 .to(dtype).transpose(1, 2) for h in (PHI3_HQ, PHI3_HKV, PHI3_HKV))
+
+
+def check_flash_phi3(S, dtype, device="cuda") -> dict:
+    """The forward at phi3-mini's heads, causal, twice for the same bits;
+    ``variant`` names the kernel taken."""
+    q, k, v = phi3_flash_inputs(S, dtype, device)
+    run = lambda: _fa.flash_attention(q, k, v, causal=True)
+    res = _pair(run(), run(), ref.attention(q, k, v, causal=True), ATTN_TOL[dtype])
+    res["variant"] = _fa.variant(S, S, PHI3_HEAD_DIM, dtype)
+    return res
+
+
 def check_flash_head_dim(D, causal, dtype, device="cuda") -> dict:
     """Two sequences of 70 over 4 q and 2 kv heads of D, window 9 (a masked
     edge in every tile), as (B, S, H, D) views."""
@@ -620,10 +645,12 @@ ATTN_BWD_TOL = {torch.bfloat16: (8e-3, 1e-4), torch.float32: (1e-4, 1e-4)}
 RMSNORM_BWD_CASES = ((TRAIN_TOKENS, D_MODEL), (333, D_MODEL), (1, D_MODEL),
                      (333, D_MODEL + 3))
 #: matmul backward products (M, K, N) besides the projections at
-#: TRAIN_TOKENS: ragged edges, and bf16 shapes the wgmma forms do not take
-#: (K or N not a multiple of 8: simt)
+#: TRAIN_TOKENS: ragged edges, bf16 shapes the wgmma forms do not take (K or
+#: N not a multiple of 8: simt), and few output tiles, so that the wgmma
+#: plan splits K (dA of (72, 1032, 4104) in 3 slices with a ragged last K
+#: step, dB of (2056, 136, 264) in 2)
 MATMUL_BWD_RAGGED = ((333, 4096, 1024), (130, 4104, 1032), (72, 4100, 1030),
-                     (9, 130, 33))
+                     (9, 130, 33), (72, 1032, 4104), (2056, 136, 264))
 #: flash backward (B, S, window) at the llama3-8b heads, causal: the
 #: training shape, a ragged prompt, windows
 FLASH_BWD_CASES = ((4, 1024, None), (1, 223, None), (1, 445, 100), (2, 256, 64))

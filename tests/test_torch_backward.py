@@ -110,6 +110,95 @@ def test_backward_products_pick_their_kernel(M, K, N, trans, dtype, aligned, wan
     assert matmul.variant(M, K, N, dtype, aligned, trans) == want
 
 
+#: the backward's products of each llama3-8b projection over 4,096 tokens,
+#: (M, K, N, trans) of the product (C (M, N), K the contraction)
+TRAIN_PRODUCTS = {
+    "wq/wo dX": (4096, 4096, 4096, 1), "wq/wo dW": (4096, 4096, 4096, 2),
+    "wk/wv dX": (4096, 1024, 4096, 1), "wk/wv dW": (4096, 4096, 1024, 2),
+    "wg/wi dX": (4096, 14336, 4096, 1), "wg/wi dW": (4096, 4096, 14336, 2),
+    "mlp.wo dX": (4096, 4096, 14336, 1), "mlp.wo dW": (14336, 4096, 4096, 2),
+}
+
+
+@pytest.mark.parametrize("M,K,N,trans,want", [
+    *[(*mknt, (1, -(-mknt[1] // 64) * 64, 0)) for mknt in TRAIN_PRODUCTS.values()],
+    (333, 1024, 4096, 1, (1, 1024, 0)),     # 48 tiles: too few K steps to split
+    (72, 4104, 1032, 1, (3, 1408, 5)),      # 5 tiles: 3 slices, the last ragged
+    (136, 2056, 264, 2, (2, 1088, 4)),      # 4 tiles: 2 slices
+    (4, 4096, 4096, 1, (3, 1408, 16)),
+    (128, 4096, 1024, 0, (2, 2048, 8)),     # the forward's 128 x 128 tiles
+], ids=str)
+def test_backward_products_plan(M, K, N, trans, want):
+    """(splits, slice, tickets) of the wgmma kernels: the backward's 128 x
+    256 tiles fill the card unsplit at the training shapes; where they are
+    few, K is cut into slices of whole K steps, none empty, one ticket an
+    output tile, and tiles x slices within one wave of 132 SMs."""
+    got = matmul.plan("wgmma", M, K, N, trans)
+    assert got == want
+    splits, slice_len, tickets = got
+    bm, bn = matmul.wgmma_tile(trans)
+    tiles = -(-M // bm) * -(-N // bn)
+    assert (splits - 1) * slice_len < K <= splits * slice_len
+    assert slice_len % matmul.WGMMA_BK == 0
+    assert tickets == (tiles if splits > 1 else 0)
+    assert splits == 1 or tiles * splits <= matmul.WGMMA_SMS
+
+
+@pytest.mark.parametrize("M,N", [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+                                 (333, 1024), (130, 4104), (9, 33), (4104, 1032), (1, 8),
+                                 (2056, 264), (129, 257), (2049, 7000)], ids=str)
+def test_bwd_walk_visits_every_tile_once(M, N):
+    """The grouped order holds each 128 x 256 output tile once, and a
+    persistent grid of G blocks (block b takes tiles b, b + G, ...) makes
+    each one once, whatever G."""
+    walk = matmul.bwd_walk(M, N)
+    tiles = {(m, n) for m in range(0, M, matmul.BWD_BM) for n in range(0, N, matmul.BWD_BN)}
+    assert len(walk) == len(tiles) and set(walk) == tiles
+    for G in (1, 7, 132, len(walk) + 5):
+        taken = [walk[t] for b in range(min(G, len(walk))) for t in range(b, len(walk), G)]
+        assert sorted(taken) == sorted(tiles)
+
+
+def test_bwd_walk_groups_m_tiles_first():
+    """GROUP_M M-tiles by every N-tile, M fastest, the last group short."""
+    walk = matmul.bwd_walk(20 * 128, 3 * 256)
+    G = matmul.BWD_GROUP_M
+    assert walk[:G + 1] == [(m * 128, 0) for m in range(G)] + [(0, 256)]
+    assert walk[3 * G:3 * G + 5] == [(m * 128, 0) for m in range(G, 20)] + [(G * 128, 256)]
+
+
+#: the L2 budget of the backward's walk: of an H100's 50 MB of L2, what a
+#: wave's operand strips may fill over an ``L2_WINDOW_K`` stretch of K (the
+#: 132 persistent blocks start together and step through K at one rate, so
+#: a strip one tile of the wave reads is read by the others while it is in
+#: L2 if the wave's strips over that stretch fit; the rest holds outputs)
+L2_BUDGET, L2_WINDOW_K = 40e6, 2048
+
+
+def _wave_bytes(tiles, M, N, K, bm, bn):
+    """bf16 bytes of the distinct A rows and B columns ``tiles`` ((m0, n0)
+    of bm x bn output tiles) read over ``L2_WINDOW_K`` of K."""
+    rows = sum(min(bm, M - m) for m in {m for m, _ in tiles})
+    cols = sum(min(bn, N - n) for n in {n for _, n in tiles})
+    return 2 * min(K, L2_WINDOW_K) * (rows + cols)
+
+
+@pytest.mark.parametrize("name", list(TRAIN_PRODUCTS))
+def test_bwd_walk_wave_fits_the_l2_budget(name):
+    """Any 132 tiles in a row of the walk (the tiles a wave of persistent
+    blocks holds at once) read at most ``L2_BUDGET`` of A and B; the
+    forward kernel's walk (128 x 128 tiles, M fastest over all of M) reads
+    more for dW at mlp.wo, whose X is 117 MB."""
+    M, K, N, _ = TRAIN_PRODUCTS[name]
+    walk, n = matmul.bwd_walk(M, N), matmul.WGMMA_SMS
+    worst = max(_wave_bytes(walk[i:i + n], M, N, K, matmul.BWD_BM, matmul.BWD_BN)
+                for i in range(max(1, len(walk) - n + 1)))
+    assert worst <= L2_BUDGET
+    if name == "mlp.wo dW":
+        old = [(m, c) for c in range(0, N, 128) for m in range(0, M, 128)][:n]
+        assert _wave_bytes(old, M, N, K, 128, 128) > L2_BUDGET
+
+
 @pytest.mark.parametrize("R,want", [(1, 1), (2, 2), (263, 263), (264, 264),
                                     (4096, 264)])
 def test_rmsnorm_backward_blocks(R, want):

@@ -199,12 +199,14 @@ def test_flash_attention_kernel_head_dims(cuda, D, causal, dtype):
 
 
 # one shape of each flash kernel: wgmma at D = 128 (ragged S) and 64, a B = 2
-# window case, simt in f32 and at a head dim wgmma does not take
+# window case, simt in f32 and at head dims wgmma does not take (phi3-mini's
+# 96 at its heads among them)
 FLASH_VARIANT_SHAPES = [(1, 32, 8, 223, 128, None, torch.bfloat16),
                         (2, 4, 2, 70, 64, 9, torch.bfloat16),
                         (1, 32, 8, 445, 128, 100, torch.bfloat16),
                         (1, 32, 8, 223, 128, None, torch.float32),
-                        (2, 4, 2, 70, 32, 9, torch.bfloat16)]
+                        (2, 4, 2, 70, 32, 9, torch.bfloat16),
+                        (1, 32, 32, 512, 96, None, torch.bfloat16)]
 
 
 def _flash_case(B, Hq, Hkv, S, D, dtype, device):
@@ -595,6 +597,41 @@ def test_rmsnorm_backward_kernel_matches_plain(cuda, R, D, dtype):
 def test_matmul_backward_products_match_plain(cuda, mkn, dtype, which):
     res = kc.check_matmul_bwd(*mkn, dtype, which, cuda)
     assert res["ok"], res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["a", "b"])
+@pytest.mark.parametrize("mkn", [(kc.TRAIN_TOKENS, *kn) for kn in kc.MATMUL_KN.values()]
+                         + list(kc.MATMUL_BWD_RAGGED), ids=str)
+def test_matmul_backward_products_one_launch_and_the_same_bits(cuda, mkn, which):
+    """bf16 dX (``which`` "a") and dW ("b"): one launch a product, counted
+    in ``matmul_bwd`` alone, and the same bits twice, and again after a
+    product of another shape and plan has used the workspace."""
+    M, K, N = mkn
+    x, y = kc.matmul_bwd_inputs(M, K, N, torch.bfloat16, which, cuda)
+    run = (lambda: matmul.grad_a(x, y)) if which == "a" else (lambda: matmul.grad_b(x, y))
+    launches.reset()
+    first = run()
+    assert launches.LAUNCHES == {**{k: 0 for k in launches.LAUNCHES}, "matmul_bwd": 1}
+    again = run()
+    matmul.grad_a(*kc.matmul_bwd_inputs(72, 1032, 4104, torch.bfloat16, "a", cuda, seed=3))
+    third = run()
+    torch.cuda.synchronize()
+    assert torch.equal(first, again) and torch.equal(first, third)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_phi3_heads(cuda, dtype):
+    """phi3-mini's 32 over 32 heads of 96 at a whole prompt, forward, and at
+    the training length, backward: the simt kernels, within their limits,
+    the same bits twice."""
+    res = kc.check_flash_phi3(kc.PHI3_FLASH_S, dtype, cuda)
+    assert res["ok"] and res["variant"] == "simt", res
+    B, S = kc.PHI3_FLASH_BWD
+    res = kc.check_flash_bwd(B, S, dtype, None, True, kc.PHI3_HQ, kc.PHI3_HKV,
+                             kc.PHI3_HEAD_DIM, cuda)
+    assert res["ok"] and res["variant"] == "simt", res
 
 
 @pytest.mark.gpu
