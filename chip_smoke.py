@@ -104,7 +104,9 @@ Phases, each of which raises on failure (nothing is caught):
      the device's ms a call from a trace, each naming its kernels (flash
      attention's also through the simt kernels, forced, for the same call).
 The line before the last is a JSON object of the kernels; the last line is
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.  Without a card,
+``{"ok": true, "device": {...}}``.  ``--matmul-bwd`` runs phase 6's matmul
+backward rows alone (a copy of this file at another checkout's root reads
+that tree's kernels with this file's readings).  Imports nothing of JAX.  Without a card,
 or without the repo's ``src/repro_torch`` beside it, it exits non-zero
 before any phase (2 and 1).
 """
@@ -455,6 +457,24 @@ def _json_numbers(v):
     return v
 
 
+def _time_ms(fn, iters: int) -> float:
+    """ms a call of ``fn`` between CUDA events, over ``iters`` calls after
+    three warm-up calls."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def _kernel_events(fn, calls: int) -> list:
     """The card's kernels in a torch.profiler trace of ``calls`` calls of
     ``fn`` (it may miss the first few; a trace that holds no kernel at all
@@ -648,7 +668,8 @@ def _backward_checks(kc, kfa) -> tuple[dict, list]:
         print(f"[check] {tag} {extra}same bits twice: {r['same_bits']} "
               f"{_reading(r)}{' (limit use ' + parts + ')' if parts else ''}")
 
-    for R, D in kc.RMSNORM_BWD_CASES:
+    # the training shapes, ragged ones, and phi3-mini's width (phase 7b)
+    for R, D in kc.RMSNORM_BWD_CASES + ((kc.TRAIN_TOKENS, kc.PHI3_D_MODEL),):
         for dt in dts:
             r = kc.check_rmsnorm_bwd(R, D, dt)
             errs[("rmsnorm_bwd", R, D, dt)] = r["max_abs_err"]
@@ -657,6 +678,8 @@ def _backward_checks(kc, kfa) -> tuple[dict, list]:
                 failed.append(("rmsnorm_bwd", R, D, dt))
     shapes = [(proj, kc.TRAIN_TOKENS, K, N) for proj, (K, N) in kc.MATMUL_KN.items()]
     shapes += [("ragged", M, K, N) for M, K, N in kc.MATMUL_BWD_RAGGED]
+    shapes += [(f"phi3 {proj}", kc.TRAIN_TOKENS, K, N)
+               for proj, (K, N) in kc.PHI3_MATMUL_KN.items()]
     for proj, M, K, N in shapes:
         for dt in dts:
             for which in "ab":
@@ -950,6 +973,68 @@ def _phi3_path(dev, n_layers: int = 2, prompt: int = 512, batch: int = 4,
     return {"phi3_serve": serve, "phi3_train": train}
 
 
+def _matmul_bwd_times(kc, kmm, ref, time_ms) -> dict:
+    """Phase 6, the matmul's backward of each projection at the training M:
+    dA (dX) and dB (dW), one launch each, between CUDA events beside
+    torch.matmul's, the plain version and the bound.  Device ms two ways:
+    the pair's (``device_ms``, read as the other rows read theirs: a trace
+    of 10 calls of both products over the calls made, which reads low when
+    the trace misses kernels), and each product's beside torch.matmul's of
+    it (the mean of the kernels a trace of 20 calls holds); then the
+    forward at the same M (the train step's).  Returns rows by projection.
+    It uses only what the package has had since the backward kernels came,
+    so that ``--matmul-bwd`` reads an older tree's kernels the same way."""
+    import torch
+
+    per = {}
+    for proj, (K, N) in kc.MATMUL_KN.items():
+        M = kc.TRAIN_TOKENS
+        dc, b = kc.matmul_bwd_inputs(M, K, N, torch.bfloat16, "a")
+        a, dc2 = kc.matmul_bwd_inputs(M, K, N, torch.bfloat16, "b")
+        ka = lambda: kmm.grad_a(dc, b)
+        kb = lambda: kmm.grad_b(a, dc2)
+        la = lambda: torch.matmul(dc, b.T)
+        lb = lambda: torch.matmul(a.T, dc2)
+        t = {n: time_ms(f, 20) for n, f in (("dA", ka), ("dB", kb), ("lib dA", la),
+                                            ("lib dB", lb))}
+        t_p = time_ms(lambda: (ref.matmul_grad_a(dc, b), ref.matmul_grad_b(a, dc2)), 5)
+        bound, by = _ms_bound(2 * 2 * (M * N + K * N + M * K), 4.0 * M * N * K, "bf16")
+        one, _ = _ms_bound(2 * (M * N + K * N + M * K), 2.0 * M * N * K, "bf16")
+        dev = {n: _device_one(f, 20) for n, f in (("dA", ka), ("dB", kb),
+                                                    ("lib dA", la), ("lib dB", lb))}
+        (p_k, n_k), (p_l, n_l) = (_device_ms(f, "", 10) for f in
+                                  (lambda: (ka(), kb()), lambda: (la(), lb())))
+        d_k, d_l = p_k * n_k / 10, p_l * n_l / 10      # _device_per_call's reading
+        s_k, s_l = dev["dA"] + dev["dB"], dev["lib dA"] + dev["lib dB"]
+        fwd_a, fwd_b = kc.matmul_inputs(M, K, N, torch.bfloat16)
+        f_k = _device_one(lambda: kmm.matmul(fwd_a, fwd_b), 20)
+        f_l = _device_one(lambda: torch.matmul(fwd_a, fwd_b), 20)
+        per[proj] = dict(ms=t["dA"] + t["dB"], dA_ms=t["dA"], dB_ms=t["dB"], plain_ms=t_p,
+                         library_ms=t["lib dA"] + t["lib dB"], bound_ms=bound,
+                         bound_by=by, device_ms=d_k, library_device_ms=d_l,
+                         dA_device_ms=dev["dA"], dB_device_ms=dev["dB"],
+                         dA_library_device_ms=dev["lib dA"],
+                         dB_library_device_ms=dev["lib dB"], product_bound_ms=one,
+                         products_device_ms=s_k, products_library_device_ms=s_l,
+                         forward_device_ms=f_k, forward_library_device_ms=f_l,
+                         shape=f"M={M},K={K},N={N},bf16")
+        print(f"[time] matmul_bwd {proj:7s} M={M} K={K:<5d} N={N:<5d} bf16 kernel dA "
+              f"{t['dA']:.4f} + dB {t['dB']:.4f} ms  plain {t_p:.4f} ms  torch.matmul "
+              f"{t['lib dA']:.4f} + {t['lib dB']:.4f} ms  bound {bound:.4f} ms ({by}); "
+              f"device: kernel {d_k:.4f} ms, torch.matmul {d_l:.4f} ms, "
+              f"{d_k / d_l:.2f}x torch.matmul, {d_k / bound:.2f}x bound (the traces "
+              f"held {n_k} and {n_l} of 20 kernels)")
+        print(f"[time] matmul_bwd {proj:7s} device ms a product (bound {one:.4f} each): "
+              f"dX {dev['dA']:.4f} (torch.matmul {dev['lib dA']:.4f}, "
+              f"{dev['dA'] / dev['lib dA']:.3f}x), dW {dev['dB']:.4f} (torch.matmul "
+              f"{dev['lib dB']:.4f}, {dev['dB'] / dev['lib dB']:.3f}x); dW / dX "
+              f"{dev['dB'] / dev['dA']:.3f}; the two {s_k:.4f} (torch.matmul {s_l:.4f}, "
+              f"{s_k / s_l:.3f}x); the forward at M={M}: kernel {f_k:.4f}, "
+              f"torch.matmul {f_l:.4f}, {f_k / f_l:.3f}x")
+        del dc, b, a, dc2, fwd_a, fwd_b
+    return per
+
+
 def _backward_times(kc, kfa, kmm, krms, ref, time_ms) -> dict:
     """Phase 6, the backward kernels at the training shapes: kernel, plain,
     the library call and the bound between CUDA events, and device ms a
@@ -986,50 +1071,7 @@ def _backward_times(kc, kfa, kmm, krms, ref, time_ms) -> dict:
           f"{r['library_device_ms']:.4f} ms, {r['device_ms'] / r['library_device_ms']:.2f}x "
           f"the library, {r['device_ms'] / bound:.2f}x bound")
     del x, dy, xl, yl
-    # the matmul's backward of each projection: dA (dX) and dB (dW), one
-    # launch each, and each product's device ms beside torch.matmul's of it;
-    # then the forward at the same M (the train step's), beside torch.matmul
-    per = {}
-    for proj, (K, N) in kc.MATMUL_KN.items():
-        M = kc.TRAIN_TOKENS
-        dc, b = kc.matmul_bwd_inputs(M, K, N, torch.bfloat16, "a")
-        a, dc2 = kc.matmul_bwd_inputs(M, K, N, torch.bfloat16, "b")
-        ka = lambda: kmm.grad_a(dc, b)
-        kb = lambda: kmm.grad_b(a, dc2)
-        la = lambda: torch.matmul(dc, b.T)
-        lb = lambda: torch.matmul(a.T, dc2)
-        t = {n: time_ms(f, 20) for n, f in (("dA", ka), ("dB", kb), ("lib dA", la),
-                                            ("lib dB", lb))}
-        t_p = time_ms(lambda: (ref.matmul_grad_a(dc, b), ref.matmul_grad_b(a, dc2)), 5)
-        bound, by = _ms_bound(2 * 2 * (M * N + K * N + M * K), 4.0 * M * N * K, "bf16")
-        one, _ = _ms_bound(2 * (M * N + K * N + M * K), 2.0 * M * N * K, "bf16")
-        dev = {n: _device_one(f, 20) for n, f in (("dA", ka), ("dB", kb),
-                                                    ("lib dA", la), ("lib dB", lb))}
-        d_k, d_l = dev["dA"] + dev["dB"], dev["lib dA"] + dev["lib dB"]
-        fwd_a, fwd_b = kc.matmul_inputs(M, K, N, torch.bfloat16)
-        f_k = _device_one(lambda: kmm.matmul(fwd_a, fwd_b), 20)
-        f_l = _device_one(lambda: torch.matmul(fwd_a, fwd_b), 20)
-        per[proj] = dict(ms=t["dA"] + t["dB"], dA_ms=t["dA"], dB_ms=t["dB"], plain_ms=t_p,
-                         library_ms=t["lib dA"] + t["lib dB"], bound_ms=bound,
-                         bound_by=by, device_ms=d_k, library_device_ms=d_l,
-                         dA_device_ms=dev["dA"], dB_device_ms=dev["dB"],
-                         dA_library_device_ms=dev["lib dA"],
-                         dB_library_device_ms=dev["lib dB"], product_bound_ms=one,
-                         forward_device_ms=f_k, forward_library_device_ms=f_l,
-                         shape=f"M={M},K={K},N={N},bf16")
-        print(f"[time] matmul_bwd {proj:7s} M={M} K={K:<5d} N={N:<5d} bf16 kernel dA "
-              f"{t['dA']:.4f} + dB {t['dB']:.4f} ms  plain {t_p:.4f} ms  torch.matmul "
-              f"{t['lib dA']:.4f} + {t['lib dB']:.4f} ms  bound {bound:.4f} ms ({by}); "
-              f"device: kernel {d_k:.4f} ms, torch.matmul {d_l:.4f} ms, "
-              f"{d_k / d_l:.2f}x torch.matmul, {d_k / bound:.2f}x bound")
-        print(f"[time] matmul_bwd {proj:7s} device ms a product (bound {one:.4f} each): "
-              f"dX {dev['dA']:.4f} (torch.matmul {dev['lib dA']:.4f}, "
-              f"{dev['dA'] / dev['lib dA']:.3f}x), dW {dev['dB']:.4f} (torch.matmul "
-              f"{dev['lib dB']:.4f}, {dev['dB'] / dev['lib dB']:.3f}x); dW / dX "
-              f"{dev['dB'] / dev['dA']:.3f}; the forward at M={M}: kernel {f_k:.4f}, "
-              f"torch.matmul {f_l:.4f}, {f_k / f_l:.3f}x")
-        del dc, b, a, dc2, fwd_a, fwd_b
-    rows["matmul_bwd"] = per
+    rows["matmul_bwd"] = _matmul_bwd_times(kc, kmm, ref, time_ms)
     # flash attention at the training shape, causal: q, k, v, do read, dq, dk,
     # dv written; the five products of the backward over the visible pairs
     B, S = 4, 1024
@@ -1090,7 +1132,15 @@ def _backward_times(kc, kfa, kmm, krms, ref, time_ms) -> dict:
     return rows
 
 
-def main() -> int:
+def main(argv: list | None = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="The port's smoke run on one CUDA card.")
+    ap.add_argument("--matmul-bwd", action="store_true",
+                    help="build the matmul alone and print phase 6's matmul backward "
+                         "rows, nothing else; a copy of this file at the root of "
+                         "another checkout reads that tree's kernels the same way")
+    args = ap.parse_args(argv)
     import numpy as np
     import torch
 
@@ -1134,6 +1184,10 @@ def main() -> int:
                          text=True, timeout=60, check=True).stdout.strip()
     print(f"[device] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(smi.splitlines()[0])
+    if args.matmul_bwd:
+        _build.build(["matmul"])
+        _matmul_bwd_times(kc, kmm, ref, _time_ms)
+        return 0
 
     # -- 2. build ------------------------------------------------------------
     t0 = now()
@@ -1158,13 +1212,15 @@ def main() -> int:
                 r = kc.check_matmul(M, K, N, dt)
                 errs[("matmul", M, K, N, dt)] = r["max_abs_err"]
                 print(f"[check] matmul {proj:7s} M={M:<4d} K={K:<5d} N={N:<5d} "
-                      f"{str(dt)[6:]:8s} {kmm.variant(M, K, N, dt):6s} {_reading(r)}")
+                      f"{str(dt)[6:]:8s} {kmm.variant(M, K, N, dt):6s} same bits twice: "
+                      f"{r['same_bits']} {_reading(r)}")
                 if not r["ok"]:
                     failed.append(("matmul", proj, M, dt))
     for M, K, N, dt in kc.MATMUL_RAGGED:
         r = kc.check_matmul(M, K, N, dt)
         print(f"[check] matmul ragged  M={M:<4d} K={K:<5d} N={N:<5d} "
-              f"{str(dt)[6:]:8s} {kmm.variant(M, K, N, dt):6s} {_reading(r)}")
+              f"{str(dt)[6:]:8s} {kmm.variant(M, K, N, dt):6s} same bits twice: "
+              f"{r['same_bits']} {_reading(r)}")
         if not r["ok"]:
             failed.append(("matmul ragged", M, K, N, dt))
     for R in kc.RMSNORM_R:
@@ -1172,9 +1228,30 @@ def main() -> int:
             r = kc.check_rmsnorm(R, kc.D_MODEL, dt)
             errs[("rmsnorm", R, dt)] = r["max_abs_err"]
             print(f"[check] rmsnorm R={R:<4d} D={kc.D_MODEL} {str(dt)[6:]:8s} "
-                  f"{_reading(r)}")
+                  f"same bits twice: {r['same_bits']} {_reading(r)}")
             if not r["ok"]:
                 failed.append(("rmsnorm", R, dt))
+    # phi3-mini's widths (phase 7b's path): the matmul at each projection and
+    # rmsnorm at its d_model, at a decode step's, the prefill's and the train
+    # step's rows
+    for proj, (K, N) in kc.PHI3_MATMUL_KN.items():
+        for M in kc.PHI3_ROWS:
+            for dt in (torch.bfloat16, torch.float32):
+                r = kc.check_matmul(M, K, N, dt)
+                errs[("matmul phi3", M, K, N, dt)] = r["max_abs_err"]
+                print(f"[check] matmul phi3 {proj:7s} M={M:<4d} K={K:<5d} N={N:<5d} "
+                      f"{str(dt)[6:]:8s} {kmm.variant(M, K, N, dt):6s} same bits twice: "
+                      f"{r['same_bits']} {_reading(r)}")
+                if not r["ok"]:
+                    failed.append(("matmul phi3", proj, M, dt))
+    for R in kc.PHI3_ROWS:
+        for dt in (torch.bfloat16, torch.float32):
+            r = kc.check_rmsnorm(R, kc.PHI3_D_MODEL, dt)
+            errs[("rmsnorm phi3", R, dt)] = r["max_abs_err"]
+            print(f"[check] rmsnorm phi3 R={R:<4d} D={kc.PHI3_D_MODEL} {str(dt)[6:]:8s} "
+                  f"same bits twice: {r['same_bits']} {_reading(r)}")
+            if not r["ok"]:
+                failed.append(("rmsnorm phi3", R, dt))
     for dt in (torch.bfloat16, torch.float32):
         r = kc.check_paged_attention(dt)
         errs[("paged_attention", dt)] = r["max_abs_err"]
@@ -1461,18 +1538,7 @@ def main() -> int:
     path_launches.update(_phi3_path(dev))
 
     # -- 6. kernel times ---------------------------------------------------------
-    def time_ms(fn, iters: int) -> float:
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
+    time_ms = _time_ms
 
     rows, device_rows = {}, {}
     for proj, (K, N) in kc.MATMUL_KN.items():

@@ -105,8 +105,7 @@
 //       one thread stores the box by TMA, so the next tile's products start
 //       while the stores drain (stored from registers, as the forward
 //       does, the products took 1.05-1.44x torch.matmul's time at the
-//       training shapes on an H100, against 1.00-1.10x this way;
-//       testing/matmul_probe.py);
+//       training shapes on an H100, against 1.00-1.10x this way);
 //     - keeps the forward's rules: TMA's zero fill for ragged edges and a
 //       masked store, and split-K (kernels/matmul.py::wgmma_plan with
 //       trans) where the tiles are too few for the SMs, each slice's f32

@@ -127,7 +127,10 @@ def wgmma_plan(M: int, K: int, N: int, trans: int = 0) -> tuple[int, int]:
     slices that minimises ``WGMMA_STEP_US`` a K step (scaled by the tile's
     width) plus ``WGMMA_SPLIT_US`` a further slice, among those that keep
     tiles times slices within ``WGMMA_SMS``, at most ``WGMMA_MAX_SPLITS``,
-    each of at least ``WGMMA_MIN_STEPS``."""
+    each of at least ``WGMMA_MIN_STEPS``.  Both costs were measured with
+    the forward's 128 x 128 tile; the backward's 128 x 256 step cost is that
+    one scaled by the width, unmeasured, and the split counts it picks were
+    checked for their results, not timed against the other counts."""
     bm, bn = wgmma_tile(trans)
     tiles = math.ceil(M / bm) * math.ceil(N / bn)
     k_steps = max(1, math.ceil(K / WGMMA_BK))

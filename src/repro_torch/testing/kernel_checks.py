@@ -1,6 +1,6 @@
 """Each kernel held against its plain version on the card, at the shapes
-the llama3-8b serving path gives it.  Used by ``chip_smoke.py`` and by the
-gpu-marked tests.
+the llama3-8b serving path gives it (and phi3-mini's path, ``PHI3_*``).
+Used by ``chip_smoke.py`` and by the gpu-marked tests.
 
 Each element is held to ``|kernel - plain| <= rtol * |plain| + atol``:
   * bf16 output: both sides form the same products exactly in f32 (a
@@ -229,14 +229,17 @@ def compare(got: torch.Tensor, want: torch.Tensor, tol: tuple) -> dict:
 
 
 def check_matmul(M, K, N, dtype, device="cuda") -> dict:
+    """Called twice: the second call must give the same bits."""
     a, b = matmul_inputs(M, K, N, dtype, device)
-    return compare(_mm.matmul(a, b), ref.matmul(a, b), MATMUL_TOL[dtype])
+    return _pair(_mm.matmul(a, b), _mm.matmul(a, b), ref.matmul(a, b),
+                 MATMUL_TOL[dtype])
 
 
 def check_rmsnorm(R, D, dtype, device="cuda") -> dict:
+    """Called twice: the second call must give the same bits."""
     x, gamma = rmsnorm_inputs(R, D, dtype, device)
-    return compare(_rms.rmsnorm(x, gamma, EPS), ref.rmsnorm(x, gamma, EPS),
-                    RMSNORM_TOL[dtype])
+    return _pair(_rms.rmsnorm(x, gamma, EPS), _rms.rmsnorm(x, gamma, EPS),
+                 ref.rmsnorm(x, gamma, EPS), RMSNORM_TOL[dtype])
 
 
 def check_paged_attention(dtype, device="cuda") -> dict:
@@ -657,6 +660,15 @@ FLASH_BWD_CASES = ((4, 1024, None), (1, 223, None), (1, 445, 100), (2, 256, 64))
 #: flash backward at the training length with the wgmma kernels' other head
 #: dim (B, S, D), causal, the llama3-8b heads
 FLASH_BWD_D64 = (4, 1024, 64)
+#: phi3-mini-3.8b's matmuls and norms on its path (d_model 3072, d_ff 8192;
+#: wq, wk, wv and wo all 3072 x 3072 over 32 kv heads of 96): (K, N) of its
+#: projections, and the rows (M of the forward, R of rmsnorm) the path gives
+#: them: a decode step, the whole PHI3_FLASH_S-token prefill, the train
+#: step's TRAIN_TOKENS (the backward's at TRAIN_TOKENS alone)
+PHI3_D_MODEL = 3072
+PHI3_MATMUL_KN = {"wqkv/wo": (3072, 3072), "wg/wi": (3072, 8192),
+                  "mlp.wo": (8192, 3072)}
+PHI3_ROWS = (1, PHI3_FLASH_S, TRAIN_TOKENS)
 
 
 def _pair(got, again, want, tol) -> dict:

@@ -51,6 +51,26 @@ def test_rmsnorm_kernel_matches_plain(cuda, R, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M", kc.PHI3_ROWS)
+@pytest.mark.parametrize("proj", list(kc.PHI3_MATMUL_KN))
+def test_matmul_kernel_phi3_widths(cuda, proj, M, dtype):
+    """phi3-mini's projections at a decode step's, the prefill's and the
+    train step's rows: within the limit, the same bits twice."""
+    K, N = kc.PHI3_MATMUL_KN[proj]
+    res = kc.check_matmul(M, K, N, dtype, cuda)
+    assert res["ok"], res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("R", kc.PHI3_ROWS)
+def test_rmsnorm_kernel_phi3_width(cuda, R, dtype):
+    res = kc.check_rmsnorm(R, kc.PHI3_D_MODEL, dtype, cuda)
+    assert res["ok"], res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("R", kc.RMSNORM_R)
 @pytest.mark.parametrize("case", ["unaligned", "ragged D"])
 def test_rmsnorm_kernel_scalar_path(cuda, case, R, dtype):
@@ -583,7 +603,8 @@ def test_table1_kernels_refuse_what_they_do_not_take(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("R,D", kc.RMSNORM_BWD_CASES)
+@pytest.mark.parametrize("R,D", kc.RMSNORM_BWD_CASES
+                         + ((kc.TRAIN_TOKENS, kc.PHI3_D_MODEL),))
 def test_rmsnorm_backward_kernel_matches_plain(cuda, R, D, dtype):
     res = kc.check_rmsnorm_bwd(R, D, dtype, cuda)
     assert res["ok"], res
@@ -593,7 +614,8 @@ def test_rmsnorm_backward_kernel_matches_plain(cuda, R, D, dtype):
 @pytest.mark.parametrize("which", ["a", "b"])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("mkn", [(kc.TRAIN_TOKENS, *kn) for kn in kc.MATMUL_KN.values()]
-                         + list(kc.MATMUL_BWD_RAGGED))
+                         + list(kc.MATMUL_BWD_RAGGED)
+                         + [(kc.TRAIN_TOKENS, *kn) for kn in kc.PHI3_MATMUL_KN.values()])
 def test_matmul_backward_products_match_plain(cuda, mkn, dtype, which):
     res = kc.check_matmul_bwd(*mkn, dtype, which, cuda)
     assert res["ok"], res
@@ -602,7 +624,8 @@ def test_matmul_backward_products_match_plain(cuda, mkn, dtype, which):
 @pytest.mark.gpu
 @pytest.mark.parametrize("which", ["a", "b"])
 @pytest.mark.parametrize("mkn", [(kc.TRAIN_TOKENS, *kn) for kn in kc.MATMUL_KN.values()]
-                         + list(kc.MATMUL_BWD_RAGGED), ids=str)
+                         + list(kc.MATMUL_BWD_RAGGED)
+                         + [(kc.TRAIN_TOKENS, *kn) for kn in kc.PHI3_MATMUL_KN.values()], ids=str)
 def test_matmul_backward_products_one_launch_and_the_same_bits(cuda, mkn, which):
     """bf16 dX (``which`` "a") and dW ("b"): one launch a product, counted
     in ``matmul_bwd`` alone, and the same bits twice, and again after a
