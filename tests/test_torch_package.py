@@ -84,6 +84,19 @@ def test_chip_smoke_last_line_names_the_card():
                       "count": "torch.cuda.device_count()"}
 
 
+@pytest.mark.parametrize("args", [[], ["--matmul-bwd"]], ids=["whole", "matmul-bwd"])
+def test_chip_smoke_exits_without_a_card(args):
+    """Without a CUDA card the script exits 2 before any phase, in either
+    mode, and prints no result."""
+    if torch.cuda.is_available():
+        pytest.skip("this box has a card")
+    out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), *args],
+                         capture_output=True, text=True, cwd=REPO, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(REPO / "src")})
+    assert out.returncode == 2, out.stderr
+    assert out.stdout == "" and "runs on a CUDA card" in out.stderr
+
+
 def test_engine_refuses_to_run_on_the_cpu_unasked():
     if torch.cuda.is_available():
         pytest.skip("this box has a card: the default device is usable")

@@ -28,6 +28,7 @@ from repro_torch.kernels import flash_attention, paged_attention
 from repro_torch.models import lm
 from repro_torch.params import params_from_jax
 from repro_torch.serve import Request, ServeConfig, ServingEngine
+from repro_torch.testing import kernel_checks as kc
 from repro_torch.train import trainer
 
 RULES = default_rules(None)
@@ -114,3 +115,18 @@ def test_head_dim_96_greedy_streams_match_jax():
     want = {r.rid: r.out for r in jeng.run()}
     got = {r.rid: r.out for r in eng.run()}
     assert got == want and len(got) == 5
+
+
+@pytest.mark.parametrize("name,kn,width", [
+    ("llama3-8b", kc.MATMUL_KN, kc.D_MODEL),
+    ("phi3-mini-3.8b", kc.PHI3_MATMUL_KN, kc.PHI3_D_MODEL)],
+    ids=["llama3-8b", "phi3-mini-3.8b"])
+def test_card_checks_take_the_models_shapes(name, kn, width):
+    """The (K, N) at which the card's checks hold the matmul are those of
+    the model's projections, every one and no other, and rmsnorm's width is
+    its d_model."""
+    cfg = get_config(name)
+    leaves = [(k, v) for blk in lm.model_defs(cfg)["period"].values()
+              for sub in blk.values() for k, v in sub.items()]
+    assert {tuple(v.shape[1:]) for k, v in leaves if k.startswith("w")} == set(kn.values())
+    assert {v.shape[-1] for k, v in leaves if k == "norm"} == {width} == {cfg.d_model}
