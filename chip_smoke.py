@@ -15,7 +15,7 @@ Phases, each of which raises on failure (nothing is caught):
      at every whole-prompt length of the paths, ragged ones, B = 2,
      windows across tile edges, every head dim causal and not, and
      phi3-mini's heads (32 over 32 of 96) at S = 512, twice for the same
-     bits; paged
+     bits (bf16 must take wgmma, f32 simt); paged
      attention at ``PAGED_LENS`` and at ``kernel_checks.PAGED_CASES``
      (split and one-slice plans, slice edges, empty sequences, a 128-row
      chunk on one table, the smoke heads, G = 8), called twice for the same
@@ -29,8 +29,12 @@ Phases, each of which raises on failure (nothing is caught):
      the training length, at every head dim (``kernel_checks.*_BWD_*``),
      and at phi3-mini's heads (1, 32/32, 1024, 96), in bf16 and f32; each
      line naming the kernels taken (flash attention's ``bwd_variant``: bf16
-     at the llama3-8b heads must take wgmma, f32 simt, and D = 96 simt;
-     rmsnorm's ``bwd_path``);
+     at the llama3-8b and phi3-mini heads must take wgmma, f32 simt;
+     rmsnorm's ``bwd_path``); then head dim 96 in bf16 forward and
+     backward at ``kernel_checks.D96_CASES`` (ragged prompts, a window,
+     GQA 32/8), from the model's (B, S, H, D) views and (B, H, S, D)
+     tensors, into outputs with NaN guard columns after each row that no
+     store may touch (``check_flash_d96``);
   3b. the paper's Table I kernels (dotprod, expv, softmax_rows, jacobi2d,
      fconv2d) against their plain versions at the table1-paper and
      table1-card shapes and at ragged ones (softmax also on masked rows,
@@ -74,12 +78,13 @@ Phases, each of which raises on failure (nothing is caught):
      ms, tok/s and peak memory, a profiler trace of one step beside the
      step's bound, the embedding's gradient taken twice for the same bits,
      and one more step split into its gradient and its update;
-  7b. phi3-mini-3.8b at its published width (head dim 96: the simt flash
+  7b. phi3-mini-3.8b at its published width (head dim 96: the wgmma flash
      kernels) cut to 2 of its 32 layers (bf16, seeded random weights): a
      512-token whole-prompt prefill and decode steps through
-     ``ServingEngine``, then one train step at batch 4 x 1024 tokens, with
-     a finite loss and launch counts exactly as counted
-     (``trainer.step_launches`` for the step);
+     ``ServingEngine``, then a cold and a warm train step at batch 4 x 1024
+     tokens (host clock), each with a finite loss and launch counts exactly
+     ``trainer.step_launches``, and a profiler trace of a later step (the
+     flash forward's and backward's device ms a step);
   6. kernel times (CUDA events) beside the plain version, the one PyTorch
      call that computes the same function, and the card's bound (rmsnorm at
      every main-path R in both dtypes, with its device ms a call beside
@@ -87,7 +92,9 @@ Phases, each of which raises on failure (nothing is caught):
      at every main-path M in both dtypes, and each matmul variant's host
      cost a call at K = N = 64; flash attention at S = 37, 223, 445 and 512
      with the device's ms a call beside SDPA's from one trace, phi3-mini's
-     heads at S = 512 the same way, and each variant's host cost a call;
+     heads at S = 512 the same way and through the simt kernel, forced,
+     each the mean of the kernels a trace holds, and each variant's host
+     cost a call;
      paged attention at the traced batch-8
      decode step's inputs with its device ms a call from a trace, its plan,
      and its host cost a call alone), the Table I kernels at both
@@ -98,17 +105,19 @@ Phases, each of which raises on failure (nothing is caught):
      shapes (rmsnorm's at (4096, 4096), the matmul's two products at each
      projection, each product's device ms beside torch.matmul's and the
      forward's at M = 4,096 beside it, flash attention's at (4, 32/8, 1024,
-     128) and phi3-mini's (1, 32/32, 1024, 96)) beside their
+     128) and phi3-mini's (1, 32/32, 1024, 96), the latter's the mean of
+     each of its two kernels in a trace, its simt kernels' too) beside their
      plain versions, the library call (autograd of ``F.rms_norm``,
      ``torch.matmul`` for each product, autograd of SDPA), the bound, and
      the device's ms a call from a trace, each naming its kernels (flash
      attention's also through the simt kernels, forced, for the same call).
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  ``--matmul-bwd`` runs phase 6's matmul
-backward rows alone (a copy of this file at another checkout's root reads
-that tree's kernels with this file's readings).  Imports nothing of JAX.  Without a card,
-or without the repo's ``src/repro_torch`` beside it, it exits non-zero
-before any phase (2 and 1).
+backward rows alone, ``--phi3`` phase 7b and phase 6's phi3-mini flash rows
+alone (a copy of this file at another checkout's root reads that tree's
+kernels with this file's readings).  Imports nothing of JAX.  Without a
+card, or without the repo's ``src/repro_torch`` beside it, it exits
+non-zero before any phase (2 and 1).
 """
 from __future__ import annotations
 
@@ -705,7 +714,8 @@ def _backward_checks(kc, kfa) -> tuple[dict, list]:
          f"window=None bfloat16 {r['variant']:5s}", r)
     if not r["ok"] or r["variant"] != "wgmma":
         failed.append(("flash_attention_bwd", B, S, D))
-    # phi3-mini's heads (32 over 32 of 96) at the training length: simt
+    # phi3-mini's heads (32 over 32 of 96) at the training length: wgmma in
+    # bf16, simt in f32
     B, S = kc.PHI3_FLASH_BWD
     for dt in dts:
         r = kc.check_flash_bwd(B, S, dt, None, True, kc.PHI3_HQ, kc.PHI3_HKV, kc.PHI3_HEAD_DIM)
@@ -713,8 +723,18 @@ def _backward_checks(kc, kfa) -> tuple[dict, list]:
         line(f"flash_attention_bwd B={B} Hq={kc.PHI3_HQ} Hkv={kc.PHI3_HKV} "
              f"D={kc.PHI3_HEAD_DIM} S={S:<4d} causal window=None {str(dt)[6:]:8s} "
              f"{r['variant']:5s}", r)
-        if not r["ok"] or r["variant"] != "simt":
+        if not r["ok"] or r["variant"] != ("wgmma" if dt == torch.bfloat16 else "simt"):
             failed.append(("flash_attention_bwd phi3", B, S, dt))
+    # head dim 96 in bf16, forward and backward, every head, into outputs
+    # with guard columns after each row
+    for B, S, Hq, Hkv, window in kc.D96_CASES:
+        for layout in kc.D96_LAYOUTS:
+            r = kc.check_flash_d96(B, S, Hq, Hkv, window, layout)
+            line(f"flash_attention d96 fwd+bwd B={B} Hq={Hq} Hkv={Hkv} D=96 S={S:<4d} "
+                 f"causal window={window} {layout} bfloat16 {r['variant']:5s} guard "
+                 f"columns intact: {r['guard_intact']}", r)
+            if not r["ok"] or r["variant"] != "wgmma":
+                failed.append(("flash_attention d96", B, S, Hq, Hkv, window, layout))
     for D in kfa.HEAD_DIMS:
         for causal in (True, False):
             for dt in dts:
@@ -887,9 +907,10 @@ def _train_path(cfg, dev, n_layers: int = 8, batch: int = 4, seq: int = 1024,
 def _phi3_path(dev, n_layers: int = 2, prompt: int = 512, batch: int = 4,
                seq: int = 1024) -> dict:
     """Phase 7b: phi3-mini-3.8b at its published width (head dim 96, the
-    simt flash kernels) cut to ``n_layers``: one whole-prompt prefill and a
-    few decode steps through the dense engine, then one train step; the
-    launches of each exactly as counted.  Returns the launches by run."""
+    wgmma flash kernels) cut to ``n_layers``: one whole-prompt prefill and a
+    few decode steps through the dense engine, then a cold and a warm train
+    step, the launches of each exactly as counted, and a trace of a later
+    step.  Returns the launches of the prefill's run and the first step's."""
     import dataclasses
     import gc
 
@@ -949,28 +970,42 @@ def _phi3_path(dev, n_layers: int = 2, prompt: int = 512, batch: int = 4,
                                         global_batch=batch, seed=0))
     tokens = torch.from_numpy(corpus.batch(0)).to(dev, torch.int64)
     step_fn = make_train_step(cfg, opt_cfg)
-    ops.reset_launches()
-    torch.cuda.synchronize()
-    t0 = now()
-    state, m = step_fn(state, {"tokens": tokens})
-    loss = float(m["loss"])                  # a host read: the step is done
-    step_s = now() - t0
-    train = dict(ops.LAUNCHES)
     want = {**{k: 0 for k in ops.LAUNCHES}, **step_launches(cfg)}
-    print(f"[phi3] one train step at batch {batch} x {seq} (remat {cfg.remat}): loss "
-          f"{loss:.4f}, grad_norm {float(m['grad_norm']):.4f}, {1e3 * step_s:.2f} ms on "
-          f"the host clock (the first step: builds and allocations included); peak "
-          f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+    runs = []
+    for which in ("cold (the first: builds and allocations included)", "warm"):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = now()
+        state, m = step_fn(state, {"tokens": tokens})
+        loss = float(m["loss"])              # a host read: the step is done
+        step_s = now() - t0
+        runs.append(dict(ops.LAUNCHES))
+        print(f"[phi3] train step at batch {batch} x {seq} (remat {cfg.remat}), {which}: "
+              f"loss {loss:.4f}, grad_norm {float(m['grad_norm']):.4f}, "
+              f"{1e3 * step_s:.2f} ms on the host clock; launches {runs[-1]}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"phi3 train loss not finite: {loss}")
+        if runs[-1] != want:
+            raise AssertionError(f"phi3 train launches {runs[-1]}, expected {want}")
+    print(f"[phi3] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
           f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB above the "
-          f"{base / 1e9:.2f} GB live when the phase began; launches "
-          f"{train} (expected step_launches: {want})")
-    if not math.isfinite(loss):
-        raise AssertionError(f"phi3 train loss not finite: {loss}")
-    if train != want:
-        raise AssertionError(f"phi3 train launches {train}, expected {want}")
+          f"{base / 1e9:.2f} GB live when the phase began; launches of each step "
+          f"as expected (step_launches: {want})")
+
+    # a later step traced: the flash kernels' device ms a step, by variant
+    def step_once():
+        nonlocal state
+        state, m = step_fn(state, {"tokens": tokens})
+        m["loss"].item()
+    tr = _trace(step_once, 1)
+    _print_trace(tr, 1, f"phi3 train step (batch {batch} x {seq})")
+    flash = {fam[:-len(" (port)")]: t / 1e3 for fam, (_, t) in tr["by"]
+             if fam.startswith("flash_attention")}
+    print(f"[phi3] flash device ms a train step: " + ", ".join(
+        f"{fam} {ms:.3f}" for fam, ms in flash.items()))
     del state, tokens
     torch.cuda.empty_cache()
-    return {"phi3_serve": serve, "phi3_train": train}
+    return {"phi3_serve": serve, "phi3_train": runs[0]}
 
 
 def _matmul_bwd_times(kc, kmm, ref, time_ms) -> dict:
@@ -1105,31 +1140,108 @@ def _backward_times(kc, kfa, kmm, krms, ref, time_ms) -> dict:
           f"{r['device_ms']:.4f} ms (simt kernels {simt_dev:.4f} ms), SDPA backward "
           f"{r['library_device_ms']:.4f} ms, {r['device_ms'] / r['library_device_ms']:.2f}x "
           f"SDPA, {r['device_ms'] / bound:.1f}x bound")
-    # the same at phi3-mini's heads (32 over 32 of 96), the simt kernels
+    return rows
+
+
+def _device_call(fn, calls: int) -> float:
+    """Device ms a call of ``fn`` from the mean of each kernel it launches:
+    the kernels of one call (a trace of one call, by name and count), each
+    at the mean of the kernels of that name in a trace of ``calls`` calls;
+    a trace that misses calls does not read low.  nan if the long trace
+    lacks one of them."""
+    from collections import Counter
+
+    one = Counter(e.name for e in _kernel_events(fn, 1))
+    evs = _kernel_events(fn, calls)
+    total = 0.0
+    for name, k in one.items():
+        mine = [e for e in evs if e.name == name]
+        if not mine:
+            return float("nan")
+        total += k * _ms(mine) / len(mine)
+    return total
+
+
+def _phi3_flash_times(kc, kfa, ref, time_ms) -> dict:
+    """Phase 6, flash attention at phi3-mini's heads (32 over 32 of 96),
+    bf16 causal: the forward at a whole prompt of ``PHI3_FLASH_S`` and the
+    backward at ``PHI3_FLASH_BWD``.  Kernel, plain and library (SDPA, and
+    autograd of it) between CUDA events, the bound, and device ms: each of
+    the port's kernels the mean of the kernels so named in a trace
+    (``_device_ms``; the backward's dq and dkv grids apart, then summed), the library's a call
+    from the mean of each of its kernels (``_device_call``);
+    and the same calls through the simt kernels, forced by lifting
+    ``variant`` / ``bwd_variant`` to them, read the same way.  It uses only
+    what the package has had since head dim 96 came, so that ``--phi3``
+    reads an older tree's kernels the same way.  Returns rows "fwd" and
+    "bwd"."""
+    import torch
+    import torch.nn.functional as F
+
+    Hq, Hkv, D = kc.PHI3_HQ, kc.PHI3_HKV, kc.PHI3_HEAD_DIM
+    tags = {"wgmma": "flash_wgmma_kernel", "simt": "flash_kernel"}
+    bwd_tags = {"wgmma": ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"),
+                "simt": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
+    S = kc.PHI3_FLASH_S
+    q, k, v = kc.phi3_flash_inputs(S, torch.bfloat16)
+    kern = lambda: kfa.flash_attention(q, k, v, causal=True)
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    t_k, t_l = time_ms(kern, 50), time_ms(sdpa, 50)
+    t_p = time_ms(lambda: ref.attention(q, k, v, causal=True), 20)
+    var = kfa.variant(S, S, D, torch.bfloat16)
+    d_k, n_k = _device_ms(kern, tags[var], 20)
+    d_l = _device_call(sdpa, 20)
+    chooser = kfa.variant
+    kfa.variant = lambda *a, **kw: "simt"
+    d_s, n_s = _device_ms(kern, tags["simt"], 20)
+    kfa.variant = chooser
+    # q and out once, k and v once; 4 D operations per visible (q, k) pair
+    bound, by = _ms_bound(2 * S * D * (2 * Hq + 2 * Hkv), 4.0 * D * Hq * S * (S + 1) / 2,
+                          "bf16")
+    fwd = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound, bound_by=by,
+               device_ms=d_k, library_device_ms=d_l, simt_device_ms=d_s, variant=var,
+               shape=f"B=1,Hq={Hq},Hkv={Hkv},S={S},D={D},causal,bf16")
+    print(f"[time] flash_attention B=1 Hq={Hq} Hkv={Hkv} D={D} S={S:<4d} causal bf16 "
+          f"{var:5s} kernel {t_k:.4f} ms  plain {t_p:.4f} ms  SDPA {t_l:.4f} ms  bound "
+          f"{bound:.5f} ms ({by}); device: kernel {d_k:.4f} ms (mean of {n_k} in a "
+          f"trace of 20 calls; simt kernel {d_s:.4f}, of {n_s}), SDPA {d_l:.4f} ms a "
+          f"call (its kernels' means), {d_k / d_l:.2f}x SDPA (simt {d_s / d_l:.2f}x), "
+          f"{d_k / bound:.1f}x bound")
+    del q, k, v
+    # the backward at the training length: q, k, v, do read, dq, dk, dv
+    # written; the five products over the visible pairs
     B, S = kc.PHI3_FLASH_BWD
-    Hq, Hkv, Dh = kc.PHI3_HQ, kc.PHI3_HKV, kc.PHI3_HEAD_DIM
-    q, k, v, do = kc.attention_bwd_inputs(B, S, torch.bfloat16, Hq, Hkv, Dh)
+    q, k, v, do = kc.attention_bwd_inputs(B, S, torch.bfloat16, Hq, Hkv, D)
     fk = lambda: kfa.backward(q, k, v, do, causal=True)
     ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
     ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
     fl = lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True)
-    t_k, t_l = time_ms(fk, 10), time_ms(fl, 20)
+    t_k, t_l = time_ms(fk, 20), time_ms(fl, 20)
     t_p = time_ms(lambda: ref.attention_bwd(q, k, v, do, causal=True), 2)
     pairs = B * Hq * S * (S + 1) / 2
-    bound, by = _ms_bound(2 * B * S * Dh * (2 * Hq + 2 * Hkv) * 2, 5 * 2.0 * pairs * Dh,
+    bound, by = _ms_bound(2 * B * S * D * (2 * Hq + 2 * Hkv) * 2, 5 * 2.0 * pairs * D,
                           "bf16")
-    kind = kfa.bwd_variant(S, S, Dh, torch.bfloat16)
-    rows["flash_attention_bwd phi3"] = r = dict(
-        ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound, bound_by=by,
-        device_ms=dev_ms(fk), library_device_ms=dev_ms(fl), variant=kind,
-        shape=f"B={B},Hq={Hq},Hkv={Hkv},S={S},D={Dh},causal,bf16")
-    print(f"[time] flash_attention_bwd B={B} Hq={Hq} Hkv={Hkv} S={S} D={Dh} causal bf16 "
-          f"{kind} kernel {t_k:.4f} ms  plain {t_p:.4f} ms  SDPA backward (autograd) "
-          f"{t_l:.4f} ms  bound {bound:.4f} ms ({by}); device: kernel "
-          f"{r['device_ms']:.4f} ms, SDPA backward {r['library_device_ms']:.4f} ms, "
-          f"{r['device_ms'] / r['library_device_ms']:.2f}x SDPA, "
-          f"{r['device_ms'] / bound:.1f}x bound")
-    return rows
+    var = kfa.bwd_variant(S, S, D, torch.bfloat16)
+    (dq, n_dq), (dkv, n_dkv) = (_device_ms(fk, tag, 20) for tag in bwd_tags[var])
+    d_l = _device_call(fl, 20)
+    chooser = kfa.bwd_variant
+    kfa.bwd_variant = lambda *a, **kw: "simt"
+    (sq, _), (skv, _) = (_device_ms(fk, tag, 10) for tag in bwd_tags["simt"])
+    kfa.bwd_variant = chooser
+    bwd = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound, bound_by=by,
+               device_ms=dq + dkv, dq_device_ms=dq, dkv_device_ms=dkv,
+               library_device_ms=d_l, simt_device_ms=sq + skv, simt_dq_device_ms=sq,
+               simt_dkv_device_ms=skv, variant=var,
+               shape=f"B={B},Hq={Hq},Hkv={Hkv},S={S},D={D},causal,bf16")
+    print(f"[time] flash_attention_bwd B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} causal bf16 "
+          f"{var} kernel {t_k:.4f} ms  plain {t_p:.4f} ms  SDPA backward (autograd) "
+          f"{t_l:.4f} ms  bound {bound:.4f} ms ({by}); device: dq {dq:.4f} + dkv "
+          f"{dkv:.4f} = {dq + dkv:.4f} ms (means of {n_dq} and {n_dkv} in traces of 20 "
+          f"calls; simt kernels {sq:.4f} + {skv:.4f} = {sq + skv:.4f}), SDPA backward "
+          f"{d_l:.4f} ms a call (its kernels' means), {(dq + dkv) / d_l:.2f}x SDPA's (simt "
+          f"{(sq + skv) / d_l:.2f}x), {(dq + dkv) / bound:.1f}x bound")
+    del q, k, v, do, ql, kl, vl, ol
+    return {"fwd": fwd, "bwd": bwd}
 
 
 def main(argv: list | None = None) -> int:
@@ -1140,6 +1252,11 @@ def main(argv: list | None = None) -> int:
                     help="build the matmul alone and print phase 6's matmul backward "
                          "rows, nothing else; a copy of this file at the root of "
                          "another checkout reads that tree's kernels the same way")
+    ap.add_argument("--phi3", action="store_true",
+                    help="run phase 7b (phi3-mini's prefill and train steps) and "
+                         "phase 6's phi3-mini flash rows, nothing else; a copy of "
+                         "this file at the root of another checkout reads that "
+                         "tree's kernels the same way")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -1187,6 +1304,11 @@ def main(argv: list | None = None) -> int:
     if args.matmul_bwd:
         _build.build(["matmul"])
         _matmul_bwd_times(kc, kmm, ref, _time_ms)
+        return 0
+    if args.phi3:
+        _build.build(("matmul", "rmsnorm", "flash_attention", "flash_attention_bwd"))
+        _phi3_path(dev)
+        _phi3_flash_times(kc, kfa, ref, _time_ms)
         return 0
 
     # -- 2. build ------------------------------------------------------------
@@ -1286,14 +1408,15 @@ def main(argv: list | None = None) -> int:
                       f"{str(dt)[6:]:8s} {r['variant']:5s} {_reading(r)}")
                 if not r["ok"]:
                     failed.append(("flash_attention head dim", D, causal, dt))
-        # phi3-mini's heads (32 over 32 of 96) at a whole prompt: the simt kernel
+        # phi3-mini's heads (32 over 32 of 96) at a whole prompt: wgmma in
+        # bf16, simt in f32
         S = kc.PHI3_FLASH_S
         r = kc.check_flash_phi3(S, dt)
         errs[("flash_attention phi3", S, dt)] = r["max_abs_err"]
         print(f"[check] flash_attention B=1 Hq={kc.PHI3_HQ} Hkv={kc.PHI3_HKV} "
               f"D={kc.PHI3_HEAD_DIM} S={S:<4d} causal window=None {str(dt)[6:]:8s} "
               f"{r['variant']:5s} same bits twice: {r['same_bits']} {_reading(r)}")
-        if not r["ok"] or r["variant"] != "simt":
+        if not r["ok"] or r["variant"] != ("wgmma" if dt == torch.bfloat16 else "simt"):
             failed.append(("flash_attention phi3", S, dt))
     # -- 3c. the backward kernels vs plain versions -----------------------------
     bwd_errs, bwd_failed = _backward_checks(kc, kfa)
@@ -1672,27 +1795,9 @@ def main(argv: list | None = None) -> int:
               f"SDPA {t_l:.4f} ms  bound {bound:.5f} ms ({by}); device: kernel "
               f"{d_k:.4f} ms, SDPA {d_l:.4f} ms, {d_k / d_l:.2f}x SDPA, "
               f"{d_k / bound:.1f}x bound")
-    # phi3-mini's heads (32 over 32 of 96: the simt kernel) at a whole prompt
-    S, dt = kc.PHI3_FLASH_S, torch.bfloat16
-    Hq3, Hkv3, D3 = kc.PHI3_HQ, kc.PHI3_HKV, kc.PHI3_HEAD_DIM
-    q, k, v = kc.phi3_flash_inputs(S, dt)
-    kern = lambda: kfa.flash_attention(q, k, v, causal=True)
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True)
-    t_k, t_l = time_ms(kern, 50), time_ms(sdpa, 50)
-    t_p = time_ms(lambda: ref.attention(q, k, v, causal=True), 20)
-    var = kfa.variant(S, S, D3, dt)
-    d_k, d_l = _device_split(lambda: (kern(), sdpa()),
-                             PORT_KERNELS[f"flash_attention {var}"], 20)
-    bound, by = _ms_bound(q.element_size() * S * D3 * (2 * Hq3 + 2 * Hkv3),
-                          4.0 * D3 * Hq3 * S * (S + 1) / 2, "bf16")
-    rows[("flash_attention phi3", S, dt)] = (t_k, t_p, t_l, bound, by)
-    device_rows[("flash_attention phi3", S, dt)] = (d_k, d_l)
-    print(f"[time] flash_attention B=1 Hq={Hq3} Hkv={Hkv3} D={D3} S={S:<4d} causal bf16 "
-          f"{var:5s} kernel {t_k:.4f} ms  plain {t_p:.4f} ms  SDPA {t_l:.4f} ms  bound "
-          f"{bound:.5f} ms ({by}); device: kernel {d_k:.4f} ms, SDPA {d_l:.4f} ms, "
-          f"{d_k / d_l:.2f}x SDPA, {d_k / bound:.1f}x bound")
     del q, k, v
+    # phi3-mini's heads (32 over 32 of 96), forward and backward
+    phi3_rows = _phi3_flash_times(kc, kfa, ref, time_ms)
     # each variant's host cost a call: back-to-back calls at 2 q heads of 16
     # rows, where each kernel takes a few us, between events, in turns; the
     # same bf16 inputs through each variant (the choice forced by lifting
@@ -1802,18 +1907,9 @@ def main(argv: list | None = None) -> int:
         if kname in ("flash_attention", "rmsnorm"):
             kernels[-1]["device_ms"], kernels[-1]["library_device_ms"] = \
                 device_rows[key]
-        if kname == "flash_attention":   # phi3-mini's head dim, the simt kernel
+        if kname == "flash_attention":   # phi3-mini's head dim
             key3 = ("flash_attention phi3", kc.PHI3_FLASH_S, torch.bfloat16)
-            p_k, p_p, p_l, p_bound, p_by = rows[key3]
-            kernels[-1]["phi3"] = {
-                "shape": f"B=1,Hq={kc.PHI3_HQ},Hkv={kc.PHI3_HKV},S={kc.PHI3_FLASH_S},"
-                         f"D={kc.PHI3_HEAD_DIM},causal,bf16",
-                "variant": kfa.variant(kc.PHI3_FLASH_S, kc.PHI3_FLASH_S,
-                                       kc.PHI3_HEAD_DIM, torch.bfloat16),
-                "ms": p_k, "plain_ms": p_p, "library_ms": p_l, "bound_ms": p_bound,
-                "bound_by": p_by, "max_abs_err": errs[key3],
-                "device_ms": device_rows[key3][0],
-                "library_device_ms": device_rows[key3][1]}
+            kernels[-1]["phi3"] = {**phi3_rows["fwd"], "max_abs_err": errs[key3]}
         if kname == "paged_attention":
             kernels[-1]["device_ms"] = device_rows[key][0]
             kernels[-1]["host_us"] = paged_host
@@ -1869,8 +1965,8 @@ def main(argv: list | None = None) -> int:
         row = bwd_rows[kname]
         if kname == "matmul_bwd":
             row = {**row["wg/wi"], "projections": row}
-        if kname == "flash_attention_bwd":   # phi3-mini's head dim, the simt kernels
-            row = {**row, "phi3": {**bwd_rows["flash_attention_bwd phi3"], "max_abs_err":
+        if kname == "flash_attention_bwd":   # phi3-mini's head dim
+            row = {**row, "phi3": {**phi3_rows["bwd"], "max_abs_err":
                                    errs[("flash_attention_bwd phi3", *kc.PHI3_FLASH_BWD,
                                          torch.bfloat16)]}}
         if kname == "matmul_bwd":

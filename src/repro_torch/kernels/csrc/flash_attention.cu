@@ -18,8 +18,9 @@
 // Two kernels; kernels/flash_attention.py::variant picks one from (S, Sk, D,
 // dtype):
 //
-// * wgmma (bf16, D = 64 or 128, Sk > 0): the serving path's prefills
-//   (llama3-8b: B = 1, 32 q heads over 8 kv heads of 128, S = 35-445).
+// * wgmma (bf16, D = 64, 96 or 128, Sk > 0): the serving path's prefills
+//   (llama3-8b: B = 1, 32 q heads over 8 kv heads of 128, S = 35-445;
+//   phi3-mini: 32 over 32 of 96).
 //   What bounds it on an H100: causal S = 512 is 2.2 GFLOP of Q K^T and P V
 //   (2.2 us at 989 TFLOP/s; 3.3 us with the split P V below) on ~10 MB of
 //   q, k, v and out (3.1 us at 3.35 TB/s): near the ridge, and at these
@@ -32,11 +33,12 @@
 //       read its K/V through L2 (0.9 MB at S = 223).  The q tiles run
 //       longest first (the causal walk is longest for the last rows);
 //     - a producer warp issues TMA copies (128-byte swizzle, the 256-byte
-//       rows of D = 128 as two 64-column boxes) of the Q tile once and of
-//       64-key K and V tiles into a 2-stage ring behind mbarriers; tensor
-//       maps are 4-D (D, then H, S and B in the order of their strides), so
-//       the model's transposed (B, S, H, D) views are read in place, and
-//       rows past S or Sk come in as zeros;
+//       rows of D = 128 as two 64-column boxes, D = 96's 192-byte rows as
+//       two boxes whose last 32 columns TMA fills with zeros) of the Q
+//       tile once and of 64-key K and V tiles into a 2-stage ring behind
+//       mbarriers; tensor maps are 4-D (D, then H, S and B in the order of
+//       their strides), so the model's transposed (B, S, H, D) views are
+//       read in place, and rows past S or Sk come in as zeros;
 //     - one consumer warpgroup computes S = Q K^T by wgmma.m64n64k16 from
 //       shared memory (K is K-major: no transpose) into f32 registers, and
 //       runs the online softmax on the accumulator fragment: each thread
@@ -45,8 +47,9 @@
 //       (~2^-22 from the reference's exp).  Only the tiles that cross the
 //       diagonal, Sk or the window's edge are masked (p = 0 exactly); tiles
 //       above the diagonal or below the window are never loaded;
-//     - O += P V by wgmma.m64n{D}k16 with A from registers (the S fragment
-//       is the A fragment: no shuffles) and V read MN-major (transpose bit).
+//     - O += P V by wgmma.m64n{64|128}k16 with A from registers (the S
+//       fragment is the A fragment: no shuffles) and V read MN-major
+//       (transpose bit).
 //       P rounded to bf16 moves near-zero outputs by ~1e-4, 10-200x the
 //       check's atol, so P = P_hi + P_lo, two bf16 halves, and O += P_hi V +
 //       P_lo V: 1.5x the operations, within ~2^-16 of f32 P;
@@ -60,19 +63,24 @@
 //       through out's strides.
 //   ptxas (-Xptxas -v, printed by chip_smoke.py phase 2) reports no spills
 //   and no wgmma serialisation: 159 registers at D = 128, 82,984 bytes of
-//   shared memory a block.
+//   shared memory a block.  D = 96 (phi3-mini) runs D = 128's products on
+//   tiles padded to 128 columns (flash_wgmma.cuh): Q K^T over its 6 k16
+//   steps, P V at n128 with zero columns past 96, which are neither
+//   rescaled nor stored (in the model's (B, S, H, D) layout they would be
+//   the next head's); 1/sqrt(96) scales the scores.
 //
-// * simt (f32, and any head dim or input the wgmma kernel does not take):
-//   the first port's kernel, unchanged.  One block of threads owns one
-//   (b, h, 64-row q tile) and loops over the 32-key k tiles itself, from the
-//   window's lower edge up to the causal limit; CUDA-core f32 math (each
-//   thread a 4 x 4 block of scores and a 4 x (D/8) block of the output),
-//   tiles staged through shared memory.  Masked scores get p = 0
-//   explicitly, so a row with no visible key keeps l == 0 and writes zeros
-//   (the TPU kernel's flush assumes l == 0 on such rows, which holds only
-//   with that mask).  Head dims 16, 32, 64, 96 and 128: at D = 96
-//   (phi3-mini) a thread holds 12 output columns, a row is 12 (bf16) or 24
-//   (f32) 16-byte loads, and a block takes 57,984 bytes of shared memory.
+// * simt (f32, and any head dim or input the wgmma kernel does not take:
+//   D = 16, 32, unaligned views): the first port's kernel, unchanged.  One
+//   block of threads owns one (b, h, 64-row q tile) and loops over the
+//   32-key k tiles itself, from the window's lower edge up to the causal
+//   limit; CUDA-core f32 math (each thread a 4 x 4 block of scores and a
+//   4 x (D/8) block of the output), tiles staged through shared memory.
+//   Masked scores get p = 0 explicitly, so a row with no visible key keeps
+//   l == 0 and writes zeros (the TPU kernel's flush assumes l == 0 on such
+//   rows, which holds only with that mask).  Head dims 16, 32, 64, 96 and
+//   128: at D = 96 (phi3-mini) a thread holds 12 output columns, a row is
+//   12 (bf16) or 24 (f32) 16-byte loads, and a block takes 57,984 bytes of
+//   shared memory.
 
 #include "flash_wgmma.cuh"
 
@@ -286,7 +294,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int Hq
 }
 
 // ---------------------------------------------------------------------------
-// wgmma: bf16, D = 64 or 128 (its PTX helpers and products: flash_wgmma.cuh)
+// wgmma: bf16, D = 64, 96 or 128 (its PTX helpers and products:
+// flash_wgmma.cuh)
 // ---------------------------------------------------------------------------
 
 namespace fw {
@@ -296,7 +305,7 @@ constexpr int THREADS = 160;           // a consumer warpgroup and a producer wa
 constexpr int BOX = wg::BOX;
 constexpr float LOG2E = wg::LOG2E;
 template <int D> struct Smem {
-    static constexpr int BOXES = D / 64;          // 64-column boxes of a row
+    static constexpr int BOXES = ROW_BOXES<D>;    // 64-column boxes of a row
     static constexpr int TILE = BOXES * BOX;      // Q, or K or V of a stage
     static constexpr int STAGE = 2 * TILE;
     static constexpr int BYTES = TILE + STAGES * STAGE + (2 * STAGES + 1) * 8 + 1024;
@@ -382,8 +391,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
         return k0 + BK > Sk || (causal && k0 + BK - 1 > q0) ||
                (window > 0 && k0 < q0 + BQ - window);
     };
-    // no zeroing: O's first wgmma starts it (scale-d 0), and S's each tile
-    float o[D / 2], sc[32];
+    // no zeroing: O's first wgmma starts it (scale-d 0), and S's each tile;
+    // O's columns past D (D = 96: 96-127) come out zero and are never read
+    float o[ROW_COLS<D> / 2], sc[32];
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
     uint32_t hi[4][4], lo[4][4];
     if (tiles > 0) {
@@ -423,6 +433,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
             const int k0 = k_lo + (j + 1) * BK;
             online_softmax(sc, m, l, alpha, needs_mask(k0), r0, k0 + 2 * tig, Sk, causal,
                            window, sl2);
+            // the columns past D are zero and stay so
 #pragma unroll
             for (int x = 0; x < D / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
             split_p(sc, hi, lo);
@@ -432,7 +443,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     STAMP(30);
 
     // o[4i + e]: row r0 + 8 (e >> 1), column 8 i + 2 tig + (e & 1); the rows'
-    // sums from their 4 threads; a row with no visible key writes zeros
+    // sums from their 4 threads; a row with no visible key writes zeros.
+    // Only the D columns of a row are stored: in the model's (B, S, H, D)
+    // layout the next ones are the next head's
     float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -474,6 +487,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
                     done))
         return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid(B * Hq, (S + fw::BQ - 1) / fw::BQ);
+    // the scale of the real D (96, not the 128 columns its tiles hold)
     flash_wgmma_kernel<D><<<grid, fw::THREADS, fw::Smem<D>::BYTES, s>>>(
         tq, tk, tv, static_cast<bf16*>(o), st[9], st[10], st[11], Hq, Hkv, S, Sk, causal,
         window, fw::LOG2E / sqrtf(static_cast<float>(D)), pq, pk, pv);
@@ -486,6 +500,7 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, int B, 
     if (Sk <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
     switch (D) {
         case 64: return launch_wgmma<64>(q, k, v, o, B, Hq, Hkv, S, Sk, causal, window, st, s);
+        case 96: return launch_wgmma<96>(q, k, v, o, B, Hq, Hkv, S, Sk, causal, window, st, s);
         case 128: return launch_wgmma<128>(q, k, v, o, B, Hq, Hkv, S, Sk, causal, window, st, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -494,7 +509,7 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, int B, 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  variant: 0 = simt (D 16, 32, 64, 96
-// or 128), 1 = wgmma (bf16, D 64 or 128, S and Sk > 0).  `strides` holds 12
+// or 128), 1 = wgmma (bf16, D 64, 96 or 128, S and Sk > 0).  `strides` holds 12
 // element strides: (batch, head, seq) of q, k, v and out, in that order; the
 // last dim of each is contiguous and every pointer and stride is 16-byte
 // aligned (the caller checks).  window <= 0 means no window.  The launch goes

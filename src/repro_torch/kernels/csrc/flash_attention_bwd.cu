@@ -28,7 +28,7 @@
 // serving forward and no rounded o in Dd.  No atomics: every sum runs in a
 // fixed order, so the bits do not vary between runs.
 //
-// * wgmma (bf16, D = 64 or 128; the training path).  What bounds it on an
+// * wgmma (bf16, D = 64, 96 or 128; the training path).  What bounds it on an
 //   H100: at the training shape (B = 4, 32 q heads over 8 kv heads of 128,
 //   S = 1024, causal) the 12 products below are ~206 GFLOP (0.21 ms at 989
 //   TFLOP/s) on ~0.1 GB of inputs and outputs (0.03 ms): operations.  So
@@ -65,21 +65,26 @@
 //   (-Xptxas -v, printed by chip_smoke.py phase 2) reports no spills and no
 //   wgmma serialisation: dq 191 / 160 registers at D = 128 / 64 (two blocks
 //   an SM), dkv 255 / 200 (one block an SM at D = 128, two at 64), 100,392
-//   bytes of shared memory a block at D = 128.  Only tiles that cross the
-//   diagonal, S's or Sk's edge or the window's edge are masked.  A causal
+//   bytes of shared memory a block at D = 128.  D = 96 (phi3-mini) takes
+//   D = 128's tiles, products and registers (flash_wgmma.cuh): rows
+//   loaded as two boxes whose columns past 96 TMA fills with zeros, S, dP
+//   and their transposes over the 6 k16 steps that hold data, dQ, dK and
+//   dV at n128 with zero columns past 96 that store_rows leaves unwritten;
+//   the scales are 1/sqrt(96)'s.  Only tiles that cross the diagonal, S's
+//   or Sk's edge or the window's edge are masked.  A causal
 //   dkv grid is lopsided (the first key tile sees every q row of G heads,
 //   the last one tile), so the key tiles are numbered heavy first along
 //   blockIdx.y and the scheduler fills the 132 SMs with them (no
 //   persistent walk); the dq grid runs its longest walks first.  L2
 //   is L in log2 units (m sl2 + log2 l), so P is one FFMA and one
 //   ex2.approx a score (~2^-22 from the reference's exp).
-// * simt (f32, D = 16, 32 and 96, and what the wgmma kernels do not take):
-//   the first port's kernels, unchanged but for the D = 96 instances
-//   (phi3-mini: 12 accumulator columns a thread; the dkv block takes
-//   91,648 bytes of shared memory).  CUDA-core f32 FMAs; 32-key tiles
-//   staged through shared memory in f32; a thread holds a 4 x 4 block of
-//   scores and 4 rows of D / 8 accumulator columns (128 threads, 16 rows by
-//   8 columns).
+// * simt (f32, D = 16 and 32, and what the wgmma kernels do not take:
+//   unaligned views): the first port's kernels, unchanged but for the
+//   D = 96 instances (f32 phi3-mini: 12 accumulator columns a thread; the
+//   dkv block takes 91,648 bytes of shared memory).  CUDA-core f32 FMAs;
+//   32-key tiles staged through shared memory in f32; a thread holds a
+//   4 x 4 block of scores and 4 rows of D / 8 accumulator columns (128
+//   threads, 16 rows by 8 columns).
 //     flash_bwd_dq_kernel   one block a (b, q head, 64-row q tile): a first
 //                           pass of m, l and rowsum(P dP), a second of dq
 //                           += dS k, the key tiles in order;
@@ -484,7 +489,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout, void
 }
 
 // ---------------------------------------------------------------------------
-// wgmma: bf16, D = 64 or 128 (the products and PTX helpers: flash_wgmma.cuh)
+// wgmma: bf16, D = 64, 96 or 128 (the products and PTX helpers:
+// flash_wgmma.cuh)
 // ---------------------------------------------------------------------------
 
 namespace bw {
@@ -492,7 +498,7 @@ constexpr int BQ = 64, BK = 64;        // q rows and keys of a tile
 constexpr int STAGES = 2;
 constexpr int THREADS = 160;           // a consumer warpgroup and a producer warp
 template <int D> struct Smem {
-    static constexpr int TILE = (D / 64) * wg::BOX;   // 64 rows of D bf16
+    static constexpr int TILE = ROW_BOXES<D> * wg::BOX;   // 64 rows of D bf16
     // dq: Q and dO; dkv: K and V; loaded once
     static constexpr int FIXED = 2 * TILE;
     // dq: K and V; dkv: Q and dO
@@ -585,9 +591,12 @@ template <int D> __device__ __forceinline__ Ring carve(unsigned char* raw) {
 // the 64 x D f32 fragment acc (o[4i + e]: row r0 + 8 (e >> 1), column 8 i +
 // 2 tig + (e & 1)) times `scale` into rows r0 and r0 + 8 of a bf16 (rows, D)
 // tile by row stride `rs`, rows at or past `valid` skipped; zeros where
-// nothing was accumulated
+// nothing was accumulated.  Only D columns: the fragment's columns past D
+// (D = 96: 96-127, zero) would land on the next head's in the model's
+// (B, S, H, D) layout
 template <int D>
-__device__ __forceinline__ void store_rows(bf16* out, long long rs, const float (&acc)[D / 2],
+__device__ __forceinline__ void store_rows(bf16* out, long long rs,
+                                           const float (&acc)[ROW_COLS<D> / 2],
                                            int r0, int valid, int tig, float scale, bool any) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -639,7 +648,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             asm volatile("prefetch.tensormap [%0];\n"
                          :: "l"(reinterpret_cast<uint64_t>(&tv)) : "memory");
             mbar_expect_tx(sm.fixed_bar, L::FIXED);
-            for (int x = 0; x < D / 64; ++x) {
+            for (int x = 0; x < ROW_BOXES<D>; ++x) {
                 tma_rows(sm.fixed + x * BOX, &tq, pos.q, 64 * x, h, q0, b, sm.fixed_bar);
                 tma_rows(sm.fixed + L::TILE + x * BOX, &tdo, pos.o, 64 * x, h, q0, b,
                          sm.fixed_bar);
@@ -649,7 +658,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                 if (n >= STAGES) mbar_wait(&sm.empty[s], ((n / STAGES) - 1) & 1);
                 unsigned char* st = sm.ring + s * L::STAGE;
                 mbar_expect_tx(&sm.full[s], L::STAGE);   // zero-filled bytes count too
-                for (int x = 0; x < D / 64; ++x) {
+                for (int x = 0; x < ROW_BOXES<D>; ++x) {
                     tma_rows(st + x * BOX, &tk, pos.k, 64 * x, hk, k0, b, &sm.full[s]);
                     tma_rows(st + L::TILE + x * BOX, &tv, pos.v, 64 * x, hk, k0, b,
                              &sm.full[s]);
@@ -667,7 +676,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         return k0 + BK > Sk || (causal && k0 + BK - 1 > q0) ||
                (window > 0 && k0 < q0 + BQ - window);
     };
-    float sc[32], dp[32], acc[D / 2];
+    float sc[32], dp[32], acc[ROW_COLS<D> / 2];
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, pd[2] = {0.f, 0.f}, alpha[2];
     uint32_t hi[4][4], lo[4][4];
     if (tiles > 0) mbar_wait(sm.fixed_bar, 0);
@@ -783,7 +792,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             asm volatile("prefetch.tensormap [%0];\n"
                          :: "l"(reinterpret_cast<uint64_t>(&tdo)) : "memory");
             mbar_expect_tx(sm.fixed_bar, L::FIXED);
-            for (int x = 0; x < D / 64; ++x) {
+            for (int x = 0; x < ROW_BOXES<D>; ++x) {
                 tma_rows(sm.fixed + x * BOX, &tk, pos.k, 64 * x, hk, k0, b, sm.fixed_bar);
                 tma_rows(sm.fixed + L::TILE + x * BOX, &tv, pos.v, 64 * x, hk, k0, b,
                          sm.fixed_bar);
@@ -794,7 +803,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                 unsigned char* st = sm.ring + s * L::STAGE;
                 float* rows = sm.rows + s * 2 * BQ;
                 mbar_expect_tx(&sm.full[s], L::STAGE + L::ROWS);
-                for (int x = 0; x < D / 64; ++x) {
+                for (int x = 0; x < ROW_BOXES<D>; ++x) {
                     tma_rows(st + x * BOX, &tq, pos.q, 64 * x, h, q0, b, &sm.full[s]);
                     tma_rows(st + L::TILE + x * BOX, &tdo, pos.o, 64 * x, h, q0, b,
                              &sm.full[s]);
@@ -811,7 +820,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int lt = threadIdx.x, g = (lt & 31) >> 2, tig = lt & 3;
     const int j0 = k0 + (lt / 32) * 16 + g;
     const uint32_t ks = smem_u32(sm.fixed), vs = ks + L::TILE, rs = smem_u32(sm.ring);
-    float st[32], dpt[32], gk[D / 2], gv[D / 2];
+    float st[32], dpt[32], gk[ROW_COLS<D> / 2], gv[ROW_COLS<D> / 2];
     uint32_t hp[4][4], lp[4][4], hs[4][4], ls[4][4];
     if (tiles > 0) mbar_wait(sm.fixed_bar, 0);
     for (int n = 0; n < tiles; ++n) {
@@ -878,6 +887,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* dout, 
                     done_dkv))
         return static_cast<int>(cudaErrorInvalidValue);
     const int Sp = (S + bw::BQ - 1) / bw::BQ * bw::BQ;
+    // the scales of the real D (96, not the 128 columns its tiles hold)
     const float sl2 = wg::LOG2E / sqrtf(static_cast<float>(D));
     const float scale = 1.0f / sqrtf(static_cast<float>(D));
     flash_bwd_dq_wgmma_kernel<D><<<dim3(B * Hq, Sp / bw::BQ), bw::THREADS, bytes, s>>>(
@@ -903,7 +913,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* dout, 
 // strides: 21 element strides, (batch, head, row) of q, k, v, dout, dq, dk,
 // dv in turn; every row 16-byte aligned with a contiguous last dim.  dtype 0
 // = float32, 1 = bfloat16; variant 0 = simt (D in {16, 32, 64, 96, 128}), 1 =
-// wgmma (bf16, D 64 or 128); window 0 = none.  Two launches on `stream`, no
+// wgmma (bf16, D 64, 96 or 128); window 0 = none.  Two launches on `stream`, no
 // synchronisation.  Returns the first launch error (0 = success).
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* dout, void* dq, void* dk, void* dv,
@@ -930,6 +940,8 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
         if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
         switch (D) {
             case 64: return launch_wgmma<64>(q, k, v, dout, dq, dk, dv, pl, pd, B, Hq, Hkv, S,
+                                             Sk, causal, window, st, s);
+            case 96: return launch_wgmma<96>(q, k, v, dout, dq, dk, dv, pl, pd, B, Hq, Hkv, S,
                                              Sk, causal, window, st, s);
             case 128: return launch_wgmma<128>(q, k, v, dout, dq, dk, dv, pl, pd, B, Hq, Hkv,
                                                S, Sk, causal, window, st, s);

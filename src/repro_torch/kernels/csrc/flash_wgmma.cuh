@@ -7,16 +7,22 @@
 //
 //   qk_issue   C (64 x 64 f32) = A B^T, A and B 64-row tiles of D columns,
 //              both K-major in shared memory (m64n64k16, D / 16 steps);
-//   pv_issue   C (64 x D f32) += X Y with X a 64 x 64 f32 fragment in
-//              registers, split by split_p into two bf16 halves (X_hi + X_lo,
-//              within ~2^-16 of X), and Y a 64-row tile read MN-major
-//              (transpose bit; m64n{D}k16, 4 steps, each hi then lo).
+//   pv_issue   C (64 x ROW_COLS<D> f32) += X Y with X a 64 x 64 f32
+//              fragment in registers, split by split_p into two bf16 halves
+//              (X_hi + X_lo, within ~2^-16 of X), and Y a 64-row tile read
+//              MN-major (transpose bit; m64n{ROW_COLS<D>}k16, 4 steps, each
+//              hi then lo).
 //
-// A tile is 64 rows of D bf16 as D / 64 boxes of 64 rows x 128 bytes, with
-// TMA's 128-byte swizzle, each box 1024-byte aligned.  An m64n64 f32
-// accumulator fragment is, as it lies, the A fragment of the next product:
-// thread (warp w, group g, tig) holds rows 16 w + g and + 8, columns 8 i +
-// 2 tig and + 1 (i = 0..7).
+// A tile is 64 rows of D bf16 as ROW_BOXES<D> boxes of 64 rows x 128
+// bytes, with TMA's 128-byte swizzle, each box 1024-byte aligned.  D = 96
+// (phi3-mini) takes two: the tensor map's extent stays 96, so TMA fills
+// columns 96-127 of the second box with zeros; Q K^T runs over the 6 k16
+// steps that hold data, P V over all ROW_COLS<96> = 128 columns (the last
+// 32 come out zero and are never stored).  So D = 96 takes D = 128's
+// instruction forms, at 4/3 the N-side products an exact width would
+// need.  An m64n64 f32 accumulator fragment is, as it lies, the A fragment
+// of the next product: thread (warp w, group g, tig) holds rows 16 w + g
+// and + 8, columns 8 i + 2 tig and + 1 (i = 0..7).
 //
 // Included once by each source, inside nothing: every name is local to
 // the translation unit (an anonymous namespace).
@@ -39,6 +45,11 @@ namespace wg {
 constexpr int BOX = 64 * 64 * 2;       // 8 KB: 64 rows of 64 bf16 (128 bytes)
 constexpr float LOG2E = 1.4426950408889634f;
 }  // namespace wg
+
+// the 64-column boxes a row of D takes, and the columns they hold
+// (kernels/flash_attention.py::box_plan mirrors both)
+template <int D> constexpr int ROW_BOXES = (D + 63) / 64;
+template <int D> constexpr int ROW_COLS = 64 * ROW_BOXES<D>;
 
 using bf16 = __nv_bfloat16;
 
@@ -195,7 +206,8 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4],
 }
 
 // C (64 x 64) = A B^T, both K-major in boxes of 64 columns: 8-row groups
-// 1024 bytes apart, a k16 step 32 bytes on within a box
+// 1024 bytes apart, a k16 step 32 bytes on within a box; the D / 16 steps
+// that hold data (a zero-filled column adds nothing)
 template <int D>
 __device__ __forceinline__ void qk_issue(float (&sc)[32], uint32_t q, uint32_t k) {
     fence_operands(sc);
@@ -209,10 +221,10 @@ __device__ __forceinline__ void qk_issue(float (&sc)[32], uint32_t q, uint32_t k
     wgmma_commit();
 }
 
-// O (64 x D) += P_hi V + P_lo V: V MN-major, a k16 step 16 rows (2048 bytes)
-// on, the second 64 columns one box on (LBO); `start` begins O
+// O (64 x ROW_COLS<D>) += P_hi V + P_lo V: V MN-major, a k16 step 16 rows
+// (2048 bytes) on, the second 64 columns one box on (LBO); `start` begins O
 template <int D>
-__device__ __forceinline__ void pv_issue(float (&o)[D / 2], uint32_t (&hi)[4][4],
+__device__ __forceinline__ void pv_issue(float (&o)[ROW_COLS<D> / 2], uint32_t (&hi)[4][4],
                                          uint32_t (&lo)[4][4], uint32_t v, bool start) {
     fence_operands(o);
     fence_operands(hi);
@@ -327,8 +339,10 @@ EncodeTiled encode_fn() {
 // A bf16 (B, H, S, D) tensor by element strides (sb, sh, ss), D contiguous,
 // as a 4-D tensor map: D innermost, then H, S and B in the order of their
 // strides (a dim of size 1 last, its stride made up), boxes of 64 D columns
-// by `rows` rows of S, 128-byte swizzle, zeros outside.  Returns where the
-// map keeps the h, s and b dims (h | s << 2 | b << 4, each 1-3), or -1.
+// by `rows` rows of S, 128-byte swizzle, zeros outside (columns past D too:
+// in the model's (B, S, H, D) layout the next ones are the next head's).
+// Returns where the map keeps the h, s and b dims (h | s << 2 | b << 4,
+// each 1-3), or -1.
 int encode_bhsd(CUtensorMap* map, const void* ptr, int B, int H, int S, int D, long long sb,
                 long long sh, long long ss, int rows) {
     const EncodeTiled fn = encode_fn();

@@ -25,17 +25,21 @@ grid ``bwd_q_plan``'s q tiles) or ``"simt"`` (CUDA-core f32).
 
 Which of the two kernels a call takes is ``variant(S, Sk, D, dtype,
 aligned)``, a pure function of the shapes and the dtype:
-  * ``"wgmma"``: bf16, D in ``WGMMA_HEAD_DIMS`` (64, 128), Sk > 0, every
-    operand 16-byte aligned: a 64-row q tile a block, TMA-fed 64-key K/V
-    tiles, Q K^T and P V on the tensor cores (the serving path's prefills);
-  * ``"simt"``: everything else: f32, the head dims 16, 32 and 96
-    (phi3-mini's), Sk = 0.  CUDA-core FMAs, as the first port had them.
+  * ``"wgmma"``: bf16, D in ``WGMMA_HEAD_DIMS`` (64, 96, 128), Sk > 0,
+    every operand 16-byte aligned: a 64-row q tile a block, TMA-fed 64-key
+    K/V tiles, Q K^T and P V on the tensor cores (the serving path's
+    prefills, llama3-8b's and phi3-mini's); a row of D = 96 is loaded as
+    two 64-column boxes whose last 32 columns are zeros (``box_plan``);
+  * ``"simt"``: everything else: f32, the head dims 16 and 32, unaligned
+    views, Sk = 0.  CUDA-core FMAs, as the first port had them.
 The wgmma kernel walks the key tiles ``tile_plan`` gives; the simt kernel
 takes the same walk in 32-key tiles.
 """
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -45,10 +49,11 @@ from .launches import LAUNCHES, wants_grad
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 96, 128)
 VARIANTS = {"simt": 0, "wgmma": 1}
-#: the head dims the wgmma kernel takes (it carves a row into 64-column
-#: boxes of 128 bytes, so D = 96 goes to simt), and its q rows a block and
-#: keys a tile (csrc ``fw::BQ``, ``fw::BK``)
-WGMMA_HEAD_DIMS = (64, 128)
+#: the head dims the wgmma kernels take (each carves a row into 64-column
+#: boxes of 128 bytes; D = 96 into two, the second zero-filled past column
+#: 96: ``box_plan``), and their q rows a block and keys a tile (csrc
+#: ``fw::BQ``, ``fw::BK``)
+WGMMA_HEAD_DIMS = (64, 96, 128)
 WGMMA_BQ, WGMMA_BK = 64, 64
 _FN = None
 _BWD = None
@@ -66,6 +71,32 @@ def bwd_variant(S: int, Sk: int, D: int, dtype: torch.dtype,
     """The backward's kernels for a call: ``"wgmma"`` or ``"simt"``, by the
     forward's rule (bf16, D in ``WGMMA_HEAD_DIMS``, Sk > 0, aligned)."""
     return variant(S, Sk, D, dtype, aligned)
+
+
+class BoxPlan(NamedTuple):
+    """How the wgmma kernels hold a row of D columns (``box_plan``)."""
+    boxes: tuple[tuple[int, int], ...]  # (first column, columns of data) a box
+    cols: int                           # columns the boxes hold, N of a P V product
+    qk_steps: int                       # k16 steps of a Q K^T-form product
+    store_cols: int                     # columns of a row written back
+    scale: float                        # the scores' scale, 1 / sqrt(D)
+
+
+def box_plan(D: int) -> BoxPlan:
+    """The wgmma kernels' row layout at head dim D, as
+    ``csrc/flash_wgmma.cuh`` carves it (``ROW_BOXES<D>``, ``ROW_COLS<D>``):
+    64-column boxes of 128 bytes, each loaded by TMA from its first column,
+    which fills the columns past D with zeros (D = 96: two boxes, 32 zero
+    columns); the K-side products run over the D / 16 steps that hold data,
+    the N-side ones over every column the boxes hold; only D columns are
+    stored; the scale is the real D's."""
+    if D not in WGMMA_HEAD_DIMS:
+        raise ValueError(f"the wgmma kernels take head dims {WGMMA_HEAD_DIMS}, "
+                         f"got {D}")
+    n = -(-D // 64)
+    return BoxPlan(boxes=tuple((64 * x, min(64, D - 64 * x)) for x in range(n)),
+                   cols=64 * n, qk_steps=D // 16, store_cols=D,
+                   scale=1.0 / math.sqrt(D))
 
 
 def tile_plan(q0: int, Sk: int, causal: bool, window: int | None,
@@ -175,12 +206,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
              window: int | None) -> torch.Tensor:
-    """The forward launch, on inputs :func:`_check` has passed."""
+    """The forward, on inputs :func:`_check` has passed."""
     B, Hq, S, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
     out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     if out.numel() == 0:                # nothing to write: no launch
         return out
+    _launch(q, k, v, out, causal, window)
+    return out
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+            causal: bool, window: int | None) -> None:
+    """The forward launch into ``out``, a (B, Hq, S, D) view with aligned
+    rows (the tests' outputs with guard columns after each row too)."""
+    B, Hq, S, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *out.stride()[:3])
     kind = variant(S, Sk, D, q.dtype)   # aligned: checked above
@@ -200,7 +240,6 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         raise RuntimeError(f"flash_attention kernel ({kind}): CUDA error {err} "
                            f"at launch")
     LAUNCHES["flash_attention"] += 1
-    return out
 
 
 def backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -224,6 +263,18 @@ def backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty((B, Sk, Hkv, D), **opts).transpose(1, 2)
     if S == 0 or Sk == 0 or B == 0:     # nothing seen: no launch
         return dq.zero_(), dk.zero_(), dv.zero_()
+    _launch_bwd(q, k, v, do, dq, dk, dv, causal, window)
+    return dq, dk, dv
+
+
+def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor, causal: bool,
+                window: int | None) -> None:
+    """The backward's launch into dq, dk, dv, (B, H, S, D) views with
+    aligned rows (the tests' outputs with guard columns after each row too),
+    on inputs :func:`backward` has passed."""
+    B, Hq, S, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
     kind = bwd_variant(S, Sk, D, q.dtype)   # aligned: checked above
     # each row's L and Dd, from the dq grid to the dkv grid; the wgmma
     # kernels' rows padded to whole 64-row tiles (one bulk copy a tile)
@@ -246,7 +297,6 @@ def backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention backward kernel ({kind}): CUDA "
                            f"error {err} at launch")
     LAUNCHES["flash_attention_bwd"] += 1
-    return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):

@@ -291,8 +291,9 @@ def check_flash_attention(S, dtype, window=None, device="cuda", B=1) -> dict:
 
 
 #: phi3-mini-3.8b's attention (d_model 3072): 32 query heads over 32 kv
-#: heads of 96, the simt kernels' head dim; its forward at a whole prompt of
-#: PHI3_FLASH_S and its backward at (B, S) = PHI3_FLASH_BWD, causal
+#: heads of 96 (bf16 on the wgmma kernels, f32 on the simt ones); its
+#: forward at a whole prompt of PHI3_FLASH_S and its backward at (B, S) =
+#: PHI3_FLASH_BWD, causal
 PHI3_HQ, PHI3_HKV, PHI3_HEAD_DIM = 32, 32, 96
 PHI3_FLASH_S = 512
 PHI3_FLASH_BWD = (1, 1024)
@@ -312,6 +313,60 @@ def check_flash_phi3(S, dtype, device="cuda") -> dict:
     run = lambda: _fa.flash_attention(q, k, v, causal=True)
     res = _pair(run(), run(), ref.attention(q, k, v, causal=True), ATTN_TOL[dtype])
     res["variant"] = _fa.variant(S, S, PHI3_HEAD_DIM, dtype)
+    return res
+
+
+#: head dim 96 in bf16 (the wgmma kernels on two boxes, the second
+#: zero-filled past column 96), (B, S, Hq, Hkv, window), causal: ragged
+#: prompts at phi3-mini's heads, a window across tile edges, GQA 32/8; from
+#: inputs in the model's (B, S, H, D) layout ("bshd", as views) and
+#: (B, H, S, D)-contiguous ("bhsd")
+D96_CASES = ((1, 70, 32, 32, None), (1, 223, 32, 32, None), (1, 445, 32, 32, None),
+             (2, 223, 32, 32, 100), (1, 445, 32, 8, None), (2, 70, 32, 8, 9))
+D96_LAYOUTS = ("bshd", "bhsd")
+#: columns of NaN after each output row that no store may touch
+GUARD = 32
+
+
+def _guarded(B, S, H, D, layout, device):
+    """A (B, H, S, D) output view with GUARD columns of NaN after each row,
+    in ``layout``, and the buffer it lies in."""
+    shape = (B, S, H, D + GUARD) if layout == "bshd" else (B, H, S, D + GUARD)
+    buf = torch.full(shape, float("nan"), dtype=torch.bfloat16, device=device)
+    view = buf[..., :D]
+    return (view.transpose(1, 2) if layout == "bshd" else view), buf
+
+
+def check_flash_d96(B, S, Hq, Hkv, window, layout, device="cuda") -> dict:
+    """The forward's out and the backward's dq, dk, dv at head dim 96, bf16,
+    causal, each against its plain version over every head (ATTN_TOL,
+    ATTN_BWD_TOL), twice for the same bits, each written into an output
+    whose rows are followed by GUARD columns of NaN (a (B, S, H, D) layout
+    puts the next head's columns there); ``guard_intact`` if every guard
+    column is NaN after both calls.  ``variant`` names the kernels taken."""
+    D = PHI3_HEAD_DIM
+    q, k, v, do = attention_bwd_inputs(B, S, torch.bfloat16, Hq, Hkv, D, device)
+    if layout == "bhsd":
+        q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    bufs = []
+
+    def run():
+        (out, bo), (dq, bq), (dk, bk), (dv, bv) = (
+            _guarded(B, S, h, D, layout, device) for h in (Hq, Hq, Hkv, Hkv))
+        _fa._launch(q, k, v, out, True, window)
+        _fa._launch_bwd(q, k, v, do, dq, dk, dv, True, window)
+        bufs.extend((bo, bq, bk, bv))
+        return out, dq, dk, dv
+
+    got, again = run(), run()
+    want = (ref.attention(q, k, v, causal=True, window=window),
+            *ref.attention_bwd(q, k, v, do, causal=True, window=window))
+    tols = (ATTN_TOL, ATTN_BWD_TOL, ATTN_BWD_TOL, ATTN_BWD_TOL)
+    res = worst({name: _pair(g, a, w, t[torch.bfloat16]) for name, g, a, w, t in
+                 zip(("out", "dq", "dk", "dv"), got, again, want, tols)})
+    res["guard_intact"] = all(bool(torch.isnan(b[..., D:]).all()) for b in bufs)
+    res["ok"] = res["ok"] and res["guard_intact"]
+    res["variant"] = _fa.variant(S, S, D, torch.bfloat16)
     return res
 
 

@@ -10,12 +10,15 @@ max, sum and rowsum(P dP) over the key tiles ``tile_plan`` gives, in
 order, with 2^x and the log2-scaled scores), its second (P = 2^(s sl2 -
 L2), dS = P (dP - Dd), dQ += dS K); the dkv kernel's walk over the G query
 heads and ``bwd_q_plan``'s q tiles (dV += P^T dO, dK += dS^T Q); every sum
-over tiles in the kernels' order.  P and dS enter their products as two
-bf16 halves, hi + lo, as the kernels' ``split_p`` gives them.  Tolerance:
-``kernel_checks.ATTN_BWD_TOL`` for bf16 (rtol 8e-3, atol 1e-4), the
-card's check.  The split reads 0.90-0.93 of that limit at ``EMU_CASES``;
-with P and dS rounded once to bf16 instead, the same comparison reads
-28-67x it (the last test holds one case of each head dim).
+over tiles in the kernels' order.  Tiles hold the columns of
+``box_plan(D)`` (D = 96: 128, zeros past 96): the K-side products run over
+its ``qk_steps``, the N-side ones over every column, and only D columns are
+stored.  P and dS enter their products as two bf16 halves, hi + lo, as the
+kernels' ``split_p`` gives them.  Tolerance: ``kernel_checks.ATTN_BWD_TOL``
+for bf16 (rtol 8e-3, atol 1e-4), the card's check.  The split reads
+0.88-0.93 of that limit at ``EMU_CASES`` (D = 96 among them); with P and
+dS rounded once to bf16 instead, the same comparison reads 28-67x it (the
+last test holds one case of each head dim; 36x at D = 96).
 """
 import math
 
@@ -39,7 +42,11 @@ NEG = -1e30                             # the kernels' NEG_INF
     (1024, 1024, 64, torch.bfloat16, True, "wgmma"),
     (70, 70, 128, torch.bfloat16, True, "wgmma"),
     (1, 1, 64, torch.bfloat16, True, "wgmma"),
+    (1024, 1024, 96, torch.bfloat16, True, "wgmma"),     # phi3-mini's
+    (1, 1, 96, torch.bfloat16, True, "wgmma"),
     (1024, 1024, 128, torch.float32, True, "simt"),
+    (1024, 1024, 96, torch.float32, True, "simt"),
+    (445, 445, 96, torch.bfloat16, False, "simt"),
     (70, 70, 32, torch.bfloat16, True, "simt"),
     (70, 70, 16, torch.bfloat16, True, "simt"),
     (223, 223, 128, torch.bfloat16, False, "simt"),
@@ -123,11 +130,12 @@ def _split(x: torch.Tensor, rounding: str):
 
 
 def _tile(t: torch.Tensor, r0: int, n: int) -> torch.Tensor:
-    """Rows r0 .. r0 + n - 1 of t (..., rows, D), zeros past its end (TMA's
-    fill)."""
-    out = t.new_zeros((*t.shape[:-2], n, t.shape[-1]))
+    """Rows r0 .. r0 + n - 1 of t (..., rows, D) in the columns the boxes of
+    ``box_plan(D)`` hold, zeros past the rows' end and past D (TMA's fill)."""
+    D = t.shape[-1]
+    out = t.new_zeros((*t.shape[:-2], n, fa.box_plan(D).cols))
     part = t[..., r0:r0 + n, :]
-    out[..., :part.shape[-2], :] = part
+    out[..., :part.shape[-2], :D] = part
     return out
 
 
@@ -147,8 +155,10 @@ def emulate_bwd(q, k, v, do, causal, window, rounding="split"):
     B, Hq, S, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     G = Hq // Hkv
-    sl2 = math.log2(math.e) / math.sqrt(D)
-    scale = 1.0 / math.sqrt(D)
+    plan = fa.box_plan(D)                             # the tiles' columns
+    scale = plan.scale
+    sl2 = math.log2(math.e) * scale
+    kk, cols = 16 * plan.qk_steps, plan.cols          # K-side and N-side widths
     qf, kf, vf, of = (t.float() for t in (q, k, v, do))
     kq = kf.repeat_interleave(G, dim=1)               # kv head of each q head
     vq = vf.repeat_interleave(G, dim=1)
@@ -166,8 +176,8 @@ def emulate_bwd(q, k, v, do, causal, window, rounding="split"):
         tiles = []
         for k0, masked in plan:                       # pass 1
             Kt, Vt = _tile(kq, k0, BK), _tile(vq, k0, BK)
-            s = Qt @ Kt.transpose(-1, -2)
-            dp = Ot @ Vt.transpose(-1, -2)
+            s = Qt[..., :kk] @ Kt[..., :kk].transpose(-1, -2)
+            dp = Ot[..., :kk] @ Vt[..., :kk].transpose(-1, -2)
             if masked:
                 vis = _visible(q0, BQ, k0, BK, 1 << 30, Sk, causal, window)
                 s = torch.where(vis, s, NEG)
@@ -183,27 +193,28 @@ def emulate_bwd(q, k, v, do, causal, window, rounding="split"):
         ok = (l > 0) & rows
         L2[:, :, q0:q0 + BQ] = torch.where(ok, m * sl2 + torch.log2(l), math.inf)[..., 0]
         Dd[:, :, q0:q0 + BQ] = torch.where(ok, pd / torch.where(ok, l, 1.0), 0.0)[..., 0]
-        acc = torch.zeros((B, Hq, BQ, D))
+        acc = torch.zeros((B, Hq, BQ, cols))
         for k0, masked, Kt, s, dp in tiles:           # pass 2
             p = torch.exp2(s * sl2 - L2[:, :, q0:q0 + BQ, None])
             ds = p * (dp - Dd[:, :, q0:q0 + BQ, None])
             for part in _split(ds, rounding):
                 acc = acc + part @ Kt
-        dq[:, :, q0:q0 + BQ] = acc * scale
+        assert not acc[..., D:].any()                 # zero, and never stored
+        dq[:, :, q0:q0 + BQ] = acc[..., :D] * scale
     # the dkv kernel: a block a (b, kv head, key tile); G heads, then q tiles
     dk = torch.zeros((B, Hkv, Sk, D))
     dv = torch.zeros((B, Hkv, Sk, D))
     for k0 in range(0, Sk, BK):
         Kt, Vt = _tile(kf, k0, BK), _tile(vf, k0, BK)
-        gk = torch.zeros((B, Hkv, BK, D))
-        gv = torch.zeros((B, Hkv, BK, D))
+        gk = torch.zeros((B, Hkv, BK, cols))
+        gv = torch.zeros((B, Hkv, BK, cols))
         for g in range(G):
             heads = torch.arange(Hkv) * G + g
             for q0, masked in fa.bwd_q_plan(k0, S, causal, window, Sk=Sk):
                 Qt = _tile(qf[:, heads], q0, BQ)
                 Ot = _tile(of[:, heads], q0, BQ)
-                st = Kt @ Qt.transpose(-1, -2)
-                dpt = Vt @ Ot.transpose(-1, -2)
+                st = Kt[..., :kk] @ Qt[..., :kk].transpose(-1, -2)
+                dpt = Vt[..., :kk] @ Ot[..., :kk].transpose(-1, -2)
                 if masked:
                     vis = _visible(q0, BQ, k0, BK, S, Sk, causal, window).T
                     st = torch.where(vis, st, NEG)
@@ -214,8 +225,9 @@ def emulate_bwd(q, k, v, do, causal, window, rounding="split"):
                     gv = gv + part @ Ot
                 for part in _split(ds, rounding):
                     gk = gk + part @ Qt
-        dk[:, :, k0:k0 + BK] = (gk * scale)[:, :, :Sk - k0]
-        dv[:, :, k0:k0 + BK] = gv[:, :, :Sk - k0]
+        assert not gk[..., D:].any() and not gv[..., D:].any()
+        dk[:, :, k0:k0 + BK] = (gk[..., :D] * scale)[:, :, :Sk - k0]
+        dv[:, :, k0:k0 + BK] = gv[:, :, :Sk - k0, :D]
     return (dq[:, :, :S].to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
 
 

@@ -218,15 +218,16 @@ def test_flash_attention_kernel_head_dims(cuda, D, causal, dtype):
     assert res["ok"], res
 
 
-# one shape of each flash kernel: wgmma at D = 128 (ragged S) and 64, a B = 2
-# window case, simt in f32 and at head dims wgmma does not take (phi3-mini's
-# 96 at its heads among them)
+# one shape of each flash kernel: wgmma at D = 128 (ragged S), 64 and 96
+# (phi3-mini's heads), a B = 2 window case, simt in f32 (at 96 too) and at
+# head dims wgmma does not take
 FLASH_VARIANT_SHAPES = [(1, 32, 8, 223, 128, None, torch.bfloat16),
                         (2, 4, 2, 70, 64, 9, torch.bfloat16),
                         (1, 32, 8, 445, 128, 100, torch.bfloat16),
                         (1, 32, 8, 223, 128, None, torch.float32),
                         (2, 4, 2, 70, 32, 9, torch.bfloat16),
-                        (1, 32, 32, 512, 96, None, torch.bfloat16)]
+                        (1, 32, 32, 512, 96, None, torch.bfloat16),
+                        (1, 32, 32, 512, 96, None, torch.float32)]
 
 
 def _flash_case(B, Hq, Hkv, S, D, dtype, device):
@@ -647,14 +648,28 @@ def test_matmul_backward_products_one_launch_and_the_same_bits(cuda, mkn, which)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_attention_phi3_heads(cuda, dtype):
     """phi3-mini's 32 over 32 heads of 96 at a whole prompt, forward, and at
-    the training length, backward: the simt kernels, within their limits,
-    the same bits twice."""
+    the training length, backward: the wgmma kernels in bf16, the simt ones
+    in f32, within their limits, the same bits twice."""
+    want = "wgmma" if dtype == torch.bfloat16 else "simt"
     res = kc.check_flash_phi3(kc.PHI3_FLASH_S, dtype, cuda)
-    assert res["ok"] and res["variant"] == "simt", res
+    assert res["ok"] and res["variant"] == want, res
     B, S = kc.PHI3_FLASH_BWD
     res = kc.check_flash_bwd(B, S, dtype, None, True, kc.PHI3_HQ, kc.PHI3_HKV,
                              kc.PHI3_HEAD_DIM, cuda)
-    assert res["ok"] and res["variant"] == "simt", res
+    assert res["ok"] and res["variant"] == want, res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", kc.D96_LAYOUTS)
+@pytest.mark.parametrize("B,S,Hq,Hkv,window", kc.D96_CASES, ids=str)
+def test_flash_head_dim_96_on_wgmma_forward_and_backward(cuda, B, S, Hq, Hkv, window,
+                                                         layout):
+    """bf16 at D = 96: out, dq, dk, dv over every head within their limits,
+    the same bits twice, and no store past column 96 (the NaN guard columns
+    after each row intact)."""
+    res = kc.check_flash_d96(B, S, Hq, Hkv, window, layout, cuda)
+    assert res["variant"] == "wgmma" and res["guard_intact"], res
+    assert res["ok"], res
 
 
 @pytest.mark.gpu

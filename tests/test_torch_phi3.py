@@ -1,9 +1,10 @@
 """Head dim 96 (phi3-mini-3.8b) through the port, on the CPU.
 
 Every registered dense architecture's head dim at its published width is
-one both attention kernels take, and D = 96 goes to the simt kernels (the
-wgmma ones carve a row into 64-column boxes).  Then a phi3 variant at its
-published head dim, 96 (d_model 192, 2 heads, 2 layers, f32, made with
+one both attention kernels take, and D = 96 goes to the wgmma kernels in
+bf16 (a row as two 64-column boxes, the second zero-filled past column 96)
+and to the simt kernels in f32 or from unaligned views.  Then a phi3
+variant at its published head dim, 96 (d_model 192, 2 heads, 2 layers, f32, made with
 ``dataclasses.replace`` on both sides), against the JAX package: the loss
 and every gradient leaf of ``forward_train`` within
 ``tests/test_torch_train.py``'s tolerances, and the greedy token streams of
@@ -55,10 +56,24 @@ def test_every_dense_arch_head_dim_has_both_attention_kernels(name):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("S", [1, 70, 512, 1024])
 def test_head_dim_96_takes_the_simt_kernels(S, dtype):
-    assert flash_attention.variant(S, S, 96, dtype) == "simt"
-    assert flash_attention.bwd_variant(S, S, 96, dtype) == "simt"
-    # the wgmma head dims stay the two whole boxes of 64 columns
-    assert flash_attention.WGMMA_HEAD_DIMS == (64, 128)
+    """Where D = 96 still takes them: f32, and unaligned views or no keys
+    in either dtype (aligned bf16 takes wgmma, the next test)."""
+    for choose in (flash_attention.variant, flash_attention.bwd_variant):
+        assert choose(S, S, 96, dtype, aligned=False) == "simt"
+        assert choose(S, 0, 96, dtype) == "simt"
+        if dtype == torch.float32:
+            assert choose(S, S, 96, dtype) == "simt"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [1, 70, 512, 1024])
+def test_head_dim_96_takes_wgmma_in_bf16_and_simt_in_f32(S, dtype):
+    want = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert flash_attention.variant(S, S, 96, dtype) == want
+    assert flash_attention.bwd_variant(S, S, 96, dtype) == want
+    # D = 96 on the two boxes of D = 128, its last 32 columns zero
+    assert flash_attention.WGMMA_HEAD_DIMS == (64, 96, 128)
+    assert flash_attention.box_plan(96).cols == 128
 
 
 def _setup():
