@@ -27,12 +27,13 @@ Phases, each of which raises on failure (nothing is caught):
      tokens and at ragged shapes, flash attention's dq, dk, dv at (4, 32/8
      heads, S = 1024, D = 128) causal, ragged and windowed, at D = 64 and
      the training length, at every head dim (``kernel_checks.*_BWD_*``),
-     and at phi3-mini's heads (1, 32/32, 1024, 96), in bf16 and f32; each
+     and at phi3-mini's train step (4, 32/32, 1024, 96), in bf16 and f32; each
      line naming the kernels taken (flash attention's ``bwd_variant``: bf16
      at the llama3-8b and phi3-mini heads must take wgmma, f32 simt;
      rmsnorm's ``bwd_path``); then head dim 96 in bf16 forward and
-     backward at ``kernel_checks.D96_CASES`` (ragged prompts, a window,
-     GQA 32/8), from the model's (B, S, H, D) views and (B, H, S, D)
+     backward at ``kernel_checks.D96_CASES`` (phi3-mini's train step,
+     ragged prompts, a window, GQA 32/8), from the model's (B, S, H, D)
+     views and (B, H, S, D)
      tensors, into outputs with NaN guard columns after each row that no
      store may touch (``check_flash_d96``);
   3b. the paper's Table I kernels (dotprod, expv, softmax_rows, jacobi2d,
@@ -88,13 +89,12 @@ Phases, each of which raises on failure (nothing is caught):
   6. kernel times (CUDA events) beside the plain version, the one PyTorch
      call that computes the same function, and the card's bound (rmsnorm at
      every main-path R in both dtypes, with its device ms a call beside
-     F.rms_norm's from one trace and its host cost a call in turns; the matmul
-     at every main-path M in both dtypes, and each matmul variant's host
-     cost a call at K = N = 64; flash attention at S = 37, 223, 445 and 512
-     with the device's ms a call beside SDPA's from one trace, phi3-mini's
-     heads at S = 512 the same way and through the simt kernel, forced,
-     each the mean of the kernels a trace holds, and each variant's host
-     cost a call;
+     F.rms_norm's and its host cost a call in turns; the matmul at every
+     main-path M in both dtypes, and each matmul variant's host cost a call
+     at K = N = 64; flash attention at S = 37, 223, 445 and 512 with the
+     device's ms a call beside SDPA's, phi3-mini's heads at S = 512 the same
+     way and through the simt kernel, forced, each port kernel the mean of
+     the kernels so named in a trace, and each variant's host cost a call;
      paged attention at the traced batch-8
      decode step's inputs with its device ms a call from a trace, its plan,
      and its host cost a call alone), the Table I kernels at both
@@ -105,17 +105,18 @@ Phases, each of which raises on failure (nothing is caught):
      shapes (rmsnorm's at (4096, 4096), the matmul's two products at each
      projection, each product's device ms beside torch.matmul's and the
      forward's at M = 4,096 beside it, flash attention's at (4, 32/8, 1024,
-     128) and phi3-mini's (1, 32/32, 1024, 96), the latter's the mean of
+     128) and phi3-mini's (4, 32/32, 1024, 96), the latter's the mean of
      each of its two kernels in a trace, its simt kernels' too) beside their
      plain versions, the library call (autograd of ``F.rms_norm``,
      ``torch.matmul`` for each product, autograd of SDPA), the bound, and
      the device's ms a call from a trace, each naming its kernels (flash
      attention's also through the simt kernels, forced, for the same call).
 The line before the last is a JSON object of the kernels; the last line is
-``{"ok": true, "device": {...}}``.  ``--matmul-bwd`` runs phase 6's matmul
-backward rows alone, ``--phi3`` phase 7b and phase 6's phi3-mini flash rows
-alone (a copy of this file at another checkout's root reads that tree's
-kernels with this file's readings).  Imports nothing of JAX.  Without a
+``{"ok": true, "device": {...}}``.  ``--only PART`` runs one part alone
+(``ONLY``: ``matmul-bwd``, phase 6's matmul backward rows; ``phi3``, phase
+7b and phase 6's phi3-mini flash rows), so that a copy of this file at
+another checkout's root reads that tree's kernels with this file's
+readings.  Imports nothing of JAX.  Without a
 card, or without the repo's ``src/repro_torch`` beside it, it exits
 non-zero before any phase (2 and 1).
 """
@@ -516,31 +517,19 @@ def _device_ms(fn, tag: str, calls: int) -> tuple[float, int]:
     return (_ms(evs) / len(evs), len(evs)) if evs else (float("nan"), 0)
 
 
-def _device_split(fn, tag: str, calls: int) -> tuple[float, float]:
-    """Device ms a call of the kernel named ``tag`` (one launch a call of
-    ``fn``) and of every other kernel, from one trace of ``calls`` calls:
-    both over the calls the trace holds, counted by the tagged kernel."""
-    evs = _kernel_events(fn, calls)
-    mine = [e for e in evs if tag in e.name]
-    if not mine:
-        return float("nan"), float("nan")
-    return _ms(mine) / len(mine), (_ms(evs) - _ms(mine)) / len(mine)
-
-
-def _device_per_call(fn, calls: int) -> float:
-    """Device ms a call of ``fn``: all its kernels in a trace of ``calls``
-    calls (``_device_ms`` with no name filter), summed, over the calls."""
-    ms, n = _device_ms(fn, "", calls)
-    return ms * n / calls if n else float("nan")
-
-
-def _device_one(fn, calls: int) -> float:
-    """Device ms a call of ``fn``, which launches one kernel a call: the mean
-    of the kernels a trace of ``calls`` calls holds (``_device_per_call``
-    divides by the calls made, and reads low when the trace misses some);
-    a trace with more kernels than calls is read as ``_device_per_call``."""
-    ms, n = _device_ms(fn, "", calls)
-    return ms if n <= calls else ms * n / calls
+def _device_call(fn, calls: int) -> float:
+    """Device ms a call of ``fn`` from a trace of ``calls`` calls: each
+    kernel name in the trace at the mean of its kernels, times its launches
+    a call (the trace's count over the calls, rounded, at least one),
+    summed; a trace that misses a few kernels does not read low.  nan if it
+    holds none.  (``_device_ms`` reads one kernel by name.)"""
+    by_name = {}
+    for e in _kernel_events(fn, calls):
+        by_name.setdefault(e.name, []).append(e)
+    if not by_name:
+        return float("nan")
+    return sum(max(1, round(len(evs) / calls)) * _ms(evs) / len(evs)
+               for evs in by_name.values())
 
 
 def _table1_times(kc, kred, kst, ref, time_ms, dev) -> dict:
@@ -569,7 +558,7 @@ def _table1_times(kc, kred, kst, ref, time_ms, dev) -> dict:
                 t_d, n_d, t_ld = float("nan"), 0, float("nan")
             else:
                 t_d, n_d = _device_ms(fk, tag, calls)
-                t_ld = _device_per_call(fl, calls)
+                t_ld = _device_call(fl, calls)
             # the first shape of a kernel stands for it in the kernels line
             rows.setdefault((kname, cname),
                             (t_k, t_p, t_l, bound, by, shape, t_d, t_ld))
@@ -1011,14 +1000,13 @@ def _phi3_path(dev, n_layers: int = 2, prompt: int = 512, batch: int = 4,
 def _matmul_bwd_times(kc, kmm, ref, time_ms) -> dict:
     """Phase 6, the matmul's backward of each projection at the training M:
     dA (dX) and dB (dW), one launch each, between CUDA events beside
-    torch.matmul's, the plain version and the bound.  Device ms two ways:
-    the pair's (``device_ms``, read as the other rows read theirs: a trace
-    of 10 calls of both products over the calls made, which reads low when
-    the trace misses kernels), and each product's beside torch.matmul's of
-    it (the mean of the kernels a trace of 20 calls holds); then the
-    forward at the same M (the train step's).  Returns rows by projection.
+    torch.matmul's, the plain version and the bound.  Device ms a call of
+    each product beside torch.matmul's of it (``_device_call``, a trace of
+    20 calls), the pair's their sum; then the forward at the same M (the
+    train step's).  Returns rows by projection.
     It uses only what the package has had since the backward kernels came,
-    so that ``--matmul-bwd`` reads an older tree's kernels the same way."""
+    so that ``--only matmul-bwd`` reads an older tree's kernels the same
+    way."""
     import torch
 
     per = {}
@@ -1035,36 +1023,30 @@ def _matmul_bwd_times(kc, kmm, ref, time_ms) -> dict:
         t_p = time_ms(lambda: (ref.matmul_grad_a(dc, b), ref.matmul_grad_b(a, dc2)), 5)
         bound, by = _ms_bound(2 * 2 * (M * N + K * N + M * K), 4.0 * M * N * K, "bf16")
         one, _ = _ms_bound(2 * (M * N + K * N + M * K), 2.0 * M * N * K, "bf16")
-        dev = {n: _device_one(f, 20) for n, f in (("dA", ka), ("dB", kb),
-                                                    ("lib dA", la), ("lib dB", lb))}
-        (p_k, n_k), (p_l, n_l) = (_device_ms(f, "", 10) for f in
-                                  (lambda: (ka(), kb()), lambda: (la(), lb())))
-        d_k, d_l = p_k * n_k / 10, p_l * n_l / 10      # _device_per_call's reading
-        s_k, s_l = dev["dA"] + dev["dB"], dev["lib dA"] + dev["lib dB"]
+        dev = {n: _device_call(f, 20) for n, f in (("dA", ka), ("dB", kb),
+                                                     ("lib dA", la), ("lib dB", lb))}
+        d_k, d_l = dev["dA"] + dev["dB"], dev["lib dA"] + dev["lib dB"]
         fwd_a, fwd_b = kc.matmul_inputs(M, K, N, torch.bfloat16)
-        f_k = _device_one(lambda: kmm.matmul(fwd_a, fwd_b), 20)
-        f_l = _device_one(lambda: torch.matmul(fwd_a, fwd_b), 20)
+        f_k = _device_call(lambda: kmm.matmul(fwd_a, fwd_b), 20)
+        f_l = _device_call(lambda: torch.matmul(fwd_a, fwd_b), 20)
         per[proj] = dict(ms=t["dA"] + t["dB"], dA_ms=t["dA"], dB_ms=t["dB"], plain_ms=t_p,
                          library_ms=t["lib dA"] + t["lib dB"], bound_ms=bound,
                          bound_by=by, device_ms=d_k, library_device_ms=d_l,
                          dA_device_ms=dev["dA"], dB_device_ms=dev["dB"],
                          dA_library_device_ms=dev["lib dA"],
                          dB_library_device_ms=dev["lib dB"], product_bound_ms=one,
-                         products_device_ms=s_k, products_library_device_ms=s_l,
                          forward_device_ms=f_k, forward_library_device_ms=f_l,
                          shape=f"M={M},K={K},N={N},bf16")
         print(f"[time] matmul_bwd {proj:7s} M={M} K={K:<5d} N={N:<5d} bf16 kernel dA "
               f"{t['dA']:.4f} + dB {t['dB']:.4f} ms  plain {t_p:.4f} ms  torch.matmul "
               f"{t['lib dA']:.4f} + {t['lib dB']:.4f} ms  bound {bound:.4f} ms ({by}); "
               f"device: kernel {d_k:.4f} ms, torch.matmul {d_l:.4f} ms, "
-              f"{d_k / d_l:.2f}x torch.matmul, {d_k / bound:.2f}x bound (the traces "
-              f"held {n_k} and {n_l} of 20 kernels)")
+              f"{d_k / d_l:.2f}x torch.matmul, {d_k / bound:.2f}x bound")
         print(f"[time] matmul_bwd {proj:7s} device ms a product (bound {one:.4f} each): "
               f"dX {dev['dA']:.4f} (torch.matmul {dev['lib dA']:.4f}, "
               f"{dev['dA'] / dev['lib dA']:.3f}x), dW {dev['dB']:.4f} (torch.matmul "
               f"{dev['lib dB']:.4f}, {dev['dB'] / dev['lib dB']:.3f}x); dW / dX "
-              f"{dev['dB'] / dev['dA']:.3f}; the two {s_k:.4f} (torch.matmul {s_l:.4f}, "
-              f"{s_k / s_l:.3f}x); the forward at M={M}: kernel {f_k:.4f}, "
+              f"{dev['dB'] / dev['dA']:.3f}; the forward at M={M}: kernel {f_k:.4f}, "
               f"torch.matmul {f_l:.4f}, {f_k / f_l:.3f}x")
         del dc, b, a, dc2, fwd_a, fwd_b
     return per
@@ -1081,7 +1063,7 @@ def _backward_times(kc, kfa, kmm, krms, ref, time_ms) -> dict:
     rows = {}
 
     def dev_ms(fn):
-        return _device_per_call(fn, 10)
+        return _device_call(fn, 10)
 
     # rmsnorm: x and dy read, dx written, gamma read and dgamma written
     R, D = kc.TRAIN_TOKENS, kc.D_MODEL
@@ -1143,38 +1125,18 @@ def _backward_times(kc, kfa, kmm, krms, ref, time_ms) -> dict:
     return rows
 
 
-def _device_call(fn, calls: int) -> float:
-    """Device ms a call of ``fn`` from the mean of each kernel it launches:
-    the kernels of one call (a trace of one call, by name and count), each
-    at the mean of the kernels of that name in a trace of ``calls`` calls;
-    a trace that misses calls does not read low.  nan if the long trace
-    lacks one of them."""
-    from collections import Counter
-
-    one = Counter(e.name for e in _kernel_events(fn, 1))
-    evs = _kernel_events(fn, calls)
-    total = 0.0
-    for name, k in one.items():
-        mine = [e for e in evs if e.name == name]
-        if not mine:
-            return float("nan")
-        total += k * _ms(mine) / len(mine)
-    return total
-
-
 def _phi3_flash_times(kc, kfa, ref, time_ms) -> dict:
     """Phase 6, flash attention at phi3-mini's heads (32 over 32 of 96),
     bf16 causal: the forward at a whole prompt of ``PHI3_FLASH_S`` and the
     backward at ``PHI3_FLASH_BWD``.  Kernel, plain and library (SDPA, and
     autograd of it) between CUDA events, the bound, and device ms: each of
     the port's kernels the mean of the kernels so named in a trace
-    (``_device_ms``; the backward's dq and dkv grids apart, then summed), the library's a call
-    from the mean of each of its kernels (``_device_call``);
-    and the same calls through the simt kernels, forced by lifting
-    ``variant`` / ``bwd_variant`` to them, read the same way.  It uses only
-    what the package has had since head dim 96 came, so that ``--phi3``
-    reads an older tree's kernels the same way.  Returns rows "fwd" and
-    "bwd"."""
+    (``_device_ms``; the backward's dq and dkv grids apart, then summed),
+    the library's a call (``_device_call``); and the same calls through the
+    simt kernels, forced by lifting ``variant`` / ``bwd_variant`` to them,
+    read the same way.  It uses only what the package has had since head
+    dim 96 came, so that ``--only phi3`` reads an older tree's kernels the
+    same way.  Returns rows "fwd" and "bwd"."""
     import torch
     import torch.nn.functional as F
 
@@ -1244,19 +1206,27 @@ def _phi3_flash_times(kc, kfa, ref, time_ms) -> dict:
     return {"fwd": fwd, "bwd": bwd}
 
 
+#: the parts ``--only`` runs alone: the libraries each builds, and what it
+#: runs, given the device and the modules ``main`` imports
+ONLY = {
+    "matmul-bwd": (("matmul",),
+                   lambda dev, m: _matmul_bwd_times(m.kc, m.kmm, m.ref, _time_ms)),
+    "phi3": (("matmul", "rmsnorm", "flash_attention", "flash_attention_bwd"),
+             lambda dev, m: (_phi3_path(dev),
+                             _phi3_flash_times(m.kc, m.kfa, m.ref, _time_ms))),
+}
+
+
 def main(argv: list | None = None) -> int:
     import argparse
+    import types
 
     ap = argparse.ArgumentParser(description="The port's smoke run on one CUDA card.")
-    ap.add_argument("--matmul-bwd", action="store_true",
-                    help="build the matmul alone and print phase 6's matmul backward "
-                         "rows, nothing else; a copy of this file at the root of "
-                         "another checkout reads that tree's kernels the same way")
-    ap.add_argument("--phi3", action="store_true",
-                    help="run phase 7b (phi3-mini's prefill and train steps) and "
-                         "phase 6's phi3-mini flash rows, nothing else; a copy of "
-                         "this file at the root of another checkout reads that "
-                         "tree's kernels the same way")
+    ap.add_argument("--only", choices=sorted(ONLY),
+                    help="run one part alone (matmul-bwd: phase 6's matmul backward "
+                         "rows; phi3: phase 7b and phase 6's phi3-mini flash rows); "
+                         "a copy of this file at the root of another checkout reads "
+                         "that tree's kernels the same way")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -1301,14 +1271,10 @@ def main(argv: list | None = None) -> int:
                          text=True, timeout=60, check=True).stdout.strip()
     print(f"[device] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(smi.splitlines()[0])
-    if args.matmul_bwd:
-        _build.build(["matmul"])
-        _matmul_bwd_times(kc, kmm, ref, _time_ms)
-        return 0
-    if args.phi3:
-        _build.build(("matmul", "rmsnorm", "flash_attention", "flash_attention_bwd"))
-        _phi3_path(dev)
-        _phi3_flash_times(kc, kfa, ref, _time_ms)
+    if args.only:
+        libs, run = ONLY[args.only]
+        _build.build(libs)
+        run(dev, types.SimpleNamespace(kc=kc, kfa=kfa, kmm=kmm, ref=ref))
         return 0
 
     # -- 2. build ------------------------------------------------------------
@@ -1688,8 +1654,8 @@ def main(argv: list | None = None) -> int:
                 rows[("matmul", M, K, N, dt)] = (t_k, t_p, t_l, bound, by)
                 # between events, back-to-back calls of a small shape time the
                 # host's launches; the trace gives the card's own time a call
-                d_k = _device_per_call(lambda: kmm.matmul(a, pick()), 20)
-                d_l = _device_per_call(lambda: torch.matmul(a, pick()), 20)
+                d_k = _device_call(lambda: kmm.matmul(a, pick()), 20)
+                d_l = _device_call(lambda: torch.matmul(a, pick()), 20)
                 device_rows[("matmul", M, K, N, dt)] = (d_k, d_l)
                 print(f"[time] matmul {proj:7s} M={M:<4d} K={K:<5d} N={N:<5d} "
                       f"{kind:4s} {kmm.variant(M, K, N, dt):6s} kernel {t_k:.4f} ms  "
@@ -1713,7 +1679,7 @@ def main(argv: list | None = None) -> int:
             kmm.wgmma_plan.cache_clear()
             kmm.matmul(a, b)
             by_count.append((kmm.wgmma_plan(M, K, N)[0],
-                             _device_per_call(lambda: kmm.matmul(a, b), 20)))
+                             _device_call(lambda: kmm.matmul(a, b), 20)))
         kmm.WGMMA_MAX_SPLITS, kmm.WGMMA_SPLIT_US = plan_knobs
         kmm.wgmma_plan.cache_clear()
         print(f"[time] matmul wgmma split plan M={M} K={K} N={N}: device ms by "
@@ -1742,10 +1708,10 @@ def main(argv: list | None = None) -> int:
                                   4.0 * R * D, "f32")
             rows[("rmsnorm", R, dt)] = (t_k, t_p, t_l, bound, by)
             # between events, back-to-back calls time the host's launches;
-            # one trace of both gives the card's own time a call
-            d_k, d_l = _device_split(
-                lambda: (krms.rmsnorm(x, g, kc.EPS), torch.nn.functional.rms_norm(
-                    x, (D,), g_lib, kc.EPS)), PORT_KERNELS["rmsnorm"], 50)
+            # a trace gives the card's own time a call
+            d_k, d_l = (_device_call(f, 50) for f in (
+                lambda: krms.rmsnorm(x, g, kc.EPS),
+                lambda: torch.nn.functional.rms_norm(x, (D,), g_lib, kc.EPS)))
             device_rows[("rmsnorm", R, dt)] = (d_k, d_l)
             print(f"[time] rmsnorm R={R:<4d} D={D} {kind:4s} kernel {t_k:.4f} ms  "
                   f"plain {t_p:.4f} ms  F.rms_norm {t_l:.4f} ms  "
@@ -1769,7 +1735,7 @@ def main(argv: list | None = None) -> int:
     # flash attention at whole-prompt lengths (bf16, the model's dtype: the
     # dense path's 37 and 223, the paged path's 445, and 512; f32 at the
     # longest), beside SDPA on the same causal GQA function: between events,
-    # and the device's own ms a call from one trace of both
+    # and the device's own ms a call from a trace of each
     Hq, Hkv, D = kc.HQ, kc.HKV, kc.HEAD_DIM
     for S, dt in ((37, torch.bfloat16), (223, torch.bfloat16), (445, torch.bfloat16),
                   (512, torch.bfloat16), (512, torch.float32)):
@@ -1783,8 +1749,7 @@ def main(argv: list | None = None) -> int:
         t_l = time_ms(sdpa, iters)
         kind = "bf16" if dt == torch.bfloat16 else "f32"
         var = kfa.variant(S, S, D, dt)
-        d_k, d_l = _device_split(lambda: (kern(), sdpa()),
-                                 PORT_KERNELS[f"flash_attention {var}"], 20)
+        d_k, d_l = _device_call(kern, 20), _device_call(sdpa, 20)
         # q and out once, k and v once; 4 D operations per visible (q, k) pair
         bound, by = _ms_bound(q.element_size() * S * D * (2 * Hq + 2 * Hkv),
                               4.0 * D * Hq * S * (S + 1) / 2, kind)

@@ -293,10 +293,10 @@ def check_flash_attention(S, dtype, window=None, device="cuda", B=1) -> dict:
 #: phi3-mini-3.8b's attention (d_model 3072): 32 query heads over 32 kv
 #: heads of 96 (bf16 on the wgmma kernels, f32 on the simt ones); its
 #: forward at a whole prompt of PHI3_FLASH_S and its backward at (B, S) =
-#: PHI3_FLASH_BWD, causal
+#: PHI3_FLASH_BWD, the train step's batch and length, causal
 PHI3_HQ, PHI3_HKV, PHI3_HEAD_DIM = 32, 32, 96
 PHI3_FLASH_S = 512
-PHI3_FLASH_BWD = (1, 1024)
+PHI3_FLASH_BWD = (4, 1024)
 
 
 def phi3_flash_inputs(S, dtype, device="cuda", seed=0, B=1):
@@ -317,11 +317,12 @@ def check_flash_phi3(S, dtype, device="cuda") -> dict:
 
 
 #: head dim 96 in bf16 (the wgmma kernels on two boxes, the second
-#: zero-filled past column 96), (B, S, Hq, Hkv, window), causal: ragged
-#: prompts at phi3-mini's heads, a window across tile edges, GQA 32/8; from
-#: inputs in the model's (B, S, H, D) layout ("bshd", as views) and
-#: (B, H, S, D)-contiguous ("bhsd")
-D96_CASES = ((1, 70, 32, 32, None), (1, 223, 32, 32, None), (1, 445, 32, 32, None),
+#: zero-filled past column 96), (B, S, Hq, Hkv, window), causal: phi3-mini's
+#: train step (PHI3_FLASH_BWD at its heads), ragged prompts at its heads, a
+#: window across tile edges, GQA 32/8; from inputs in the model's (B, S, H,
+#: D) layout ("bshd", as views) and (B, H, S, D)-contiguous ("bhsd")
+D96_CASES = ((*PHI3_FLASH_BWD, PHI3_HQ, PHI3_HKV, None),
+             (1, 70, 32, 32, None), (1, 223, 32, 32, None), (1, 445, 32, 32, None),
              (2, 223, 32, 32, 100), (1, 445, 32, 8, None), (2, 70, 32, 8, 9))
 D96_LAYOUTS = ("bshd", "bhsd")
 #: columns of NaN after each output row that no store may touch

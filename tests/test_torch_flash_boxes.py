@@ -1,36 +1,19 @@
 """The row layout of the wgmma flash-attention kernels, on the CPU
 (``flash_attention.box_plan``, the mirror of ``csrc/flash_wgmma.cuh``'s
-``ROW_BOXES`` and ``ROW_COLS``), and a torch emulation of the forward
-kernel's arithmetic on that layout held to the plain version
-``ref.attention``.
+``ROW_BOXES`` and ``ROW_COLS``).
 
 A row of D bf16 is loaded as 64-column boxes by TMA, which fills the columns
 past D with zeros; at D = 96 (phi3-mini) that is two boxes and 32 zero
-columns.  The emulation follows ``flash_wgmma_kernel`` step by step: bf16 q,
-k, v; a 64-row q tile a block over ``tile_plan``'s key tiles in order;
-S = Q K^T over the ``qk_steps`` k16 steps of the padded tiles, summed in
-f32; the online softmax in log2 units with the scale of the real D; O +=
-P_hi V + P_lo V over every column the boxes hold; the rows divided by their
-sums once; only ``store_cols`` columns written.  Tolerance:
-``kernel_checks.ATTN_TOL`` for bf16 (rtol 8e-3, atol 1e-5), the card's
-check.
+columns.  Both kernels' arithmetic on that layout is emulated in
+``tests/test_torch_flash_bwd.py``.
 """
 import math
 
 import numpy as np
 import pytest
-import torch
 
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ref
-from repro_torch.testing import kernel_checks as kc
 
-BQ, BK = fa.WGMMA_BQ, fa.WGMMA_BK
-TOL = kc.ATTN_TOL[torch.bfloat16]
-NEG = -1e30                             # the kernels' NEG_INF
-
-
-# -- the plan ---------------------------------------------------------------------
 
 @pytest.mark.parametrize("D", fa.WGMMA_HEAD_DIMS)
 def test_every_column_below_d_is_loaded_exactly_once(D):
@@ -60,121 +43,3 @@ def test_head_dim_96_takes_two_boxes_and_32_zero_columns():
 def test_box_plan_refuses_the_head_dims_the_wgmma_kernels_do_not_take(D):
     with pytest.raises(ValueError, match="head dims"):
         fa.box_plan(D)
-
-
-def load_rows(t: torch.Tensor, r0: int, plan) -> torch.Tensor:
-    """Rows r0 .. r0 + 63 of t (..., rows, D) as the boxes hold them, TMA's
-    way: each box from its first column, zeros past D and past the rows."""
-    out = t.new_zeros((*t.shape[:-2], BQ, plan.cols))
-    part = t[..., r0:r0 + BQ, :]
-    for c0, n in plan.boxes:
-        out[..., :part.shape[-2], c0:c0 + n] = part[..., c0:c0 + n]
-    return out
-
-
-@pytest.mark.parametrize("D", fa.WGMMA_HEAD_DIMS)
-def test_the_padded_columns_come_in_as_zeros(D):
-    """A (B, S, H, D) view, as the model passes it, whose next columns in
-    memory are the next head's: the loaded tile holds the row's D columns,
-    then zeros, whatever lies after the row."""
-    x = torch.randn((1, 70, 3, D)).transpose(1, 2)       # heads adjacent in memory
-    plan = fa.box_plan(D)
-    tile = load_rows(x, 64, plan)
-    assert torch.equal(tile[..., :6, :D], x[..., 64:70, :])
-    assert not tile[..., D:].any() and not tile[..., 6:, :].any()
-
-
-# -- the forward kernel's arithmetic ------------------------------------------------
-
-def _split(x: torch.Tensor):
-    """x as the kernel's split_p gives it to the P V product: hi + lo."""
-    hi = x.bfloat16().float()
-    return hi, (x - hi).bfloat16().float()
-
-
-def _visible(q0, k0, Sk, causal, window):
-    i = torch.arange(q0, q0 + BQ)[:, None]
-    j = torch.arange(k0, k0 + BK)[None]
-    vis = j < Sk
-    if causal:
-        vis = vis & (i >= j)
-    if window:
-        vis = vis & (i - j < window)
-    return vis
-
-
-def emulate_fwd(q, k, v, causal, window, scale=None):
-    """out as ``flash_wgmma_kernel`` computes it (module docstring), and the
-    largest magnitude its accumulators hold past D; ``scale`` (default the
-    plan's) replaces the scores' scale."""
-    B, Hq, S, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
-    plan = fa.box_plan(D)
-    sl2 = math.log2(math.e) * (plan.scale if scale is None else scale)
-    kk = 16 * plan.qk_steps                          # the K-side columns
-    qf, kf, vf = (t.float() for t in (q, k, v))
-    kq = kf.repeat_interleave(Hq // Hkv, dim=1)      # kv head of each q head
-    vq = vf.repeat_interleave(Hq // Hkv, dim=1)
-    out = torch.zeros((B, Hq, S, D))
-    pad = 0.0
-    for q0 in range(0, S, BQ):
-        Qt = load_rows(qf, q0, plan)
-        m = torch.full((B, Hq, BQ, 1), NEG)
-        l = torch.zeros((B, Hq, BQ, 1))
-        o = torch.zeros((B, Hq, BQ, plan.cols))
-        for k0, masked in fa.tile_plan(q0, Sk, causal, window):
-            Kt, Vt = load_rows(kq, k0, plan), load_rows(vq, k0, plan)
-            s = Qt[..., :kk] @ Kt[..., :kk].transpose(-1, -2)
-            if masked:
-                s = torch.where(_visible(q0, k0, Sk, causal, window), s, NEG)
-            mx = torch.maximum(m, s.amax(-1, keepdim=True))
-            alpha = torch.exp2((m - mx) * sl2)
-            msl = torch.where(mx == NEG, 0.0, mx) * sl2
-            p = torch.exp2(s * sl2 - msl)
-            l = l * alpha + p.sum(-1, keepdim=True)
-            m = mx
-            o[..., :D] *= alpha                      # the kernel scales D columns
-            for part in _split(p):
-                o = o + part @ Vt
-        pad = max(pad, float(o[..., D:].abs().max()) if plan.cols > D else 0.0)
-        res = torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)
-        rows = min(BQ, S - q0)
-        out[:, :, q0:q0 + rows] = res[:, :, :rows, :plan.store_cols]
-    return out.to(q.dtype), pad
-
-
-def _inputs(B, S, D, Hq, Hkv, seed=0):
-    """q, k, v as the model holds them, (B, S, H, D), as (B, H, S, D) views."""
-    rng = np.random.default_rng(seed)
-    return tuple(torch.from_numpy(rng.standard_normal((B, S, h, D), dtype=np.float32))
-                 .bfloat16().transpose(1, 2) for h in (Hq, Hkv, Hkv))
-
-
-#: (B, S, Hq, Hkv, causal, window): ragged prompts, a window across tile
-#: edges, GQA 4/1 and 4/4 (phi3-mini's G = 1), one sequence without causality
-FWD_CASES = [(1, 70, 4, 4, True, None), (1, 223, 4, 1, True, None),
-             (1, 445, 2, 2, True, 100), (2, 130, 4, 2, True, 9),
-             (2, 70, 4, 2, False, 9)]
-
-
-@pytest.mark.parametrize("D", fa.WGMMA_HEAD_DIMS)
-@pytest.mark.parametrize("B,S,Hq,Hkv,causal,window", FWD_CASES, ids=str)
-def test_forward_arithmetic_on_the_boxes_is_within_the_cards_limit(B, S, Hq, Hkv, causal,
-                                                                   window, D):
-    """Every head compared; the accumulators' columns past D stay exactly 0."""
-    q, k, v = _inputs(B, S, D, Hq, Hkv)
-    got, pad = emulate_fwd(q, k, v, causal, window)
-    res = kc.compare(got, ref.attention(q, k, v, causal=causal, window=window), TOL)
-    assert res["ok"], res
-    assert pad == 0.0
-
-
-def test_the_padded_width_as_the_scale_is_outside_the_limit():
-    """The reason the scale is passed from D: 1/sqrt(128) for a head of 96
-    moves the output far past the check's limit."""
-    q, k, v = _inputs(1, 130, 96, 2, 2)
-    want = ref.attention(q, k, v, causal=True)
-    right, _ = emulate_fwd(q, k, v, True, None)
-    wrong, _ = emulate_fwd(q, k, v, True, None, scale=1 / math.sqrt(128))
-    assert kc.compare(right, want, TOL)["ok"]
-    assert kc.compare(wrong, want, TOL)["limit_use"] > 10

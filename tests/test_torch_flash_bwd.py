@@ -2,9 +2,11 @@
 (``csrc/flash_attention_bwd.cu``): which kernels a call takes
 (``bwd_variant``), the q tiles the dkv kernel walks (``bwd_q_plan``), and a
 torch emulation of the wgmma kernels' arithmetic held to the plain gradient
-``ref.attention_bwd``.
+``ref.attention_bwd``; then the same emulation of the forward's
+``flash_wgmma_kernel`` (``csrc/flash_attention.cu``) held to
+``ref.attention``.
 
-The emulation follows the kernels step by step: bf16 q, k, v and do; each
+The backward's emulation follows the kernels step by step: bf16 q, k, v and do; each
 product of bf16 operands summed in f32; the dq kernel's first pass (online
 max, sum and rowsum(P dP) over the key tiles ``tile_plan`` gives, in
 order, with 2^x and the log2-scaled scores), its second (P = 2^(s sl2 -
@@ -19,6 +21,13 @@ for bf16 (rtol 8e-3, atol 1e-4), the card's check.  The split reads
 0.88-0.93 of that limit at ``EMU_CASES`` (D = 96 among them); with P and
 dS rounded once to bf16 instead, the same comparison reads 28-67x it (the
 last test holds one case of each head dim; 36x at D = 96).
+
+The forward's: a 64-row q tile a block over ``tile_plan``'s key tiles in
+order; S = Q K^T over the ``qk_steps`` k16 steps of the padded tiles,
+summed in f32; the online softmax in log2 units with the scale of the
+real D; O += P_hi V + P_lo V over every column the boxes hold; the rows
+divided by their sums once; only ``store_cols`` columns written.
+Tolerance: ``kernel_checks.ATTN_TOL`` for bf16 (rtol 8e-3, atol 1e-5).
 """
 import math
 
@@ -32,6 +41,7 @@ from repro_torch.testing import kernel_checks as kc
 
 BQ, BK = fa.WGMMA_BQ, fa.WGMMA_BK
 TOL = kc.ATTN_BWD_TOL[torch.bfloat16]
+FWD_TOL = kc.ATTN_TOL[torch.bfloat16]
 NEG = -1e30                             # the kernels' NEG_INF
 
 
@@ -47,6 +57,7 @@ NEG = -1e30                             # the kernels' NEG_INF
     (1024, 1024, 128, torch.float32, True, "simt"),
     (1024, 1024, 96, torch.float32, True, "simt"),
     (445, 445, 96, torch.bfloat16, False, "simt"),
+    (70, 0, 96, torch.bfloat16, True, "simt"),
     (70, 70, 32, torch.bfloat16, True, "simt"),
     (70, 70, 16, torch.bfloat16, True, "simt"),
     (223, 223, 128, torch.bfloat16, False, "simt"),
@@ -130,13 +141,26 @@ def _split(x: torch.Tensor, rounding: str):
 
 
 def _tile(t: torch.Tensor, r0: int, n: int) -> torch.Tensor:
-    """Rows r0 .. r0 + n - 1 of t (..., rows, D) in the columns the boxes of
-    ``box_plan(D)`` hold, zeros past the rows' end and past D (TMA's fill)."""
-    D = t.shape[-1]
-    out = t.new_zeros((*t.shape[:-2], n, fa.box_plan(D).cols))
+    """Rows r0 .. r0 + n - 1 of t (..., rows, D) as the boxes of
+    ``box_plan(D)`` hold them, TMA's way: each box from its first column,
+    zeros past D and past the rows' end."""
+    plan = fa.box_plan(t.shape[-1])
+    out = t.new_zeros((*t.shape[:-2], n, plan.cols))
     part = t[..., r0:r0 + n, :]
-    out[..., :part.shape[-2], :D] = part
+    for c0, w in plan.boxes:
+        out[..., :part.shape[-2], c0:c0 + w] = part[..., c0:c0 + w]
     return out
+
+
+@pytest.mark.parametrize("D", fa.WGMMA_HEAD_DIMS)
+def test_the_padded_columns_come_in_as_zeros(D):
+    """A (B, S, H, D) view, as the model passes it, whose next columns in
+    memory are the next head's: the loaded tile holds the row's D columns,
+    then zeros, whatever lies after the row."""
+    x = torch.randn((1, 70, 3, D)).transpose(1, 2)       # heads adjacent in memory
+    tile = _tile(x, 64, BQ)
+    assert torch.equal(tile[..., :6, :D], x[..., 64:70, :])
+    assert not tile[..., D:].any() and not tile[..., 6:, :].any()
 
 
 def _visible(r0, rows, c0, cols, S, Sk, causal, window):
@@ -274,3 +298,76 @@ def test_one_bf16_rounding_of_p_and_ds_is_not_enough(D):
     split = _reading(emulate_bwd(q, k, v, do, True, None), want)
     single = _reading(emulate_bwd(q, k, v, do, True, None, "single"), want)
     assert split <= 1 < single
+
+
+# -- the forward kernel's arithmetic ------------------------------------------------
+
+def emulate_fwd(q, k, v, causal, window, scale=None):
+    """out as ``flash_wgmma_kernel`` computes it (module docstring), and the
+    largest magnitude its accumulators hold past D; ``scale`` (default the
+    plan's) replaces the scores' scale."""
+    B, Hq, S, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    plan = fa.box_plan(D)
+    sl2 = math.log2(math.e) * (plan.scale if scale is None else scale)
+    kk = 16 * plan.qk_steps                          # the K-side columns
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    kq = kf.repeat_interleave(Hq // Hkv, dim=1)      # kv head of each q head
+    vq = vf.repeat_interleave(Hq // Hkv, dim=1)
+    out = torch.zeros((B, Hq, S, D))
+    pad = 0.0
+    for q0 in range(0, S, BQ):
+        Qt = _tile(qf, q0, BQ)
+        m = torch.full((B, Hq, BQ, 1), NEG)
+        l = torch.zeros((B, Hq, BQ, 1))
+        o = torch.zeros((B, Hq, BQ, plan.cols))
+        for k0, masked in fa.tile_plan(q0, Sk, causal, window):
+            Kt, Vt = _tile(kq, k0, BK), _tile(vq, k0, BK)
+            s = Qt[..., :kk] @ Kt[..., :kk].transpose(-1, -2)
+            if masked:
+                vis = _visible(q0, BQ, k0, BK, 1 << 30, Sk, causal, window)
+                s = torch.where(vis, s, NEG)
+            mx = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp2((m - mx) * sl2)
+            msl = torch.where(mx == NEG, 0.0, mx) * sl2
+            p = torch.exp2(s * sl2 - msl)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            m = mx
+            o[..., :D] *= alpha                      # the kernel scales D columns
+            for part in _split(p, "split"):
+                o = o + part @ Vt
+        pad = max(pad, float(o[..., D:].abs().max()) if plan.cols > D else 0.0)
+        res = torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)
+        rows = min(BQ, S - q0)
+        out[:, :, q0:q0 + rows] = res[:, :, :rows, :plan.store_cols]
+    return out.to(q.dtype), pad
+
+
+#: (B, S, Hq, Hkv, causal, window): ragged prompts, a window across tile
+#: edges, GQA 4/1 and 4/4 (phi3-mini's G = 1), one sequence without causality
+FWD_CASES = [(1, 70, 4, 4, True, None), (1, 223, 4, 1, True, None),
+             (1, 445, 2, 2, True, 100), (2, 130, 4, 2, True, 9),
+             (2, 70, 4, 2, False, 9)]
+
+
+@pytest.mark.parametrize("D", fa.WGMMA_HEAD_DIMS)
+@pytest.mark.parametrize("B,S,Hq,Hkv,causal,window", FWD_CASES, ids=str)
+def test_forward_arithmetic_on_the_boxes_is_within_the_cards_limit(B, S, Hq, Hkv, causal,
+                                                                   window, D):
+    """Every head compared; the accumulators' columns past D stay exactly 0."""
+    q, k, v, _ = _inputs(B, S, D, Hq, Hkv)
+    got, pad = emulate_fwd(q, k, v, causal, window)
+    res = kc.compare(got, ref.attention(q, k, v, causal=causal, window=window), FWD_TOL)
+    assert res["ok"], res
+    assert pad == 0.0
+
+
+def test_the_padded_width_as_the_scale_is_outside_the_limit():
+    """The reason the scale is passed from D: 1/sqrt(128) for a head of 96
+    moves the output far past the check's limit."""
+    q, k, v, _ = _inputs(1, 130, 96, 2, 2)
+    want = ref.attention(q, k, v, causal=True)
+    right, _ = emulate_fwd(q, k, v, True, None)
+    wrong, _ = emulate_fwd(q, k, v, True, None, scale=1 / math.sqrt(128))
+    assert kc.compare(right, want, FWD_TOL)["ok"]
+    assert kc.compare(wrong, want, FWD_TOL)["limit_use"] > 10

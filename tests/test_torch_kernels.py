@@ -177,6 +177,9 @@ def test_flash_variant_on_the_main_path(S):
     (70, 70, 96, torch.bfloat16, True, "wgmma"),
     (70, 70, 96, torch.float32, True, "simt"),
     (70, 70, 96, torch.bfloat16, False, "simt"),
+    (70, 70, 96, torch.float32, False, "simt"),
+    (70, 0, 96, torch.bfloat16, True, "simt"),
+    (70, 0, 96, torch.float32, True, "simt"),
     (70, 70, 16, torch.bfloat16, True, "simt"),
     (70, 70, 32, torch.bfloat16, True, "simt"),
     (70, 70, 64, torch.float32, True, "simt"),

@@ -55,19 +55,10 @@ def test_every_dense_arch_head_dim_has_both_attention_kernels(name):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("S", [1, 70, 512, 1024])
-def test_head_dim_96_takes_the_simt_kernels(S, dtype):
-    """Where D = 96 still takes them: f32, and unaligned views or no keys
-    in either dtype (aligned bf16 takes wgmma, the next test)."""
-    for choose in (flash_attention.variant, flash_attention.bwd_variant):
-        assert choose(S, S, 96, dtype, aligned=False) == "simt"
-        assert choose(S, 0, 96, dtype) == "simt"
-        if dtype == torch.float32:
-            assert choose(S, S, 96, dtype) == "simt"
-
-
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("S", [1, 70, 512, 1024])
 def test_head_dim_96_takes_wgmma_in_bf16_and_simt_in_f32(S, dtype):
+    """Aligned calls with keys; unaligned views and Sk = 0 are rows of the
+    variant tables of ``tests/test_torch_kernels.py`` and
+    ``tests/test_torch_flash_bwd.py``."""
     want = "wgmma" if dtype == torch.bfloat16 else "simt"
     assert flash_attention.variant(S, S, 96, dtype) == want
     assert flash_attention.bwd_variant(S, S, 96, dtype) == want
