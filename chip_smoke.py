@@ -11,9 +11,11 @@ Phases, each of which raises on failure (nothing is caught):
      every library but the matmul, with any wgmma serialisation notice);
   3. each kernel against its plain PyTorch version on the card, element by
      element, at the llama3-8b serving shapes, in bf16 and f32 (the matmul
-     at every main-path M, 1 to 512, and at ragged shapes; flash attention
-     at every whole-prompt length of the paths, ragged ones, B = 2,
-     windows across tile edges, every head dim causal and not, and
+     at every main-path M, 1 to 512, at mixtral's expert buffer rows 2, 11,
+     70 and 1,440, and at ragged shapes; flash attention at every
+     whole-prompt length of the paths, ragged ones, B = 2, windows across
+     tile edges, mixtral's window of 4,096 at 4,608 tokens (twice for the
+     same bits), every head dim causal and not, and
      phi3-mini's heads (32 over 32 of 96) at S = 512, twice for the same
      bits (bf16 must take wgmma, f32 simt); paged
      attention at ``PAGED_LENS`` and at ``kernel_checks.PAGED_CASES``
@@ -86,6 +88,21 @@ Phases, each of which raises on failure (nothing is caught):
      tokens (host clock), each with a finite loss and launch counts exactly
      ``trainer.step_launches``, and a profiler trace of a later step (the
      flash forward's and backward's device ms a step);
+  8. the MoE family: the qwen3-moe and mixtral smoke models (f32) card
+     against CPU (logits and dense streams; qwen3-moe also paged,
+     whole-prompt, 128-token chunks and two pods), then mixtral-8x7b at its
+     published width cut to 24 of its 32 layers (bf16, seeded weights, the
+     earlier phases' models freed first) serving 8 requests through
+     ``ServingEngine`` at batch 4 (one prompt of 4,608 tokens, past the
+     4,096-token window, and seven of phase 5's), launch counts exactly
+     ``trainer.serve_launches``; traces of decode steps and of 223- and
+     4,608-token prefills (the windowed flash kernel launched a layer),
+     each split by sublayer (the MoE sublayers' expert products and their
+     plain-torch router and dispatch apart);
+     and one full-width MoE sublayer (a 223-token prefill, a batch-4 decode
+     step) held to the CPU path on the same bf16 weights and input: output
+     within the bf16 matmul limits, routing equal but for ties within
+     rounding, dropped pairs of both sides printed;
   6. kernel times (CUDA events) beside the plain version, the one PyTorch
      call that computes the same function, and the card's bound (rmsnorm at
      every main-path R in both dtypes, with its device ms a call beside
@@ -114,9 +131,9 @@ Phases, each of which raises on failure (nothing is caught):
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  ``--only PART`` runs one part alone
 (``ONLY``: ``matmul-bwd``, phase 6's matmul backward rows; ``phi3``, phase
-7b and phase 6's phi3-mini flash rows), so that a copy of this file at
-another checkout's root reads that tree's kernels with this file's
-readings.  Imports nothing of JAX.  Without a
+7b and phase 6's phi3-mini flash rows; ``moe``, phase 8), so that a copy
+of this file at another checkout's root reads that tree's kernels with
+this file's readings.  Imports nothing of JAX.  Without a
 card, or without the repo's ``src/repro_torch`` beside it, it exits
 non-zero before any phase (2 and 1).
 """
@@ -186,7 +203,7 @@ def _trace(step, steps: int) -> dict:
     and the busy time, the union of the kernels' intervals.  The profiler
     still slows the host's launches, so twice as many steps are first timed
     without it; the idle share is read against their mean.  Times are per
-    step."""
+    step; ``seq`` is every kernel's family and us in launch order."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -206,7 +223,7 @@ def _trace(step, steps: int) -> dict:
     evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                  key=lambda e: e.time_range.start)
     busy, end = 0.0, -1.0
-    by = {}
+    by, seq = {}, []
     for e in evs:
         s, f = e.time_range.start, e.time_range.end
         busy += max(0.0, f - max(s, end))
@@ -216,8 +233,9 @@ def _trace(step, steps: int) -> dict:
                     if tag in bare), e.name)
         n, t = by.get(fam, (0, 0.0))
         by[fam] = (n + 1 / steps, t + (f - s) / steps)
+        seq.append((fam, f - s))
     return {"events": len(evs), "wall_us": wall_us, "plain_us": plain_us,
-            "busy_us": busy / steps,
+            "busy_us": busy / steps, "seq": seq,
             "by": sorted(by.items(), key=lambda kv: -kv[1][1])}
 
 
@@ -277,9 +295,54 @@ def _print_trace(tr: dict, steps: int, what: str) -> None:
               f"{fam[:90]}")
 
 
-def _smoke_paged(scfg, cpu_params, gpu_params, dev) -> None:
+def _smoke_dense(scfg, cpu_params, gpu_params, dev) -> None:
+    """A smoke model (f32) through the kernel path on the card and the
+    plain path on the CPU: a 21-token prefill of two rows and 8 decode
+    steps, logits within 1e-4 (the paths differ only in f32 summation
+    order, which moves logits of order 1 by ~1e-6 a layer), then the
+    dense engine's greedy streams, 5 requests through 2 slots, equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(1, scfg.vocab_size, (2, 21)))
+    c_cpu, l_cpu = lm.prefill(cpu_params, toks, scfg, 64)
+    c_gpu, l_gpu = lm.prefill(gpu_params, toks.to(dev), scfg, 64)
+    worst = (l_gpu.cpu() - l_cpu).abs().max().item()
+    for step in range(8):
+        nxt = torch.argmax(l_cpu[:, -1], dim=-1, keepdim=True)
+        pos = torch.tensor([21 + step, 21 + step])
+        l_cpu, c_cpu = lm.decode_step(cpu_params, nxt, c_cpu, pos, scfg)
+        l_gpu, c_gpu = lm.decode_step(gpu_params, nxt.to(dev), c_gpu, pos.to(dev),
+                                      scfg)
+        worst = max(worst, (l_gpu.cpu() - l_cpu).abs().max().item())
+    print(f"[smoke] {scfg.name} f32 prefill+8 decode logits, card vs CPU: "
+          f"max_abs_err={worst:.3e} (tol 1e-4)")
+    if not worst <= 1e-4:
+        raise AssertionError(f"{scfg.name} logits differ by {worst}")
+    streams = {}
+    for where, params in (("cpu", cpu_params), ("cuda", gpu_params)):
+        eng = ServingEngine(lm.Model(scfg, params), ServeConfig(max_batch=2, max_seq=64),
+                            device=dev if where == "cuda" else "cpu")
+        prng = np.random.default_rng(1)
+        for rid in range(5):
+            plen = int(prng.integers(4, 24))
+            eng.submit(Request(rid=rid, max_new_tokens=12,
+                               prompt=prng.integers(1, scfg.vocab_size, plen)))
+        streams[where] = {r.rid: r.out for r in eng.run()}
+    print(f"[smoke] {scfg.name} greedy streams, 5 requests through 2 slots: "
+          f"card == CPU: {streams['cpu'] == streams['cuda']}")
+    if streams["cpu"] != streams["cuda"] or len(streams["cpu"]) != 5:
+        raise AssertionError(f"{scfg.name} streams differ: {streams}")
+
+
+def _smoke_paged(scfg, cpu_params, gpu_params, dev, chunk: int = 16,
+                 max_seq: int = 64) -> None:
     """The smoke model through the paged engine on the card and on the CPU,
-    whole-prompt, chunked (chunk 16 over 8-token blocks) and as two pods
+    whole-prompt, chunked (``chunk`` over 8-token blocks) and as two pods
     behind the router, on a prompt set with duplicates (so blocks are
     shared and copied on write): every greedy stream equals the CPU's and
     the card's dense engine's."""
@@ -305,16 +368,16 @@ def _smoke_paged(scfg, cpu_params, gpu_params, dev) -> None:
         return {r.rid: list(r.out) for r in reqs}
 
     models = {"cpu": lm.Model(scfg, cpu_params), "cuda": lm.Model(scfg, gpu_params)}
-    dense = drive(ServingEngine(models["cuda"], ServeConfig(max_batch=4, max_seq=64),
+    dense = drive(ServingEngine(models["cuda"], ServeConfig(max_batch=4, max_seq=max_seq),
                                 device=dev))
-    for mode, chunk, pods in (("whole-prompt", 0, 1), ("chunked", 16, 1),
-                              ("2-pod router", 0, 2)):
+    for mode, c, pods in (("whole-prompt", 0, 1), (f"chunked ({chunk})", chunk, 1),
+                          ("2-pod router", 0, 2)):
         got, counts = {}, {}
         for where in ("cpu", "cuda"):
             engines = [PagedServingEngine(
-                models[where], PagedServeConfig(max_batch=4, max_seq=64,
+                models[where], PagedServeConfig(max_batch=4, max_seq=max_seq,
                                                 block_tokens=8, n_blocks=32,
-                                                chunk=chunk),
+                                                chunk=c),
                 device=dev if where == "cuda" else "cpu") for _ in range(pods)]
             got[where] = drive(engines[0] if pods == 1 else PrefixRouter(engines))
             counts[where] = [(e.alloc.shared_hits, e.cow_copies, e.prefill_chunks)
@@ -322,7 +385,7 @@ def _smoke_paged(scfg, cpu_params, gpu_params, dev) -> None:
             for e in engines:
                 _check_pool(e)
         same = got["cpu"] == got["cuda"] and counts["cpu"] == counts["cuda"]
-        print(f"[smoke] paged {mode}: 6 requests, card == CPU: {same}; == dense "
+        print(f"[smoke] {scfg.name} paged {mode}: 6 requests, card == CPU: {same}; == dense "
               f"engine on the card: {got['cuda'] == dense}; (shared_hits, "
               f"cow_copies, prefill_chunks) per pod {counts['cuda']}; zero "
               f"block zero and shutdown() clean on both")
@@ -915,7 +978,8 @@ def _phi3_path(dev, n_layers: int = 2, prompt: int = 512, batch: int = 4,
     from repro_torch.serve import Request, ServeConfig, ServingEngine
     from repro_torch.testing.timing import now
     from repro_torch.train import OptConfig, make_train_step
-    from repro_torch.train.trainer import init_train_state, step_launches
+    from repro_torch.train.trainer import (init_train_state, serve_launches,
+                                           step_launches)
 
     cfg = dataclasses.replace(get_config("phi3-mini-3.8b"), n_layers=n_layers)
     L, D = cfg.n_layers, cfg.head_dim
@@ -940,9 +1004,7 @@ def _phi3_path(dev, n_layers: int = 2, prompt: int = 512, batch: int = 4,
     wall = now() - t0
     serve = dict(ops.LAUNCHES)
     tm = engine.timing
-    fwd = tm["prefills"] + tm["decode_steps"]
-    want = {**{k: 0 for k in ops.LAUNCHES}, "matmul": 7 * L * fwd,
-            "rmsnorm": (2 * L + 1) * fwd, "flash_attention": L * tm["prefills"]}
+    want = serve_launches(cfg, tm["prefills"], tm["decode_steps"])
     out = done[0].out if done else []
     print(f"[phi3] dense engine: a {prompt}-token prompt, {tm['prefills']} whole-prompt "
           f"prefill ({1e3 * tm['prefill_s']:.2f} ms) and {tm['decode_steps']} decode "
@@ -995,6 +1057,255 @@ def _phi3_path(dev, n_layers: int = 2, prompt: int = 512, batch: int = 4,
     del state, tokens
     torch.cuda.empty_cache()
     return {"phi3_serve": serve, "phi3_train": runs[0]}
+
+
+def _routing_diff(r_gpu, r_cpu, k: int) -> tuple[list, set]:
+    """Rows whose routing (top-k experts, buffer slots) differs between the
+    card and the CPU, each with the CPU's gap between its k-th and (k+1)-th
+    logit and the most the two sides' logits differ on that row; and the
+    rows a flip explains.  A flip is a tie within rounding when its gap is
+    at most twice that difference (each logit moved by at most it); the
+    rows after a tied row in the same expert shift their slots with it."""
+    import torch
+
+    idx_g, idx_c = r_gpu.idx.cpu(), r_cpu.idx
+    lg_gpu, lg_cpu = r_gpu.logits.cpu(), r_cpu.logits
+    flips = (idx_g != idx_c).any(-1)
+    moved = (r_gpu.slots.cpu() != r_cpu.slots).any(0)
+    top = torch.topk(lg_cpu, k + 1, dim=-1).values        # E > k experts
+    rows = []
+    for n in torch.nonzero(flips | moved)[:, 0].tolist():
+        gap = float(top[n, k - 1] - top[n, k])
+        delta = float((lg_gpu[n] - lg_cpu[n]).abs().max())
+        rows.append({"row": n, "card": idx_g[n].tolist(), "cpu": idx_c[n].tolist(),
+                     "flip": bool(flips[n]), "gap": gap, "delta": delta,
+                     "tie": bool(flips[n]) and gap <= 2 * delta})
+    return rows, {r["row"] for r in rows}
+
+
+def _drops(r) -> list:
+    """(row, expert) pairs past an expert's capacity."""
+    import torch
+
+    chosen = torch.zeros_like(r.slots).scatter_(0, r.idx.T, 1) > 0
+    return [(n, j) for j, n in torch.nonzero(chosen & (r.slots == r.capacity)).tolist()]
+
+
+def _moe_sublayer_check(sp, x, cfg, what: str) -> None:
+    """One full-width MoE sublayer on the card and the same bf16 weights and
+    input on the CPU: the output within the bf16 matmul limits
+    (``kernel_checks.moe_tol``: ``MATMUL_TOL`` over the element and its
+    row's addends) and the routing decisions (each row's experts and buffer
+    slots) equal.  Every routing difference is printed with its logit gap,
+    and the dropped pairs of both sides.  A difference that a tie within
+    rounding does not explain fails; rows a tie explains are left out of
+    the element check and printed."""
+    from repro_torch.models import layers as Lyr
+    from repro_torch.params import tree_map
+    from repro_torch.testing import kernel_checks as kc
+
+    sp_cpu = tree_map(lambda t: t.cpu(), sp)
+    out, routes = {}, {}
+    for where, p, xx in (("card", sp, x), ("cpu", sp_cpu, x.cpu())):
+        out[where] = Lyr.moe_layer(p, xx, cfg).reshape(-1, cfg.d_model)
+        routes[where] = Lyr.moe_route(p, Lyr.rmsnorm(xx, p["norm"], cfg.norm_eps), cfg)
+    rg, rc = routes["card"], routes["cpu"]
+    rows, skip = _routing_diff(rg, rc, cfg.experts_per_token)
+    keep = [n for n in range(out["cpu"].shape[0]) if n not in skip]
+    rtol, atol = kc.moe_tol(sp_cpu, x.cpu(), cfg)
+    res = kc.compare(out["card"].cpu()[keep], out["cpu"][keep], (rtol, atol[keep]))
+    drops = {w: _drops(r) for w, r in routes.items()}
+    print(f"[moe] sublayer vs CPU, {what}: {out['cpu'].shape[0]} rows, C = {rc.capacity}; "
+          f"{_reading(res)} (atol {float(atol.min()):.1e}-{float(atol.max()):.1e} "
+          f"by row: moe_tol); routing differs on {len(rows)} rows "
+          f"({sum(r['flip'] for r in rows)} top-k flips, {sum(r['tie'] for r in rows)} "
+          f"ties within rounding); dropped pairs card {len(drops['card'])}, "
+          f"CPU {len(drops['cpu'])}, equal: {drops['card'] == drops['cpu']}")
+    for w in ("card", "cpu"):
+        print(f"[moe]   dropped (row, expert) on the {w}: {drops[w][:32]}"
+              f"{' ...' if len(drops[w]) > 32 else ''}")
+    for r in rows:
+        print(f"[moe]   row {r['row']}: experts card {r['card']} cpu {r['cpu']}, "
+              f"CPU gap k-th to next {r['gap']:.3e}, logits differ by at most "
+              f"{r['delta']:.3e}{' (a tie within rounding)' if r['tie'] else ''}")
+    if not res["ok"]:
+        raise AssertionError(f"MoE sublayer ({what}) differs from the CPU: {res}")
+    flips = [r for r in rows if r["flip"]]
+    if any(not r["tie"] for r in flips) or (rows and not flips):
+        raise AssertionError(f"MoE routing ({what}) differs from the CPU: {rows}")
+
+
+def _moe_split(tr: dict, cfg, steps: int, what: str) -> None:
+    """A traced forward split by sublayer, in launch order: each rmsnorm
+    opens a segment, which runs to the next; a segment with at least 3E of
+    the port's matmuls is a MoE sublayer (its expert products, and its
+    norm, plain-torch router, dispatch and residual add), one with fewer an
+    attention sublayer, one with none the embedding or the head.  A kernel
+    the trace missed merges two segments at worst, so the count of MoE
+    sublayers a step is printed beside their ms."""
+    if not tr["events"]:
+        print("[moe] the profiler recorded no device activity: not measured")
+        return
+    segs, cur = [], []
+    for fam, us in tr["seq"]:
+        if fam.startswith("rmsnorm") and fam.endswith("(port)"):
+            segs.append(cur)
+            cur = []
+        cur.append((fam, us))
+    segs.append(cur)
+    got = {k: [0, 0.0] for k in ("expert products", "router and dispatch",
+                                 "attention sublayers", "embedding and head")}
+    n_moe = 0
+    for seg in segs:
+        mm = [fam.startswith("matmul") and fam.endswith("(port)") for fam, _ in seg]
+        n_moe += sum(mm) >= 3 * cfg.n_experts
+        for is_mm, (fam, us) in zip(mm, seg):
+            key = ("embedding and head" if not any(mm) else
+                   "attention sublayers" if sum(mm) < 3 * cfg.n_experts else
+                   "expert products" if is_mm else "router and dispatch")
+            got[key][0] += 1
+            got[key][1] += us / 1e3
+    print(f"[moe] {what}, device ms a step by sublayer ({n_moe / steps:.1f} MoE "
+          f"sublayers a step): " + "; ".join(
+              f"{k} {ms / steps:.3f} ms ({n / steps:.0f} launches)"
+              for k, (n, ms) in got.items()))
+
+
+def _moe_path(dev, n_layers: int = 24) -> dict:
+    """Phase 8: the MoE family.  The smoke MoE models (f32) card against
+    CPU, dense for both and paged (whole-prompt, 128-token chunks, two
+    pods) for qwen3-moe (mixtral is windowed: the paged engine refuses
+    it); then mixtral-8x7b at its published width cut to ``n_layers`` of
+    32 (bf16, seeded weights) serving 8 requests through ``ServingEngine``,
+    one prompt past the 4,096-token window; launches exactly
+    ``serve_launches``; traces of decode steps and of two whole-prompt
+    prefills, each split by sublayer; one full-width MoE sublayer held to
+    the CPU path.  Returns the serving run's launches."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.params import init_params, tree_map
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+    from repro_torch.testing import kernel_checks as kc
+    from repro_torch.testing.timing import now
+    from repro_torch.train.trainer import serve_launches
+
+    for name in ("qwen3-moe-235b-a22b", "mixtral-8x7b"):
+        scfg = get_smoke_config(name)
+        cpu_params = init_params(lm.model_defs(scfg),
+                                 torch.Generator().manual_seed(0), "cpu")
+        gpu_params = tree_map(lambda t: t.to(dev), cpu_params)
+        _smoke_dense(scfg, cpu_params, gpu_params, dev)
+        if not scfg.window:
+            _smoke_paged(scfg, cpu_params, gpu_params, dev, chunk=128, max_seq=128)
+
+    gc.collect()                             # what earlier phases left in cycles
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    print(f"[moe] torch.cuda.memory_allocated() {base / 1e9:.2f} GB when the "
+          f"full-width part began (the earlier phases' models freed)")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=n_layers)
+    t0 = now()
+    model = lm.Model(cfg, init_params(lm.model_defs(cfg),
+                                      torch.Generator(dev).manual_seed(0), dev))
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+    W = kc.MIXTRAL_WINDOW
+    max_seq = kc.MIXTRAL_LONG + 512
+    print(f"[moe] {cfg.name}: {cfg.n_layers} layers of 32, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, {cfg.n_experts} "
+          f"experts of d_ff {cfg.d_ff_expert}, top-{cfg.experts_per_token}, capacity "
+          f"factor {cfg.capacity_factor}, window {cfg.window}, {str(cfg.dtype)[6:]}; "
+          f"{n_bytes / 1e9:.2f} GB of weights, drawn in {now() - t0:.1f}s; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB while drawing")
+    engine = ServingEngine(model, ServeConfig(max_batch=4, max_seq=max_seq), device=dev)
+    rng = np.random.default_rng(0)
+    plens = [int(n) for n in rng.integers(32, 257, 8)]      # phase 5's lengths
+    plens[1] = kc.MIXTRAL_LONG                              # one past the window
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in plens]
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t_start = now()
+    for rid, prompt in enumerate(prompts):
+        engine.submit(Request(rid=rid, max_new_tokens=16, prompt=prompt))
+    done = list(engine.run())
+    wall = now() - t_start
+    launches = dict(ops.LAUNCHES)
+    tm = engine.timing
+    want = serve_launches(cfg, tm["prefills"], tm["decode_steps"])
+    ttft = [r.t_first - r.t_submit for r in done]
+    prompt_toks = sum(plens)
+    decode_toks = sum(len(r.out) - 1 for r in done)
+    print(f"[moe] {len(done)} of 8 requests finished, prompts {plens} (ring W = "
+          f"{W}, max_seq {max_seq}, batch 4), {sum(len(r.out) for r in done)} tokens "
+          f"generated, {tm['prefills']} prefills + {tm['decode_steps']} decode steps "
+          f"in {wall:.2f}s")
+    print(f"[moe] prefill {prompt_toks / tm['prefill_s']:.1f} tok/s ({prompt_toks} "
+          f"tokens in {tm['prefill_s']:.3f}s); decode {decode_toks / tm['decode_s']:.1f} "
+          f"tok/s, {1e3 * tm['decode_s'] / tm['decode_steps']:.2f} ms/step; p50 TTFT "
+          f"{1e3 * float(np.median(ttft)):.1f} ms (all 8 submitted at once, 4 slots); "
+          f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    print(f"[moe] launches {launches} (expected {want})")
+    if len(done) != 8 or any(not r.out or max(r.out) >= cfg.vocab_size for r in done):
+        raise AssertionError(f"mixtral: not every request finished in the vocabulary")
+    if not any(len(r.prompt) == kc.MIXTRAL_LONG for r in done):
+        raise AssertionError("mixtral: the prompt past the window did not finish")
+    if launches != want:
+        raise AssertionError(f"mixtral launches {launches}, expected {want}")
+
+    # where a decode step's device time goes: 4 fresh requests fill the slots
+    n_trace = 4
+    for rid, prompt in enumerate(prompts[2:6]):
+        engine.submit(Request(rid=100 + rid, max_new_tokens=3 * n_trace + 4,
+                              prompt=prompt))
+    engine.step()
+    tr = _trace(engine.step, n_trace)
+    _print_trace(tr, n_trace, "mixtral decode steps at batch 4")
+    _moe_split(tr, cfg, n_trace, "decode at batch 4")
+    engine.run()
+    params = engine.params
+    # whole-prompt prefills: 223 tokens, and 4,608 past the window (the
+    # windowed flash kernel, once a layer a prefill)
+    for i, steps in ((0, 2), (1, 1)):
+        toks = torch.as_tensor(prompts[i], device=dev)[None]
+
+        def prefill_once():
+            _, lg = lm.prefill(params, toks, cfg, max_seq)
+            lg[0, -1, 0].item()              # a host read, as the engine's
+        ops.reset_launches()
+        tr = _trace(prefill_once, steps)
+        _print_trace(tr, steps, f"mixtral whole-prompt prefills of {plens[i]} tokens")
+        _moe_split(tr, cfg, steps, f"prefill of {plens[i]} tokens")
+        flash = ops.LAUNCHES["flash_attention"]
+        variant = kfa.variant(plens[i], plens[i], cfg.head_dim, cfg.dtype)
+        print(f"[moe] prefill of {plens[i]} tokens: flash attention {variant}, "
+              f"window {cfg.window}, {flash} launches over {3 * steps} prefills")
+        if flash != 3 * steps * cfg.n_layers or variant != "wgmma":
+            raise AssertionError(f"mixtral prefill of {plens[i]}: flash launches "
+                                 f"{flash}, variant {variant}")
+
+    # one full-width MoE sublayer (the first layer's) against the CPU path
+    sp = tree_map(lambda t: t[0], params["period"]["l0"]["s1_moe"])
+    for what, toks in (("a 223-token prefill", prompts[0][None]),
+                       ("a batch-4 decode step", rng.integers(1, cfg.vocab_size, (4, 1)))):
+        _moe_sublayer_check(sp, params["embed"][torch.as_tensor(toks, device=dev)],
+                            cfg, what)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    print(f"[moe] on {smi.splitlines()[0]}")
+    del engine, model, params, sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _matmul_bwd_times(kc, kmm, ref, time_ms) -> dict:
@@ -1214,6 +1525,8 @@ ONLY = {
     "phi3": (("matmul", "rmsnorm", "flash_attention", "flash_attention_bwd"),
              lambda dev, m: (_phi3_path(dev),
                              _phi3_flash_times(m.kc, m.kfa, m.ref, _time_ms))),
+    "moe": (("matmul", "rmsnorm", "flash_attention", "paged_attention"),
+            lambda dev, m: _moe_path(dev)),
 }
 
 
@@ -1224,7 +1537,8 @@ def main(argv: list | None = None) -> int:
     ap = argparse.ArgumentParser(description="The port's smoke run on one CUDA card.")
     ap.add_argument("--only", choices=sorted(ONLY),
                     help="run one part alone (matmul-bwd: phase 6's matmul backward "
-                         "rows; phi3: phase 7b and phase 6's phi3-mini flash rows); "
+                         "rows; phi3: phase 7b and phase 6's phi3-mini flash rows; "
+                         "moe: phase 8); "
                          "a copy of this file at the root of another checkout reads "
                          "that tree's kernels the same way")
     args = ap.parse_args(argv)
@@ -1255,6 +1569,7 @@ def main(argv: list | None = None) -> int:
                                    Request, ServeConfig, ServingEngine, traffic)
     from repro_torch.testing import kernel_checks as kc
     from repro_torch.testing.timing import now
+    from repro_torch.train.trainer import serve_launches
 
     t_all = now()
     # f32 products in full f32 on both sides of every comparison
@@ -1340,6 +1655,18 @@ def main(argv: list | None = None) -> int:
                   f"same bits twice: {r['same_bits']} {_reading(r)}")
             if not r["ok"]:
                 failed.append(("rmsnorm phi3", R, dt))
+    # mixtral-8x7b's expert products (phase 8's path) at each expert's buffer
+    # rows: a decode step's, the 35-, 223- and 4,608-token prefills'
+    for proj, (K, N) in kc.MOE_KN.items():
+        for M in kc.MOE_M:
+            for dt in (torch.bfloat16, torch.float32):
+                r = kc.check_matmul(M, K, N, dt)
+                errs[("matmul moe", M, K, N, dt)] = r["max_abs_err"]
+                print(f"[check] matmul moe expert {proj:7s} M={M:<4d} K={K:<5d} "
+                      f"N={N:<5d} {str(dt)[6:]:8s} {kmm.variant(M, K, N, dt):6s} same "
+                      f"bits twice: {r['same_bits']} {_reading(r)}")
+                if not r["ok"]:
+                    failed.append(("matmul moe", proj, M, dt))
     for dt in (torch.bfloat16, torch.float32):
         r = kc.check_paged_attention(dt)
         errs[("paged_attention", dt)] = r["max_abs_err"]
@@ -1363,7 +1690,8 @@ def main(argv: list | None = None) -> int:
             errs[("flash_attention", B, S, window, dt)] = r["max_abs_err"]
             print(f"[check] flash_attention B={B} Hq={kc.HQ} Hkv={kc.HKV} "
                   f"D={kc.HEAD_DIM} S={S:<4d} causal window={window} "
-                  f"{str(dt)[6:]:8s} {r['variant']:5s} {_reading(r)}")
+                  f"{str(dt)[6:]:8s} {r['variant']:5s} same bits twice: "
+                  f"{r['same_bits']} {_reading(r)}")
             if not r["ok"]:
                 failed.append(("flash_attention", B, S, window, dt))
         for D in kfa.HEAD_DIMS:
@@ -1404,42 +1732,11 @@ def main(argv: list | None = None) -> int:
         raise AssertionError(f"kernels disagree with their plain versions: {failed}")
 
     # -- 4. smoke model: kernel path on the card vs plain path on the CPU ------
-    # f32 throughout; the paths differ only in f32 summation order, which
-    # moves logits of order 1 by ~1e-6 per layer, so 1e-4 absolute
     scfg = get_smoke_config("llama3-8b")
     cpu_params = init_params(lm.model_defs(scfg),
                              torch.Generator().manual_seed(0), "cpu")
     gpu_params = tree_map(lambda t: t.to(dev), cpu_params)
-    rng = np.random.default_rng(0)
-    toks = torch.from_numpy(rng.integers(1, scfg.vocab_size, (2, 21)))
-    c_cpu, l_cpu = lm.prefill(cpu_params, toks, scfg, 64)
-    c_gpu, l_gpu = lm.prefill(gpu_params, toks.to(dev), scfg, 64)
-    worst = (l_gpu.cpu() - l_cpu).abs().max().item()
-    for step in range(8):
-        nxt = torch.argmax(l_cpu[:, -1], dim=-1, keepdim=True)
-        pos = torch.tensor([21 + step, 21 + step])
-        l_cpu, c_cpu = lm.decode_step(cpu_params, nxt, c_cpu, pos, scfg)
-        l_gpu, c_gpu = lm.decode_step(gpu_params, nxt.to(dev), c_gpu, pos.to(dev),
-                                      scfg)
-        worst = max(worst, (l_gpu.cpu() - l_cpu).abs().max().item())
-    print(f"[smoke] llama3-8b-smoke f32 prefill+8 decode logits, card vs CPU: "
-          f"max_abs_err={worst:.3e} (tol 1e-4)")
-    if not worst <= 1e-4:
-        raise AssertionError(f"smoke logits differ by {worst}")
-    streams = {}
-    for where, params in (("cpu", cpu_params), ("cuda", gpu_params)):
-        eng = ServingEngine(lm.Model(scfg, params),
-                            ServeConfig(max_batch=2, max_seq=64), device=where)
-        prng = np.random.default_rng(1)
-        for rid in range(5):
-            plen = int(prng.integers(4, 24))
-            eng.submit(Request(rid=rid, max_new_tokens=12,
-                               prompt=prng.integers(1, scfg.vocab_size, plen)))
-        streams[where] = {r.rid: r.out for r in eng.run()}
-    print(f"[smoke] greedy streams, 5 requests through 2 slots: card == CPU: "
-          f"{streams['cpu'] == streams['cuda']}")
-    if streams["cpu"] != streams["cuda"] or len(streams["cpu"]) != 5:
-        raise AssertionError(f"smoke streams differ: {streams}")
+    _smoke_dense(scfg, cpu_params, gpu_params, dev)
     _smoke_paged(scfg, cpu_params, gpu_params, dev)
     # -- 4b. smoke training: kernel path on the card vs plain path on the CPU --
     _smoke_train(dev)
@@ -1477,14 +1774,9 @@ def main(argv: list | None = None) -> int:
     n_prefill, n_decode = tm["prefills"], tm["decode_steps"]
     prefill_s, decode_s = tm["prefill_s"], tm["decode_s"]
     ttft = [r.t_first - r.t_submit for r in done]
-    forwards = n_prefill + n_decode
-    L = cfg.n_layers
-    # per forward: 7 projections a layer, 2 norms a layer and the final
-    # norm; whole-prompt attention once a layer per prefill (dense decode
-    # attention is plain torch)
-    want_launches = {**{k: 0 for k in ops.LAUNCHES},
-                     "matmul": 7 * L * forwards, "rmsnorm": (2 * L + 1) * forwards,
-                     "flash_attention": L * n_prefill}
+    # per forward, from the layer period (dense decode attention is plain
+    # torch)
+    want_launches = serve_launches(cfg, n_prefill, n_decode)
     prompt_toks = sum(plens)
     decode_toks = sum(len(r.out) - 1 for r in done)
     print(f"[serve] {len(done)} of 8 requests finished, prompts {plens}, "
@@ -1562,10 +1854,7 @@ def main(argv: list | None = None) -> int:
         got = dict(ops.LAUNCHES)
         tm = peng.timing
         n_pf, n_ch, n_dec = tm["prefills"], tm["chunks"], tm["decode_steps"]
-        fwd = n_pf + n_ch + n_dec
-        want = {**{k: 0 for k in ops.LAUNCHES},
-                "matmul": 7 * L * fwd, "rmsnorm": (2 * L + 1) * fwd,
-                "flash_attention": L * n_pf, "paged_attention": L * (n_ch + n_dec)}
+        want = serve_launches(cfg, n_pf, n_dec, chunks=n_ch, paged=True)
         done_p = peng.finished
         dec_toks = sum(len(r.out) - 1 for r in done_p)
         print(f"[paged] {tag}: {m['completed']} of {lc.n_requests} completed in "
@@ -1625,6 +1914,8 @@ def main(argv: list | None = None) -> int:
     path_launches["train"] = _train_path(cfg, dev)
     # -- 7b. phi3-mini at full width, 2 of 32 layers: head dim 96 --------------
     path_launches.update(_phi3_path(dev))
+    # -- 8. the MoE family: mixtral-8x7b at full width, 24 of 32 layers --------
+    path_launches["moe"] = _moe_path(dev)
 
     # -- 6. kernel times ---------------------------------------------------------
     time_ms = _time_ms

@@ -140,5 +140,8 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         ssm_chunk=8,
         window=min(cfg.window, 16) if cfg.window else None,
         dtype=torch.float32,
+        # capacity high enough that smoke-scale dispatch never drops —
+        # batched-vs-sequential drop patterns would legitimately diverge
+        capacity_factor=8.0,
         remat=False,
     )

@@ -3,8 +3,9 @@
 The PyTorch port's copy of ``repro.configs.base``: the fields the
 architectures set and the derived shapes the serving path reads, with
 ``dtype`` a torch dtype, and the training options of the dense trainer
-(``remat``, ``loss_chunk``).  Sharding and MoE-dispatch options come with
-the slices that read them."""
+(``remat``, ``loss_chunk``).  MoE dispatch runs on one device, so the
+reference's ``moe_tp`` and ``moe_impl``, which pick a mesh mode, come with
+the distributed slice, as do the sharding options."""
 from __future__ import annotations
 
 import dataclasses
@@ -39,6 +40,7 @@ class ModelConfig:
     n_experts: int = 0
     experts_per_token: int = 0
     d_ff_expert: int = 0
+    capacity_factor: float = 1.25
 
     # attention
     rope_theta: float = 1e4

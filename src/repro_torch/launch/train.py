@@ -43,8 +43,9 @@ def run(arch: str, *, smoke: bool = True, steps: int = 50,
     device = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if cfg.family != "dense":
-        raise NotImplementedError(f"{arch} is a {cfg.family} model: the port "
-                                  f"trains the dense decoder family only")
+        raise NotImplementedError(f"{arch} is a {cfg.family} model: training it "
+                                  f"is not ported yet (the port trains the "
+                                  f"dense decoder family only)")
     opt_cfg = OptConfig(lr=lr, warmup_steps=max(2, steps // 10),
                         total_steps=steps)
     if params is None:

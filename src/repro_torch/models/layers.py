@@ -1,6 +1,7 @@
-"""Model sublayers of the dense decoder: GQA/SWA attention and SwiGLU.
+"""Model sublayers of the decoder families: GQA/SWA attention, SwiGLU and
+the top-k MoE.
 
-The port's counterpart of the attention and MLP parts of
+The port's counterpart of the attention, MLP and MoE parts of
 ``repro.models.layers``.  Pure functions over param dicts built from ``PV``
 definitions; math in f32, storage in ``cfg.dtype``.  Every RMSNorm, every
 projection, whole-prompt attention (``ops.attention``, where the JAX model
@@ -294,3 +295,111 @@ def mlp_layer(p, x, cfg: ModelConfig) -> torch.Tensor:
     h = silu(kops.dense(xn, p["wg"])) * kops.dense(xn, p["wi"])
     o = kops.dense(h, p["wo"])
     return x + o.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE: top-k routing, capacity dispatch (the reference's "local" mode)
+# ---------------------------------------------------------------------------
+#
+# One device holds every expert, so this is the reference's ``moe_layer``
+# without a mesh (``moe_mode`` gives "local"); its tp, ep and ep_a2a modes
+# come with the distributed slice.  Capacity C counts every row of the call
+# (a decode step's dead slots and a chunk's padding rows too), as in JAX.
+
+def moe_defs(cfg: ModelConfig) -> dict:
+    """The reference's ``moe_defs`` (``moe_defs_tp`` has the same shapes and
+    keys; only its logical axes differ)."""
+    d, dt = cfg.d_model, cfg.dtype
+    E = cfg.n_experts
+    ffe = cfg.d_ff_expert or cfg.d_ff
+    return {
+        "norm": PV((d,), torch.float32, ("",), "ones"),
+        "router": PV((d, E), torch.float32, ("fsdp", "")),
+        "wi": PV((E, d, ffe), dt, ("model", "fsdp", "")),
+        "wg": PV((E, d, ffe), dt, ("model", "fsdp", "")),
+        "wo": PV((E, ffe, d), dt, ("model", "", "fsdp")),
+    }
+
+
+class Routing(NamedTuple):
+    """One MoE call's routing over its N = B*S rows, flattened in (B, S)
+    order: the f32 router logits, each row's k experts (highest first) and
+    their softmax-normalised gates, the capacity C of every expert, and
+    each (expert, row) pair's slot in that expert's buffer (C where the
+    row did not choose the expert or came past capacity: dropped)."""
+    logits: torch.Tensor      # (N, E) f32
+    idx: torch.Tensor         # (N, k) int64
+    gate: torch.Tensor        # (N, k) f32
+    slots: torch.Tensor       # (E, N) int64
+    capacity: int
+
+
+def moe_capacity(cfg: ModelConfig, n_rows: int) -> int:
+    """Each expert's buffer rows, the reference's float expression."""
+    k, E = cfg.experts_per_token, cfg.n_experts
+    return max(1, int(math.ceil(n_rows * k / E * cfg.capacity_factor)))
+
+
+def expert_slots(idx: torch.Tensor, E: int, C: int) -> torch.Tensor:
+    """(N, k) chosen experts -> (E, N) buffer slots: a row's slot in expert
+    j is the count of earlier rows that chose j, or C (the discard row) for
+    an unchosen pair or one past capacity.  A fixed-shape scatter, with no
+    host sync; each expert's rows lie along the last dim, which the scan
+    walks (a scan down N rows of E columns runs E threads)."""
+    chosen = torch.zeros((E, idx.shape[0]), dtype=torch.int64, device=idx.device)
+    chosen.scatter_(0, idx.T, 1)
+    pos = torch.cumsum(chosen, dim=1) - 1
+    return torch.where((chosen > 0) & (pos < C), pos, C)
+
+
+def moe_route(p, xn: torch.Tensor, cfg: ModelConfig) -> Routing:
+    """The router over normed rows xn (B, S, d).  The logits stay a plain
+    f32 ``torch.matmul``, as the reference's ``@`` leaves them to XLA."""
+    N = xn.shape[0] * xn.shape[1]
+    logits = torch.matmul(xn.to(torch.float32), p["router"]).reshape(N, -1)
+    gate, idx = torch.topk(logits, cfg.experts_per_token, dim=-1)
+    C = moe_capacity(cfg, N)
+    return Routing(logits, idx, torch.softmax(gate, dim=-1),
+                   expert_slots(idx, cfg.n_experts, C), C)
+
+
+def expert_terms(xf: torch.Tensor, r: Routing, wi, wg, wo):
+    """Each expert's part of the combine, in expert order: its gate (N,)
+    and its output gathered back to the rows (N, d) f32, zero where the
+    row was not dispatched to it.  The rows of xf (N, d) f32 go to each
+    expert's C-row buffer in the weight dtype (dropped and unchosen rows
+    land on the discard row C), and its SwiGLU goes through the matmul
+    seam."""
+    N, d = xf.shape
+    C = r.capacity
+    xw = xf.to(wi.dtype)
+    zero = torch.zeros((1, d), dtype=torch.float32, device=xf.device)
+    for j in range(wi.shape[0]):
+        gate = torch.where(r.idx == j, r.gate, 0.0).sum(dim=-1)
+        slot = r.slots[j]
+        buf = torch.zeros((C + 1, d), dtype=wi.dtype, device=xf.device)
+        buf[slot] = xw
+        buf = buf[:C]
+        h = silu(kops.dense(buf, wg[j])) * kops.dense(buf, wi[j])
+        y = kops.dense(h, wo[j]).to(torch.float32)
+        yield gate, torch.cat([y, zero])[slot]
+
+
+def _dispatch_ffn(xf: torch.Tensor, r: Routing, wi, wg, wo) -> torch.Tensor:
+    """Capacity-dispatch the N rows of xf (N, d) f32 to every expert and
+    combine: (N, d) f32, each expert's output added with its gate in
+    expert order (no atomic accumulate: the same bits every run)."""
+    out = torch.zeros_like(xf)
+    for gate, y in expert_terms(xf, r, wi, wg, wo):
+        out = out + gate[:, None] * y
+    return out
+
+
+def moe_layer(p, x, cfg: ModelConfig) -> torch.Tensor:
+    """Top-k MoE over every row of x (B, S, d), residual included."""
+    B, S, d = x.shape
+    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
+    r = moe_route(p, xn, cfg)
+    y = _dispatch_ffn(xn.reshape(B * S, d).to(torch.float32), r,
+                      p["wi"], p["wg"], p["wo"])
+    return x + y.reshape(B, S, d).to(x.dtype)

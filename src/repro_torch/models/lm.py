@@ -1,14 +1,15 @@
 """Whole-model assembly: embeddings -> layer periods -> head.
 
-The port's counterpart of ``repro.models.lm`` for the dense decoder
-families (periods of attention and MLP sublayers).  ``forward_train``
-gives the mean next-token cross-entropy, which autograd differentiates
-through the kernels' backwards; ``prefill`` populates the caches and
-returns the last token's logits; ``decode_step`` advances every slot by
-one token; ``decode_step_paged`` and ``prefill_chunk`` do the same against
-a paged block pool (``pool_defs``).  A Python loop over ``n_periods``
-replaces ``lax.scan``; the param tree keeps JAX's nesting, each period leaf
-stacked over ``n_periods``.
+The port's counterpart of ``repro.models.lm`` for the decoder families
+whose periods hold attention, MLP and MoE sublayers (dense and MoE).
+``forward_train`` gives the mean next-token cross-entropy, which autograd
+differentiates through the kernels' backwards (the dense family only, for
+now); ``prefill`` populates the caches and returns the last token's
+logits; ``decode_step`` advances every slot by one token;
+``decode_step_paged`` and ``prefill_chunk`` do the same against a paged
+block pool (``pool_defs``).  A MoE sublayer sees every row of a call.  A
+Python loop over ``n_periods`` replaces ``lax.scan``; the param tree keeps
+JAX's nesting, each period leaf stacked over ``n_periods``.
 """
 from __future__ import annotations
 
@@ -18,12 +19,14 @@ from typing import Any
 import torch
 from torch.utils import checkpoint as _ckpt
 
-from repro_torch.configs.base import ATTN, MLP, ModelConfig
+from repro_torch.configs.base import ATTN, MLP, MOE, ModelConfig
 from repro_torch.params import PV, ParamTree, tree_leaves, tree_map
 from . import layers as L
 
-_LATER = ("sublayer kind {!r} is not ported yet: the MoE, Mamba2 and "
+_LATER = ("sublayer kind {!r} is not ported yet: the Mamba2 and "
           "cross-attention families come with the other-families slice")
+_MOE_TRAIN = ("training through MoE sublayers is not ported yet: it comes "
+              "with the MoE training slice (serving runs them)")
 
 
 # ---------------------------------------------------------------------------
@@ -40,6 +43,8 @@ def _sublayer_defs(kind: str, cfg: ModelConfig) -> dict:
         return L.attn_defs(cfg)
     if kind == MLP:
         return L.mlp_defs(cfg)
+    if kind == MOE:
+        return L.moe_defs(cfg)
     raise NotImplementedError(_LATER.format(kind))
 
 
@@ -70,7 +75,7 @@ def cache_defs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
                 slots[f"s{si}_{kind}"] = _stack(
                     L.attn_cache_defs(cfg, batch, seq_len)._asdict(),
                     cfg.n_periods)
-            elif kind != MLP:
+            elif kind not in (MLP, MOE):
                 raise NotImplementedError(_LATER.format(kind))
         period[f"l{li}"] = slots
     return period
@@ -95,7 +100,7 @@ def pool_defs(cfg: ModelConfig, n_blocks: int, block_tokens: int) -> dict:
                     {"k": PV(shp, cfg.dtype, ("", "", "kv", ""), "zeros"),
                      "v": PV(shp, cfg.dtype, ("", "", "kv", ""), "zeros")},
                     cfg.n_periods)
-            elif kind != MLP:
+            elif kind not in (MLP, MOE):
                 raise ValueError(f"paged KV serving supports attention caches "
                                  f"only, layer period has {kind}")
         period[f"l{li}"] = slots
@@ -155,6 +160,8 @@ def _apply_period(pp: dict, x: torch.Tensor, cfg: ModelConfig,
                 x = L.attn_layer(sp, x, cfg, positions, causal=True)
             elif kind == MLP:
                 x = L.mlp_layer(sp, x, cfg)
+            elif kind == MOE:
+                raise NotImplementedError(_MOE_TRAIN)
             else:
                 raise NotImplementedError(_LATER.format(kind))
     return x
@@ -255,6 +262,8 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, cache_seq_len: int):
                     lcaches[key] = c._asdict()
                 elif kind == MLP:
                     x = L.mlp_layer(sp, x, cfg)
+                elif kind == MOE:
+                    x = L.moe_layer(sp, x, cfg)
                 else:
                     raise NotImplementedError(_LATER.format(kind))
             caches[f"l{li}"] = lcaches
@@ -287,6 +296,8 @@ def decode_step(params, token: torch.Tensor, cache: dict, pos,
                     x, _ = L.attn_layer_decode(sp, x, c, pos, cfg)
                 elif kind == MLP:
                     x = L.mlp_layer(sp, x, cfg)
+                elif kind == MOE:
+                    x = L.moe_layer(sp, x, cfg)
                 else:
                     raise NotImplementedError(_LATER.format(kind))
     logits = logits_fn(params, x, cfg)
@@ -308,6 +319,8 @@ def _paged_forward(params, x: torch.Tensor, pool: dict, pb: L.PagedBatch,
                     x = L.attn_layer_paged(sp, x, c["k"], c["v"], pb, cfg)
                 elif kind == MLP:
                     x = L.mlp_layer(sp, x, cfg)
+                elif kind == MOE:
+                    x = L.moe_layer(sp, x, cfg)
                 else:
                     raise NotImplementedError(_LATER.format(kind))
     return x

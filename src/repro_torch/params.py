@@ -59,10 +59,14 @@ def _init_one(pv: PV, generator: torch.Generator, device) -> torch.Tensor:
         return torch.ones(pv.shape, dtype=pv.dtype, device=device)
     fan_in = pv.shape[-2] if len(pv.shape) >= 2 else pv.shape[-1]
     std = pv.scale if pv.scale is not None else 1.0 / math.sqrt(max(1, fan_in))
-    # drawn in f32 and cast, as the JAX initialiser does
-    x = torch.randn(pv.shape, generator=generator, dtype=torch.float32,
-                    device=device)
-    return x.mul_(std).to(pv.dtype)
+    # drawn in f32 and cast, as the JAX initialiser does; a stacked leaf (a
+    # period's weights on a leading axis) one leading slice at a time into
+    # the leaf, so the f32 draw is one period's, not the whole stack's
+    out = torch.empty(pv.shape, dtype=pv.dtype, device=device)
+    for part in (out if out.ndim >= 3 else (out,)):
+        part.copy_(torch.randn(part.shape, generator=generator,
+                               dtype=torch.float32, device=device).mul_(std))
+    return out
 
 
 def init_params(defs, generator: torch.Generator, device="cuda") -> dict:

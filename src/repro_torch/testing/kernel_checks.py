@@ -1,5 +1,6 @@
 """Each kernel held against its plain version on the card, at the shapes
-the llama3-8b serving path gives it (and phi3-mini's path, ``PHI3_*``).
+the llama3-8b serving path gives it (and phi3-mini's path, ``PHI3_*``, and
+mixtral-8x7b's, ``MOE_*`` and the windowed 4,608-token prompt).
 Used by ``chip_smoke.py`` and by the gpu-marked tests.
 
 Each element is held to ``|kernel - plain| <= rtol * |plain| + atol``:
@@ -19,9 +20,11 @@ Each element is held to ``|kernel - plain| <= rtol * |plain| + atol``:
   * f32 rmsnorm: one D-long sum of squares, an approximate rsqrt and two
     products, ~1e-6 of the value: rtol 1e-5, atol 1e-6.
   * attention (flash and paged), f32: both sides form f32 dot products of
-    D = 128 terms and f32 softmax sums over up to ~1000 keys in different
-    orders, and the exponentials differ by an ulp or two: outputs of order
-    0.1-1 move by ~1e-6, so rtol 1e-5, atol 1e-5;
+    D = 128 terms and f32 softmax sums over up to ~1000 keys (4,096 in
+    mixtral's window) in different orders, and the exponentials differ by an
+    ulp or two: outputs of order 0.1-1 move by ~1e-6 (over 4,096 keys the
+    outputs are ~0.03 and the sums' walk ~4e-6 of their terms' ~1: a few
+    1e-6), so rtol 1e-5, atol 1e-5;
   * attention, bf16: the same f32 math on the same bf16 inputs, rounded
     once to bf16: one ulp, rtol 8e-3, and atol 1e-5 for the f32 part.
 A matmul that skips one 16-deep K tile moves a unit-scale output by ~3e-2,
@@ -105,6 +108,7 @@ from repro_torch.kernels import reduction as _red
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import stencil as _st
+from repro_torch.models import layers as _layers
 
 #: (K, N) of the llama3-8b projections
 MATMUL_KN = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024),
@@ -147,10 +151,21 @@ DECODE_LENS = (459, 363, 307, 199, 216, 96, 111, 85)
 #: whole-prompt prefill lengths (causal): the dense path's 35-223 and the
 #: paged path's 71-445 tokens, ragged against the 64-row and 64-key tiles
 FLASH_S = (1, 37, 223, 256, 333, 445, 512)
-#: (B, S, window): those, two sequences, and sliding windows that end on a
-#: tile edge (64) and inside tiles (100, 37)
+#: mixtral-8x7b's sliding window and the prompt past it that phase 8 serves
+#: (its heads are llama3-8b's: 32 over 8 of 128)
+MIXTRAL_WINDOW, MIXTRAL_LONG = 4096, 4608
+#: (B, S, window): those, two sequences, sliding windows that end on a
+#: tile edge (64) and inside tiles (100, 37), and mixtral's window at its
+#: long prompt
 FLASH_CASES = tuple((1, S, None) for S in FLASH_S) + (
-    (2, 223, None), (1, 256, 64), (1, 333, 100), (1, 445, 37))
+    (2, 223, None), (1, 256, 64), (1, 333, 100), (1, 445, 37),
+    (1, MIXTRAL_LONG, MIXTRAL_WINDOW))
+#: mixtral-8x7b's expert products (phase 8): each expert runs on C =
+#: ceil(N * 2 / 8 * 1.25) buffer rows, N the call's rows: a batch-4 decode
+#: step (2), the 35- and 223-token prefills (11, 70) and the 4,608-token
+#: one (1,440); its experts' (K, N) are llama3-8b's MLP ones
+MOE_M = (2, 11, 70, 1440)
+MOE_KN = {"wg/wi": MATMUL_KN["wg/wi"], "mlp.wo": MATMUL_KN["mlp.wo"]}
 
 
 def matmul_inputs(M, K, N, dtype, device="cuda", seed=0):
@@ -228,6 +243,36 @@ def compare(got: torch.Tensor, want: torch.Tensor, tol: tuple) -> dict:
     return res
 
 
+def moe_term_scale(p, x, cfg) -> torch.Tensor:
+    """The sum of the magnitudes of the addends of each output element of
+    ``layers.moe_layer(p, x, cfg)``, (B*S, d) f32: |x| plus, over the row's
+    experts, gate * |expert output|."""
+    N = x.shape[0] * x.shape[1]
+    xn = _layers.rmsnorm(x, p["norm"], cfg.norm_eps)
+    xf = xn.reshape(N, -1).to(torch.float32)
+    scale = x.reshape(N, -1).abs().to(torch.float32)
+    route = _layers.moe_route(p, xn, cfg)
+    for gate, y in _layers.expert_terms(xf, route, p["wi"], p["wg"], p["wo"]):
+        scale = scale + gate[:, None] * y.abs()
+    return scale
+
+
+def moe_tol(p, x, cfg) -> tuple:
+    """(rtol, atol per element) of a bf16 MoE sublayer's output, kernel path
+    against plain path, from the matmul's ``MATMUL_TOL``.  Each expert's
+    SwiGLU is three bf16 products with a bf16 rounding after each, and the
+    combine adds the experts' outputs and x: one ulp of the element (rtol
+    |plain|) and atol as a product's; one ulp of each addend, not of their
+    sum (two experts' outputs that cancel leave a small sum whose error is
+    the addends'); and what the intermediate roundings carry through the
+    next product (an ulp of some of the 14,336 elements of h moves every
+    output of the row by a random sum), which scales with the row, not the
+    element: rtol of the row's largest addend sum covers both."""
+    rtol, atol = MATMUL_TOL[torch.bfloat16]
+    row = moe_term_scale(p, x, cfg).amax(dim=1, keepdim=True)
+    return rtol, atol + rtol * row
+
+
 def check_matmul(M, K, N, dtype, device="cuda") -> dict:
     """Called twice: the second call must give the same bits."""
     a, b = matmul_inputs(M, K, N, dtype, device)
@@ -281,11 +326,12 @@ def check_paged_case(case, dtype, device="cuda") -> dict:
 
 
 def check_flash_attention(S, dtype, window=None, device="cuda", B=1) -> dict:
-    """The llama3-8b heads, causal; ``variant`` names the kernel taken."""
+    """The llama3-8b heads, causal, twice for the same bits; ``variant``
+    names the kernel taken."""
     q, k, v = flash_inputs(S, dtype, device, B=B)
-    got = _fa.flash_attention(q, k, v, causal=True, window=window)
-    want = ref.attention(q, k, v, causal=True, window=window)
-    res = compare(got, want, ATTN_TOL[dtype])
+    run = lambda: _fa.flash_attention(q, k, v, causal=True, window=window)
+    res = _pair(run(), run(), ref.attention(q, k, v, causal=True, window=window),
+                ATTN_TOL[dtype])
     res["variant"] = _fa.variant(S, S, HEAD_DIM, dtype)
     return res
 

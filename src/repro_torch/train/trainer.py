@@ -14,9 +14,10 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.configs.base import ATTN, MLP, ModelConfig
+from repro_torch.configs.base import ATTN, MLP, MOE, ModelConfig
 from repro_torch.models import lm
 from repro_torch.params import init_params, tree_leaves, tree_map, tree_unflatten
+from repro_torch.kernels.launches import LAUNCHES
 from .optimizer import OptConfig, adamw_init, adamw_update, opt_state_defs
 
 
@@ -104,6 +105,31 @@ def step_launches(cfg: ModelConfig, n_microbatches: int = 1) -> dict:
     return {"rmsnorm": n * ((A + M) * r + 1), "matmul": n * (4 * A + 3 * M) * r,
             "flash_attention": n * A * r, "rmsnorm_bwd": n * (A + M + 1),
             "matmul_bwd": 2 * n * (4 * A + 3 * M), "flash_attention_bwd": n * A}
+
+
+def serve_launches(cfg: ModelConfig, prefills: int = 0, decode_steps: int = 0,
+                   *, chunks: int = 0, paged: bool = False) -> dict:
+    """The kernel launches of a serving run on the card, by counter, from
+    its forwards: ``prefills`` whole-prompt prefills, ``decode_steps``
+    decode steps (through the dense cache, or the block pool if ``paged``)
+    and ``chunks`` paged prefill chunks.
+
+    Every forward makes, for each of the A attention, M MLP and X MoE
+    sublayers, one rmsnorm and its projections (4 an attention, 3 an MLP,
+    3 for each of the E experts a MoE: every expert runs on its C buffer
+    rows, tokens or none), and the final rmsnorm.  Attention is one flash
+    attention a whole-prompt prefill and one paged attention a paged decode
+    step or chunk; dense-cache decode attention is plain torch."""
+    kinds = [k for layer in cfg.layer_period for k in layer]
+    if any(k not in (ATTN, MLP, MOE) for k in kinds):
+        raise NotImplementedError("attention, MLP and MoE sublayers only")
+    A, M, X = (kinds.count(k) * cfg.n_periods for k in (ATTN, MLP, MOE))
+    fwd = prefills + decode_steps + chunks
+    paged_fwd = chunks + (decode_steps if paged else 0)
+    return {**{k: 0 for k in LAUNCHES},
+            "rmsnorm": (A + M + X + 1) * fwd,
+            "matmul": (4 * A + 3 * M + 3 * cfg.n_experts * X) * fwd,
+            "flash_attention": A * prefills, "paged_attention": A * paged_fwd}
 
 
 def init_train_state(cfg: ModelConfig, opt_cfg: OptConfig,

@@ -43,6 +43,18 @@ def test_matmul_kernel_matches_plain(cuda, proj, M, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M", kc.MOE_M)
+@pytest.mark.parametrize("proj", list(kc.MOE_KN))
+def test_matmul_kernel_moe_rows(cuda, proj, M, dtype):
+    """mixtral-8x7b's expert products at each expert's buffer rows: within
+    the limit, the same bits twice."""
+    K, N = kc.MOE_KN[proj]
+    res = kc.check_matmul(M, K, N, dtype, cuda)
+    assert res["ok"], res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("R", kc.RMSNORM_R)
 def test_rmsnorm_kernel_matches_plain(cuda, R, dtype):
     res = kc.check_rmsnorm(R, kc.D_MODEL, dtype, cuda)

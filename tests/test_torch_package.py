@@ -84,8 +84,9 @@ def test_chip_smoke_last_line_names_the_card():
                       "count": "torch.cuda.device_count()"}
 
 
-@pytest.mark.parametrize("args", [[], ["--only", "matmul-bwd"], ["--only", "phi3"]],
-                         ids=["whole", "matmul-bwd", "phi3"])
+@pytest.mark.parametrize("args", [[], ["--only", "matmul-bwd"], ["--only", "phi3"],
+                                  ["--only", "moe"]],
+                         ids=["whole", "matmul-bwd", "phi3", "moe"])
 def test_chip_smoke_exits_without_a_card(args):
     """Without a CUDA card the script exits 2 before any phase, in either
     mode, and prints no result."""

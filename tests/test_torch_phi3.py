@@ -39,15 +39,18 @@ GRAD_TOL = (1e-4, 2e-5)
 #: phi3-mini's published head dim on a narrow model
 D96 = dict(d_model=192, n_heads=2, n_kv_heads=2, d_head=96, n_layers=2)
 DENSE = sorted(n for n, c in archs.CONFIGS.items() if c.family == "dense")
+#: every arch the port serves: the dense family and the MoE family
+SERVED = DENSE + sorted(n for n, c in archs.CONFIGS.items() if c.family == "moe")
 
 
 def test_the_dense_archs_are_the_four_the_port_runs():
     assert DENSE == ["deepseek-7b", "glm4-9b", "llama3-8b", "phi3-mini-3.8b"]
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", SERVED)
 def test_every_dense_arch_head_dim_has_both_attention_kernels(name):
-    """At its published width (phi3-mini: 3072 / 32 = 96)."""
+    """At its published width (phi3-mini: 3072 / 32 = 96), and the MoE
+    archs' too (128)."""
     D = get_config(name).head_dim
     assert D in flash_attention.HEAD_DIMS
     assert D in paged_attention.HEAD_DIMS
@@ -125,14 +128,15 @@ def test_head_dim_96_greedy_streams_match_jax():
 
 @pytest.mark.parametrize("name,kn,width", [
     ("llama3-8b", kc.MATMUL_KN, kc.D_MODEL),
-    ("phi3-mini-3.8b", kc.PHI3_MATMUL_KN, kc.PHI3_D_MODEL)],
-    ids=["llama3-8b", "phi3-mini-3.8b"])
+    ("phi3-mini-3.8b", kc.PHI3_MATMUL_KN, kc.PHI3_D_MODEL),
+    ("mixtral-8x7b", kc.MATMUL_KN, kc.D_MODEL)],
+    ids=["llama3-8b", "phi3-mini-3.8b", "mixtral-8x7b"])
 def test_card_checks_take_the_models_shapes(name, kn, width):
     """The (K, N) at which the card's checks hold the matmul are those of
-    the model's projections, every one and no other, and rmsnorm's width is
-    its d_model."""
+    the model's projections, every one and no other (an expert's are its
+    weight's last two dims), and rmsnorm's width is its d_model."""
     cfg = get_config(name)
     leaves = [(k, v) for blk in lm.model_defs(cfg)["period"].values()
               for sub in blk.values() for k, v in sub.items()]
-    assert {tuple(v.shape[1:]) for k, v in leaves if k.startswith("w")} == set(kn.values())
+    assert {tuple(v.shape[-2:]) for k, v in leaves if k.startswith("w")} == set(kn.values())
     assert {v.shape[-1] for k, v in leaves if k == "norm"} == {width} == {cfg.d_model}
