@@ -17,7 +17,12 @@ Phases, each of which raises on failure (nothing is caught):
      tile edges, mixtral's window of 4,096 at 4,608 tokens (twice for the
      same bits), every head dim causal and not, and
      phi3-mini's heads (32 over 32 of 96) at S = 512, twice for the same
-     bits (bf16 must take wgmma, f32 simt); paged
+     bits (bf16 must take wgmma, f32 simt); the matmul at mamba2-370m's
+     ``in_proj`` (N = 4,384, its 32-column edge tile read alone too) and
+     ``out_proj`` (K = 2,048) at M = 4, 223 and 4,096, rmsnorm at D = 1,024
+     and 2,048, mixtral's expert products at its train step's C = 1,280
+     buffer rows and at C = 1,283, and flash attention at mixtral's train
+     shape (4, 32/8, 1024, 128, window 4,096) (``_family_checks``); paged
      attention at ``PAGED_LENS`` and at ``kernel_checks.PAGED_CASES``
      (split and one-slice plans, slice edges, empty sequences, a 128-row
      chunk on one table, the smoke heads, G = 8), called twice for the same
@@ -29,7 +34,11 @@ Phases, each of which raises on failure (nothing is caught):
      tokens and at ragged shapes, flash attention's dq, dk, dv at (4, 32/8
      heads, S = 1024, D = 128) causal, ragged and windowed, at D = 64 and
      the training length, at every head dim (``kernel_checks.*_BWD_*``),
-     and at phi3-mini's train step (4, 32/32, 1024, 96), in bf16 and f32; each
+     at phi3-mini's train step (4, 32/32, 1024, 96) and mixtral's (window
+     4,096), the matmul's dA and dB at mamba2-370m's projections over 4,096
+     tokens and at mixtral's expert products at C = 1,280 and 1,283 (dB
+     through simt there), rmsnorm's at D = 1,024 and 2,048, in bf16 and
+     f32; each
      line naming the kernels taken (flash attention's ``bwd_variant``: bf16
      at the llama3-8b and phi3-mini heads must take wgmma, f32 simt;
      rmsnorm's ``bwd_path``); then head dim 96 in bf16 forward and
@@ -54,16 +63,18 @@ Phases, each of which raises on failure (nothing is caught):
      token streams of the kernel path on the card against the plain path
      on the CPU, for the dense engine and the paged engine (whole-prompt,
      chunked, and two pods behind the router), paged == dense;
-  4b. the smoke model's training (f32, the JAX initialiser's weights from
-     ``testing/llama3-8b-smoke-jax-seed0.npz``): the loss and every
-     gradient leaf, then two ``make_train_step`` steps, on the card through
-     the kernels against the CPU's plain path (``testing/train_checks.py``'s
-     limits);
+  4b. the smoke models' training (f32, the JAX initialiser's weights from
+     ``testing/<arch>-smoke-jax-seed0.npz``: llama3-8b, mixtral-8x7b,
+     qwen3-moe, mamba2-370m and jamba): the loss and every gradient leaf,
+     then two ``make_train_step`` steps, on the card through the kernels
+     against the CPU's plain path (``testing/train_checks.py``'s limits;
+     jamba held at its start);
   5. the dense path: llama3-8b at full width and full depth (bf16, seeded
      random weights) serving 8 requests through ``ServingEngine``, with
      the kernels' launch counts checked per forward; then profiler traces
      of a few decode steps and of two whole-prompt prefills (device time per
-     kernel, the device's idle share);
+     kernel, the device's idle share); then the mamba2-370m and jamba smoke
+     models (f32) card against CPU, logits and the dense engine's streams;
   5c. the paged path: the same weights through ``PagedServingEngine``,
      whole-prompt and with 128-token chunked prefill, each under
      ``traffic.run_open_loop`` (16 requests, Poisson arrivals, a Zipf pool
@@ -102,7 +113,26 @@ Phases, each of which raises on failure (nothing is caught):
      and one full-width MoE sublayer (a 223-token prefill, a batch-4 decode
      step) held to the CPU path on the same bf16 weights and input: output
      within the bf16 matmul limits, routing equal but for ties within
-     rounding, dropped pairs of both sides printed;
+     rounding, dropped pairs of both sides printed; then mixtral-8x7b's
+     training at its published width cut to 2 of 32 layers (the serving
+     model freed first): 3 steps at batch 4 x 1024 under remat (C = 1,280
+     rows an expert, phase 7's ``OptConfig`` defaults), launches exactly
+     ``trainer.step_launches``, step ms, tok/s, peak memory, a traced step
+     split forward and backward by sublayer (``_split``), and one
+     full-width MoE sublayer's gradients (x, router, the busiest expert's
+     wi, wg, wo) held to the CPU path at 128 tokens, routing equal, the
+     card's the same bits twice;
+  9. the Mamba2 family: mamba2-370m at its published width and depth (48
+     layers, bf16, seeded weights) serving 8 requests through
+     ``ServingEngine`` at batch 4 (one prompt of 4,608 tokens, 18 SSD
+     chunks, and seven of phase 5's), launches exactly
+     ``trainer.serve_launches``; traces of decode steps and of 223- and
+     4,608-token prefills split by kernel class (products, norms, the
+     plain-torch SSD and conv); one full-width Mamba sublayer held to the
+     CPU path at both prefills and a batch-4 decode step, output, conv
+     window and SSM state (``kernel_checks.mamba_tol``); then 3 train steps
+     at batch 4 x 1024 under remat, launches exactly ``step_launches``, the
+     loss falling, step ms, tok/s, peak memory and a traced step;
   6. kernel times (CUDA events) beside the plain version, the one PyTorch
      call that computes the same function, and the card's bound (rmsnorm at
      every main-path R in both dtypes, with its device ms a call beside
@@ -131,7 +161,9 @@ Phases, each of which raises on failure (nothing is caught):
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  ``--only PART`` runs one part alone
 (``ONLY``: ``matmul-bwd``, phase 6's matmul backward rows; ``phi3``, phase
-7b and phase 6's phi3-mini flash rows; ``moe``, phase 8), so that a copy
+7b and phase 6's phi3-mini flash rows; ``moe``, phase 8's serving;
+``moe-train``, phase 8's training; ``ssm``, phase 5's Mamba smoke models
+and phase 9), so that a copy
 of this file at another checkout's root reads that tree's kernels with
 this file's readings.  Imports nothing of JAX.  Without a
 card, or without the repo's ``src/repro_torch`` beside it, it exits
@@ -799,62 +831,228 @@ def _backward_checks(kc, kfa) -> tuple[dict, list]:
     return errs, failed
 
 
-def _smoke_train(dev) -> None:
-    """Phase 4b: the smoke model's loss, gradients and two train steps on
-    the card against the CPU."""
+def _family_checks(kc, kmm) -> tuple[dict, list]:
+    """Phases 3 and 3c at the shapes the MoE training and Mamba2 paths give
+    the kernels, each twice for the same bits, one line a case naming the
+    variant taken: mamba2-370m's ``in_proj`` (N = 4,384: an edge tile of
+    32 columns, read alone too) and ``out_proj`` (K = 2,048) at a decode
+    step's, a prefill's and a train step's rows, forward and both backward
+    products at the train step's; rmsnorm at D = 1,024 and 2,048 forward,
+    and backward at 4,096 rows; mixtral-8x7b's expert products at its train
+    step's C = 1,280 buffer rows and at a C that is not a multiple of 8
+    (dW then takes simt), forward, dX and dW; flash attention at mixtral's
+    train shape (4, 32/8, 1024, 128, window 4,096), forward and backward.
+    Returns the largest errors and the failed cases."""
+    import torch
+
+    errs, failed = {}, []
+    dts = (torch.bfloat16, torch.float32)
+
+    def note(key, r, line):
+        errs[key] = r["max_abs_err"]
+        print(f"[check] {line} same bits twice: {r['same_bits']} {_reading(r)}")
+        if not r["ok"]:
+            failed.append(key)
+
+    for proj, (K, N) in kc.MAMBA_MATMUL_KN.items():
+        for M in kc.MAMBA_ROWS:
+            for dt in dts:
+                r = kc.check_matmul(M, K, N, dt)
+                note(("matmul mamba", proj, M, dt), r,
+                     f"matmul mamba {proj:8s} M={M:<4d} K={K:<5d} N={N:<5d} "
+                     f"{str(dt)[6:]:8s} {kmm.variant(M, K, N, dt):6s} edge columns "
+                     f"limit_use={r['edge']['limit_use']:.3f}")
+        for dt in dts:
+            for which in "ab":
+                M = kc.TRAIN_TOKENS
+                r = kc.check_matmul_bwd(M, K, N, dt, which)
+                note(("matmul_bwd mamba", proj, which, dt), r,
+                     f"matmul_bwd d{which.upper()} mamba {proj:8s} M={M:<4d} K={K:<5d} "
+                     f"N={N:<5d} {str(dt)[6:]:8s} {r['variant']:5s}")
+    for D in kc.MAMBA_NORM_D:
+        for dt in dts:
+            for R in kc.MAMBA_ROWS:
+                r = kc.check_rmsnorm(R, D, dt)
+                note(("rmsnorm mamba", R, D, dt), r,
+                     f"rmsnorm mamba R={R:<4d} D={D} {str(dt)[6:]:8s}")
+            r = kc.check_rmsnorm_bwd(kc.TRAIN_TOKENS, D, dt)
+            note(("rmsnorm_bwd mamba", D, dt), r,
+                 f"rmsnorm_bwd mamba R={kc.TRAIN_TOKENS} D={D} {str(dt)[6:]:8s} "
+                 f"{r['path']:6s}")
+    for C in kc.MOE_TRAIN_C:
+        for proj, (K, N) in kc.MOE_KN.items():
+            for dt in dts:
+                r = kc.check_matmul(C, K, N, dt)
+                note(("matmul moe train", proj, C, dt), r,
+                     f"matmul moe expert {proj:7s} M=C={C:<5d} K={K:<5d} N={N:<5d} "
+                     f"{str(dt)[6:]:8s} {kmm.variant(C, K, N, dt):6s}")
+                for which in "ab":
+                    r = kc.check_matmul_bwd(C, K, N, dt, which)
+                    note(("matmul_bwd moe train", proj, C, which, dt), r,
+                         f"matmul_bwd d{which.upper()} moe expert {proj:7s} C={C:<5d} "
+                         f"K={K:<5d} N={N:<5d} {str(dt)[6:]:8s} {r['variant']:5s}")
+    B, S, window = kc.MIXTRAL_TRAIN_FLASH
+    for dt in dts:
+        r = kc.check_flash_attention(S, dt, window, B=B)
+        note(("flash_attention mixtral train", dt), r,
+             f"flash_attention mixtral train B={B} Hq={kc.HQ} Hkv={kc.HKV} "
+             f"D={kc.HEAD_DIM} S={S} causal window={window} {str(dt)[6:]:8s} "
+             f"{r['variant']:5s}")
+        r = kc.check_flash_bwd(B, S, dt, window)
+        note(("flash_attention_bwd mixtral train", dt), r,
+             f"flash_attention_bwd mixtral train B={B} S={S} window={window} "
+             f"{str(dt)[6:]:8s} {r['variant']:5s}")
+    return errs, failed
+
+
+def _smoke_train(dev) -> dict:
+    """Phase 4b: each smoke model's loss, gradients and two train steps on
+    the card against the CPU, from the JAX initialiser's weights
+    (``train_checks.SMOKE_ARCHS``: llama3-8b, the MoE family, mamba2 and
+    jamba, which is held at its start: ``train_checks.START_ONLY``).
+    Returns the launches of the card's runs."""
     from repro_torch.kernels import ops
     from repro_torch.testing import train_checks as tc
 
-    ops.reset_launches()
-    card = tc.run_smoke(dev, steps=2)
-    got = {k: v for k, v in ops.LAUNCHES.items() if v}
-    cpu = tc.run_smoke("cpu", steps=2)
-    r = tc.compare_runs(card, cpu)
-    print(f"[train-smoke] llama3-8b-smoke f32 from the JAX init "
-          f"({tc.SMOKE_WEIGHTS.name}), loss {card['loss0']:.6f} (CPU "
-          f"{cpu['loss0']:.6f}), 2 steps: losses "
-          f"{[round(m['loss'], 6) for m in card['metrics']]} (CPU "
-          f"{[round(m['loss'], 6) for m in cpu['metrics']]}); card vs CPU: "
-          f"scalars {r['scalar_rel']:.2e} (rtol {tc.SCALAR_RTOL:.0e}), gradient "
-          f"leaves' limit use {r['grad_limit_use']:.3f}, params p99.9 "
-          f"{r['param_p999']:.2e} (<= {tc.PARAM_P999:.0e}) max {r['param_max']:.2e} "
-          f"(<= {tc.PARAM_MAX:.0e}), m/v {r['state_rel']:.2e} (<= "
-          f"{tc.STATE_TOL:.0e}): {'ok' if r['ok'] else 'FAIL'}; launches on the "
-          f"card {got}")
-    if not r["ok"]:
-        raise AssertionError(f"smoke training differs between card and CPU: {r}")
-    need = ("rmsnorm", "matmul", "flash_attention", "rmsnorm_bwd", "matmul_bwd",
-            "flash_attention_bwd")
-    if not all(got.get(k) for k in need):
-        raise AssertionError(f"the smoke train step missed a kernel: {got}")
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    for arch in tc.SMOKE_ARCHS:
+        ops.reset_launches()
+        card = tc.run_smoke(dev, steps=2, arch=arch)
+        got = {k: v for k, v in ops.LAUNCHES.items() if v}
+        for k, v in got.items():
+            total[k] += v
+        cpu = tc.run_smoke("cpu", steps=2, arch=arch)
+        r = tc.compare_runs(card, cpu, arch=arch)
+        print(f"[train-smoke] {arch}-smoke f32 from the JAX init "
+              f"({tc.weights_path(arch).name}), loss {card['loss0']:.6f} (CPU "
+              f"{cpu['loss0']:.6f}), 2 steps: losses "
+              f"{[round(m['loss'], 6) for m in card['metrics']]} (CPU "
+              f"{[round(m['loss'], 6) for m in cpu['metrics']]}); card vs CPU, "
+              f"held: the {r['held']}: scalars {r['scalar_rel']:.2e} (rtol "
+              f"{tc.SCALAR_RTOL:.0e}), gradient leaves' limit use "
+              f"{r['grad_limit_use']:.3f}, params p99.9 {r['param_p999']:.2e} (<= "
+              f"{tc.PARAM_P999:.0e}) max {r['param_max']:.2e} (<= {tc.PARAM_MAX:.0e}), "
+              f"m/v {r['state_rel']:.2e} (<= {tc.STATE_TOL:.0e}): "
+              f"{'ok' if r['ok'] else 'FAIL'}; launches on the card {got}")
+        if not r["ok"]:
+            raise AssertionError(f"{arch} smoke training differs between card and "
+                                 f"CPU: {r}")
+        need = ["rmsnorm", "matmul", "rmsnorm_bwd", "matmul_bwd"]
+        if arch != "mamba2-370m":
+            need += ["flash_attention", "flash_attention_bwd"]
+        if not all(got.get(k) for k in need):
+            raise AssertionError(f"the {arch} smoke train step missed a kernel: {got}")
+    return total
 
 
-def _step_bound(cfg, B: int, S: int, n_params: int) -> tuple[float, str, float]:
-    """The least time of one train step (ms, what bounds it, FLOP): the
-    projections' 2 K N a token forward, 4 K N backward and 2 K N again
-    under remat; the head's 6 d V a token (no remat); causal attention's
-    Q K^T and P V forward (twice under remat) and the five products of its
-    backward over the visible pairs; against each parameter's 16 bytes
+def _step_bound(cfg, B: int, S: int, n_params: int) -> tuple:
+    """The least time of one train step (ms, what bounds it, bf16 FLOP, f32
+    FLOP): the
+    products' 2 K N a row forward, 4 K N backward and 2 K N again under
+    remat (attention's 4 projections, an MLP's 3, a MoE's 3 an expert on
+    each of its C buffer rows, a Mamba's 2), the head's 6 d V a token (no
+    remat), causal attention's Q K^T and P V forward (twice under remat)
+    and the five products of its backward over the visible pairs, all bf16
+    on the tensor cores; the SSD's f32 einsums (a chunk's C B^T, its decay
+    applied to x, the chunk states and their read-out) at the CUDA cores'
+    f32 peak, the same 1 + r + 2 passes; against each parameter's 16 bytes
     (bf16 weight and gradient, f32 master, m and v) read and written once
-    by the update."""
+    by the update.  The least time is the largest of the three."""
+    from repro_torch.configs.base import ATTN, MAMBA, MLP, MOE
+    from repro_torch.models.layers import moe_capacity, ssd_chunk_len
+
     T = B * S
     d, hd = cfg.d_model, cfg.head_dim
-    per_layer = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d \
-        + 3 * d * cfg.d_ff
     r = 2 if cfg.remat else 1
-    proj = (2 * r + 4) * per_layer * cfg.n_layers * T
+    kinds = [k for layer in cfg.layer_period for k in layer]
+    n = {k: kinds.count(k) * cfg.n_periods for k in (ATTN, MLP, MOE, MAMBA)}
+    ffe = cfg.d_ff_expert or cfg.d_ff
+    di, N, H = cfg.d_inner_ssm, cfg.ssm_state, cfg.n_ssm_heads
+    macs = T * n[ATTN] * (d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+                          + cfg.n_heads * hd * d)
+    macs += T * n[MLP] * 3 * d * cfg.d_ff
+    if n[MOE]:
+        macs += n[MOE] * cfg.n_experts * moe_capacity(cfg, T) * 3 * d * ffe
+    macs += T * n[MAMBA] * d * (2 * di + 2 * N + H + di)
+    proj = 2 * (r + 2) * macs
     head = 6 * d * cfg.padded_vocab * T
     pairs = B * cfg.n_heads * S * (S + 1) / 2
-    attn = (2 * r + 5) * 2 * pairs * hd * cfg.n_layers
+    attn = (2 * r + 5) * 2 * pairs * hd * n[ATTN]
     flop = proj + head + attn
+    Q = ssd_chunk_len(cfg.ssm_chunk, S) if n[MAMBA] else 1
+    ssd = (1 + r + 2) * 2 * T * n[MAMBA] * (Q * N + Q * di + 2 * di * N)
     ms, by = _ms_bound(2 * 16 * n_params, flop, "bf16")
-    return ms, by, flop
+    ssd_ms = 1e3 * ssd / PEAK_OPS_S["f32"]
+    if ssd_ms > ms:
+        ms, by = ssd_ms, "operations"
+    return ms, by, flop, ssd
+
+
+def _split(tr: dict, cfg, steps: int, what: str) -> None:
+    """A traced step split by direction and sublayer, in launch order: a
+    forward rmsnorm opens a forward segment, the first backward kernel
+    after forward ones opens a backward segment, and the kernel after a
+    backward's dgamma sum opens the next; a segment with at least 3E
+    forward (or 6E backward) products is MoE, one with an attention kernel
+    or 4 (8) products attention (a dense-cache decode step's is plain
+    torch), with 3 (6) an MLP, with fewer a Mamba sublayer's half, with
+    none the embedding, head, loss and update.  A kernel the trace missed
+    can move a segment to another kind.  Each row's device ms a step by
+    kernel class: the port's products, norms and attention, and plain
+    torch (the router and dispatch, the SSD and conv, gates, adds).  A
+    sublayer's plain-torch backward kernels that run before its first
+    backward product count to the segment before it."""
+    if not tr["events"]:
+        print(f"[split] {what}: the profiler recorded no device activity: not measured")
+        return
+    port = lambda fam: fam.endswith("(port)")
+    bwd = lambda fam: port(fam) and "_bwd" in fam
+    segs, cur, cur_bwd = [], [], False
+    for fam, us in tr["seq"]:
+        fwd_norm = port(fam) and fam.startswith("rmsnorm") and not bwd(fam)
+        if cur and (fwd_norm or (bwd(fam) and not cur_bwd)):
+            segs.append((cur_bwd, cur))
+            cur = []
+        cur_bwd = bwd(fam) or (cur_bwd and not fwd_norm)
+        cur.append((fam, us))
+        if fam.startswith("rmsnorm_bwd dgamma"):
+            segs.append((True, cur))
+            cur = []
+    segs.append((cur_bwd, cur))
+    E = max(cfg.n_experts, 1)
+    rows: dict = {}
+    for back, seg in segs:
+        if not seg:
+            continue
+        mm = sum(port(f) and f.startswith("matmul") for f, _ in seg)
+        per = 2 if back else 1
+        attn = any(port(f) and f.startswith(("flash", "paged")) for f, _ in seg)
+        kind = ("MoE" if cfg.n_experts and mm >= 3 * E * per
+                else "attention" if attn or mm == 4 * per
+                else "MLP" if mm == 3 * per
+                else "Mamba" if mm else "embedding, head, loss, update")
+        row = rows.setdefault(("backward" if back else "forward", kind),
+                              {"products": 0.0, "norms": 0.0, "attention": 0.0,
+                               "plain torch": 0.0, "launches": 0})
+        for fam, us in seg:
+            cls = ("plain torch" if not port(fam) else "products"
+                   if fam.startswith("matmul") else "norms"
+                   if fam.startswith("rmsnorm") else "attention")
+            row[cls] += us / 1e3 / steps
+            row["launches"] += 1 / steps
+    for (direction, kind), row in sorted(rows.items()):
+        print(f"[split] {what}, {direction} {kind}: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in row.items() if k != "launches" and v)
+            + f" ({row['launches']:.0f} launches a step)")
 
 
 def _train_path(cfg, dev, n_layers: int = 8, batch: int = 4, seq: int = 1024,
-                steps: int = 3) -> dict:
-    """Phase 7: the full-width model cut to ``n_layers``, ``steps`` train
-    steps through the kernels; returns the launches."""
+                steps: int = 3, opt_cfg=None, falling: bool = False) -> dict:
+    """Phase 7 (and the training parts of phases 8 and 9): the full-width
+    model cut to ``n_layers``, ``steps`` train steps through the kernels
+    (``OptConfig`` defaults unless ``opt_cfg``), the loss on the first
+    batch after them (with ``falling`` it must be below its loss at the
+    start), and a traced step split by sublayer.  Returns the launches."""
     import dataclasses
 
     import torch
@@ -867,8 +1065,10 @@ def _train_path(cfg, dev, n_layers: int = 8, batch: int = 4, seq: int = 1024,
     from repro_torch.train.trainer import (init_train_state, loss_and_grads,
                                            step_launches)
 
+    from repro_torch.models import lm
+
     tcfg = dataclasses.replace(cfg, n_layers=n_layers)
-    opt_cfg = OptConfig()
+    opt_cfg = opt_cfg or OptConfig()
     torch.cuda.reset_peak_memory_stats()
     t0 = now()
     state = init_train_state(tcfg, opt_cfg, torch.Generator(dev).manual_seed(0), dev)
@@ -879,7 +1079,7 @@ def _train_path(cfg, dev, n_layers: int = 8, batch: int = 4, seq: int = 1024,
           f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {str(cfg.dtype)[6:]}, remat "
           f"{tcfg.remat}, loss_chunk {tcfg.loss_chunk}; {n_params / 1e9:.3f} B "
           f"params, state {torch.cuda.memory_allocated() / 1e9:.2f} GB, drawn in "
-          f"{now() - t0:.1f}s; batch {batch} x {seq} tokens, OptConfig defaults")
+          f"{now() - t0:.1f}s; batch {batch} x {seq} tokens, {opt_cfg}")
     corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                         global_batch=batch, seed=0))
     batches = [torch.from_numpy(corpus.batch(i)).to(dev, torch.int64)
@@ -900,7 +1100,7 @@ def _train_path(cfg, dev, n_layers: int = 8, batch: int = 4, seq: int = 1024,
     peak = torch.cuda.max_memory_allocated()
     steady = step_s[1:] or step_s
     step_ms = 1e3 * sum(steady) / len(steady)
-    bound, by, flop = _step_bound(tcfg, batch, seq, n_params)
+    bound, by, flop, f32_flop = _step_bound(tcfg, batch, seq, n_params)
     print(f"[train] {steps} steps: losses {losses}, grad_norm "
           f"{[round(m['grad_norm'], 4) for m in metrics]}, lr "
           f"{[m['lr'] for m in metrics]}")
@@ -908,7 +1108,8 @@ def _train_path(cfg, dev, n_layers: int = 8, batch: int = 4, seq: int = 1024,
           f"{[round(1e3 * t, 2) for t in step_s]}; steady (steps 2-{steps}) "
           f"{step_ms:.2f} ms/step, {batch * seq / (step_ms / 1e3):.1f} tok/s; peak "
           f"device memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); bound "
-          f"{bound:.2f} ms ({by}: {flop:.3e} FLOP at 989 TFLOP/s, or "
+          f"{bound:.2f} ms ({by}: {flop:.3e} bf16 FLOP at 989 TFLOP/s, "
+          f"{f32_flop:.3e} f32 FLOP of the SSD at 67 TFLOP/s, or "
           f"{32 * n_params / 1e9:.1f} GB of state at 3.35 TB/s), "
           f"{step_ms / bound:.2f}x the bound")
     print(f"[train] launches {launches} (expected {steps} x step_launches: {want})")
@@ -916,12 +1117,23 @@ def _train_path(cfg, dev, n_layers: int = 8, batch: int = 4, seq: int = 1024,
         raise AssertionError(f"train losses not finite: {losses}")
     if launches != want:
         raise AssertionError(f"train path launches {launches}, expected {want}")
-    # one step traced: device ms by kernel, forward and backward apart
+    with torch.no_grad():
+        after = float(lm.forward_train(state.params, batches[0], tcfg))
+    print(f"[train] loss on the first batch: {losses[0]:.4f} at the start, "
+          f"{after:.4f} after {steps} steps")
+    if falling:
+        if not after < losses[0]:
+            raise AssertionError(f"{tcfg.name}: the loss did not fall: {losses[0]} "
+                                 f"-> {after}")
+    # one step traced: device ms by kernel, forward and backward apart, and
+    # by sublayer
     def step_once():
         nonlocal state
         state, m = step_fn(state, {"tokens": batches[0]})
         m["loss"].item()
-    _print_trace(_trace(step_once, 1), 1, "train step (batch 4 x 1024)")
+    tr = _trace(step_once, 1)
+    _print_trace(tr, 1, f"{tcfg.name} train step (batch {batch} x {seq})")
+    _split(tr, tcfg, 1, f"{tcfg.name} train step")
     # the embedding's gradient, taken twice: its backward is an indexed
     # accumulate (aten index_put_ with accumulate=True)
     emb = state.params["embed"]
@@ -1135,42 +1347,6 @@ def _moe_sublayer_check(sp, x, cfg, what: str) -> None:
         raise AssertionError(f"MoE routing ({what}) differs from the CPU: {rows}")
 
 
-def _moe_split(tr: dict, cfg, steps: int, what: str) -> None:
-    """A traced forward split by sublayer, in launch order: each rmsnorm
-    opens a segment, which runs to the next; a segment with at least 3E of
-    the port's matmuls is a MoE sublayer (its expert products, and its
-    norm, plain-torch router, dispatch and residual add), one with fewer an
-    attention sublayer, one with none the embedding or the head.  A kernel
-    the trace missed merges two segments at worst, so the count of MoE
-    sublayers a step is printed beside their ms."""
-    if not tr["events"]:
-        print("[moe] the profiler recorded no device activity: not measured")
-        return
-    segs, cur = [], []
-    for fam, us in tr["seq"]:
-        if fam.startswith("rmsnorm") and fam.endswith("(port)"):
-            segs.append(cur)
-            cur = []
-        cur.append((fam, us))
-    segs.append(cur)
-    got = {k: [0, 0.0] for k in ("expert products", "router and dispatch",
-                                 "attention sublayers", "embedding and head")}
-    n_moe = 0
-    for seg in segs:
-        mm = [fam.startswith("matmul") and fam.endswith("(port)") for fam, _ in seg]
-        n_moe += sum(mm) >= 3 * cfg.n_experts
-        for is_mm, (fam, us) in zip(mm, seg):
-            key = ("embedding and head" if not any(mm) else
-                   "attention sublayers" if sum(mm) < 3 * cfg.n_experts else
-                   "expert products" if is_mm else "router and dispatch")
-            got[key][0] += 1
-            got[key][1] += us / 1e3
-    print(f"[moe] {what}, device ms a step by sublayer ({n_moe / steps:.1f} MoE "
-          f"sublayers a step): " + "; ".join(
-              f"{k} {ms / steps:.3f} ms ({n / steps:.0f} launches)"
-              for k, (n, ms) in got.items()))
-
-
 def _moe_path(dev, n_layers: int = 24) -> dict:
     """Phase 8: the MoE family.  The smoke MoE models (f32) card against
     CPU, dense for both and paged (whole-prompt, 128-token chunks, two
@@ -1269,7 +1445,7 @@ def _moe_path(dev, n_layers: int = 24) -> dict:
     engine.step()
     tr = _trace(engine.step, n_trace)
     _print_trace(tr, n_trace, "mixtral decode steps at batch 4")
-    _moe_split(tr, cfg, n_trace, "decode at batch 4")
+    _split(tr, cfg, n_trace, "mixtral decode at batch 4")
     engine.run()
     params = engine.params
     # whole-prompt prefills: 223 tokens, and 4,608 past the window (the
@@ -1283,7 +1459,7 @@ def _moe_path(dev, n_layers: int = 24) -> dict:
         ops.reset_launches()
         tr = _trace(prefill_once, steps)
         _print_trace(tr, steps, f"mixtral whole-prompt prefills of {plens[i]} tokens")
-        _moe_split(tr, cfg, steps, f"prefill of {plens[i]} tokens")
+        _split(tr, cfg, steps, f"mixtral prefill of {plens[i]} tokens")
         flash = ops.LAUNCHES["flash_attention"]
         variant = kfa.variant(plens[i], plens[i], cfg.head_dim, cfg.dtype)
         print(f"[moe] prefill of {plens[i]} tokens: flash attention {variant}, "
@@ -1306,6 +1482,285 @@ def _moe_path(dev, n_layers: int = 24) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+#: the MoE sublayer's gradients, card against CPU, each leaf held to
+#: ``|d| <= MOE_GRAD_RTOL (|want| + max|want|)``: one bf16 ulp of the element
+#: (x's gradient and the expert weights' are bf16, each the sum of products
+#: of bf16 operands in another order) and one of the leaf's largest element,
+#: for what one-ulp differences in the bf16 intermediates (the products'
+#: outputs, h, the gathered rows) carry into every element they feed; the
+#: router's f32 gradient takes the same limit, its terms coming from the
+#: bf16 experts' outputs
+MOE_GRAD_RTOL = 8e-3
+#: the short input of the MoE sublayer's gradient check: 128 tokens, C = 40
+#: buffer rows an expert (top-2 of 8 at factor 1.25)
+MOE_GRAD_TOKENS = 128
+
+
+def _moe_grad_check(sp, x, cfg) -> None:
+    """One full-width MoE sublayer's gradients on the card and on the CPU,
+    from the same bf16 weights and input: the loss sum(y * w) for a seeded
+    f32 w; the gradients of x, the router and the busiest expert's wi, wg
+    and wo within ``MOE_GRAD_RTOL``; the routing (each row's experts and
+    slots) the same on both sides, with no tie; and the card's gradients
+    the same bits twice."""
+    import torch
+
+    from repro_torch.models import layers as Lyr
+    from repro_torch.params import tree_map
+    from repro_torch.testing import kernel_checks as kc
+
+    names = ("x", "router", "wi", "wg", "wo")
+    w = torch.randn(x.shape, generator=torch.Generator().manual_seed(3))
+    got = {}
+    for where, dev in (("card", x.device), ("card again", x.device), ("cpu", "cpu")):
+        p = tree_map(lambda t: t.detach().to(dev).requires_grad_(True), sp)
+        xx = x.detach().to(dev).requires_grad_(True)
+        y = Lyr.moe_layer(p, xx, cfg)
+        loss = (y.float() * w.to(dev)).sum()
+        got[where] = torch.autograd.grad(loss, [xx] + [p[k] for k in names[1:]])
+        with torch.no_grad():
+            route = Lyr.moe_route(p, Lyr.rmsnorm(xx, p["norm"], cfg.norm_eps), cfg)
+        got[where + " route"] = route
+    rows, _ = _routing_diff(got["card route"], got["cpu route"], cfg.experts_per_token)
+    counts = (got["cpu route"].slots < got["cpu route"].capacity).sum(dim=1)
+    j = int(torch.argmax(counts))
+    same = all(torch.equal(a, b) for a, b in zip(got["card"], got["card again"]))
+    res = {}
+    for i, name in enumerate(names):
+        g, want = got["card"][i].cpu(), got["cpu"][i]
+        if name in ("wi", "wg", "wo"):
+            g, want = g[j], want[j]
+        res[name] = kc.compare(g, want, (MOE_GRAD_RTOL,
+                                         MOE_GRAD_RTOL * want.abs().max().float()))
+    print(f"[moe-train] MoE sublayer gradients vs CPU, {x.shape[1]} tokens, C = "
+          f"{got['cpu route'].capacity}, expert {j} ({int(counts[j])} rows): " + "; ".join(
+              f"d{n} limit_use {r['limit_use']:.3f} max_abs_err {r['max_abs_err']:.2e}"
+              for n, r in res.items())
+          + f" (|err| <= {MOE_GRAD_RTOL:.0e} (|cpu| + max|cpu|)); routing differs on "
+          f"{len(rows)} rows; the card's gradients the same bits twice: {same}")
+    if rows or not same or not all(r["ok"] for r in res.values()):
+        raise AssertionError(f"MoE sublayer gradients differ: {rows} {same} {res}")
+
+
+def _moe_train_path(dev, n_layers: int = 2) -> dict:
+    """Phase 8's training part: mixtral-8x7b at its published width cut to
+    ``n_layers`` of 32 (bf16, seeded weights, remat), 3 train steps at batch
+    4 x 1024 (C = 1,280 rows an expert) through ``_train_path`` with
+    phase 7's ``OptConfig`` defaults, launches
+    exactly ``step_launches``, a traced step split forward and backward by
+    sublayer; then one full-width MoE sublayer's gradients held to the CPU
+    path (``_moe_grad_check``).  Returns the steps' launches."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as Lyr
+    from repro_torch.models import lm
+    from repro_torch.params import init_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("mixtral-8x7b")
+    print(f"[moe-train] {cfg.name}: {n_layers} of 32 layers, C = "
+          f"{Lyr.moe_capacity(cfg, 4 * 1024)} rows an expert at 4 x 1024 tokens; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB live when the phase began")
+    launches = _train_path(cfg, dev, n_layers=n_layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one full-width MoE sublayer's gradients against the CPU's
+    one = dataclasses.replace(cfg, n_layers=1)
+    sp = init_params(Lyr.moe_defs(one), torch.Generator(dev).manual_seed(1), dev)
+    emb = init_params({"embed": lm.model_defs(one)["embed"]},
+                      torch.Generator(dev).manual_seed(2), dev)["embed"]
+    toks = np.random.default_rng(0).integers(1, cfg.vocab_size, (1, MOE_GRAD_TOKENS))
+    _moe_grad_check(sp, emb[torch.as_tensor(toks, device=dev)], one)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    print(f"[moe-train] on {smi.splitlines()[0]}")
+    del sp, emb
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: the long prompt of phase 9's serving run: 18 SSD chunks of 256
+MAMBA_LONG = 4608
+
+
+def _ssm_smoke(dev) -> None:
+    """Phase 5's Mamba part: the mamba2-370m and jamba smoke models (f32,
+    seeded weights) through the kernel path on the card and the plain path
+    on the CPU, logits and the dense engine's greedy streams
+    (``_smoke_dense``; the paged engine refuses a Mamba state)."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.params import init_params, tree_map
+
+    for name in ("mamba2-370m", "jamba-1.5-large-398b"):
+        scfg = get_smoke_config(name)
+        cpu_params = init_params(lm.model_defs(scfg),
+                                 torch.Generator().manual_seed(0), "cpu")
+        _smoke_dense(scfg, cpu_params, tree_map(lambda t: t.to(dev), cpu_params), dev)
+
+
+def _mamba_sublayer_check(sp, x, cfg, what: str, conv=None, state=None) -> None:
+    """One full-width Mamba sublayer on the card and on the CPU, the same
+    bf16 weights, input and carried states: its output, conv window and SSM
+    state within ``kernel_checks.mamba_tol``.  Without ``conv`` and
+    ``state`` a whole prompt through ``mamba_layer``; with them a decode
+    step through ``mamba_layer_decode`` from that cache."""
+    from repro_torch.models import layers as Lyr
+    from repro_torch.params import tree_map
+    from repro_torch.testing import kernel_checks as kc
+
+    sp_cpu = tree_map(lambda t: t.cpu(), sp)
+    outs = {}
+    for where, p, xx in (("card", sp, x), ("cpu", sp_cpu, x.cpu())):
+        if conv is None:
+            y, (c, st) = Lyr.mamba_layer(p, xx, cfg, return_state=True)
+        else:
+            cache = Lyr.MambaCache(conv.to(xx.device).clone(), state.to(xx.device).clone())
+            y, cache = Lyr.mamba_layer_decode(p, xx, cache, cfg)
+            c, st = cache.conv, cache.state
+        outs[where] = (y.reshape(-1, cfg.d_model), c, st)
+    tol = kc.mamba_tol(sp_cpu, x.cpu(), cfg, None if conv is None else conv.cpu(),
+                       None if state is None else state.cpu())
+    res = {n: kc.compare(g.cpu(), w, tol[n])
+           for n, g, w in zip(("out", "conv", "state"), outs["card"], outs["cpu"])}
+    print(f"[ssm] Mamba sublayer vs CPU, {what}: " + "; ".join(
+        f"{n} {tuple(outs['cpu'][i].shape)} {_reading(r)}"
+        for i, (n, r) in enumerate(res.items()))
+        + " (kernel_checks.mamba_tol: atol by row for out, by element for state)")
+    if not all(r["ok"] for r in res.values()):
+        raise AssertionError(f"Mamba sublayer ({what}) differs from the CPU: {res}")
+
+
+def _ssm_path(dev) -> dict:
+    """Phase 9: mamba2-370m at its published width and depth (48 layers,
+    bf16, seeded weights).  Serving: 8 requests through ``ServingEngine`` at
+    batch 4 (one prompt of ``MAMBA_LONG`` tokens, seven of phase 5's
+    lengths, 16 new each), launches exactly ``serve_launches``; traces of
+    decode steps and of whole-prompt prefills split by sublayer and kernel
+    class (``_split``); one full-width Mamba sublayer held to the CPU path
+    at two prefills and a decode step.  Training: 3 steps at batch 4 x
+    1024 under remat (``_train_path``), launches exactly
+    ``step_launches``, the loss falling.  Returns the launches of both."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as Lyr
+    from repro_torch.models import lm
+    from repro_torch.params import init_params, tree_map
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+    from repro_torch.testing.timing import now
+    from repro_torch.train import OptConfig
+    from repro_torch.train.trainer import serve_launches
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("mamba2-370m")
+    t0 = now()
+    model = lm.Model(cfg, init_params(lm.model_defs(cfg),
+                                      torch.Generator(dev).manual_seed(0), dev))
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+    print(f"[ssm] {cfg.name}: {cfg.n_layers} layers (full depth), d_model "
+          f"{cfg.d_model}, d_inner {cfg.d_inner_ssm}, state {cfg.ssm_state}, "
+          f"{cfg.n_ssm_heads} SSD heads of {cfg.ssm_head_dim}, conv {cfg.ssm_conv}, "
+          f"chunk {cfg.ssm_chunk}, vocab {cfg.vocab_size} (tied), "
+          f"{str(cfg.dtype)[6:]}; {cfg.n_params() / 1e6:.1f} M params, "
+          f"{n_bytes / 1e9:.3f} GB of weights, drawn in {now() - t0:.1f}s")
+    max_seq = MAMBA_LONG + 512
+    engine = ServingEngine(model, ServeConfig(max_batch=4, max_seq=max_seq), device=dev)
+    rng = np.random.default_rng(0)
+    plens = [int(n) for n in rng.integers(32, 257, 8)]      # phase 5's lengths
+    plens[1] = MAMBA_LONG
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in plens]
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t_start = now()
+    for rid, prompt in enumerate(prompts):
+        engine.submit(Request(rid=rid, max_new_tokens=16, prompt=prompt))
+    done = list(engine.run())
+    wall = now() - t_start
+    launches = dict(ops.LAUNCHES)
+    tm = engine.timing
+    want = serve_launches(cfg, tm["prefills"], tm["decode_steps"])
+    ttft = [r.t_first - r.t_submit for r in done]
+    prompt_toks = sum(plens)
+    decode_toks = sum(len(r.out) - 1 for r in done)
+    print(f"[ssm] {len(done)} of 8 requests finished, prompts {plens} (batch 4, "
+          f"max_seq {max_seq}), {sum(len(r.out) for r in done)} tokens generated, "
+          f"{tm['prefills']} prefills + {tm['decode_steps']} decode steps in {wall:.2f}s")
+    print(f"[ssm] prefill {prompt_toks / tm['prefill_s']:.1f} tok/s ({prompt_toks} "
+          f"tokens in {tm['prefill_s']:.3f}s); decode {decode_toks / tm['decode_s']:.1f} "
+          f"tok/s, {1e3 * tm['decode_s'] / tm['decode_steps']:.2f} ms/step; p50 TTFT "
+          f"{1e3 * float(np.median(ttft)):.1f} ms (all 8 submitted at once, 4 slots); "
+          f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    print(f"[ssm] launches {launches} (expected {want})")
+    if len(done) != 8 or any(not r.out or max(r.out) >= cfg.vocab_size for r in done):
+        raise AssertionError("mamba2: not every request finished in the vocabulary")
+    if launches != want:
+        raise AssertionError(f"mamba2 launches {launches}, expected {want}")
+
+    # where a decode step's device time goes: 4 fresh requests fill the slots
+    n_trace = 4
+    for rid, prompt in enumerate(prompts[2:6]):
+        engine.submit(Request(rid=100 + rid, max_new_tokens=3 * n_trace + 4,
+                              prompt=prompt))
+    engine.step()
+    tr = _trace(engine.step, n_trace)
+    _print_trace(tr, n_trace, "mamba2 decode steps at batch 4")
+    _split(tr, cfg, n_trace, "mamba2 decode at batch 4")
+    engine.run()
+    params = engine.params
+    # whole-prompt prefills: 223 tokens (one chunk) and MAMBA_LONG (18)
+    for i, steps in ((0, 2), (1, 1)):
+        toks = torch.as_tensor(prompts[i], device=dev)[None]
+
+        def prefill_once():
+            _, lg = lm.prefill(params, toks, cfg, max_seq)
+            lg[0, -1, 0].item()              # a host read, as the engine's
+        tr = _trace(prefill_once, steps)
+        _print_trace(tr, steps, f"mamba2 whole-prompt prefills of {plens[i]} tokens")
+        _split(tr, cfg, steps, f"mamba2 prefill of {plens[i]} tokens")
+
+    # one full-width Mamba sublayer (the first layer's) against the CPU path
+    sp = tree_map(lambda t: t[0], params["period"]["l0"]["s0_mamba"])
+    for i in (0, 1):
+        x = params["embed"][torch.as_tensor(prompts[i], device=dev)[None]]
+        _mamba_sublayer_check(sp, x, cfg, f"a {plens[i]}-token prefill")
+    _, (conv, state) = Lyr.mamba_layer(tree_map(lambda t: t.cpu(), sp), x.cpu(), cfg,
+                                       return_state=True)
+    xt = params["embed"][torch.as_tensor(rng.integers(1, cfg.vocab_size, (4, 1)),
+                                         device=dev)]
+    _mamba_sublayer_check(sp, xt, cfg, f"a batch-4 decode step after the "
+                          f"{plens[1]}-token prompt", conv.expand(4, -1, -1),
+                          state.expand(4, -1, -1, -1))
+    del engine, model, params, sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    # training: the full model, 3 steps at 4 x 1024
+    train = _train_path(cfg, dev, n_layers=cfg.n_layers,
+                        opt_cfg=OptConfig(lr=1e-3, warmup_steps=1, total_steps=3),
+                        falling=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    print(f"[ssm] on {smi.splitlines()[0]}")
+    return {"ssm_serve": launches, "ssm_train": train}
 
 
 def _matmul_bwd_times(kc, kmm, ref, time_ms) -> dict:
@@ -1527,6 +1982,9 @@ ONLY = {
                              _phi3_flash_times(m.kc, m.kfa, m.ref, _time_ms))),
     "moe": (("matmul", "rmsnorm", "flash_attention", "paged_attention"),
             lambda dev, m: _moe_path(dev)),
+    "moe-train": (("matmul", "rmsnorm", "flash_attention", "flash_attention_bwd"),
+                  lambda dev, m: _moe_train_path(dev)),
+    "ssm": (("matmul", "rmsnorm"), lambda dev, m: (_ssm_smoke(dev), _ssm_path(dev))),
 }
 
 
@@ -1538,7 +1996,8 @@ def main(argv: list | None = None) -> int:
     ap.add_argument("--only", choices=sorted(ONLY),
                     help="run one part alone (matmul-bwd: phase 6's matmul backward "
                          "rows; phi3: phase 7b and phase 6's phi3-mini flash rows; "
-                         "moe: phase 8); "
+                         "moe: phase 8's serving; moe-train: phase 8's training; "
+                         "ssm: phase 5's Mamba smoke models and phase 9); "
                          "a copy of this file at the root of another checkout reads "
                          "that tree's kernels the same way")
     args = ap.parse_args(argv)
@@ -1716,6 +2175,11 @@ def main(argv: list | None = None) -> int:
     bwd_errs, bwd_failed = _backward_checks(kc, kfa)
     errs.update(bwd_errs)
     failed += bwd_failed
+    # the MoE training and Mamba2 paths' shapes (phases 8 and 9), forward
+    # and backward
+    fam_errs, fam_failed = _family_checks(kc, kmm)
+    errs.update(fam_errs)
+    failed += fam_failed
     # -- 3b. the paper's Table I kernels vs plain versions -------------------------
     t1_errs, t1_failed = _table1_checks(kc)
     failed += t1_failed
@@ -1830,6 +2294,10 @@ def main(argv: list | None = None) -> int:
     del engine, logits
     torch.cuda.empty_cache()
 
+    # the Mamba family's smoke models, card against CPU, through the dense
+    # engine
+    _ssm_smoke(dev)
+
     # -- 5c. the paged path: llama3-8b at full width, full depth --------------
     # the same weights; a 513-block pool (block 0 the zero block) of 16-token
     # blocks, 8 slots of up to 1024 tokens; open-loop traffic over a Zipf pool
@@ -1916,6 +2384,10 @@ def main(argv: list | None = None) -> int:
     path_launches.update(_phi3_path(dev))
     # -- 8. the MoE family: mixtral-8x7b at full width, 24 of 32 layers --------
     path_launches["moe"] = _moe_path(dev)
+    # ... and its training at full width, 2 of 32 layers
+    path_launches["moe_train"] = _moe_train_path(dev)
+    # -- 9. the Mamba2 family: mamba2-370m at full width and depth -------------
+    path_launches.update(_ssm_path(dev))
 
     # -- 6. kernel times ---------------------------------------------------------
     time_ms = _time_ms

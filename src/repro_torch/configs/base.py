@@ -3,7 +3,8 @@
 The PyTorch port's copy of ``repro.configs.base``: the fields the
 architectures set and the derived shapes the serving path reads, with
 ``dtype`` a torch dtype, and the training options of the dense trainer
-(``remat``, ``loss_chunk``).  MoE dispatch runs on one device, so the
+(``remat``, ``loss_chunk``), and the parameter count.  MoE dispatch runs
+on one device, so the
 reference's ``moe_tp`` and ``moe_impl``, which pick a mesh mode, come with
 the distributed slice, as do the sharding options."""
 from __future__ import annotations
@@ -51,6 +52,7 @@ class ModelConfig:
     ssm_head_dim: int = 64
     ssm_expand: int = 2
     ssm_chunk: int = 256
+    ssm_conv: int = 4
 
     # enc-dec
     n_enc_layers: int = 0
@@ -88,3 +90,57 @@ class ModelConfig:
         p = len(self.layer_period)
         assert self.n_layers % p == 0, (self.name, self.n_layers, p)
         return self.n_layers // p
+
+    @property
+    def d_inner_ssm(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner_ssm // self.ssm_head_dim
+
+    def _sublayer_params(self, kind: str) -> int:
+        d, hd = self.d_model, self.head_dim
+        if kind in (ATTN, XATTN):
+            return (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+                    + self.n_heads * hd * d + d)
+        if kind == MAMBA:
+            di = self.d_inner_ssm
+            H, N = self.n_ssm_heads, self.ssm_state
+            return (d * (2 * di + 2 * N + H) + self.ssm_conv * (di + 2 * N)
+                    + 3 * H + di + di * d + d)
+        if kind == MLP:
+            return 3 * d * self.d_ff + d
+        if kind == MOE:
+            ffe = self.d_ff_expert or self.d_ff
+            return d * self.n_experts + self.n_experts * 3 * d * ffe + d
+        raise ValueError(kind)
+
+    def n_params(self) -> int:
+        """Total parameter count (embedding included), the reference's
+        formula: the vocabulary unpadded, conv_b not counted."""
+        d = self.d_model
+        n = self.vocab_size * d                       # embed
+        if not self.tie_embeddings:
+            n += d * self.vocab_size                  # head
+        for layer in self.layer_period:
+            for kind in layer:
+                n += self.n_periods * self._sublayer_params(kind)
+        n += d                                        # final norm
+        if self.family == "encdec":
+            n += self.n_enc_layers * (self._sublayer_params(ATTN)
+                                      + self._sublayer_params(MLP)) + d
+        if self.d_ctx:
+            n += self.d_ctx * d                       # frontend projection
+        return n
+
+    def n_active_params(self) -> int:
+        """Active (per-token) parameters: MoE counts top-k experts only."""
+        if not self.n_experts:
+            return self.n_params()
+        ffe = self.d_ff_expert or self.d_ff
+        n_moe = sum(1 for layer in self.layer_period
+                    for k in layer if k == MOE) * self.n_periods
+        inactive = n_moe * (self.n_experts - self.experts_per_token) \
+            * 3 * self.d_model * ffe
+        return self.n_params() - inactive

@@ -6,11 +6,17 @@ dense per-slot KV cache for the block-table pool (``serve.paged``):
 divisor of ``--max-seq``) and ``--chunk`` enables chunked prefill.
 ``--pods N`` splits the request stream across N engines on the one device,
 sharing one model, behind the prefix-affinity router (``serve.router``).
+``--arch`` takes the dense family, the MoE family (mixtral-8x7b,
+qwen3-moe-235b-a22b), mamba2-370m and the jamba hybrid
+(jamba-1.5-large-398b); the paged engine refuses a windowed model
+(mixtral) and a Mamba state (mamba2, jamba), as the reference's does, and
+the cross-attention families (encdec, VLM) are not ported yet.
 Runs on the card unless ``--device cpu``; weights are random, drawn from
 ``--seed``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --paged --chunk 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m --device cpu
 """
 from __future__ import annotations
 
@@ -84,7 +90,10 @@ def run(arch: str, *, smoke: bool = True, n_requests: int = 6,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--arch", default="llama3-8b",
+                    help="a registered arch: dense, MoE (mixtral-8x7b, "
+                         "qwen3-moe-235b-a22b), mamba2-370m or "
+                         "jamba-1.5-large-398b; not the encdec or VLM ones")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=4)

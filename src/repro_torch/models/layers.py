@@ -1,14 +1,15 @@
-"""Model sublayers of the decoder families: GQA/SWA attention, SwiGLU and
-the top-k MoE.
+"""Model sublayers of the decoder families: GQA/SWA attention, SwiGLU, the
+top-k MoE and the Mamba2 (SSD) block.
 
-The port's counterpart of the attention, MLP and MoE parts of
+The port's counterpart of the attention, MLP, MoE and Mamba2 parts of
 ``repro.models.layers``.  Pure functions over param dicts built from ``PV``
 definitions; math in f32, storage in ``cfg.dtype``.  Every RMSNorm, every
 projection, whole-prompt attention (``ops.attention``, where the JAX model
 leaves it to XLA) and paged attention (``ops.paged_attention``) go through
-``kernels.ops``; dense-cache decode attention is plain PyTorch.  Decode and
-the paged layer update the KV cache or pool in place (the JAX layers
-return new ones).
+``kernels.ops``; dense-cache decode attention, the MoE router and dispatch,
+and the SSD scan and causal conv are plain PyTorch, as they are jnp in the
+reference.  Decode and the paged layer update the KV cache, the Mamba state
+or the pool in place (the JAX layers return new ones).
 """
 from __future__ import annotations
 
@@ -374,14 +375,17 @@ def expert_terms(xf: torch.Tensor, r: Routing, wi, wg, wo):
     C = r.capacity
     xw = xf.to(wi.dtype)
     zero = torch.zeros((1, d), dtype=torch.float32, device=xf.device)
-    for j in range(wi.shape[0]):
+    # unbind, not wi[j]: the weights' gradient is one stack of the experts'
+    # (an index's backward would scatter each into a zero (E, d, f) buffer)
+    for j, (wi_j, wg_j, wo_j) in enumerate(zip(wi.unbind(0), wg.unbind(0),
+                                               wo.unbind(0))):
         gate = torch.where(r.idx == j, r.gate, 0.0).sum(dim=-1)
         slot = r.slots[j]
         buf = torch.zeros((C + 1, d), dtype=wi.dtype, device=xf.device)
-        buf[slot] = xw
+        buf[slot] = xw                  # its backward gathers the rows back
         buf = buf[:C]
-        h = silu(kops.dense(buf, wg[j])) * kops.dense(buf, wi[j])
-        y = kops.dense(h, wo[j]).to(torch.float32)
+        h = silu(kops.dense(buf, wg_j)) * kops.dense(buf, wi_j)
+        y = kops.dense(h, wo_j).to(torch.float32)
         yield gate, torch.cat([y, zero])[slot]
 
 
@@ -403,3 +407,204 @@ def moe_layer(p, x, cfg: ModelConfig) -> torch.Tensor:
     y = _dispatch_ffn(xn.reshape(B * S, d).to(torch.float32), r,
                       p["wi"], p["wg"], p["wo"])
     return x + y.reshape(B, S, d).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD, chunked): arXiv:2405.21060
+# ---------------------------------------------------------------------------
+#
+# The reference's jnp, in plain torch on either device: the projections and
+# norms go through the kernels, the causal conv, the SSD scan and the
+# one-token recurrence are element-wise ops and einsums around them.
+
+def mamba_defs(cfg: ModelConfig) -> dict:
+    d, dt = cfg.d_model, cfg.dtype
+    di, N, H = cfg.d_inner_ssm, cfg.ssm_state, cfg.n_ssm_heads
+    kc = cfg.ssm_conv
+    return {
+        "norm": PV((d,), torch.float32, ("",), "ones"),
+        "in_proj": PV((d, 2 * di + 2 * N + H), dt, ("fsdp", "model")),
+        "conv_w": PV((kc, di + 2 * N), dt, ("", "model")),
+        "conv_b": PV((di + 2 * N,), dt, ("model",), "zeros"),
+        "A_log": PV((H,), torch.float32, ("model",), "zeros"),
+        "D": PV((H,), torch.float32, ("model",), "ones"),
+        "dt_bias": PV((H,), torch.float32, ("model",), "zeros"),
+        "gnorm": PV((di,), torch.float32, ("model",), "ones"),
+        "out_proj": PV((di, d), dt, ("model", "fsdp")),
+    }
+
+
+def ssd_chunk_len(chunk: int, S: int) -> int:
+    """The reference's chunk rule: ``min(chunk, S)``, lowered until it
+    divides S (a prime S is one chunk of S rows)."""
+    Q = min(chunk, S)
+    while S % Q:
+        Q -= 1
+    return Q
+
+
+def segment_decay(dA_cs: torch.Tensor) -> torch.Tensor:
+    """The intra-chunk decay ``L[q, k] = exp(dA_cs[q] - dA_cs[k])`` for
+    q >= k, else 0: dA_cs (B, nc, Q, H) -> (B, nc, Q, Q, H).
+
+    The one deliberate difference from the reference
+    (``jnp.where(causal, jnp.exp(seg), 0.0)``): the mask goes in before
+    the exponential.  Above the diagonal seg is positive (hundreds at chunk
+    256), so exp overflows to inf; the forward picks 0 either way, and
+    exp(-inf) is exactly that 0, but the reference's backward multiplies
+    the zero cotangent by inf, which is NaN."""
+    Q = dA_cs.shape[2]
+    seg = dA_cs[:, :, :, None, :] - dA_cs[:, :, None, :, :]
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=dA_cs.device).tril()
+    return torch.exp(torch.where(causal[None, None, :, :, None], seg,
+                                 float("-inf")))
+
+
+def _ssd_chunked(xh, dtv, Bm, Cm, A, chunk: int, state_in=None):
+    """Chunked state-space dual form: xh (B, S, H, P) f32, dtv (B, S, H),
+    Bm/Cm (B, S, N), A (H,) negative -> y (B, S, H, P), the final state
+    (B, H, P, N).  The reference's ``_ssd_chunked``: its einsums, and the
+    inter-chunk recurrence a loop over the chunks (its ``lax.scan``)."""
+    Bsz, S, H, Pd = xh.shape
+    N = Bm.shape[-1]
+    Q = ssd_chunk_len(chunk, S)
+    nc = S // Q
+    r = lambda t: t.reshape((Bsz, nc, Q) + t.shape[2:])
+    xc, dtc, Bc, Cc = r(xh), r(dtv), r(Bm), r(Cm)
+
+    dA = dtc * A[None, None, None, :]                 # (B,nc,Q,H) negative
+    dA_cs = torch.cumsum(dA, dim=2)                   # within-chunk cumsum
+    L = segment_decay(dA_cs)                          # (B,nc,Q,Q,H)
+    xdt = xc * dtc[..., None]                         # (B,nc,Q,H,P)
+    # intra-chunk (diagonal blocks)
+    y_diag = torch.einsum("bcqn,bckn,bcqkh,bckhp->bcqhp", Cc, Bc, L, xdt)
+    # chunk-final states
+    decay_end = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)
+    S_c = torch.einsum("bcqn,bcqh,bcqhp->bchpn", Bc, decay_end, xdt)
+    # inter-chunk recurrence: each chunk's incoming state
+    chunk_decay = torch.exp(torch.sum(dA, dim=2))     # (B,nc,H)
+    s = (torch.zeros((Bsz, H, Pd, N), dtype=torch.float32, device=xh.device)
+         if state_in is None else state_in)
+    s_ins = []
+    for c in range(nc):
+        s_ins.append(s)
+        s = S_c[:, c] + chunk_decay[:, c, :, None, None] * s
+    y_off = torch.einsum("bcqn,bchpn,bcqh->bcqhp", Cc, torch.stack(s_ins, 1),
+                         torch.exp(dA_cs))
+    return (y_diag + y_off).reshape(Bsz, S, H, Pd), s
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + e^x) as ``logaddexp(x, 0)`` (not
+    ``F.softplus``, which returns x itself past its threshold)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _mamba_project(p, x, cfg: ModelConfig):
+    """The normed input through ``in_proj``: z (B, S, di), the conv's
+    channels x|B|C (B, S, di + 2N) and dt (B, S, H), views of one product."""
+    di, N, H = cfg.d_inner_ssm, cfg.ssm_state, cfg.n_ssm_heads
+    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
+    proj = kops.dense(xn, p["in_proj"])               # (B,S,2di+2N+H)
+    z, xbc, dtv = torch.split(proj, [di, di + 2 * N, H], dim=-1)
+    return z, xbc, dtv
+
+
+def _mamba_out(p, x, y, z, cfg: ModelConfig) -> torch.Tensor:
+    """The gated norm of y (B, S, di) and ``out_proj``, residual added."""
+    y = rmsnorm(y.to(x.dtype) * silu(z), p["gnorm"], cfg.norm_eps)
+    return x + kops.dense(y, p["out_proj"]).to(x.dtype)
+
+
+class MambaMix(NamedTuple):
+    """A Mamba block's tensors ahead of the SSD: the gate z (B, S, di), the
+    conv's input after the carried window (B, kc-1+S, di+2N), and the SSD's
+    f32 inputs xh (B, S, H, P), dt (B, S, H), Bm and Cm (B, S, N), A (H,)."""
+    z: torch.Tensor
+    xbc_p: torch.Tensor
+    xh: torch.Tensor
+    dt: torch.Tensor
+    Bm: torch.Tensor
+    Cm: torch.Tensor
+    A: torch.Tensor
+
+
+def mamba_mix(p, x, cfg: ModelConfig, conv_state=None) -> MambaMix:
+    """``in_proj``, the depthwise causal conv over (x, B, C) (the
+    reference's sum of kc shifted products, after ``conv_state`` or
+    zeros), its silu, and dt's softplus."""
+    B, S, _ = x.shape
+    di, N, H = cfg.d_inner_ssm, cfg.ssm_state, cfg.n_ssm_heads
+    kc = cfg.ssm_conv
+    z, xbc, dtv = _mamba_project(p, x, cfg)
+    pad = (torch.zeros((B, kc - 1, xbc.shape[-1]), dtype=xbc.dtype,
+                       device=x.device) if conv_state is None else conv_state)
+    xbc_p = torch.cat([pad, xbc], dim=1)
+    conv = sum(xbc_p[:, i:i + S] * p["conv_w"][i][None, None]
+               for i in range(kc)) + p["conv_b"][None, None]
+    xc, Bm, Cm = torch.split(silu(conv), [di, N, N], dim=-1)
+    return MambaMix(z, xbc_p,
+                    xc.reshape(B, S, H, cfg.ssm_head_dim).to(torch.float32),
+                    softplus(dtv.to(torch.float32) + p["dt_bias"][None, None]),
+                    Bm.to(torch.float32), Cm.to(torch.float32),
+                    -torch.exp(p["A_log"]))
+
+
+def mamba_layer(p, x, cfg: ModelConfig, conv_state=None, ssm_state=None,
+                return_state: bool = False):
+    """Train/prefill Mamba2 block over the whole sequence (chunked SSD),
+    residual included.  ``conv_state`` (B, kc-1, di+2N) and ``ssm_state``
+    (B, H, P, N) f32 continue a sequence; ``return_state`` also returns
+    the (conv, ssm) states after it."""
+    B, S, _ = x.shape
+    kc = cfg.ssm_conv
+    m = mamba_mix(p, x, cfg, conv_state)
+    y, s_final = _ssd_chunked(m.xh, m.dt, m.Bm, m.Cm, m.A, cfg.ssm_chunk,
+                              ssm_state)
+    y = y + p["D"][None, None, :, None] * m.xh        # skip
+    res = _mamba_out(p, x, y.reshape(B, S, cfg.d_inner_ssm), m.z, cfg)
+    if return_state:
+        new_conv = m.xbc_p[:, S:S + kc - 1] if kc > 1 else m.xbc_p[:, :0]
+        return res, (new_conv, s_final.to(torch.float32))
+    return res
+
+
+class MambaCache(NamedTuple):
+    conv: torch.Tensor    # (B, kc-1, di+2N) in the model dtype
+    state: torch.Tensor   # (B, H, P, N) f32
+
+
+def mamba_cache_defs(cfg: ModelConfig, batch: int) -> MambaCache:
+    di, N, H = cfg.d_inner_ssm, cfg.ssm_state, cfg.n_ssm_heads
+    return MambaCache(
+        PV((batch, cfg.ssm_conv - 1, di + 2 * N), cfg.dtype,
+           ("batch", "", "model"), "zeros"),
+        PV((batch, H, cfg.ssm_head_dim, N), torch.float32,
+           ("batch", "model", "", ""), "zeros"))
+
+
+def mamba_layer_decode(p, x, cache: MambaCache, cfg: ModelConfig):
+    """One-token recurrent step, x (B, 1, d): state <- exp(dt A) state +
+    dt B x, y = C . state.  Writes the new conv window and state into
+    ``cache`` in place and returns (x out, cache)."""
+    B = x.shape[0]
+    di, N, H = cfg.d_inner_ssm, cfg.ssm_state, cfg.n_ssm_heads
+    kc = cfg.ssm_conv
+    z, xbc, dtv = _mamba_project(p, x, cfg)
+    window = torch.cat([cache.conv, xbc], dim=1)              # (B, kc, ch)
+    conv = torch.einsum("bkc,kc->bc", window, p["conv_w"]) + p["conv_b"]
+    xc, Bm, Cm = torch.split(silu(conv)[:, None, :], [di, N, N], dim=-1)
+    xh = xc.reshape(B, H, cfg.ssm_head_dim).to(torch.float32)
+    dtb = softplus(dtv.to(torch.float32)[:, 0] + p["dt_bias"][None])
+    A = -torch.exp(p["A_log"])
+    dA = torch.exp(dtb * A[None])                             # (B,H)
+    Bv = Bm[:, 0].to(torch.float32)                           # (B,N)
+    Cv = Cm[:, 0].to(torch.float32)
+    upd = torch.einsum("bh,bhp,bn->bhpn", dtb, xh, Bv)
+    state = cache.state * dA[:, :, None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", state, Cv) + p["D"][None, :, None] * xh
+    out = _mamba_out(p, x, y.reshape(B, 1, di), z, cfg)
+    if kc > 1:
+        cache.conv.copy_(window[:, 1:])
+    cache.state.copy_(state)
+    return out, cache

@@ -1,13 +1,15 @@
 """Whole-model assembly: embeddings -> layer periods -> head.
 
 The port's counterpart of ``repro.models.lm`` for the decoder families
-whose periods hold attention, MLP and MoE sublayers (dense and MoE).
-``forward_train`` gives the mean next-token cross-entropy, which autograd
-differentiates through the kernels' backwards (the dense family only, for
-now); ``prefill`` populates the caches and returns the last token's
+whose periods hold attention, MLP, MoE and Mamba2 sublayers (dense, MoE,
+SSM and the jamba hybrid).  ``forward_train`` gives the mean next-token
+cross-entropy, which autograd differentiates through the kernels'
+backwards; ``prefill`` populates the caches (K/V, and each Mamba
+sublayer's conv window and SSM state) and returns the last token's
 logits; ``decode_step`` advances every slot by one token;
 ``decode_step_paged`` and ``prefill_chunk`` do the same against a paged
-block pool (``pool_defs``).  A MoE sublayer sees every row of a call.  A
+block pool (``pool_defs``: attention caches only, so not for a period with
+Mamba).  A MoE sublayer sees every row of a call.  A
 Python loop over ``n_periods`` replaces ``lax.scan``; the param tree keeps
 JAX's nesting, each period leaf stacked over ``n_periods``.
 """
@@ -19,14 +21,12 @@ from typing import Any
 import torch
 from torch.utils import checkpoint as _ckpt
 
-from repro_torch.configs.base import ATTN, MLP, MOE, ModelConfig
+from repro_torch.configs.base import ATTN, MAMBA, MLP, MOE, ModelConfig
 from repro_torch.params import PV, ParamTree, tree_leaves, tree_map
 from . import layers as L
 
-_LATER = ("sublayer kind {!r} is not ported yet: the Mamba2 and "
-          "cross-attention families come with the other-families slice")
-_MOE_TRAIN = ("training through MoE sublayers is not ported yet: it comes "
-              "with the MoE training slice (serving runs them)")
+_LATER = ("sublayer kind {!r} is not ported yet: the cross-attention "
+          "families (encdec, VLM) come with a later slice")
 
 
 # ---------------------------------------------------------------------------
@@ -45,6 +45,8 @@ def _sublayer_defs(kind: str, cfg: ModelConfig) -> dict:
         return L.mlp_defs(cfg)
     if kind == MOE:
         return L.moe_defs(cfg)
+    if kind == MAMBA:
+        return L.mamba_defs(cfg)
     raise NotImplementedError(_LATER.format(kind))
 
 
@@ -75,6 +77,9 @@ def cache_defs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
                 slots[f"s{si}_{kind}"] = _stack(
                     L.attn_cache_defs(cfg, batch, seq_len)._asdict(),
                     cfg.n_periods)
+            elif kind == MAMBA:
+                slots[f"s{si}_{kind}"] = _stack(
+                    L.mamba_cache_defs(cfg, batch)._asdict(), cfg.n_periods)
             elif kind not in (MLP, MOE):
                 raise NotImplementedError(_LATER.format(kind))
         period[f"l{li}"] = slots
@@ -85,8 +90,9 @@ def pool_defs(cfg: ModelConfig, n_blocks: int, block_tokens: int) -> dict:
     """Paged-KV block pool defs: the tree of :func:`cache_defs` with each
     ATTN leaf (n_periods, n_blocks, block_tokens, Hkv, Dh), a shared pool of
     fixed-size token blocks indexed by per-request block tables (block 0 is
-    the reserved zero block).  Attention caches only, and full attention
-    (no SWA ring)."""
+    the reserved zero block).  Attention caches only (a Mamba or
+    cross-attention sublayer raises, with the reference's message), and full
+    attention (no SWA ring)."""
     if cfg.window:
         raise ValueError("paged KV supports full attention only "
                          f"(cfg.window={cfg.window})")
@@ -161,7 +167,9 @@ def _apply_period(pp: dict, x: torch.Tensor, cfg: ModelConfig,
             elif kind == MLP:
                 x = L.mlp_layer(sp, x, cfg)
             elif kind == MOE:
-                raise NotImplementedError(_MOE_TRAIN)
+                x = L.moe_layer(sp, x, cfg)
+            elif kind == MAMBA:
+                x = L.mamba_layer(sp, x, cfg)
             else:
                 raise NotImplementedError(_LATER.format(kind))
     return x
@@ -264,6 +272,10 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, cache_seq_len: int):
                     x = L.mlp_layer(sp, x, cfg)
                 elif kind == MOE:
                     x = L.moe_layer(sp, x, cfg)
+                elif kind == MAMBA:
+                    x, (conv, state) = L.mamba_layer(sp, x, cfg,
+                                                     return_state=True)
+                    lcaches[key] = {"conv": conv.to(cfg.dtype), "state": state}
                 else:
                     raise NotImplementedError(_LATER.format(kind))
             caches[f"l{li}"] = lcaches
@@ -298,6 +310,9 @@ def decode_step(params, token: torch.Tensor, cache: dict, pos,
                     x = L.mlp_layer(sp, x, cfg)
                 elif kind == MOE:
                     x = L.moe_layer(sp, x, cfg)
+                elif kind == MAMBA:
+                    c = L.MambaCache(**cc[f"l{li}"][key])
+                    x, _ = L.mamba_layer_decode(sp, x, c, cfg)
                 else:
                     raise NotImplementedError(_LATER.format(kind))
     logits = logits_fn(params, x, cfg)

@@ -1,6 +1,8 @@
 """Each kernel held against its plain version on the card, at the shapes
-the llama3-8b serving path gives it (and phi3-mini's path, ``PHI3_*``, and
-mixtral-8x7b's, ``MOE_*`` and the windowed 4,608-token prompt).
+the llama3-8b serving path gives it (and phi3-mini's path, ``PHI3_*``,
+mixtral-8x7b's, ``MOE_*`` and the windowed 4,608-token prompt, its train
+step's, ``MOE_TRAIN_C`` and ``MIXTRAL_TRAIN_FLASH``, and mamba2-370m's,
+``MAMBA_*``).
 Used by ``chip_smoke.py`` and by the gpu-marked tests.
 
 Each element is held to ``|kernel - plain| <= rtol * |plain| + atol``:
@@ -166,6 +168,23 @@ FLASH_CASES = tuple((1, S, None) for S in FLASH_S) + (
 #: one (1,440); its experts' (K, N) are llama3-8b's MLP ones
 MOE_M = (2, 11, 70, 1440)
 MOE_KN = {"wg/wi": MATMUL_KN["wg/wi"], "mlp.wo": MATMUL_KN["mlp.wo"]}
+#: mixtral-8x7b's train step (4 x 1024 tokens, top-2 of 8 experts, factor
+#: 1.25): C = 1,280 buffer rows an expert, the forward's M and the dX
+#: product's, and the dW product's contraction; and a C that is not a
+#: multiple of 8 (4,105 tokens), whose dW product takes simt
+MOE_TRAIN_C = (1280, 1283)
+#: mixtral's attention in its train step, (B, S, window): the window of
+#: 4,096 over 1,024 tokens (every key in it), the llama3-8b heads
+MIXTRAL_TRAIN_FLASH = (4, 1024, MIXTRAL_WINDOW)
+#: mamba2-370m (d_model 1024, d_inner 2048, state 128, 32 SSD heads of 64):
+#: (K, N) of its two projections, ``in_proj`` to 2 d_inner + 2 state + heads
+#: = 4,384 columns (34 column tiles of 128 and a 32-wide edge tile) and
+#: ``out_proj``; the rows the paths give them (a batch-4 decode step, a
+#: 223-token prefill, the train step's tokens); rmsnorm at d_model and at
+#: d_inner (the gated ``gnorm``)
+MAMBA_MATMUL_KN = {"in_proj": (1024, 4384), "out_proj": (2048, 1024)}
+MAMBA_ROWS = (4, 223, 4096)
+MAMBA_NORM_D = (1024, 2048)
 
 
 def matmul_inputs(M, K, N, dtype, device="cuda", seed=0):
@@ -273,11 +292,55 @@ def moe_tol(p, x, cfg) -> tuple:
     return rtol, atol + rtol * row
 
 
+def mamba_scales(p, x, cfg, conv_state=None, ssm_state=None) -> tuple:
+    """Magnitudes behind a Mamba sublayer's output and SSM state, f32, from
+    the path ``x`` lies on: each output row's largest addend sum (|x| plus
+    |g| @ |out_proj|, g the gated norm's output that enters ``out_proj``),
+    and each state element's sum of its terms' magnitudes (the SSD over
+    |xh|, |B| and |state_in|: dt and the decays are positive)."""
+    B, S, d = x.shape
+    m = _layers.mamba_mix(p, x, cfg, conv_state)
+    y, _ = _layers._ssd_chunked(m.xh, m.dt, m.Bm, m.Cm, m.A, cfg.ssm_chunk,
+                                ssm_state)
+    _, s_abs = _layers._ssd_chunked(
+        m.xh.abs(), m.dt, m.Bm.abs(), m.Cm, m.A, cfg.ssm_chunk,
+        None if ssm_state is None else ssm_state.abs())
+    y = (y + p["D"][None, None, :, None] * m.xh).reshape(B, S, -1)
+    g = _layers.rmsnorm(y.to(x.dtype) * _layers.silu(m.z), p["gnorm"], cfg.norm_eps)
+    row = x.abs().float().reshape(B * S, d) + \
+        g.abs().float().reshape(B * S, -1) @ p["out_proj"].abs().float()
+    return row.amax(dim=1, keepdim=True), s_abs
+
+
+def mamba_tol(p, x, cfg, conv_state=None, ssm_state=None) -> dict:
+    """(rtol, atol) of a bf16 Mamba sublayer's outputs, kernel path against
+    plain path, by name.  ``out`` (B*S, d) as :func:`moe_tol` takes a MoE
+    sublayer's: one ulp of the element, and ``MATMUL_TOL``'s rtol of the
+    row's largest addend sum for what the intermediate roundings carry
+    through ``out_proj``.  ``conv``, rows of ``in_proj``'s output:
+    ``MATMUL_TOL``.  ``state`` (f32): 2**-6 of each element's terms'
+    magnitude sum.  A term is dt x B times positive decays; x and B come
+    from the bf16 conv of ``in_proj``'s output, each within about two bf16
+    ulps (2**-7) of the other side's, dt from a bf16 dt within one, and a
+    decay moves by at most 0.37 of dt's relative change, so a term within
+    ~5.4 ulps: 2**-6 of its magnitude, the terms' errors adding with random
+    signs."""
+    rtol, atol = MATMUL_TOL[torch.bfloat16]
+    row, s_abs = mamba_scales(p, x, cfg, conv_state, ssm_state)
+    return {"out": (rtol, atol + rtol * row), "conv": (rtol, atol),
+            "state": (0.0, 2.0 ** -6 * s_abs + 1e-30)}
+
+
 def check_matmul(M, K, N, dtype, device="cuda") -> dict:
-    """Called twice: the second call must give the same bits."""
+    """Called twice: the second call must give the same bits.  ``edge`` is
+    the reading of the last ``N % 128`` columns alone (the forward's edge
+    tile; all N if none)."""
     a, b = matmul_inputs(M, K, N, dtype, device)
-    return _pair(_mm.matmul(a, b), _mm.matmul(a, b), ref.matmul(a, b),
-                 MATMUL_TOL[dtype])
+    got, want = _mm.matmul(a, b), ref.matmul(a, b)
+    res = _pair(got, _mm.matmul(a, b), want, MATMUL_TOL[dtype])
+    lo = N - (N % _mm.WGMMA_BN or N)
+    res["edge"] = compare(got[:, lo:], want[:, lo:], MATMUL_TOL[dtype])
+    return res
 
 
 def check_rmsnorm(R, D, dtype, device="cuda") -> dict:

@@ -1,11 +1,13 @@
 """The smoke training step on two devices, and how far apart they may be.
 
-``chip_smoke.py`` (phase 4b) runs the llama3-8b smoke model (f32) from the
-JAX initialiser's weights (``SMOKE_WEIGHTS``, written by
-``scripts/make_torch_smoke_weights.py``) on the card through the kernels
-and on the CPU through the plain versions, and holds the one against the
-other; ``tests/test_torch_train.py`` holds the CPU path against the JAX
-package with the same limits.
+``chip_smoke.py`` (phase 4b) runs the smoke models of ``SMOKE_ARCHS`` (f32)
+from the JAX initialiser's weights (``weights_path(arch)``: llama3-8b's
+written by ``scripts/make_torch_smoke_weights.py``, the MoE and Mamba
+archs' by ``tests/torch_jax_smoke.py``) on the card through the
+kernels and on the CPU through the plain versions, and holds the one
+against the other; ``tests/test_torch_train.py``, ``test_torch_moe.py``
+and ``test_torch_ssm.py`` hold the CPU path against the JAX package with
+the same limits.
 
 Limits, f32 on both sides, sums in other orders:
   * the loss and the gradient's norm: rtol 1e-5 (measured ~1e-7);
@@ -20,6 +22,18 @@ Limits, f32 on both sides, sums in other orders:
     ~3e-5 and fails the first;
   * m and v after the steps: within 5e-4 of the leaf's largest element
     (measured <= 1.2e-4).
+
+jamba's smoke model (16 layers, 8 of them MoE, a gradient norm of ~95 at
+its start) is held at its start only (``START_ONLY``): the loss and every
+gradient leaf at the initial weights, within ``|d| <= 1e-4 |want| + 1e-4
+max|want|``, and the first step's loss, gradient norm and lr.  Its
+gradient in f32 lies ~3e-5 (the port) and ~5e-5 (the JAX package) of the
+leaf's largest element from the port's f64 gradient, so two f32 runs
+differ by up to that sum.  Its trajectory does not stay within rounding
+of itself: Adam moves an element whose gradient is at that level by up to
+lr, router weights among them, the next step's routing flips on near
+ties, and the two f32 runs and the f64 one part by ~1e-3 in the third
+step's loss.  Its later readings are printed, not held.
 """
 from __future__ import annotations
 
@@ -34,24 +48,44 @@ from repro_torch.params import params_from_dotted, tree_leaves, tree_map
 from repro_torch.train import OptConfig, TrainState, adamw_init, make_train_step
 from repro_torch.train.trainer import loss_and_grads, trainable
 
-SMOKE_WEIGHTS = pathlib.Path(__file__).with_name("llama3-8b-smoke-jax-seed0.npz")
 ARCH = "llama3-8b"
+#: the archs whose smoke train step phase 4b holds card against CPU: the
+#: dense family's, the MoE family's, mamba2's and the jamba hybrid's
+SMOKE_ARCHS = (ARCH, "mixtral-8x7b", "qwen3-moe-235b-a22b", "mamba2-370m",
+               "jamba-1.5-large-398b")
+
+
+#: archs whose smoke tree has another arch's shapes, so that JAX's init at
+#: key 0 gives them the same weights: they read that arch's file
+SAME_WEIGHTS = {"qwen3-moe-235b-a22b": "mixtral-8x7b"}
+
+
+def weights_path(arch: str = ARCH) -> pathlib.Path:
+    """The JAX initialiser's smoke weights of ``arch`` at key 0 (npz)."""
+    arch = SAME_WEIGHTS.get(arch, arch)
+    return pathlib.Path(__file__).with_name(f"{arch}-smoke-jax-seed0.npz")
+
+
+SMOKE_WEIGHTS = weights_path(ARCH)
 #: the launcher's optimizer at 3 steps: lr 3e-3, warmup 2
 LR, WARMUP = 3e-3, 2
 SCALAR_RTOL = 1e-5
 GRAD_TOL = (1e-4, 2e-5)              # rtol, atol as a share of the leaf's max
 PARAM_P999, PARAM_MAX = 2e-6, 1e-3
 STATE_TOL = 5e-4                     # of the leaf's max
+#: the archs held at their start only, with their gradient tolerance
+START_ONLY = {"jamba-1.5-large-398b": (1e-4, 1e-4)}
 
 
-def smoke_params() -> dict:
+def smoke_params(arch: str = ARCH) -> dict:
     """The JAX initialiser's smoke weights as a tree on the CPU."""
-    with np.load(SMOKE_WEIGHTS) as flat:
+    with np.load(weights_path(arch)) as flat:
         return params_from_dotted({k: flat[k] for k in flat.files})
 
 
-def smoke_batches(steps: int, batch: int = 4, seq: int = 32, seed: int = 0):
-    cfg = get_smoke_config(ARCH)
+def smoke_batches(steps: int, batch: int = 4, seq: int = 32, seed: int = 0,
+                  arch: str = ARCH):
+    cfg = get_smoke_config(arch)
     corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                         global_batch=batch, seed=seed))
     return [corpus.batch(s) for s in range(steps)]
@@ -61,13 +95,16 @@ def opt_config(steps: int) -> OptConfig:
     return OptConfig(lr=LR, warmup_steps=WARMUP, total_steps=steps)
 
 
-def run_smoke(device, steps: int = 2, n_microbatches: int = 1) -> dict:
+def run_smoke(device, steps: int = 2, n_microbatches: int = 1,
+              arch: str = ARCH, cfg=None) -> dict:
     """The loss and gradients at the initial weights, then ``steps`` train
-    steps: metrics by step, and the params and optimizer state after."""
-    cfg = get_smoke_config(ARCH)
-    params = trainable(tree_map(lambda t: t.to(device), smoke_params()))
+    steps: metrics by step, and the params and optimizer state after.
+    ``cfg`` replaces ``arch``'s smoke config (another capacity factor, say)
+    with the same weights."""
+    cfg = cfg or get_smoke_config(arch)
+    params = trainable(tree_map(lambda t: t.to(device), smoke_params(arch)))
     batches = [torch.from_numpy(b).to(device, torch.int64)
-               for b in smoke_batches(steps)]
+               for b in smoke_batches(steps, arch=arch)]
     loss0, grads0 = loss_and_grads(params, batches[0], cfg)
     opt_cfg = opt_config(steps)
     state = TrainState(params, adamw_init(params, opt_cfg))
@@ -84,17 +121,22 @@ def _flat(tree) -> list:
     return [t.detach().float().cpu() for t in tree_leaves(tree)]
 
 
-def compare_runs(got: dict, want: dict) -> dict:
-    """Readings of ``got`` against ``want`` (two :func:`run_smoke` results),
-    each beside its limit, and ``ok``."""
+def compare_runs(got: dict, want: dict, arch: str = ARCH) -> dict:
+    """Readings of ``got`` against ``want`` (two :func:`run_smoke` results
+    of ``arch``), each beside its limit, and ``ok``; ``held`` says whether
+    the whole run is held or, for an arch of ``START_ONLY``, its start."""
     res = {}
+    whole = arch not in START_ONLY
+    grad_tol = START_ONLY.get(arch, GRAD_TOL)
+    steps = list(zip(got["metrics"], want["metrics"]))
     scal = [(got["loss0"], want["loss0"])] + [
-        (g[k], w[k]) for g, w in zip(got["metrics"], want["metrics"])
+        (g[k], w[k]) for g, w in (steps if whole else steps[:1])
         for k in ("loss", "grad_norm", "lr")]
+    res["held"] = "run" if whole else "start"
     res["scalar_rel"] = max(abs(a - b) / max(abs(b), 1e-30) for a, b in scal)
     g_use = 0.0
     for a, b in zip(_flat(got["grads0"]), _flat(want["grads0"])):
-        lim = GRAD_TOL[0] * b.abs() + GRAD_TOL[1] * b.abs().max()
+        lim = grad_tol[0] * b.abs() + grad_tol[1] * b.abs().max()
         g_use = max(g_use, float(((a - b).abs() / lim.clamp_min(1e-30)).max()))
     res["grad_limit_use"] = g_use
     d = torch.cat([(a - b).abs().ravel() for a, b in
@@ -107,8 +149,8 @@ def compare_runs(got: dict, want: dict) -> dict:
     res["same_step"] = int(got["opt"]["step"]) == int(want["opt"]["step"])
     res["finite"] = all(bool(torch.isfinite(t).all()) for t in _flat(got["params"]))
     res["ok"] = (res["scalar_rel"] <= SCALAR_RTOL and g_use <= 1.0
-                 and res["param_p999"] <= PARAM_P999
-                 and res["param_max"] <= PARAM_MAX
-                 and res["state_rel"] <= STATE_TOL and res["same_step"]
-                 and res["finite"])
+                 and (not whole or (res["param_p999"] <= PARAM_P999
+                                    and res["param_max"] <= PARAM_MAX
+                                    and res["state_rel"] <= STATE_TOL))
+                 and res["same_step"] and res["finite"])
     return res

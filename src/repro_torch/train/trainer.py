@@ -14,7 +14,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.configs.base import ATTN, MLP, MOE, ModelConfig
+from repro_torch.configs.base import ATTN, MAMBA, MLP, MOE, ModelConfig
 from repro_torch.models import lm
 from repro_torch.params import init_params, tree_leaves, tree_map, tree_unflatten
 from repro_torch.kernels.launches import LAUNCHES
@@ -82,29 +82,47 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
     return train_step
 
 
+def _sublayer_counts(cfg: ModelConfig) -> tuple[int, int, int, int]:
+    """(A, M, X, S): the model's attention, MLP, MoE and Mamba sublayers;
+    raises for a kind the port does not run (cross-attention)."""
+    kinds = [k for layer in cfg.layer_period for k in layer]
+    if any(k not in (ATTN, MLP, MOE, MAMBA) for k in kinds):
+        raise NotImplementedError("attention, MLP, MoE and Mamba sublayers "
+                                  "only")
+    return tuple(kinds.count(k) * cfg.n_periods for k in (ATTN, MLP, MOE, MAMBA))
+
+
+def _norms_and_products(cfg: ModelConfig) -> tuple[int, int]:
+    """A forward's rmsnorms and matmul launches in the layer periods: one
+    norm an attention, MLP or MoE sublayer and two a Mamba one (its input
+    and its gated output); 4 projections an attention, 3 an MLP, 3 for each
+    of the E experts a MoE (every expert runs on its C buffer rows, tokens
+    or none) and 2 a Mamba (``in_proj``, ``out_proj``)."""
+    A, M, X, S = _sublayer_counts(cfg)
+    return A + M + X + 2 * S, 4 * A + 3 * M + 3 * cfg.n_experts * X + 2 * S
+
+
 def step_launches(cfg: ModelConfig, n_microbatches: int = 1) -> dict:
     """The kernel launches of one train step on the card, by counter.
 
-    A microbatch's forward makes, for each of the A attention and M MLP
-    sublayers, one rmsnorm and its projections (4 an attention, 3 an MLP)
-    and, for attention, one flash attention; the loss adds the final
-    rmsnorm.  Under ``cfg.remat`` the backward runs every period's forward
-    again (the final norm is outside the periods).  The backward makes one
-    rmsnorm backward a norm, two matmul products a projection (dX and dW:
-    every projection's input and weight need a gradient) and one flash
-    backward an attention.  So, with r = 2 under remat, else 1, and n
-    microbatches: rmsnorm n ((A + M) r + 1), matmul n (4A + 3M) r,
-    flash_attention n A r, rmsnorm_bwd n (A + M + 1), matmul_bwd
-    2 n (4A + 3M), flash_attention_bwd n A; the rest 0."""
-    kinds = [k for layer in cfg.layer_period for k in layer]
-    A = kinds.count(ATTN) * cfg.n_periods
-    M = kinds.count(MLP) * cfg.n_periods
-    if len(kinds) != kinds.count(ATTN) + kinds.count(MLP):
-        raise NotImplementedError("the dense decoder family only")
+    A microbatch's forward makes the layer periods' norms and products
+    (:func:`_norms_and_products`: R and P) and one flash attention an
+    attention sublayer (A); the loss adds the final rmsnorm.  Under
+    ``cfg.remat`` the backward runs every period's forward again (the
+    final norm is outside the periods).  The backward makes one rmsnorm
+    backward a norm, two matmul products a projection (dX and dW: every
+    projection's input and weight need a gradient, an expert's buffer rows
+    too) and one flash backward an attention.  So, with r = 2 under remat,
+    else 1, and n microbatches: rmsnorm n (R r + 1), matmul n P r,
+    flash_attention n A r, rmsnorm_bwd n (R + 1), matmul_bwd 2 n P,
+    flash_attention_bwd n A; the rest 0.  The MoE router, its dispatch and
+    the SSD scan are plain torch and launch none of these."""
+    A = _sublayer_counts(cfg)[0]
+    R, P = _norms_and_products(cfg)
     r, n = (2 if cfg.remat else 1), n_microbatches
-    return {"rmsnorm": n * ((A + M) * r + 1), "matmul": n * (4 * A + 3 * M) * r,
-            "flash_attention": n * A * r, "rmsnorm_bwd": n * (A + M + 1),
-            "matmul_bwd": 2 * n * (4 * A + 3 * M), "flash_attention_bwd": n * A}
+    return {"rmsnorm": n * (R * r + 1), "matmul": n * P * r,
+            "flash_attention": n * A * r, "rmsnorm_bwd": n * (R + 1),
+            "matmul_bwd": 2 * n * P, "flash_attention_bwd": n * A}
 
 
 def serve_launches(cfg: ModelConfig, prefills: int = 0, decode_steps: int = 0,
@@ -114,22 +132,18 @@ def serve_launches(cfg: ModelConfig, prefills: int = 0, decode_steps: int = 0,
     decode steps (through the dense cache, or the block pool if ``paged``)
     and ``chunks`` paged prefill chunks.
 
-    Every forward makes, for each of the A attention, M MLP and X MoE
-    sublayers, one rmsnorm and its projections (4 an attention, 3 an MLP,
-    3 for each of the E experts a MoE: every expert runs on its C buffer
-    rows, tokens or none), and the final rmsnorm.  Attention is one flash
-    attention a whole-prompt prefill and one paged attention a paged decode
-    step or chunk; dense-cache decode attention is plain torch."""
-    kinds = [k for layer in cfg.layer_period for k in layer]
-    if any(k not in (ATTN, MLP, MOE) for k in kinds):
-        raise NotImplementedError("attention, MLP and MoE sublayers only")
-    A, M, X = (kinds.count(k) * cfg.n_periods for k in (ATTN, MLP, MOE))
+    Every forward makes the layer periods' norms and products
+    (:func:`_norms_and_products`) and the final rmsnorm.  Attention (A
+    sublayers) is one flash attention a whole-prompt prefill and one paged
+    attention a paged decode step or chunk; dense-cache decode attention,
+    like the Mamba conv, scan and recurrence, is plain torch."""
+    A = _sublayer_counts(cfg)[0]
+    R, P = _norms_and_products(cfg)
     fwd = prefills + decode_steps + chunks
     paged_fwd = chunks + (decode_steps if paged else 0)
-    return {**{k: 0 for k in LAUNCHES},
-            "rmsnorm": (A + M + X + 1) * fwd,
-            "matmul": (4 * A + 3 * M + 3 * cfg.n_experts * X) * fwd,
-            "flash_attention": A * prefills, "paged_attention": A * paged_fwd}
+    return {**{k: 0 for k in LAUNCHES}, "rmsnorm": (R + 1) * fwd,
+            "matmul": P * fwd, "flash_attention": A * prefills,
+            "paged_attention": A * paged_fwd}
 
 
 def init_train_state(cfg: ModelConfig, opt_cfg: OptConfig,

@@ -748,3 +748,89 @@ def test_smoke_train_step_on_the_card_matches_the_cpu(cuda):
     from repro_torch.testing import train_checks as tc
     res = tc.compare_runs(tc.run_smoke(cuda), tc.run_smoke("cpu"))
     assert res["ok"], res
+
+
+# -- the MoE training and Mamba2 paths' shapes (chip_smoke.py phases 3, 3c,
+# 4b, 8 and 9) ------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen3-moe-235b-a22b",
+                                  "mamba2-370m", "jamba-1.5-large-398b"])
+def test_family_smoke_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """The MoE and Mamba smoke models' loss, gradients and two steps from the
+    JAX init, card against CPU, at ``train_checks``' limits (jamba held at
+    its start)."""
+    from repro_torch.testing import train_checks as tc
+    res = tc.compare_runs(tc.run_smoke(cuda, arch=arch), tc.run_smoke("cpu", arch=arch),
+                          arch=arch)
+    assert res["ok"], res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M", kc.MAMBA_ROWS)
+@pytest.mark.parametrize("proj", list(kc.MAMBA_MATMUL_KN))
+def test_matmul_kernel_mamba_projections(cuda, proj, M, dtype):
+    """mamba2-370m's in_proj (N = 4,384: its 32-column edge tile read alone
+    too) and out_proj (K = 2,048) at a decode step's, a prefill's and a train
+    step's rows: within the limit, the same bits twice."""
+    K, N = kc.MAMBA_MATMUL_KN[proj]
+    res = kc.check_matmul(M, K, N, dtype, cuda)
+    assert res["ok"], res
+    assert (res["edge"]["ok"], N % 128) == (True, 32 if proj == "in_proj" else 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["a", "b"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("proj", list(kc.MAMBA_MATMUL_KN))
+def test_matmul_backward_mamba_projections(cuda, proj, dtype, which):
+    K, N = kc.MAMBA_MATMUL_KN[proj]
+    res = kc.check_matmul_bwd(kc.TRAIN_TOKENS, K, N, dtype, which, cuda)
+    assert res["ok"], res
+    assert res["variant"] == ("wgmma" if dtype == torch.bfloat16 else "simt")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("R", kc.MAMBA_ROWS)
+@pytest.mark.parametrize("D", kc.MAMBA_NORM_D)
+def test_rmsnorm_kernel_mamba_widths(cuda, D, R, dtype):
+    res = kc.check_rmsnorm(R, D, dtype, cuda)
+    assert res["ok"], res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", kc.MAMBA_NORM_D)
+def test_rmsnorm_backward_mamba_widths(cuda, D, dtype):
+    res = kc.check_rmsnorm_bwd(kc.TRAIN_TOKENS, D, dtype, cuda)
+    assert res["ok"], res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("proj", list(kc.MOE_KN))
+@pytest.mark.parametrize("C", kc.MOE_TRAIN_C)
+def test_matmul_expert_products_at_the_train_steps_rows(cuda, C, proj, dtype):
+    """mixtral-8x7b's expert products at C buffer rows, forward, dX and dW
+    (dW contracts over C: simt where C is not a multiple of 8)."""
+    K, N = kc.MOE_KN[proj]
+    assert kc.check_matmul(C, K, N, dtype, cuda)["ok"]
+    for which in "ab":
+        res = kc.check_matmul_bwd(C, K, N, dtype, which, cuda)
+        assert res["ok"], (which, res)
+        if which == "b" and dtype == torch.bfloat16:
+            assert res["variant"] == ("wgmma" if C % 8 == 0 else "simt")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_at_mixtrals_train_shape(cuda, dtype):
+    """(4, 32/8, 1024, 128) with the 4,096-token window, forward and
+    backward: bf16 on wgmma, f32 on simt."""
+    B, S, window = kc.MIXTRAL_TRAIN_FLASH
+    fwd = kc.check_flash_attention(S, dtype, window, cuda, B=B)
+    bwd = kc.check_flash_bwd(B, S, dtype, window, device=cuda)
+    assert fwd["ok"] and bwd["ok"], (fwd, bwd)
+    assert bwd["variant"] == ("wgmma" if dtype == torch.bfloat16 else "simt")

@@ -2,8 +2,10 @@
 configs, the JAX initialiser's weights carried over by ``params_from_jax``):
 the MoE sublayer (routing, capacity, drops), prefill and decode, the dense
 and paged engines' greedy streams, the launchers, the launch counts of a
-serving run, and what the port still refuses (MoE training, a paged
-windowed model).
+serving run and of a train step, training (the loss and every gradient
+leaf against ``jax.grad``, at the smoke capacity and at one that drops
+pairs; three train steps with one and two microbatches), and what the
+port still refuses (a paged windowed model, the cross-attention families).
 
 mixtral-8x7b-smoke is the one registered arch with a sliding window (16
 at smoke size); qwen3-moe-235b-a22b-smoke carries the paged path (full
@@ -34,7 +36,9 @@ from repro_torch.models import lm
 from repro_torch.params import params_from_jax
 from repro_torch.serve import (PagedServeConfig, PagedServingEngine, Request,
                                ServeConfig, ServingEngine)
+from repro_torch.testing import train_checks as tc
 from repro_torch.train import trainer
+import torch_jax_smoke as J
 
 RULES = default_rules(None)
 # f32 on both sides; only the summation order of the products differs
@@ -216,17 +220,21 @@ def test_serve_launcher_refuses_mixtral_paged():
         serve.main(["--arch", "mixtral-8x7b", "--device", "cpu", "--paged"])
 
 
-@pytest.mark.parametrize("name", MOE)
-def test_training_refuses_moe(name):
-    from repro_torch.launch import train
-    _, cfg, _, tp = _setup(name)
-    tokens = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="MoE training slice"):
-        lm.forward_train(tp, tokens, cfg)
+@pytest.mark.parametrize("name", ["seamless-m4t-large-v2", "llama-3.2-vision-11b"])
+def test_cross_attention_families_are_refused(name):
+    """The refusal that stays: the encdec and VLM families neither train nor
+    serve, through the model, the launchers and the launch counts."""
+    from repro_torch.launch import serve, train
+    cfg = get_smoke_config(name)
+    with pytest.raises(NotImplementedError, match="cross-attention"):
+        lm.model_defs(cfg)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         train.main(["--arch", name, "--device", "cpu", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="dense decoder family only"):
-        trainer.step_launches(cfg)
+    with pytest.raises(NotImplementedError, match="cross-attention"):
+        serve.main(["--arch", name, "--device", "cpu", "--requests", "1"])
+    for count in (trainer.step_launches, trainer.serve_launches):
+        with pytest.raises(NotImplementedError, match="Mamba sublayers only"):
+            count(cfg)
 
 
 def _counting(monkeypatch) -> dict:
@@ -298,3 +306,111 @@ def test_moe_term_scale_bounds_the_layers_sum(name):
     xa = x.reshape(scale.shape).abs()
     assert bool((y.abs() <= scale - xa + 1e-5).all())
     assert float((scale - xa).max()) > 0.5           # the experts' outputs count
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+#
+# Tolerances as ``tests/test_torch_train.py`` states them: the loss within
+# rtol 1e-5, each gradient leaf within ``1e-4 |want| + 2e-5 max|want|``
+# (``torch_jax_smoke.assert_grads_match_jax``), the train steps within
+# ``testing/train_checks.py``'s limits.
+#: (arch, config overrides) of the gradient cases: the smoke capacity
+#: factor of 8.0 (nothing drops) and the binding one
+GRAD_CASES = {"mixtral": ("mixtral-8x7b", {}),
+              "qwen3": ("qwen3-moe-235b-a22b", {}),
+              "qwen3-binding": ("qwen3-moe-235b-a22b",
+                                {"capacity_factor": LOW_CAPACITY}),
+              "mixtral-remat": ("mixtral-8x7b", {"remat": True})}
+
+
+@pytest.mark.parametrize("case", list(GRAD_CASES))
+def test_forward_train_loss_and_every_grad_leaf_match_jax(case):
+    """Autograd through the router, the capacity dispatch (the scatter into
+    each expert's C + 1 rows, the gather back) and the expert products; at
+    the binding factor pairs drop, and a dropped pair takes no gradient."""
+    name, over = GRAD_CASES[case]
+    jcfg, cfg, jp, tp = _setup(name, **over)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)
+    if "capacity_factor" in over:
+        x = tp["embed"][torch.from_numpy(toks).long()]
+        sp = jax.tree.map(lambda t: t[0], tp["period"]["l0"]["s1_moe"])
+        assert _port_drops(L.moe_route(sp, L.rmsnorm(x, sp["norm"], cfg.norm_eps), cfg))
+    J.assert_grads_match_jax(jcfg, cfg, jp, tp, toks)
+
+
+@pytest.mark.parametrize("n_microbatches", [1, 2])
+@pytest.mark.parametrize("case", ["mixtral", "qwen3-binding"])
+def test_train_steps_match_jax(case, n_microbatches):
+    """Three ``make_train_step`` steps from the JAX initialiser's weights
+    (``testing/train_checks.py``) against JAX's on the same batches.  With
+    two microbatches the batch splits before routing, as in the reference:
+    at the binding factor each microbatch's capacity counts its own rows."""
+    name, over = GRAD_CASES[case]
+    cfg = dataclasses.replace(get_smoke_config(name), **over)
+    got = tc.run_smoke("cpu", steps=3, n_microbatches=n_microbatches, arch=name,
+                       cfg=cfg)
+    res = tc.compare_runs(got, J.jax_smoke_run(name, 3, n_microbatches, **over),
+                          arch=name)
+    assert res["ok"] and res["held"] == "run", res
+
+
+def test_capacity_counts_a_microbatchs_rows():
+    """At the binding factor, half the batch routes with half the rows'
+    capacity: C = ceil(N k / E f) of the microbatch's N."""
+    cfg = dataclasses.replace(get_smoke_config("qwen3-moe-235b-a22b"),
+                              capacity_factor=LOW_CAPACITY)
+    assert L.moe_capacity(cfg, 4 * 32) == 32
+    assert L.moe_capacity(cfg, 2 * 32) == 16
+
+
+@pytest.mark.parametrize("name", MOE)
+def test_smoke_weights_files_are_the_jax_init(name):
+    """The weights phase 4b of chip_smoke.py trains the MoE smoke models
+    from are ``init_params`` of the JAX smoke model at key 0, bit for bit."""
+    J.assert_weights_file_is_the_jax_init(name)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("n_microbatches", [1, 2])
+@pytest.mark.parametrize("name", MOE)
+def test_step_launches_is_the_count_of_a_moe_train_step(monkeypatch, name,
+                                                        n_microbatches, remat):
+    """3E expert products a MoE sublayer, each with its dX and dW."""
+    cfg = dataclasses.replace(get_smoke_config(name), remat=remat)
+    assert J.count_train_step(monkeypatch, cfg, n_microbatches) == \
+        trainer.step_launches(cfg, n_microbatches)
+
+
+def test_card_checks_take_mixtrals_train_shapes():
+    """C = 1,280 buffer rows an expert at the train step's 4 x 1024 tokens,
+    its window over them, and a C that is not a multiple of 8."""
+    from repro_torch.configs import get_config
+    from repro_torch.testing import kernel_checks as kc
+    cfg = get_config("mixtral-8x7b")
+    assert kc.MOE_TRAIN_C == (L.moe_capacity(cfg, 4 * 1024), L.moe_capacity(cfg, 4105))
+    assert kc.MOE_TRAIN_C[1] % 8
+    assert kc.MIXTRAL_TRAIN_FLASH == (4, 1024, cfg.window)
+
+
+def test_step_launches_at_mixtrals_training_cut():
+    """mixtral-8x7b at 2 of its 32 layers under remat: 2 attention and 2
+    MoE sublayers of 8 experts, 4 + 24 products and 2 norms a layer."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=2)
+    assert trainer.step_launches(cfg) == {
+        "rmsnorm": 9, "matmul": 112, "flash_attention": 4, "rmsnorm_bwd": 5,
+        "matmul_bwd": 112, "flash_attention_bwd": 2}
+
+
+def test_train_launcher_trains_mixtral_on_the_cpu():
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "mixtral-8x7b",
+         "--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "16",
+         "--microbatches", "2"],
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[train]")]
+    assert "step     0" in lines[0] and "[cpu]" in lines[0]
+    assert lines[-1].startswith("[train] done: first loss")

@@ -85,8 +85,9 @@ def test_chip_smoke_last_line_names_the_card():
 
 
 @pytest.mark.parametrize("args", [[], ["--only", "matmul-bwd"], ["--only", "phi3"],
-                                  ["--only", "moe"]],
-                         ids=["whole", "matmul-bwd", "phi3", "moe"])
+                                  ["--only", "moe"], ["--only", "moe-train"],
+                                  ["--only", "ssm"]],
+                         ids=["whole", "matmul-bwd", "phi3", "moe", "moe-train", "ssm"])
 def test_chip_smoke_exits_without_a_card(args):
     """Without a CUDA card the script exits 2 before any phase, in either
     mode, and prints no result."""

@@ -39,8 +39,10 @@ GRAD_TOL = (1e-4, 2e-5)
 #: phi3-mini's published head dim on a narrow model
 D96 = dict(d_model=192, n_heads=2, n_kv_heads=2, d_head=96, n_layers=2)
 DENSE = sorted(n for n, c in archs.CONFIGS.items() if c.family == "dense")
-#: every arch the port serves: the dense family and the MoE family
-SERVED = DENSE + sorted(n for n, c in archs.CONFIGS.items() if c.family == "moe")
+#: every arch the port serves with attention: the dense family, the MoE
+#: family and the jamba hybrid (mamba2-370m has no attention sublayer)
+SERVED = DENSE + sorted(n for n, c in archs.CONFIGS.items()
+                        if c.family in ("moe", "hybrid"))
 
 
 def test_the_dense_archs_are_the_four_the_port_runs():
@@ -50,7 +52,7 @@ def test_the_dense_archs_are_the_four_the_port_runs():
 @pytest.mark.parametrize("name", SERVED)
 def test_every_dense_arch_head_dim_has_both_attention_kernels(name):
     """At its published width (phi3-mini: 3072 / 32 = 96), and the MoE
-    archs' too (128)."""
+    archs' and jamba's too (128)."""
     D = get_config(name).head_dim
     assert D in flash_attention.HEAD_DIMS
     assert D in paged_attention.HEAD_DIMS

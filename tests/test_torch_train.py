@@ -30,8 +30,6 @@ from repro.data import pipeline as jpipe
 from repro.launch import train as jlaunch
 from repro.models import lm as jlm
 from repro.parallel.sharding import default_rules, init_params as jax_init
-from repro.train import optimizer as jopt
-from repro.train import trainer as jtrainer
 from repro_torch.configs import get_smoke_config
 from repro_torch.data import DataConfig, Pipeline, SyntheticCorpus, global_batch
 from repro_torch.kernels import flash_attention, matmul, rmsnorm
@@ -40,6 +38,7 @@ from repro_torch.models import lm
 from repro_torch.params import params_from_jax, tree_leaves
 from repro_torch.testing import train_checks as tc
 from repro_torch.train import trainer
+import torch_jax_smoke as J
 
 RULES = default_rules(None)
 LOSS_RTOL = 1e-5
@@ -99,52 +98,13 @@ def test_forward_train_loss_and_every_grad_leaf_match_jax(case):
                                    err_msg=path)
 
 
-def _jax_smoke_run(steps, n_microbatches):
-    """The JAX side of ``train_checks.run_smoke``, as torch tensors."""
-    jcfg = jax_smoke_config(tc.ARCH)
-    jp = jax_init(jlm.model_defs(jcfg), jax.random.key(0))
-    batches = [jnp.asarray(b) for b in tc.smoke_batches(steps)]
-    jl, jg = jax.value_and_grad(
-        lambda p: jlm.forward_train(p, batches[0], jcfg, RULES))(jp)
-    o = tc.opt_config(steps)
-    jo = jopt.OptConfig(lr=o.lr, warmup_steps=o.warmup_steps,
-                        total_steps=o.total_steps)
-    state = jtrainer.TrainState(jp, jopt.adamw_init(jp, jo))
-    step = jax.jit(jtrainer.make_train_step(jcfg, RULES, jo,
-                                            n_microbatches=n_microbatches))
-    metrics = []
-    for b in batches:
-        state, m = step(state, {"tokens": b})
-        metrics.append({k: float(v) for k, v in m.items()})
-    to_t = lambda t: params_from_jax(jax.tree.map(np.asarray, t))
-    # the port's trees keep the model's insertion order; JAX sorts keys
-    tp = tc.smoke_params()
-    reorder = lambda src: _reorder(tp, src)
-    return {"loss0": float(jl), "grads0": reorder(to_t(jg)), "metrics": metrics,
-            "params": reorder(to_t(state.params)),
-            "opt": {"step": torch.tensor(int(state.opt["step"])),
-                    "params": _reorder_state(tp, to_t(state.opt["params"]))}}
-
-
-def _reorder(like, tree):
-    if isinstance(like, dict):
-        return {k: _reorder(like[k], tree[k]) for k in like}
-    return tree
-
-
-def _reorder_state(like, tree):
-    if isinstance(like, dict):
-        return {k: _reorder_state(like[k], tree[k]) for k in like}
-    return {k: tree[k] for k in ("m", "v", "master") if k in tree}
-
-
 @pytest.mark.parametrize("n_microbatches", [1, 2])
 def test_train_step_matches_jax(n_microbatches):
     """Three steps of ``make_train_step`` from the JAX initialiser's weights
     on the same batches: loss and gradients at the start, then loss, lr and
     grad_norm of each step, and the params and optimizer state after."""
     got = tc.run_smoke("cpu", steps=3, n_microbatches=n_microbatches)
-    want = _jax_smoke_run(3, n_microbatches)
+    want = J.jax_smoke_run(tc.ARCH, 3, n_microbatches)
     res = tc.compare_runs(got, want)
     assert res["ok"], res
 
