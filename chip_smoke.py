@@ -22,7 +22,14 @@ Phases, each of which raises on failure (nothing is caught):
      ``out_proj`` (K = 2,048) at M = 4, 223 and 4,096, rmsnorm at D = 1,024
      and 2,048, mixtral's expert products at its train step's C = 1,280
      buffer rows and at C = 1,283, and flash attention at mixtral's train
-     shape (4, 32/8, 1024, 128, window 4,096) (``_family_checks``); paged
+     shape (4, 32/8, 1024, 128, window 4,096) (``_family_checks``); the
+     cross-attention families' shapes (``_xattn_checks``: flash attention
+     forward and backward, non-causal, at ``kernel_checks.XATTN_FLASH_CASES``,
+     Sk = 6,404 against S = 35 to 1,024, Sk = 256 against 1,024, the
+     encoder's S = Sk = 256 and 200, ragged Sk of 1, 63, 65 and 300, bf16 at
+     D = 64 and 128 on wgmma both ways; the matmul at llama-3.2-vision's
+     context K/V projection (M = 25,616) and seamless's projections and MLP
+     at 4 to 4,096 rows, forward, dX and dW; rmsnorm at D = 1,024); paged
      attention at ``PAGED_LENS`` and at ``kernel_checks.PAGED_CASES``
      (split and one-slice plans, slice edges, empty sequences, a 128-row
      chunk on one table, the smoke heads, G = 8), called twice for the same
@@ -65,7 +72,9 @@ Phases, each of which raises on failure (nothing is caught):
      chunked, and two pods behind the router), paged == dense;
   4b. the smoke models' training (f32, the JAX initialiser's weights from
      ``testing/<arch>-smoke-jax-seed0.npz``: llama3-8b, mixtral-8x7b,
-     qwen3-moe, mamba2-370m and jamba): the loss and every gradient leaf,
+     qwen3-moe, mamba2-370m, jamba, seamless-m4t-large-v2 and
+     llama-3.2-vision-11b, the last two with the train launcher's
+     contexts): the loss and every gradient leaf,
      then two ``make_train_step`` steps, on the card through the kernels
      against the CPU's plain path (``testing/train_checks.py``'s limits;
      jamba held at its start);
@@ -133,6 +142,25 @@ Phases, each of which raises on failure (nothing is caught):
      window and SSM state (``kernel_checks.mamba_tol``); then 3 train steps
      at batch 4 x 1024 under remat, launches exactly ``step_launches``, the
      loss falling, step ms, tok/s, peak memory and a traced step;
+ 10. the cross-attention families (``_xattn_path``): the seamless and
+     llama-3.2-vision smoke models (f32, the JAX init) card against CPU,
+     ``prefill(ctx_embeds)`` then decode logits and greedy streams;
+     llama-3.2-vision-11b at its published width and all 40 layers (bf16,
+     seeded weights) serving through ``lm.prefill``/``lm.decode_step`` (no
+     engine takes a context, as the reference's does not): 4 prompts of 512
+     tokens each with its 6,404 image tokens, 32 greedy tokens, then a
+     batch-4 prefill of 223 tokens, launches exactly
+     ``trainer.serve_launches``, traces of decode steps and of the prefill
+     split by sublayer (``_xsplit``), one full-width cross-attention
+     sublayer (prefill and decode step) held to the CPU path
+     (``kernel_checks.xattn_tol``); seamless-m4t-large-v2 whole (24
+     decoder and 24 encoder layers) the same way with 256 frames a
+     1,024-token prompt; seamless training whole and llama-3.2-vision
+     training at 2 of its 8 periods (3 steps at 4 x 1,024 with the train
+     launcher's contexts, launches exactly ``step_launches``, traced steps,
+     the cross-attention sublayer and the encoder timed apart), and one
+     full-width cross-attention sublayer's gradients (x, ctx, wq, wk, wv,
+     wo) held to the CPU path at 128 tokens against 6,404 context tokens;
   6. kernel times (CUDA events) beside the plain version, the one PyTorch
      call that computes the same function, and the card's bound (rmsnorm at
      every main-path R in both dtypes, with its device ms a call beside
@@ -157,13 +185,17 @@ Phases, each of which raises on failure (nothing is caught):
      plain versions, the library call (autograd of ``F.rms_norm``,
      ``torch.matmul`` for each product, autograd of SDPA), the bound, and
      the device's ms a call from a trace, each naming its kernels (flash
-     attention's also through the simt kernels, forced, for the same call).
+     attention's also through the simt kernels, forced, for the same call);
+     flash attention non-causal at the cross-attention families' shapes
+     (``XATTN_TIMED``), forward and backward, beside SDPA and autograd of
+     SDPA with the kv heads expanded.
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  ``--only PART`` runs one part alone
 (``ONLY``: ``matmul-bwd``, phase 6's matmul backward rows; ``phi3``, phase
 7b and phase 6's phi3-mini flash rows; ``moe``, phase 8's serving;
 ``moe-train``, phase 8's training; ``ssm``, phase 5's Mamba smoke models
-and phase 9), so that a copy
+and phase 9; ``xattn``, phases 3 and 3c's cross-attention checks, phase 10
+and phase 6's cross-attention rows), so that a copy
 of this file at another checkout's root reads that tree's kernels with
 this file's readings.  Imports nothing of JAX.  Without a
 card, or without the repo's ``src/repro_torch`` beside it, it exits
@@ -908,8 +940,9 @@ def _family_checks(kc, kmm) -> tuple[dict, list]:
 def _smoke_train(dev) -> dict:
     """Phase 4b: each smoke model's loss, gradients and two train steps on
     the card against the CPU, from the JAX initialiser's weights
-    (``train_checks.SMOKE_ARCHS``: llama3-8b, the MoE family, mamba2 and
-    jamba, which is held at its start: ``train_checks.START_ONLY``).
+    (``train_checks.SMOKE_ARCHS``: llama3-8b, the MoE family, mamba2,
+    jamba, which is held at its start: ``train_checks.START_ONLY``, and
+    the cross-attention families).
     Returns the launches of the card's runs."""
     from repro_torch.kernels import ops
     from repro_torch.testing import train_checks as tc
@@ -957,15 +990,22 @@ def _step_bound(cfg, B: int, S: int, n_params: int) -> tuple:
     applied to x, the chunk states and their read-out) at the CUDA cores'
     f32 peak, the same 1 + r + 2 passes; against each parameter's 16 bytes
     (bf16 weight and gradient, f32 master, m and v) read and written once
-    by the update.  The least time is the largest of the three."""
-    from repro_torch.configs.base import ATTN, MAMBA, MLP, MOE
+    by the update.  The least time is the largest of the three.  With a
+    context of Tc = B x ``lm.context_len`` rows: a cross-attention
+    sublayer's ``wq``, ``wo`` over the T rows and ``wk``, ``wv`` over the
+    Tc rows, its non-causal attention over B H S Tc pairs; an encoder
+    layer's 4 projections and MLP over the Tc rows and its attention over
+    B H Tc Tc pairs, each the same 1 + r + 2 passes; ``ctx_proj``'s product
+    forward and its dW (2 passes, no remat)."""
+    from repro_torch.configs.base import ATTN, MAMBA, MLP, MOE, XATTN
+    from repro_torch.models import lm
     from repro_torch.models.layers import moe_capacity, ssd_chunk_len
 
     T = B * S
     d, hd = cfg.d_model, cfg.head_dim
     r = 2 if cfg.remat else 1
     kinds = [k for layer in cfg.layer_period for k in layer]
-    n = {k: kinds.count(k) * cfg.n_periods for k in (ATTN, MLP, MOE, MAMBA)}
+    n = {k: kinds.count(k) * cfg.n_periods for k in (ATTN, MLP, MOE, MAMBA, XATTN)}
     ffe = cfg.d_ff_expert or cfg.d_ff
     di, N, H = cfg.d_inner_ssm, cfg.ssm_state, cfg.n_ssm_heads
     macs = T * n[ATTN] * (d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
@@ -974,10 +1014,15 @@ def _step_bound(cfg, B: int, S: int, n_params: int) -> tuple:
     if n[MOE]:
         macs += n[MOE] * cfg.n_experts * moe_capacity(cfg, T) * 3 * d * ffe
     macs += T * n[MAMBA] * d * (2 * di + 2 * N + H + di)
-    proj = 2 * (r + 2) * macs
+    Sc = lm.context_len(cfg, S) if cfg.family in lm.CONTEXT_FAMILIES else 0
+    Le = cfg.n_enc_layers if cfg.family == "encdec" else 0
+    macs += n[XATTN] * (T * 2 * cfg.n_heads * hd * d + B * Sc * 2 * cfg.n_kv_heads * hd * d)
+    macs += Le * B * Sc * (d * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) * hd + 3 * d * cfg.d_ff)
+    proj = 2 * (r + 2) * macs + 2 * 2 * B * Sc * cfg.d_ctx * d
     head = 6 * d * cfg.padded_vocab * T
     pairs = B * cfg.n_heads * S * (S + 1) / 2
-    attn = (2 * r + 5) * 2 * pairs * hd * n[ATTN]
+    pairs_x = B * cfg.n_heads * (n[XATTN] * S * Sc + Le * Sc * Sc)
+    attn = (2 * r + 5) * 2 * (pairs * n[ATTN] + pairs_x) * hd
     flop = proj + head + attn
     Q = ssd_chunk_len(cfg.ssm_chunk, S) if n[MAMBA] else 1
     ssd = (1 + r + 2) * 2 * T * n[MAMBA] * (Q * N + Q * di + 2 * di * N)
@@ -1052,7 +1097,9 @@ def _train_path(cfg, dev, n_layers: int = 8, batch: int = 4, seq: int = 1024,
     model cut to ``n_layers``, ``steps`` train steps through the kernels
     (``OptConfig`` defaults unless ``opt_cfg``), the loss on the first
     batch after them (with ``falling`` it must be below its loss at the
-    start), and a traced step split by sublayer.  Returns the launches."""
+    start), and a traced step split by sublayer.  An encdec or vlm model's
+    batches carry the train launcher's contexts (``step_context``).
+    Returns the launches."""
     import dataclasses
 
     import torch
@@ -1082,15 +1129,22 @@ def _train_path(cfg, dev, n_layers: int = 8, batch: int = 4, seq: int = 1024,
           f"{now() - t0:.1f}s; batch {batch} x {seq} tokens, {opt_cfg}")
     corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                         global_batch=batch, seed=0))
-    batches = [torch.from_numpy(corpus.batch(i)).to(dev, torch.int64)
+    batches = [{"tokens": torch.from_numpy(corpus.batch(i)).to(dev, torch.int64)}
                for i in range(steps)]
+    if cfg.family in lm.CONTEXT_FAMILIES:
+        from repro_torch.launch.train import step_context
+        t0 = now()
+        for i, b in enumerate(batches):
+            b["ctx"] = torch.from_numpy(step_context(tcfg, i, batch, seq)).to(dev)
+        print(f"[train] contexts {tuple(batches[0]['ctx'].shape)} f32 a step, drawn "
+              f"as the train launcher draws them in {now() - t0:.1f}s")
     step_fn = make_train_step(tcfg, opt_cfg)
     ops.reset_launches()
     torch.cuda.synchronize()
     losses, step_s, metrics = [], [], []
     for b in batches:
         t0 = now()
-        state, m = step_fn(state, {"tokens": b})
+        state, m = step_fn(state, b)
         losses.append(float(m["loss"]))          # a host read: the step is done
         step_s.append(now() - t0)
         metrics.append({k: float(v) for k, v in m.items()})
@@ -1118,7 +1172,8 @@ def _train_path(cfg, dev, n_layers: int = 8, batch: int = 4, seq: int = 1024,
     if launches != want:
         raise AssertionError(f"train path launches {launches}, expected {want}")
     with torch.no_grad():
-        after = float(lm.forward_train(state.params, batches[0], tcfg))
+        after = float(lm.forward_train(state.params, batches[0]["tokens"], tcfg,
+                                       batches[0].get("ctx")))
     print(f"[train] loss on the first batch: {losses[0]:.4f} at the start, "
           f"{after:.4f} after {steps} steps")
     if falling:
@@ -1129,7 +1184,7 @@ def _train_path(cfg, dev, n_layers: int = 8, batch: int = 4, seq: int = 1024,
     # by sublayer
     def step_once():
         nonlocal state
-        state, m = step_fn(state, {"tokens": batches[0]})
+        state, m = step_fn(state, batches[0])
         m["loss"].item()
     tr = _trace(step_once, 1)
     _print_trace(tr, 1, f"{tcfg.name} train step (batch {batch} x {seq})")
@@ -1139,7 +1194,8 @@ def _train_path(cfg, dev, n_layers: int = 8, batch: int = 4, seq: int = 1024,
     emb = state.params["embed"]
     w = torch.randn((batch, seq, cfg.d_model), generator=torch.Generator(dev).manual_seed(1),
                     device=dev).to(emb.dtype)
-    g1, g2 = (torch.autograd.grad((emb[batches[0]] * w).sum(), emb)[0] for _ in range(2))
+    g1, g2 = (torch.autograd.grad((emb[batches[0]["tokens"]] * w).sum(), emb)[0]
+              for _ in range(2))
     print(f"[train] embedding gradient ({batch}x{seq} tokens into "
           f"{tuple(emb.shape)} bf16, IndexBackward: index_put_ with "
           f"accumulate=True), same bits twice: {bool(torch.equal(g1, g2))}")
@@ -1148,7 +1204,8 @@ def _train_path(cfg, dev, n_layers: int = 8, batch: int = 4, seq: int = 1024,
     del g1, g2, emb
     torch.cuda.synchronize()
     t0 = now()
-    _, grads = loss_and_grads(state.params, batches[1], tcfg)
+    _, grads = loss_and_grads(state.params, batches[1]["tokens"], tcfg,
+                              batches[1].get("ctx"))
     torch.cuda.synchronize()
     t1 = now()
     adamw_update(state.params, grads, state.opt, opt_cfg)
@@ -1763,6 +1820,592 @@ def _ssm_path(dev) -> dict:
     return {"ssm_serve": launches, "ssm_train": train}
 
 
+# -- phase 10: the cross-attention families ------------------------------------
+
+#: the cross-attention sublayer's gradients, card against CPU, each leaf held
+#: to ``|d| <= XATTN_GRAD_RTOL (|want| + max|want|)``, as the MoE sublayer's
+#: (``MOE_GRAD_RTOL``): one bf16 ulp of the element (each gradient is a sum of
+#: products of bf16 operands, in another order) and one of the leaf's largest
+#: element, for what one-ulp differences in the bf16 intermediates (q, the
+#: context's K and V, the attention's output and its gradient) carry into
+#: every element they feed
+XATTN_GRAD_RTOL = 8e-3
+#: the gradient check's tokens, against a whole context
+XATTN_GRAD_TOKENS = 128
+#: llama-3.2-vision-11b's training cut: periods of its 8 (5 layers each, one
+#: of them cross-attention) that fit the card beside their optimizer state
+VLM_TRAIN_PERIODS = 2
+#: phase 6's cross-attention rows, (name, B, S, Sk, Hq, Hkv, D), non-causal
+XATTN_TIMED = (("vlm cross", 4, 1024, 6404, 32, 8, 128),
+               ("seamless cross", 4, 1024, 256, 16, 16, 64),
+               ("seamless encoder", 4, 256, 256, 16, 16, 64))
+
+
+def _xattn_checks(kc, kfa, kmm) -> tuple[dict, list]:
+    """Phases 3 and 3c at the cross-attention families' shapes, each call
+    twice for the same bits, one line a case: flash attention forward and
+    backward, non-causal, no window, at ``kernel_checks.XATTN_FLASH_CASES``
+    (Sk != S, and the encoder's S = Sk) in bf16 and f32, bf16 at the head
+    dims 64 and 128 taking wgmma forward and backward, f32 and the smoke
+    heads simt; the matmul at ``XATTN_MATMUL`` forward and at
+    ``XATTN_MATMUL_BWD`` dX and dW; rmsnorm at seamless's width.  Returns
+    the largest errors and the failed cases."""
+    import torch
+
+    errs, failed = {}, []
+    dts = (torch.bfloat16, torch.float32)
+
+    def note(key, r, line, bad=False):
+        errs[key] = r["max_abs_err"]
+        parts = " ".join(f"{k} {v['limit_use']:.3f}" for k, v in r.get("parts", {}).items())
+        print(f"[check] {line} same bits twice: {r['same_bits']} {_reading(r)}"
+              + (f" (limit use {parts})" if parts else ""))
+        if not r["ok"] or bad:
+            failed.append(key)
+
+    for name, B, S, Sk, Hq, Hkv, D in kc.XATTN_FLASH_CASES:
+        for dt in dts:
+            r = kc.check_flash_cross(B, S, Sk, Hq, Hkv, D, dt)
+            want = ("wgmma" if dt == torch.bfloat16 and D in kfa.WGMMA_HEAD_DIMS
+                    else "simt")
+            note(("flash_attention cross", name, dt), r,
+                 f"flash_attention cross fwd+bwd {name}: B={B} Hq={Hq} Hkv={Hkv} D={D} "
+                 f"S={S} Sk={Sk} full window=None {str(dt)[6:]:8s} fwd {r['variant']} "
+                 f"bwd {r['bwd_variant']}",
+                 bad=(r["variant"], r["bwd_variant"]) != (want, want))
+    for proj, M, K, N in kc.XATTN_MATMUL:
+        for dt in dts:
+            r = kc.check_matmul(M, K, N, dt)
+            note(("matmul xattn", proj, M, dt), r,
+                 f"matmul {proj:15s} M={M:<5d} K={K:<5d} N={N:<5d} {str(dt)[6:]:8s} "
+                 f"{kmm.variant(M, K, N, dt):6s}")
+    for proj, M, K, N in kc.XATTN_MATMUL_BWD:
+        for dt in dts:
+            for which in "ab":
+                r = kc.check_matmul_bwd(M, K, N, dt, which)
+                note(("matmul_bwd xattn", proj, which, dt), r,
+                     f"matmul_bwd d{which.upper()} {proj:18s} M={M:<5d} K={K:<5d} "
+                     f"N={N:<5d} {str(dt)[6:]:8s} {r['variant']:5s}")
+    for R, D in kc.XATTN_NORM:
+        for dt in dts:
+            r = kc.check_rmsnorm(R, D, dt)
+            note(("rmsnorm xattn", R, D, dt), r, f"rmsnorm seamless R={R:<4d} D={D} "
+                 f"{str(dt)[6:]:8s}")
+        r = kc.check_rmsnorm_bwd(R, D, torch.bfloat16)
+        note(("rmsnorm_bwd xattn", R, D), r, f"rmsnorm_bwd seamless R={R:<4d} D={D} "
+             f"bfloat16 {r['path']:6s}")
+    return errs, failed
+
+
+def _xattn_times(kc, kfa, ref, time_ms) -> dict:
+    """Phase 6, flash attention at the cross-attention families' shapes
+    (``XATTN_TIMED``), bf16, non-causal: forward and backward, kernel,
+    plain and library between CUDA events, device ms a call from a trace
+    (``_device_call``) beside SDPA's (forward) and autograd of SDPA's
+    (backward) on the same inputs, the KV heads expanded for the library
+    call, and the bound: q and the output (forward; q, do, dq and k, v, dk,
+    dv backward) moved once, 4 D (forward) and 10 D (backward) operations a
+    (q, key) pair.  Returns rows by name, each with "fwd" and "bwd"."""
+    import torch
+    import torch.nn.functional as F
+
+    rows = {}
+    for name, B, S, Sk, Hq, Hkv, D in XATTN_TIMED:
+        q, k, v, do = kc.cross_inputs(B, S, Sk, Hq, Hkv, D, torch.bfloat16)
+        ke, ve = (t.repeat_interleave(Hq // Hkv, dim=1) for t in (k, v))
+        fk = lambda: kfa.flash_attention(q, k, v, causal=False)
+        fl = lambda: F.scaled_dot_product_attention(q, ke, ve)
+        pairs = B * Hq * S * Sk
+        io_q, io_k = B * S * Hq * D * 2, B * Sk * Hkv * D * 2
+        bound, by = _ms_bound(2 * io_q + 2 * io_k, 4.0 * D * pairs, "bf16")
+        fwd = dict(ms=time_ms(fk, 20), plain_ms=time_ms(
+            lambda: ref.attention(q, k, v, causal=False), 2), library_ms=time_ms(fl, 20),
+            bound_ms=bound, bound_by=by, device_ms=_device_call(fk, 10),
+            library_device_ms=_device_call(fl, 10), variant=kfa.variant(S, Sk, D, q.dtype),
+            shape=f"B={B},Hq={Hq},Hkv={Hkv},S={S},Sk={Sk},D={D},full,bf16")
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, ke, ve))
+        ol = F.scaled_dot_product_attention(ql, kl, vl)
+        bk = lambda: kfa.backward(q, k, v, do, causal=False)
+        bl = lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True)
+        bound, by = _ms_bound(3 * io_q + 4 * io_k, 10.0 * D * pairs, "bf16")
+        bwd = dict(ms=time_ms(bk, 10), plain_ms=time_ms(
+            lambda: ref.attention_bwd(q, k, v, do, causal=False), 1),
+            library_ms=time_ms(bl, 10), bound_ms=bound, bound_by=by,
+            device_ms=_device_call(bk, 5), library_device_ms=_device_call(bl, 5),
+            variant=kfa.bwd_variant(S, Sk, D, q.dtype), shape=fwd["shape"])
+        rows[name] = {"fwd": fwd, "bwd": bwd}
+        for way, r, lib in (("", fwd, "SDPA"), ("_bwd", bwd, "SDPA backward (autograd)")):
+            print(f"[time] flash_attention{way} {name} B={B} Hq={Hq} Hkv={Hkv} S={S} "
+                  f"Sk={Sk} D={D} full bf16 {r['variant']} kernel {r['ms']:.4f} ms  plain "
+                  f"{r['plain_ms']:.4f} ms  {lib} {r['library_ms']:.4f} ms  bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}); device: kernel "
+                  f"{r['device_ms']:.4f} ms, {lib} {r['library_device_ms']:.4f} ms, "
+                  f"{r['device_ms'] / r['library_device_ms']:.2f}x the library, "
+                  f"{r['device_ms'] / r['bound_ms']:.1f}x bound")
+        del q, k, v, do, ke, ve, ql, kl, vl, ol
+    return rows
+
+
+def _xattn_smoke(dev) -> None:
+    """Phase 10's first part: each cross-attention smoke model (f32, the JAX
+    initialiser's weights from ``testing/<arch>-smoke-jax-seed0.npz``) on the
+    card through the kernels and on the CPU through the plain versions:
+    ``prefill(ctx_embeds)`` and 6 greedy decode steps, the logits of each
+    forward held within 1e-4 + 1e-4 |plain| (f32 on both sides, sums in
+    other orders), and the two greedy streams, which must be the same."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.params import tree_map
+    from repro_torch.testing import kernel_checks as kc
+    from repro_torch.testing import train_checks as tc
+
+    for name in ("seamless-m4t-large-v2", "llama-3.2-vision-11b"):
+        cfg = get_smoke_config(name)
+        cpu = tc.smoke_params(name)
+        card = tree_map(lambda t: t.to(dev), cpu)
+        rng = np.random.default_rng(0)
+        S = 19
+        toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (3, S)))
+        ctx = torch.from_numpy((rng.normal(size=(3, lm.context_len(cfg, S), cfg.d_ctx))
+                                * 0.1).astype(np.float32))
+        streams = {}
+        with torch.inference_mode():
+            for where, p in (("cpu", cpu), ("card", card)):
+                d = "cpu" if where == "cpu" else dev
+                cache, lg = lm.prefill(p, toks.to(d), cfg, 32, ctx.to(d))
+                out, lgs = [], [lg.cpu()]
+                for i in range(6):
+                    tok = lg[:, -1].argmax(-1)[:, None]
+                    out.append(tok[:, 0].tolist())
+                    lg, cache = lm.decode_step(p, tok, cache, S + i, cfg)
+                    lgs.append(lg.cpu())
+                streams[where] = (out, lgs)
+        worst = 0.0
+        for a, b in zip(streams["card"][1], streams["cpu"][1]):
+            r = kc.compare(a, b, (1e-4, 1e-4))
+            worst = max(worst, r["limit_use"])
+            if not r["ok"]:
+                raise AssertionError(f"{name} smoke logits differ card vs CPU: {r}")
+        same = streams["card"][0] == streams["cpu"][0]
+        print(f"[xattn] {name}-smoke f32 (JAX init): prefill of {S} tokens with "
+              f"{ctx.shape[1]} context tokens and 6 greedy decode steps, logits card vs "
+              f"CPU limit use {worst:.3f} (|err| <= 1e-4 + 1e-4|plain|); greedy streams "
+              f"equal: {same} {streams['card'][0]}")
+        if not same:
+            raise AssertionError(f"{name}: greedy streams differ card vs CPU")
+
+
+def _xattn_sublayer_check(sp, x, ctx, cfg, what: str, cache=None) -> None:
+    """One full-width cross-attention sublayer on the card and on the CPU,
+    the same bf16 weights, input and context: a whole prompt through
+    ``xattn_layer_prefill`` (its output and its cache, the context's K/V),
+    or with ``cache`` a decode step through ``xattn_layer_decode`` over
+    that cache.  Output within ``kernel_checks.xattn_tol``, K/V within
+    ``MATMUL_TOL``."""
+    import torch
+
+    from repro_torch.models import layers as Lyr
+    from repro_torch.params import tree_map
+    from repro_torch.testing import kernel_checks as kc
+
+    sp_cpu = tree_map(lambda t: t.cpu(), sp)
+    outs = {}
+    with torch.inference_mode():
+        for where, p, xx, cc in (("card", sp, x, ctx), ("cpu", sp_cpu, x.cpu(), ctx.cpu())):
+            if cache is None:
+                y, kv = Lyr.xattn_layer_prefill(p, xx, cc, cfg)
+            else:
+                kv = Lyr.XAttnCache(*(t.to(xx.device) for t in cache))
+                y, _ = Lyr.xattn_layer_decode(p, xx, kv, cfg)
+            outs[where] = (y.reshape(-1, cfg.d_model), *kv)
+        cpu_cache = None if cache is None else tuple(t.cpu() for t in cache)
+        tol = kc.xattn_tol(sp_cpu, x.cpu(), ctx.cpu(), cfg, cpu_cache)
+    res = {"out": kc.compare(outs["card"][0].cpu(), outs["cpu"][0], tol)}
+    if cache is None:
+        for i, n in ((1, "k"), (2, "v")):
+            res[n] = kc.compare(outs["card"][i].cpu(), outs["cpu"][i],
+                                kc.MATMUL_TOL[torch.bfloat16])
+    print(f"[xattn] cross-attention sublayer vs CPU, {what}: " + "; ".join(
+        f"{n} {tuple(outs['cpu'][i].shape)} {_reading(r)}" for i, (n, r) in
+        enumerate(res.items())) + " (out: kernel_checks.xattn_tol, atol by row)")
+    if not all(r["ok"] for r in res.values()):
+        raise AssertionError(f"cross-attention sublayer ({what}) differs: {res}")
+
+
+def _xsplit(tr: dict, labels: list, steps: int, what: str) -> None:
+    """A traced serving forward split by sublayer in launch order.
+    ``labels`` are (label, port products) of one forward's segments: what
+    runs before the first port rmsnorm, then one segment a norm opens (the
+    sublayers in order, the final norm and head last; a later step's
+    kernels before its first norm count to the head before them).  A trace
+    can miss kernels, most often at its start, so the segments take their
+    labels from the trace's end backwards: a segment that holds its
+    label's products and the one before's is two sublayers whose second
+    norm the trace missed (its kernels count to the first), any other
+    count is a segment off, after which the labels skip one where that
+    fits the next four segments' products better (a norm and a product
+    missed together); the split stands with at most two of each a step.  Device ms a step by label and kernel class: the port's products,
+    norms and attention, and plain torch (the context's cast and
+    ``ctx_proj``, RoPE, a decode step's attention einsums, adds)."""
+    if not tr["events"]:
+        print(f"[split] {what}: the profiler recorded no device activity: not measured")
+        return
+    port = lambda fam: fam.endswith("(port)")
+    segs = [[]]
+    for fam, us in tr["seq"]:
+        if port(fam) and fam.startswith("rmsnorm"):
+            segs.append([])
+        segs[-1].append((fam, us))
+    n = len(labels) - 1                  # norms a forward
+    prev = lambda j: j - 1 if j > 1 else n
+    mms = [sum(port(fam) and fam.startswith("matmul") for fam, _ in seg) for seg in segs]
+
+    def fits(k, j):                      # segments k-1 .. k-4 against the labels before j
+        hits = 0
+        for kk in range(k - 1, max(k - 5, 0), -1):
+            j = prev(j)
+            hits += mms[kk] == labels[j][1]
+        return hits
+
+    rows, j, merged, off = {}, n, 0, 0
+    for k in range(len(segs) - 1, -1, -1):
+        mm = mms[k]
+        if k == 0:
+            j = 0                        # before the trace's first norm
+        elif mm == labels[prev(j)][1] + labels[j][1] != labels[j][1]:
+            merged, j = merged + 1, prev(j)
+        elif mm != labels[j][1]:
+            off += 1
+            if fits(k, prev(j)) > fits(k, j):
+                merged, j = merged + 1, prev(j)
+        row = rows.setdefault(labels[j][0], {})
+        for fam, us in segs[k]:
+            cls = ("plain torch" if not port(fam) else "products"
+                   if fam.startswith("matmul") else "norms"
+                   if fam.startswith("rmsnorm") else "attention")
+            row[cls] = row.get(cls, 0.0) + us / 1e3 / steps
+        j = prev(j)
+    if merged > 2 * steps or off > 2 * steps:
+        print(f"[split] {what}: {len(segs)} segments, {merged} of them two sublayers "
+              f"and {off} with another count of products than their label's: not split; "
+              f"products a segment {''.join(str(min(m, 9)) for m in mms)}, a forward's "
+              f"{''.join(str(p) for _, p in labels)}")
+        return
+    print(f"[split] {what}: {len(segs)} segments, {merged} of them two sublayers (a "
+          f"norm the trace missed), {off} with another count of products")
+    for label in dict.fromkeys(lb for lb, _ in labels):
+        if label in rows:
+            row = rows[label]
+            print(f"[split] {what}, {label}: " + ", ".join(
+                f"{c} {v:.3f} ms" for c, v in sorted(row.items())) + f" (total "
+                f"{sum(row.values()):.3f} ms a step)")
+
+
+def _labels(cfg, prefill: bool) -> list:
+    """One forward's segments in launch order as ``_xsplit`` reads them,
+    (label, port products): what runs before the first norm, the encoder's
+    layers and final norm (encdec prefill), each decoder sublayer (a
+    cross-attention decode step makes 2 products, ``wq`` and ``wo``), the
+    final norm and head."""
+    from repro_torch.configs.base import ATTN, MLP, XATTN
+
+    names = {ATTN: ("self-attention", 4), XATTN: ("cross-attention", 4 if prefill else 2),
+             MLP: ("MLP", 3)}
+    if not prefill:
+        first = [("embedding", 0)]
+    elif cfg.family == "encdec":
+        first = ([("context cast, ctx_proj (torch.matmul)", 0)]
+                 + [("encoder attention", 4), ("encoder MLP", 3)] * cfg.n_enc_layers
+                 + [("encoder norm, embedding", 0)])
+    else:
+        first = [("context cast, ctx_proj (torch.matmul), embedding", 0)]
+    dec = [names[k] for _ in range(cfg.n_periods) for layer in cfg.layer_period
+           for k in layer]
+    return first + dec + [("final norm, head", 0)]
+
+
+def _xattn_serve(dev, name: str, prompt: int, steps: int = 32, short: int = 223) -> dict:
+    """Phase 10's serving part for one arch at its published width and depth
+    (bf16, seeded weights): a batch of 4 prompts of ``prompt`` tokens, each
+    with its context (``lm.context_len(cfg, prompt)`` tokens of d_ctx,
+    ``normal * 0.1`` from a seeded numpy generator), through
+    ``lm.prefill(..., ctx_embeds)`` into a cache of ``prompt + steps``
+    positions, greedy ``lm.decode_step``s to ``steps`` tokens (each read
+    back, as an engine does), then a batch-4 prefill of ``short`` tokens;
+    launches exactly ``serve_launches``; host-clock times and peak memory;
+    traces of 4 decode steps and of the long prefill split by sublayer
+    (``_xsplit``); one full-width cross-attention sublayer held to the CPU
+    path (prefill and decode step).  Returns the launches."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.params import init_params, tree_leaves
+    from repro_torch.testing.timing import now
+    from repro_torch.train.trainer import serve_launches
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(name)
+    t0 = now()
+    params = init_params(lm.model_defs(cfg), torch.Generator(dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    T, Ts = lm.context_len(cfg, prompt), lm.context_len(cfg, short)
+    rng = np.random.default_rng(0)
+    t1 = now()
+    draw = lambda n: torch.from_numpy(rng.standard_normal((4, n, cfg.d_ctx),
+                                                          dtype=np.float32)
+                                      * np.float32(0.1)).to(dev)
+    ctx, short_ctx = draw(T), draw(Ts)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (4, prompt))).to(dev)
+    short_toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (4, short))).to(dev)
+    enc = (f", {cfg.n_enc_layers} encoder layers" if cfg.family == "encdec" else "")
+    print(f"[xattn] {cfg.name}: {cfg.n_layers} layers (full depth){enc}, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, d_ctx {cfg.d_ctx}, {str(cfg.dtype)[6:]}; "
+          f"{cfg.n_params() / 1e9:.3f} B params, {n_bytes / 1e9:.2f} GB of weights "
+          f"drawn in {t1 - t0:.1f}s; contexts (4, {T}, {cfg.d_ctx}) and (4, {Ts}, "
+          f"{cfg.d_ctx}) f32 drawn in {now() - t1:.1f}s")
+    max_seq = prompt + steps
+    ops.reset_launches()
+    out = []
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = now()
+        cache, lg = lm.prefill(params, toks, cfg, max_seq, ctx)
+        tok = lg[:, -1].argmax(-1)[:, None]
+        out.append(tok[:, 0].tolist())         # a host read: the prefill is done
+        t1 = now()
+        finite = bool(torch.isfinite(lg[..., :cfg.vocab_size]).all())
+        for i in range(steps - 1):
+            lg, cache = lm.decode_step(params, tok, cache, prompt + i, cfg)
+            tok = lg[:, -1].argmax(-1)[:, None]
+            out.append(tok[:, 0].tolist())
+        t2 = now()
+        finite = finite and bool(torch.isfinite(lg[..., :cfg.vocab_size]).all())
+        _, lg_s = lm.prefill(params, short_toks, cfg, short + 1, short_ctx)
+        lg_s[0, -1, 0].item()
+        t3 = now()
+    launches = dict(ops.LAUNCHES)
+    want = serve_launches(cfg, prefills=2, decode_steps=steps - 1)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[xattn] {cfg.name} serving, batch 4: prefill of {prompt} tokens with {T} "
+          f"context tokens {1e3 * (t1 - t0):.1f} ms ({4 * prompt / (t1 - t0):.1f} prompt "
+          f"tok/s), {steps - 1} decode steps {1e3 * (t2 - t1) / (steps - 1):.2f} ms/step "
+          f"({4 * (steps - 1) / (t2 - t1):.1f} tok/s), prefill of {short} tokens "
+          f"{1e3 * (t3 - t2):.1f} ms (host clock, each ending on a host read; the "
+          f"first calls of the run); peak device memory {peak / 1e9:.2f} GB")
+    print(f"[xattn] {cfg.name} greedy stream of sample 0: {[o[0] for o in out[:16]]} ...")
+    print(f"[xattn] {cfg.name} launches {launches} (expected {want})")
+    if not finite or any(t >= cfg.vocab_size for o in out for t in o):
+        raise AssertionError(f"{cfg.name}: logits not finite or a token outside the "
+                             f"vocabulary")
+    if launches != want:
+        raise AssertionError(f"{cfg.name} serving launches {launches}, expected {want}")
+
+    with torch.inference_mode():
+        # traces: decode steps at batch 4 (each rewriting the last position)
+        # and the long prefill, split by sublayer
+        def decode_once():
+            lgd, _ = lm.decode_step(params, tok, cache, max_seq - 1, cfg)
+            lgd[0, -1, 0].item()
+        tr = _trace(decode_once, 4)
+        _print_trace(tr, 4, f"{cfg.name} decode steps at batch 4 over {T} context "
+                     f"tokens")
+        _xsplit(tr, _labels(cfg, False), 4, f"{cfg.name} decode at batch 4")
+
+        def prefill_once():
+            _, lgp = lm.prefill(params, toks, cfg, max_seq, ctx)
+            lgp[0, -1, 0].item()
+        tr = _trace(prefill_once, 1)
+        _print_trace(tr, 1, f"{cfg.name} prefills of 4 x {prompt} tokens with {T} "
+                     f"context tokens")
+        _xsplit(tr, _labels(cfg, True), 1, f"{cfg.name} prefill of 4 x {prompt}")
+
+        # the first cross-attention sublayer at full width against the CPU
+        li, key = next((f"l{i}", f"s{j}_xattn") for i, layer in
+                       enumerate(cfg.layer_period) for j, k in enumerate(layer)
+                       if k == "xattn")
+        sp = {k: t[0] for k, t in params["period"][li][key].items()}
+        c1 = lm.encode_context(params, ctx[:1], cfg)
+        x = params["embed"][toks[:1]]
+        _xattn_sublayer_check(sp, x, c1, cfg, f"a {prompt}-token prefill against "
+                              f"{T} context tokens (sample 0)")
+        kv = tuple(t[0, :1] for t in (cache[li][key]["k"], cache[li][key]["v"]))
+        _xattn_sublayer_check(sp, params["embed"][tok[:1]], c1, cfg,
+                              f"a decode step over the cached {T} context tokens",
+                              cache=kv)
+    del params, cache, ctx, short_ctx, lg, lg_s, c1, x, kv, sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _xattn_grad_check(cfg, dev) -> None:
+    """One full-width cross-attention sublayer's gradients on the card and
+    on the CPU, from the same bf16 weights (seeded), ``XATTN_GRAD_TOKENS``
+    embedding rows and a context of ``lm.context_len`` tokens through a
+    seeded ``ctx_proj``: the loss sum(y * w) for a seeded f32 w; the
+    gradients of x, ctx, wq, wk, wv and wo within ``XATTN_GRAD_RTOL``, and
+    the card's the same bits twice."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import layers as Lyr
+    from repro_torch.models import lm
+    from repro_torch.params import init_params, tree_map
+    from repro_torch.testing import kernel_checks as kc
+
+    one = dataclasses.replace(cfg, n_layers=len(cfg.layer_period))
+    defs = lm.model_defs(one)
+    sp = init_params(Lyr.xattn_defs(one), torch.Generator(dev).manual_seed(1), dev)
+    top = init_params({"embed": defs["embed"], "ctx_proj": defs["ctx_proj"]},
+                      torch.Generator(dev).manual_seed(2), dev)
+    rng = np.random.default_rng(1)
+    T = lm.context_len(cfg, 1024)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, XATTN_GRAD_TOKENS))).to(dev)
+    emb = torch.from_numpy(rng.standard_normal((1, T, cfg.d_ctx), dtype=np.float32)
+                           * np.float32(0.1)).to(dev)
+    with torch.no_grad():
+        x = top["embed"][toks]
+        ctx = torch.matmul(emb.to(cfg.dtype), top["ctx_proj"])
+    w = torch.randn(x.shape, generator=torch.Generator().manual_seed(3))
+    names = ("x", "ctx", "wq", "wk", "wv", "wo")
+    got = {}
+    for where, d in (("card", dev), ("card again", dev), ("cpu", "cpu")):
+        p = tree_map(lambda t: t.detach().to(d).requires_grad_(True), sp)
+        xx, cc = (t.detach().to(d).requires_grad_(True) for t in (x, ctx))
+        y = Lyr.xattn_layer(p, xx, cc, one)
+        loss = (y.float() * w.to(d)).sum()
+        got[where] = torch.autograd.grad(loss, [xx, cc] + [p[k] for k in names[2:]])
+    same = all(torch.equal(a, b) for a, b in zip(got["card"], got["card again"]))
+    res = {n: kc.compare(g.cpu(), want, (XATTN_GRAD_RTOL,
+                                         XATTN_GRAD_RTOL * want.abs().max().float()))
+           for n, g, want in zip(names, got["card"], got["cpu"])}
+    print(f"[xattn-train] cross-attention sublayer gradients vs CPU, "
+          f"{XATTN_GRAD_TOKENS} tokens against {T} context tokens: " + "; ".join(
+              f"d{n} limit_use {r['limit_use']:.3f} max_abs_err {r['max_abs_err']:.2e}"
+              for n, r in res.items())
+          + f" (|err| <= {XATTN_GRAD_RTOL:.0e} (|cpu| + max|cpu|)); the card's "
+          f"gradients the same bits twice: {same}")
+    if not same or not all(r["ok"] for r in res.values()):
+        raise AssertionError(f"cross-attention sublayer gradients differ: {same} {res}")
+
+
+def _xattn_parts(cfg, dev, batch: int = 4, seq: int = 1024) -> None:
+    """Where a train step's device time goes in the parts its trace does not
+    tell from their neighbours: one full-width cross-attention sublayer and,
+    for encdec, the whole encoder with ``ctx_proj``, each at the step's
+    shapes with seeded weights, forward alone and forward with backward
+    (the encoder under remat), device ms a call from a trace
+    (``_device_call``); backward = the difference."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import layers as Lyr
+    from repro_torch.models import lm
+    from repro_torch.params import init_params, tree_leaves, tree_map
+
+    one = dataclasses.replace(cfg, n_layers=len(cfg.layer_period))
+    T = lm.context_len(cfg, seq)
+    g = torch.Generator(dev).manual_seed(4)
+    sp = tree_map(lambda t: t.requires_grad_(True),
+                  init_params(Lyr.xattn_defs(one), g, dev))
+    x, c, dy = (torch.randn((batch, n, cfg.d_model), generator=g, device=dev)
+                .to(cfg.dtype) for n in (seq, T, seq))
+    x.requires_grad_(True)
+    c.requires_grad_(True)
+    leaves = [x, c] + list(sp.values())
+    fwd = lambda: Lyr.xattn_layer(sp, x, c, one)
+    both = lambda: torch.autograd.grad(Lyr.xattn_layer(sp, x, c, one), leaves, dy)
+    f_ms, t_ms = _device_call(fwd, 3), _device_call(both, 3)
+    n_x = cfg.n_periods * sum(layer.count("xattn") for layer in cfg.layer_period)
+    print(f"[split] {cfg.name} train step parts: one cross-attention sublayer "
+          f"({batch} x {seq} rows against {batch} x {T} context rows) forward "
+          f"{f_ms:.3f} ms, backward {t_ms - f_ms:.3f} ms (device ms a call), "
+          f"{n_x} such sublayers in the model")
+    del sp, x, c, dy, leaves
+    if cfg.family != "encdec":
+        return
+    defs = lm.model_defs(one)
+    p = tree_map(lambda t: t.requires_grad_(True),
+                 init_params({"encoder": defs["encoder"], "ctx_proj": defs["ctx_proj"]},
+                             torch.Generator(dev).manual_seed(5), dev))
+    emb = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (batch, T, cfg.d_ctx), dtype=np.float32) * np.float32(0.1)).to(dev)
+    dc = torch.randn((batch, T, cfg.d_model), generator=g, device=dev).to(cfg.dtype)
+    leaves = tree_leaves(p)
+    fwd = lambda: lm.encode_context(p, emb, cfg)
+    both = lambda: torch.autograd.grad(lm.encode_context(p, emb, cfg), leaves, dc)
+    f_ms, t_ms = _device_call(fwd, 2), _device_call(both, 2)
+    print(f"[split] {cfg.name} train step parts: the encoder ({cfg.n_enc_layers} "
+          f"layers over {batch} x {T} frames, ctx_proj included, remat {cfg.remat}) "
+          f"forward {f_ms:.3f} ms, backward with its recompute {t_ms - f_ms:.3f} ms "
+          f"(device ms a call)")
+    del p, emb, dc, leaves
+    torch.cuda.empty_cache()
+
+
+def _xattn_path(dev) -> dict:
+    """Phase 10: the cross-attention families.  The smoke models card
+    against CPU (``_xattn_smoke``); llama-3.2-vision-11b serving at its
+    published width and all 40 layers (4 prompts of 512 tokens, each with
+    its 6,404 image tokens, 32 greedy tokens, then a 223-token batch);
+    seamless-m4t-large-v2 serving whole (24 decoder and 24 encoder layers;
+    4 prompts of 1,024 tokens with 256 frames); seamless training whole (3
+    steps at 4 x 1,024 with 256 frames, remat, phase 7's ``OptConfig``
+    defaults); llama-3.2-vision training at its width, ``VLM_TRAIN_PERIODS``
+    of its 8 periods (3 steps at 4 x 1,024, each sample with its 6,404
+    image tokens); launches exactly ``serve_launches`` / ``step_launches``;
+    traces; one full-width cross-attention sublayer's output and gradients
+    held to the CPU path.  Returns the launches by part."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+
+    _xattn_smoke(dev)
+    out = {"xattn_vlm_serve": _xattn_serve(dev, "llama-3.2-vision-11b", 512)}
+    out["xattn_s2s_serve"] = _xattn_serve(dev, "seamless-m4t-large-v2", 1024)
+    s2s = get_config("seamless-m4t-large-v2")
+    out["xattn_s2s_train"] = _train_path(s2s, dev, n_layers=s2s.n_layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _xattn_parts(s2s, dev)
+    vlm = get_config("llama-3.2-vision-11b")
+    n_layers = VLM_TRAIN_PERIODS * len(vlm.layer_period)
+    print(f"[xattn-train] {vlm.name}: {n_layers} of {vlm.n_layers} layers "
+          f"({VLM_TRAIN_PERIODS} of {vlm.n_periods} periods, "
+          f"{dataclasses.replace(vlm, n_layers=n_layers).n_params() / 1e9:.3f} B "
+          f"params); {torch.cuda.memory_allocated() / 1e9:.2f} GB live when the "
+          f"part began")
+    out["xattn_vlm_train"] = _train_path(vlm, dev, n_layers=n_layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _xattn_parts(vlm, dev)
+    _xattn_grad_check(vlm, dev)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    print(f"[xattn] on {smi.splitlines()[0]}")
+    return out
+
+
 def _matmul_bwd_times(kc, kmm, ref, time_ms) -> dict:
     """Phase 6, the matmul's backward of each projection at the training M:
     dA (dX) and dB (dW), one launch each, between CUDA events beside
@@ -1985,6 +2628,9 @@ ONLY = {
     "moe-train": (("matmul", "rmsnorm", "flash_attention", "flash_attention_bwd"),
                   lambda dev, m: _moe_train_path(dev)),
     "ssm": (("matmul", "rmsnorm"), lambda dev, m: (_ssm_smoke(dev), _ssm_path(dev))),
+    "xattn": (("matmul", "rmsnorm", "flash_attention", "flash_attention_bwd"),
+              lambda dev, m: (_xattn_checks(m.kc, m.kfa, m.kmm), _xattn_path(dev),
+                              _xattn_times(m.kc, m.kfa, m.ref, _time_ms))),
 }
 
 
@@ -1997,7 +2643,9 @@ def main(argv: list | None = None) -> int:
                     help="run one part alone (matmul-bwd: phase 6's matmul backward "
                          "rows; phi3: phase 7b and phase 6's phi3-mini flash rows; "
                          "moe: phase 8's serving; moe-train: phase 8's training; "
-                         "ssm: phase 5's Mamba smoke models and phase 9); "
+                         "ssm: phase 5's Mamba smoke models and phase 9; xattn: "
+                         "phase 3's and 3c's cross-attention checks, phase 10 and "
+                         "phase 6's cross-attention rows); "
                          "a copy of this file at the root of another checkout reads "
                          "that tree's kernels the same way")
     args = ap.parse_args(argv)
@@ -2048,7 +2696,10 @@ def main(argv: list | None = None) -> int:
     if args.only:
         libs, run = ONLY[args.only]
         _build.build(libs)
-        run(dev, types.SimpleNamespace(kc=kc, kfa=kfa, kmm=kmm, ref=ref))
+        out = run(dev, types.SimpleNamespace(kc=kc, kfa=kfa, kmm=kmm, ref=ref))
+        if args.only == "xattn" and out[0][1]:
+            raise AssertionError(f"kernels disagree with their plain versions: "
+                                 f"{out[0][1]}")
         return 0
 
     # -- 2. build ------------------------------------------------------------
@@ -2180,6 +2831,10 @@ def main(argv: list | None = None) -> int:
     fam_errs, fam_failed = _family_checks(kc, kmm)
     errs.update(fam_errs)
     failed += fam_failed
+    # the cross-attention families' shapes (phase 10), forward and backward
+    x_errs, x_failed = _xattn_checks(kc, kfa, kmm)
+    errs.update(x_errs)
+    failed += x_failed
     # -- 3b. the paper's Table I kernels vs plain versions -------------------------
     t1_errs, t1_failed = _table1_checks(kc)
     failed += t1_failed
@@ -2388,6 +3043,8 @@ def main(argv: list | None = None) -> int:
     path_launches["moe_train"] = _moe_train_path(dev)
     # -- 9. the Mamba2 family: mamba2-370m at full width and depth -------------
     path_launches.update(_ssm_path(dev))
+    # -- 10. the cross-attention families: llama-3.2-vision-11b, seamless ------
+    path_launches.update(_xattn_path(dev))
 
     # -- 6. kernel times ---------------------------------------------------------
     time_ms = _time_ms
@@ -2589,6 +3246,7 @@ def main(argv: list | None = None) -> int:
         raise AssertionError("paged_attention disagrees at the decode inputs")
     t1_rows = _table1_times(kc, kred, kst, ref, time_ms, dev)
     bwd_rows = _backward_times(kc, kfa, kmm, krms, ref, time_ms)
+    xattn_rows = _xattn_times(kc, kfa, ref, time_ms)
 
     # the decode-step shapes, where serving spends most of its time, and the
     # longest whole-prompt prefill; launches summed over the four main paths
@@ -2635,9 +3293,12 @@ def main(argv: list | None = None) -> int:
         if kname in ("flash_attention", "rmsnorm"):
             kernels[-1]["device_ms"], kernels[-1]["library_device_ms"] = \
                 device_rows[key]
-        if kname == "flash_attention":   # phi3-mini's head dim
+        if kname == "flash_attention":   # phi3-mini's head dim, cross-attention
             key3 = ("flash_attention phi3", kc.PHI3_FLASH_S, torch.bfloat16)
             kernels[-1]["phi3"] = {**phi3_rows["fwd"], "max_abs_err": errs[key3]}
+            kernels[-1]["cross"] = {n: r["fwd"] for n, r in xattn_rows.items()}
+            kernels[-1]["cross"]["max_abs_err"] = max(
+                v for k, v in errs.items() if k[0] == "flash_attention cross")
         if kname == "paged_attention":
             kernels[-1]["device_ms"] = device_rows[key][0]
             kernels[-1]["host_us"] = paged_host
@@ -2693,10 +3354,13 @@ def main(argv: list | None = None) -> int:
         row = bwd_rows[kname]
         if kname == "matmul_bwd":
             row = {**row["wg/wi"], "projections": row}
-        if kname == "flash_attention_bwd":   # phi3-mini's head dim
+        if kname == "flash_attention_bwd":   # phi3-mini's head dim, cross-attention
             row = {**row, "phi3": {**phi3_rows["bwd"], "max_abs_err":
                                    errs[("flash_attention_bwd phi3", *kc.PHI3_FLASH_BWD,
-                                         torch.bfloat16)]}}
+                                         torch.bfloat16)]},
+                   "cross": {**{n: r["bwd"] for n, r in xattn_rows.items()},
+                             "max_abs_err": max(v for k, v in errs.items()
+                                                if k[0] == "flash_attention cross")}}
         if kname == "matmul_bwd":
             worst = max(errs[("matmul_bwd", w, kc.TRAIN_TOKENS, 4096, 14336,
                               torch.bfloat16)] for w in "ab")

@@ -9,8 +9,10 @@ sharing one model, behind the prefix-affinity router (``serve.router``).
 ``--arch`` takes the dense family, the MoE family (mixtral-8x7b,
 qwen3-moe-235b-a22b), mamba2-370m and the jamba hybrid
 (jamba-1.5-large-398b); the paged engine refuses a windowed model
-(mixtral) and a Mamba state (mamba2, jamba), as the reference's does, and
-the cross-attention families (encdec, VLM) are not ported yet.
+(mixtral) and a Mamba state (mamba2, jamba), as the reference's does.  The
+cross-attention families (encdec, vlm) are refused before any weight is
+drawn: the engines take no context, as the reference's does not
+(``serve.engine.refuse_context``).
 Runs on the card unless ``--device cpu``; weights are random, drawn from
 ``--seed``.
 
@@ -31,7 +33,7 @@ from repro_torch.params import init_params
 from repro_torch.serve import (PagedServeConfig, PagedServingEngine,
                                PrefixRouter, Request, ServeConfig,
                                ServingEngine)
-from repro_torch.serve.engine import resolve_device
+from repro_torch.serve.engine import refuse_context, resolve_device
 from repro_torch.testing.timing import now
 
 
@@ -61,8 +63,9 @@ def run(arch: str, *, smoke: bool = True, n_requests: int = 6,
         max_new: int = 16, max_batch: int = 4, max_seq: int = 128,
         paged: bool = False, block_tokens: int = 0, chunk: int = 0,
         pods: int = 1, seed: int = 0, device="cuda"):
-    device = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    refuse_context(cfg)
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     model = lm.Model(cfg, init_params(lm.model_defs(cfg), gen, device))
     engines = [_make_engine(model, device, paged=paged, max_batch=max_batch,
@@ -93,7 +96,8 @@ def main(argv=None):
     ap.add_argument("--arch", default="llama3-8b",
                     help="a registered arch: dense, MoE (mixtral-8x7b, "
                          "qwen3-moe-235b-a22b), mamba2-370m or "
-                         "jamba-1.5-large-398b; not the encdec or VLM ones")
+                         "jamba-1.5-large-398b; not the encdec or vlm ones, "
+                         "whose context no engine takes")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=4)

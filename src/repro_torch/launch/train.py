@@ -6,12 +6,14 @@ reference's flags and its optimizer settings (``lr``, warmup a tenth of the
 steps, cosine to ``--steps``).  Runs on the card unless ``--device cpu``;
 weights are random, drawn from ``--seed`` (``run`` also takes a param tree,
 so a run can start from weights carried over from JAX).  ``--arch`` takes
-the dense family, the MoE family (mixtral-8x7b, qwen3-moe-235b-a22b),
-mamba2-370m and the jamba hybrid (jamba-1.5-large-398b); the
-cross-attention families (encdec, VLM) are refused.
+every registered arch.  For the cross-attention families (encdec:
+seamless-m4t-large-v2; vlm: llama-3.2-vision-11b) each step's batch also
+carries a context of ``lm.context_len`` tokens, drawn as the reference's
+launcher draws it (:func:`step_context`).
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama-3.2-vision-11b --device cpu
 
 Checkpoints (``--ckpt``), the chaos harness (``--chaos``, ``--procs`` and
 their options) and the heartbeat and straggler monitors come with the
@@ -22,22 +24,31 @@ from __future__ import annotations
 import argparse
 import sys
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import DataConfig, make_pipeline
+from repro_torch.models import lm
 from repro_torch.params import tree_map
 from repro_torch.serve.engine import resolve_device
 from repro_torch.testing.timing import now
 from repro_torch.train import OptConfig, TrainState, adamw_init, make_train_step
 from repro_torch.train.trainer import init_train_state, trainable
 
-#: the families whose training is not ported yet (cross-attention)
-LATER_FAMILIES = ("encdec", "vlm")
 #: the reference's flags that this launcher does not take yet
 LATER = ("--ckpt", "--chaos", "--procs", "--chaos-seed", "--chaos-spec",
          "--hosts", "--model-axis", "--ckpt-every", "--timeout",
          "--max-restarts")
+
+
+def step_context(cfg, step: int, batch: int, seq_len: int) -> np.ndarray:
+    """The frontend's embeddings for train step ``step`` of an encdec or vlm
+    model, (batch, ``lm.context_len(cfg, seq_len)``, d_ctx) f32: the
+    reference launcher's ``default_rng(step).normal(...) * 0.1``."""
+    rng = np.random.default_rng(step)
+    T = lm.context_len(cfg, seq_len)
+    return (rng.normal(size=(batch, T, cfg.d_ctx)) * 0.1).astype(np.float32)
 
 
 def run(arch: str, *, smoke: bool = True, steps: int = 50,
@@ -48,10 +59,6 @@ def run(arch: str, *, smoke: bool = True, steps: int = 50,
     (a tree on any device) replaces the seeded random init."""
     device = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
-    if cfg.family in LATER_FAMILIES:
-        raise NotImplementedError(f"{arch} is a {cfg.family} model: training it "
-                                  f"is not ported yet (the cross-attention "
-                                  f"families come with a later slice)")
     opt_cfg = OptConfig(lr=lr, warmup_steps=max(2, steps // 10),
                         total_steps=steps)
     if params is None:
@@ -69,8 +76,11 @@ def run(arch: str, *, smoke: bool = True, steps: int = 50,
     t_prev = now()
     try:
         for step in range(steps):
-            tokens = torch.from_numpy(next(pipe)).to(device, torch.int64)
-            state, metrics = step_fn(state, {"tokens": tokens})
+            batch = {"tokens": torch.from_numpy(next(pipe)).to(device, torch.int64)}
+            if cfg.family in lm.CONTEXT_FAMILIES:
+                batch["ctx"] = torch.from_numpy(
+                    step_context(cfg, step, global_batch, seq_len)).to(device)
+            state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])     # a host read: the step is done
             losses.append(loss)
             dt = now() - t_prev
@@ -90,8 +100,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b",
                     help="a registered arch: dense, MoE (mixtral-8x7b, "
-                         "qwen3-moe-235b-a22b), mamba2-370m or "
-                         "jamba-1.5-large-398b; not the encdec or VLM ones")
+                         "qwen3-moe-235b-a22b), mamba2-370m, "
+                         "jamba-1.5-large-398b, seamless-m4t-large-v2 (encdec) "
+                         "or llama-3.2-vision-11b (vlm)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)

@@ -1,15 +1,16 @@
-"""Model sublayers of the decoder families: GQA/SWA attention, SwiGLU, the
-top-k MoE and the Mamba2 (SSD) block.
+"""Model sublayers: GQA/SWA self-attention, cross-attention to a context,
+SwiGLU, the top-k MoE and the Mamba2 (SSD) block.
 
-The port's counterpart of the attention, MLP, MoE and Mamba2 parts of
-``repro.models.layers``.  Pure functions over param dicts built from ``PV``
-definitions; math in f32, storage in ``cfg.dtype``.  Every RMSNorm, every
-projection, whole-prompt attention (``ops.attention``, where the JAX model
-leaves it to XLA) and paged attention (``ops.paged_attention``) go through
-``kernels.ops``; dense-cache decode attention, the MoE router and dispatch,
-and the SSD scan and causal conv are plain PyTorch, as they are jnp in the
-reference.  Decode and the paged layer update the KV cache, the Mamba state
-or the pool in place (the JAX layers return new ones).
+The port's counterpart of ``repro.models.layers``.  Pure functions over
+param dicts built from ``PV`` definitions; math in f32, storage in
+``cfg.dtype``.  Every RMSNorm, every projection, whole-prompt attention
+(``ops.attention``, where the JAX model leaves it to XLA; cross-attention's
+too, non-causal over the context's keys) and paged attention
+(``ops.paged_attention``) go through ``kernels.ops``; dense-cache decode
+attention (self and cross), the MoE router and dispatch, and the SSD scan
+and causal conv are plain PyTorch, as they are jnp in the reference.
+Decode and the paged layer update the KV cache, the Mamba state or the pool
+in place (the JAX layers return new ones).
 """
 from __future__ import annotations
 
@@ -187,6 +188,84 @@ def attn_layer_prefill(p, x, cfg: ModelConfig, positions, cache_len: int):
         ck = torch.roll(k[:, S - W:], shifts=roll, dims=1)
         cv = torch.roll(v[:, S - W:], shifts=roll, dims=1)
     return x + o.to(x.dtype), AttnCache(ck, cv)
+
+
+# -- cross attention ----------------------------------------------------------
+
+def xattn_defs(cfg: ModelConfig) -> dict:
+    """``attn_defs``' leaves; ``wk`` and ``wv`` read the context."""
+    return attn_defs(cfg)
+
+
+class XAttnCache(NamedTuple):
+    k: torch.Tensor       # (B, T, Hkv, Dh) — projected context, fixed
+    v: torch.Tensor
+
+
+def xattn_prefill_cache(p, ctx, cfg: ModelConfig) -> XAttnCache:
+    """The context's keys and values, ctx (B, T, d) through ``wk`` and
+    ``wv``: (B, T, Hkv, Dh) each, no rotation."""
+    B, T, _ = ctx.shape
+    hd = cfg.head_dim
+    k = kops.dense(ctx, p["wk"]).reshape(B, T, cfg.n_kv_heads, hd)
+    v = kops.dense(ctx, p["wv"]).reshape(B, T, cfg.n_kv_heads, hd)
+    return XAttnCache(k, v)
+
+
+def _xattn(p, x, ctx, cfg: ModelConfig):
+    """The sublayer and the context's K/V it made: rmsnorm, ``wq`` on x,
+    ``wk`` and ``wv`` on ctx, attention non-causal over all T keys (with
+    ``cfg.window`` as the reference's mask takes it), ``wo``."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
+    q = kops.dense(xn, p["wq"]).reshape(B, S, cfg.n_heads, hd)
+    kv = xattn_prefill_cache(p, ctx, cfg)
+    o = kops.dense(_attention(q, *kv, cfg, causal=False), p["wo"])
+    return x + o.to(x.dtype), kv
+
+
+def xattn_layer(p, x, ctx, cfg: ModelConfig) -> torch.Tensor:
+    """Cross-attention to a context (encoder output / image embeddings),
+    ctx (B, T, d), residual included (:func:`_xattn`).  No positional
+    rotation."""
+    return _xattn(p, x, ctx, cfg)[0]
+
+
+def xattn_cache_defs(cfg: ModelConfig, batch: int) -> XAttnCache:
+    """The reference's shape, (B, n_ctx_tokens, Hkv, Dh): 0 context tokens
+    for the encdec family, whose context length comes from the prompt
+    (``lm.context_len``), so only ``prefill``'s cache holds its context."""
+    shp = (batch, cfg.n_ctx_tokens, cfg.n_kv_heads, cfg.head_dim)
+    return XAttnCache(PV(shp, cfg.dtype, ("batch", "", "kv", ""), "zeros"),
+                      PV(shp, cfg.dtype, ("batch", "", "kv", ""), "zeros"))
+
+
+def xattn_layer_prefill(p, x, ctx, cfg: ModelConfig):
+    """Prefill: the sublayer and its cache.  The reference projects the
+    context's K/V twice, in ``xattn_layer`` and again in
+    ``xattn_prefill_cache``; both are the same product on the same inputs,
+    so here they are made once and kept as the cache (4 products, not 6)."""
+    return _xattn(p, x, ctx, cfg)
+
+
+def xattn_layer_decode(p, x, cache: XAttnCache, cfg: ModelConfig):
+    """One-token step against the cached context K/V, as the reference's:
+    ``wq`` and ``wo`` through the matmul seam, the scores, softmax and
+    weighted sum plain f32 einsums over every cached key.  The cache is
+    not written; it is returned."""
+    B, S1, _ = x.shape
+    hd = cfg.head_dim
+    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
+    q = kops.dense(xn, p["wq"]).reshape(B, S1, cfg.n_heads, hd)
+    G = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(B, S1, cfg.n_kv_heads, G, hd)
+    s = torch.einsum("bqhgd,bthd->bhgqt", qg.to(torch.float32),
+                     cache.k.to(torch.float32)) / math.sqrt(hd)
+    pr = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqt,bthd->bqhgd", pr, cache.v.to(torch.float32))
+    o = kops.dense(o.reshape(B, S1, cfg.n_heads * hd).to(x.dtype), p["wo"])
+    return x + o.to(x.dtype), cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,26 @@
 """Whole-model assembly: embeddings -> layer periods -> head.
 
-The port's counterpart of ``repro.models.lm`` for the decoder families
-whose periods hold attention, MLP, MoE and Mamba2 sublayers (dense, MoE,
-SSM and the jamba hybrid).  ``forward_train`` gives the mean next-token
-cross-entropy, which autograd differentiates through the kernels'
-backwards; ``prefill`` populates the caches (K/V, and each Mamba
-sublayer's conv window and SSM state) and returns the last token's
-logits; ``decode_step`` advances every slot by one token;
+The port's counterpart of ``repro.models.lm``, every family of it:
+
+    dense / moe      decoder-only periods of (attn, mlp|moe)
+    ssm              (mamba,) periods
+    hybrid (jamba)   8-layer periods mixing mamba/attn and moe/mlp
+    encdec           + a bidirectional encoder; decoder layers carry xattn
+    vlm              + a frontend projection; xattn layers attend image tokens
+
+``forward_train`` gives the mean next-token cross-entropy, which autograd
+differentiates through the kernels' backwards; ``prefill`` populates the
+caches (K/V, each Mamba sublayer's conv window and SSM state, each
+cross-attention sublayer's projected context) and returns the last
+token's logits; ``decode_step`` advances every slot by one token;
 ``decode_step_paged`` and ``prefill_chunk`` do the same against a paged
 block pool (``pool_defs``: attention caches only, so not for a period with
-Mamba).  A MoE sublayer sees every row of a call.  A
-Python loop over ``n_periods`` replaces ``lax.scan``; the param tree keeps
-JAX's nesting, each period leaf stacked over ``n_periods``.
+Mamba or cross-attention).  The encdec and vlm families take the context
+(``ctx_embeds``, (B, T, d_ctx)) in ``forward_train`` and ``prefill``;
+``encode_context`` projects it (and runs the encoder).  A MoE sublayer sees
+every row of a call.  A Python loop over ``n_periods`` replaces
+``lax.scan``; the param tree keeps JAX's nesting, each period leaf stacked
+over ``n_periods``.
 """
 from __future__ import annotations
 
@@ -21,12 +30,12 @@ from typing import Any
 import torch
 from torch.utils import checkpoint as _ckpt
 
-from repro_torch.configs.base import ATTN, MAMBA, MLP, MOE, ModelConfig
+from repro_torch.configs.base import ATTN, MAMBA, MLP, MOE, XATTN, ModelConfig
 from repro_torch.params import PV, ParamTree, tree_leaves, tree_map
 from . import layers as L
 
-_LATER = ("sublayer kind {!r} is not ported yet: the cross-attention "
-          "families (encdec, VLM) come with a later slice")
+#: the families whose decoder attends to a context
+CONTEXT_FAMILIES = ("encdec", "vlm")
 
 
 # ---------------------------------------------------------------------------
@@ -47,7 +56,9 @@ def _sublayer_defs(kind: str, cfg: ModelConfig) -> dict:
         return L.moe_defs(cfg)
     if kind == MAMBA:
         return L.mamba_defs(cfg)
-    raise NotImplementedError(_LATER.format(kind))
+    if kind == XATTN:
+        return L.xattn_defs(cfg)
+    raise ValueError(kind)
 
 
 def model_defs(cfg: ModelConfig) -> dict:
@@ -65,6 +76,12 @@ def model_defs(cfg: ModelConfig) -> dict:
                                                    cfg.n_periods)
                             for si, kind in enumerate(layer)}
     defs["period"] = period
+    if cfg.family == "encdec":
+        enc_layer = {"attn": L.attn_defs(cfg), "mlp": L.mlp_defs(cfg)}
+        defs["encoder"] = {"layers": _stack(enc_layer, cfg.n_enc_layers),
+                           "norm": PV((d,), torch.float32, ("",), "ones")}
+    if cfg.d_ctx:
+        defs["ctx_proj"] = PV((cfg.d_ctx, d), dt, ("", "fsdp"))
     return defs
 
 
@@ -77,11 +94,12 @@ def cache_defs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
                 slots[f"s{si}_{kind}"] = _stack(
                     L.attn_cache_defs(cfg, batch, seq_len)._asdict(),
                     cfg.n_periods)
+            elif kind == XATTN:
+                slots[f"s{si}_{kind}"] = _stack(
+                    L.xattn_cache_defs(cfg, batch)._asdict(), cfg.n_periods)
             elif kind == MAMBA:
                 slots[f"s{si}_{kind}"] = _stack(
                     L.mamba_cache_defs(cfg, batch)._asdict(), cfg.n_periods)
-            elif kind not in (MLP, MOE):
-                raise NotImplementedError(_LATER.format(kind))
         period[f"l{li}"] = slots
     return period
 
@@ -106,7 +124,7 @@ def pool_defs(cfg: ModelConfig, n_blocks: int, block_tokens: int) -> dict:
                     {"k": PV(shp, cfg.dtype, ("", "", "kv", ""), "zeros"),
                      "v": PV(shp, cfg.dtype, ("", "", "kv", ""), "zeros")},
                     cfg.n_periods)
-            elif kind not in (MLP, MOE):
+            elif kind in (XATTN, MAMBA):
                 raise ValueError(f"paged KV serving supports attention caches "
                                  f"only, layer period has {kind}")
         period[f"l{li}"] = slots
@@ -146,8 +164,70 @@ def logits_fn(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Context (encoder / image frontend)
+# ---------------------------------------------------------------------------
+
+def context_len(cfg: ModelConfig, seq_len: int) -> int:
+    """Context tokens a sample carries: speech frames downsampled 4x from
+    the text length (encdec, at least ``ssm_chunk``), else the config's."""
+    if cfg.family == "encdec":
+        return max(cfg.ssm_chunk, seq_len // 4)
+    return cfg.n_ctx_tokens
+
+
+def _encoder_layer(lp: dict, x: torch.Tensor, cfg: ModelConfig,
+                   positions: torch.Tensor) -> torch.Tensor:
+    x = L.attn_layer(lp["attn"], x, cfg, positions, causal=False)
+    return L.mlp_layer(lp["mlp"], x, cfg)
+
+
+def encode_context(params, ctx_embeds: torch.Tensor, cfg: ModelConfig
+                   ) -> torch.Tensor:
+    """The frontend's embeddings (B, T, d_ctx) -> the d_model context that
+    the cross-attention sublayers read: cast to the model dtype, through
+    ``ctx_proj`` (a plain ``torch.matmul``, as the reference's ``@`` is
+    XLA's), then for encdec the bidirectional encoder (RoPE at positions
+    0..T-1, each layer one ``torch.utils.checkpoint`` under ``cfg.remat``)
+    and its final rmsnorm, outside the checkpoints."""
+    ctx = ctx_embeds.to(cfg.dtype)
+    if "ctx_proj" in params:
+        ctx = torch.matmul(ctx, params["ctx_proj"])
+    if cfg.family != "encdec":
+        return ctx
+    enc = params["encoder"]
+    positions = torch.arange(ctx.shape[1], device=ctx.device)
+    body = functools.partial(_encoder_layer, cfg=cfg, positions=positions)
+    for lp in _unstack(enc["layers"], cfg.n_enc_layers):
+        ctx = _remat(cfg, body, lp, ctx)
+    return L.rmsnorm(ctx, enc["norm"], cfg.norm_eps)
+
+
+def _context(params, ctx_embeds, cfg: ModelConfig):
+    """``encode_context`` for the families that take a context, else None;
+    such a family without ``ctx_embeds`` raises."""
+    if cfg.family not in CONTEXT_FAMILIES:
+        return None
+    if ctx_embeds is None:
+        raise ValueError(f"{cfg.name} is a {cfg.family} model: it needs "
+                         f"ctx_embeds (B, T, d_ctx = {cfg.d_ctx})")
+    return encode_context(params, ctx_embeds, cfg)
+
+
+# ---------------------------------------------------------------------------
 # Training: trunk, loss
 # ---------------------------------------------------------------------------
+
+def _remat(cfg: ModelConfig, body, *args):
+    """``body(*args)``, under ``cfg.remat`` (where autograd records) as one
+    non-reentrant ``torch.utils.checkpoint``, as ``jax.checkpoint`` of the
+    JAX body: its activations are recomputed in the backward, so each of
+    its forward kernels launches once more (early stop off: the count does
+    not depend on which tensor autograd asks for last)."""
+    if cfg.remat and torch.is_grad_enabled():
+        with _ckpt.set_checkpoint_early_stop(False):
+            return _ckpt.checkpoint(body, *args, use_reentrant=False)
+    return body(*args)
+
 
 def _unstack(tree: dict, n: int) -> list:
     """The n period slices of a stacked tree, by one ``unbind`` a leaf: its
@@ -157,39 +237,40 @@ def _unstack(tree: dict, n: int) -> list:
     return [tree_map(lambda p: p[i], parts) for i in range(n)]
 
 
-def _apply_period(pp: dict, x: torch.Tensor, cfg: ModelConfig,
+def _apply_slot(kind: str, sp: dict, x: torch.Tensor, cfg: ModelConfig,
+                positions, ctx) -> torch.Tensor:
+    if kind == ATTN:
+        return L.attn_layer(sp, x, cfg, positions, causal=True)
+    if kind == XATTN:
+        return L.xattn_layer(sp, x, ctx, cfg)
+    if kind == MLP:
+        return L.mlp_layer(sp, x, cfg)
+    if kind == MOE:
+        return L.moe_layer(sp, x, cfg)
+    if kind == MAMBA:
+        return L.mamba_layer(sp, x, cfg)
+    raise ValueError(kind)
+
+
+def _apply_period(pp: dict, x: torch.Tensor, ctx, cfg: ModelConfig,
                   positions: torch.Tensor) -> torch.Tensor:
     for li, layer in enumerate(cfg.layer_period):
         for si, kind in enumerate(layer):
-            sp = pp[f"l{li}"][f"s{si}_{kind}"]
-            if kind == ATTN:
-                x = L.attn_layer(sp, x, cfg, positions, causal=True)
-            elif kind == MLP:
-                x = L.mlp_layer(sp, x, cfg)
-            elif kind == MOE:
-                x = L.moe_layer(sp, x, cfg)
-            elif kind == MAMBA:
-                x = L.mamba_layer(sp, x, cfg)
-            else:
-                raise NotImplementedError(_LATER.format(kind))
+            x = _apply_slot(kind, pp[f"l{li}"][f"s{si}_{kind}"], x, cfg,
+                            positions, ctx)
     return x
 
 
 def trunk(params, x: torch.Tensor, cfg: ModelConfig,
-          positions: torch.Tensor) -> torch.Tensor:
-    """The layer periods in order.  With ``cfg.remat`` each period is one
-    ``torch.utils.checkpoint`` (non-reentrant, as ``jax.checkpoint`` of the
-    JAX period body): its activations are recomputed in the backward, the
-    whole period, so every forward kernel of a period launches once more
-    (early stop off: the count does not depend on which tensor autograd
-    asks for last)."""
+          positions: torch.Tensor, ctx: torch.Tensor | None = None
+          ) -> torch.Tensor:
+    """The layer periods in order, the cross-attention sublayers reading
+    ``ctx``.  With ``cfg.remat`` each period is one checkpoint
+    (:func:`_remat`), ``ctx`` among its arguments, so that its gradient
+    reaches the encoder and ``ctx_proj``."""
     for pp in _unstack(params["period"], cfg.n_periods):
         body = functools.partial(_apply_period, pp, cfg=cfg, positions=positions)
-        if cfg.remat and torch.is_grad_enabled():
-            with _ckpt.set_checkpoint_early_stop(False):
-                x = _ckpt.checkpoint(body, x, use_reentrant=False)
-        else:
-            x = body(x)
+        x = _remat(cfg, body, x, ctx)
     return x
 
 
@@ -228,14 +309,17 @@ def ce_loss(params, x: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
     return total / torch.sum(mask)
 
 
-def forward_train(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """tokens (B, S) -> the mean next-token cross-entropy (a 0-d f32
-    tensor); targets are the tokens shifted left by one, wrapped, and the
-    last position is masked out."""
+def forward_train(params, tokens: torch.Tensor, cfg: ModelConfig,
+                  ctx_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """tokens (B, S) (and, for encdec and vlm, ctx_embeds (B, T, d_ctx))
+    -> the mean next-token cross-entropy (a 0-d f32 tensor); targets are
+    the tokens shifted left by one, wrapped, and the last position is
+    masked out."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)
+    ctx = _context(params, ctx_embeds, cfg)
     x = embed_tokens(params, tokens, cfg)
-    x = trunk(params, x, cfg, positions)
+    x = trunk(params, x, cfg, positions, ctx)
     targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     mask = torch.ones((B, S), dtype=torch.float32, device=tokens.device)
     mask[:, -1] = 0.0
@@ -250,10 +334,14 @@ def _period(tree: dict, i: int) -> dict:
     return tree_map(lambda t: t[i], tree)
 
 
-def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, cache_seq_len: int):
-    """tokens (B, S) -> (cache, last-token logits (B, 1, V))."""
+def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, cache_seq_len: int,
+            ctx_embeds: torch.Tensor | None = None):
+    """tokens (B, S) (and, for encdec and vlm, ctx_embeds (B, T, d_ctx))
+    -> (cache, last-token logits (B, 1, V)).  A cross-attention sublayer's
+    cache is its projected context, (B, T, Hkv, Dh) K and V."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)
+    ctx = _context(params, ctx_embeds, cfg)
     x = embed_tokens(params, tokens, cfg)
     W = L.attn_cache_len(cfg, cache_seq_len)
     per_period = []
@@ -268,16 +356,15 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, cache_seq_len: int):
                 if kind == ATTN:
                     x, c = L.attn_layer_prefill(sp, x, cfg, positions, W)
                     lcaches[key] = c._asdict()
-                elif kind == MLP:
-                    x = L.mlp_layer(sp, x, cfg)
-                elif kind == MOE:
-                    x = L.moe_layer(sp, x, cfg)
+                elif kind == XATTN:
+                    x, c = L.xattn_layer_prefill(sp, x, ctx, cfg)
+                    lcaches[key] = c._asdict()
                 elif kind == MAMBA:
                     x, (conv, state) = L.mamba_layer(sp, x, cfg,
                                                      return_state=True)
                     lcaches[key] = {"conv": conv.to(cfg.dtype), "state": state}
                 else:
-                    raise NotImplementedError(_LATER.format(kind))
+                    x = _apply_slot(kind, sp, x, cfg, positions, ctx)
             caches[f"l{li}"] = lcaches
         per_period.append(caches)
     logits = logits_fn(params, x[:, -1:], cfg)
@@ -306,15 +393,14 @@ def decode_step(params, token: torch.Tensor, cache: dict, pos,
                 if kind == ATTN:
                     c = L.AttnCache(**cc[f"l{li}"][key])
                     x, _ = L.attn_layer_decode(sp, x, c, pos, cfg)
-                elif kind == MLP:
-                    x = L.mlp_layer(sp, x, cfg)
-                elif kind == MOE:
-                    x = L.moe_layer(sp, x, cfg)
+                elif kind == XATTN:
+                    c = L.XAttnCache(**cc[f"l{li}"][key])
+                    x, _ = L.xattn_layer_decode(sp, x, c, cfg)
                 elif kind == MAMBA:
                     c = L.MambaCache(**cc[f"l{li}"][key])
                     x, _ = L.mamba_layer_decode(sp, x, c, cfg)
                 else:
-                    raise NotImplementedError(_LATER.format(kind))
+                    x = _apply_slot(kind, sp, x, cfg, None, None)
     logits = logits_fn(params, x, cfg)
     return logits, cache
 
@@ -332,12 +418,11 @@ def _paged_forward(params, x: torch.Tensor, pool: dict, pb: L.PagedBatch,
                 if kind == ATTN:
                     c = cc[f"l{li}"][key]
                     x = L.attn_layer_paged(sp, x, c["k"], c["v"], pb, cfg)
-                elif kind == MLP:
-                    x = L.mlp_layer(sp, x, cfg)
-                elif kind == MOE:
-                    x = L.moe_layer(sp, x, cfg)
-                else:
-                    raise NotImplementedError(_LATER.format(kind))
+                elif kind in (MLP, MOE):
+                    x = _apply_slot(kind, sp, x, cfg, None, None)
+                else:                       # pool_defs refuses these periods
+                    raise ValueError(f"paged KV serving supports attention "
+                                     f"caches only, layer period has {kind}")
     return x
 
 

@@ -17,7 +17,10 @@ times.  Each span ends where the engine reads a token back to the host,
 which waits for the card's work on the stream, so it holds that work.
 
 The engine runs on the card (``device="cuda"``) unless the caller asks for
-the CPU; without CUDA it raises instead of carrying on on the CPU.
+the CPU; without CUDA it raises instead of carrying on on the CPU.  It
+takes no context, as the reference's engine does not (its prefill passes
+none), so it refuses the encdec and vlm families (:func:`refuse_context`):
+those serve through ``lm.prefill(..., ctx_embeds)`` and ``lm.decode_step``.
 """
 from __future__ import annotations
 
@@ -79,6 +82,17 @@ def validate_prompt(prompt, max_seq: int) -> int:
     return plen
 
 
+def refuse_context(cfg) -> None:
+    """Raise for a model whose decoder reads a context (encdec, vlm): the
+    engines take none."""
+    if cfg.family in lm.CONTEXT_FAMILIES:
+        raise ValueError(
+            f"{cfg.name} is a {cfg.family} model, whose decoder attends to a "
+            f"context; the serving engines take no context (ctx_embeds), as "
+            f"the reference's engine does not: serve it through "
+            f"lm.prefill(..., ctx_embeds) and lm.decode_step")
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on; CUDA must be present if asked for."""
     device = torch.device(device)
@@ -90,6 +104,7 @@ def resolve_device(device) -> torch.device:
 
 class ServingEngine:
     def __init__(self, model: lm.Model, scfg: ServeConfig, *, device="cuda"):
+        refuse_context(model.cfg)
         self.device = resolve_device(device)
         self.cfg = cfg = model.cfg
         self.model = model.to(self.device)

@@ -39,7 +39,7 @@ from repro_torch.kernels.paged_attention import TOKENS_PER_ROUND
 from repro_torch.models import lm
 from repro_torch.params import tree_leaves, tree_map
 from repro_torch.testing.timing import now
-from .engine import Request, resolve_device, validate_prompt
+from .engine import Request, refuse_context, resolve_device, validate_prompt
 
 # chunked-prefill slot states
 PREFILL, DECODE = 0, 1
@@ -190,6 +190,7 @@ class PagedServingEngine:
     def __init__(self, model: lm.Model, scfg: PagedServeConfig, *,
                  device="cuda"):
         cfg = model.cfg
+        refuse_context(cfg)
         if cfg.window:
             raise ValueError("paged serving supports full attention only")
         B, S, bt = scfg.max_batch, scfg.max_seq, scfg.block_tokens

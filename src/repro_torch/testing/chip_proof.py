@@ -6,8 +6,8 @@ checkout:
 Runs, one after another, and prints each one's exit code:
   1. ``python3 chip_smoke.py`` (its output to ``OUT/smoke.txt`` and
      ``OUT/smoke.err``; the lines of its Table I phases, its kernel times,
-     its training phases, its MoE and Mamba2 phases, their splits by
-     sublayer and its last two lines echoed);
+     its training phases, its MoE, Mamba2 and cross-attention phases,
+     their splits by sublayer and its last two lines echoed);
   2. ``python -m repro_torch.launch.kern`` (the ``kern`` rows);
   3. the gpu-marked tests, ``pytest -m gpu tests/test_torch_gpu.py``;
   4. ``chip_smoke.py`` copied alone into an empty directory, where it must
@@ -46,7 +46,7 @@ def main(argv: list | None = None) -> int:
     lines = (out / "smoke.txt").read_text().splitlines()
     for ln in lines[:-2]:
         if ln.startswith(("[table1]", "[sweep]", "[time]", "[build]", "[train", "[moe",
-                          "[ssm]", "[split]", "[done]")):
+                          "[ssm]", "[xattn", "[split]", "[done]")):
             print(ln[:400])
     print("\n".join(ln[:400] for ln in lines[-2:]))
     print("\n".join((out / "smoke.err").read_text().splitlines()[-5:]))

@@ -926,3 +926,102 @@ def check_flash_bwd(B, S, dtype, window=None, causal=True, Hq=HQ, Hkv=HKV,
                  zip(("dq", "dk", "dv"), got, again, want)})
     res["variant"] = _fa.bwd_variant(S, S, D, dtype)
     return res
+
+
+# -- the cross-attention families (llama-3.2-vision-11b, seamless-m4t-large-v2)
+
+#: cross-attention and the encoder, (name, B, S, Sk, Hq, Hkv, D): non-causal,
+#: no window.  llama-3.2-vision-11b's 32 over 8 heads of 128 against its 6,404
+#: image tokens (100 key tiles of 64 and a 4-key edge tile) from its
+#: prompts of 512 and 223 tokens, its train step's 1,024, and a q tile of
+#: 35 rows; seamless-m4t-large-v2's 16 over 16 heads of 64, its train
+#: step's 1,024 decoder rows against 256 frames, and its encoder (S = Sk =
+#: 256, and a ragged 200); ragged contexts of 1, 63 and 65 keys and one
+#: past S by more than a tile; the smoke models' heads (4 over 2 of 16)
+XATTN_FLASH_CASES = (
+    ("vlm prefill", 4, 512, 6404, 32, 8, 128),
+    ("vlm train", 4, 1024, 6404, 32, 8, 128),
+    ("vlm q tile of 35", 4, 35, 6404, 32, 8, 128),
+    ("vlm prompt of 223", 4, 223, 6404, 32, 8, 128),
+    ("seamless train", 4, 1024, 256, 16, 16, 64),
+    ("seamless encoder", 4, 256, 256, 16, 16, 64),
+    ("seamless encoder ragged", 2, 200, 200, 16, 16, 64),
+    ("Sk=1", 2, 70, 1, 32, 8, 128),
+    ("Sk=63", 2, 70, 63, 16, 16, 64),
+    ("Sk=65", 2, 70, 65, 32, 8, 128),
+    ("Sk past S", 2, 70, 300, 16, 16, 64),
+    ("smoke heads", 2, 9, 16, 4, 2, 16),
+)
+#: (K, N) of the cross-attention families' projections and the rows the
+#: paths give them: llama-3.2-vision's ``wk``/``wv`` over its context rows
+#: (4 x 6,404 = 25,616; its ``ctx_proj`` is ``torch.matmul``), and
+#: seamless's (d_model 1,024, d_ff 8,192) at a batch-4 decode step, the
+#: encoder's 4 x 256 rows and the train step's 4,096
+XATTN_MATMUL = (("vlm wk/wv ctx", 25616, 4096, 1024),
+                ("seamless wq/wo", 4, 1024, 1024), ("seamless wi", 4, 1024, 8192),
+                ("seamless mlp.wo", 4, 8192, 1024),
+                ("seamless wq/wo", 1024, 1024, 1024), ("seamless wi", 1024, 1024, 8192),
+                ("seamless mlp.wo", 1024, 8192, 1024),
+                ("seamless wq/wo", 4096, 1024, 1024), ("seamless wi", 4096, 1024, 8192),
+                ("seamless mlp.wo", 4096, 8192, 1024))
+#: the backward's products at the train steps' rows: the context's and the
+#: decoder's (dX of mlp.wo at K = 8,192)
+XATTN_MATMUL_BWD = (("vlm wk/wv ctx", 25616, 4096, 1024),
+                    ("seamless wq/wo", 4096, 1024, 1024),
+                    ("seamless wi", 4096, 1024, 8192),
+                    ("seamless mlp.wo", 4096, 8192, 1024),
+                    ("seamless enc wq/wo", 1024, 1024, 1024))
+#: rmsnorm at seamless's d_model over a decode step's, the encoder's and the
+#: train step's rows (D = 4,096, llama-3.2-vision's, is llama3-8b's)
+XATTN_NORM = ((4, 1024), (1024, 1024), (4096, 1024))
+
+
+def cross_inputs(B, S, Sk, Hq, Hkv, D, dtype, device="cuda", seed=0):
+    """q (B, S, Hq, D), k and v (B, Sk, Hkv, D) and the output's gradient
+    do (B, S, Hq, D), as the model holds them, passed as (B, H, S, D)
+    views."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn((B, n, h, D), generator=g, device=device)
+                 .to(dtype).transpose(1, 2)
+                 for n, h in ((S, Hq), (Sk, Hkv), (Sk, Hkv), (S, Hq)))
+
+
+def check_flash_cross(B, S, Sk, Hq, Hkv, D, dtype, device="cuda") -> dict:
+    """Cross-attention's forward and backward, non-causal and without a
+    window, over Sk keys that are not S (or are, for the encoder): out, dq,
+    dk, dv each against its plain version (ATTN_TOL, ATTN_BWD_TOL), each
+    call twice for the same bits; k, v and dk, dv at Sk.  ``variant`` and
+    ``bwd_variant`` name the kernels taken."""
+    q, k, v, do = cross_inputs(B, S, Sk, Hq, Hkv, D, dtype, device)
+    fwd = lambda: _fa.flash_attention(q, k, v, causal=False)
+    bwd = lambda: _fa.backward(q, k, v, do, causal=False)
+    got, again = (fwd(), *bwd()), (fwd(), *bwd())
+    want = (ref.attention(q, k, v, causal=False),
+            *ref.attention_bwd(q, k, v, do, causal=False))
+    tols = (ATTN_TOL, ATTN_BWD_TOL, ATTN_BWD_TOL, ATTN_BWD_TOL)
+    res = worst({name: _pair(g, a, w, t[dtype]) for name, g, a, w, t in
+                 zip(("out", "dq", "dk", "dv"), got, again, want, tols)})
+    res["variant"] = _fa.variant(S, Sk, D, dtype)
+    res["bwd_variant"] = _fa.bwd_variant(S, Sk, D, dtype)
+    return res
+
+
+def xattn_tol(p, x, ctx, cfg, cache=None) -> tuple:
+    """(rtol, atol per row) of a bf16 cross-attention sublayer's output,
+    kernel path against plain path, as :func:`moe_tol` takes a MoE
+    sublayer's: one ulp of the element (rtol |plain|), ``MATMUL_TOL``'s
+    atol, and rtol of the row's largest addend sum, |x| + |o| @ |wo| (o the
+    attention's output that enters ``wo``), for what one-ulp differences in
+    the bf16 intermediates (q, the context's K and V, o) carry through the
+    products.  With ``cache`` the decode step's o, over the cached K/V."""
+    rtol, atol = MATMUL_TOL[torch.bfloat16]
+    B, S, d = x.shape
+    hd = cfg.head_dim
+    xn = _layers.rmsnorm(x, p["norm"], cfg.norm_eps)
+    q = (xn.reshape(B * S, d).float() @ p["wq"].float()).reshape(B, S, cfg.n_heads, hd)
+    k, v = cache if cache is not None else _layers.xattn_prefill_cache(p, ctx, cfg)
+    o = ref.attention(q.transpose(1, 2), k.float().transpose(1, 2),
+                      v.float().transpose(1, 2), causal=False)
+    o = o.transpose(1, 2).reshape(B * S, cfg.n_heads * hd)
+    row = x.abs().float().reshape(B * S, d) + o.abs() @ p["wo"].abs().float()
+    return rtol, atol + rtol * row.amax(dim=1, keepdim=True)

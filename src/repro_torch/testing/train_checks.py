@@ -2,12 +2,14 @@
 
 ``chip_smoke.py`` (phase 4b) runs the smoke models of ``SMOKE_ARCHS`` (f32)
 from the JAX initialiser's weights (``weights_path(arch)``: llama3-8b's
-written by ``scripts/make_torch_smoke_weights.py``, the MoE and Mamba
-archs' by ``tests/torch_jax_smoke.py``) on the card through the
-kernels and on the CPU through the plain versions, and holds the one
-against the other; ``tests/test_torch_train.py``, ``test_torch_moe.py``
-and ``test_torch_ssm.py`` hold the CPU path against the JAX package with
-the same limits.
+written by ``scripts/make_torch_smoke_weights.py``, the MoE, Mamba and
+cross-attention archs' by ``tests/torch_jax_smoke.py``) on the card through
+the kernels and on the CPU through the plain versions, and holds the one
+against the other; ``tests/test_torch_train.py``, ``test_torch_moe.py``,
+``test_torch_ssm_train.py`` and ``test_torch_xattn_train.py`` hold the CPU
+path against the JAX package with the same limits.  The encdec and vlm
+archs' batches carry a context, drawn as the train launcher draws it
+(``launch.train.step_context``).
 
 Limits, f32 on both sides, sums in other orders:
   * the loss and the gradient's norm: rtol 1e-5 (measured ~1e-7);
@@ -44,15 +46,19 @@ import torch
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.data import DataConfig, SyntheticCorpus
+from repro_torch.launch.train import step_context
+from repro_torch.models.lm import CONTEXT_FAMILIES
 from repro_torch.params import params_from_dotted, tree_leaves, tree_map
 from repro_torch.train import OptConfig, TrainState, adamw_init, make_train_step
 from repro_torch.train.trainer import loss_and_grads, trainable
 
 ARCH = "llama3-8b"
 #: the archs whose smoke train step phase 4b holds card against CPU: the
-#: dense family's, the MoE family's, mamba2's and the jamba hybrid's
+#: dense family's, the MoE family's, mamba2's, the jamba hybrid's and the
+#: cross-attention families' (encdec, vlm)
 SMOKE_ARCHS = (ARCH, "mixtral-8x7b", "qwen3-moe-235b-a22b", "mamba2-370m",
-               "jamba-1.5-large-398b")
+               "jamba-1.5-large-398b", "seamless-m4t-large-v2",
+               "llama-3.2-vision-11b")
 
 
 #: archs whose smoke tree has another arch's shapes, so that JAX's init at
@@ -91,6 +97,15 @@ def smoke_batches(steps: int, batch: int = 4, seq: int = 32, seed: int = 0,
     return [corpus.batch(s) for s in range(steps)]
 
 
+def smoke_contexts(steps: int, batch: int = 4, seq: int = 32, arch: str = ARCH):
+    """Each step's context (numpy f32) for an encdec or vlm arch, as the
+    train launcher draws it; None a step for the other archs."""
+    cfg = get_smoke_config(arch)
+    if cfg.family not in CONTEXT_FAMILIES:
+        return [None] * steps
+    return [step_context(cfg, s, batch, seq) for s in range(steps)]
+
+
 def opt_config(steps: int) -> OptConfig:
     return OptConfig(lr=LR, warmup_steps=WARMUP, total_steps=steps)
 
@@ -103,15 +118,21 @@ def run_smoke(device, steps: int = 2, n_microbatches: int = 1,
     with the same weights."""
     cfg = cfg or get_smoke_config(arch)
     params = trainable(tree_map(lambda t: t.to(device), smoke_params(arch)))
-    batches = [torch.from_numpy(b).to(device, torch.int64)
-               for b in smoke_batches(steps, arch=arch)]
-    loss0, grads0 = loss_and_grads(params, batches[0], cfg)
+    batches = []
+    for toks, ctx in zip(smoke_batches(steps, arch=arch),
+                         smoke_contexts(steps, arch=arch)):
+        b = {"tokens": torch.from_numpy(toks).to(device, torch.int64)}
+        if ctx is not None:
+            b["ctx"] = torch.from_numpy(ctx).to(device)
+        batches.append(b)
+    loss0, grads0 = loss_and_grads(params, batches[0]["tokens"], cfg,
+                                   batches[0].get("ctx"))
     opt_cfg = opt_config(steps)
     state = TrainState(params, adamw_init(params, opt_cfg))
     step = make_train_step(cfg, opt_cfg, n_microbatches=n_microbatches)
     metrics = []
     for b in batches:
-        state, m = step(state, {"tokens": b})
+        state, m = step(state, b)
         metrics.append({k: float(v) for k, v in m.items()})
     return {"loss0": float(loss0), "grads0": grads0, "metrics": metrics,
             "params": state.params, "opt": state.opt}

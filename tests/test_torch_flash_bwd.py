@@ -99,10 +99,25 @@ def test_bwd_q_plan_visits_every_visible_pair_once(S, causal, window):
     each once; together they hold every (q row, key) pair ref's mask makes
     visible; none is one the masks hide entirely; and a tile is masked
     exactly where it holds a hidden pair (past S or Sk included)."""
-    vis = _mask(S, S, causal, window)
+    _walk_q_plans(S, S, causal, window)
+
+
+@pytest.mark.parametrize("S, Sk", [(35, 6404), (512, 6404), (1024, 256), (64, 1),
+                                   (65, 63), (256, 256), (70, 70)])
+def test_bwd_q_plan_visits_every_visible_pair_once_across(S, Sk):
+    """The same walk for cross-attention (non-causal, no window) over a
+    context of Sk keys: vlm's 6,404 image tokens (a 4-key edge tile) against
+    a q tile of fewer than 64 rows and against whole prompts, seamless's
+    256 frames against 1,024 decoder rows, ragged Sk of 1 and 63; and the
+    encoder's S = Sk, whole and ragged."""
+    _walk_q_plans(S, Sk, False, None)
+
+
+def _walk_q_plans(S, Sk, causal, window):
+    vis = _mask(S, Sk, causal, window)
     seen = torch.zeros_like(vis, dtype=torch.int32)
-    for k0 in range(0, S, BK):
-        plan = fa.bwd_q_plan(k0, S, causal, window)
+    for k0 in range(0, Sk, BK):
+        plan = fa.bwd_q_plan(k0, S, causal, window, Sk=Sk)
         starts = [q0 for q0, _ in plan]
         assert starts == sorted(set(starts)) and all(q0 % BQ == 0 for q0 in starts)
         assert all(0 <= q0 < S for q0 in starts)

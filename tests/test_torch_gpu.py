@@ -834,3 +834,59 @@ def test_flash_attention_at_mixtrals_train_shape(cuda, dtype):
     bwd = kc.check_flash_bwd(B, S, dtype, window, device=cuda)
     assert fwd["ok"] and bwd["ok"], (fwd, bwd)
     assert bwd["variant"] == ("wgmma" if dtype == torch.bfloat16 else "simt")
+
+
+# -- the cross-attention families (chip_smoke.py phases 3, 3c and 10) ----------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", [c[0] for c in kc.XATTN_FLASH_CASES])
+def test_flash_attention_cross_forward_and_backward(cuda, case, dtype):
+    """Non-causal, no window, Sk != S (and the encoder's S = Sk): out, dq,
+    dk, dv within their limits, the same bits twice; bf16 at head dims 64
+    and 128 on the wgmma kernels both ways, the rest simt."""
+    _, B, S, Sk, Hq, Hkv, D = next(c for c in kc.XATTN_FLASH_CASES if c[0] == case)
+    res = kc.check_flash_cross(B, S, Sk, Hq, Hkv, D, dtype, cuda)
+    assert res["ok"], res
+    want = ("wgmma" if dtype == torch.bfloat16 and D in flash_attention.WGMMA_HEAD_DIMS
+            else "simt")
+    assert (res["variant"], res["bwd_variant"]) == (want, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", kc.XATTN_MATMUL, ids=lambda s: f"{s[0]}-M{s[1]}")
+def test_matmul_kernel_cross_attention_families(cuda, shape, dtype):
+    _, M, K, N = shape
+    res = kc.check_matmul(M, K, N, dtype, cuda)
+    assert res["ok"], res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["a", "b"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", kc.XATTN_MATMUL_BWD, ids=lambda s: s[0])
+def test_matmul_backward_cross_attention_families(cuda, shape, dtype, which):
+    _, M, K, N = shape
+    res = kc.check_matmul_bwd(M, K, N, dtype, which, cuda)
+    assert res["ok"], res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("R, D", kc.XATTN_NORM)
+def test_rmsnorm_kernel_seamless_width(cuda, R, D, dtype):
+    res = kc.check_rmsnorm(R, D, dtype, cuda)
+    assert res["ok"], res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "llama-3.2-vision-11b"])
+def test_cross_attention_smoke_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """Phase 4b's check for the cross-attention archs: the loss, every
+    gradient leaf and two steps from the JAX init, their contexts drawn as
+    the launcher draws them."""
+    from repro_torch.testing import train_checks as tc
+    res = tc.compare_runs(tc.run_smoke(cuda, steps=2, arch=arch),
+                          tc.run_smoke("cpu", steps=2, arch=arch), arch=arch)
+    assert res["ok"], res

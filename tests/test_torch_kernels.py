@@ -205,7 +205,7 @@ def _visible(q0, Sk, causal, window, bq=64, n_keys=600):
 
 @pytest.mark.parametrize("window", [None, 1, 9, 37, 64, 100])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("Sk", [1, 37, 64, 65, 223, 445])
+@pytest.mark.parametrize("Sk", [1, 37, 64, 65, 223, 445, 256, 6404])
 def test_flash_tile_plan_walks_every_visible_key(Sk, causal, window):
     """Over every q tile: the tiles start on 64-key edges in order, cover
     every key some row of the tile sees, start no later than the window's
@@ -214,7 +214,7 @@ def test_flash_tile_plan_walks_every_visible_key(Sk, causal, window):
     from repro_torch.kernels import flash_attention as fa
     for q0 in range(0, 512, fa.WGMMA_BQ):
         plan = fa.tile_plan(q0, Sk, causal, window)
-        vis = _visible(q0, Sk, causal, window)
+        vis = _visible(q0, Sk, causal, window, n_keys=max(600, Sk + 64))
         starts = [k0 for k0, _ in plan]
         assert starts == sorted(starts) and all(k0 % fa.WGMMA_BK == 0 for k0 in starts)
         assert all(k0 < Sk for k0 in starts)

@@ -5,7 +5,8 @@ and paged engines' greedy streams, the launchers, the launch counts of a
 serving run and of a train step, training (the loss and every gradient
 leaf against ``jax.grad``, at the smoke capacity and at one that drops
 pairs; three train steps with one and two microbatches), and what the
-port still refuses (a paged windowed model, the cross-attention families).
+port still refuses (a paged windowed model; the cross-attention families
+in the serving engines, which take no context).
 
 mixtral-8x7b-smoke is the one registered arch with a sliding window (16
 at smoke size); qwen3-moe-235b-a22b-smoke carries the paged path (full
@@ -222,19 +223,30 @@ def test_serve_launcher_refuses_mixtral_paged():
 
 @pytest.mark.parametrize("name", ["seamless-m4t-large-v2", "llama-3.2-vision-11b"])
 def test_cross_attention_families_are_refused(name):
-    """The refusal that stays: the encdec and VLM families neither train nor
-    serve, through the model, the launchers and the launch counts."""
-    from repro_torch.launch import serve, train
+    """The refusal that stays: the encdec and vlm families train and serve
+    through ``lm.prefill(..., ctx_embeds)`` and ``lm.decode_step``, but no
+    engine takes a context (the reference's engine prefills without one),
+    so the dense and paged engines and the serve launcher refuse them, the
+    launcher before it draws a weight."""
+    from repro_torch.launch import serve
     cfg = get_smoke_config(name)
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        lm.model_defs(cfg)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        train.main(["--arch", name, "--device", "cpu", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        serve.main(["--arch", name, "--device", "cpu", "--requests", "1"])
-    for count in (trainer.step_launches, trainer.serve_launches):
-        with pytest.raises(NotImplementedError, match="Mamba sublayers only"):
-            count(cfg)
+    model = lm.Model(cfg, tc.smoke_params(name))
+    with pytest.raises(ValueError, match="take no context") as err:
+        ServingEngine(model, ServeConfig(max_batch=2, max_seq=32), device="cpu")
+    assert name in str(err.value) and "lm.prefill(..., ctx_embeds)" in str(err.value)
+    with pytest.raises(ValueError, match="take no context"):
+        PagedServingEngine(model, PagedServeConfig(**SCFG), device="cpu")
+    drawn = []
+    orig = serve.init_params
+    serve.init_params = lambda *a, **kw: drawn.append(1) or orig(*a, **kw)
+    try:
+        for argv in ([], ["--paged"], ["--pods", "2"]):
+            with pytest.raises(ValueError, match="take no context"):
+                serve.main(["--arch", name, "--device", "cpu", "--requests", "1"]
+                           + argv)
+    finally:
+        serve.init_params = orig
+    assert not drawn
 
 
 def _counting(monkeypatch) -> dict:

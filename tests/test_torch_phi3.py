@@ -40,9 +40,10 @@ GRAD_TOL = (1e-4, 2e-5)
 D96 = dict(d_model=192, n_heads=2, n_kv_heads=2, d_head=96, n_layers=2)
 DENSE = sorted(n for n, c in archs.CONFIGS.items() if c.family == "dense")
 #: every arch the port serves with attention: the dense family, the MoE
-#: family and the jamba hybrid (mamba2-370m has no attention sublayer)
+#: family, the jamba hybrid and the cross-attention families (mamba2-370m
+#: has no attention sublayer)
 SERVED = DENSE + sorted(n for n, c in archs.CONFIGS.items()
-                        if c.family in ("moe", "hybrid"))
+                        if c.family in ("moe", "hybrid", "encdec", "vlm"))
 
 
 def test_the_dense_archs_are_the_four_the_port_runs():
@@ -52,10 +53,15 @@ def test_the_dense_archs_are_the_four_the_port_runs():
 @pytest.mark.parametrize("name", SERVED)
 def test_every_dense_arch_head_dim_has_both_attention_kernels(name):
     """At its published width (phi3-mini: 3072 / 32 = 96), and the MoE
-    archs' and jamba's too (128)."""
+    archs', jamba's and llama-3.2-vision's too (128), and seamless's (64);
+    in bf16 each takes the wgmma kernels, forward and backward, at its
+    self-attention's S = Sk and its cross-attention's Sk != S."""
     D = get_config(name).head_dim
     assert D in flash_attention.HEAD_DIMS
     assert D in paged_attention.HEAD_DIMS
+    for S, Sk in ((1024, 1024), (35, 6404), (1024, 256)):
+        assert flash_attention.variant(S, Sk, D, torch.bfloat16) == "wgmma"
+        assert flash_attention.bwd_variant(S, Sk, D, torch.bfloat16) == "wgmma"
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

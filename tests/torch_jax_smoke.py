@@ -1,13 +1,14 @@
-"""The JAX side of the port's smoke training checks for the MoE and Mamba
-archs: the JAX initialiser's smoke weights (seed 0) as numpy files beside
+"""The JAX side of the port's smoke training checks for the MoE, Mamba and
+cross-attention archs: the JAX initialiser's smoke weights (seed 0) as numpy files beside
 llama3-8b's, and JAX's train steps from them.
 
     PYTHONPATH=src python tests/torch_jax_smoke.py
 
 writes the weight files.  ``chip_smoke.py`` (phase 4b) trains the port
 from them on the card and on the CPU without importing JAX
-(``testing/train_checks.py``); ``tests/test_torch_moe.py`` and
-``tests/test_torch_ssm.py`` check that each file still equals
+(``testing/train_checks.py``); ``tests/test_torch_moe.py``,
+``tests/test_torch_ssm_train.py`` and ``tests/test_torch_xattn_train.py``
+check that each file still equals
 ``repro.parallel.sharding.init_params`` of the arch's smoke model at
 ``jax.random.key(0)`` and hold the port's train steps against
 :func:`jax_smoke_run`, its gradients against ``jax.grad``
@@ -30,6 +31,8 @@ from repro.parallel.sharding import default_rules, init_params
 from repro.train import optimizer as jopt
 from repro.train import trainer as jtrainer
 from repro_torch.kernels import flash_attention, matmul, rmsnorm
+from repro_torch.launch.train import step_context
+from repro_torch.models.lm import CONTEXT_FAMILIES
 from repro_torch.params import params_from_jax
 from repro_torch.testing import train_checks as tc
 from repro_torch.train import trainer
@@ -74,9 +77,13 @@ def jax_smoke_run(arch: str, steps: int, n_microbatches: int, **over) -> dict:
     smoke config (a capacity factor, say)."""
     jcfg = dataclasses.replace(get_smoke_config(arch), **over)
     jp = init_params(lm.model_defs(jcfg), jax.random.key(0))
-    batches = [jnp.asarray(b) for b in tc.smoke_batches(steps, arch=arch)]
+    batches = [{"tokens": jnp.asarray(b)} for b in tc.smoke_batches(steps, arch=arch)]
+    for b, c in zip(batches, tc.smoke_contexts(steps, arch=arch)):
+        if c is not None:
+            b["ctx"] = jnp.asarray(c)
     jl, jg = jax.value_and_grad(
-        lambda p: lm.forward_train(p, batches[0], jcfg, RULES))(jp)
+        lambda p: lm.forward_train(p, batches[0]["tokens"], jcfg, RULES,
+                                   batches[0].get("ctx")))(jp)
     o = tc.opt_config(steps)
     jo = jopt.OptConfig(lr=o.lr, warmup_steps=o.warmup_steps,
                         total_steps=o.total_steps)
@@ -85,7 +92,7 @@ def jax_smoke_run(arch: str, steps: int, n_microbatches: int, **over) -> dict:
                                             n_microbatches=n_microbatches))
     metrics = []
     for b in batches:
-        state, m = step(state, {"tokens": b})
+        state, m = step(state, b)
         metrics.append({k: float(v) for k, v in m.items()})
     to_t = lambda t: params_from_jax(jax.tree.map(np.asarray, t))
     tp = tc.smoke_params(arch)
@@ -112,13 +119,17 @@ def assert_weights_file_is_the_jax_init(arch: str) -> None:
         np.testing.assert_array_equal(t.numpy(), want[path], err_msg=path)
 
 
-def assert_grads_match_jax(jcfg, cfg, jp, tp, toks, grad_tol=GRAD_TOL) -> None:
+def assert_grads_match_jax(jcfg, cfg, jp, tp, toks, grad_tol=GRAD_TOL,
+                           ctx=None) -> None:
     """The loss and every gradient leaf of the port's ``forward_train``
-    against ``jax.value_and_grad`` of the JAX model's, on tokens ``toks``."""
+    against ``jax.value_and_grad`` of the JAX model's, on tokens ``toks``
+    (and the numpy context ``ctx``)."""
     jl, jg = jax.value_and_grad(
-        lambda p: lm.forward_train(p, jnp.asarray(toks), jcfg, RULES))(jp)
+        lambda p: lm.forward_train(p, jnp.asarray(toks), jcfg, RULES,
+                                   None if ctx is None else jnp.asarray(ctx)))(jp)
     tl, tg = trainer.loss_and_grads(trainer.trainable(tp),
-                                    torch.from_numpy(toks).long(), cfg)
+                                    torch.from_numpy(toks).long(), cfg,
+                                    None if ctx is None else torch.from_numpy(ctx))
     np.testing.assert_allclose(float(tl), float(jl), rtol=LOSS_RTOL)
     want = {".".join(k.key for k in path): np.asarray(v)
             for path, v in jax.tree_util.tree_flatten_with_path(jg)[0]}
@@ -156,7 +167,10 @@ def count_train_step(monkeypatch, cfg, n_microbatches: int) -> dict:
     step = trainer.make_train_step(cfg, tc.opt_config(1),
                                    n_microbatches=n_microbatches)
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 12))
-    step(state, {"tokens": torch.from_numpy(toks).long()})
+    batch = {"tokens": torch.from_numpy(toks).long()}
+    if cfg.family in CONTEXT_FAMILIES:
+        batch["ctx"] = torch.from_numpy(step_context(cfg, 0, 2, 12))
+    step(state, batch)
     return counts
 
 
