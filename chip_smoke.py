@@ -161,6 +161,25 @@ Phases, each of which raises on failure (nothing is caught):
      the cross-attention sublayer and the encoder timed apart), and one
      full-width cross-attention sublayer's gradients (x, ctx, wq, wk, wv,
      wo) held to the CPU path at 128 tokens against 6,404 context tokens;
+ 11. state and resilience (``_state_path``): (a) llama3-8b at its
+     published width cut to 2 of its 32 layers (bf16, seeded weights,
+     remat; the free bytes under ``build/state_ckpt`` printed first, and
+     fewer than three checkpoints' worth fail the phase) through
+     ``launch.train.run`` with checkpoints: 4 steps at 4 x 1024, saved at
+     steps 2 and 4; step 4's leaf crc32s recorded and the directory
+     deleted; a resumed run must restore step 2, give steps 2-3's losses
+     bit for bit and rewrite step 4 with the same crc32 on every leaf;
+     step 4 torn, ``latest_step`` must be 2; launches exactly
+     ``step_launches`` a step; printed: how long ``save_async`` holds the
+     step loop, the writer's GB/s, restore ms and GB/s, step ms with a save
+     in flight and without, peak device and host memory; (b)
+     ``testing.check_chaos.main`` (smoke model, 12 steps, a kill, a
+     straggler, a torn checkpoint) on the card, its fingerprints, restarts
+     and timeline equal to the CPU run's and its losses within
+     ``train_checks.SCALAR_RTOL``; (c) ``testing.check_chaos_procs.main``
+     with the primary worker on the card (real SIGKILLs, one of the
+     primary mid-save; the failover primary takes the card), its detection
+     latencies printed;
   6. kernel times (CUDA events) beside the plain version, the one PyTorch
      call that computes the same function, and the card's bound (rmsnorm at
      every main-path R in both dtypes, with its device ms a call beside
@@ -195,7 +214,7 @@ The line before the last is a JSON object of the kernels; the last line is
 7b and phase 6's phi3-mini flash rows; ``moe``, phase 8's serving;
 ``moe-train``, phase 8's training; ``ssm``, phase 5's Mamba smoke models
 and phase 9; ``xattn``, phases 3 and 3c's cross-attention checks, phase 10
-and phase 6's cross-attention rows), so that a copy
+and phase 6's cross-attention rows; ``state``, phase 11), so that a copy
 of this file at another checkout's root reads that tree's kernels with
 this file's readings.  Imports nothing of JAX.  Without a
 card, or without the repo's ``src/repro_torch`` beside it, it exits
@@ -2615,6 +2634,182 @@ def _phi3_flash_times(kc, kfa, ref, time_ms) -> dict:
     return {"fwd": fwd, "bwd": bwd}
 
 
+#: phase 11's llama3-8b cut: 2 of its 32 layers (1.487 B parameters, 20.82
+#: GB a checkpoint at 14 bytes a parameter; three fit the 80.2 GB an H100
+#: machine had free under ``build/``)
+STATE_LAYERS = 2
+#: the bytes a parameter takes in a checkpoint: bf16 weight, f32 master, m, v
+STATE_BYTES_A_PARAM = 14
+
+
+def _leaf_crcs(d: pathlib.Path) -> dict:
+    """crc32 of every leaf file of a checkpoint step directory."""
+    import zlib
+
+    out = {}
+    for f in sorted(d.glob("leaf_*.npy")):
+        crc = 0
+        with open(f, "rb") as fh:
+            while chunk := fh.read(1 << 26):
+                crc = zlib.crc32(chunk, crc)
+        out[f.name] = crc
+    return out
+
+
+def _state_resume(dev) -> dict:
+    """Phase 11a: llama3-8b at its published width cut to ``STATE_LAYERS``
+    (bf16, seeded weights, remat, the launcher's optimizer) through
+    ``launch.train.run`` with checkpoints: 4 steps at 4 x 1024 saving at
+    steps 2 and 4; the step-4 checkpoint's leaf crc32s recorded and the
+    directory deleted; the run again with ``resume``, which must restore
+    step 2, give steps 2-3's losses bit for bit and rewrite step 4 with the
+    same crc32 on every leaf; then step 4 torn, so ``latest_step`` is 2.
+    Launches exactly ``step_launches`` a step.  Returns the launches of
+    both runs."""
+    import dataclasses
+    import resource
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import latest_step, tear_checkpoint
+    from repro_torch.configs import archs, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import run
+    from repro_torch.train.trainer import step_launches
+
+    base = get_config("llama3-8b")
+    cfg = dataclasses.replace(base, name=f"llama3-8b-{STATE_LAYERS}l",
+                              n_layers=STATE_LAYERS)
+    ckpt_dir = ROOT / "build" / "state_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    free = shutil.disk_usage(ckpt_dir).free
+    size = STATE_BYTES_A_PARAM * cfg.n_params()
+    print(f"[state] {free} bytes ({free / 1e9:.2f} GB) free under {ckpt_dir}; a "
+          f"checkpoint {size / 1e9:.2f} GB")
+    if free < 3 * size:
+        raise AssertionError(f"the disk holds fewer than three checkpoints "
+                             f"({free} bytes free)")
+    archs.CONFIGS[cfg.name] = cfg          # registered for the launcher
+    kw = dict(smoke=False, steps=4, global_batch=4, seq_len=1024, ckpt_every=2,
+              ckpt_dir=str(ckpt_dir), device=dev, log_every=1)
+    want = {**{k: 0 for k in ops.LAUNCHES}, **step_launches(cfg)}
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    try:
+        print(f"[state] {cfg.name}: {cfg.n_layers} layers of {base.n_layers}, "
+              f"{cfg.n_params() / 1e9:.3f} B params, remat {cfg.remat}, "
+              f"{str(cfg.dtype)[6:]}; 4 steps at 4 x 1024, a checkpoint every 2")
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        first = run(cfg.name, **kw)
+        got = dict(ops.LAUNCHES)
+        if got != {k: 4 * v for k, v in want.items()}:
+            raise AssertionError(f"launches {got}, expected 4 x {want}")
+        launches = {k: launches[k] + got[k] for k in launches}
+        step4 = ckpt_dir / "step_00000004"
+        crcs = _leaf_crcs(step4)
+        shutil.rmtree(step4)
+        ops.reset_launches()
+        second = run(cfg.name, **kw)
+        got = dict(ops.LAUNCHES)
+        if got != {k: 2 * v for k, v in want.items()}:
+            raise AssertionError(f"resumed launches {got}, expected 2 x {want}")
+        launches = {k: launches[k] + got[k] for k in launches}
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[state] first run losses {first['losses']}; resumed at step "
+              f"{second['start_step']}: {second['losses']}")
+        if second["start_step"] != 2:
+            raise AssertionError(f"resumed at {second['start_step']}, not step 2")
+        if second["losses"] != first["losses"][2:]:
+            raise AssertionError(f"resumed losses {second['losses']} != "
+                                 f"{first['losses'][2:]}")
+        crcs2 = _leaf_crcs(step4)
+        same = crcs2 == crcs
+        print(f"[state] rewritten step 4: {len(crcs2)} leaves, crc32 of every leaf "
+              f"equal to the first run's: {same}")
+        if not same:
+            raise AssertionError(f"step-4 leaves differ: "
+                                 f"{[k for k in crcs if crcs[k] != crcs2.get(k)]}")
+        tear_checkpoint(ckpt_dir, 4)
+        latest = latest_step(ckpt_dir)
+        print(f"[state] step 4 torn: latest_step {latest}")
+        if latest != 2:
+            raise AssertionError(f"latest_step {latest} after tearing step 4")
+        saves = first["ckpt_timings"] + second["ckpt_timings"]
+        for t in saves:
+            print(f"[state] save of step {t['step']}: save_async held the step loop "
+                  f"{1e3 * t['snapshot_s']:.1f} ms (device-to-host snapshot, "
+                  f"{t['nbytes'] / t['snapshot_s'] / 1e9:.2f} GB/s); the writer "
+                  f"{t['write_s']:.2f} s, {t['nbytes']} bytes, "
+                  f"{t['nbytes'] / t['write_s'] / 1e9:.3f} GB/s to disk")
+        nbytes = saves[0]["nbytes"]
+        r = second["restore_s"]
+        print(f"[state] restore of step 2: {1e3 * r:.1f} ms, {nbytes / r / 1e9:.2f} GB/s "
+              f"(the files were written seconds before: the page cache may hold them)")
+        # each run's first step is cold: left out
+        warm = [(1e3 * t, f) for r in (first, second)
+                for t, f in list(zip(r["step_s"], r["save_in_flight"]))[1:]]
+        busy = [round(t, 2) for t, f in warm if f]
+        idle = [round(t, 2) for t, f in warm if not f]
+        print(f"[state] step ms (host clock, ending on the loss's host read; each "
+              f"run's first step left out): with a save in flight {busy}, without "
+              f"{idle}")
+        print(f"[state] peak device memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); "
+              f"peak host RSS {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} "
+              f"GiB (the process's)")
+    finally:
+        del archs.CONFIGS[cfg.name]
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _state_path(dev) -> dict:
+    """Phase 11: state and resilience on the card.  (a) ``_state_resume``;
+    (b) ``testing.check_chaos.main`` (the smoke model from the JAX
+    initialiser's weights, 12 steps, a kill, a straggler and a torn
+    checkpoint) on the card and on the CPU:
+    fingerprints, restarts and timeline equal, losses within
+    ``train_checks.SCALAR_RTOL``; (c) ``testing.check_chaos_procs.main``
+    with the primary worker on the card: three real SIGKILLs, one of the
+    primary mid-save, the failover primary taking the card.  Returns
+    (a)'s launches."""
+    import torch
+
+    from repro_torch.testing import check_chaos, check_chaos_procs
+    from repro_torch.testing import train_checks as tc
+    from repro_torch.testing.timing import now
+
+    launches = _state_resume(dev)
+    params = tc.smoke_params()             # the JAX initialiser's, on the CPU
+    t0 = now()
+    cpu = check_chaos.main(device="cpu", params=params)
+    t1 = now()
+    gpu = check_chaos.main(device=dev, params=params)
+    t2 = now()
+    for k in ("ref", "chaos"):
+        g, c = gpu[k], cpu[k]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(g["losses"], c["losses"]))
+        same = (g["fingerprints"] == c["fingerprints"] and g["restarts"] == c["restarts"]
+                and g["timeline"] == c["timeline"])
+        print(f"[state] check_chaos {k}: card against CPU, fingerprints, restarts and "
+              f"timeline equal: {same}; losses rel {rel:.3e} (limit {tc.SCALAR_RTOL:g}); "
+              f"card {g['losses']}")
+        if not same or rel > tc.SCALAR_RTOL:
+            raise AssertionError(f"check_chaos {k}: card and CPU disagree")
+    print(f"[state] check_chaos: CPU {t1 - t0:.1f} s, card {t2 - t1:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = now()
+    procs = check_chaos_procs.main(device=str(dev))
+    det = [[round(r["detect_s"], 3) for r in procs[k]["restarts"]]
+           for k in ("chaos", "again")]
+    print(f"[state] check_chaos_procs on the card in {now() - t0:.1f} s: detection "
+          f"latencies (s, heartbeat timeout {check_chaos_procs.TIMEOUT_S}) {det}; "
+          f"losses {procs['chaos']['losses']}")
+    return launches
+
+
 #: the parts ``--only`` runs alone: the libraries each builds, and what it
 #: runs, given the device and the modules ``main`` imports
 ONLY = {
@@ -2631,6 +2826,8 @@ ONLY = {
     "xattn": (("matmul", "rmsnorm", "flash_attention", "flash_attention_bwd"),
               lambda dev, m: (_xattn_checks(m.kc, m.kfa, m.kmm), _xattn_path(dev),
                               _xattn_times(m.kc, m.kfa, m.ref, _time_ms))),
+    "state": (("matmul", "rmsnorm", "flash_attention", "flash_attention_bwd"),
+              lambda dev, m: _state_path(dev)),
 }
 
 
@@ -2645,7 +2842,7 @@ def main(argv: list | None = None) -> int:
                          "moe: phase 8's serving; moe-train: phase 8's training; "
                          "ssm: phase 5's Mamba smoke models and phase 9; xattn: "
                          "phase 3's and 3c's cross-attention checks, phase 10 and "
-                         "phase 6's cross-attention rows); "
+                         "phase 6's cross-attention rows; state: phase 11); "
                          "a copy of this file at the root of another checkout reads "
                          "that tree's kernels the same way")
     args = ap.parse_args(argv)
@@ -3045,6 +3242,8 @@ def main(argv: list | None = None) -> int:
     path_launches.update(_ssm_path(dev))
     # -- 10. the cross-attention families: llama-3.2-vision-11b, seamless ------
     path_launches.update(_xattn_path(dev))
+    # -- 11. state and resilience: llama3-8b resumes; the chaos harnesses -------
+    path_launches["state"] = _state_path(dev)
 
     # -- 6. kernel times ---------------------------------------------------------
     time_ms = _time_ms

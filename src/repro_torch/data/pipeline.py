@@ -2,11 +2,18 @@
 
 The port's copy of ``repro.data.pipeline``: ``DataConfig``,
 ``SyntheticCorpus`` (Zipfian unigrams with per-document Markov structure),
-``global_batch``, and ``Pipeline`` / ``make_pipeline`` (a prefetching
-iterator from step 0).  Rows are a pure function of (seed, step, row), the
-same numbers as the JAX package's global batch for the same config.  The
-port trains on one host from step 0: the host split and the resumable
-cursor come with the distributed and the state-and-resilience slices.
+``global_batch``, and ``Pipeline`` / ``make_pipeline``.  Row ``g`` of the
+global batch at ``step`` is a pure function of (seed, step, g), the same
+numbers as the JAX package's, so:
+
+* every host makes exactly its shard (``n_hosts``, ``host_id``: global
+  row ``host_id * per_host + r``), and the shards in host order are the
+  one-host batch byte for byte;
+* a restarted job replays the stream bit for bit from a checkpointed
+  ``Pipeline.cursor`` (``Pipeline(cfg, start_step=cursor)``): there is no
+  other loader state to save.
+
+A worker thread makes the next ``prefetch`` batches ahead of the trainer.
 """
 from __future__ import annotations
 
@@ -24,13 +31,18 @@ class DataConfig:
     seq_len: int
     global_batch: int
     seed: int = 0
+    n_hosts: int = 1
+    host_id: int = 0
     zipf_a: float = 1.2
     mean_doc_len: int = 512
+    prefetch: int = 2
 
-
-#: the batches the pipeline's worker makes ahead of the trainer (the JAX
-#: ``DataConfig.prefetch`` default)
-PREFETCH = 2
+    @property
+    def per_host(self) -> int:
+        if self.global_batch % self.n_hosts:
+            raise ValueError(f"global batch {self.global_batch} does not split "
+                             f"into {self.n_hosts} hosts")
+        return self.global_batch // self.n_hosts
 
 
 class SyntheticCorpus:
@@ -60,13 +72,14 @@ class SyntheticCorpus:
         return toks.astype(np.int32)
 
     def batch(self, step: int) -> np.ndarray:
-        """The (global_batch, seq_len) batch ``step``: row r is a pure
-        function of (seed, step, r)."""
+        """The (per_host, seq_len) shard of global batch ``step`` for this
+        host: row r is a pure function of (seed, step, global row id)."""
         cfg = self.cfg
-        out = np.empty((cfg.global_batch, cfg.seq_len), np.int32)
-        for r in range(cfg.global_batch):
+        out = np.empty((cfg.per_host, cfg.seq_len), np.int32)
+        for r in range(cfg.per_host):
+            gidx = cfg.host_id * cfg.per_host + r      # global row id
             rng = np.random.default_rng(
-                np.random.SeedSequence([cfg.seed, step, r]))
+                np.random.SeedSequence([cfg.seed, step, gidx]))
             buf = []
             need = cfg.seq_len
             while need > 0:
@@ -78,27 +91,38 @@ class SyntheticCorpus:
 
 
 def global_batch(cfg: DataConfig, step: int) -> np.ndarray:
-    """The full ``(global_batch, seq_len)`` batch at ``step``."""
-    return SyntheticCorpus(cfg).batch(step)
+    """The full ``(global_batch, seq_len)`` batch at ``step``, whatever the
+    host split: every host's shard concatenated in host order."""
+    full = dataclasses.replace(cfg, n_hosts=1, host_id=0)
+    return SyntheticCorpus(full).batch(step)
 
 
 class Pipeline:
-    """Iterator over the batches from step 0 on, a worker thread making the
-    next ``PREFETCH`` of them ahead of the trainer."""
+    """Prefetching iterator over this host's batches with a checkpointable
+    **cursor**.
 
-    def __init__(self, cfg: DataConfig):
+    ``cursor`` is the step of the next batch ``__next__`` hands out: the
+    batches waiting in the prefetch queue do not advance it, so it is always
+    safe to persist, and ``Pipeline(cfg, start_step=cursor)`` replays the
+    stream bit for bit.  The worker queues ``(step, batch)`` pairs and
+    ``__next__`` asserts the pairing, so a cursor/queue desync fails loudly.
+    """
+
+    def __init__(self, cfg: DataConfig, start_step: int = 0):
         self.cfg = cfg
+        self.cursor = start_step
         self._corpus = SyntheticCorpus(cfg)
-        self._q: queue.Queue = queue.Queue(maxsize=PREFETCH)
+        self._q: queue.Queue = queue.Queue(maxsize=cfg.prefetch)
         self._stop = threading.Event()
-        self._worker = threading.Thread(target=self._produce, daemon=True)
+        self._worker = threading.Thread(target=self._produce,
+                                        args=(start_step,), daemon=True)
         self._worker.start()
 
-    def _produce(self):
-        step = 0
+    def _produce(self, start_step: int):
+        step = start_step
         while not self._stop.is_set():
             try:
-                self._q.put(self._corpus.batch(step), timeout=1.0)
+                self._q.put((step, self._corpus.batch(step)), timeout=1.0)
                 step += 1
             except queue.Full:
                 continue
@@ -109,13 +133,17 @@ class Pipeline:
     def __next__(self) -> np.ndarray:
         if self._stop.is_set():
             raise StopIteration
-        return self._q.get()
+        step, batch = self._q.get()
+        assert step == self.cursor, \
+            f"pipeline desync: queued step {step} != cursor {self.cursor}"
+        self.cursor += 1
+        return batch
 
     def close(self):
         """Stop the worker; it exits within its one-second put timeout."""
         self._stop.set()
 
 
-def make_pipeline(cfg: DataConfig) -> Iterator[np.ndarray]:
-    """Prefetching iterator over the batches from step 0."""
-    return Pipeline(cfg)
+def make_pipeline(cfg: DataConfig, start_step: int = 0) -> Iterator[np.ndarray]:
+    """Prefetching iterator over this host's batches from ``start_step``."""
+    return Pipeline(cfg, start_step=start_step)

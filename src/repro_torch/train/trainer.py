@@ -1,8 +1,8 @@
 """The train step: microbatched gradient accumulation, then AdamW.
 
 The port's counterpart of ``repro.train.trainer`` (``TrainState``,
-``train_state_defs``, ``make_train_step``, ``init_train_state``) for one
-device.  Gradients come from ``torch.autograd.grad`` of
+``train_state_defs``, ``abstract_train_state``, ``make_train_step``,
+``init_train_state``) for one device.  Gradients come from ``torch.autograd.grad`` of
 ``lm.forward_train``, through the kernels' backwards on the card; they are
 in each parameter's dtype, and microbatches accumulate them in
 ``acc_dtype``.  The gradient-sync hook and the sharding helpers come with
@@ -29,6 +29,14 @@ class TrainState(NamedTuple):
 def train_state_defs(cfg: ModelConfig, opt_cfg: OptConfig):
     pdefs = lm.model_defs(cfg)
     return pdefs, opt_state_defs(pdefs, opt_cfg)
+
+
+def abstract_train_state(cfg: ModelConfig, opt_cfg: OptConfig) -> TrainState:
+    """The train state's skeleton: a ``PV`` (shape and dtype) a leaf, in
+    the state's tree.  It is the template a checkpoint restore targets
+    without drawing a single weight first (at full width a second copy of
+    the state does not fit the card)."""
+    return TrainState(*train_state_defs(cfg, opt_cfg))
 
 
 def trainable(params: dict) -> dict:

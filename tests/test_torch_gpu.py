@@ -2,7 +2,9 @@
 llama3-8b serving shapes and at the paper's Table I shapes (the checks of
 ``chip_smoke.py``'s kernel phases), the backward kernels at the training
 shapes (phase 3c) and the smoke train step against the CPU (phase 4b),
-their launch counts, and what their wrappers refuse.
+their launch counts, what their wrappers refuse, and (phase 11) a
+checkpointed smoke run on the card resumed bit for bit and an async save
+against the in-place step.
 
 Marked ``gpu``: they skip where there is no CUDA card.  Run them on the
 machine with the card with
@@ -890,3 +892,58 @@ def test_cross_attention_smoke_train_step_on_the_card_matches_the_cpu(cuda, arch
     res = tc.compare_runs(tc.run_smoke(cuda, steps=2, arch=arch),
                           tc.run_smoke("cpu", steps=2, arch=arch), arch=arch)
     assert res["ok"], res
+
+
+def _leaf_bytes(d):
+    return {f.name: f.read_bytes() for f in sorted(d.glob("leaf_*.npy"))}
+
+
+@pytest.mark.gpu
+def test_resumed_run_on_the_card_equals_an_uninterrupted_one(cuda, tmp_path):
+    """The smoke model on the card: 6 steps with a checkpoint every 2, then
+    a run resumed from the step-2 checkpoint alone gives steps 2-5's
+    losses bit for bit and writes steps 4 and 6 with the same bytes."""
+    import shutil
+
+    from repro_torch.launch.train import run
+
+    kw = dict(steps=6, global_batch=4, seq_len=32, ckpt_every=2, device=cuda,
+              log_every=100)
+    whole = run("llama3-8b", ckpt_dir=str(tmp_path / "whole"), **kw)
+    shutil.copytree(tmp_path / "whole" / "step_00000002",
+                    tmp_path / "resumed" / "step_00000002")
+    resumed = run("llama3-8b", ckpt_dir=str(tmp_path / "resumed"), **kw)
+    assert resumed["start_step"] == 2
+    assert resumed["losses"] == whole["losses"][2:]
+    for step in ("step_00000004", "step_00000006"):
+        assert _leaf_bytes(tmp_path / "resumed" / step) == \
+            _leaf_bytes(tmp_path / "whole" / step)
+
+
+@pytest.mark.gpu
+def test_save_async_on_the_card_keeps_the_state_of_its_step(cuda, tmp_path):
+    """``save_async`` then an in-place train step on the card before
+    ``wait()``: the checkpoint holds the state as it was at the save."""
+    from repro_torch.checkpoint import CheckpointManager, restore_checkpoint
+    from repro_torch.checkpoint.ckpt import flatten
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.testing import train_checks as tc
+    from repro_torch.train import make_train_step
+    from repro_torch.train.trainer import init_train_state
+
+    cfg = get_smoke_config("llama3-8b")
+    opt_cfg = tc.opt_config(2)
+    state = init_train_state(cfg, opt_cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    tokens = torch.from_numpy(tc.smoke_batches(1)[0]).to(cuda, torch.int64)
+    before = [t.detach().cpu().clone() for t in flatten(state)]
+    mgr = CheckpointManager(tmp_path)
+    mgr.save_async(state, 1)
+    state, _ = make_train_step(cfg, opt_cfg)(state, {"tokens": tokens})
+    torch.cuda.synchronize()
+    mgr.wait()
+    got, step, _ = restore_checkpoint(tmp_path, state, device="cpu")
+    assert step == 1
+    after = flatten(state)
+    assert not all(torch.equal(a.cpu(), b) for a, b in zip(after, before))
+    for g, b in zip(flatten(got), before):
+        assert g.dtype == b.dtype and torch.equal(g, b)

@@ -141,13 +141,6 @@ def test_launcher_cli_trains_on_the_cpu():
     assert lines[-1].startswith("[train] done: first loss")
 
 
-@pytest.mark.parametrize("flag", ["--ckpt=/tmp/x", "--chaos", "--procs"])
-def test_launcher_refuses_what_it_does_not_take_yet(flag, capsys):
-    with pytest.raises(SystemExit):
-        launch.main(["--device", "cpu", "--steps", "1", flag])
-    assert "not ported yet" in capsys.readouterr().err
-
-
 def test_launcher_refuses_the_card_where_there_is_none():
     if torch.cuda.is_available():
         pytest.skip("this machine has a card")
