@@ -180,6 +180,31 @@ Phases, each of which raises on failure (nothing is caught):
      with the primary worker on the card (real SIGKILLs, one of the
      primary mid-save; the failover primary takes the card), its detection
      latencies printed;
+ 12. distributed compute (``_dist_path``; ``--only dist``): four ranks
+     share the card (``parallel.comm.layout``: gloo, every CUDA tensor a
+     collective sends copied through a host buffer; NCCL refuses two
+     ranks of one communicator on one card), each rank a
+     ``python -m repro_torch.testing.check_dist_*`` process started by
+     ``testing.subproc.run_ranks`` after the one-process run it is held
+     to: (a) llama3-8b at its published width, 2 of 32 layers, on a
+     (2, 2) mesh, 3 steps at 4 x 1024 under remat (ZeRO-3 over `data`,
+     tensor-parallel over `model`, vocab-parallel loss): losses and grad
+     norms within ``DIST_LOSS_RTOL`` and ``DIST_GNORM_RTOL`` of one
+     process, samples of 9 leaves' step-1 gradients within
+     ``DIST_GRAD_RTOL``, each rank's launches a step exactly
+     ``step_launches``; (b) one MoE sublayer at
+     its published width on (1, 4): qwen3-moe in ep and ep_a2a, mixtral
+     in tp, within ``kernel_checks.moe_tol``, the 2 x 2 hierarchical
+     all-to-all bit-equal to the flat one; (c) llama3-8b, 2 layers,
+     decoding 16 steps over a 4,096-slot cache cut over `model` after a
+     512-token prefill at batch 4, logits within ``DIST_LOGIT_SHARE`` of
+     one process, the greedy tokens' agreement printed; (d) ring
+     attention at (1, 16384, 32/8, 128) bf16, flat (seq and db) and 2 x 2
+     hierarchical, causal and window 4,096, within ``ATTN_TOL[bf16]`` of
+     the flash kernel, db bit-equal to seq; every rank's host ms, ms
+     inside collectives, bytes sent and peak memory printed beside the
+     card's name and power limit (a shared card through the host, not
+     NCCL over NVLink);
   6. kernel times (CUDA events) beside the plain version, the one PyTorch
      call that computes the same function, and the card's bound (rmsnorm at
      every main-path R in both dtypes, with its device ms a call beside
@@ -214,7 +239,8 @@ The line before the last is a JSON object of the kernels; the last line is
 7b and phase 6's phi3-mini flash rows; ``moe``, phase 8's serving;
 ``moe-train``, phase 8's training; ``ssm``, phase 5's Mamba smoke models
 and phase 9; ``xattn``, phases 3 and 3c's cross-attention checks, phase 10
-and phase 6's cross-attention rows; ``state``, phase 11), so that a copy
+and phase 6's cross-attention rows; ``state``, phase 11; ``dist``, phase
+12), so that a copy
 of this file at another checkout's root reads that tree's kernels with
 this file's readings.  Imports nothing of JAX.  Without a
 card, or without the repo's ``src/repro_torch`` beside it, it exits
@@ -2810,6 +2836,360 @@ def _state_path(dev) -> dict:
     return launches
 
 
+# -- phase 12: distributed compute, four ranks sharing the card ---------------
+
+#: the ranks of phase 12 (they share the one card: gloo, through host buffers)
+DIST_RANKS = 4
+#: (a)'s losses, 4 ranks against one process: rtol.  On the H100 they
+#: read 5e-7 at step 1 and 1.4e-5 at step 3, the loss moving 0.83 over
+#: the 3 steps: 1e-3 leaves room on both sides and
+#: still fails an update or a leaf's sync that is off by a few percent
+DIST_LOSS_RTOL = 1e-3
+#: (a)'s gradient norms (before clipping): rtol.  On the H100 they read
+#: 2.03e-3, nearly all of it the embedding's: the one process's bf16
+#: scatter-add (``EMBED_ACC_ULP``) rounds a frequent row's hundreds of
+#: adds one at a time and reads ~1.5 % low in that leaf's norm, a rank
+#: adds half as many; 1e-2 leaves room for that, and the gradient samples
+#: (``DIST_GRAD_RTOL``) hold each leaf
+DIST_GNORM_RTOL = 1e-2
+#: (a)'s step-1 gradient, sampled from 9 leaves on every rank, against one
+#: process: ``|d| <= DIST_GRAD_RTOL (|want| + max|want|)`` as the MoE
+#: sublayer's (``MOE_GRAD_RTOL``): one bf16 ulp of the element (the bf16
+#: partials summed over the data ranks, the tensor-parallel products'
+#: partials over `model`) and one of the leaf's largest element, for what
+#: one-ulp differences in the bf16 activations carry into every element
+DIST_GRAD_RTOL = 8e-3
+#: ... but the embedding's gradient is a bf16 scatter-add: a row gets its
+#: token's k cotangents one at a time, each sum rounded to bf16 (the one
+#: process's and each rank's ``index_put_`` with accumulate), and a Zipf
+#: corpus gives its first rows hundreds each.  So that leaf is held to the
+#: f32 sum of the one process's cotangents, with the rounding of those
+#: sums on top: at most half a bf16 ulp (2^-8 of) the row's sum of
+#: |cotangents| for each of the k adds and for the sum over the data ranks
+EMBED_ACC_ULP = 2**-8
+#: (c)'s logits, 4 ranks against one process: |d| <= this share of the
+#: largest |logit| of the step (the bf16 roundings of (a), through 2
+#: layers and the head)
+DIST_LOGIT_SHARE = 5e-2
+
+
+def _dist_readings(tag: str, stats: list, smi: str, unit: str = "rank") -> None:
+    """The readings of one part (``testing.subproc.readings``), one a rank
+    or, with ``unit="step"``, one a step of one rank."""
+    for i, st in enumerate(stats):
+        peak = st.get("peak_bytes")
+        print(f"[dist] {tag} {unit} {i}: {st['ms']:.1f} ms, {st['collective_ms']:.1f} ms "
+              f"inside collectives (host clock), {st['bytes'] / 1e6:.1f} MB sent, peak "
+              f"{'n/a' if peak is None else f'{peak / 2**30:.2f} GiB'}; {smi}")
+
+
+def _dist_train(dev, smi) -> dict:
+    """Phase 12a: llama3-8b at its published width, 2 of 32 layers, 3 steps
+    at 4 x 1024 under remat, in one process on the card and then on a (2, 2)
+    mesh of 4 ranks: losses and gradient norms, and samples of 9 leaves'
+    step-1 gradients on every rank, against the one process; each rank's
+    launches a step exactly ``step_launches``.  Returns rank 0's launches
+    over the 3 steps."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.parallel.comm import Mesh
+    from repro_torch.parallel.sharding import block, default_rules, param_placements
+    from repro_torch.testing import check_dist_train as cdt
+    from repro_torch.testing import kernel_checks as kc
+    from repro_torch.testing.subproc import run_ranks
+    from repro_torch.testing.timing import now
+    from repro_torch.train import make_train_step
+    from repro_torch.train.trainer import init_train_state, loss_and_grads, step_launches
+
+    import gc
+
+    arch = "llama3-8b"
+    cfg, opt_cfg = cdt.config(arch, "full"), cdt.opt_config("full")
+    bs = cdt.batches(arch, "full")
+    defs = lm.model_defs(cfg)
+    mesh = Mesh.abstract((2, 2), ("data", "model"))
+    rules = default_rules(mesh, batch=bs[0].shape[0])
+    specs = cdt.flat(param_placements(defs, rules))
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, opt_cfg, torch.Generator(dev).manual_seed(0), dev)
+    g0, embed = _dist_embed_grad(lm, loss_and_grads, state.params, bs[0].to(dev), cfg)
+    norms0 = cdt.leaf_norms(g0, defs)
+    g0 = cdt.flat(g0)
+
+    def samples(t, k):
+        return [cdt.sample(block(t, specs[k], mesh, r)).cpu() for r in range(DIST_RANKS)]
+    want = {k: samples(g0[k], k) for k in cdt.FULL_LEAVES}
+    # the embedding: the f32 sum, its rounding allowance, the one process's bf16
+    want["embed"] = samples(embed["f32"], "embed")
+    allow = samples(embed["allow"], "embed")
+    one_embed = kc.compare(g0["embed"].float(), embed["f32"],
+                           (DIST_GRAD_RTOL, DIST_GRAD_RTOL * embed["f32"].abs().max()
+                            + embed["allow"]))
+    one_embed["norms"] = (float(embed["f32"].norm()), float(g0["embed"].float().norm()))
+    del g0, embed
+    step = make_train_step(cfg, opt_cfg)
+    one, one_ms = [], []
+    for b in bs:
+        torch.cuda.synchronize()
+        t0 = now()
+        state, m = step(state, {"tokens": b.to(dev)})
+        one.append({k: float(v) for k, v in m.items()})
+        one_ms.append(1e3 * (now() - t0))
+    print(f"[dist] (a) {arch}: {cfg.n_layers} of 32 layers, d_model {cfg.d_model}, "
+          f"{cfg.n_params() / 1e9:.3f} B parameters, 3 steps at {bs[0].shape[0]} x "
+          f"{bs[0].shape[1]} tokens, remat; one process: losses "
+          f"{[m['loss'] for m in one]}, grad norms {[m['grad_norm'] for m in one]}, "
+          f"step ms {[round(t, 1) for t in one_ms]}, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+    n_whole = sum(t.numel() for t in cdt.flat(state.params).values())
+    del state, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[dist] (a) the one process holds {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB on the card before the spawn")
+    t0 = now()
+    d = run_ranks("repro_torch.testing.check_dist_train", DIST_RANKS, "2", "2",
+                  "--size", "full", "--archs", arch, device="cuda", timeout=900)
+    print(f"[dist] (a) 4 ranks on a (2, 2) mesh (data, model) in {now() - t0:.1f} s, "
+          f"spawn included")
+    runs = [torch.load(f"{d}/rank{r}.pt", weights_only=False)["archs"][arch]
+            for r in range(DIST_RANKS)]
+    ranks = [r["full"] for r in runs]
+    print(f"[dist] (a) parameters a rank: {[r['n_params'] for r in runs]} (of "
+          f"{n_whole} in one process)")
+    want_l = {**{k: 0 for k in ops.LAUNCHES}, **step_launches(cfg, 1, rules)}
+    worst = {"loss": 0.0, "grad_norm": 0.0, "grad": 0.0}
+    grads = {}
+    for r, rk in enumerate(ranks):
+        for g, w in zip(rk["metrics"], one):
+            for k in ("loss", "grad_norm"):
+                worst[k] = max(worst[k], abs(g[k] - w[k]) / abs(w[k]))
+        for k in cdt.FULL_LEAVES:
+            w = want[k][r]
+            atol = DIST_GRAD_RTOL * w.abs().max().float() + (allow[r] if k == "embed" else 0)
+            res = kc.compare(rk["grads0"][k].float() if k == "embed" else rk["grads0"][k], w,
+                             (DIST_GRAD_RTOL, atol))
+            use = res["limit_use"] if res["ok"] or res["limit_use"] > 1.0 else float("inf")
+            grads[k] = max(grads.get(k, 0.0), use)
+        _dist_readings(f"(a) train step, rank {r},", rk["steps"], smi, unit="step")
+        bad = [st["launches"] for st in rk["steps"] if st["launches"] != want_l]
+        if bad:
+            raise AssertionError(f"(a) rank {r} launches {bad[0]}, expected {want_l}")
+        print(f"[dist] (a) rank {r}: losses {[m['loss'] for m in rk['metrics']]}, grad "
+              f"norms {[m['grad_norm'] for m in rk['metrics']]}, launches a step "
+              f"{rk['steps'][0]['launches']} (step_launches), peak "
+              f"{(rk['peak_bytes'] or 0) / 2**30:.2f} GiB")
+    worst["grad"] = max(grads.values())
+    rel = {k: (ranks[0]["norms0"][k] - v) / v for k, v in norms0.items() if v > 0}
+    print(f"[dist] (a) 4 ranks against one process: losses rel {worst['loss']:.3e} "
+          f"(limit {DIST_LOSS_RTOL}), grad norms rel {worst['grad_norm']:.3e} (limit "
+          f"{DIST_GNORM_RTOL}); step-1 gradient samples of every rank's block, limit use "
+          f"(|d| <= {DIST_GRAD_RTOL} (|one| + max|one|); the embedding against the f32 "
+          f"sum of the one process's cotangents, plus (k + 1) {EMBED_ACC_ULP} sum|cot| a "
+          f"row): " + ", ".join(f"{k} {v:.3f}" for k, v in grads.items())
+          + f"; the one process's bf16 embedding gradient against the same: limit use "
+          f"{one_embed['limit_use']:.3f}, max |d| {one_embed['max_abs_err']:.3e}; the "
+          f"embedding gradient's norm: f32 sum {one_embed['norms'][0]:.4f}, one process "
+          f"{one_embed['norms'][1]:.4f}, 4 ranks {ranks[0]['norms0']['embed']:.4f}")
+    print("[dist] (a) step-1 gradient norm a leaf, 4 ranks against one process (rel): "
+          + ", ".join(f"{k} {norms0[k]:.4g} {v:+.2e}"
+                      for k, v in sorted(rel.items(), key=lambda kv: -abs(kv[1]))))
+    if (worst["loss"] > DIST_LOSS_RTOL or worst["grad_norm"] > DIST_GNORM_RTOL
+            or worst["grad"] > 1.0):
+        raise AssertionError(f"(a) 4 ranks and one process disagree: {worst}")
+    return {k: sum(st["launches"][k] for st in ranks[0]["steps"]) for k in ops.LAUNCHES}
+
+
+def _dist_embed_grad(lm, loss_and_grads, params, tokens, cfg) -> tuple:
+    """(gradient tree, embedding) of one process's loss at ``tokens``,
+    the embedding's ``{"f32": the f32 sum of the cotangents of each row's
+    lookups, "allow": (k + 1) EMBED_ACC_ULP sum |cotangent| a row}``, k
+    the row's count in ``tokens``: the cotangent of the lookup's output
+    caught by a hook on ``lm.embed_tokens`` for this call."""
+    import torch
+
+    caught = {}
+    lookup = lm.embed_tokens
+
+    def hooked(*a, **kw):
+        x = lookup(*a, **kw)
+        x.register_hook(lambda g: caught.setdefault("cot", g.detach()))
+        return x
+    lm.embed_tokens = hooked
+    try:
+        _, g = loss_and_grads(params, tokens, cfg)
+    finally:
+        lm.embed_tokens = lookup
+    rows = tokens.reshape(-1)
+    cot = caught.pop("cot").float().reshape(rows.numel(), -1)
+    shape = g["embed"].shape
+    f32 = torch.zeros(shape, device=cot.device).index_add_(0, rows, cot)
+    allow = torch.zeros(shape, device=cot.device).index_add_(0, rows, cot.abs())
+    k = torch.bincount(rows, minlength=shape[0]).float()
+    allow.mul_(((k + 1) * EMBED_ACC_ULP)[:, None])
+    return g, {"f32": f32, "allow": allow}
+
+
+def _dist_moe(dev, smi) -> None:
+    """Phase 12b: one MoE sublayer at its published width on a (1, 4) mesh:
+    qwen3-moe in ep and ep_a2a (128 experts of 1,536, top-8, 32 a rank) and
+    mixtral in tp (8 experts, d_ff 14,336 cut by 4), 4 x 256 tokens, each
+    within ``kernel_checks.moe_tol`` of the one-process sublayer (for
+    ep_a2a, over each rank's sequence slice: its capacity is the slice's,
+    as the reference's is the shard's); the hierarchical all-to-all on a
+    2 x 2 topology bit-equal to the flat one."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.testing import check_dist_moe as cdm
+    from repro_torch.testing import kernel_checks as kc
+    from repro_torch.testing.subproc import run_ranks
+    from repro_torch.testing.timing import now
+
+    want, tols = {}, {}
+    for name, (_, _, modes) in cdm.FULL.items():
+        cfg, _, params, x, _ = cdm.inputs(name, "full", dev)
+        for mode in modes:
+            # ep_a2a dispatches each rank's sequence slice with its own
+            # capacity (the reference's per-shard C): its one-process
+            # counterpart is the sublayer over each slice
+            parts = (x.chunk(DIST_RANKS, dim=1) if mode == "ep_a2a" else (x,))
+            with torch.no_grad():
+                ys = [L.moe_layer(params, xs, cfg) for xs in parts]
+                tl = [kc.moe_tol(params, xs, cfg)[1].reshape(*xs.shape[:2], 1)
+                      for xs in parts]
+            want[(name, mode)] = torch.cat(ys, dim=1).reshape(-1, cfg.d_model).cpu()
+            tols[(name, mode)] = (kc.MATMUL_TOL[torch.bfloat16][0],
+                                  torch.cat(tl, dim=1).reshape(-1, 1).cpu())
+        del params, x
+        torch.cuda.empty_cache()
+    t0 = now()
+    d = run_ranks("repro_torch.testing.check_dist_moe", DIST_RANKS, "1", "4",
+                  "--size", "full", "--cases", *cdm.FULL, device="cuda", timeout=900)
+    print(f"[dist] (b) 4 ranks on a (1, 4) mesh in {now() - t0:.1f} s, spawn included")
+    got = cdm.assemble(d, DIST_RANKS, "full")
+    for key, g in got.items():
+        if key == "hier":
+            continue
+        name, mode = key
+        cfg, _ = cdm.case_config(name, "full")
+        res = kc.compare(g["y"].reshape(-1, cfg.d_model), want[key], tols[key])
+        B, S = cdm.TOKENS["full"]
+        local = (cfg.n_experts if mode == "tp" else cfg.n_experts // DIST_RANKS)
+        print(f"[dist] (b) {cfg.name} {mode}: {cfg.n_experts} experts of "
+              f"{cfg.d_ff_expert} ({local} a rank{', d_ff cut by 4' if mode == 'tp' else ''}), "
+              f"top-{cfg.experts_per_token}, {B} x {S} tokens, "
+              f"{DIST_RANKS} ranks against one process"
+              f"{' (each sequence slice: its capacity)' if mode == 'ep_a2a' else ''}: "
+              f"{_reading(res)} (moe_tol)")
+        _dist_readings(f"(b) {name} {mode}", g["stats"], smi)
+        if not res["ok"]:
+            raise AssertionError(f"(b) {name} {mode} differs from one process: {res}")
+    h = got["hier"]
+    print(f"[dist] (b) hierarchical all-to-all on a {'x'.join(map(str, h['levels']))} "
+          f"topology: bit-equal to the one-stage and the flat-axis exchange on every "
+          f"rank: {h['all_ranks_same']}")
+    if not h["all_ranks_same"]:
+        raise AssertionError("(b) the hierarchical all-to-all differs from the flat one")
+
+
+def _dist_decode(dev, smi) -> None:
+    """Phase 12c: llama3-8b at its published width, 2 layers, decoding 16
+    steps over a 4,096-slot cache cut over `model` (1,024 slots a rank, a
+    (1, 4) mesh) after a 512-token prefill at batch 4: each step's logits
+    against one process's ``decode_step`` (``DIST_LOGIT_SHARE``), and
+    whether the greedy tokens agree."""
+    import torch
+
+    from repro_torch.testing import check_dist_decode as cdd
+    from repro_torch.testing.subproc import run_ranks
+    from repro_torch.testing.timing import now
+
+    arch = "llama3-8b"
+    one = cdd.expected(arch, "full", dev)
+    want = one["logits"].float().cpu()
+    del one
+    torch.cuda.empty_cache()
+    t0 = now()
+    d = run_ranks("repro_torch.testing.check_dist_decode", DIST_RANKS, "1", "4",
+                  "--size", "full", device="cuda", timeout=900)
+    print(f"[dist] (c) 4 ranks on a (1, 4) mesh in {now() - t0:.1f} s, spawn included")
+    got = cdd.assemble(d, DIST_RANKS, "full")[(arch, "cache_seq")]
+    g = got["logits"].float()
+    share = float(((g - want).abs().amax(dim=(1, 2, 3))
+                   / want.abs().amax(dim=(1, 2, 3))).max())
+    agree = (g.argmax(-1) == want.argmax(-1)).float().mean().item()
+    _, B, P, W, steps = cdd.SIZES["full"]
+    print(f"[dist] (c) {arch} 2 layers, prefill {B} x {P} then {steps} steps over a "
+          f"{W}-slot cache ({W // 4} a rank): logits against one process at most "
+          f"{share:.3e} of the step's largest |logit| (limit {DIST_LOGIT_SHARE}); "
+          f"greedy tokens agree on {100 * agree:.1f} % of the {(steps + 1) * B}")
+    _dist_readings("(c) prefill + decode", got["stats"], smi)
+    print(f"[dist] (c) rank 0's launches {got['launches'][0][0]} (serve_launches "
+          f"with the mesh, a prefill and {steps} steps: {got['launches'][0][1]})")
+    if share > DIST_LOGIT_SHARE or not torch.isfinite(g).all():
+        raise AssertionError(f"(c) decode logits differ from one process: {share}")
+    if any(c != w for c, w in got["launches"]):
+        raise AssertionError(f"(c) launches {got['launches']}")
+
+
+def _dist_ring(dev, smi) -> None:
+    """Phase 12d: ring attention at (1, 16384, 32/8, 128) bf16 over 4 ranks,
+    the flat ring (seq and db) and the 2 x 2 hierarchical one, causal and
+    with a window of 4,096, against the flash kernel in one process
+    (``ATTN_TOL[bf16]``); db bit-equal to seq."""
+    import torch
+
+    from repro_torch.testing import check_dist_ring as cdr
+    from repro_torch.testing import kernel_checks as kc
+    from repro_torch.testing.subproc import run_ranks
+    from repro_torch.testing.timing import now
+
+    want = {c: cdr.expected("full", dev, *c).cpu() for c in cdr.CASES["full"]}
+    torch.cuda.empty_cache()
+    t0 = now()
+    d = run_ranks("repro_torch.testing.check_dist_ring", DIST_RANKS, str(DIST_RANKS),
+                  "--size", "full", device="cuda", timeout=900)
+    print(f"[dist] (d) 4 ranks in {now() - t0:.1f} s, spawn included")
+    got = cdr.assemble(d, DIST_RANKS)
+    tol = kc.ATTN_TOL[torch.bfloat16]
+    B, S, H, Hkv, D, _ = cdr.SHAPES["full"]
+    for (causal, window), r in got.items():
+        res = {t: kc.compare(r[t], want[(causal, window)], tol) for t in ("seq", "hier")}
+        diff = float((r["hier"].float() - r["seq"].float()).abs().max())
+        print(f"[dist] (d) ring attention ({B}, {S}, {H}/{Hkv}, {D}) bf16 causal window="
+              f"{window}: flat {_reading(res['seq'])}; 2 x 2 hierarchical "
+              f"{_reading(res['hier'])} (ATTN_TOL[bf16], against the flash kernel in "
+              f"one process); |hier - flat| {diff:.3e}; db == seq bitwise "
+              f"{r['db_same']}")
+        for t in ("seq", "db", "hier"):
+            _dist_readings(f"(d) {t} window={window}", r["stats"][t], smi)
+        if not all(x["ok"] for x in res.values()) or not r["db_same"]:
+            raise AssertionError(f"(d) ring attention window={window}: {res}")
+
+
+def _dist_path(dev, smi) -> dict:
+    """Phase 12: distributed compute with four ranks sharing the card (the
+    backend and transport ``parallel.comm.layout`` gives: gloo, each CUDA
+    tensor a collective sends through a host buffer).  Every number is
+    a rank's on a shared card through the host, not NCCL over NVLink.
+    Returns (a)'s rank-0 launches."""
+    from repro_torch.parallel.comm import layout
+
+    import torch
+
+    backend, transport = layout("cuda", DIST_RANKS, torch.cuda.device_count())
+    print(f"[dist] {DIST_RANKS} ranks, {torch.cuda.device_count()} card: backend "
+          f"{backend}, transport {transport}; {smi}")
+    launches = _dist_train(dev, smi)
+    _dist_moe(dev, smi)
+    _dist_decode(dev, smi)
+    _dist_ring(dev, smi)
+    return launches
+
+
 #: the parts ``--only`` runs alone: the libraries each builds, and what it
 #: runs, given the device and the modules ``main`` imports
 ONLY = {
@@ -2828,6 +3208,8 @@ ONLY = {
                               _xattn_times(m.kc, m.kfa, m.ref, _time_ms))),
     "state": (("matmul", "rmsnorm", "flash_attention", "flash_attention_bwd"),
               lambda dev, m: _state_path(dev)),
+    "dist": (("matmul", "rmsnorm", "flash_attention", "flash_attention_bwd"),
+             lambda dev, m: _dist_path(dev, m.smi)),
 }
 
 
@@ -2842,7 +3224,8 @@ def main(argv: list | None = None) -> int:
                          "moe: phase 8's serving; moe-train: phase 8's training; "
                          "ssm: phase 5's Mamba smoke models and phase 9; xattn: "
                          "phase 3's and 3c's cross-attention checks, phase 10 and "
-                         "phase 6's cross-attention rows; state: phase 11); "
+                         "phase 6's cross-attention rows; state: phase 11; dist: "
+                         "phase 12); "
                          "a copy of this file at the root of another checkout reads "
                          "that tree's kernels the same way")
     args = ap.parse_args(argv)
@@ -2893,7 +3276,8 @@ def main(argv: list | None = None) -> int:
     if args.only:
         libs, run = ONLY[args.only]
         _build.build(libs)
-        out = run(dev, types.SimpleNamespace(kc=kc, kfa=kfa, kmm=kmm, ref=ref))
+        out = run(dev, types.SimpleNamespace(kc=kc, kfa=kfa, kmm=kmm, ref=ref,
+                                             smi=smi.splitlines()[0]))
         if args.only == "xattn" and out[0][1]:
             raise AssertionError(f"kernels disagree with their plain versions: "
                                  f"{out[0][1]}")
@@ -3244,6 +3628,8 @@ def main(argv: list | None = None) -> int:
     path_launches.update(_xattn_path(dev))
     # -- 11. state and resilience: llama3-8b resumes; the chaos harnesses -------
     path_launches["state"] = _state_path(dev)
+    # -- 12. distributed compute: four ranks share the card ---------------------
+    path_launches["dist"] = _dist_path(dev, smi.splitlines()[0])
 
     # -- 6. kernel times ---------------------------------------------------------
     time_ms = _time_ms

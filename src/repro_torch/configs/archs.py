@@ -35,7 +35,7 @@ _reg(ModelConfig(
     name="mixtral-8x7b", family="moe",
     n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, d_ff=14336,
     d_ff_expert=14336, vocab_size=32000,
-    n_experts=8, experts_per_token=2,
+    n_experts=8, experts_per_token=2, moe_tp=True,
     window=4096, rope_theta=1e6, norm_eps=1e-5))
 
 # --- enc-dec audio ----------------------------------------------------------
@@ -140,6 +140,7 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         ssm_chunk=8,
         window=min(cfg.window, 16) if cfg.window else None,
         dtype=torch.float32,
+        moe_tp=False,
         # capacity high enough that smoke-scale dispatch never drops —
         # batched-vs-sequential drop patterns would legitimately diverge
         capacity_factor=8.0,

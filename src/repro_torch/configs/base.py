@@ -3,10 +3,8 @@
 The PyTorch port's copy of ``repro.configs.base``: the fields the
 architectures set and the derived shapes the serving path reads, with
 ``dtype`` a torch dtype, and the training options of the dense trainer
-(``remat``, ``loss_chunk``), and the parameter count.  MoE dispatch runs
-on one device, so the
-reference's ``moe_tp`` and ``moe_impl``, which pick a mesh mode, come with
-the distributed slice, as do the sharding options."""
+(``remat``, ``loss_chunk``), the MoE sublayer's mesh mode (``moe_tp``,
+``moe_impl``: ``layers.moe_mode``), and the parameter count."""
 from __future__ import annotations
 
 import dataclasses
@@ -42,6 +40,9 @@ class ModelConfig:
     experts_per_token: int = 0
     d_ff_expert: int = 0
     capacity_factor: float = 1.25
+    moe_tp: bool = False         # experts < |model| axis: shard d_ff instead
+    moe_impl: str = "psum"       # "psum" (tokens replicated over model) |
+    #                              "a2a" (GLSU-style token all-to-all EP)
 
     # attention
     rope_theta: float = 1e4

@@ -11,6 +11,19 @@ attention (self and cross), the MoE router and dispatch, and the SSD scan
 and causal conv are plain PyTorch, as they are jnp in the reference.
 Decode and the paged layer update the KV cache, the Mamba state or the pool
 in place (the JAX layers return new ones).
+
+**Under a mesh** (``rules``, a ``parallel.sharding.ShardingRules`` with a
+process mesh; every layer takes it as a keyword that defaults to no mesh)
+each rank runs the layer on its blocks of the weights, as the reference's
+logical axes cut them, and issues the collectives the cut implies
+(``parallel.comm``): attention and the MLP are tensor-parallel over the
+`model` dimensions (a rank's heads and d_ff columns; one psum after each
+``wo``, ``copy_to_group`` where the replicated normed input enters), the
+MoE sublayer runs in the reference's ``tp``, ``ep`` or ``ep_a2a`` mode
+(``moe_mode``), and decode attention over a cache whose slots are cut over
+`model` (``cache_seq="model"``) writes the new token into the slice that
+owns its slot and merges the slices' softmax with a pmax and two psums.
+The Mamba2 and cross-attention sublayers refuse a mesh by name.
 """
 from __future__ import annotations
 
@@ -21,6 +34,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel import comm
+from repro_torch.parallel.sharding import ShardingRules, rule_axes
 from repro_torch.params import PV
 
 
@@ -68,36 +83,117 @@ def attn_defs(cfg: ModelConfig) -> dict:
     }
 
 
-def _qkv(p, x, cfg: ModelConfig, positions, rotate: bool):
+# -- the mesh ------------------------------------------------------------------
+
+def _mesh(rules: ShardingRules | None):
+    return None if rules is None else rules.mesh
+
+
+def _model_axes(rules: ShardingRules | None) -> tuple:
+    """Mesh dimensions the logical `model` (TP/EP) axis maps to, flattened
+    outer-major: ("model",) on a plain mesh, every level's dimension on a
+    topology mesh whose `model` rule names them all."""
+    return () if rules is None else rule_axes(rules, "model")
+
+
+def _model_size(rules: ShardingRules | None) -> int:
+    axes = _model_axes(rules)
+    return rules.mesh.axis_size(axes) if axes else 1
+
+
+def _refuse_mesh(rules: ShardingRules | None, what: str) -> None:
+    """The sublayers whose mesh branches are not ported refuse a mesh by
+    name (as the engines refuse a context)."""
+    if _mesh(rules) is not None:
+        raise NotImplementedError(
+            f"{what} under a mesh is not ported: run it without rules")
+
+
+def _psum_model(o: torch.Tensor, rules) -> torch.Tensor:
+    """The sum over the `model` dimensions of a rank's partial output (a
+    row-cut ``wo``'s), identity off-mesh."""
+    axes = _model_axes(rules)
+    return comm.psum(o, axes, rules.mesh) if axes else o
+
+
+def _into_model(xn: torch.Tensor, rules) -> torch.Tensor:
+    """Where a replicated input enters compute cut over `model`."""
+    axes = _model_axes(rules)
+    return comm.copy_to_group(xn, axes, rules.mesh) if axes else xn
+
+
+def _local_heads(cfg: ModelConfig, rules) -> tuple[int, int]:
+    """(this rank's first q head, its number of q heads)."""
+    m = _model_size(rules)
+    if cfg.n_heads % m:
+        raise ValueError(f"{cfg.n_heads} heads do not split over {m} ranks")
+    h = cfg.n_heads // m
+    return (comm.axis_index(_model_axes(rules), rules.mesh) * h if m > 1 else 0), h
+
+
+def _select_kv(k: torch.Tensor, cfg: ModelConfig, rules) -> torch.Tensor:
+    """Every kv head k (B, T, Hkv, Dh) -> the kv heads this rank's q heads
+    read: the contiguous block of Hkv/|model| heads where Hkv divides over
+    `model` (GQA kept), else one kv head a q head (the reference's
+    ``_expand_kv``, sliced to the rank's heads)."""
+    m = _model_size(rules)
+    if m == 1:
+        return k
+    h0, hl = _local_heads(cfg, rules)
+    Hkv, G = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    if Hkv % m == 0:
+        n = Hkv // m
+        return k[:, :, h0 // G:h0 // G + n]
+    idx = torch.arange(h0, h0 + hl, device=k.device) // G
+    return k.index_select(2, idx)
+
+
+def _qkv(p, x, cfg: ModelConfig, positions, rotate: bool, rules=None,
+         whole_kv: bool = False):
+    """Normed x through ``wq``, ``wk``, ``wv``: q (B, S, H, Dh), k and v
+    (B, S, Hkv, Dh).  Under a mesh q holds this rank's heads, and k and v
+    this rank's kv heads where Hkv divides over `model` and not
+    ``whole_kv``, else every kv head (the rank's columns gathered over
+    `model`: ``wk`` and ``wv`` are cut on their flat Hkv*Dh dimension, so
+    a rank's columns may cut through a head)."""
     B, S, _ = x.shape
     hd = cfg.head_dim
-    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
-    q = kops.dense(xn, p["wq"]).reshape(B, S, cfg.n_heads, hd)
-    k = kops.dense(xn, p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
-    v = kops.dense(xn, p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    xn = _into_model(rmsnorm(x, p["norm"], cfg.norm_eps), rules)
+    m = _model_size(rules)
+    q = kops.dense(xn, p["wq"]).reshape(B, S, cfg.n_heads // m, hd)
+    k = kops.dense(xn, p["wk"])
+    v = kops.dense(xn, p["wv"])
+    if m > 1 and (whole_kv or cfg.n_kv_heads % m):
+        axes, mesh = _model_axes(rules), rules.mesh
+        k = comm.all_gather(k, axes, mesh, dim=-1)
+        v = comm.all_gather(v, axes, mesh, dim=-1)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
     if rotate:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def _attention(q, k, v, cfg: ModelConfig, causal: bool) -> torch.Tensor:
+def _attention(q, k, v, cfg: ModelConfig, causal: bool, rules=None) -> torch.Tensor:
     """q (B,S,H,Dh), k/v (B,T,Hkv,Dh) -> (B,S,H*Dh) through the attention
     seam, which takes (B,H,S,Dh): transposed views in, a transposed view of
-    the result out, no copies on the card."""
+    the result out, no copies on the card.  Under a mesh q holds the rank's
+    heads; k and v holding every kv head are cut to the ones they read."""
     B, S, H, Dh = q.shape
+    if k.shape[2] == cfg.n_kv_heads and H != cfg.n_heads:
+        k, v = _select_kv(k, cfg, rules), _select_kv(v, cfg, rules)
     o = kops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                        causal=causal, window=cfg.window)
     return o.transpose(1, 2).reshape(B, S, H * Dh)
 
 
-def attn_layer(p, x, cfg: ModelConfig, positions, *, causal: bool = True
-               ) -> torch.Tensor:
+def attn_layer(p, x, cfg: ModelConfig, positions, *, causal: bool = True,
+               rules: ShardingRules | None = None) -> torch.Tensor:
     """Training / prefill self-attention (residual included)."""
-    B, S, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, positions, rotate=True)
-    o = kops.dense(_attention(q, k, v, cfg, causal), p["wo"])
-    return x + o.to(x.dtype)
+    q, k, v = _qkv(p, x, cfg, positions, rotate=True, rules=rules)
+    o = kops.dense(_attention(q, k, v, cfg, causal, rules), p["wo"])
+    return x + _psum_model(o, rules).to(x.dtype)
 
 
 class AttnCache(NamedTuple):
@@ -117,15 +213,49 @@ def attn_cache_defs(cfg: ModelConfig, batch: int, seq_len: int) -> AttnCache:
         PV(shp, cfg.dtype, ("batch", "cache_seq", "kv", ""), "zeros"))
 
 
-def attn_layer_decode(p, x, cache: AttnCache, pos, cfg: ModelConfig):
+def _decode_mask(idx, pos_c, W: int, cfg: ModelConfig):
+    """The reference's decode mask over cache entries ``idx``: entry i
+    holds position i (full attention) or the newest position ≡ i mod W
+    (a window's ring), visible if written and within the window."""
+    if cfg.window:
+        k_pos = pos_c - torch.remainder(pos_c - idx, W)   # newest ≡ i (mod W)
+        valid = k_pos >= 0
+    else:
+        k_pos = idx
+        valid = k_pos <= pos_c
+    mask = valid & (k_pos <= pos_c)
+    if cfg.window:
+        mask &= (pos_c - k_pos) < cfg.window
+    return mask
+
+
+def _masked_scores(qg, ck, mask, hd: int):
+    """f32 scores (B, Hkv, G, 1, T) of qg (B, 1, Hkv, G, Dh) against ck
+    (B, T, Hkv, Dh), -1e30 where ``mask`` ((T,) or (B, T)) is False."""
+    s = torch.einsum("bqhgd,bthd->bhgqt", qg.to(torch.float32),
+                     ck.to(torch.float32)) / math.sqrt(hd)
+    if mask.ndim == 2:                      # (B, W) per-slot mask
+        return torch.where(mask[:, None, None, None, :], s, -1e30)
+    return torch.where(mask[None, None, None, None, :], s, -1e30)
+
+
+def attn_layer_decode(p, x, cache: AttnCache, pos, cfg: ModelConfig,
+                      rules: ShardingRules | None = None):
     """One-token step, writing the new K/V into ``cache`` in place.
 
     pos: a scalar (shared position) or a (B,) tensor (per-slot true
     positions — the serving engine's continuous batch).  Full-attention
     caches index directly; SWA caches are ring buffers of length ``window``
-    (entry i holds the newest position ≡ i mod W).  This is the JAX layer's
-    single-device branch; the port has no mesh, and the sharded-cache
-    branch belongs to the distributed slice."""
+    (entry i holds the newest position ≡ i mod W).
+
+    Under a mesh the cache is this rank's block (``attn_cache_defs``'
+    logical axes under ``rules``).  With ``cache_seq="model"`` each rank
+    holds W/|model| slots of every kv head: the token's q, k and v are
+    gathered over `model`, the rank that owns the slot writes it, each rank
+    scores its slots, and the softmax is merged with a pmax and psums over
+    `model` (the reference's ``dist_cache`` branch; per-slot positions
+    raise, as there).  Otherwise the cache holds the rank's kv heads (the
+    ``kv`` rule) or every kv head, and each rank attends with its q heads."""
     B, S1, _ = x.shape                      # S1 == 1
     W = cache.k.shape[1]
     hd = cfg.head_dim
@@ -136,7 +266,15 @@ def attn_layer_decode(p, x, cache: AttnCache, pos, cfg: ModelConfig):
     else:
         positions = (torch.zeros(S1, dtype=torch.int64, device=x.device)
                      + pos)[None, :]
-    q, k, v = _qkv(p, x, cfg, positions, rotate=True)
+    if _dist_cache(rules):
+        if per_slot:
+            raise NotImplementedError(
+                "per-slot decode positions are not supported with the "
+                "model-sharded (cache_seq) distributed cache path")
+        return _decode_dist_cache(p, x, cache, pos, positions, cfg, rules)
+    whole_kv = _model_size(rules) > 1 and not _kv_cut(rules)
+    q, k, v = _qkv(p, x, cfg, positions, rotate=True, rules=rules,
+                   whole_kv=whole_kv)
     slot = pos % W
     if per_slot:
         # each batch row at its own ring slot; dead slots carry a stale
@@ -149,35 +287,76 @@ def attn_layer_decode(p, x, cache: AttnCache, pos, cfg: ModelConfig):
         cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
 
     idx = torch.arange(W, device=x.device)
-    pos_c = pos[:, None] if per_slot else pos
-    if cfg.window:
-        k_pos = pos_c - torch.remainder(pos_c - idx, W)   # newest ≡ i (mod W)
-        valid = k_pos >= 0
-    else:
-        k_pos = idx
-        valid = k_pos <= pos_c
-    G = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(B, S1, cfg.n_kv_heads, G, hd)          # head = kv·G + g
-    s = torch.einsum("bqhgd,bthd->bhgqt", qg.to(torch.float32),
-                     cache.k.to(torch.float32)) / math.sqrt(hd)
-    mask = valid & (k_pos <= pos_c)
-    if cfg.window:
-        mask &= (pos_c - k_pos) < cfg.window
-    if mask.ndim == 2:                      # (B, W) per-slot mask
-        s = torch.where(mask[:, None, None, None, :], s, -1e30)
-    else:
-        s = torch.where(mask[None, None, None, None, :], s, -1e30)
-    pr = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqt,bthd->bqhgd", pr, cache.v.to(torch.float32))
-    o = kops.dense(o.reshape(B, S1, cfg.n_heads * hd).to(x.dtype), p["wo"])
-    return x + o.to(x.dtype), cache
+    mask = _decode_mask(idx, pos[:, None] if per_slot else pos, W, cfg)
+    ck, cv = cache.k, cache.v
+    if whole_kv:                            # every kv head: the rank's q heads' ones
+        ck, cv = _select_kv(ck, cfg, rules), _select_kv(cv, cfg, rules)
+    H = q.shape[2]
+    Hk = ck.shape[2]
+    qg = q.reshape(B, S1, Hk, H // Hk, hd)                # head = kv·G + g
+    pr = torch.softmax(_masked_scores(qg, ck, mask, hd), dim=-1)
+    o = torch.einsum("bhgqt,bthd->bqhgd", pr, cv.to(torch.float32))
+    o = kops.dense(o.reshape(B, S1, H * hd).to(x.dtype), p["wo"])
+    return x + _psum_model(o, rules).to(x.dtype), cache
 
 
-def attn_layer_prefill(p, x, cfg: ModelConfig, positions, cache_len: int):
-    """Prefill: run attention AND return the populated cache."""
-    B, S, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, positions, rotate=True)
-    o = kops.dense(_attention(q, k, v, cfg, causal=True), p["wo"])
+def _kv_cut(rules) -> bool:
+    """Whether a cache's kv-head dimension is cut over `model` (the ``kv``
+    rule, which holds only where the kv heads divide)."""
+    spec = rules.spec(("batch", "cache_seq", "kv", ""))
+    return bool(spec[2])
+
+
+def _dist_cache(rules) -> bool:
+    """Whether a decode cache's slots are cut over `model`."""
+    return _mesh(rules) is not None and rules.axis("cache_seq") == "model"
+
+
+def _decode_dist_cache(p, x, cache: AttnCache, pos, positions,
+                       cfg: ModelConfig, rules: ShardingRules):
+    """``attn_layer_decode`` over a cache whose W slots are cut over
+    `model`: this rank holds slots [r W_loc, (r+1) W_loc) of every kv head.
+    The cache is never gathered: only the token's q, k, v (gathered) and
+    the (m, l, o) partials of the softmax cross the ranks."""
+    B, S1, _ = x.shape
+    hd, Hkv, H = cfg.head_dim, cfg.n_kv_heads, cfg.n_heads
+    mesh, axes = rules.mesh, _model_axes(rules)
+    q, k, v = _qkv(p, x, cfg, positions, rotate=True, rules=rules, whole_kv=True)
+    h0, hl = _local_heads(cfg, rules)
+    if hl != H:                             # every head's query
+        q = comm.gather(q, axes, mesh, dim=2)
+    W_loc = cache.k.shape[1]
+    W = W_loc * (mesh.axis_size(axes) if axes else 1)
+    base = (comm.axis_index(axes, mesh) if axes else 0) * W_loc
+    sl = int(pos) % W
+    if base <= sl < base + W_loc:           # this rank owns the slot
+        cache.k[:, sl - base] = k[:, 0].to(cache.k.dtype)
+        cache.v[:, sl - base] = v[:, 0].to(cache.v.dtype)
+    idx = base + torch.arange(W_loc, device=x.device)
+    s = _masked_scores(q.reshape(B, S1, Hkv, H // Hkv, hd), cache.k,
+                       _decode_mask(idx, pos, W, cfg), hd)
+    m = comm.pmax(torch.amax(s, dim=-1, keepdim=True), axes, mesh)
+    pr = torch.exp(s - m)
+    l = comm.psum(torch.sum(pr, dim=-1, keepdim=True), axes, mesh)
+    o = comm.psum(torch.einsum("bhgqt,bthd->bqhgd", pr,
+                               cache.v.to(torch.float32)), axes, mesh)
+    ln = torch.clamp(l, min=1e-20).squeeze(-1).permute(0, 3, 1, 2)
+    o = (o / ln[..., None]).reshape(B, S1, H * hd)[..., h0 * hd:(h0 + hl) * hd]
+    o = kops.dense(o.to(x.dtype), p["wo"])
+    return x + _psum_model(o, rules).to(x.dtype), cache
+
+
+def attn_layer_prefill(p, x, cfg: ModelConfig, positions, cache_len: int,
+                       rules: ShardingRules | None = None):
+    """Prefill: run attention AND return the populated cache (under a mesh
+    this rank's block of it: its kv heads or every one, and with
+    ``cache_seq="model"`` its W/|model| slots)."""
+    dist_cache = _dist_cache(rules)
+    whole_kv = _model_size(rules) > 1 and (dist_cache or not _kv_cut(rules))
+    q, k, v = _qkv(p, x, cfg, positions, rotate=True, rules=rules,
+                   whole_kv=whole_kv)
+    o = kops.dense(_attention(q, k, v, cfg, True, rules), p["wo"])
+    S = x.shape[1]
     W = cache_len
     if W >= S:
         pad = (0, 0, 0, 0, 0, W - S)        # zero rows after the prompt
@@ -187,7 +366,11 @@ def attn_layer_prefill(p, x, cfg: ModelConfig, positions, cache_len: int):
         roll = (S - W) % W                  # placed at slot pos % W
         ck = torch.roll(k[:, S - W:], shifts=roll, dims=1)
         cv = torch.roll(v[:, S - W:], shifts=roll, dims=1)
-    return x + o.to(x.dtype), AttnCache(ck, cv)
+    if dist_cache:                          # this rank's slots
+        axes, mesh = _model_axes(rules), rules.mesh
+        ck = comm.split(ck, axes, mesh, dim=1)
+        cv = comm.split(cv, axes, mesh, dim=1)
+    return x + _psum_model(o, rules).to(x.dtype), AttnCache(ck, cv)
 
 
 # -- cross attention ----------------------------------------------------------
@@ -225,10 +408,12 @@ def _xattn(p, x, ctx, cfg: ModelConfig):
     return x + o.to(x.dtype), kv
 
 
-def xattn_layer(p, x, ctx, cfg: ModelConfig) -> torch.Tensor:
+def xattn_layer(p, x, ctx, cfg: ModelConfig,
+                rules: ShardingRules | None = None) -> torch.Tensor:
     """Cross-attention to a context (encoder output / image embeddings),
     ctx (B, T, d), residual included (:func:`_xattn`).  No positional
-    rotation."""
+    rotation.  Refuses a mesh."""
+    _refuse_mesh(rules, "the cross-attention sublayer")
     return _xattn(p, x, ctx, cfg)[0]
 
 
@@ -241,19 +426,24 @@ def xattn_cache_defs(cfg: ModelConfig, batch: int) -> XAttnCache:
                       PV(shp, cfg.dtype, ("batch", "", "kv", ""), "zeros"))
 
 
-def xattn_layer_prefill(p, x, ctx, cfg: ModelConfig):
-    """Prefill: the sublayer and its cache.  The reference projects the
-    context's K/V twice, in ``xattn_layer`` and again in
-    ``xattn_prefill_cache``; both are the same product on the same inputs,
-    so here they are made once and kept as the cache (4 products, not 6)."""
+def xattn_layer_prefill(p, x, ctx, cfg: ModelConfig,
+                        rules: ShardingRules | None = None):
+    """Prefill: the sublayer and its cache (refuses a mesh).  The
+    reference projects the context's K/V twice, in ``xattn_layer`` and
+    again in ``xattn_prefill_cache``; both are the same product on the same
+    inputs, so here they are made once and kept as the cache (4 products,
+    not 6)."""
+    _refuse_mesh(rules, "the cross-attention sublayer")
     return _xattn(p, x, ctx, cfg)
 
 
-def xattn_layer_decode(p, x, cache: XAttnCache, cfg: ModelConfig):
+def xattn_layer_decode(p, x, cache: XAttnCache, cfg: ModelConfig,
+                       rules: ShardingRules | None = None):
     """One-token step against the cached context K/V, as the reference's:
     ``wq`` and ``wo`` through the matmul seam, the scores, softmax and
     weighted sum plain f32 einsums over every cached key.  The cache is
-    not written; it is returned."""
+    not written; it is returned.  Refuses a mesh."""
+    _refuse_mesh(rules, "the cross-attention sublayer")
     B, S1, _ = x.shape
     hd = cfg.head_dim
     xn = rmsnorm(x, p["norm"], cfg.norm_eps)
@@ -370,25 +560,31 @@ def mlp_defs(cfg: ModelConfig) -> dict:
     }
 
 
-def mlp_layer(p, x, cfg: ModelConfig) -> torch.Tensor:
-    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
+def mlp_layer(p, x, cfg: ModelConfig, rules: ShardingRules | None = None
+              ) -> torch.Tensor:
+    """SwiGLU, residual included; under a mesh on this rank's d_ff columns,
+    one psum over `model` after ``wo``."""
+    xn = _into_model(rmsnorm(x, p["norm"], cfg.norm_eps), rules)
     h = silu(kops.dense(xn, p["wg"])) * kops.dense(xn, p["wi"])
     o = kops.dense(h, p["wo"])
-    return x + o.to(x.dtype)
+    return x + _psum_model(o, rules).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
-# MoE: top-k routing, capacity dispatch (the reference's "local" mode)
+# MoE: top-k routing, capacity dispatch, expert parallelism over `model`
 # ---------------------------------------------------------------------------
 #
-# One device holds every expert, so this is the reference's ``moe_layer``
-# without a mesh (``moe_mode`` gives "local"); its tp, ep and ep_a2a modes
-# come with the distributed slice.  Capacity C counts every row of the call
-# (a decode step's dead slots and a chunk's padding rows too), as in JAX.
+# Off-mesh one device holds every expert: the reference's "local" mode.
+# Under a mesh, ``moe_mode`` picks the reference's mode: "tp" (every expert
+# on every rank, d_ff cut over `model`: ``moe_defs_tp``), "ep" (the experts
+# cut over `model`, tokens replicated, the combine a psum) or "ep_a2a" (each
+# rank dispatches its own sequence slice and the capacity buffers cross by
+# all-to-all, one stage a topology level).  Capacity C counts every row of
+# the call that a rank dispatches (a decode step's dead slots and a chunk's
+# padding rows too), as in JAX.
 
 def moe_defs(cfg: ModelConfig) -> dict:
-    """The reference's ``moe_defs`` (``moe_defs_tp`` has the same shapes and
-    keys; only its logical axes differ)."""
+    """The experts cut over `model` (EP)."""
     d, dt = cfg.d_model, cfg.dtype
     E = cfg.n_experts
     ffe = cfg.d_ff_expert or cfg.d_ff
@@ -398,6 +594,21 @@ def moe_defs(cfg: ModelConfig) -> dict:
         "wi": PV((E, d, ffe), dt, ("model", "fsdp", "")),
         "wg": PV((E, d, ffe), dt, ("model", "fsdp", "")),
         "wo": PV((E, ffe, d), dt, ("model", "", "fsdp")),
+    }
+
+
+def moe_defs_tp(cfg: ModelConfig) -> dict:
+    """``moe_defs``' shapes with each expert's d_ff cut over `model`
+    (``cfg.moe_tp``: fewer experts than ranks)."""
+    d, dt = cfg.d_model, cfg.dtype
+    E = cfg.n_experts
+    ffe = cfg.d_ff_expert or cfg.d_ff
+    return {
+        "norm": PV((d,), torch.float32, ("",), "ones"),
+        "router": PV((d, E), torch.float32, ("fsdp", "")),
+        "wi": PV((E, d, ffe), dt, ("", "fsdp", "model")),
+        "wg": PV((E, d, ffe), dt, ("", "fsdp", "model")),
+        "wo": PV((E, ffe, d), dt, ("", "model", "fsdp")),
     }
 
 
@@ -443,13 +654,14 @@ def moe_route(p, xn: torch.Tensor, cfg: ModelConfig) -> Routing:
                    expert_slots(idx, cfg.n_experts, C), C)
 
 
-def expert_terms(xf: torch.Tensor, r: Routing, wi, wg, wo):
+def expert_terms(xf: torch.Tensor, r: Routing, wi, wg, wo, e_base: int = 0):
     """Each expert's part of the combine, in expert order: its gate (N,)
     and its output gathered back to the rows (N, d) f32, zero where the
     row was not dispatched to it.  The rows of xf (N, d) f32 go to each
     expert's C-row buffer in the weight dtype (dropped and unchosen rows
     land on the discard row C), and its SwiGLU goes through the matmul
-    seam."""
+    seam.  The stacks wi, wg, wo hold experts ``e_base``, ``e_base`` + 1,
+    ... (a rank's block under EP)."""
     N, d = xf.shape
     C = r.capacity
     xw = xf.to(wi.dtype)
@@ -457,7 +669,7 @@ def expert_terms(xf: torch.Tensor, r: Routing, wi, wg, wo):
     # unbind, not wi[j]: the weights' gradient is one stack of the experts'
     # (an index's backward would scatter each into a zero (E, d, f) buffer)
     for j, (wi_j, wg_j, wo_j) in enumerate(zip(wi.unbind(0), wg.unbind(0),
-                                               wo.unbind(0))):
+                                               wo.unbind(0)), start=e_base):
         gate = torch.where(r.idx == j, r.gate, 0.0).sum(dim=-1)
         slot = r.slots[j]
         buf = torch.zeros((C + 1, d), dtype=wi.dtype, device=xf.device)
@@ -468,24 +680,151 @@ def expert_terms(xf: torch.Tensor, r: Routing, wi, wg, wo):
         yield gate, torch.cat([y, zero])[slot]
 
 
-def _dispatch_ffn(xf: torch.Tensor, r: Routing, wi, wg, wo) -> torch.Tensor:
-    """Capacity-dispatch the N rows of xf (N, d) f32 to every expert and
-    combine: (N, d) f32, each expert's output added with its gate in
-    expert order (no atomic accumulate: the same bits every run)."""
+def _dispatch_ffn(xf: torch.Tensor, r: Routing, wi, wg, wo,
+                  e_base: int = 0) -> torch.Tensor:
+    """Capacity-dispatch the N rows of xf (N, d) f32 to every expert of the
+    stacks and combine: (N, d) f32, each expert's output added with its
+    gate in expert order (no atomic accumulate: the same bits every run)."""
     out = torch.zeros_like(xf)
-    for gate, y in expert_terms(xf, r, wi, wg, wo):
+    for gate, y in expert_terms(xf, r, wi, wg, wo, e_base):
         out = out + gate[:, None] * y
     return out
 
 
-def moe_layer(p, x, cfg: ModelConfig) -> torch.Tensor:
-    """Top-k MoE over every row of x (B, S, d), residual included."""
+def moe_mode(cfg: ModelConfig, rules: ShardingRules | None) -> str:
+    """The reference's mode: "local" off-mesh (or without a `model`
+    dimension), "tp" for ``cfg.moe_tp``, "ep_a2a" for ``moe_impl="a2a"``
+    with the ``act_seq`` rule, else "ep"."""
+    if not _model_axes(rules):
+        return "local"
+    if cfg.moe_tp:
+        return "tp"
+    msize = _model_size(rules)
+    assert cfg.n_experts % msize == 0, \
+        f"{cfg.name}: E={cfg.n_experts} not divisible by model={msize}; " \
+        "set moe_tp=True"
+    if cfg.moe_impl == "a2a" and rules.axis("act_seq"):
+        return "ep_a2a"
+    return "ep"
+
+
+def moe_layer(p, x, cfg: ModelConfig, rules: ShardingRules | None = None,
+              topology=None) -> torch.Tensor:
+    """Top-k MoE over every row of x (B, S, d), residual included.  Under a
+    mesh in :func:`moe_mode`'s mode; ``topology`` (a ``Topology`` whose
+    level dimensions are the `model` dimensions) makes the ep_a2a exchange
+    hierarchical (:func:`_a2a_stages`)."""
     B, S, d = x.shape
     xn = rmsnorm(x, p["norm"], cfg.norm_eps)
     r = moe_route(p, xn, cfg)
-    y = _dispatch_ffn(xn.reshape(B * S, d).to(torch.float32), r,
-                      p["wi"], p["wg"], p["wo"])
-    return x + y.reshape(B, S, d).to(x.dtype)
+    mode = moe_mode(cfg, rules)
+    if mode == "local":
+        y = _dispatch_ffn(xn.reshape(B * S, d).to(torch.float32), r,
+                          p["wi"], p["wg"], p["wo"])
+        return x + y.reshape(B, S, d).to(x.dtype)
+    mesh, maxes, msize = rules.mesh, _model_axes(rules), _model_size(rules)
+    if mode == "ep_a2a" and S % msize == 0:
+        return x + _moe_ep_a2a(p, xn, r, cfg, rules, topology).to(x.dtype)
+    # tp: every expert on every rank over its d_ff columns; ep: the rank's
+    # E/|model| experts (tokens replicated, ids shifted by the rank's base)
+    e_base = 0 if mode == "tp" else comm.axis_index(maxes, mesh) * (
+        cfg.n_experts // msize)
+    r = r._replace(gate=comm.copy_to_group(r.gate, maxes, mesh))
+    xf = comm.copy_to_group(xn, maxes, mesh).reshape(B * S, d).to(torch.float32)
+    y = _dispatch_ffn(xf, r, p["wi"], p["wg"], p["wo"], e_base)
+    return x + comm.psum(y, maxes, mesh).reshape(B, S, d).to(x.dtype)
+
+
+def _a2a_stages(rules: ShardingRules, topology) -> list:
+    """The expert-dispatch exchange as (dimensions, size) stages, innermost
+    first: one all-to-all over every `model` dimension at once (flat), or
+    with a Topology whose level dimensions are the `model` dimensions one
+    stage a level, the intra-level exchange first, so that each outer
+    stage moves blocks already gathered within the level below.  Each
+    schedule inverts itself stage by stage."""
+    maxes = _model_axes(rules)
+    if topology is None:
+        return [(maxes, _model_size(rules))]
+    from repro_torch.topology import mesh_levels
+    levels = mesh_levels(topology, rules.mesh.shape)
+    flat = tuple(a for axes, _ in levels for a in axes)
+    if flat != maxes:
+        raise ValueError(f"topology level axes {flat} must flatten to the "
+                         f"model axes {maxes}")
+    return list(reversed(levels))
+
+
+def _a2a_dispatch(buf, stages, E_loc: int, mesh):
+    """(E, C, d) expert-major capacity buffers -> (E_loc, C*|model|, d):
+    every stage peels off the expert index's innermost remaining level
+    digit and exchanges along that level's ring."""
+    for axes, s in stages:
+        ED, Ccur, d = buf.shape
+        buf = buf.reshape(ED // (s * E_loc), s, E_loc, Ccur, d)
+        buf = comm.all_to_all(buf, axes, mesh, split_axis=1, concat_axis=3)
+        buf = buf.reshape(ED // s, Ccur * s, d)
+    return buf
+
+
+def _a2a_combine(y, stages, E_loc: int, mesh):
+    """The exact inverse of :func:`_a2a_dispatch` (stages unwound outermost
+    first), restoring (E, C, d) placement."""
+    for axes, s in reversed(stages):
+        ED, Ccur, d = y.shape
+        y = y.reshape(ED // E_loc, 1, E_loc, Ccur, d)
+        y = comm.all_to_all(y, axes, mesh, split_axis=3, concat_axis=1)
+        y = y.reshape(ED * s, Ccur // s, d)
+    return y
+
+
+def _moe_ep_a2a(p, xn, r: Routing, cfg: ModelConfig, rules: ShardingRules,
+                topology=None) -> torch.Tensor:
+    """All-to-all expert parallelism: each rank dispatches its own sequence
+    slice (the ``act_seq`` cut) into capacity buffers for all E experts,
+    the buffers cross so that each rank holds its experts' rows from every
+    source, its experts' SwiGLUs run through the matmul seam, the outputs
+    cross back and each rank combines its rows; the slices are gathered
+    back into the replicated residual.  Hierarchical (``topology``) and
+    flat exchanges give the same rows in the same order, so the same bits."""
+    mesh, maxes, msize = rules.mesh, _model_axes(rules), _model_size(rules)
+    stages = _a2a_stages(rules, topology)
+    B, S, d = xn.shape
+    E, k = cfg.n_experts, cfg.experts_per_token
+    E_loc = E // msize
+    wdt = p["wi"].dtype
+    xs = comm.split(xn, maxes, mesh, dim=1)                   # (B, S/m, d)
+    ti = comm.split(r.idx.reshape(B, S, k), maxes, mesh, dim=1).reshape(-1)
+    tg = comm.split(r.gate.reshape(B, S, k), maxes, mesh, dim=1).reshape(-1)
+    S_loc = xs.shape[1]
+    N = B * S_loc
+    C = moe_capacity(cfg, N)
+    xf = xs.reshape(N, d).to(wdt)
+    tok = torch.arange(N, device=xn.device).repeat_interleave(k)
+    # rank of each (token, choice) within its expert (stable by token)
+    order = torch.argsort(ti, stable=True)
+    sorted_e = ti[order]
+    start = torch.searchsorted(sorted_e, torch.arange(E, device=xn.device))
+    ranks = torch.empty_like(ti)
+    ranks[order] = torch.arange(N * k, device=xn.device) - start[sorted_e]
+    keep = ranks < C
+    slot = torch.where(keep, ti * C + ranks, E * C)            # E*C: dropped
+    buf = torch.zeros((E * C + 1, d), dtype=wdt, device=xn.device)
+    buf[slot] = xf[tok]
+    recv = _a2a_dispatch(buf[:-1].reshape(E, C, d), stages, E_loc, mesh)
+    # this rank's experts, each a SwiGLU over its rows from every source
+    y = torch.stack([
+        kops.dense(silu(kops.dense(rj, wg_j)) * kops.dense(rj, wi_j), wo_j)
+        for rj, wi_j, wg_j, wo_j in zip(recv.unbind(0), p["wi"].unbind(0),
+                                        p["wg"].unbind(0), p["wo"].unbind(0))])
+    back = _a2a_combine(y, stages, E_loc, mesh)                # (E, C, d)
+    zero = torch.zeros((1, d), dtype=y.dtype, device=xn.device)
+    flat = torch.cat([back.reshape(E * C, d), zero])
+    w = torch.where(keep, tg.to(torch.float32), 0.0)[:, None]
+    terms = (w * flat[slot].to(torch.float32)).reshape(N, k, d)
+    out = torch.zeros((N, d), dtype=torch.float32, device=xn.device)
+    for j in range(k):                      # the reference's scatter-add order
+        out = out + terms[:, j]
+    return comm.gather(out.reshape(B, S_loc, d), maxes, mesh, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -630,11 +969,12 @@ def mamba_mix(p, x, cfg: ModelConfig, conv_state=None) -> MambaMix:
 
 
 def mamba_layer(p, x, cfg: ModelConfig, conv_state=None, ssm_state=None,
-                return_state: bool = False):
+                return_state: bool = False, rules: ShardingRules | None = None):
     """Train/prefill Mamba2 block over the whole sequence (chunked SSD),
     residual included.  ``conv_state`` (B, kc-1, di+2N) and ``ssm_state``
     (B, H, P, N) f32 continue a sequence; ``return_state`` also returns
-    the (conv, ssm) states after it."""
+    the (conv, ssm) states after it.  Refuses a mesh."""
+    _refuse_mesh(rules, "the Mamba2 sublayer")
     B, S, _ = x.shape
     kc = cfg.ssm_conv
     m = mamba_mix(p, x, cfg, conv_state)
@@ -662,10 +1002,12 @@ def mamba_cache_defs(cfg: ModelConfig, batch: int) -> MambaCache:
            ("batch", "model", "", ""), "zeros"))
 
 
-def mamba_layer_decode(p, x, cache: MambaCache, cfg: ModelConfig):
+def mamba_layer_decode(p, x, cache: MambaCache, cfg: ModelConfig,
+                       rules: ShardingRules | None = None):
     """One-token recurrent step, x (B, 1, d): state <- exp(dt A) state +
     dt B x, y = C . state.  Writes the new conv window and state into
-    ``cache`` in place and returns (x out, cache)."""
+    ``cache`` in place and returns (x out, cache).  Refuses a mesh."""
+    _refuse_mesh(rules, "the Mamba2 sublayer")
     B = x.shape[0]
     di, N, H = cfg.d_inner_ssm, cfg.ssm_state, cfg.n_ssm_heads
     kc = cfg.ssm_conv

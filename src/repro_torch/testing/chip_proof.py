@@ -7,8 +7,8 @@ Runs, one after another, and prints each one's exit code:
   1. ``python3 chip_smoke.py`` (its output to ``OUT/smoke.txt`` and
      ``OUT/smoke.err``; the lines of its Table I phases, its kernel times,
      its training phases, its MoE, Mamba2 and cross-attention phases,
-     their splits by sublayer, its state-and-resilience phase and its last
-     two lines echoed);
+     their splits by sublayer, its state-and-resilience phase, its
+     distributed phase and its last two lines echoed);
   2. ``python -m repro_torch.launch.kern`` (the ``kern`` rows);
   3. the gpu-marked tests, ``pytest -m gpu tests/test_torch_gpu.py``;
   4. ``chip_smoke.py`` copied alone into an empty directory, where it must
@@ -48,7 +48,7 @@ def main(argv: list | None = None) -> int:
     for ln in lines[:-2]:
         if ln.startswith(("[table1]", "[sweep]", "[time]", "[build]", "[train", "[moe",
                           "[ssm]", "[xattn", "[split]", "[state]", "check_chaos",
-                          "[done]")):
+                          "[dist]", "[done]")):
             print(ln[:400])
     print("\n".join(ln[:400] for ln in lines[-2:]))
     print("\n".join((out / "smoke.err").read_text().splitlines()[-5:]))

@@ -12,8 +12,14 @@ into the tensors of ``params`` and ``state`` in place (one copy of the
 model's state, not two, on the card) and returns the same trees.  A
 layer-stacked leaf (``ndim >= 3``) is updated one slice of its leading axis
 at a time, as the reference's ``fori_loop`` does for a stack of 8 or more,
-so the f32 temporaries are one slice, not the leaf; the math is
-element-wise, so the slicing changes no value.
+and a matrix of more than ``UPDATE_ROWS_OF`` elements (a vocabulary's
+embedding or head) in blocks of rows of about that size, so the f32
+temporaries are one slice, not the leaf; the math is element-wise, so the
+slicing changes no value.
+
+Under a mesh (``rules``) every rank updates its own blocks; only the
+gradient's norm, which clipping reads, crosses the ranks
+(:func:`global_norm`).
 """
 from __future__ import annotations
 
@@ -23,7 +29,14 @@ from typing import Any
 
 import torch
 
+from repro_torch.parallel import comm
+from repro_torch.parallel.sharding import cut_axes, param_placements
 from repro_torch.params import PV, tree_leaves, tree_map
+
+
+#: a matrix with more elements than this is updated in blocks of rows of
+#: about this many elements (its f32 temporaries: 128 MiB each)
+UPDATE_ROWS_OF = 2**25
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,10 +92,25 @@ def adamw_init(params, cfg: OptConfig) -> dict:
             "params": tree_map(per_param, params)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's sum of squares, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in tree_leaves(tree)))
+def global_norm(tree, rules=None, defs=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's sum of squares, in f32.
+    Under a mesh (``rules``, with ``defs`` the ``PV`` tree of ``tree``'s
+    leaves) each leaf's local sum of squares is summed over exactly the
+    mesh dimensions the leaf is cut over, so a leaf whole on several ranks
+    counts once: the leaves are grouped by those dimensions, each group's
+    sum psummed once."""
+    leaves = tree_leaves(tree)
+    mesh = None if rules is None else rules.mesh
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                              for g in leaves))
+    groups: dict = {}
+    for g, spec in zip(leaves, tree_leaves(param_placements(defs, rules))):
+        sq = torch.sum(torch.square(g.to(torch.float32)))
+        axes = cut_axes(spec, mesh)
+        groups[axes] = groups[axes] + sq if axes in groups else sq
+    return torch.sqrt(sum(comm.psum(v, axes, mesh) if axes else v
+                          for axes, v in sorted(groups.items())))
 
 
 def _leaf_states(state_params, params) -> list:
@@ -102,12 +130,14 @@ def _leaf_states(state_params, params) -> list:
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: OptConfig):
+def adamw_update(params, grads, state, cfg: OptConfig, rules=None, defs=None):
     """One AdamW step, written in place; returns (params, state, metrics)
-    with metrics ``{"lr", "grad_norm"}`` (0-d f32 tensors)."""
+    with metrics ``{"lr", "grad_norm"}`` (0-d f32 tensors).  Under a mesh
+    the trees are this rank's blocks and ``defs`` their ``PV`` tree (for
+    the norm's placements)."""
     step = state["step"] + 1
     lr = lr_schedule(cfg, step).to(torch.float32)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, rules, defs)
     scale = (torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
              if cfg.clip_norm else torch.ones((), dtype=torch.float32,
                                               device=gnorm.device))
@@ -143,6 +173,11 @@ def adamw_update(params, grads, state, cfg: OptConfig):
         if p.ndim >= 3:
             for i in range(p.shape[0]):
                 upd_leaf(p[i], g[i], {k: t[i] for k, t in s.items()}, decay)
+        elif p.ndim == 2 and p.numel() > UPDATE_ROWS_OF:
+            n = max(1, UPDATE_ROWS_OF // p.shape[1])
+            for r in range(0, p.shape[0], n):
+                upd_leaf(p[r:r + n], g[r:r + n], {k: t[r:r + n] for k, t in s.items()},
+                         decay)
         else:
             upd_leaf(p, g, s, decay)
     state["step"].copy_(step)
