@@ -205,6 +205,27 @@ Phases, each of which raises on failure (nothing is caught):
      inside collectives, bytes sent and peak memory printed beside the
      card's name and power limit (a shared card through the host, not
      NCCL over NVLink);
+ 13. state and serving on a mesh (``_mesh_path``; ``--only mesh``): eight
+     ranks share the card as phase 12's four do: (a) llama3-8b at its
+     published width, 2 of 32 layers (the weights whole over (pod, data):
+     ZeRO-3 would copy every layer through the host at every step), on a
+     (2, 2, 2) (pod, data, model) mesh, the dense engine blind and
+     topology-aware and the paged engine whole and chunked and behind the
+     router (``testing.check_serve_topology`` / ``check_serve_paged
+     --size full``: batch 4, prompts of 64-512 tokens, 16 new tokens),
+     every assertion of the CPU checks but the streams between engines,
+     which are measured; each rank's launches exactly ``serve_launches``;
+     every engine's logits within ``DIST_LOGIT_SHARE`` of the same engine
+     in one process on the card, the greedy agreement printed; (b)
+     mamba2-370m's Mamba2 sublayer and (c) llama-3.2-vision-11b's
+     cross-attention sublayer (6,404 context tokens) at their published
+     widths on (1, 4), prefill and decode within
+     ``kernel_checks.mamba_tol`` / ``xattn_tol`` of one process; (d)
+     ``testing.check_chaos --mesh`` (8 ranks, (4, 2) -> (2, 2)) on the card
+     against the same on the CPU; (e) ``testing.check_ckpt_mesh``: a (2,
+     2) save restored onto (1, 2), every leaf's crc32 equal; each rank's
+     host ms a decode step, ms inside collectives, bytes sent, peak memory
+     and TTFT printed beside the card's name and power limit;
   6. kernel times (CUDA events) beside the plain version, the one PyTorch
      call that computes the same function, and the card's bound (rmsnorm at
      every main-path R in both dtypes, with its device ms a call beside
@@ -3190,6 +3211,217 @@ def _dist_path(dev, smi) -> dict:
     return launches
 
 
+# -- phase 13: state and serving on a mesh, eight ranks sharing the card ------
+
+#: phase 13's ranks: a (2, 2, 2) (pod, data, model) mesh for serving and
+#: the chaos harness's (4, 2) one
+MESH_RANKS = 8
+
+
+def _mesh_readings(tag: str, ranks: list, engine: str, smi: str) -> None:
+    """Each rank's readings of one engine's run: host ms a decode step (the
+    engine's own span), ms inside collectives and bytes sent over the whole
+    run, peak device memory, and the engine's TTFT."""
+    for r, res in enumerate(ranks):
+        e = res[engine]
+        t, st = e["timing"], e["stats"]
+        peak = st.get("peak_bytes")
+        print(f"[mesh] {tag} {engine} rank {r}: decode "
+              f"{1e3 * t['decode_s'] / max(t['decode_steps'], 1):.2f} ms a step "
+              f"({t['decode_steps']} steps), {st['collective_ms']:.1f} ms inside "
+              f"collectives of {st['ms']:.1f} ms, {st['bytes'] / 1e6:.1f} MB sent, "
+              f"peak {'n/a' if peak is None else f'{peak / 2**30:.2f} GiB'}, TTFT ms "
+              f"{[round(x, 1) for x in e['ttft_ms']]}; {smi}")
+
+
+def _mesh_serve(dev, smi) -> dict:
+    """Phase 13a: llama3-8b at its published width, 2 of 32 layers (eight
+    ranks share the card through host buffers), on a (2, 2, 2) mesh: the
+    dense engine blind and topology-aware (``check_serve_topology --size
+    full``), the paged engine whole and chunked and the router
+    (``check_serve_paged --size full``), batch 4, prompts of 64-512
+    tokens, 16 new tokens each; every assertion of the CPU checks (the
+    streams between engines measured), each rank's launches exactly
+    ``serve_launches``, and every engine's logits against the same engine
+    in one process on the card (``DIST_LOGIT_SHARE``, greedy agreement
+    printed).  Returns rank 0's launches over the four engines."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.testing import check_serve_paged as csp
+    from repro_torch.testing import check_serve_topology as cst
+    from repro_torch.testing.subproc import run_ranks
+    from repro_torch.testing.timing import now
+
+    cfg = cst.config("full")
+    model = lm.Model(cfg, cst.weights("full", dev))
+    t0 = now()
+    one = {"topology": cst.run(model, "full", device=dev),
+           "paged": csp.run(model, "full", device=dev)}
+    print(f"[mesh] (a) {cfg.name} {cfg.n_layers} of 32 layers, d_model {cfg.d_model}: "
+          f"the engines in one process on the card in {now() - t0:.1f} s")
+    for part in one.values():
+        for tag, e in part.items():
+            if tag != "router" and e["launches"][0] != e["launches"][1]:
+                raise AssertionError(f"(a) one process {tag}: {e['launches']}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: 0 for k in ops.LAUNCHES}
+    for part, mod, chk, tags in (("topology", "check_serve_topology", cst.check,
+                                  ("blind", "aware")),
+                                 ("paged", "check_serve_paged", csp.check,
+                                  ("dense", "paged", "chunked"))):
+        t0 = now()
+        d = run_ranks(f"repro_torch.testing.{mod}", MESH_RANKS, "--size", "full",
+                      device="cuda", timeout=900)
+        ranks = cst.assemble(d)
+        print(f"[mesh] (a) {mod}: {MESH_RANKS} ranks on a (2, 2, 2) (pod, data, model) "
+              f"mesh in {now() - t0:.1f} s, spawn included")
+        out = chk(ranks, strict=False)
+        if part == "topology":
+            a = out["aware"]
+            print(f"[mesh] (a) placement: the topology engine's cache cut over "
+                  f"{sorted(a['axes'][1])} (never `pod`), a rank's slots "
+                  f"{[r['aware']['slot_rows'] for r in ranks]}; repeat of r2 in slot "
+                  f"{a['streams'][3][0]} (pod 1), blind engine slot "
+                  f"{out['blind']['streams'][3][0]}; blind vs aware: {out['blind_vs_aware']}")
+        else:
+            p = out["paged"]
+            print(f"[mesh] (a) paged: shared_hits {p['shared_hits']}, cow_copies "
+                  f"{p['cow_copies']}, peak blocks {p['peak_blocks']}, chunks "
+                  f"{out['chunked']['timing']['chunks']}, zero block zero on every "
+                  f"rank, pool cut over {sorted(p['pool_axes'])}, router "
+                  f"{out['router']}; against dense: {out['vs_dense']}")
+        for tag in tags:
+            g, w = out[tag], one[part][tag]
+            ag = cst.agreement(g["streams"], w["streams"], g["logits"], w["logits"])
+            print(f"[mesh] (a) {tag}: 8 ranks against one process on the card, greedy "
+                  f"picks agree {100 * ag['agree']:.1f} %, logits at most "
+                  f"{ag['share']:.3e} of the pick's largest |logit| (limit "
+                  f"{DIST_LOGIT_SHARE}); launches a rank {g['launches'][0]} "
+                  f"(serve_launches)")
+            _mesh_readings("(a)", ranks, tag, smi)
+            if ag["share"] > DIST_LOGIT_SHARE:
+                raise AssertionError(f"(a) {tag}: logits differ from one process: {ag}")
+            for k in launches:
+                launches[k] += g["launches"][0].get(k, 0)
+        del ranks, out
+    return launches
+
+
+def _mesh_families(dev, smi) -> None:
+    """Phase 13 b, c: mamba2-370m's Mamba2 sublayer (32 heads) and
+    llama-3.2-vision-11b's cross-attention sublayer (32/8 heads, 6,404
+    context tokens; the prefill through the flash kernel) at their
+    published widths, cut over `model` on a (1, 4) mesh
+    (``check_dist_families --size full``): a prefill and a decode step,
+    outputs and caches against one process on the card within
+    ``kernel_checks.mamba_tol`` and ``xattn_tol``."""
+    import torch
+
+    from repro_torch.params import tree_map
+    from repro_torch.testing import check_dist_families as cdf
+    from repro_torch.testing import kernel_checks as kc
+    from repro_torch.testing.subproc import run_ranks
+    from repro_torch.testing.timing import now
+
+    want, tols = {}, {}
+    for arch in cdf.FULL_ARCHS:
+        cfg = cdf.config(arch, "full")
+        p = cdf.slot_params(arch, dev, "full")
+        ins = cdf.inputs(arch, "full")
+        want[arch] = cdf.sublayer(arch, p, ins, None, dev, "full")
+        pc = tree_map(lambda t: t.cpu(), p)
+        x, x1, ctx = (torch.from_numpy(ins[k]).to(cfg.dtype) for k in ("x", "x1", "ctx"))
+        w = want[arch]
+        if cdf.is_mamba(arch):
+            t0, t1 = kc.mamba_tol(pc, x, cfg), kc.mamba_tol(
+                pc, x1, cfg, w["cache"]["conv"], w["cache"]["state"])
+            tols[arch] = {"out": t0["out"], "conv": t0["conv"], "state": t0["state"],
+                          "out1": t1["out"], "conv1": t1["conv"], "state1": t1["state"]}
+        else:
+            mm = kc.MATMUL_TOL[torch.bfloat16]
+            tols[arch] = {"out": kc.xattn_tol(pc, x, ctx, cfg), "k": mm, "v": mm,
+                          "out1": kc.xattn_tol(pc, x1, ctx, cfg,
+                                               (w["cache"]["k"], w["cache"]["v"]))}
+        del p
+    torch.cuda.empty_cache()
+    t0 = now()
+    got = cdf.main(["1", "4", "--size", "full", "--device", "cuda"])
+    print(f"[mesh] (b, c) 4 ranks on a (1, 4) mesh in {now() - t0:.1f} s, spawn included")
+    for part, arch in (("(b)", "mamba2-370m"), ("(c)", "llama-3.2-vision-11b")):
+        g, w, t = got[arch], want[arch], tols[arch]
+        d = cdf.config(arch, "full").d_model
+        pairs = {"out": (g["out"].reshape(-1, d), w["out"].reshape(-1, d)),
+                 "out1": (g["out1"].reshape(-1, d), w["out1"].reshape(-1, d))}
+        for k in g["cache"]:
+            pairs[k] = (g["cache"][k], w["cache"][k])
+            if k in ("conv", "state"):
+                pairs[k + "1"] = (g["cache1"][k], w["cache1"][k])
+        res = {k: kc.compare(a, b, t[k]) for k, (a, b) in pairs.items()}
+        print(f"[mesh] {part} {arch} sublayer, 4 ranks against one process on the card: "
+              + "; ".join(f"{k} {_reading(r)}" for k, r in res.items())
+              + f"; same output on every rank {g['same_out_on_every_rank']}")
+        _dist_readings(f"{part} {arch}", g["stats"], smi)
+        if not all(r["ok"] for r in res.values()) or not g["same_out_on_every_rank"]:
+            raise AssertionError(f"{part} {arch} on the mesh differs: {res}")
+
+
+def _mesh_state(dev, smi) -> None:
+    """Phase 13 d, e: the chaos harness on 8 ranks ((4, 2) -> (2, 2),
+    ``check_chaos --mesh``) on the card and on the CPU, fingerprints,
+    restarts and timeline equal, losses within ``train_checks.SCALAR_RTOL``;
+    a (2, 2) save restored onto (1, 2) and in one process, every leaf's
+    crc32 equal (``check_ckpt_mesh``)."""
+    from repro_torch.testing import check_chaos, check_ckpt_mesh
+    from repro_torch.testing import train_checks as tc
+    from repro_torch.testing.timing import now
+
+    t0 = now()
+    gpu = check_chaos.main_mesh(["--mesh", "--device", "cuda"])
+    t1 = now()
+    cpu = check_chaos.main_mesh(["--mesh", "--device", "cpu"])
+    t2 = now()
+    for k in ("ref", "chaos"):
+        g, c = gpu[k], cpu[k]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(g["losses"], c["losses"]))
+        same = (g["fingerprints"] == c["fingerprints"] and g["restarts"] == c["restarts"]
+                and g["timeline"] == c["timeline"])
+        print(f"[mesh] (d) check_chaos --mesh {k}: card against the CPU's ranks, "
+              f"fingerprints, restarts and timeline equal: {same}; losses rel {rel:.3e} "
+              f"(limit {tc.SCALAR_RTOL:g}); final mesh {g['final_mesh_shape']}; card "
+              f"{g['losses']}")
+        if not same or rel > tc.SCALAR_RTOL:
+            raise AssertionError(f"(d) check_chaos --mesh {k}: card and CPU disagree")
+    print(f"[mesh] (d) 8 ranks: card {t1 - t0:.1f} s, CPU {t2 - t1:.1f} s, spawns "
+          f"included; {smi}")
+    t0 = now()
+    out = check_ckpt_mesh.main(["--device", "cuda"])
+    print(f"[mesh] (e) a (2, 2) save of {out['n_leaves']} leaves restored onto (1, 2) "
+          f"and in one process: every leaf's crc32 equal ({now() - t0:.1f} s, 4 ranks)")
+
+
+def _mesh_path(dev, smi) -> dict:
+    """Phase 13: state and serving on a process mesh, the ranks sharing the
+    card through host buffers (gloo, ``parallel.comm.layout``), as phase
+    12's.  Returns (a)'s rank-0 launches."""
+    import torch
+
+    from repro_torch.parallel.comm import layout
+
+    backend, transport = layout("cuda", MESH_RANKS, torch.cuda.device_count())
+    print(f"[mesh] {MESH_RANKS} ranks, {torch.cuda.device_count()} card: backend "
+          f"{backend}, transport {transport}; {smi}")
+    launches = _mesh_serve(dev, smi)
+    _mesh_families(dev, smi)
+    _mesh_state(dev, smi)
+    return launches
+
+
 #: the parts ``--only`` runs alone: the libraries each builds, and what it
 #: runs, given the device and the modules ``main`` imports
 ONLY = {
@@ -3210,6 +3442,8 @@ ONLY = {
               lambda dev, m: _state_path(dev)),
     "dist": (("matmul", "rmsnorm", "flash_attention", "flash_attention_bwd"),
              lambda dev, m: _dist_path(dev, m.smi)),
+    "mesh": (("matmul", "rmsnorm", "flash_attention", "flash_attention_bwd",
+              "paged_attention"), lambda dev, m: _mesh_path(dev, m.smi)),
 }
 
 
@@ -3225,7 +3459,7 @@ def main(argv: list | None = None) -> int:
                          "ssm: phase 5's Mamba smoke models and phase 9; xattn: "
                          "phase 3's and 3c's cross-attention checks, phase 10 and "
                          "phase 6's cross-attention rows; state: phase 11; dist: "
-                         "phase 12); "
+                         "phase 12; mesh: phase 13); "
                          "a copy of this file at the root of another checkout reads "
                          "that tree's kernels the same way")
     args = ap.parse_args(argv)
@@ -3630,6 +3864,8 @@ def main(argv: list | None = None) -> int:
     path_launches["state"] = _state_path(dev)
     # -- 12. distributed compute: four ranks share the card ---------------------
     path_launches["dist"] = _dist_path(dev, smi.splitlines()[0])
+    # -- 13. state and serving on a mesh: eight ranks share the card ------------
+    path_launches["mesh"] = _mesh_path(dev, smi.splitlines()[0])
 
     # -- 6. kernel times ---------------------------------------------------------
     time_ms = _time_ms

@@ -29,9 +29,15 @@ Fault tolerance, as the reference's:
   thread;
 * retention: the newest ``keep`` valid steps stay.
 
-The port does not shard: restore places every leaf on one ``device``,
-each allocated there once, from a template of shapes and dtypes
-(``train.trainer.abstract_train_state``) or of tensors.
+Restore places every leaf on one ``device``, each allocated there once,
+from a template of shapes and dtypes (``train.trainer.abstract_train_state``)
+or of tensors.  On a process mesh a checkpoint holds the whole leaves, as
+the reference's does: :func:`gather_to_writer` brings every rank's blocks
+to the mesh's first rank, which writes them, and ``restore_checkpoint(...,
+rules=, rank=)`` cuts each leaf's block for the target rules, which may be
+those of another mesh (the survivors of an elastic rescale) or of one
+process: the placement is a pure function of the leaf's logical axes and
+the mesh.
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.parallel.sharding import ShardingRules, block, gather_tree
 from repro_torch.testing.timing import now
 
 
@@ -221,13 +228,55 @@ def tear_checkpoint(path: str | pathlib.Path, step: int,
     return d
 
 
+def gather_to_writer(tree: Any, defs: Any, rules: ShardingRules) -> Any:
+    """The whole tree of a state held in blocks over ``rules``' mesh
+    (``defs`` its ``PV`` tree), on the mesh's first rank, None on the
+    others: every rank's blocks go to it on the host in one gather over
+    the mesh, and ``sharding.gather_tree`` puts them together.  Every rank
+    of the mesh calls it."""
+    import torch.distributed as dist
+
+    mesh = rules.mesh
+    host = _map_tree(lambda t: t.detach().to("cpu", copy=True), tree)
+    if mesh.size == 1:
+        return host
+    first = mesh.rank == 0
+    got = [None] * mesh.size if first else None
+    dist.gather_object(host, got, dst=mesh.ranks[0],
+                       group=mesh.group(mesh.axis_names))
+    if not first:
+        return None
+    if isinstance(defs, tuple) and hasattr(defs, "_fields"):   # a TrainState
+        return type(defs)(*[gather_tree([g[i] for g in got], d, rules)
+                            for i, d in enumerate(defs)])
+    return gather_tree(got, defs, rules)
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[_map_tree(fn, v) for v in tree])
+    return fn(tree)
+
+
 def restore_checkpoint(path: str | pathlib.Path, template: Any,
-                       step: int | None = None, device="cuda"):
+                       step: int | None = None, device="cuda",
+                       rules: ShardingRules | None = None,
+                       rank: int | None = None):
     """Restore into the structure of ``template`` (leaves: tensors, or
     ``PV``s from ``abstract_train_state``), each leaf read from its file,
     cast to the template's dtype where it differs, and allocated once on
     ``device``.  ``step=None`` takes the newest step that passes the
-    torn-write gate.  Returns ``(tree, step, extra)``."""
+    torn-write gate.  Returns ``(tree, step, extra)``.
+
+    With ``rules`` on a mesh (the template's leaves then ``PV``s, whose
+    logical axes place them) each leaf becomes the block of mesh position
+    ``rank`` (the mesh's own rank by default), ``sharding.block`` of the
+    whole stored leaf: any mesh, whatever mesh wrote it."""
+    mesh = None if rules is None else rules.mesh
+    if mesh is not None and rank is None:
+        rank = mesh.rank
     path = pathlib.Path(path)
     step = latest_step(path) if step is None else step
     assert step is not None, f"no valid checkpoint under {path}"
@@ -249,6 +298,8 @@ def restore_checkpoint(path: str | pathlib.Path, template: Any,
         if tuple(t.shape) != tuple(like.shape):
             raise ValueError(f"leaf {i}: stored shape {tuple(t.shape)}, the "
                              f"template's {tuple(like.shape)}")
+        if mesh is not None:
+            t = block(t, rules.spec(like.logical), mesh, rank)
         # a tensor of torch's allocator on ``device`` (numpy's buffers have
         # another alignment, and the CPU's matmuls round by alignment), in
         # the template's dtype (a tensor's or a ``PV``'s)

@@ -13,13 +13,12 @@ host-side:
 * plan_rescale: the survivor mesh's shape (whole data-parallel rows
   dropped, the model axis intact) and batch after losing hosts.
 
-The port does not shard yet, so the train state always lives on the one
-``device`` and a rescale changes no placement.  ``survivor_devices`` and
-``rescale_rules`` work over **logical device ids** (``range(n_devices)``;
-host h owns ``[h * devices_per_host, (h + 1) * devices_per_host)``):
-``rescale_rules`` gives the survivor mesh's shape and ids, the arithmetic
-the reference's restart path runs.  Placements on a mesh (DeviceMesh and
-DTensor) come with the distributed slice.
+``survivor_devices`` and ``rescale_rules`` work over **logical device
+ids** (``range(n_devices)``; host h owns ``[h * devices_per_host, (h + 1)
+* devices_per_host)``), which on a process mesh are the global ranks:
+``rescale_rules`` gives the survivor mesh over them and the rule table
+re-derived on it, as the reference's restart path does; a checkpoint then
+restores onto it (``checkpoint.restore_checkpoint(..., rules=)``).
 """
 from __future__ import annotations
 
@@ -155,28 +154,31 @@ def survivor_devices(lost_hosts, devices_per_host: int, devices) -> list:
             if i // devices_per_host not in lost]
 
 
-@dataclasses.dataclass(frozen=True)
-class SurvivorMesh:
-    """The survivor mesh a rescale prescribes: its ``(data, model)`` shape
-    and the logical device ids it is built from, in mesh order."""
-    shape: tuple
-    device_ids: tuple
-
-
 def rescale_rules(plan: ElasticPlan, lost_hosts, devices_per_host: int,
-                  devices) -> SurvivorMesh:
-    """The rescale plumbing: the survivor mesh that ``plan`` prescribes,
-    built from the devices of the hosts not in ``lost_hosts`` (never
-    renumbered).  Raises :class:`RescaleError` when fewer survive than the
-    plan wants.  The reference also re-derives the sharding rules on that
-    mesh; the port keeps the state on one device, so there is nothing to
-    re-place until the distributed slice."""
+                  devices, *, transport: str | None = None, **rule_kw):
+    """The rescale -> rules plumbing: the ``(data, model)`` survivor mesh
+    that ``plan`` prescribes, over the first ``plan.new_devices`` devices of
+    the hosts not in ``lost_hosts`` (never renumbered, in their order), and
+    ``default_rules`` re-derived on it (``batch`` the plan's global batch
+    unless ``rule_kw`` says otherwise).  Returns ``(mesh, rules)``; the
+    mesh's ``ranks`` are the devices' ids.  With ``transport`` (this
+    process one of the survivors, the ids global ranks of its process
+    group) the mesh is a group of the surviving ranks, made by them alone
+    (``comm.Mesh.over_ranks``); without, an abstract mesh.  Raises
+    :class:`RescaleError` when fewer survive than the plan wants."""
+    from repro_torch.parallel.comm import Mesh
+    from repro_torch.parallel.sharding import default_rules
+
     keep = survivor_devices(lost_hosts, devices_per_host, devices)
     if len(keep) < plan.new_devices:
         raise RescaleError(f"plan wants {plan.new_devices} devices but only "
                            f"{len(keep)} survived")
-    return SurvivorMesh(tuple(plan.new_mesh_shape),
-                        tuple(keep[: plan.new_devices]))
+    ids = [int(d) for d in keep[: plan.new_devices]]
+    names = ("data", "model")
+    mesh = (Mesh(names, plan.new_mesh_shape, ranks=ids) if transport is None
+            else Mesh.over_ranks(ids, plan.new_mesh_shape, names, transport))
+    rule_kw.setdefault("batch", plan.new_global_batch)
+    return mesh, default_rules(mesh, **rule_kw)
 
 
 class RestartPolicy:

@@ -23,12 +23,14 @@ feeds the heartbeat monitor and the straggler mitigator.
 while a deterministic fault injector (``ft.chaos``) kills and straggles
 them on a virtual clock.  A detected loss runs the restart state machine:
 ``RestartPolicy`` backoff, ``plan_rescale`` onto the survivors
-(``ft.rescale_rules``: the survivor mesh's shape and ids), restore of the
+(``ft.rescale_rules``: the survivor mesh and its rules), restore of the
 newest checkpoint that passes the torn-write gate, and bit-identical
-``(seed, step)`` batch replay from the pipeline's cursor.  The state stays
-on the one device (the port does not shard), so the same program runs
-before and after a restart.  ``--procs`` runs each host as an OS process
-with socket heartbeats and real SIGKILLs (``ft.cluster``).
+``(seed, step)`` batch replay from the pipeline's cursor.  From the CLI
+the state stays on the one device, so the same program runs before and
+after a restart; ``run_chaos(..., mesh=)`` runs it on a process mesh of
+real ranks (``testing/check_chaos.py --mesh``).  ``--procs`` runs each
+host as an OS process with socket heartbeats and real SIGKILLs
+(``ft.cluster``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 6 --ckpt /tmp/c
@@ -51,18 +53,21 @@ import torch
 
 from repro_torch.checkpoint import (CheckpointManager, latest_step,
                                     restore_checkpoint, tear_checkpoint)
+from repro_torch.checkpoint.ckpt import gather_to_writer
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import DataConfig, Pipeline, make_pipeline
 from repro_torch.ft import (ChaosSchedule, FaultInjector, HeartbeatMonitor,
                             RestartPolicy, StragglerMitigator, plan_rescale,
-                            rescale_rules)
+                            rescale_rules, survivor_devices)
 from repro_torch.models import lm
 from repro_torch.params import tree_map
+from repro_torch.parallel.sharding import block, default_rules, shard_tree
 from repro_torch.serve.engine import resolve_device
 from repro_torch.testing.timing import now
 from repro_torch.train import (OptConfig, TrainState, abstract_train_state,
                                adamw_init, make_train_step)
-from repro_torch.train.trainer import init_train_state, trainable
+from repro_torch.train.trainer import (init_train_state, train_state_defs,
+                                       trainable)
 
 
 def step_context(cfg, step: int, batch: int, seq_len: int) -> np.ndarray:
@@ -74,34 +79,45 @@ def step_context(cfg, step: int, batch: int, seq_len: int) -> np.ndarray:
     return (rng.normal(size=(batch, T, cfg.d_ctx)) * 0.1).astype(np.float32)
 
 
-def _place_state(cfg, opt_cfg, seed: int, device, params: dict | None = None
-                 ) -> TrainState:
+def _place_state(cfg, opt_cfg, seed: int, device, params: dict | None = None,
+                 rules=None) -> TrainState:
     """A fresh train state on ``device``: weights drawn from ``seed``, or a
     copy of ``params`` (the update writes in place, so the caller's tensors
-    stay as they were).  A pure function of its arguments, so fresh starts
-    and cold restarts are identical."""
+    stay as they were); under a mesh (``rules``) this rank's blocks of
+    them.  A pure function of its arguments, so fresh starts and cold
+    restarts are identical."""
     if params is None:
         return init_train_state(cfg, opt_cfg,
                                 torch.Generator(device=device).manual_seed(seed),
-                                device)
-    p = trainable(tree_map(lambda t: t.to(device, copy=True), params))
+                                device, rules=rules)
+    p = tree_map(lambda t: t.to(device, copy=True), params)
+    if rules is not None:
+        p = shard_tree(p, lm.model_defs(cfg), rules, rules.mesh.rank)
+    p = trainable(p)
     return TrainState(p, adamw_init(p, opt_cfg))
 
 
-def _restore_state(ckpt_dir, cfg, opt_cfg, device) -> tuple[TrainState, int]:
+def _restore_state(ckpt_dir, cfg, opt_cfg, device, rules=None
+                   ) -> tuple[TrainState, int]:
     """The newest valid checkpoint's state on ``device`` (each leaf
-    allocated there once, from ``abstract_train_state``) and its step."""
+    allocated there once, from ``abstract_train_state``; under a mesh this
+    rank's block of it) and its step."""
     st, step, _ = restore_checkpoint(ckpt_dir, abstract_train_state(cfg, opt_cfg),
-                                     device=device)
+                                     device=device, rules=rules)
     return TrainState(trainable(st.params), st.opt), int(step)
 
 
-def _batch(cfg, step: int, tokens: np.ndarray, device) -> dict:
-    batch = {"tokens": torch.from_numpy(tokens).to(device, torch.int64)}
+def _batch(cfg, step: int, tokens: np.ndarray, device, rules=None) -> dict:
+    """The step's batch on ``device``; under a mesh this rank's rows (the
+    ``batch`` rule's cut) of the tokens and the context."""
+    B, S = tokens.shape
+    batch = {"tokens": torch.from_numpy(tokens).to(torch.int64)}
     if cfg.family in lm.CONTEXT_FAMILIES:
-        B, S = tokens.shape
-        batch["ctx"] = torch.from_numpy(step_context(cfg, step, B, S)).to(device)
-    return batch
+        batch["ctx"] = torch.from_numpy(step_context(cfg, step, B, S))
+    if rules is not None:
+        batch = {k: block(v, rules.spec(("batch",) + ("",) * (v.ndim - 1)),
+                          rules.mesh, rules.mesh.rank) for k, v in batch.items()}
+    return {k: v.to(device) for k, v in batch.items()}
 
 
 def run(arch: str, *, smoke: bool = True, steps: int = 50,
@@ -190,7 +206,7 @@ def run_chaos(arch: str = "llama3-8b", *, steps: int = 12,
               n_kills: int = 1, n_straggles: int = 1,
               n_ckpt_crashes: int = 0, verbose: bool = True,
               n_devices: int = 8, device="cuda",
-              params: dict | None = None) -> dict:
+              params: dict | None = None, mesh=None) -> dict:
     """One elastic training run of the smoke model under injected faults.
 
     ``n_devices`` logical devices split into ``n_hosts`` simulated hosts
@@ -211,12 +227,20 @@ def run_chaos(arch: str = "llama3-8b", *, steps: int = 12,
                  a pure function of (seed, step), so every batch after the
                  restart is byte-identical to the uninterrupted run's
 
-    The state lives on the one ``device`` throughout (the port does not
-    shard), so the steps after a restore run the same program as the
-    uninterrupted run and give its losses bit for bit; the reference's
-    meshes change its reduction order there.  Returns the reference's
-    result: per-step losses and batch fingerprints, the restart log and
-    timeline, the final mesh shape and the virtual seconds.
+    Without ``mesh`` the state lives on the one ``device`` throughout, so
+    the steps after a restore run the same program as the uninterrupted
+    run and give its losses bit for bit.  With ``mesh`` (a ``comm.Mesh``
+    of ``(n_devices // model_axis, model_axis)`` over the process group's
+    ranks, whose global ranks are the logical device ids; every rank calls
+    ``run_chaos``) the state is placed by ``train_state_shardings``' rules
+    and each rank trains on its rows: a save gathers the state to the
+    mesh's first rank, which writes it before any rank goes on; a lost
+    host's ranks leave the run at the restart (their result says where,
+    ``left_at_step``), and the survivors build the rescaled mesh
+    (``rescale_rules``), restore the checkpoint onto it and replay, on a
+    mesh whose reduction order differs, as the reference's does.  Returns
+    the reference's result: per-step losses and batch fingerprints, the
+    restart log and timeline, the final mesh shape and the virtual seconds.
     """
     device = resolve_device(device)
     if n_devices % n_hosts:
@@ -230,6 +254,14 @@ def run_chaos(arch: str = "llama3-8b", *, steps: int = 12,
             f"dp rows — AraXL loses clusters, never lanes)")
     devices = list(range(n_devices))
     mesh_shape = (n_devices // model_axis, model_axis)
+    rules = None
+    if mesh is not None:
+        if tuple(mesh.sizes) != mesh_shape or mesh.axis_names != ("data", "model"):
+            raise ValueError(f"run_chaos on a mesh wants (data, model) = "
+                             f"{mesh_shape}, got {mesh.shape}")
+        rules = default_rules(mesh, batch=global_batch)
+    me = None if mesh is None else mesh.ranks[mesh.rank]
+    speak = verbose and (mesh is None or mesh.rank == 0)
 
     cfg = get_smoke_config(arch)
     opt_cfg = OptConfig(lr=lr, warmup_steps=max(2, steps // 10),
@@ -250,8 +282,10 @@ def run_chaos(arch: str = "llama3-8b", *, steps: int = 12,
     policy = RestartPolicy(max_restarts=max_restarts, backoff_s=backoff_s,
                            clock=injector.clock)
 
-    state = _place_state(cfg, opt_cfg, seed, device, params)
-    step_fn = make_train_step(cfg, opt_cfg, n_microbatches=n_microbatches)
+    state = _place_state(cfg, opt_cfg, seed, device, params, rules)
+    step_fn = make_train_step(cfg, opt_cfg, n_microbatches=n_microbatches,
+                              rules=rules)
+    state_defs = TrainState(*train_state_defs(cfg, opt_cfg))
     pipe = Pipeline(dcfg, start_step=0)
 
     losses_by_step: dict[int, float] = {}
@@ -270,29 +304,38 @@ def run_chaos(arch: str = "llama3-8b", *, steps: int = 12,
             assert prev is None or prev == fp, \
                 f"replay diverged at step {step}: {prev} != {fp}"
             fingerprints[step] = fp
-            state, metrics = step_fn(state, _batch(cfg, step, batch_np, device))
+            state, metrics = step_fn(state, _batch(cfg, step, batch_np, device,
+                                                   rules))
             loss = float(metrics["loss"])
             losses_by_step[step] = loss
             steps_executed += 1
 
             status = injector.tick(step)
             tear_next_save = tear_next_save or status.tear_next_save
-            if verbose and (step % log_every == 0 or step == steps - 1):
+            if speak and (step % log_every == 0 or step == steps - 1):
                 print(f"[chaos] step {step:4d} loss {loss:8.4f} "
                       f"mesh {list(mesh_shape)} t={injector.clock():.1f}s "
                       f"alive={sorted(injector.alive)} [{device}]", flush=True)
 
             if (step + 1) % ckpt_every == 0:
-                mgr.save_async(state, step + 1,
-                               extra={"mesh_shape": list(mesh_shape),
-                                      "global_batch": global_batch,
-                                      "data_cursor": pipe.cursor})
+                extra = {"mesh_shape": list(mesh_shape),
+                         "global_batch": global_batch,
+                         "data_cursor": pipe.cursor}
+                whole = state if mesh is None else \
+                    gather_to_writer(state, state_defs, rules)
+                writer = whole is not None
+                if writer:
+                    mgr.save_async(whole, step + 1, extra=extra)
                 if tear_next_save:
-                    mgr.wait()                     # durable, then corrupted
-                    tear_checkpoint(ckpt_dir, step + 1)
+                    if writer:
+                        mgr.wait()                 # durable, then corrupted
+                        tear_checkpoint(ckpt_dir, step + 1)
                     timeline.append({"step": step, "event": "ckpt_torn",
                                      "ckpt_step": step + 1})
                     tear_next_save = False
+                if mesh is not None:               # written before any rank reads
+                    mgr.wait()
+                    _barrier(mesh)
 
             lost = status.lost
             if lost:
@@ -315,13 +358,32 @@ def run_chaos(arch: str = "llama3-8b", *, steps: int = 12,
                         f"rescaled dp={plan.new_mesh_shape[0]} — bit-identical "
                         f"replay needs a batch divisible by every survivable "
                         f"dp size ({plan.notes})")
-                mesh_shape = rescale_rules(plan, injector.failed,
-                                           devices_per_host, devices=devices).shape
+                survivors = survivor_devices(injector.failed, devices_per_host,
+                                             devices)[:plan.new_devices]
+                if mesh is not None and me not in survivors:
+                    # this rank's host is gone: it leaves the mesh, which the
+                    # survivors rebuild without it
+                    return {"left_at_step": step, "losses_by_step": losses_by_step,
+                            "fingerprints": fingerprints, "restarts": restarts,
+                            "timeline": timeline, "steps_executed": steps_executed}
+                new_mesh, rules = rescale_rules(
+                    plan, injector.failed, devices_per_host, devices=devices,
+                    transport=None if mesh is None else mesh.transport)
+                mesh_shape = tuple(new_mesh.sizes)
+                if mesh is not None:
+                    mesh = new_mesh
+                    step_fn = make_train_step(cfg, opt_cfg, rules=rules,
+                                              n_microbatches=n_microbatches)
+                else:
+                    rules = None
+                speak = verbose and (mesh is None or mesh.rank == 0)
                 del state                          # one state on the device
                 if latest_step(ckpt_dir) is not None:
-                    state, rstep = _restore_state(ckpt_dir, cfg, opt_cfg, device)
+                    state, rstep = _restore_state(ckpt_dir, cfg, opt_cfg, device,
+                                                  rules)
                 else:                              # killed before the first save
-                    state, rstep = _place_state(cfg, opt_cfg, seed, device, params), 0
+                    state, rstep = _place_state(cfg, opt_cfg, seed, device,
+                                                params, rules), 0
                 pipe.close()
                 pipe = Pipeline(dcfg, start_step=rstep)
                 restarts.append({
@@ -331,7 +393,7 @@ def run_chaos(arch: str = "llama3-8b", *, steps: int = 12,
                     "new_devices": plan.new_devices, "notes": plan.notes})
                 timeline.append({"step": step, "event": "restart",
                                  "lost": list(lost), "restore_step": rstep})
-                if verbose:
+                if speak:
                     print(f"[chaos] RESTART #{len(restarts)}: lost {list(lost)} "
                           f"at step {step}, backoff {delay:.1f}s, restored "
                           f"step {rstep} onto {plan.new_mesh_shape} "
@@ -343,7 +405,8 @@ def run_chaos(arch: str = "llama3-8b", *, steps: int = 12,
         pipe.close()
         mgr.wait()
     losses = [losses_by_step[s] for s in range(steps)]
-    return {"losses": losses, "losses_by_step": losses_by_step,
+    out = {} if mesh is None else {"left_at_step": None}
+    return {**out, "losses": losses, "losses_by_step": losses_by_step,
             "final_loss": losses[-1] if losses else None,
             "fingerprints": fingerprints, "restarts": restarts,
             "n_restarts": len(restarts), "timeline": timeline,
@@ -351,6 +414,14 @@ def run_chaos(arch: str = "llama3-8b", *, steps: int = 12,
             "steps_executed": steps_executed,
             "final_mesh_shape": list(mesh_shape),
             "virtual_seconds": injector.clock()}
+
+
+def _barrier(mesh) -> None:
+    """Every rank of ``mesh`` reaches this point before any goes on."""
+    import torch.distributed as dist
+
+    if mesh.size > 1:
+        dist.barrier(group=mesh.group(mesh.axis_names))
 
 
 def main(argv=None) -> dict:

@@ -23,7 +23,13 @@ MoE sublayer runs in the reference's ``tp``, ``ep`` or ``ep_a2a`` mode
 (``moe_mode``), and decode attention over a cache whose slots are cut over
 `model` (``cache_seq="model"``) writes the new token into the slice that
 owns its slot and merges the slices' softmax with a pmax and two psums.
-The Mamba2 and cross-attention sublayers refuse a mesh by name.
+Cross-attention cuts its q heads and the context's kv heads over `model`
+as self-attention does; paged attention runs on a rank's kv heads of the
+pool.  The Mamba2 sublayer runs a rank's SSD heads: ``in_proj``'s output
+and the conv's weights are gathered over `model` (their columns are cut
+contiguously, not by head), the rank takes its heads' z, x and dt and the
+B and C that every head shares, the gated norm sums its squares over
+`model`, and ``out_proj``'s rows are followed by a psum.
 """
 from __future__ import annotations
 
@@ -99,14 +105,6 @@ def _model_axes(rules: ShardingRules | None) -> tuple:
 def _model_size(rules: ShardingRules | None) -> int:
     axes = _model_axes(rules)
     return rules.mesh.axis_size(axes) if axes else 1
-
-
-def _refuse_mesh(rules: ShardingRules | None, what: str) -> None:
-    """The sublayers whose mesh branches are not ported refuse a mesh by
-    name (as the engines refuse a context)."""
-    if _mesh(rules) is not None:
-        raise NotImplementedError(
-            f"{what} under a mesh is not ported: run it without rules")
 
 
 def _psum_model(o: torch.Tensor, rules) -> torch.Tensor:
@@ -385,36 +383,49 @@ class XAttnCache(NamedTuple):
     v: torch.Tensor
 
 
-def xattn_prefill_cache(p, ctx, cfg: ModelConfig) -> XAttnCache:
+def _xkv_cut(rules) -> bool:
+    """Whether a cross-attention cache's kv heads are cut over `model`."""
+    return _mesh(rules) is not None and bool(rules.spec(("batch", "", "kv", ""))[2])
+
+
+def xattn_prefill_cache(p, ctx, cfg: ModelConfig,
+                        rules: ShardingRules | None = None) -> XAttnCache:
     """The context's keys and values, ctx (B, T, d) through ``wk`` and
-    ``wv``: (B, T, Hkv, Dh) each, no rotation."""
+    ``wv``: (B, T, Hkv, Dh) each, no rotation.  Under a mesh the rank's kv
+    heads where the cache's ``kv`` rule cuts them, else every kv head (the
+    rank's columns gathered over `model`)."""
     B, T, _ = ctx.shape
     hd = cfg.head_dim
-    k = kops.dense(ctx, p["wk"]).reshape(B, T, cfg.n_kv_heads, hd)
-    v = kops.dense(ctx, p["wv"]).reshape(B, T, cfg.n_kv_heads, hd)
-    return XAttnCache(k, v)
+    ctx = _into_model(ctx, rules)
+    k = kops.dense(ctx, p["wk"])
+    v = kops.dense(ctx, p["wv"])
+    if _model_size(rules) > 1 and not _xkv_cut(rules):
+        axes, mesh = _model_axes(rules), rules.mesh
+        k = comm.all_gather(k, axes, mesh, dim=-1)
+        v = comm.all_gather(v, axes, mesh, dim=-1)
+    return XAttnCache(k.reshape(B, T, -1, hd), v.reshape(B, T, -1, hd))
 
 
-def _xattn(p, x, ctx, cfg: ModelConfig):
+def _xattn(p, x, ctx, cfg: ModelConfig, rules=None):
     """The sublayer and the context's K/V it made: rmsnorm, ``wq`` on x,
     ``wk`` and ``wv`` on ctx, attention non-causal over all T keys (with
-    ``cfg.window`` as the reference's mask takes it), ``wo``."""
+    ``cfg.window`` as the reference's mask takes it), ``wo``; under a mesh
+    on the rank's heads, a psum over `model` after ``wo``."""
     B, S, _ = x.shape
     hd = cfg.head_dim
-    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
-    q = kops.dense(xn, p["wq"]).reshape(B, S, cfg.n_heads, hd)
-    kv = xattn_prefill_cache(p, ctx, cfg)
-    o = kops.dense(_attention(q, *kv, cfg, causal=False), p["wo"])
-    return x + o.to(x.dtype), kv
+    xn = _into_model(rmsnorm(x, p["norm"], cfg.norm_eps), rules)
+    q = kops.dense(xn, p["wq"]).reshape(B, S, -1, hd)
+    kv = xattn_prefill_cache(p, ctx, cfg, rules)
+    o = kops.dense(_attention(q, *kv, cfg, causal=False, rules=rules), p["wo"])
+    return x + _psum_model(o, rules).to(x.dtype), kv
 
 
 def xattn_layer(p, x, ctx, cfg: ModelConfig,
                 rules: ShardingRules | None = None) -> torch.Tensor:
     """Cross-attention to a context (encoder output / image embeddings),
     ctx (B, T, d), residual included (:func:`_xattn`).  No positional
-    rotation.  Refuses a mesh."""
-    _refuse_mesh(rules, "the cross-attention sublayer")
-    return _xattn(p, x, ctx, cfg)[0]
+    rotation."""
+    return _xattn(p, x, ctx, cfg, rules)[0]
 
 
 def xattn_cache_defs(cfg: ModelConfig, batch: int) -> XAttnCache:
@@ -428,13 +439,12 @@ def xattn_cache_defs(cfg: ModelConfig, batch: int) -> XAttnCache:
 
 def xattn_layer_prefill(p, x, ctx, cfg: ModelConfig,
                         rules: ShardingRules | None = None):
-    """Prefill: the sublayer and its cache (refuses a mesh).  The
-    reference projects the context's K/V twice, in ``xattn_layer`` and
-    again in ``xattn_prefill_cache``; both are the same product on the same
-    inputs, so here they are made once and kept as the cache (4 products,
-    not 6)."""
-    _refuse_mesh(rules, "the cross-attention sublayer")
-    return _xattn(p, x, ctx, cfg)
+    """Prefill: the sublayer and its cache (under a mesh the rank's block
+    of it).  The reference projects the context's K/V twice, in
+    ``xattn_layer`` and again in ``xattn_prefill_cache``; both are the same
+    product on the same inputs, so here they are made once and kept as the
+    cache (4 products, not 6)."""
+    return _xattn(p, x, ctx, cfg, rules)
 
 
 def xattn_layer_decode(p, x, cache: XAttnCache, cfg: ModelConfig,
@@ -442,20 +452,25 @@ def xattn_layer_decode(p, x, cache: XAttnCache, cfg: ModelConfig,
     """One-token step against the cached context K/V, as the reference's:
     ``wq`` and ``wo`` through the matmul seam, the scores, softmax and
     weighted sum plain f32 einsums over every cached key.  The cache is
-    not written; it is returned.  Refuses a mesh."""
-    _refuse_mesh(rules, "the cross-attention sublayer")
+    not written; it is returned.  Under a mesh the rank's q heads read the
+    kv heads they need of the cache (its block, or every kv head), and a
+    psum over `model` follows ``wo``."""
     B, S1, _ = x.shape
     hd = cfg.head_dim
     xn = rmsnorm(x, p["norm"], cfg.norm_eps)
-    q = kops.dense(xn, p["wq"]).reshape(B, S1, cfg.n_heads, hd)
-    G = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(B, S1, cfg.n_kv_heads, G, hd)
+    q = kops.dense(xn, p["wq"]).reshape(B, S1, -1, hd)
+    H = q.shape[2]
+    ck, cv = cache.k, cache.v
+    if H != cfg.n_heads and ck.shape[2] == cfg.n_kv_heads:
+        ck, cv = _select_kv(ck, cfg, rules), _select_kv(cv, cfg, rules)
+    Hk = ck.shape[2]
+    qg = q.reshape(B, S1, Hk, H // Hk, hd)
     s = torch.einsum("bqhgd,bthd->bhgqt", qg.to(torch.float32),
-                     cache.k.to(torch.float32)) / math.sqrt(hd)
+                     ck.to(torch.float32)) / math.sqrt(hd)
     pr = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqt,bthd->bqhgd", pr, cache.v.to(torch.float32))
-    o = kops.dense(o.reshape(B, S1, cfg.n_heads * hd).to(x.dtype), p["wo"])
-    return x + o.to(x.dtype), cache
+    o = torch.einsum("bhgqt,bthd->bqhgd", pr, cv.to(torch.float32))
+    o = kops.dense(o.reshape(B, S1, H * hd).to(x.dtype), p["wo"])
+    return x + _psum_model(o, rules).to(x.dtype), cache
 
 
 # ---------------------------------------------------------------------------
@@ -522,16 +537,25 @@ def chunk_batch(table_row, start: int, valid: int, c: int, bt: int,
 
 
 def attn_layer_paged(p, x, pk: torch.Tensor, pv: torch.Tensor, pb: PagedBatch,
-                     cfg: ModelConfig) -> torch.Tensor:
+                     cfg: ModelConfig, rules: ShardingRules | None = None
+                     ) -> torch.Tensor:
     """Attention of a decode step (x (B, 1, d)) or of a prefill chunk
     (x (1, c, d)) against one layer's block pool pk/pv (NB, bt, Hkv, Dh).
     The step's K/V are written into the pool in place first, then every row
     attends through ``ops.paged_attention``, which reads the pool through a
-    permuted view, never a copy."""
+    permuted view, never a copy.  Under a mesh the pool holds the rank's
+    kv heads (``pool_defs``' ``kv`` cut) and its q heads attend to them; a
+    psum over `model` follows ``wo``."""
     B, S, _ = x.shape
-    hd, Hkv = cfg.head_dim, cfg.n_kv_heads
-    G = cfg.n_heads // Hkv
-    q, k, v = _qkv(p, x, cfg, pb.positions, rotate=True)
+    hd = cfg.head_dim
+    if _model_size(rules) > 1 and pk.shape[2] == cfg.n_kv_heads:
+        raise NotImplementedError(
+            "paged attention under a mesh runs on a pool whose kv heads are "
+            "cut over `model`: give default_rules the kv heads (kv_heads=) "
+            f"and a `model` size that divides {cfg.n_kv_heads}")
+    Hkv = pk.shape[2]
+    q, k, v = _qkv(p, x, cfg, pb.positions, rotate=True, rules=rules)
+    G = q.shape[2] // Hkv
     k = k.reshape(B * S, Hkv, hd)
     v = v.reshape(B * S, Hkv, hd)
     if pb.n_valid < B * S:                  # chunk padding: zero K/V
@@ -542,8 +566,8 @@ def attn_layer_paged(p, x, pk: torch.Tensor, pv: torch.Tensor, pb: PagedBatch,
     o = kops.paged_attention(q.reshape(B * S, Hkv, G, hd),
                              pk.permute(2, 0, 1, 3), pv.permute(2, 0, 1, 3),
                              pb.tables, pb.lens)
-    o = kops.dense(o.reshape(B, S, cfg.n_heads * hd).to(x.dtype), p["wo"])
-    return x + o.to(x.dtype)
+    o = kops.dense(o.reshape(B, S, Hkv * G * hd).to(x.dtype), p["wo"])
+    return x + _psum_model(o, rules).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -834,6 +858,15 @@ def _moe_ep_a2a(p, xn, r: Routing, cfg: ModelConfig, rules: ShardingRules,
 # The reference's jnp, in plain torch on either device: the projections and
 # norms go through the kernels, the causal conv, the SSD scan and the
 # one-token recurrence are element-wise ops and einsums around them.
+#
+# Under a mesh the reference's table cuts ``in_proj``'s 2 di + 2N + H
+# columns, ``conv_*``'s di + 2N channels and the conv cache's channels
+# over `model` in contiguous blocks, which do not fall on head
+# boundaries; ``A_log``, ``D``, ``dt_bias``, ``gnorm``, ``out_proj``'s rows
+# and the SSM state are cut by head.  So a rank gathers ``in_proj``'s
+# product and the conv's weights (and in decode its conv window) whole
+# over `model`, runs the conv and the SSD on its heads' channels with the
+# B and C that every head shares, and keeps its block of the conv window.
 
 def mamba_defs(cfg: ModelConfig) -> dict:
     d, dt = cfg.d_model, cfg.dtype
@@ -918,20 +951,97 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def _mamba_project(p, x, cfg: ModelConfig):
-    """The normed input through ``in_proj``: z (B, S, di), the conv's
-    channels x|B|C (B, S, di + 2N) and dt (B, S, H), views of one product."""
-    di, N, H = cfg.d_inner_ssm, cfg.ssm_state, cfg.n_ssm_heads
-    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
-    proj = kops.dense(xn, p["in_proj"])               # (B,S,2di+2N+H)
+def _whole_over_model(t: torch.Tensor, n: int, dim: int, rules) -> torch.Tensor:
+    """t, whose dimension ``dim`` of n is cut over `model` (or whole),
+    whole on every rank (an ``all_gather``: its backward sums the ranks'
+    gradients of each block)."""
+    if t.shape[dim] == n:
+        return t
+    return comm.all_gather(t, _model_axes(rules), rules.mesh, dim=dim)
+
+
+def _own_block(t: torch.Tensor, dim: int, rules) -> torch.Tensor:
+    """This rank's block, over `model`, of a dimension t holds whole."""
+    m = _model_size(rules)
+    if m == 1:
+        return t
+    return t.chunk(m, dim=dim)[comm.axis_index(_model_axes(rules), rules.mesh)]
+
+
+class MambaHeads(NamedTuple):
+    """The SSD heads a rank runs: its first head, their number, and the
+    conv channels they read (their x channels, then B and C), None where
+    the rank runs every head."""
+    h0: int
+    n: int
+    channels: torch.Tensor | None
+
+
+def mamba_heads(p, cfg: ModelConfig, rules, device) -> MambaHeads:
+    """The rank's heads, from the block of ``A_log`` it holds: every head
+    where it holds them all (off-mesh, or a `model` of one rank), else the
+    block at its place over `model`."""
+    H, P, di, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.d_inner_ssm, cfg.ssm_state
+    n = p["A_log"].shape[-1]
+    if n == H:
+        return MambaHeads(0, H, None)
+    h0 = comm.axis_index(_model_axes(rules), rules.mesh) * n
+    ch = torch.cat([torch.arange(h0 * P, (h0 + n) * P, device=device),
+                    torch.arange(di, di + 2 * N, device=device)])
+    return MambaHeads(h0, n, ch)
+
+
+def _mamba_project(p, x, cfg: ModelConfig, hs: MambaHeads, rules=None):
+    """The normed input through ``in_proj``: z (B, S, di) of the rank's
+    heads, the conv's channels x|B|C (B, S, di + 2N) whole and dt (B, S,
+    H) of the rank's heads, views of one product (gathered over `model`
+    where ``in_proj``'s columns are cut)."""
+    di, N, H, P = cfg.d_inner_ssm, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
+    xn = _into_model(rmsnorm(x, p["norm"], cfg.norm_eps), rules)
+    proj = _whole_over_model(kops.dense(xn, p["in_proj"]), 2 * di + 2 * N + H,
+                             -1, rules)               # (B,S,2di+2N+H)
     z, xbc, dtv = torch.split(proj, [di, di + 2 * N, H], dim=-1)
+    if hs.channels is not None:
+        z = z[..., hs.h0 * P:(hs.h0 + hs.n) * P]
+        dtv = dtv[..., hs.h0:hs.h0 + hs.n]
     return z, xbc, dtv
 
 
-def _mamba_out(p, x, y, z, cfg: ModelConfig) -> torch.Tensor:
-    """The gated norm of y (B, S, di) and ``out_proj``, residual added."""
-    y = rmsnorm(y.to(x.dtype) * silu(z), p["gnorm"], cfg.norm_eps)
-    return x + kops.dense(y, p["out_proj"]).to(x.dtype)
+def _conv_weights(p, cfg: ModelConfig, hs: MambaHeads, rules=None):
+    """``conv_w`` (kc, ch) and ``conv_b`` (ch,) over the channels the
+    rank's heads read (gathered whole over `model` first)."""
+    c = cfg.d_inner_ssm + 2 * cfg.ssm_state
+    w = _whole_over_model(p["conv_w"], c, -1, rules)
+    b = _whole_over_model(p["conv_b"], c, 0, rules)
+    if hs.channels is None:
+        return w, b
+    return w[:, hs.channels], b[hs.channels]
+
+
+def _gated_norm(y: torch.Tensor, g: torch.Tensor, cfg: ModelConfig, rules
+                ) -> torch.Tensor:
+    """The rmsnorm over d_inner of a rank's block y (B, S, di/|model|) of
+    channels: the sum of squares summed over `model` (forward and
+    backward: each rank's result depends on every rank's block), the
+    reference's formula around it."""
+    axes, mesh = _model_axes(rules), rules.mesh
+    yf = y.float()
+    ss = torch.sum(yf * yf, dim=-1, keepdim=True)
+    ss = comm.copy_to_group(comm.psum(ss, axes, mesh), axes, mesh)
+    ms = ss / cfg.d_inner_ssm
+    return (yf * torch.rsqrt(ms + cfg.norm_eps) * g.float()).to(y.dtype)
+
+
+def _mamba_out(p, x, y, z, cfg: ModelConfig, rules=None) -> torch.Tensor:
+    """The gated norm of y (B, S, di of the rank's heads) and
+    ``out_proj``, residual added (a psum over `model` where the heads are
+    cut)."""
+    g = y.to(x.dtype) * silu(z)
+    if p["gnorm"].shape[0] == cfg.d_inner_ssm:
+        return x + kops.dense(rmsnorm(g, p["gnorm"], cfg.norm_eps),
+                              p["out_proj"]).to(x.dtype)
+    o = kops.dense(_gated_norm(g, p["gnorm"], cfg, rules), p["out_proj"])
+    return x + _psum_model(o, rules).to(x.dtype)
 
 
 class MambaMix(NamedTuple):
@@ -947,22 +1057,24 @@ class MambaMix(NamedTuple):
     A: torch.Tensor
 
 
-def mamba_mix(p, x, cfg: ModelConfig, conv_state=None) -> MambaMix:
+def mamba_mix(p, x, cfg: ModelConfig, conv_state=None, rules=None) -> MambaMix:
     """``in_proj``, the depthwise causal conv over (x, B, C) (the
-    reference's sum of kc shifted products, after ``conv_state`` or
-    zeros), its silu, and dt's softplus."""
+    reference's sum of kc shifted products, after ``conv_state`` (B, kc-1,
+    di+2N, every channel) or zeros), its silu, and dt's softplus; under a
+    mesh on the rank's heads (``xbc_p`` keeps every channel)."""
     B, S, _ = x.shape
-    di, N, H = cfg.d_inner_ssm, cfg.ssm_state, cfg.n_ssm_heads
-    kc = cfg.ssm_conv
-    z, xbc, dtv = _mamba_project(p, x, cfg)
+    N, kc = cfg.ssm_state, cfg.ssm_conv
+    hs = mamba_heads(p, cfg, rules, x.device)
+    z, xbc, dtv = _mamba_project(p, x, cfg, hs, rules)
     pad = (torch.zeros((B, kc - 1, xbc.shape[-1]), dtype=xbc.dtype,
                        device=x.device) if conv_state is None else conv_state)
     xbc_p = torch.cat([pad, xbc], dim=1)
-    conv = sum(xbc_p[:, i:i + S] * p["conv_w"][i][None, None]
-               for i in range(kc)) + p["conv_b"][None, None]
-    xc, Bm, Cm = torch.split(silu(conv), [di, N, N], dim=-1)
+    mine = xbc_p if hs.channels is None else xbc_p[..., hs.channels]
+    w, b = _conv_weights(p, cfg, hs, rules)
+    conv = sum(mine[:, i:i + S] * w[i][None, None] for i in range(kc)) + b[None, None]
+    xc, Bm, Cm = torch.split(silu(conv), [hs.n * cfg.ssm_head_dim, N, N], dim=-1)
     return MambaMix(z, xbc_p,
-                    xc.reshape(B, S, H, cfg.ssm_head_dim).to(torch.float32),
+                    xc.reshape(B, S, hs.n, cfg.ssm_head_dim).to(torch.float32),
                     softplus(dtv.to(torch.float32) + p["dt_bias"][None, None]),
                     Bm.to(torch.float32), Cm.to(torch.float32),
                     -torch.exp(p["A_log"]))
@@ -973,17 +1085,20 @@ def mamba_layer(p, x, cfg: ModelConfig, conv_state=None, ssm_state=None,
     """Train/prefill Mamba2 block over the whole sequence (chunked SSD),
     residual included.  ``conv_state`` (B, kc-1, di+2N) and ``ssm_state``
     (B, H, P, N) f32 continue a sequence; ``return_state`` also returns
-    the (conv, ssm) states after it.  Refuses a mesh."""
-    _refuse_mesh(rules, "the Mamba2 sublayer")
+    the (conv, ssm) states after it.  Under a mesh ``conv_state`` holds
+    every channel and ``ssm_state`` the rank's heads, and the states
+    returned are the rank's blocks of the cache (``mamba_cache_defs``)."""
     B, S, _ = x.shape
     kc = cfg.ssm_conv
-    m = mamba_mix(p, x, cfg, conv_state)
+    m = mamba_mix(p, x, cfg, conv_state, rules)
     y, s_final = _ssd_chunked(m.xh, m.dt, m.Bm, m.Cm, m.A, cfg.ssm_chunk,
                               ssm_state)
     y = y + p["D"][None, None, :, None] * m.xh        # skip
-    res = _mamba_out(p, x, y.reshape(B, S, cfg.d_inner_ssm), m.z, cfg)
+    res = _mamba_out(p, x, y.reshape(B, S, -1), m.z, cfg, rules)
     if return_state:
         new_conv = m.xbc_p[:, S:S + kc - 1] if kc > 1 else m.xbc_p[:, :0]
+        if m.xh.shape[2] != cfg.n_ssm_heads:
+            new_conv = _own_block(new_conv, -1, rules)
         return res, (new_conv, s_final.to(torch.float32))
     return res
 
@@ -1006,16 +1121,22 @@ def mamba_layer_decode(p, x, cache: MambaCache, cfg: ModelConfig,
                        rules: ShardingRules | None = None):
     """One-token recurrent step, x (B, 1, d): state <- exp(dt A) state +
     dt B x, y = C . state.  Writes the new conv window and state into
-    ``cache`` in place and returns (x out, cache).  Refuses a mesh."""
-    _refuse_mesh(rules, "the Mamba2 sublayer")
+    ``cache`` in place and returns (x out, cache).  Under a mesh the cache
+    is the rank's block: its conv window is gathered whole over `model`,
+    the step runs the rank's heads, and the rank keeps its block of the
+    new window."""
     B = x.shape[0]
-    di, N, H = cfg.d_inner_ssm, cfg.ssm_state, cfg.n_ssm_heads
-    kc = cfg.ssm_conv
-    z, xbc, dtv = _mamba_project(p, x, cfg)
-    window = torch.cat([cache.conv, xbc], dim=1)              # (B, kc, ch)
-    conv = torch.einsum("bkc,kc->bc", window, p["conv_w"]) + p["conv_b"]
-    xc, Bm, Cm = torch.split(silu(conv)[:, None, :], [di, N, N], dim=-1)
-    xh = xc.reshape(B, H, cfg.ssm_head_dim).to(torch.float32)
+    N, kc = cfg.ssm_state, cfg.ssm_conv
+    hs = mamba_heads(p, cfg, rules, x.device)
+    z, xbc, dtv = _mamba_project(p, x, cfg, hs, rules)
+    conv_state = _whole_over_model(cache.conv, cfg.d_inner_ssm + 2 * N, -1, rules)
+    window = torch.cat([conv_state, xbc], dim=1)              # (B, kc, ch)
+    w, b = _conv_weights(p, cfg, hs, rules)
+    mine = window if hs.channels is None else window[..., hs.channels]
+    conv = torch.einsum("bkc,kc->bc", mine, w) + b
+    xc, Bm, Cm = torch.split(silu(conv)[:, None, :],
+                             [hs.n * cfg.ssm_head_dim, N, N], dim=-1)
+    xh = xc.reshape(B, hs.n, cfg.ssm_head_dim).to(torch.float32)
     dtb = softplus(dtv.to(torch.float32)[:, 0] + p["dt_bias"][None])
     A = -torch.exp(p["A_log"])
     dA = torch.exp(dtb * A[None])                             # (B,H)
@@ -1024,8 +1145,10 @@ def mamba_layer_decode(p, x, cache: MambaCache, cfg: ModelConfig,
     upd = torch.einsum("bh,bhp,bn->bhpn", dtb, xh, Bv)
     state = cache.state * dA[:, :, None, None] + upd
     y = torch.einsum("bhpn,bn->bhp", state, Cv) + p["D"][None, :, None] * xh
-    out = _mamba_out(p, x, y.reshape(B, 1, di), z, cfg)
+    out = _mamba_out(p, x, y.reshape(B, 1, -1), z, cfg, rules)
     if kc > 1:
-        cache.conv.copy_(window[:, 1:])
+        new = window[:, 1:]
+        cache.conv.copy_(new if cache.conv.shape == new.shape
+                         else _own_block(new, -1, rules))
     cache.state.copy_(state)
     return out, cache

@@ -32,8 +32,11 @@ cross-entropy (pmax and psum of the exp-sums over `model`, the target's
 logit from the rank that holds it), divided by the global mask sum, and
 ``prefill``'s and ``decode_step``'s logits are gathered whole.  Each
 period's leaves cut over the ``fsdp`` rule are gathered before use (again
-in the remat recompute), so their gradients come back reduce-scattered.
-The families with a context, and Mamba2 sublayers, refuse a mesh.
+in the remat recompute), so their gradients come back reduce-scattered;
+so are the encoder layers' and ``ctx_proj``, whose context (this rank's
+rows, as the tokens) the encoder runs tensor-parallel.  The paged path
+(``decode_step_paged``, ``prefill_chunk``) takes ``rules`` too: the pool
+holds a rank's kv heads (``pool_defs``' ``kv`` cut).
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ import functools
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ATTN, MAMBA, MLP, MOE, XATTN, ModelConfig
@@ -176,15 +180,21 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig,
                  rules: ShardingRules | None = None) -> torch.Tensor:
     """The embedding rows of ``tokens``.  With the vocabulary cut over
     `model`: each rank gathers the rows it holds (zeros elsewhere) and a
-    psum over `model` completes them (the reference's explicit lookup)."""
+    psum over `model` completes them (the reference's explicit lookup).
+
+    The lookup is ``F.embedding``, not ``embed[tokens]``: on the CPU the
+    backward of an advanced index is ``index_put_(accumulate=True)``,
+    whose threads add a repeated token's rows by atomic float adds in the
+    order they happen to run, so the gradient changed bits from run to
+    run; ``F.embedding``'s backward sums them in one fixed order."""
     axes = _vocab_axes(rules)
     if not axes:
-        return params["embed"][tokens]
+        return F.embedding(tokens, params["embed"])
     emb = params["embed"]
     V_loc = emb.shape[0]
     ids = tokens - comm.axis_index(axes, rules.mesh) * V_loc
     ok = (ids >= 0) & (ids < V_loc)
-    x = torch.where(ok[..., None], emb[ids.clamp(0, V_loc - 1)], 0)
+    x = torch.where(ok[..., None], F.embedding(ids.clamp(0, V_loc - 1), emb), 0)
     return comm.psum(x, axes, rules.mesh)
 
 
@@ -232,27 +242,49 @@ def context_len(cfg: ModelConfig, seq_len: int) -> int:
 
 
 def _encoder_layer(lp: dict, x: torch.Tensor, cfg: ModelConfig,
-                   positions: torch.Tensor) -> torch.Tensor:
-    x = L.attn_layer(lp["attn"], x, cfg, positions, causal=False)
-    return L.mlp_layer(lp["mlp"], x, cfg)
+                   positions: torch.Tensor, rules=None, specs=None) -> torch.Tensor:
+    lp = _fsdp_gather(lp, specs, rules)
+    x = L.attn_layer(lp["attn"], x, cfg, positions, causal=False, rules=rules)
+    return L.mlp_layer(lp["mlp"], x, cfg, rules=rules)
 
 
-def encode_context(params, ctx_embeds: torch.Tensor, cfg: ModelConfig
-                   ) -> torch.Tensor:
+def _placements_of(cfg: ModelConfig, rules, *path) -> Any:
+    """The placements of the ``model_defs`` subtree at ``path`` under
+    ``rules``, None off-mesh."""
+    if rules is None or rules.mesh is None:
+        return None
+    defs = model_defs(cfg)
+    for k in path:
+        defs = defs[k]
+    return param_placements(defs, rules)
+
+
+def encode_context(params, ctx_embeds: torch.Tensor, cfg: ModelConfig,
+                   rules: ShardingRules | None = None) -> torch.Tensor:
     """The frontend's embeddings (B, T, d_ctx) -> the d_model context that
     the cross-attention sublayers read: cast to the model dtype, through
     ``ctx_proj`` (a plain ``torch.matmul``, as the reference's ``@`` is
     XLA's), then for encdec the bidirectional encoder (RoPE at positions
     0..T-1, each layer one ``torch.utils.checkpoint`` under ``cfg.remat``)
-    and its final rmsnorm, outside the checkpoints."""
+    and its final rmsnorm, outside the checkpoints.  Under a mesh
+    ``ctx_proj`` and each encoder layer are gathered over the ``fsdp``
+    rule's dimensions first, and the encoder runs tensor-parallel."""
     ctx = ctx_embeds.to(cfg.dtype)
     if "ctx_proj" in params:
-        ctx = torch.matmul(ctx, params["ctx_proj"])
+        w = params["ctx_proj"]
+        spec = _placements_of(cfg, rules, "ctx_proj")
+        if spec is not None:
+            w = _fsdp_gather({"w": w}, {"w": spec}, rules)["w"]
+        ctx = torch.matmul(ctx, w)
     if cfg.family != "encdec":
         return ctx
     enc = params["encoder"]
+    specs = _placements_of(cfg, rules, "encoder", "layers")
+    if specs is not None:
+        specs = tree_map(lambda s: s[1:], specs)
     positions = torch.arange(ctx.shape[1], device=ctx.device)
-    body = functools.partial(_encoder_layer, cfg=cfg, positions=positions)
+    body = functools.partial(_encoder_layer, cfg=cfg, positions=positions,
+                             rules=rules, specs=specs)
     for lp in _unstack(enc["layers"], cfg.n_enc_layers):
         ctx = _remat(cfg, body, lp, ctx)
     return L.rmsnorm(ctx, enc["norm"], cfg.norm_eps)
@@ -260,14 +292,13 @@ def encode_context(params, ctx_embeds: torch.Tensor, cfg: ModelConfig
 
 def _context(params, ctx_embeds, cfg: ModelConfig, rules=None):
     """``encode_context`` for the families that take a context, else None;
-    such a family without ``ctx_embeds``, or under a mesh, raises."""
+    such a family without ``ctx_embeds`` raises."""
     if cfg.family not in CONTEXT_FAMILIES:
         return None
-    L._refuse_mesh(rules, f"the {cfg.family} family's context")
     if ctx_embeds is None:
         raise ValueError(f"{cfg.name} is a {cfg.family} model: it needs "
                          f"ctx_embeds (B, T, d_ctx = {cfg.d_ctx})")
-    return encode_context(params, ctx_embeds, cfg)
+    return encode_context(params, ctx_embeds, cfg, rules)
 
 
 # ---------------------------------------------------------------------------
@@ -312,10 +343,8 @@ def _apply_slot(kind: str, sp: dict, x: torch.Tensor, cfg: ModelConfig,
 def _period_specs(cfg: ModelConfig, rules) -> dict | None:
     """The placements of one period's leaves (the stacked leaves' specs
     without their whole period dimension), None off-mesh."""
-    if rules is None or rules.mesh is None:
-        return None
-    return tree_map(lambda s: s[1:],
-                    param_placements(model_defs(cfg)["period"], rules))
+    specs = _placements_of(cfg, rules, "period")
+    return None if specs is None else tree_map(lambda s: s[1:], specs)
 
 
 def _fsdp_gather(pp: dict, specs: dict | None, rules) -> dict:
@@ -531,10 +560,11 @@ def decode_step(params, token: torch.Tensor, cache: dict, pos,
 
 
 def _paged_forward(params, x: torch.Tensor, pool: dict, pb: L.PagedBatch,
-                   cfg: ModelConfig) -> torch.Tensor:
+                   cfg: ModelConfig, rules=None) -> torch.Tensor:
     """The layer periods over a paged pool, written in place."""
+    specs = _period_specs(cfg, rules)
     for i in range(cfg.n_periods):
-        pp = _period(params["period"], i)
+        pp = _fsdp_gather(_period(params["period"], i), specs, rules)
         cc = _period(pool, i)               # views: pool writes land in pool
         for li, layer in enumerate(cfg.layer_period):
             for si, kind in enumerate(layer):
@@ -542,9 +572,9 @@ def _paged_forward(params, x: torch.Tensor, pool: dict, pb: L.PagedBatch,
                 sp = pp[f"l{li}"][key]
                 if kind == ATTN:
                     c = cc[f"l{li}"][key]
-                    x = L.attn_layer_paged(sp, x, c["k"], c["v"], pb, cfg)
+                    x = L.attn_layer_paged(sp, x, c["k"], c["v"], pb, cfg, rules)
                 elif kind in (MLP, MOE):
-                    x = _apply_slot(kind, sp, x, cfg, None, None)
+                    x = _apply_slot(kind, sp, x, cfg, None, None, rules)
                 else:                       # pool_defs refuses these periods
                     raise ValueError(f"paged KV serving supports attention "
                                      f"caches only, layer period has {kind}")
@@ -556,20 +586,22 @@ def _block_tokens(pool: dict) -> int:
 
 
 def decode_step_paged(params, token: torch.Tensor, pool: dict, tables, pos,
-                      live, cfg: ModelConfig):
+                      live, cfg: ModelConfig, rules: ShardingRules | None = None):
     """One-token decode through block tables: token (B, 1); pool the
     :func:`pool_defs` tree; tables (B, max_blocks); pos (B,) per-slot
     positions; live (B,) bool -> (logits (B, 1, V), pool).  tables, pos and
     live may be host arrays: they go to the card once per step.  The pool
-    is updated in place (live slots only) and returned."""
+    is updated in place (live slots only) and returned (under a mesh this
+    rank's kv heads of it)."""
     pb = L.decode_batch(tables, pos, live, _block_tokens(pool), token.device)
-    x = embed_tokens(params, token, cfg)
-    x = _paged_forward(params, x, pool, pb, cfg)
-    return logits_fn(params, x, cfg), pool
+    x = embed_tokens(params, token, cfg, rules)
+    x = _paged_forward(params, x, pool, pb, cfg, rules)
+    return logits_fn(params, x, cfg, rules), pool
 
 
 def prefill_chunk(params, tokens: torch.Tensor, pool: dict, table_row,
-                  start: int, valid: int, cfg: ModelConfig):
+                  start: int, valid: int, cfg: ModelConfig,
+                  rules: ShardingRules | None = None):
     """One fixed-size prefill chunk for a single request: tokens (1, c)
     padded to the chunk length, ``start`` the chunk's base position (a
     multiple of the block size), ``valid`` the count of real tokens.  Writes
@@ -579,6 +611,6 @@ def prefill_chunk(params, tokens: torch.Tensor, pool: dict, table_row,
     c = tokens.shape[1]
     pb = L.chunk_batch(table_row, int(start), int(valid), c,
                        _block_tokens(pool), tokens.device)
-    x = embed_tokens(params, tokens, cfg)
-    x = _paged_forward(params, x, pool, pb, cfg)
-    return logits_fn(params, x, cfg), pool
+    x = embed_tokens(params, tokens, cfg, rules)
+    x = _paged_forward(params, x, pool, pb, cfg, rules)
+    return logits_fn(params, x, cfg, rules), pool

@@ -16,7 +16,10 @@ ranks that share every other coordinate, and a rank's place in it is
 ``pod * |data| + data`` (:meth:`Mesh.index`).  The tuple must name the
 dimensions in the mesh's order.  A mesh built by :meth:`Mesh.abstract`
 has no process group: the rule table (``parallel.sharding``) and
-``shard_tree`` read it, and nothing communicates.
+``shard_tree`` read it, and nothing communicates.  A mesh over some of
+the process group's ranks (:meth:`Mesh.over_ranks`, the survivors of a
+rescale) maps its positions to their global ranks (``ranks``); only its
+members make its groups.
 
 **The backend** is a plain function of the layout (:func:`layout`): gloo
 on the CPU; NCCL where every rank has a card of its own; gloo where ranks
@@ -120,6 +123,16 @@ def init_world(device_type: str, rank: int, world_size: int,
     return world
 
 
+def current_world(device_type: str) -> World:
+    """This process's ``World`` in the process group it has joined, the
+    transport :func:`layout` gives for ranks computing on ``device_type``."""
+    n_cards = torch.cuda.device_count() if device_type == "cuda" else 0
+    size, rank = dist.get_world_size(), dist.get_rank()
+    _, transport = layout(device_type, size, n_cards)
+    return World(rank, size, rank_device(device_type, rank, n_cards),
+                 dist.get_backend(), transport)
+
+
 def _axes(axes) -> tuple:
     return (axes,) if isinstance(axes, str) else tuple(axes)
 
@@ -132,13 +145,18 @@ class Mesh:
 
     def __init__(self, names: Sequence[str], sizes: Sequence[int], *,
                  rank: int = 0, transport: str | None = None,
-                 device_mesh=None):
+                 device_mesh=None, ranks: Sequence[int] | None = None):
         self.axis_names = tuple(names)
         self.sizes = tuple(int(s) for s in sizes)
         if len(self.axis_names) != len(self.sizes):
             raise ValueError(f"{len(names)} names for {len(sizes)} sizes")
         self.shape = dict(zip(self.axis_names, self.sizes))
         self.size = math.prod(self.sizes)
+        #: the global rank at each mesh position (``rank`` is a position)
+        self.ranks = tuple(range(self.size)) if ranks is None else \
+            tuple(int(r) for r in ranks)
+        if len(self.ranks) != self.size:
+            raise ValueError(f"{len(self.ranks)} ranks for a mesh of {self.size}")
         self.rank = rank
         self.transport = transport
         self.device_mesh = device_mesh
@@ -153,6 +171,15 @@ class Mesh:
         """A mesh with no process group (``jax.sharding.AbstractMesh``'s
         counterpart): the rule table and ``shard_tree`` read it."""
         return cls(names, sizes)
+
+    @classmethod
+    def over_ranks(cls, ranks: Sequence[int], sizes: Sequence[int],
+                   names: Sequence[str], transport: str) -> "Mesh":
+        """A mesh of ``sizes`` over the global ``ranks`` (mesh position p
+        is ``ranks[p]``), made by those ranks alone: the survivor mesh of
+        an elastic rescale, while the lost ranks take no part."""
+        return cls(names, sizes, rank=list(ranks).index(dist.get_rank()),
+                   transport=transport, ranks=ranks)
 
     @classmethod
     def from_device_mesh(cls, device_mesh, transport: str) -> "Mesh":
@@ -205,7 +232,9 @@ class Mesh:
         """A group for every tuple of dimensions of more than one rank (a
         one-dimension group the ``DeviceMesh``'s own).  ``new_group`` is
         collective: every rank makes every group, in the same order, and
-        keeps its own."""
+        keeps its own; a mesh over some of the ranks makes only its own
+        groups, each synchronised among its members (:func:`_local_group`)."""
+        sub = self.ranks != tuple(range(dist.get_world_size()))
         for k in range(1, len(self.axis_names) + 1):
             for axes in itertools.combinations(self.axis_names, k):
                 if self.axis_size(axes) == 1:
@@ -214,6 +243,10 @@ class Mesh:
                 self._members[axes] = mine
                 if k == 1 and self.device_mesh is not None:
                     self._groups[axes] = self.device_mesh.get_group(axes[0])
+                    continue
+                if sub:
+                    self._groups[axes] = _local_group(
+                        tuple(self.ranks[p] for p in mine))
                     continue
                 for ranks in sorted({tuple(self._peers(r, axes))
                                      for r in range(self.size)}):
@@ -241,7 +274,21 @@ class Mesh:
 
     def peer(self, axes, i: int) -> int:
         """The global rank at place ``i`` of this rank's group of ``axes``."""
-        return self._members[self.canon(axes)][i]
+        return self.ranks[self._members[self.canon(axes)][i]]
+
+
+#: groups of a mesh over some of the ranks, by their global ranks: made
+#: once a process, since a group's name is a hash of its ranks
+_LOCAL_GROUPS: dict = {}
+
+
+def _local_group(ranks: tuple):
+    """The process group of the global ``ranks``, made by them alone
+    (``use_local_synchronization``: the ranks outside it never call)."""
+    if ranks not in _LOCAL_GROUPS:
+        _LOCAL_GROUPS[ranks] = dist.new_group(list(ranks),
+                                              use_local_synchronization=True)
+    return _LOCAL_GROUPS[ranks]
 
 
 # ---------------------------------------------------------------------------
@@ -556,7 +603,8 @@ def gather(x: torch.Tensor, axes, mesh: Mesh, dim: int) -> torch.Tensor:
     return x if _trivial(axes, mesh) else _Gather.apply(x, _axes(axes), mesh, dim)
 
 
-__all__ = ["layout", "rank_device", "World", "init_world", "Mesh", "axis_index",
+__all__ = ["layout", "rank_device", "World", "init_world", "current_world", "Mesh",
+           "axis_index",
            "psum", "copy_to_group", "pmax", "all_gather", "reduce_scatter",
            "all_to_all", "split", "gather", "ppermute_start", "ppermute_shift",
            "all_reduce_raw", "all_gather_raw", "reduce_scatter_raw",

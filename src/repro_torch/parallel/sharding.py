@@ -145,11 +145,38 @@ def block(t: torch.Tensor, spec: tuple, mesh: Mesh, rank: int) -> torch.Tensor:
 
 def shard_tree(tree, defs, rules: ShardingRules, rank: int):
     """Rank ``rank``'s block of every leaf of a whole tree, by the
-    placements of ``defs`` (a ``PV`` tree of the same nesting)."""
+    placements of ``defs`` (a ``PV`` tree of the same nesting), in the
+    key order of ``defs`` (the order ``trainer.GradSync`` reads its
+    leaves in, whatever order the whole tree came in)."""
     if rules.mesh is None:
         return tree
     specs = param_placements(defs, rules)
     return _map2(lambda t, s: block(t, s, rules.mesh, rank), tree, specs)
+
+
+def place_tree(tree, defs, rules: ShardingRules):
+    """``tree`` as this rank's blocks, in the key order of ``defs``: each
+    leaf that is whole (the ``PV``'s shape) cut to its block, each that
+    already has its block's shape kept; any other shape raises."""
+    mesh = rules.mesh
+    if mesh is None:
+        return tree
+    specs = param_placements(defs, rules)
+
+    def one(t, pv, spec):
+        want = local_shape(pv.shape, spec, mesh)
+        if tuple(t.shape) == want:
+            return t
+        if tuple(t.shape) == tuple(pv.shape):
+            return block(t, spec, mesh, mesh.rank)
+        raise ValueError(f"a leaf of shape {tuple(t.shape)} is neither the "
+                         f"whole {tuple(pv.shape)} nor its block {want}")
+
+    def walk(t, d, sp):
+        if isinstance(t, dict):
+            return {k: walk(t[k], d[k], sp[k]) for k in d}
+        return one(t, d, sp)
+    return walk(tree, defs, specs)
 
 
 def gather_tree(trees: Sequence, defs, rules: ShardingRules):
@@ -184,8 +211,9 @@ def gather_tree(trees: Sequence, defs, rules: ShardingRules):
 
 
 def _map2(fn, tree, other):
+    """``fn(leaf, other's leaf)`` over the tree, in ``other``'s key order."""
     if isinstance(tree, dict):
-        return {k: _map2(fn, v, other[k]) for k, v in tree.items()}
+        return {k: _map2(fn, tree[k], other[k]) for k in other}
     return fn(tree, other)
 
 
@@ -211,4 +239,5 @@ def init_local_params(defs, rules: ShardingRules, generator: torch.Generator,
 
 __all__ = ["PV", "ShardingRules", "default_rules", "logical_to_spec", "rule_axes",
            "cut_axes", "param_placements", "local_shape", "block", "shard_tree",
+           "place_tree",
            "gather_tree", "init_local_params"]

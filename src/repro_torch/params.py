@@ -20,7 +20,8 @@ from torch import nn
 @dataclasses.dataclass(frozen=True)
 class PV:
     """Parameter definition: shape, dtype and init law.  ``logical`` keeps
-    the JAX tree's logical axis names; the port does not shard."""
+    the JAX tree's logical axis names, which ``parallel.sharding``'s rules
+    map onto a process mesh."""
     shape: tuple
     dtype: Any = torch.float32
     logical: tuple = ()

@@ -25,6 +25,12 @@ round, which it stages in shared memory (:func:`max_block_tokens`).
 The engine keeps the dense engine's host-clock spans (``timing``) and each
 request's submit and first-token stamps.  It runs on the card unless the
 caller asks for the CPU.
+
+On a process mesh (``rules``) the engine is SPMD as the dense one is:
+every rank runs the same allocator, tables and loop, holds its block of
+the weights, and its kv heads of the pool (``lm.pool_defs``' ``kv`` cut,
+the reference's ``constraint``); prefills, chunks and decode steps run
+tensor-parallel over `model`, each rank's paged attention on its kv heads.
 """
 from __future__ import annotations
 
@@ -37,9 +43,11 @@ import torch
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.kernels.paged_attention import TOKENS_PER_ROUND
 from repro_torch.models import lm
-from repro_torch.params import tree_leaves, tree_map
+from repro_torch.parallel.sharding import ShardingRules, param_placements, place_tree
+from repro_torch.params import tree_leaves
 from repro_torch.testing.timing import now
-from .engine import Request, refuse_context, resolve_device, validate_prompt
+from .engine import (Request, local_zeros, refuse_context, resolve_device,
+                     validate_prompt)
 
 # chunked-prefill slot states
 PREFILL, DECODE = 0, 1
@@ -188,7 +196,7 @@ class PagedServingEngine:
     batch, instead of blocking on the whole prompt."""
 
     def __init__(self, model: lm.Model, scfg: PagedServeConfig, *,
-                 device="cuda"):
+                 rules: ShardingRules | None = None, device="cuda"):
         cfg = model.cfg
         refuse_context(cfg)
         if cfg.window:
@@ -207,12 +215,13 @@ class PagedServingEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = model.to(self.device)
-        self.params = self.model.tree()
+        self.rules = rules = rules or ShardingRules()
+        self.params = place_tree(self.model.tree(), lm.model_defs(cfg), rules)
         self.scfg = scfg
         self.max_blocks = S // bt
-        self.pool = tree_map(
-            lambda pv: torch.zeros(pv.shape, dtype=pv.dtype, device=self.device),
-            lm.pool_defs(cfg, scfg.n_blocks + 1, bt))
+        pool_defs = lm.pool_defs(cfg, scfg.n_blocks + 1, bt)
+        self.pool_specs = param_placements(pool_defs, rules)
+        self.pool = local_zeros(pool_defs, rules, self.device)
         self.alloc = BlockAllocator(scfg.n_blocks, bt)
         self.tables = np.zeros((B, self.max_blocks), np.int32)
         self.slots: list[Request | None] = [None] * B
@@ -228,6 +237,9 @@ class PagedServingEngine:
         self.timing = {"prefill_s": 0.0, "prefills": 0,
                        "chunk_s": 0.0, "chunks": 0,
                        "decode_s": 0.0, "decode_steps": 0}
+        #: set to a list to keep every greedy pick's logits on the host:
+        #: ("prefill", rid, (V,)) and ("decode", live rids, (n_live, V))
+        self.logit_log: list | None = None
 
     # -- observability -------------------------------------------------------
     @property
@@ -356,9 +368,12 @@ class PagedServingEngine:
         t0 = now()
         toks = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int64,
                                device=self.device)[None, :]
-        cache, logits = lm.prefill(self.params, toks, self.cfg, n_row * bt)
+        cache, logits = lm.prefill(self.params, toks, self.cfg, n_row * bt,
+                                   rules=self.rules)
         req.out.append(int(torch.argmax(logits[0, -1])))
         req.t_first = now()
+        if self.logit_log is not None:
+            self.logit_log.append(("prefill", req.rid, logits[0, -1].cpu()))
         self.timing["prefill_s"] += req.t_first - t0
         self.timing["prefills"] += 1
         if new_bids:
@@ -393,7 +408,7 @@ class PagedServingEngine:
         t0 = now()
         logits, self.pool = lm.prefill_chunk(
             self.params, torch.as_tensor(chunk, device=self.device), self.pool,
-            self.tables[i], start, valid, self.cfg)
+            self.tables[i], start, valid, self.cfg, rules=self.rules)
         # read every chunk's last real row back, so the span holds the
         # chunk's work on the card; only the final chunk's token is kept
         tok = int(torch.argmax(logits[0, valid - 1]))
@@ -401,6 +416,9 @@ class PagedServingEngine:
         if self.slot_fill[i] >= plen:
             req.out.append(tok)
             req.t_first = now()
+            if self.logit_log is not None:
+                self.logit_log.append(("prefill", req.rid,
+                                       logits[0, valid - 1].cpu()))
             self.slot_state[i] = DECODE
             self.slot_pos[i] = plen
             # content now complete: publish the owned prompt blocks
@@ -478,9 +496,13 @@ class PagedServingEngine:
                 lv[i] = True
             logits, self.pool = lm.decode_step_paged(
                 self.params, torch.as_tensor(tok, device=self.device),
-                self.pool, self.tables, self.slot_pos, lv, self.cfg)
+                self.pool, self.tables, self.slot_pos, lv, self.cfg,
+                rules=self.rules)
             nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
             self.timing["decode_s"] += now() - t0
+            if self.logit_log is not None:
+                self.logit_log.append(("decode", [self.slots[i].rid for i in live],
+                                      logits[live, 0].cpu()))
             self.timing["decode_steps"] += 1
             for i in live:
                 req = self.slots[i]

@@ -14,7 +14,11 @@ CLI (runs on the card unless ``--device cpu``; smoke-sized model from
     PYTHONPATH=src python -m repro_torch.serve.traffic --configs dense,paged,paged_chunked
 
 prints one ``serve/<tag>,...`` CSV line and one ``serve_json {...}`` line
-per config.
+per config.  Run in a process group of 8 ranks, each engine serves on the
+reference's (2, 2, 2) (pod, data, model) mesh with its three-level
+topology (:func:`mesh_arm`), and the ranks agree on the load's clock
+(rank 0's, each loop) so that they admit the same requests at the same
+step.
 """
 from __future__ import annotations
 
@@ -66,6 +70,27 @@ def request_schedule(lc: LoadConfig) -> tuple[np.ndarray, np.ndarray]:
     return arrivals, idx
 
 
+def _mesh_of(engine):
+    """The process mesh an engine (or a router's first engine) serves on."""
+    eng = getattr(engine, "engines", [engine])[0]
+    rules = getattr(eng, "rules", None)
+    return None if rules is None else rules.mesh
+
+
+def _agreed(t: float, mesh) -> float:
+    """``t`` on this rank, or under a mesh the latest of the ranks' ``t``
+    (every rank then submits the same requests at the same step)."""
+    if mesh is None or mesh.transport is None:
+        return t
+    import torch
+
+    from repro_torch.parallel.comm import all_reduce_raw
+    import torch.distributed as dist
+
+    return float(all_reduce_raw(torch.tensor([t], dtype=torch.float64),
+                                mesh.axis_names, mesh, op=dist.ReduceOp.MAX))
+
+
 def run_open_loop(engine, lc: LoadConfig, *, max_steps: int = 100_000) -> dict:
     """Drive ``engine`` (any object with submit/step/n_live/n_waiting/
     capacity/peak_live, a router included) under the open-loop schedule;
@@ -77,9 +102,10 @@ def run_open_loop(engine, lc: LoadConfig, *, max_steps: int = 100_000) -> dict:
     ttft: dict[int, float] = {}
     occ: list[float] = []
     submitted = steps = 0
+    mesh = _mesh_of(engine)
     t0 = now()
     while steps < max_steps:
-        t = now() - t0
+        t = _agreed(now() - t0, mesh)
         while submitted < len(reqs) and arrivals[submitted] <= t:
             engine.submit(reqs[submitted])
             submitted += 1
@@ -121,20 +147,49 @@ def run_open_loop(engine, lc: LoadConfig, *, max_steps: int = 100_000) -> dict:
 # CLI: dense vs paged vs chunked at equal KV memory
 # ---------------------------------------------------------------------------
 
+_MESH_ARM: dict = {}
+
+
+def mesh_arm(cfg, device) -> tuple:
+    """(rules, topology) of the reference's mesh arm: with a process group
+    of 8 ranks, the (2, 2, 2) (pod, data, model) mesh (made once a
+    process), the serving rules on it (the batch whole, the kv heads cut
+    where they divide) and the three-level topology; else (None, None)."""
+    import torch
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() == 8):
+        return None, None
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.comm import current_world
+    from repro_torch.parallel.sharding import default_rules
+    from repro_torch.topology import Topology
+
+    if "mesh" not in _MESH_ARM:
+        _MESH_ARM["mesh"] = make_mesh(current_world(torch.device(device).type),
+                                      (2, 2, 2), ("pod", "data", "model"))
+    topo = Topology.from_levels([("pod", 2, 8.0), ("data", 2, 4.0), ("model", 2, 2.0)])
+    return default_rules(_MESH_ARM["mesh"], kv_heads=cfg.n_kv_heads, batch=1), topo
+
+
 def _build(tag: str, model, args):
     """One engine per arm, all at EQUAL KV memory: the dense engine holds
     ``dense_batch * max_seq`` token-slots; the paged pool holds the same
-    token count in ``n_blocks`` blocks but serves ``max_batch`` slots."""
+    token count in ``n_blocks`` blocks but serves ``max_batch`` slots.
+    With 8 ranks the engines serve on the mesh arm (:func:`mesh_arm`)."""
     from repro_torch.serve.engine import ServeConfig, ServingEngine
     from repro_torch.serve.paged import (PagedServeConfig, PagedServingEngine,
                                          kv_token_bytes)
 
+    rules, topo = mesh_arm(model.cfg, args.device)
     bt = args.block_tokens
     n_blocks = args.dense_batch * args.max_seq // bt   # equal token capacity
     per_tok = kv_token_bytes(model.cfg)
     if tag == "dense":
         scfg = ServeConfig(max_batch=args.dense_batch, max_seq=args.max_seq)
-        eng = ServingEngine(model, scfg, device=args.device)
+        eng = ServingEngine(model, scfg, rules=rules, topology=topo,
+                            device=args.device)
         conf = {"max_batch": scfg.max_batch, "max_seq": scfg.max_seq,
                 "block_tokens": 0, "chunk": 0}
         kv_cap = scfg.max_batch * scfg.max_seq * per_tok
@@ -144,7 +199,7 @@ def _build(tag: str, model, args):
         scfg = PagedServeConfig(max_batch=args.max_batch,
                                 max_seq=args.max_seq, block_tokens=bt,
                                 n_blocks=n_blocks, chunk=chunk)
-        eng = PagedServingEngine(model, scfg, device=args.device)
+        eng = PagedServingEngine(model, scfg, rules=rules, device=args.device)
         conf = {"max_batch": scfg.max_batch, "max_seq": scfg.max_seq,
                 "block_tokens": bt, "chunk": chunk}
         kv_cap = n_blocks * bt * per_tok

@@ -48,7 +48,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.data import DataConfig, SyntheticCorpus
 from repro_torch.launch.train import step_context
 from repro_torch.models.lm import CONTEXT_FAMILIES
-from repro_torch.params import params_from_dotted, tree_leaves, tree_map
+from repro_torch.params import params_from_dotted, tree_map
 from repro_torch.train import OptConfig, TrainState, adamw_init, make_train_step
 from repro_torch.train.trainer import loss_and_grads, trainable
 
@@ -138,8 +138,23 @@ def run_smoke(device, steps: int = 2, n_microbatches: int = 1,
             "params": state.params, "opt": state.opt}
 
 
-def _flat(tree) -> list:
-    return [t.detach().float().cpu() for t in tree_leaves(tree)]
+def _flat(tree, pre: str = "") -> dict:
+    """{dotted path: the leaf in f32 on the CPU}: two trees are compared
+    leaf by path, whatever their key order."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{pre}.{k}" if pre else k))
+        return out
+    return {pre: tree.detach().float().cpu()}
+
+
+def _pairs(got, want) -> list:
+    """(got's leaf, want's leaf) at each of want's paths."""
+    g, w = _flat(got), _flat(want)
+    if g.keys() != w.keys():
+        raise ValueError(f"the trees' leaves differ: {sorted(g.keys() ^ w.keys())}")
+    return [(g[k], w[k]) for k in w]
 
 
 def compare_runs(got: dict, want: dict, arch: str = ARCH) -> dict:
@@ -156,19 +171,19 @@ def compare_runs(got: dict, want: dict, arch: str = ARCH) -> dict:
     res["held"] = "run" if whole else "start"
     res["scalar_rel"] = max(abs(a - b) / max(abs(b), 1e-30) for a, b in scal)
     g_use = 0.0
-    for a, b in zip(_flat(got["grads0"]), _flat(want["grads0"])):
+    for a, b in _pairs(got["grads0"], want["grads0"]):
         lim = grad_tol[0] * b.abs() + grad_tol[1] * b.abs().max()
         g_use = max(g_use, float(((a - b).abs() / lim.clamp_min(1e-30)).max()))
     res["grad_limit_use"] = g_use
     d = torch.cat([(a - b).abs().ravel() for a, b in
-                   zip(_flat(got["params"]), _flat(want["params"]))])
+                   _pairs(got["params"], want["params"])])
     res["param_p999"] = float(torch.quantile(d, 0.999))
     res["param_max"] = float(d.max())
     res["state_rel"] = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-                           for a, b in zip(_flat(got["opt"]["params"]),
-                                           _flat(want["opt"]["params"])))
+                           for a, b in _pairs(got["opt"]["params"],
+                                              want["opt"]["params"]))
     res["same_step"] = int(got["opt"]["step"]) == int(want["opt"]["step"])
-    res["finite"] = all(bool(torch.isfinite(t).all()) for t in _flat(got["params"]))
+    res["finite"] = all(bool(torch.isfinite(t).all()) for t in _flat(got["params"]).values())
     res["ok"] = (res["scalar_rel"] <= SCALAR_RTOL and g_use <= 1.0
                  and (not whole or (res["param_p999"] <= PARAM_P999
                                     and res["param_max"] <= PARAM_MAX

@@ -84,7 +84,8 @@ class GradSync:
     (:func:`make_grad_sync`).  Each leaf's gradient is summed over the
     ``batch`` rule's mesh dimensions that the leaf is not cut over (over
     the ones it is cut over, the backward of the forward's gather has
-    reduce-scattered it already).
+    reduce-scattered it already).  The leaves come in ``lm.model_defs``'
+    key order, the order ``sharding.shard_tree`` places a tree in.
 
     Unbucketed, :meth:`reduce` all-reduces those leaves in order once the
     backward is done.  Bucketed (``bucket_mb``), the leaves that need a sum
@@ -277,11 +278,14 @@ def _norms_and_products(cfg: ModelConfig, rules: ShardingRules | None = None
     output); 4 projections an attention, 3 an MLP, 3 for each of the E
     experts a MoE (every expert runs on its C buffer rows, tokens or none;
     under a mesh each of the rank's experts, :func:`_experts_run`) and 2 a
-    Mamba (``in_proj``, ``out_proj``).  A mesh cuts the shapes, not the
-    calls: the rest holds on every rank."""
+    Mamba (``in_proj``, ``out_proj``).  Where a mesh cuts the Mamba heads
+    over `model`, its gated norm sums its squares over `model` in plain
+    torch (``layers._gated_norm``): one norm a Mamba sublayer.  Otherwise a
+    mesh cuts the shapes, not the calls: the rest holds on every rank."""
     A, M, X, S, _ = _sublayer_counts(cfg)
     E = _experts_run(cfg, rules) if X else 0
-    return A + M + X + 2 * S, 4 * A + 3 * M + 3 * E * X + 2 * S
+    Sn = S if L._model_size(rules) > 1 else 2 * S
+    return A + M + X + Sn, 4 * A + 3 * M + 3 * E * X + 2 * S
 
 
 def _context_counts(cfg: ModelConfig) -> tuple[int, int, int, int]:

@@ -3,8 +3,12 @@ package's: the same on-disk format leaf for leaf, so a train state written
 by either restores bit for bit in the other; the same torn-write gate; and
 an async save that keeps the state of its step while the next train step
 updates the tensors in place.  Twins of ``tests/test_checkpoint.py``'s
-cases (all but its cross-mesh restore: the port does not shard) run on
-the port's functions."""
+cases run on the port's functions, its restore onto a smaller mesh
+(``test_restore_onto_smaller_mesh``) among them: a JAX checkpoint of a
+leaf placed on a (4, 2) mesh restores onto the port's survivor mesh, and
+a save from a (2, 2) process mesh of 4 ranks restores bit for bit onto a
+(1, 2) mesh of two of them and in one process
+(``testing/check_ckpt_mesh.py``)."""
 import dataclasses
 import json
 import pathlib
@@ -375,3 +379,68 @@ def test_save_async_keeps_the_state_of_its_step(tmp_path, monkeypatch):
     assert step == 1
     for g, b in zip(flatten(got), before):
         assert g.dtype == b.dtype and torch.equal(g, b)
+
+
+# ---------------------------------------------------------------------------
+# restore onto another mesh
+# ---------------------------------------------------------------------------
+
+def test_restore_onto_smaller_mesh(tmp_path):
+    """The reference's case: a tree placed on a (4, 2) mesh of 8 fake
+    devices is saved by the JAX package; host 0 (devices 0-3) dies, and
+    the port restores it onto the survivor mesh ``rescale_rules`` gives,
+    each position's block the slice JAX's ``NamedSharding`` places on the
+    device there, the blocks whole again equal to the saved values."""
+    from jax.sharding import Mesh as JMesh
+    from jax.sharding import NamedSharding
+
+    from repro.parallel.sharding import PV as JPV
+    from repro.parallel.sharding import default_rules as jax_rules
+    from repro.parallel.sharding import param_shardings
+    from repro_torch.ft import plan_rescale, rescale_rules
+    from repro_torch.params import PV
+    from repro_torch.parallel.sharding import gather_tree
+
+    jdefs = {"w": JPV((16, 8), jnp.float32, ("fsdp", "model")),
+             "b": JPV((8,), jnp.float32, ("model",))}
+    defs = {"w": PV((16, 8), torch.float32, ("fsdp", "model")),
+            "b": PV((8,), torch.float32, ("model",))}
+    big = JMesh(np.array(jax.devices()).reshape(4, 2), ("data", "model"))
+    rng = np.random.default_rng(0)
+    vals = {k: rng.normal(size=d.shape).astype(np.float32) for k, d in jdefs.items()}
+    sh = param_shardings(jdefs, jax_rules(big, batch=8))
+    jckpt.save_checkpoint(tmp_path, {k: jax.device_put(vals[k], sh[k]) for k in jdefs},
+                          step=5)
+    plan = plan_rescale(old_devices=8, lost_hosts=1, devices_per_host=4,
+                        mesh_axes=(4, 2), global_batch=8, restore_step=5)
+    mesh, rules = rescale_rules(plan, [0], 4, range(8))
+    assert mesh.ranks == (4, 5, 6, 7) and mesh.shape == {"data": 2, "model": 2}
+    blocks = []
+    for r in range(mesh.size):
+        got, step, _ = restore_checkpoint(tmp_path, defs, device="cpu", rules=rules,
+                                          rank=r)
+        assert step == 5
+        blocks.append(got)
+    small = JMesh(np.array(jax.devices()[4:]).reshape(2, 2), ("data", "model"))
+    jr = jax_rules(small, batch=8)
+    for k in defs:
+        idx = NamedSharding(small, jr.spec(jdefs[k].logical)) \
+            .devices_indices_map(jdefs[k].shape)
+        for r, dev in enumerate(small.devices.flat):
+            np.testing.assert_array_equal(blocks[r][k].numpy(), vals[k][idx[dev]])
+    whole = gather_tree(blocks, defs, rules)
+    for k in defs:
+        np.testing.assert_array_equal(whole[k].numpy(), vals[k])
+
+
+def test_a_save_from_a_mesh_restores_on_another_mesh_and_one_process():
+    """4 ranks on (2, 2) train a step and save; ranks 0 and 1 restore onto
+    their own (1, 2) mesh and gather it back: every leaf's crc32 equals
+    the file's, as does a one-process restore's."""
+    from repro_torch.testing import check_ckpt_mesh
+    from repro_torch.testing.subproc import run_ranks
+
+    d = run_ranks("repro_torch.testing.check_ckpt_mesh", check_ckpt_mesh.RANKS,
+                  device="cpu", timeout=300)
+    out = check_ckpt_mesh.check(d)
+    assert out["n_leaves"] == 37 and out["mesh_1x2"] and out["one_process"]

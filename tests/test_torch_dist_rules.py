@@ -5,9 +5,10 @@ leaf of every registered arch's parameter tree equals the reference's
 ``topology.mesh_levels`` and ``parse_topology`` equal the reference's;
 ``shard_tree`` and ``gather_tree`` invert each other and cut what JAX's
 ``NamedSharding`` cuts; ``moe_mode`` picks the reference's mode; the
-backend is a function of the layout; the sublayers whose mesh branches are
-not ported refuse a mesh by name; phase 12 of ``chip_smoke.py`` exits
-without a card."""
+backend is a function of the layout; a mesh over some of the ranks maps
+its positions to their global ranks; phases 12 and 13 of ``chip_smoke.py``
+exit without a card; the check modules refuse without one unless they
+are asked for the CPU."""
 import dataclasses
 import inspect
 import math
@@ -191,42 +192,39 @@ def test_mesh_coordinates_are_row_major_and_outer_major():
         m.group("data")
 
 
-@pytest.mark.parametrize("name", ["mamba2-370m", "llama-3.2-vision-11b"])
-def test_unported_sublayers_refuse_a_mesh_by_name(name):
-    """Through ``forward_train`` on a mesh of one rank (every collective
-    trivial): the refusal comes from the sublayer (or the context)."""
-    cfg = get_smoke_config(name)
-    rules = default_rules(comm.Mesh.abstract((1, 1), ("data", "model")))
-    params = init_params(lm.model_defs(cfg), torch.Generator().manual_seed(0), "cpu")
-    tokens = torch.zeros((2, 8), dtype=torch.int64)
-    what = "Mamba2 sublayer" if cfg.family == "ssm" else "vlm family's context"
-    with pytest.raises(NotImplementedError, match=what):
-        lm.forward_train(params, tokens, cfg, None if cfg.family == "ssm"
-                         else torch.zeros((2, 16, cfg.d_ctx)), rules)
-
-
-def test_sublayer_refusals_name_their_layer():
-    rules = default_rules(comm.Mesh.abstract((1, 2), ("data", "model")))
-    x = torch.zeros((1, 2, 64))
-    cfg = get_smoke_config("seamless-m4t-large-v2")
-    with pytest.raises(NotImplementedError, match="cross-attention sublayer"):
-        L.xattn_layer({}, x, x, cfg, rules=rules)
-    with pytest.raises(NotImplementedError, match="Mamba2 sublayer"):
-        L.mamba_layer({}, x, get_smoke_config("mamba2-370m"), rules=rules)
-
-
-def test_chip_smoke_phase_12_exits_without_a_card():
+def _only_exits_without_a_card(part: str) -> None:
     if torch.cuda.is_available():
         pytest.skip("this box has a card")
-    out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--only", "dist"],
+    out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--only", part],
                          capture_output=True, text=True, cwd=REPO, timeout=300,
                          env={**os.environ, "PYTHONPATH": str(REPO / "src")})
     assert out.returncode == 2, out.stderr
     assert out.stdout == "" and "runs on a CUDA card" in out.stderr
 
 
+def test_chip_smoke_phase_12_exits_without_a_card():
+    _only_exits_without_a_card("dist")
+
+
+def test_chip_smoke_phase_13_exits_without_a_card():
+    _only_exits_without_a_card("mesh")
+
+
+def test_a_mesh_over_some_ranks_maps_positions_to_global_ranks():
+    """The survivors' mesh: position p is global rank ``ranks[p]``, its
+    coordinates and groups' places are the positions'."""
+    m = comm.Mesh(("data", "model"), (2, 2), ranks=(4, 5, 6, 7), rank=1)
+    assert m.coords() == (0, 1) and m.index("model") == 1 and m.index("data") == 0
+    assert comm.Mesh.abstract((2, 2), ("data", "model")).ranks == (0, 1, 2, 3)
+    with pytest.raises(ValueError, match="3 ranks"):
+        comm.Mesh(("data", "model"), (2, 2), ranks=(4, 5, 6))
+
+
 @pytest.mark.parametrize("module", ["check_dist_moe", "check_dist_ring",
-                                    "check_dist_decode", "check_dist_train"])
+                                    "check_dist_decode", "check_dist_train",
+                                    "check_dist_families", "check_serve_topology",
+                                    "check_serve_paged", "check_ckpt_mesh",
+                                    "check_chaos"])
 def test_check_modules_run_on_the_card_unless_asked_for_the_cpu(module):
     """Like every other entry point of the port: ``--device`` defaults to
     cuda, and without a card the launcher refuses before it spawns a rank."""
@@ -241,4 +239,4 @@ def test_check_modules_run_on_the_card_unless_asked_for_the_cpu(module):
         pytest.skip("this box has a card")
     mod = importlib.import_module(f"repro_torch.testing.{module}")
     with pytest.raises(RuntimeError, match="pass --device cpu"):
-        mod.main([])
+        mod.main_mesh(["--mesh"]) if module == "check_chaos" else mod.main([])

@@ -146,14 +146,21 @@ def test_survivor_devices_drops_whole_host_blocks():
 
 @pytest.mark.parametrize("lost", [[0], [1]])
 def test_rescale_rules_gives_the_jax_survivor_mesh(lost):
-    """The survivor mesh's shape and its device ids (logical ids here,
-    ``jax.devices()`` ids there) are the reference's."""
+    """The survivor mesh's shape, names and device ids (logical ids, the
+    global ranks on a process mesh, here; ``jax.devices()`` ids there) and
+    the rules re-derived on it are the reference's, with and without
+    extra rule options."""
     plan_args = dict(old_devices=8, lost_hosts=1, devices_per_host=4,
                      mesh_axes=(4, 2), global_batch=8, restore_step=4)
-    mesh, _ = J.rescale_rules(J.plan_rescale(**plan_args), lost, 4)
-    got = T.rescale_rules(T.plan_rescale(**plan_args), lost, 4, range(8))
-    assert got.shape == tuple(mesh.devices.shape)
-    assert list(got.device_ids) == [d.id for d in mesh.devices.flat]
+    for kw in (dict(), dict(kv_heads=2), dict(batch=3, act_seq=True)):
+        mesh, jrules = J.rescale_rules(J.plan_rescale(**plan_args), lost, 4, **kw)
+        got, rules = T.rescale_rules(T.plan_rescale(**plan_args), lost, 4, range(8),
+                                     **kw)
+        assert got.sizes == tuple(mesh.devices.shape)
+        assert got.axis_names == tuple(mesh.axis_names)
+        assert list(got.ranks) == [d.id for d in mesh.devices.flat]
+        assert rules.rules == jrules.rules, kw
+        assert rules.mesh is got and got.transport is None   # abstract: no group
     assert jax.device_count() == 8
 
 
