@@ -226,6 +226,29 @@ Phases, each of which raises on failure (nothing is caught):
      2) save restored onto (1, 2), every leaf's crc32 equal; each rank's
      host ms a decode step, ms inside collectives, bytes sent, peak memory
      and TTFT printed beside the card's name and power limit;
+ 14. the paper's machine (``_machine_path``; ``--only machine``; no
+     library is built, no kernel of the port launches): the AraXL emulator
+     of ``repro_torch.core`` in f64 at VLEN 64 Kibit (VLMAX 1,024); (a) a
+     one-lane machine in this process on the card and on the CPU, every
+     instruction (``testing.check_core.exercise``) and the six Table I
+     programs at a register's sizes (fmatmul (8, 64) @ (64, 1024), fconv2d
+     7 x 7 over (16, 1024), jacobi2d (16, 1024), fdotproduct and exp on
+     2**16, softmax (8, 1024)), each against numpy and the card against the
+     CPU; (b) ``testing.check_core`` on eight ranks sharing the card: the
+     (2, 4), (4, 2) and (2, 2, 2) machines under the reference's five
+     configurations, ``check_topology``'s machines and
+     ``check_collectives``' reductions, all-gathers and reduce-scatters;
+     (c) sixteen ranks,
+     the (4, 4) AraXL-16, two-level, staged, ring: the GLSU round trip at
+     VLMAX, slides, both reductions, fdotproduct on 2**14 elements and
+     softmax on (4, 1024); (b) and (c) also on CPU ranks, every output of
+     the card's ranks bit-equal to theirs but the sums (1e-12) and exp
+     (1e-14), the same bits on every rank; each part's host ms an
+     instruction by unit, ms inside collectives, bytes sent and peak
+     memory a rank, beside the cycle model's cycles and FPU utilisation
+     for the same programs at that lane count (a functional run: lanes
+     sharing one card through host buffers say nothing of the machine's
+     speed);
   6. kernel times (CUDA events) beside the plain version, the one PyTorch
      call that computes the same function, and the card's bound (rmsnorm at
      every main-path R in both dtypes, with its device ms a call beside
@@ -261,7 +284,7 @@ The line before the last is a JSON object of the kernels; the last line is
 ``moe-train``, phase 8's training; ``ssm``, phase 5's Mamba smoke models
 and phase 9; ``xattn``, phases 3 and 3c's cross-attention checks, phase 10
 and phase 6's cross-attention rows; ``state``, phase 11; ``dist``, phase
-12), so that a copy
+12; ``mesh``, phase 13; ``machine``, phase 14), so that a copy
 of this file at another checkout's root reads that tree's kernels with
 this file's readings.  Imports nothing of JAX.  Without a
 card, or without the repo's ``src/repro_torch`` beside it, it exits
@@ -3422,6 +3445,190 @@ def _mesh_path(dev, smi) -> dict:
     return launches
 
 
+# -- phase 14: the paper's machine, one rank a lane, f64 at VLEN 64 Kibit ------
+
+#: phase 14's register length (the paper's flagship VLEN) and rank counts
+MACHINE_VLEN_BITS = 65536
+MACHINE_RANKS = (8, 16)
+
+
+def _machine_units(tag: str, stats: list, smi: str) -> None:
+    """One part's readings over its ranks: host ms an instruction by unit
+    (the slowest rank's), ms inside collectives, bytes sent and peak device
+    memory (the largest rank's)."""
+    units = {}
+    for st in stats:
+        for u, (calls, ms) in st["units"].items():
+            units[u] = (calls, max(ms, units.get(u, (0, 0.0))[1]))
+    peak = [st["peak_bytes"] for st in stats if st["peak_bytes"] is not None]
+    print(f"[machine] {tag}: host ms an instruction by unit "
+          + ", ".join(f"{u} {ms:.3f} ({c})" for u, (c, ms) in sorted(units.items()))
+          + f"; {max(st['ms'] for st in stats):.1f} ms, "
+          f"{max(st['collective_ms'] for st in stats):.1f} ms inside collectives, "
+          f"{max(st['bytes'] for st in stats) / 1e3:.1f} kB sent a rank, peak "
+          f"{'n/a' if not peak else f'{max(peak) / 1e3:.1f} kB'} a rank; {smi}")
+
+
+def _machine_sim(tag: str, programs: dict, params) -> None:
+    """The same programs traced on the port's TraceMachine and replayed by
+    ``sim.simulate`` on the cycle model of ``params``' lanes."""
+    from repro_torch.core import isa_kernels
+    from repro_torch.sim import TraceMachine, simulate
+
+    for name, args in programs.items():
+        tv = TraceMachine(params.vlen_bits, params.sew_bits, topology=params.topology)
+        isa_kernels.KERNELS[name](tv, *args)
+        r = simulate(tv.trace, params)
+        print(f"[machine] {tag} sim {name} on a simulated {params.n_lanes}-lane "
+              f"AraXL ({'x'.join(map(str, params.topology.shape))}, "
+              f"{params.hierarchy}): {r.cycles:.0f} cycles, FPU util "
+              f"{r.utilization:.3f}, {r.n_instrs} instructions")
+
+
+def _machine_one_lane(dev, smi) -> None:
+    """Phase 14a: a one-lane machine in this process on the card and on the
+    CPU: every instruction (``check_core.exercise`` on 1,024-element
+    registers, read after a first run) and the six programs at the card's Table I sizes
+    (``check_core.PROGRAM_SIZES["card"]``), each against numpy and the card
+    against the CPU (``check_core.held``: movement, masks and element-wise
+    arithmetic bit for bit)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import make_machine
+    from repro_torch.sim import araxl_params
+    from repro_torch.testing import check_core as cc
+
+    vlmax = MACHINE_VLEN_BITS // 64
+    inp = cc.inputs(1, vl=vlmax)
+    progs = cc.program_inputs(1, "card")
+    want = cc.program_oracles(progs)
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        v = make_machine(1, 1, vlen_bits=MACHINE_VLEN_BITS, dtype=torch.float64,
+                         trace=[], device=d.type)
+        assert v.device.type == d.type
+        cc.exercise(v, inp, 1)                  # the first calls, not read
+        # the peak above what the earlier phases left allocated
+        base = torch.cuda.memory_allocated() if d.type == "cuda" else 0
+        out, st = cc.measured(v, lambda c: cc.as_numpy(cc.to_host(
+            cc.exercise(c, inp, 1))))
+        cc.check(out, inp, 1, f"one lane {d.type}")
+        got, pst = cc.measured(v, lambda c: cc.run_programs(c, progs))
+        for r in (st, pst):
+            if r["peak_bytes"] is not None:
+                r["peak_bytes"] -= base
+        for name, w in want.items():
+            # check_core's 1e-10 relative, against the row's scale for the
+            # elements near zero of a sum of products
+            np.testing.assert_allclose(got[name], w, rtol=1e-10,
+                                       atol=1e-10 * np.max(np.abs(w)),
+                                       err_msg=f"{name} on {d.type}")
+        runs[d.type] = (out, got)
+        _machine_units(f"(a) one lane on {d.type}: every instruction", [st], smi)
+        _machine_units(f"(a) one lane on {d.type}: the six programs", [pst], smi)
+    bad = cc.held(runs["cuda"][0], runs["cpu"][0])
+    cmp = cc.same(runs["cuda"][0], runs["cpu"][0])
+    worst = {k: f"{r:.1e}" for k, (eq, r) in cmp.items() if not eq}
+    print(f"[machine] (a) every instruction, card against CPU: "
+          f"{len(cmp) - len(worst)} outputs bit-equal, the rest within {worst} "
+          f"relative")
+    if bad:
+        raise AssertionError(f"(a) the card parts from the CPU in {bad}")
+    for name in want:
+        g, c = np.asarray(runs["cuda"][1][name]), np.asarray(runs["cpu"][1][name])
+        np.testing.assert_allclose(g, c, rtol=1e-10, atol=1e-10 * np.max(np.abs(c)),
+                                   err_msg=name)
+        print(f"[machine] (a) {name} {np.shape(g)}: card against numpy "
+              f"{np.max(np.abs(g - want[name])):.2e}, against the CPU "
+              f"{np.max(np.abs(g - c)):.2e} (bit-equal {np.array_equal(g, c)})")
+    _machine_sim("(a)", progs, araxl_params(1))
+
+
+def _machine_ranks(smi, n: int, parts: str, tag: str) -> list:
+    """``testing.check_core`` on ``n`` ranks sharing the card, then on ``n``
+    CPU ranks (in turn: the host has 8 cores for them): every rank's
+    assertions, the same bits on every rank, and the card's bit for bit the
+    CPU's (``check_core.held``)."""
+    from repro_torch.testing import check_core as cc
+    from repro_torch.testing.subproc import run_ranks
+    from repro_torch.testing.timing import now
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        t0 = now()
+        d = run_ranks("repro_torch.testing.check_core", n, str(n), "--parts", parts,
+                      "--vlen-bits", str(MACHINE_VLEN_BITS), device=device,
+                      timeout=600)
+        runs[device] = cc.load(d, n)
+        print(f"[machine] {tag} {n} ranks on {device}: every assertion held, "
+              f"{now() - t0:.1f} s, spawns included")
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert all(r["device"].startswith("cuda") for r in card)
+    for part in parts.split(","):
+        for key in card[0][part]:
+            ex = card[0][part][key]
+            if not (isinstance(ex, dict) and "out" in ex):
+                continue
+            outs = [cc.as_numpy(r[part][key]["out"]) for r in card]
+            for r, o in enumerate(outs):
+                bad = cc.held(o, cc.as_numpy(cpu[r][part][key]["out"]))
+                if bad:
+                    raise AssertionError(f"{tag} {key} rank {r}: card parts from "
+                                         f"the CPU in {bad}")
+                cross = [k for k, (eq, _) in cc.same(o, outs[0]).items()
+                         if not eq and k not in ("reg", "reg_y", "reg2", "mask",
+                                                 "brd2", "vid2")]
+                if cross:
+                    raise AssertionError(f"{tag} {key}: rank {r} differs from rank "
+                                         f"0 in {cross}")
+            _machine_units(f"{tag} {key}", [r[part][key]["stats"] for r in card], smi)
+    return card
+
+
+def _machine_path(dev, smi) -> None:
+    """Phase 14: the paper's machine (``repro_torch.core``), f64 at VLEN 64
+    Kibit: (a) one lane in this process; (b) eight ranks sharing the card,
+    ``check_core``'s five configurations on (2, 4), (4, 2) and (2, 2, 2),
+    ``check_topology``'s machines and ``check_collectives``' assertions;
+    (c) sixteen ranks, AraXL-16 ((4, 4), two-level, staged, ring).  A
+    functional run: lanes that share one card through host buffers say
+    nothing of the machine's speed.  No kernel of
+    the port launches on this path (its arithmetic is tensor ops, its
+    movement ``comm``'s collectives)."""
+    import torch
+
+    from repro_torch.kernels import launches
+    from repro_torch.parallel.comm import layout
+    from repro_torch.sim import araxl_params
+    from repro_torch.testing import check_core as cc
+    from repro_torch.testing.timing import now
+
+    t0 = now()
+    before = dict(launches.LAUNCHES)
+    _machine_one_lane(dev, smi)
+    for n in MACHINE_RANKS:
+        backend, transport = layout("cuda", n, torch.cuda.device_count())
+        print(f"[machine] {n} ranks, {torch.cuda.device_count()} card: backend "
+              f"{backend}, transport {transport}")
+    card = _machine_ranks(smi, 8, "core,topology,collectives", "(b)")
+    for g in ("2x4", "4x2", "2x2x2"):
+        topo = cc.parse_grid(g)
+        _machine_sim(f"(b) {g}", cc.program_inputs(8),
+                     araxl_params(8, lanes_per_cluster=topo.lanes_per_cluster,
+                                  n_pods=topo.shape[0] if topo.n_levels == 3 else None))
+        _machine_units(f"(b) {g} the six programs",
+                       [r["core"][(g, "programs_stats")] for r in card], smi)
+    _machine_ranks(smi, 16, "flagship", "(c)")
+    _, dot, rows = cc.flagship_inputs(MACHINE_VLEN_BITS // 64)
+    _machine_sim("(c)", {"fdotproduct": dot, "softmax": rows}, araxl_params(16))
+    if launches.LAUNCHES != before:
+        raise AssertionError(f"a kernel launched on the machine's path: "
+                             f"{launches.LAUNCHES} against {before}")
+    print(f"[machine] phase 14 in {now() - t0:.1f} s; no kernel of the port "
+          f"launched (counts unchanged); {smi}")
+
+
 #: the parts ``--only`` runs alone: the libraries each builds, and what it
 #: runs, given the device and the modules ``main`` imports
 ONLY = {
@@ -3444,6 +3651,7 @@ ONLY = {
              lambda dev, m: _dist_path(dev, m.smi)),
     "mesh": (("matmul", "rmsnorm", "flash_attention", "flash_attention_bwd",
               "paged_attention"), lambda dev, m: _mesh_path(dev, m.smi)),
+    "machine": ((), lambda dev, m: _machine_path(dev, m.smi)),
 }
 
 
@@ -3459,7 +3667,7 @@ def main(argv: list | None = None) -> int:
                          "ssm: phase 5's Mamba smoke models and phase 9; xattn: "
                          "phase 3's and 3c's cross-attention checks, phase 10 and "
                          "phase 6's cross-attention rows; state: phase 11; dist: "
-                         "phase 12; mesh: phase 13); "
+                         "phase 12; mesh: phase 13; machine: phase 14); "
                          "a copy of this file at the root of another checkout reads "
                          "that tree's kernels the same way")
     args = ap.parse_args(argv)
@@ -3866,6 +4074,8 @@ def main(argv: list | None = None) -> int:
     path_launches["dist"] = _dist_path(dev, smi.splitlines()[0])
     # -- 13. state and serving on a mesh: eight ranks share the card ------------
     path_launches["mesh"] = _mesh_path(dev, smi.splitlines()[0])
+    # -- 14. the paper's machine: one rank a lane, 1, 8 and 16 lanes ------------
+    _machine_path(dev, smi.splitlines()[0])
 
     # -- 6. kernel times ---------------------------------------------------------
     time_ms = _time_ms
