@@ -249,6 +249,25 @@ Phases, each of which raises on failure (nothing is caught):
      for the same programs at that lane count (a functional run: lanes
      sharing one card through host buffers say nothing of the machine's
      speed);
+ 15. the tooling (``_tooling_path``; ``--only tooling``): (a) the
+     autotuner (``kernels.autotune``) at its ``CASES`` (llama3-8b's
+     projections at every main-path M and the backward's products at
+     prefill M, two prefills' attention, the batch-8 paged step, the
+     decode step's rmsnorm, the Table I sizes), top-k 3 with every
+     candidate measured, into ``build/autotune/cache.json``: each signature's candidates (model and
+     measured us, each measured one held to its plain version within
+     ``kernel_checks``' limits), the winner and the model's agreement; the
+     wgmma step and split costs the measured split counts fit beside the
+     hand-set ``WGMMA_STEP_US``/``WGMMA_SPLIT_US``; (b) llama3-8b at full
+     width and depth, phase 5's workload through the dense engine untuned
+     and twice under the table (the same bits twice, launches exactly
+     ``serve_launches``, decode ms a step beside the untuned run's, a
+     traced untuned decode step); (c) the dry run (``launch.dryrun``) of
+     llama3-8b's decode and train cells at the one-card geometry beside
+     the measured peaks and the traced busy ms, and the production cell
+     train_4k on pod16x16 (256 ranks of torch's fake process group, on the
+     host); (d) ``examples.serve_batch`` on the card, its streams equal to
+     the CPU's;
   6. kernel times (CUDA events) beside the plain version, the one PyTorch
      call that computes the same function, and the card's bound (rmsnorm at
      every main-path R in both dtypes, with its device ms a call beside
@@ -284,7 +303,7 @@ The line before the last is a JSON object of the kernels; the last line is
 ``moe-train``, phase 8's training; ``ssm``, phase 5's Mamba smoke models
 and phase 9; ``xattn``, phases 3 and 3c's cross-attention checks, phase 10
 and phase 6's cross-attention rows; ``state``, phase 11; ``dist``, phase
-12; ``mesh``, phase 13; ``machine``, phase 14), so that a copy
+12; ``mesh``, phase 13; ``machine``, phase 14; ``tooling``, phase 15), so that a copy
 of this file at another checkout's root reads that tree's kernels with
 this file's readings.  Imports nothing of JAX.  Without a
 card, or without the repo's ``src/repro_torch`` beside it, it exits
@@ -1241,6 +1260,7 @@ def _train_path(cfg, dev, n_layers: int = 8, batch: int = 4, seq: int = 1024,
     want = {**{k: 0 for k in ops.LAUNCHES},
             **{k: steps * v for k, v in step_launches(tcfg).items()}}
     peak = torch.cuda.max_memory_allocated()
+    READINGS[("train_peak", cfg.name, n_layers)] = peak
     steady = step_s[1:] or step_s
     step_ms = 1e3 * sum(steady) / len(steady)
     bound, by, flop, f32_flop = _step_bound(tcfg, batch, seq, n_params)
@@ -3629,6 +3649,229 @@ def _machine_path(dev, smi) -> None:
           f"launched (counts unchanged); {smi}")
 
 
+#: phase 15's table, in the checkout's build tree (made afresh each run)
+TUNE_CACHE = ROOT / "build" / "autotune" / "cache.json"
+#: readings earlier phases leave for phase 15 (peak device memory)
+READINGS: dict = {}
+
+
+def _serve_workload(model, dev) -> dict:
+    """Phase 5's dense workload (8 requests of 32-256 tokens from seed 0, 16
+    new tokens each, batch 4, 512 slots) through ``ServingEngine``: the
+    streams by request, the launches and ``serve_launches``' count, decode
+    ms a step (the engine's own spans) and the peak device memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+    from repro_torch.train.trainer import serve_launches
+
+    cfg = model.cfg
+    engine = ServingEngine(model, ServeConfig(max_batch=4, max_seq=512), device=dev)
+    prng = np.random.default_rng(0)
+    plens = [int(n) for n in prng.integers(32, 257, 8)]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    for rid, n in enumerate(plens):
+        engine.submit(Request(rid=rid, max_new_tokens=16,
+                              prompt=prng.integers(1, cfg.vocab_size, n)))
+    done = list(engine.run())
+    tm = engine.timing
+    return {"streams": {r.rid: list(r.out) for r in done},
+            "launches": dict(ops.LAUNCHES),
+            "want": serve_launches(cfg, tm["prefills"], tm["decode_steps"]),
+            "decode_ms": 1e3 * tm["decode_s"] / tm["decode_steps"],
+            "peak": torch.cuda.max_memory_allocated(), "engine": engine}
+
+
+def _tooling_path(dev, smi) -> dict:
+    """Phase 15: the tooling on the card.  (a) the autotuner at
+    ``autotune.CASES`` (top-k 3, every candidate measured, so that the
+    agreement at 3 reads the model) into ``TUNE_CACHE``: each signature's
+    candidates with their model and measured us, the winner, its model rank
+    and agreement, each measured candidate's error as a share of its limit
+    (a candidate over its limit raises); the wgmma step and split costs the
+    measured split counts fit, for the forward's 128 x 128 tile and the
+    backward's 128 x 256, beside ``matmul.WGMMA_STEP_US`` and
+    ``WGMMA_SPLIT_US`` (not changed).  (b) llama3-8b at full width and
+    depth, phase 5's workload through the dense engine untuned, twice
+    under ``tuned(TUNE_CACHE)`` and untuned again: the tuned streams the
+    same bits twice, launches exactly ``serve_launches``, decode ms a step
+    in turns, and a trace of four untuned decode steps.  (c) the dry run at
+    the one-card geometry: llama3-8b's decode (batch 4, 512 slots) and
+    train (8 layers, 4 x 1024, one microbatch) cells' predicted residency
+    beside the measured peaks, the decode step's roofline beside its busy
+    ms; then the production cell train_4k on pod16x16 (a fake process
+    group of 256 ranks, in a process of its own) and its record.  (d)
+    ``examples.serve_batch`` on the card, its streams equal to the CPU's.
+    Returns the autotuner's launches (its checks against the plain
+    versions not counted)."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.examples import serve_batch
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.specs import ShapeSpec
+    from repro_torch.models import lm
+    from repro_torch.params import init_params
+    from repro_torch.serve import Request
+    from repro_torch.testing.timing import now
+
+    t_all = now()
+    # -- (a) the autotuner ------------------------------------------------------
+    if TUNE_CACHE.exists():
+        TUNE_CACHE.unlink()
+    ops.reset_launches()
+    records = []
+    t0 = now()
+    with at.tuned(TUNE_CACHE, top_k=3, reps=5, warmup=1) as ctx:
+        for kernel in at.KERNELS:
+            for shape, dtype in at.CASES[kernel]:
+                rec = at.autotune(kernel, shape, dtype, ctx=ctx, measure_all=True)
+                records.append(rec)
+                cands = "; ".join(
+                    f"{e['config']} model {e['model_us']:.1f}"
+                    + (f" measured {e['measured_us']:.1f} +- {e['iqr_us']:.1f} us, "
+                       f"{e['limit_use']:.3f} of its limit" if "measured_us" in e else "")
+                    for e in rec["candidates"])
+                print(f"[tune] {kernel} {tuple(shape)} {dtype}: winner {rec['winner']} "
+                      f"(default {at.default_config(kernel, shape, dtype)}), "
+                      f"model rank {rec['model_rank_of_winner']}, agreement@3 "
+                      f"{rec['agreement_at_k']}; {cands}")
+    launches = dict(ops.LAUNCHES)
+    print(f"[tune] launches on the autotuner's path (its checks against the plain "
+          f"versions not counted): { {k: v for k, v in launches.items() if v} }")
+    agree = sum(r["agreement_at_k"] for r in records)
+    print(f"[tune] {len(records)} signatures in {now() - t0:.1f}s on {ctx.topology_tag}; "
+          f"agreement@3 {agree} of {len(records)}; table {TUNE_CACHE}; each plan's calls "
+          f"rotated through copies of its operands holding {at.ROTATE_BYTES / 2**20:.0f} "
+          f"MiB (twice the L2: cold reads); {smi}")
+    for trans, tile in ((0, "forward 128 x 128"), (1, "backward 128 x 256")):
+        recs = [r for r in records if r["kernel"] == "matmul"
+                and at._mm_dims(r["shape"])[3] == trans
+                and kmm.variant(*at._mm_dims(r["shape"])[:3], torch.bfloat16,
+                                trans=trans) == "wgmma"]
+        fit = at.fit_wgmma_costs(recs)
+        hand = kmm.WGMMA_STEP_US * kmm.wgmma_tile(trans)[1] / kmm.WGMMA_BN
+        step = "not fitted" if fit["step_us"] is None else f"{fit['step_us']:.4f}"
+        split = "not fitted" if fit["split_us"] is None else f"{fit['split_us']:.4f}"
+        rms = "n/a" if fit["rms_us"] is None else f"{fit['rms_us']:.3f}"
+        print(f"[tune] wgmma {tile}: fitted step {step} us a 64-deep K step, "
+              f"split {split} us a further slice, over {fit['samples']} samples of "
+              f"{len(fit['shapes'])} shapes (rms residual {rms} us); hand-set step "
+              f"{hand:.2f} us (WGMMA_STEP_US {kmm.WGMMA_STEP_US} scaled by the "
+              f"width), split {kmm.WGMMA_SPLIT_US} us; {smi}")
+
+    # -- (b) llama3-8b under the table ---------------------------------------------
+    cfg = get_config("llama3-8b")
+    model = lm.Model(cfg, init_params(lm.model_defs(cfg),
+                                      torch.Generator(dev).manual_seed(0), dev))
+    base = _serve_workload(model, dev)
+    engine = base.pop("engine")
+    prompts = [r.prompt for r in engine.finished[:4]]
+    for rid, prompt in enumerate(prompts):
+        engine.submit(Request(rid=100 + rid, max_new_tokens=16, prompt=prompt))
+    engine.step()
+    tr = _trace(engine.step, 4)
+    _print_trace(tr, 4, "untuned decode steps at batch 4")
+    engine.run()
+    del engine
+    with at.tuned(TUNE_CACHE) as tctx:
+        runs = [_serve_workload(model, dev) for _ in range(2)]
+    if len(tctx.table) != len(records) or not tctx.hits:
+        raise AssertionError(f"the tuned runs read {len(tctx.table)} entries of "
+                             f"{TUNE_CACHE} ({len(records)} written) and took "
+                             f"{tctx.hits} plans from it")
+    print(f"[tooling] the tuned runs took {tctx.hits} launch plans from the table "
+          f"({len(tctx.table)} entries)")
+    last = _serve_workload(model, dev)          # untuned again: A, B, B, A
+    for r in (*runs, last):
+        r.pop("engine")
+    same = runs[0]["streams"] == runs[1]["streams"]
+    agree_tok = sum(a == b for rid in base["streams"] for a, b in
+                    zip(base["streams"][rid], runs[0]["streams"][rid]))
+    total_tok = sum(len(v) for v in base["streams"].values())
+    print(f"[tooling] llama3-8b dense, phase 5's workload: tuned streams the same "
+          f"bits twice: {same}; tuned tokens equal to untuned {agree_tok} of "
+          f"{total_tok} (split plans change the f32 sums' order); decode ms/step "
+          f"in turns untuned {base['decode_ms']:.2f}, tuned {runs[0]['decode_ms']:.2f} "
+          f"and {runs[1]['decode_ms']:.2f}, untuned {last['decode_ms']:.2f} (host "
+          f"clock; a reading, not a claim); untuned streams the same bits twice: "
+          f"{base['streams'] == last['streams']}; peak {base['peak'] / 2**30:.2f} GiB; "
+          f"{smi}")
+    for r in (base, *runs, last):
+        if r["launches"] != r["want"]:
+            raise AssertionError(f"tooling serve launches {r['launches']}, expected "
+                                 f"{r['want']}")
+    if not same:
+        raise AssertionError("the tuned streams differ between two runs")
+    print(f"[tooling] launches of each run exactly serve_launches: {runs[0]['want']}")
+    del model
+    torch.cuda.empty_cache()
+
+    # -- (c) the dry run ---------------------------------------------------------------
+    dec = dr.analyse_cell(cfg, ShapeSpec("decode", 512, 4, "decode"), None, "one-card")
+    t8 = dataclasses.replace(cfg, n_layers=8)
+    trn = dr.analyse_cell(t8, ShapeSpec("train", 1024, 4, "train"), None, "one-card",
+                          n_micro=1)
+    gib = 2 ** 30
+    p5 = READINGS.get("serve_peak")
+    p7 = READINGS.get(("train_peak", cfg.name, 8))
+    print(f"[dryrun] llama3-8b decode (batch 4, 512 slots, one card): arguments "
+          f"{dec['mem_per_device']['arguments_gib']:.2f} GiB, predicted resident "
+          f"{dec['mem_per_device']['resident_model_gib']:.2f} GiB; measured peak "
+          f"{base['peak'] / gib:.2f} GiB (this phase's run of phase 5's workload)"
+          + (f", {p5 / gib:.2f} GiB in phase 5" if p5 else ""))
+    print(f"[dryrun] llama3-8b train (8 layers, 4 x 1024, one microbatch, one card): "
+          f"arguments {trn['mem_per_device']['arguments_gib']:.2f} GiB, predicted "
+          f"resident {trn['mem_per_device']['resident_model_gib']:.2f} GiB; measured "
+          f"peak " + (f"{p7 / gib:.2f} GiB (phase 7)" if p7 else
+                      "not measured in this run (phase 7 did not run)"))
+    r = dec["roofline"]
+    busy = tr["busy_us"] / 1e3 if tr["events"] else float("nan")
+    bound_ms = 1e3 * max(r["compute_s"], r["memory_s"])
+    print(f"[dryrun] decode step roofline: compute {1e3 * r['compute_s']:.4f} ms "
+          f"({dec['per_device']['flops']:.4e} FLOP at {dr.HW['peak_flops']:.3e}/s), "
+          f"memory {1e3 * r['memory_s']:.4f} ms (the analytic traffic model; the "
+          f"unfused op count {1e3 * r['memory_s_hlo_upper']:.4f} ms); device busy "
+          f"{busy:.3f} ms/step (the trace above): {bound_ms / busy:.3f} of busy is the "
+          f"bound; {smi}")
+    t0 = now()
+    path = ROOT / "build" / "dryrun_torch" / "llama3-8b__train_4k__pod16x16.json"
+    if path.exists():
+        path.unlink()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                          "llama3-8b", "--shape", "train_4k", "--mesh", "single",
+                          "--out", str(ROOT / "build" / "dryrun_torch")],
+                         capture_output=True, text=True, timeout=600, cwd=ROOT,
+                         env={**os.environ,
+                              "PYTHONPATH": str(ROOT / "src"),
+                              "CUDA_VISIBLE_DEVICES": ""})
+    if out.returncode:
+        raise AssertionError(f"the dry run of train_4k failed:\n{out.stdout[-3000:]}"
+                             f"\n{out.stderr[-3000:]}")
+    prod = json.loads(path.read_text())
+    print(f"[dryrun] llama3-8b train_4k on pod16x16 (256 ranks on the fake backend, "
+          f"host only, {now() - t0:.1f}s): {json.dumps(prod, sort_keys=True)}")
+
+    # -- (d) the serve_batch twin, card against CPU ------------------------------------
+    gpu = {r.rid: list(r.out) for r in serve_batch.main(["--device", "cuda"])}
+    cpu = {r.rid: list(r.out) for r in serve_batch.main(["--device", "cpu"])}
+    print(f"[tooling] serve_batch (mixtral-8x7b smoke, 8 requests at batch 4): "
+          f"card streams equal the CPU's: {gpu == cpu}")
+    if gpu != cpu:
+        raise AssertionError(f"serve_batch streams differ: card {gpu}, cpu {cpu}")
+    print(f"[tooling] phase 15 in {now() - t_all:.1f}s; {smi}")
+    return launches
+
+
 #: the parts ``--only`` runs alone: the libraries each builds, and what it
 #: runs, given the device and the modules ``main`` imports
 ONLY = {
@@ -3652,6 +3895,8 @@ ONLY = {
     "mesh": (("matmul", "rmsnorm", "flash_attention", "flash_attention_bwd",
               "paged_attention"), lambda dev, m: _mesh_path(dev, m.smi)),
     "machine": ((), lambda dev, m: _machine_path(dev, m.smi)),
+    "tooling": (("matmul", "rmsnorm", "flash_attention", "paged_attention",
+                 "reduction", "stencil"), lambda dev, m: _tooling_path(dev, m.smi)),
 }
 
 
@@ -3667,7 +3912,8 @@ def main(argv: list | None = None) -> int:
                          "ssm: phase 5's Mamba smoke models and phase 9; xattn: "
                          "phase 3's and 3c's cross-attention checks, phase 10 and "
                          "phase 6's cross-attention rows; state: phase 11; dist: "
-                         "phase 12; mesh: phase 13; machine: phase 14); "
+                         "phase 12; mesh: phase 13; machine: phase 14; tooling: "
+                         "phase 15); "
                          "a copy of this file at the root of another checkout reads "
                          "that tree's kernels the same way")
     args = ap.parse_args(argv)
@@ -3930,6 +4176,7 @@ def main(argv: list | None = None) -> int:
           f"{n_decode} steps, {1e3 * decode_s / n_decode:.2f} ms/step); "
           f"p50 TTFT {1e3 * float(np.median(ttft)):.1f} ms "
           f"(all 8 submitted at once, 4 slots)")
+    READINGS["serve_peak"] = torch.cuda.max_memory_allocated()
     print(f"[serve] launches {launches} (expected {want_launches}); "
           f"max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -4076,6 +4323,8 @@ def main(argv: list | None = None) -> int:
     path_launches["mesh"] = _mesh_path(dev, smi.splitlines()[0])
     # -- 14. the paper's machine: one rank a lane, 1, 8 and 16 lanes ------------
     _machine_path(dev, smi.splitlines()[0])
+    # -- 15. the tooling: the autotuner on the card, the dry run, serve_batch -------
+    path_launches["tooling"] = _tooling_path(dev, smi.splitlines()[0])
 
     # -- 6. kernel times ---------------------------------------------------------
     time_ms = _time_ms

@@ -234,17 +234,14 @@ def gather_to_writer(tree: Any, defs: Any, rules: ShardingRules) -> Any:
     others: every rank's blocks go to it on the host in one gather over
     the mesh, and ``sharding.gather_tree`` puts them together.  Every rank
     of the mesh calls it."""
-    import torch.distributed as dist
+    from repro_torch.parallel import comm
 
     mesh = rules.mesh
     host = _map_tree(lambda t: t.detach().to("cpu", copy=True), tree)
     if mesh.size == 1:
         return host
-    first = mesh.rank == 0
-    got = [None] * mesh.size if first else None
-    dist.gather_object(host, got, dst=mesh.ranks[0],
-                       group=mesh.group(mesh.axis_names))
-    if not first:
+    got = comm.gather_objects(host, mesh)
+    if got is None:
         return None
     if isinstance(defs, tuple) and hasattr(defs, "_fields"):   # a TrainState
         return type(defs)(*[gather_tree([g[i] for g in got], d, rules)

@@ -44,7 +44,8 @@ from typing import NamedTuple
 import torch
 
 from . import _build, ref
-from .launches import LAUNCHES, wants_grad
+from .autotune import tuned_config
+from .launches import LAUNCHES, plain, wants_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 96, 128)
@@ -55,6 +56,13 @@ VARIANTS = {"simt": 0, "wgmma": 1}
 #: ``fw::BQ``, ``fw::BK``)
 WGMMA_HEAD_DIMS = (64, 96, 128)
 WGMMA_BQ, WGMMA_BK = 64, 64
+#: each forward's block: wgmma's threads, ring stages and fixed shared
+#: memory (csrc ``fw::THREADS``, ``fw::STAGES``; ``fw::Smem<D>``: Q's tile,
+#: each stage's K and V tiles of 64-column boxes, the barriers and 1 KB of
+#: alignment), simt's threads and tiles (``NT``, ``BQ``, ``BK``: Q, K, V
+#: and P in f32, Q's, K's and P's rows padded by one)
+WGMMA_THREADS, WGMMA_STAGES = 160, 2
+SIMT_THREADS, SIMT_BQ, SIMT_BK = 128, 64, 32
 _FN = None
 _BWD = None
 
@@ -64,6 +72,35 @@ def variant(S: int, Sk: int, D: int, dtype: torch.dtype, aligned: bool = True) -
     if dtype != torch.bfloat16 or D not in WGMMA_HEAD_DIMS or Sk <= 0 or not aligned:
         return "simt"
     return "wgmma"
+
+
+def legal_variants(S: int, Sk: int, D: int, dtype: torch.dtype) -> tuple[str, ...]:
+    """The forward kernels that take a call: ``simt`` takes every one,
+    ``wgmma`` those :func:`variant` gives it."""
+    return ("simt",) if variant(S, Sk, D, dtype) == "simt" else ("simt", "wgmma")
+
+
+def block_resources(kind: str, B: int, Hq: int, S: int, D: int) -> dict:
+    """What one block of the forward ``kind`` holds: dynamic shared memory
+    in bytes, threads, and the launch's blocks (one a 64-row q tile of each
+    (sequence, head))."""
+    blocks = B * Hq * math.ceil(S / WGMMA_BQ)
+    if kind == "wgmma":
+        tile = math.ceil(D / 64) * 64 * WGMMA_BK * 2
+        return {"smem": tile + WGMMA_STAGES * 2 * tile + (2 * WGMMA_STAGES + 1) * 8 + 1024,
+                "threads": WGMMA_THREADS, "static": False, "blocks": blocks}
+    smem = 4 * (SIMT_BQ * (D + 1) + SIMT_BK * (D + 1) + SIMT_BK * D + SIMT_BQ * (SIMT_BK + 1))
+    return {"smem": smem, "threads": SIMT_THREADS, "static": False, "blocks": blocks}
+
+
+def tuned_variant(B: int, Hq: int, Hkv: int, S: int, Sk: int, D: int,
+                  dtype: torch.dtype) -> str:
+    """The forward's kernel: the ambient autotune table's ``variant`` for
+    ``(B, Hq, Hkv, S, Sk, D)`` where it has one (one of
+    :func:`legal_variants`), else :func:`variant`'s (always outside
+    ``autotune.tuned()``)."""
+    cfg = tuned_config("flash_attention", (B, Hq, Hkv, S, Sk, D), dtype)
+    return variant(S, Sk, D, dtype) if cfg is None else cfg["variant"]
 
 
 def bwd_variant(S: int, Sk: int, D: int, dtype: torch.dtype,
@@ -223,7 +260,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor
     Hkv, Sk = k.shape[1], k.shape[2]
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *out.stride()[:3])
-    kind = variant(S, Sk, D, q.dtype)   # aligned: checked above
+    kind = tuned_variant(B, Hq, Hkv, S, Sk, D, q.dtype)   # aligned: checked above
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
             Hkv, S, Sk, D, int(causal), window or 0, ctypes.addressof(strides),
             _DTYPES[q.dtype], VARIANTS[kind])
@@ -307,7 +344,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
         out = (ref.attention(q, k, v, causal=causal, window=window)
-               if q.device.type == "cpu" else _forward(q, k, v, causal, window))
+               if plain(q) else _forward(q, k, v, causal, window))
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
         return out
@@ -315,6 +352,6 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
-        bwd = ref.attention_bwd if q.device.type == "cpu" else backward
+        bwd = ref.attention_bwd if plain(q) else backward
         dq, dk, dv = bwd(q, k, v, do, causal=ctx.causal, window=ctx.window)
         return dq, dk, dv, None, None

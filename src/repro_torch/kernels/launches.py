@@ -19,6 +19,18 @@ LAUNCHES = {"rmsnorm": 0, "matmul": 0, "flash_attention": 0,
             "rmsnorm_bwd": 0, "matmul_bwd": 0, "flash_attention_bwd": 0}
 
 
+#: the devices whose tensors take a kernel's plain version: the CPU, and
+#: ``meta`` (shapes without data: the dry run, ``launch.dryrun``, counts a
+#: cell's operations on it).  A CUDA tensor takes the kernel or the call
+#: raises
+PLAIN_DEVICES = ("cpu", "meta")
+
+
+def plain(t: torch.Tensor) -> bool:
+    """True where ``t`` takes the plain version (:data:`PLAIN_DEVICES`)."""
+    return t.device.type in PLAIN_DEVICES
+
+
 def reset() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0

@@ -39,8 +39,9 @@ import math
 
 import torch
 
-from . import _build, ref
-from .launches import LAUNCHES, wants_grad
+from . import _build, hopper, ref
+from .autotune import tuned_config
+from .launches import LAUNCHES, plain, wants_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = {"simt": 0, "decode": 1, "wgmma": 2}
@@ -54,7 +55,7 @@ DECODE_BK = 32
 DECODE_SLICE_MAX = 1024
 #: the blocks a decode launch aims at: 4 on each of an H100's 132 SMs, as
 #: many as the shared memory of a 1024-long slice lets reside at once
-DECODE_TARGET_BLOCKS = 132 * 4
+DECODE_TARGET_BLOCKS = hopper.SMS * 4
 #: the most slices a plan cuts K into where the longest slice allows: the
 #: last block of a column tile sums that many partials one after another
 DECODE_MAX_SPLITS = 16
@@ -71,11 +72,25 @@ BWD_GROUP_M = 16
 #: those the count that minimises a block's time as measured on the H100:
 #: ~0.4 us a 64-deep K step, and ~5 us for each slice past the first (its
 #: partial out and the last block's sum)
-WGMMA_SMS = 132
+WGMMA_SMS = hopper.SMS
 WGMMA_MAX_SPLITS = 4
 WGMMA_MIN_STEPS = 16
 WGMMA_STEP_US = 0.4
 WGMMA_SPLIT_US = 5.0
+#: each variant's block: the decode kernel's threads and cp.async stages
+#: (csrc ``dec::THREADS``, ``dec::STAGES``; ``dec::smem_bytes`` holds 8 rows
+#: of A's slice beside them), the wgmma kernels' threads and shared memory
+#: (``wg::THREADS``, ``wg::SMEM``: four stages of A and B tiles, barriers,
+#: alignment; ``pw::``'s add the epilogue's four 8 KB boxes), and simt's
+#: tiles (``dispatch_simt``: (BM, BN, BK) for M <= 8 and above, f32
+#: ``__shared__`` arrays of BK x (BM + 1) and BK x BN, 256 threads)
+DECODE_THREADS, DECODE_STAGES = 128, 4
+WGMMA_THREADS = 384
+WGMMA_SMEM = 4 * (WGMMA_BM + WGMMA_BN) * WGMMA_BK * 2 + 2 * 4 * 8 + 1024
+BWD_THREADS = 288
+BWD_SMEM = 4 * (BWD_BM + BWD_BN) * WGMMA_BK * 2 + 4 * 64 * 64 * 2 + 2 * 4 * 8 + 1024
+SIMT_TILES = {True: (8, 32, 128), False: (64, 64, 16)}
+SIMT_THREADS = 256
 #: the split-K workspace for each (device, stream), shared by the decode and
 #: wgmma kernels: one ticket an output tile, zeroed when made and left at
 #: zero by every launch, and the f32 partials of the K slices; grown when a
@@ -162,9 +177,24 @@ def bwd_walk(M: int, N: int) -> list[tuple[int, int]]:
 
 
 def plan(kind: str, M: int, K: int, N: int, trans: int = 0) -> tuple[int, int, int]:
-    """``(splits, slice, tickets)`` of a launch: the split-K plan of its
-    variant and the tickets its workspace needs (one an output tile; 0
-    unsplit)."""
+    """``(splits, slice, tickets)`` of a launch: the split count of the
+    ambient autotune table where it has this signature
+    (``autotune.tuned_config``: ``(M, K, N)`` for the forward, ``(M, K, N,
+    trans)`` for the backward's products; never outside ``tuned()``), else
+    :func:`default_plan`'s."""
+    if kind != "simt":
+        cfg = tuned_config("matmul", (M, K, N) if trans == 0 else (M, K, N, trans),
+                           "bfloat16")
+        if cfg is not None:
+            return plan_with_splits(kind, M, K, N, trans, cfg["splits"])
+    return default_plan(kind, M, K, N, trans)
+
+
+def default_plan(kind: str, M: int, K: int, N: int, trans: int = 0
+                 ) -> tuple[int, int, int]:
+    """``(splits, slice, tickets)`` by the variant's own rule
+    (:func:`split_plan`, :func:`wgmma_plan`) and the tickets its workspace
+    needs (one an output tile; 0 unsplit)."""
     if kind == "decode":
         splits, slice_len = split_plan(K, N)
         tiles = math.ceil(N / DECODE_BN)
@@ -175,6 +205,80 @@ def plan(kind: str, M: int, K: int, N: int, trans: int = 0) -> tuple[int, int, i
     else:
         return 1, 0, 0
     return splits, slice_len, tiles if splits > 1 else 0
+
+
+def _slices(units: int, n: int, unit: int) -> tuple[int, int]:
+    """``(splits, slice)`` of K cut into ``n`` equal slices of whole
+    ``unit``s (the last ragged, none empty)."""
+    per = math.ceil(units / max(1, n))
+    return math.ceil(units / per), per * unit
+
+
+@functools.lru_cache(maxsize=1024)
+def legal_splits(kind: str, M: int, K: int, N: int, trans: int = 0) -> tuple[int, ...]:
+    """The split counts a launch of ``kind`` may take (each as the slices
+    it really makes): decode, every count whose longest slice is at most
+    ``DECODE_SLICE_MAX``, up to ``DECODE_MAX_SPLITS`` (and the rule's own);
+    wgmma, those that keep tiles times slices within one wave of
+    ``WGMMA_SMS``, at most ``WGMMA_MAX_SPLITS`` of at least
+    ``WGMMA_MIN_STEPS`` K steps; simt, one."""
+    if kind == "decode":
+        units, unit, lo = (max(1, math.ceil(K / DECODE_BK)), DECODE_BK,
+                           math.ceil(K / DECODE_SLICE_MAX))
+        hi = min(units, DECODE_MAX_SPLITS)
+    elif kind == "wgmma":
+        bm, bn = wgmma_tile(trans)
+        tiles = math.ceil(M / bm) * math.ceil(N / bn)
+        units, unit, lo = max(1, math.ceil(K / WGMMA_BK)), WGMMA_BK, 1
+        hi = max(1, min(WGMMA_SMS // tiles, units // WGMMA_MIN_STEPS,
+                        WGMMA_MAX_SPLITS))
+    else:
+        return (1,)
+    out = {_slices(units, n, unit)[0] for n in range(max(1, lo), max(lo, hi) + 1)}
+    out.add(default_plan(kind, M, K, N, trans)[0])
+    return tuple(sorted(out))
+
+
+def plan_with_splits(kind: str, M: int, K: int, N: int, trans: int,
+                     n: int) -> tuple[int, int, int]:
+    """``(splits, slice, tickets)`` of a launch that cuts K into ``n``
+    slices; raises where ``n`` is not one of :func:`legal_splits`."""
+    if n not in legal_splits(kind, M, K, N, trans):
+        raise ValueError(f"matmul ({kind}, trans {trans}) at M={M} K={K} N={N}: "
+                         f"{n} splits is not a legal plan "
+                         f"{legal_splits(kind, M, K, N, trans)}")
+    if kind == "simt":
+        return 1, 0, 0
+    if kind == "decode":
+        splits, slice_len = _slices(math.ceil(K / DECODE_BK), n, DECODE_BK)
+        tiles = math.ceil(N / DECODE_BN)
+    else:
+        splits, slice_len = _slices(math.ceil(K / WGMMA_BK), n, WGMMA_BK)
+        bm, bn = wgmma_tile(trans)
+        tiles = math.ceil(M / bm) * math.ceil(N / bn)
+    return splits, slice_len, tiles if splits > 1 else 0
+
+
+def block_resources(kind: str, M: int, K: int, N: int, trans: int = 0,
+                    splits: int = 1) -> dict:
+    """What one block of a launch of ``kind`` cutting K into ``splits``
+    slices holds: shared memory in bytes (``static`` where it is a
+    ``__shared__`` array), threads, and the launch's blocks."""
+    if kind == "decode":
+        _, slice_len = _slices(max(1, math.ceil(K / DECODE_BK)), splits, DECODE_BK)
+        smem = (DECODE_STAGES * DECODE_BK * (DECODE_BN + 8) * 2
+                + 8 * (slice_len + 8) * 2)
+        return {"smem": smem, "threads": DECODE_THREADS, "static": False,
+                "blocks": math.ceil(N / DECODE_BN) * splits}
+    if kind == "wgmma":
+        bm, bn = wgmma_tile(trans)
+        smem, threads = ((WGMMA_SMEM, WGMMA_THREADS) if trans == 0
+                         else (BWD_SMEM, BWD_THREADS))
+        return {"smem": smem, "threads": threads, "static": False,
+                "blocks": math.ceil(M / bm) * math.ceil(N / bn) * splits}
+    bm, bn, bk = SIMT_TILES[M <= 8]
+    return {"smem": bk * (bm + 1 + bn) * 4, "threads": SIMT_THREADS, "static": True,
+            "blocks": math.ceil(M / bm) * math.ceil(N / bn)}
 
 
 def _fn():
@@ -294,7 +398,7 @@ class Matmul(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, b):
-        c = (ref.matmul(a, b) if a.device.type == "cpu"
+        c = (ref.matmul(a, b) if plain(a)
              else _launch(a, b, 0, _dims(a, b)))
         ctx.save_for_backward(a, b)
         return c
@@ -302,7 +406,7 @@ class Matmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dc):
         a, b = ctx.saved_tensors
-        cpu = a.device.type == "cpu"
+        cpu = plain(a)
         if not cpu:
             dc = dc.contiguous()
         da = db = None

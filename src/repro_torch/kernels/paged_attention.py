@@ -25,7 +25,8 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build
+from . import _build, hopper
+from .autotune import tuned_config
 from .launches import LAUNCHES, refuse_autograd
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -39,11 +40,11 @@ TOKENS_PER_ROUND = 64
 ROWS_PER_BLOCK = 4
 MAX_G = 32
 HEAD_DIMS = (16, 32, 64, 96, 128)
-SMEM_BYTES = 232448
+SMEM_BYTES = hopper.BLOCK_SMEM_BYTES
 #: the split plan: the H100's SMs; one slice when the (sequence, kv head,
 #: row group) blocks reach FILL_BLOCKS (4 an SM); else about TARGET_BLOCKS
 #: (8 an SM) over all slices, at most MAX_SPLITS a sequence
-SMS = 132
+SMS = hopper.SMS
 FILL_BLOCKS = 4 * SMS
 TARGET_BLOCKS = 8 * SMS
 MAX_SPLITS = 16
@@ -76,6 +77,49 @@ def plan(B: int, Hkv: int, G: int, max_tokens: int) -> PagedPlan:
     per = -(-tiles // want)             # tiles a slice
     return PagedPlan(-(-tiles // per), per * TOKENS_PER_ROUND, 2 if per > 1 else 1,
                      groups)
+
+
+def plan_with_splits(B: int, Hkv: int, G: int, max_tokens: int, splits: int) -> PagedPlan:
+    """The plan that cuts each sequence into ``splits`` slices of whole
+    64-token tiles (as few as make the same slices; at least one tile a
+    slice)."""
+    groups = -(-G // ROWS_PER_BLOCK)
+    tiles = max(1, -(-max_tokens // TOKENS_PER_ROUND))
+    per = -(-tiles // max(1, min(splits, tiles)))
+    return PagedPlan(-(-tiles // per), per * TOKENS_PER_ROUND, 2 if per > 1 else 1,
+                     groups)
+
+
+def legal_plan(B: int, Hkv: int, G: int, T: int, bt: int, splits: int) -> bool:
+    """True where a pool of ``bt``-token blocks (a power of two that divides
+    the kernel's 64-token round and ``T``) and ``splits`` slices (as
+    :func:`plan_with_splits` makes them, at most ``MAX_SPLITS``) are a plan
+    the kernel takes for ``T`` tokens a sequence."""
+    return (bt >= 1 and bt & (bt - 1) == 0 and TOKENS_PER_ROUND % bt == 0
+            and T % bt == 0 and 1 <= splits <= MAX_SPLITS
+            and splits == plan_with_splits(B, Hkv, G, T, splits).splits)
+
+
+def block_resources(B: int, Hkv: int, G: int, T: int, D: int, itemsize: int,
+                    splits: int) -> dict:
+    """What one block of a launch of ``splits`` slices holds: dynamic shared
+    memory (:func:`smem_bytes`), threads (a warp a query row), and the
+    launch's blocks."""
+    p = plan_with_splits(B, Hkv, G, T, splits)
+    return {"smem": smem_bytes(D, itemsize, p.stages), "threads": 32 * ROWS_PER_BLOCK,
+            "static": False, "blocks": B * Hkv * p.groups * p.splits}
+
+
+def tuned_plan(B: int, Hkv: int, G: int, D: int, bt: int, nblk: int,
+               dtype: torch.dtype) -> PagedPlan:
+    """The split count of the ambient autotune table for this signature
+    (``(B, Hq, Hkv, nblk * bt, D)``) where its block is the pool's,
+    else :func:`plan`'s (always outside ``autotune.tuned()``)."""
+    T = nblk * bt
+    cfg = tuned_config("paged_attention", (B, Hkv * G, Hkv, T, D), dtype)
+    if cfg is not None and cfg["bt"] == bt:
+        return plan_with_splits(B, Hkv, G, T, cfg["splits"])
+    return plan(B, Hkv, G, T)
 
 
 def smem_bytes(D: int, itemsize: int, stages: int) -> int:
@@ -174,7 +218,7 @@ def paged_attention(q: torch.Tensor, kpool: torch.Tensor, vpool: torch.Tensor,
     out = torch.empty((B, Hkv, G, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:                # nothing to write: no launch
         return out
-    p = plan(B, Hkv, G, tables.shape[1] * bt)
+    p = tuned_plan(B, Hkv, G, D, bt, tables.shape[1], q.dtype)
     if idx == torch._C._cuda_getDevice():
         err = _launch(q, kpool, vpool, tables, lens, out, ps, p, idx)
     else:

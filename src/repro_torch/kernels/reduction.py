@@ -30,8 +30,9 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build, ref
-from .launches import LAUNCHES, refuse_autograd
+from . import _build, hopper, ref
+from .autotune import tuned_config
+from .launches import LAUNCHES, plain, refuse_autograd
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
@@ -43,11 +44,11 @@ _ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
 #: sizes only, so its order of additions, and its result, do not vary
 DOT_THREADS = 256
 DOT_BLOCKS_PER_SM = 8
-DOT_MAX_BLOCKS = 132 * DOT_BLOCKS_PER_SM
+DOT_MAX_BLOCKS = hopper.SMS * DOT_BLOCKS_PER_SM
 #: softmax_rows' limits (csrc SOFTMAX_*): 16-byte vectors a thread holds in
 #: the "regs" branch, and threads a block
 SOFTMAX_REG_VECS = 4
-SOFTMAX_MAX_THREADS = 1024
+SOFTMAX_MAX_THREADS = hopper.MAX_THREADS
 #: the most segments a dot launch takes (blockIdx.y), which also bounds its
 #: block partials (nseg * blocks a segment <= max(nseg, DOT_MAX_BLOCKS))
 DOT_MAX_SEGS = 65535
@@ -108,15 +109,39 @@ def dot_blocks(seg_len: int, nseg: int = 1) -> int:
     return min(want, max(1, DOT_MAX_BLOCKS // nseg))
 
 
-def dot_chain(seg_len: int, nseg: int = 1) -> int:
+def dot_seg_len(n: int) -> int:
+    """dotprod's one segment for n elements: n rounded up to 8."""
+    return max(8, -(-n // 8) * 8)
+
+
+def tuned_dot_blocks(n: int, dtype: torch.dtype) -> int:
+    """dotprod's blocks for n elements: the ambient autotune table's where
+    it has them (never outside ``autotune.tuned()``), else
+    :func:`dot_blocks`'."""
+    cfg = tuned_config("reduction", (n,), dtype)
+    return dot_blocks(dot_seg_len(n)) if cfg is None else cfg["blocks"]
+
+
+def legal_dot_blocks(bps: int) -> bool:
+    """True where one dotprod segment may run on ``bps`` blocks."""
+    return 1 <= bps <= DOT_MAX_BLOCKS
+
+
+def dot_block_resources(bps: int) -> dict:
+    """What one block of a one-segment dotprod on ``bps`` blocks holds."""
+    return {"smem": 0, "threads": DOT_THREADS, "static": False, "blocks": bps}
+
+
+def dot_chain(seg_len: int, nseg: int = 1, bps: int | None = None) -> int:
     """The longest chain of f32 additions behind one segment's sum (a bound
     for Higham's ``|err| <= chain * 2**-24 * sum|a_i b_i|``): a thread's
     elements in order (whole 16-byte vectors of up to 8 values, plus one of
     the ragged tail) and ten levels of the block tree; where the segment
     has more than one block, the last block's share of the block partials
     in order and ten levels again.  A one-block segment writes its block's
-    sum."""
-    bps = dot_blocks(seg_len, nseg)
+    sum.  ``bps``: the blocks a segment where not :func:`dot_blocks`' (a
+    tuned plan)."""
+    bps = dot_blocks(seg_len, nseg) if bps is None else bps
     chain = math.ceil(seg_len / (bps * DOT_THREADS * 8)) * 8 + 1 + 10
     return chain if bps == 1 else chain + math.ceil(bps / DOT_THREADS) + 10
 
@@ -139,18 +164,19 @@ def _scalar_out(idx: int) -> torch.Tensor:
     return torch.empty_like(like)
 
 
-def _launch_dot(a, b, seg_len: int, nseg: int, out, idx: int) -> int:
+def _launch_dot(a, b, seg_len: int, nseg: int, bps: int, out, idx: int) -> int:
     stream = torch._C._cuda_getCurrentRawStream(idx)
     return _fn("repro_dot")(a.data_ptr(), b.data_ptr(), a.numel(), seg_len,
-                            nseg, dot_blocks(seg_len, nseg), _dot_work(idx, stream),
+                            nseg, bps, _dot_work(idx, stream),
                             out.data_ptr(), _DTYPES[a.dtype], stream)
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor, seg_len: int, nseg: int,
-         scalar: bool = False) -> torch.Tensor:
+         scalar: bool = False, bps: int | None = None) -> torch.Tensor:
     """(nseg,) f32 partials (a 0-d one where ``scalar``), segment s over
     a[s*seg_len : (s+1)*seg_len] (elements past the end count as zeros),
-    from one launch on the current stream."""
+    from one launch on the current stream of ``bps`` blocks a segment
+    (:func:`dot_blocks`' where None)."""
     refuse_autograd("dotprod", a, b)
     _check("dotprod", a, b)
     if a.ndim != 1 or a.shape != b.shape:
@@ -162,21 +188,25 @@ def _dot(a: torch.Tensor, b: torch.Tensor, seg_len: int, nseg: int,
     idx = a.get_device()
     out = _scalar_out(idx) if scalar else torch.empty(nseg, dtype=torch.float32,
                                                        device=idx)
+    bps = dot_blocks(seg_len, nseg) if bps is None else bps
     # the device guard only where a is not on the current device, and the
     # raw handle of the current stream, without a Stream object
     if idx == torch._C._cuda_getDevice():
-        err = _launch_dot(a, b, seg_len, nseg, out, idx)
+        err = _launch_dot(a, b, seg_len, nseg, bps, out, idx)
     else:
         with torch.cuda.device(idx):
-            err = _launch_dot(a, b, seg_len, nseg, out, idx)
+            err = _launch_dot(a, b, seg_len, nseg, bps, out, idx)
     _raise_on(err, "dotprod")
     LAUNCHES["dotprod"] += 1
     return out
 
 
 def dotprod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """sum(a * b) in f32, a 0-d f32 tensor the kernel writes; one launch."""
-    return _dot(a, b, max(8, -(-a.numel() // 8) * 8), 1, scalar=True)
+    """sum(a * b) in f32, a 0-d f32 tensor the kernel writes; one launch of
+    :func:`tuned_dot_blocks`' blocks."""
+    n = a.numel()
+    return _dot(a, b, dot_seg_len(n), 1, scalar=True,
+                bps=tuned_dot_blocks(n, a.dtype))
 
 
 def expv(x: torch.Tensor) -> torch.Tensor:
@@ -312,7 +342,7 @@ def dotprod_hier(a: torch.Tensor, b: torch.Tensor, *, C: int, L: int,
     partials (on the card one launch, on the CPU the plain version),
     combined on their device intra-cluster then inter-cluster (or over the
     flattened ring with ``hierarchy="flat"``)."""
-    if a.device.type == "cpu":
+    if plain(a):
         parts = ref.lane_dots(a, b, lane_len(a.numel(), C, L, block), C * L)
     else:
         parts = lane_partials(a, b, C, L, block)

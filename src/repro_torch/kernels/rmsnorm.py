@@ -30,7 +30,8 @@ import ctypes
 import torch
 
 from . import _build, ref
-from .launches import LAUNCHES, wants_grad
+from .autotune import tuned_config
+from .launches import LAUNCHES, plain, wants_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FN = []
@@ -78,6 +79,28 @@ def bwd_path(D: int, dtype: torch.dtype, aligned: bool = True) -> str:
 def bwd_blocks(R: int) -> int:
     """The backward's blocks for R rows: one a row up to ``BWD_BLOCKS``."""
     return max(1, min(R, BWD_BLOCKS))
+
+
+def legal_bwd_blocks(R: int, P: int) -> bool:
+    """True where the backward may run on ``P`` blocks: 1 to one a row."""
+    return 1 <= P <= max(1, R)
+
+
+def bwd_block_resources(R: int, D: int, itemsize: int, P: int) -> dict:
+    """What one block of the backward on ``P`` blocks holds: no shared
+    memory, the vector path's threads (csrc ``bwd_vec_threads``: whole warps
+    of ``BWD_VECS`` 16-byte vectors each, at most ``BWD_VEC_MAX_THREADS``)."""
+    nvec = -(-D // (16 // itemsize))
+    threads = min(BWD_VEC_MAX_THREADS, max(32, -(-nvec // (BWD_VECS * 32)) * 32))
+    return {"smem": 0, "threads": threads, "static": False, "blocks": P}
+
+
+def tuned_bwd_blocks(R: int, D: int, dtype: torch.dtype) -> int:
+    """The backward's blocks: the ambient autotune table's for (R, D) where
+    it has them (never outside ``autotune.tuned()``), else
+    :func:`bwd_blocks`'."""
+    cfg = tuned_config("rmsnorm", (R, D), dtype)
+    return bwd_blocks(R) if cfg is None else cfg["bwd_blocks"]
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
@@ -142,7 +165,7 @@ def backward(dy: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
     if R == 0 or D == 0:                # nothing to write: no launch
         return dx, torch.zeros(D, dtype=torch.float32, device=x.device)
     dgamma = torch.empty(D, dtype=torch.float32, device=x.device)
-    P = bwd_blocks(R)
+    P = tuned_bwd_blocks(R, D, x.dtype)
     part = torch.empty((P, D), dtype=torch.float32, device=x.device)
     idx = x.get_device()
     aligned = not (x.data_ptr() | dy.data_ptr() | gamma.data_ptr()) % 16
@@ -170,7 +193,7 @@ class RMSNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, eps):
-        y = ref.rmsnorm(x, gamma, eps) if x.device.type == "cpu" \
+        y = ref.rmsnorm(x, gamma, eps) if plain(x) \
             else _forward(x, gamma, eps)
         ctx.save_for_backward(x, gamma)
         ctx.eps = eps
@@ -179,7 +202,7 @@ class RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, gamma = ctx.saved_tensors
-        if x.device.type == "cpu":
+        if plain(x):
             dx, dgamma = ref.rmsnorm_bwd(dy, x, gamma, ctx.eps)
         else:
             dx, dgamma = backward(dy.contiguous(), x, gamma, ctx.eps)

@@ -21,14 +21,17 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build
+from . import _build, hopper
 from .launches import LAUNCHES, refuse_autograd
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+#: jacobi2d's output tile and threads (csrc ``BH``, ``BW``, ``THREADS``;
+#: its input tile with a one-cell halo is a ``__shared__`` f32 array)
+JACOBI_TILE, JACOBI_THREADS = (16, 128), 256
 #: the kernels' limits (csrc BH, MAX_TAPS): jacobi2d's grid's second
 #: dimension counts tiles of 16 rows; a filter's sides are at most 16
-MAX_ROWS = 65535 * 16
+MAX_ROWS = hopper.MAX_GRID_YZ * JACOBI_TILE[0]
 MAX_TAPS = 16
 #: fconv2d's tile of outputs (csrc CBH x CBW: 4 warps of 8 rows, 32 lanes
 #: of 4 columns), the filters it unrolls (square, a template each), and
@@ -36,10 +39,10 @@ MAX_TAPS = 16
 CONV_TILE = (32, 128)
 CONV_FIXED = (3, 5, 7)
 CONV_BLOCKS_PER_SM = 4
-SMS = 132
+SMS = hopper.SMS
 #: an H100 SM's shared memory, and what the card keeps of it for each block
-SM_SMEM = 233472
-BLOCK_SMEM_RESERVED = 1024
+SM_SMEM = hopper.SM_SMEM_BYTES
+BLOCK_SMEM_RESERVED = hopper.BLOCK_SMEM_RESERVED
 
 #: each C function's arguments, set once on its ctypes handle (the stream
 #: last)
@@ -104,6 +107,14 @@ def jacobi2d(x: torch.Tensor) -> torch.Tensor:
     _raise_on(err, "jacobi2d")
     LAUNCHES["jacobi2d"] += 1
     return y
+
+
+def jacobi_block_resources(H: int, W: int) -> dict:
+    """What one block of jacobi2d's launch holds: its halo'd input tile in
+    static shared memory, its threads, and the launch's blocks."""
+    bh, bw = JACOBI_TILE
+    return {"smem": (bh + 2) * (bw + 2) * 4, "threads": JACOBI_THREADS, "static": True,
+            "blocks": -(-H // bh) * -(-W // bw)}
 
 
 class ConvPlan(NamedTuple):

@@ -2,8 +2,9 @@
 
 The port's counterpart of ``repro.launch.serve``.  ``--paged`` swaps the
 dense per-slot KV cache for the block-table pool (``serve.paged``):
-``--block-tokens`` sizes the blocks (0 = 16, lowered to a power-of-two
-divisor of ``--max-seq``) and ``--chunk`` enables chunked prefill.
+``--block-tokens`` sizes the blocks (0 = the autotune table's inside
+``kernels.autotune.tuned()``, else 16; lowered to a power-of-two divisor
+of ``--max-seq``) and ``--chunk`` enables chunked prefill.
 ``--pods N`` splits the request stream across N engines on the one device,
 sharing one model, behind the prefix-affinity router (``serve.router``).
 ``--arch`` takes the dense family, the MoE family (mixtral-8x7b,
@@ -14,7 +15,7 @@ cross-attention families (encdec, vlm) are refused before any weight is
 drawn: the engines take no context, as the reference's does not
 (``serve.engine.refuse_context``).
 Runs on the card unless ``--device cpu``; weights are random, drawn from
-``--seed``.
+``--seed`` (a smoke model's on the CPU, so the card serves the same one).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --paged --chunk 16
@@ -28,23 +29,28 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.kernels.autotune import block_tokens, tuned_config
 from repro_torch.models import lm
-from repro_torch.params import init_params
+from repro_torch.params import init_params, tree_map
 from repro_torch.serve import (PagedServeConfig, PagedServingEngine,
                                PrefixRouter, Request, ServeConfig,
                                ServingEngine)
 from repro_torch.serve.engine import refuse_context, resolve_device
+from repro_torch.serve.paged import max_block_tokens
 from repro_torch.testing.timing import now
 
 
-def _block_tokens(max_seq: int, default: int = 16) -> int:
-    """``default`` lowered to a power-of-two divisor of ``max_seq``, so the
-    pool tiles ``max_seq`` exactly (the JAX launcher's choice when its
-    autotune table has no entry)."""
-    bt = max(1, min(default, max_seq))
-    while max_seq % bt:
-        bt //= 2
-    return bt
+def _block_tokens(cfg, max_batch: int, max_seq: int, default: int = 16) -> int:
+    """Tokens a block of the paged pool (the twin of the reference's
+    ``ops.paged_block_tokens``): the tuned ``paged_attention`` ``bt`` of
+    this decode signature where the ambient autotune table has one (never
+    outside ``kernels.autotune.tuned()``), else ``default``; lowered to a
+    power-of-two divisor of ``max_seq`` the kernel takes, so the pool tiles
+    ``max_seq`` exactly."""
+    tuned = tuned_config("paged_attention", (max_batch, cfg.n_heads, cfg.n_kv_heads,
+                                             max_seq, cfg.head_dim), cfg.dtype) or {}
+    return block_tokens(max_seq, min(int(tuned.get("bt", default)),
+                                     max_block_tokens(cfg)))
 
 
 def _make_engine(model, device, *, paged: bool, max_batch: int,
@@ -52,7 +58,8 @@ def _make_engine(model, device, *, paged: bool, max_batch: int,
     if not paged:
         return ServingEngine(model, ServeConfig(max_batch=max_batch,
                                                 max_seq=max_seq), device=device)
-    bt = block_tokens if block_tokens > 0 else _block_tokens(max_seq)
+    bt = block_tokens if block_tokens > 0 else _block_tokens(model.cfg, max_batch,
+                                                             max_seq)
     scfg = PagedServeConfig(max_batch=max_batch, max_seq=max_seq,
                             block_tokens=bt, n_blocks=max_batch * max_seq // bt,
                             chunk=chunk)
@@ -66,8 +73,13 @@ def run(arch: str, *, smoke: bool = True, n_requests: int = 6,
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     refuse_context(cfg)
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    model = lm.Model(cfg, init_params(lm.model_defs(cfg), gen, device))
+    # a smoke model's weights are drawn on the CPU and moved, so the card
+    # and the CPU serve the same model (their generators draw different
+    # numbers); a full one is drawn where it runs
+    draw = torch.device("cpu") if smoke else device
+    params = init_params(lm.model_defs(cfg),
+                         torch.Generator(device=draw).manual_seed(seed), draw)
+    model = lm.Model(cfg, tree_map(lambda t: t.to(device), params))
     engines = [_make_engine(model, device, paged=paged, max_batch=max_batch,
                             max_seq=max_seq, block_tokens=block_tokens,
                             chunk=chunk)
@@ -112,7 +124,8 @@ def main(argv=None):
     ap.add_argument("--paged", action="store_true",
                     help="block-table KV pool instead of dense slots")
     ap.add_argument("--block-tokens", type=int, default=0,
-                    help="tokens per KV block (0 = 16, lowered to divide "
+                    help="tokens per KV block (0 = the autotune table's "
+                         "inside tuned(), else 16; lowered to divide "
                          "--max-seq)")
     ap.add_argument("--chunk", type=int, default=0,
                     help="chunked-prefill chunk size (0 = whole-prompt)")

@@ -257,6 +257,7 @@ def attn_layer_decode(p, x, cache: AttnCache, pos, cfg: ModelConfig,
     B, S1, _ = x.shape                      # S1 == 1
     W = cache.k.shape[1]
     hd = cfg.head_dim
+    host_pos = pos if isinstance(pos, int) else None
     pos = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
     per_slot = pos.ndim == 1
     if per_slot:
@@ -269,11 +270,12 @@ def attn_layer_decode(p, x, cache: AttnCache, pos, cfg: ModelConfig,
             raise NotImplementedError(
                 "per-slot decode positions are not supported with the "
                 "model-sharded (cache_seq) distributed cache path")
-        return _decode_dist_cache(p, x, cache, pos, positions, cfg, rules)
+        return _decode_dist_cache(p, x, cache, pos, positions, cfg, rules,
+                                  host_pos)
     whole_kv = _model_size(rules) > 1 and not _kv_cut(rules)
     q, k, v = _qkv(p, x, cfg, positions, rotate=True, rules=rules,
                    whole_kv=whole_kv)
-    slot = pos % W
+    slot = pos % W if host_pos is None else host_pos % W
     if per_slot:
         # each batch row at its own ring slot; dead slots carry a stale
         # position and write into their own retired rows, as in JAX
@@ -311,11 +313,14 @@ def _dist_cache(rules) -> bool:
 
 
 def _decode_dist_cache(p, x, cache: AttnCache, pos, positions,
-                       cfg: ModelConfig, rules: ShardingRules):
+                       cfg: ModelConfig, rules: ShardingRules,
+                       host_pos: int | None = None):
     """``attn_layer_decode`` over a cache whose W slots are cut over
     `model`: this rank holds slots [r W_loc, (r+1) W_loc) of every kv head.
     The cache is never gathered: only the token's q, k, v (gathered) and
-    the (m, l, o) partials of the softmax cross the ranks."""
+    the (m, l, o) partials of the softmax cross the ranks.  ``host_pos``:
+    the position where the caller gave it as an int (no read of ``pos``
+    back from its device)."""
     B, S1, _ = x.shape
     hd, Hkv, H = cfg.head_dim, cfg.n_kv_heads, cfg.n_heads
     mesh, axes = rules.mesh, _model_axes(rules)
@@ -326,7 +331,7 @@ def _decode_dist_cache(p, x, cache: AttnCache, pos, positions,
     W_loc = cache.k.shape[1]
     W = W_loc * (mesh.axis_size(axes) if axes else 1)
     base = (comm.axis_index(axes, mesh) if axes else 0) * W_loc
-    sl = int(pos) % W
+    sl = (int(pos) if host_pos is None else host_pos) % W
     if base <= sl < base + W_loc:           # this rank owns the slot
         cache.k[:, sl - base] = k[:, 0].to(cache.k.dtype)
         cache.v[:, sl - base] = v[:, 0].to(cache.v.dtype)

@@ -25,7 +25,10 @@ members make its groups.
 on the CPU; NCCL where every rank has a card of its own; gloo where ranks
 share a card, and then every CUDA tensor crosses through a host buffer
 (``transport="host"``: copied to the CPU, sent, copied back), since NCCL
-refuses two ranks of one communicator on one device.  No call switches
+refuses two ranks of one communicator on one device (the probe
+``testing/nccl_probe.py`` shows it with an all-reduce of its own).  Every
+``torch.distributed`` collective of the port is made here or in that
+probe (analysis rule L1).  No call switches
 backend, and compute stays on the card.
 
 **Gradients.**  Each collective that autograd may differentiate is an
@@ -50,7 +53,14 @@ each rank uses in its own way (its gradient is a sum over the ranks),
 
 Each rank counts its collectives' calls, the bytes it sent and the host
 seconds spent inside them (copies through the host included) in
-``Mesh.stats``.  The bytes are what the collective's bandwidth-optimal
+``Mesh.stats``.  Where ``Mesh.records`` is a list (the dry run and the
+analysis set one; it is None otherwise), each collective also appends its
+record in the roofline's shape (``roofline.analysis``): ``kind`` (the HLO
+spelling: all-reduce, all-gather, reduce-scatter, all-to-all,
+collective-permute), ``bytes`` (its result's bytes on this rank),
+``group`` (ranks in the group), ``members`` (the group's mesh positions)
+and, for a shift, ``pairs`` (every (source, target) position pair of the
+shift over the whole mesh).  The bytes are what the collective's bandwidth-optimal
 (ring) schedule sends from one rank of a group of n, not the tensor it is
 handed: an all-reduce 2(n-1)/n of the tensor, a reduce-scatter and an
 all-to-all (n-1)/n of it, an all-gather (n-1) blocks, a shift the block.
@@ -161,6 +171,8 @@ class Mesh:
         self.transport = transport
         self.device_mesh = device_mesh
         self.stats = {"calls": 0, "bytes": 0, "seconds": 0.0}
+        #: each collective's record where a list (see the module's note)
+        self.records: list | None = None
         self._groups: dict = {}
         self._members: dict = {}
         if transport is not None:
@@ -309,6 +321,22 @@ def _back(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return y.to(like.device) if y.device != like.device else y
 
 
+def _record(mesh: Mesh, kind: str, axes, result_bytes: int, shift: int | None = None):
+    """Append one collective's record to ``mesh.records`` (where a list)."""
+    if mesh.records is None:
+        return
+    axes = mesh.canon(axes)
+    members = tuple(mesh._peers(mesh.rank, axes))
+    rec = {"kind": kind, "bytes": int(result_bytes), "group": len(members),
+           "members": members}
+    if shift is not None:
+        n = len(members)
+        rec["pairs"] = tuple(
+            (peers[(peers.index(r) + shift) % n], r) for r in range(mesh.size)
+            for peers in [mesh._peers(r, axes)])
+    mesh.records.append(rec)
+
+
 class _Timed:
     """Counts a collective's call, its bytes and its host seconds."""
 
@@ -339,6 +367,7 @@ def all_reduce_raw(x: torch.Tensor, axes, mesh: Mesh,
     if g is None:
         return x.detach().clone()
     n = mesh.axis_size(axes)
+    _record(mesh, "all-reduce", axes, _nbytes(x))
     with _Timed(mesh, 2 * (n - 1) * _nbytes(x) // n):
         buf = _wire(mesh, x, fresh=True)
         dist.all_reduce(buf, op=op, group=g)
@@ -351,6 +380,7 @@ def all_gather_raw(x: torch.Tensor, axes, mesh: Mesh, dim: int) -> torch.Tensor:
     if g is None:
         return x.detach().clone()
     n = mesh.axis_size(axes)
+    _record(mesh, "all-gather", axes, n * _nbytes(x))
     with _Timed(mesh, (n - 1) * _nbytes(x)):
         buf = _wire(mesh, x)
         parts = [torch.empty_like(buf) for _ in range(n)]
@@ -369,6 +399,7 @@ def reduce_scatter_raw(x: torch.Tensor, axes, mesh: Mesh, dim: int) -> torch.Ten
     g = mesh.group(axes)
     if g is None:
         return x.detach().clone()
+    _record(mesh, "reduce-scatter", axes, _nbytes(x) // n)
     with _Timed(mesh, (n - 1) * _nbytes(x) // n):
         buf = _wire(mesh, x.detach().movedim(dim, 0).contiguous())
         out = torch.empty_like(buf[:buf.shape[0] // n])
@@ -388,6 +419,7 @@ def all_to_all_raw(x: torch.Tensor, axes, mesh: Mesh, split_axis: int,
     if x.shape[split_axis] % n:
         raise ValueError(f"split axis {split_axis} of {tuple(x.shape)} does "
                          f"not split over {n} ranks")
+    _record(mesh, "all-to-all", axes, _nbytes(x))
     with _Timed(mesh, (n - 1) * _nbytes(x) // n):
         send = _wire(mesh, torch.stack(x.detach().chunk(n, dim=split_axis)))
         recv = torch.empty_like(send)
@@ -418,6 +450,7 @@ def all_reduce_start(x: torch.Tensor, axes, mesh: Mesh) -> Pending:
     if g is None:
         return Pending(mesh, [], x.detach().clone(), x)
     n = mesh.axis_size(axes)
+    _record(mesh, "all-reduce", axes, _nbytes(x))
     with _Timed(mesh, 2 * (n - 1) * _nbytes(x) // n):
         buf = _wire(mesh, x, fresh=True)
         return Pending(mesh, [dist.all_reduce(buf, group=g, async_op=True)], buf, x)
@@ -433,6 +466,7 @@ def ppermute_start(x: torch.Tensor, axes, shift: int, mesh: Mesh) -> Pending:
         return Pending(mesh, [], x.detach().clone(), x)
     g = mesh.group(axes)
     i = mesh.index(axes)
+    _record(mesh, "collective-permute", axes, _nbytes(x), shift=shift)
     with _Timed(mesh, _nbytes(x)):
         send = _wire(mesh, x)
         recv = torch.empty_like(send)
@@ -441,6 +475,16 @@ def ppermute_start(x: torch.Tensor, axes, shift: int, mesh: Mesh) -> Pending:
                dist.P2POp(dist.irecv, recv, mesh.peer(axes, (i + shift) % n),
                           group=g)]
         return Pending(mesh, dist.batch_isend_irecv(ops), recv, x, keep=send)
+
+
+def gather_objects(obj, mesh: Mesh) -> list | None:
+    """Every rank's ``obj`` (a picklable host object), in mesh order, on
+    the mesh's first rank; None on the others.  Every rank of the mesh
+    calls it (the checkpoint writer's gather)."""
+    got = [None] * mesh.size if mesh.rank == 0 else None
+    dist.gather_object(obj, got, dst=mesh.ranks[0],
+                       group=mesh.group(mesh.axis_names))
+    return got
 
 
 def ppermute_shift(x: torch.Tensor, axes, shift: int, mesh: Mesh) -> torch.Tensor:
@@ -608,4 +652,4 @@ __all__ = ["layout", "rank_device", "World", "init_world", "current_world", "Mes
            "psum", "copy_to_group", "pmax", "all_gather", "reduce_scatter",
            "all_to_all", "split", "gather", "ppermute_start", "ppermute_shift",
            "all_reduce_raw", "all_gather_raw", "reduce_scatter_raw",
-           "all_to_all_raw", "all_reduce_start", "Pending"]
+           "all_to_all_raw", "all_reduce_start", "Pending", "gather_objects"]

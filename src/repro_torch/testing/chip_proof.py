@@ -8,9 +8,11 @@ Runs, one after another, and prints each one's exit code:
      ``OUT/smoke.err``; the lines of its Table I phases, its kernel times,
      its training phases, its MoE, Mamba2 and cross-attention phases,
      their splits by sublayer, its state-and-resilience phase, its
-     distributed and mesh phases and its last two lines echoed);
+     distributed and mesh phases, its tooling phase's summary lines and
+     its last two lines echoed);
   2. ``python -m repro_torch.launch.kern`` (the ``kern`` rows);
-  3. the gpu-marked tests, ``pytest -m gpu tests/test_torch_gpu.py``;
+  3. the gpu-marked tests, ``pytest -m gpu tests/test_torch_gpu.py
+     tests/test_torch_tooling_gpu.py``;
   4. ``chip_smoke.py`` copied alone into an empty directory, where it must
      fail: it finds no ``src/repro_torch`` beside it.  Its last line of
      errors is echoed.
@@ -48,7 +50,8 @@ def main(argv: list | None = None) -> int:
     for ln in lines[:-2]:
         if ln.startswith(("[table1]", "[sweep]", "[time]", "[build]", "[train", "[moe",
                           "[ssm]", "[xattn", "[split]", "[state]", "check_chaos",
-                          "[dist]", "[mesh]", "[done]")):
+                          "[dist]", "[mesh]", "[tooling]", "[dryrun]", "[done]",
+                          "[tune] wgmma")) or "signatures in" in ln:
             print(ln[:400])
     print("\n".join(ln[:400] for ln in lines[-2:]))
     print("\n".join((out / "smoke.err").read_text().splitlines()[-5:]))
@@ -57,7 +60,8 @@ def main(argv: list | None = None) -> int:
     print(f"kern rc={kern.returncode}")
 
     tests = _run([sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
-                  "-m", "gpu", "tests/test_torch_gpu.py"], root, 900,
+                  "-m", "gpu", "tests/test_torch_gpu.py",
+                  "tests/test_torch_tooling_gpu.py"], root, 900,
                  capture_output=True)
     print("\n".join(tests.stdout.splitlines()[-(3 if tests.returncode == 0 else 40):]))
     print(f"gpu tests rc={tests.returncode}")

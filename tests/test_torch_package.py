@@ -87,9 +87,10 @@ def test_chip_smoke_last_line_names_the_card():
 @pytest.mark.parametrize("args", [[], ["--only", "matmul-bwd"], ["--only", "phi3"],
                                   ["--only", "moe"], ["--only", "moe-train"],
                                   ["--only", "ssm"], ["--only", "xattn"],
-                                  ["--only", "state"], ["--only", "machine"]],
+                                  ["--only", "state"], ["--only", "machine"],
+                                  ["--only", "tooling"]],
                          ids=["whole", "matmul-bwd", "phi3", "moe", "moe-train", "ssm",
-                              "xattn", "state", "machine"])
+                              "xattn", "state", "machine", "tooling"])
 def test_chip_smoke_exits_without_a_card(args):
     """Without a CUDA card the script exits 2 before any phase, in either
     mode, and prints no result."""
