@@ -337,7 +337,8 @@ def _ms_bound(nbytes: float, nops: float, kind: str) -> tuple[float, str]:
 
 # the device-side name of each port kernel, as the profiler shows it (the
 # matmul and flash attention by variant: kernels.matmul.variant,
-# kernels.flash_attention.variant)
+# kernels.flash_attention.variant; the first tag a name holds wins, so the
+# stats backward's instances of the wgmma kernels, <true, D>, come first)
 # (names without spaces: the profiler's are compared with theirs taken out;
 # the backward's matmul products are matmul_bwd_kernel's two forms)
 PORT_KERNELS = {"matmul_bwd dX wgmma": "matmul_bwd_kernel<0,0>",
@@ -345,6 +346,9 @@ PORT_KERNELS = {"matmul_bwd dX wgmma": "matmul_bwd_kernel<0,0>",
                 "rmsnorm_bwd vec": "rms_bwd_vec_kernel",
                 "rmsnorm_bwd scalar": "rms_bwd_kernel",
                 "rmsnorm_bwd dgamma": "rms_dgamma_kernel",
+                "flash_attention_bwd dd stats": "flash_bwd_dd_kernel",
+                "flash_attention_bwd dq stats": "flash_bwd_dq_wgmma_kernel<true",
+                "flash_attention_bwd dkv stats": "flash_bwd_dkv_wgmma_kernel<true",
                 "flash_attention_bwd dq wgmma": "flash_bwd_dq_wgmma_kernel",
                 "flash_attention_bwd dkv wgmma": "flash_bwd_dkv_wgmma_kernel",
                 "flash_attention_bwd dq simt": "flash_bwd_dq_kernel",
@@ -1955,8 +1959,12 @@ def _xattn_checks(kc, kfa, kmm) -> tuple[dict, list]:
     twice for the same bits, one line a case: flash attention forward and
     backward, non-causal, no window, at ``kernel_checks.XATTN_FLASH_CASES``
     (Sk != S, and the encoder's S = Sk) in bf16 and f32, bf16 at the head
-    dims 64 and 128 taking wgmma forward and backward, f32 and the smoke
-    heads simt; the matmul at ``XATTN_MATMUL`` forward and at
+    dims 64 and 128 taking wgmma forward and the rule's tensor-core
+    backward (stats over 6,404 keys, with the forward's statistics held to
+    the plain L and f32 output; wgmma below ``STATS_MIN_SK``), f32 and the
+    smoke heads simt; the stats backward forced at
+    ``kernel_checks.STATS_FLASH_CASES`` (causal, windowed, every head dim,
+    the training shapes); the matmul at ``XATTN_MATMUL`` forward and at
     ``XATTN_MATMUL_BWD`` dX and dW; rmsnorm at seamless's width.  Returns
     the largest errors and the failed cases."""
     import torch
@@ -1977,11 +1985,22 @@ def _xattn_checks(kc, kfa, kmm) -> tuple[dict, list]:
             r = kc.check_flash_cross(B, S, Sk, Hq, Hkv, D, dt)
             want = ("wgmma" if dt == torch.bfloat16 and D in kfa.WGMMA_HEAD_DIMS
                     else "simt")
+            # (a tree before the stats backward, where this file is copied
+            # for an A/B, has no STATS_MIN_SK)
+            min_sk = getattr(kfa, "STATS_MIN_SK", None)
+            want_bwd = "stats" if want == "wgmma" and min_sk and Sk >= min_sk else want
             note(("flash_attention cross", name, dt), r,
                  f"flash_attention cross fwd+bwd {name}: B={B} Hq={Hq} Hkv={Hkv} D={D} "
                  f"S={S} Sk={Sk} full window=None {str(dt)[6:]:8s} fwd {r['variant']} "
                  f"bwd {r['bwd_variant']}",
-                 bad=(r["variant"], r["bwd_variant"]) != (want, want))
+                 bad=(r["variant"], r["bwd_variant"]) != (want, want_bwd)
+                 or ("stats" in r["parts"]) != (want_bwd == "stats"))
+    for name, B, S, Sk, Hq, Hkv, D, causal, window in getattr(kc, "STATS_FLASH_CASES", ()):
+        r = kc.check_flash_stats_bwd(B, S, Sk, Hq, Hkv, D, causal, window)
+        note(("flash_attention stats", name), r,
+             f"flash_attention_bwd stats forced fwd+stats+bwd {name}: B={B} Hq={Hq} "
+             f"Hkv={Hkv} D={D} S={S} Sk={Sk} causal={causal} window={window} bfloat16",
+             bad="stats" not in r["parts"])
     for proj, M, K, N in kc.XATTN_MATMUL:
         for dt in dts:
             r = kc.check_matmul(M, K, N, dt)
@@ -2034,7 +2053,11 @@ def _xattn_times(kc, kfa, ref, time_ms) -> dict:
             shape=f"B={B},Hq={Hq},Hkv={Hkv},S={S},Sk={Sk},D={D},full,bf16")
         ql, kl, vl = (t.detach().requires_grad_() for t in (q, ke, ve))
         ol = F.scaled_dot_product_attention(ql, kl, vl)
-        bk = lambda: kfa.backward(q, k, v, do, causal=False)
+        # a stats backward reads the statistics autograd's forward keeps (a
+        # tree before them, where this file is copied for an A/B, has none)
+        st = kfa._forward(q, k, v, False, None, stats=True)[1] if hasattr(kfa, "Stats") else None
+        extra = {"stats": st} if st is not None else {}
+        bk = lambda: kfa.backward(q, k, v, do, causal=False, **extra)
         bl = lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True)
         bound, by = _ms_bound(3 * io_q + 4 * io_k, 10.0 * D * pairs, "bf16")
         bwd = dict(ms=time_ms(bk, 10), plain_ms=time_ms(
@@ -2051,7 +2074,7 @@ def _xattn_times(kc, kfa, ref, time_ms) -> dict:
                   f"{r['device_ms']:.4f} ms, {lib} {r['library_device_ms']:.4f} ms, "
                   f"{r['device_ms'] / r['library_device_ms']:.2f}x the library, "
                   f"{r['device_ms'] / r['bound_ms']:.1f}x bound")
-        del q, k, v, do, ke, ve, ql, kl, vl, ol
+        del q, k, v, do, ke, ve, ql, kl, vl, ol, st
     return rows
 
 

@@ -318,9 +318,13 @@ class CheckpointManager:
         self._worker: threading.Thread | None = None
         self._err: Exception | None = None
 
-    def wait(self):
+    def wait(self, timeout: float | None = None):
+        """Until the save in flight is written (and raise its error);
+        ``timeout`` seconds at most, then ``TimeoutError``."""
         if self._worker is not None:
-            self._worker.join()
+            self._worker.join(timeout)
+            if self._worker.is_alive():
+                raise TimeoutError(f"the checkpoint writer is still writing after {timeout} s")
             self._worker = None
         if self._err:
             raise self._err

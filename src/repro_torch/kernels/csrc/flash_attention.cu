@@ -60,7 +60,21 @@
 //       gave; with two blocks an SM (from S = 512), one block's softmax runs
 //       beside the other's products;
 //     - the rows are scaled by 1 / (their f32 sum) once, at the store,
-//       through out's strides.
+//       through out's strides; under autograd, where the backward is its
+//       stats variant (flash_attention_bwd.cu), the store also writes each
+//       row's L2 = m sl2 + log2 l and the f32 output (lse, o32; null on the
+//       serving path, which writes nothing more).
+//   The cross-attention shape (4, 32/8 heads, 1,024 rows, 6,404 keys, 128;
+//   testing/flash_probe.py --cross) spends ~1,200 of a key tile's ~2,800
+//   cycles in the softmax and split, ~950 in the products and ~700 before
+//   them, which is not the loads (a build without them, -DFLASH_NO_KV_LOADS,
+//   takes 1.31 ms a call against 1.34); two blocks an SM overlap one's
+//   softmax with the other's products.  A warp-specialised redesign (two consumer warpgroups of 64
+//   rows sharing a 6-stage K/V ring, ping-pong on named barriers,
+//   setmaxnreg, blocks in kv-head order) was right on the card but slower
+//   at every shape (1.34-1.60 ms at that shape against 1.24-1.26): the
+//   softmax, not the tensor cores or the bytes, bounds it, and one
+//   warpgroup's softmax at a time hides less latency than two blocks do.
 //   ptxas (-Xptxas -v, printed by chip_smoke.py phase 2) reports no spills
 //   and no wgmma serialisation: 159 registers at D = 128, 82,984 bytes of
 //   shared memory a block.  D = 96 (phi3-mini) runs D = 128's products on
@@ -323,12 +337,17 @@ __device__ long long flash_cycles[1 << 20];
 #define STAMP(slot)
 #endif
 
-template <int D>
+#define POS_INF __int_as_float(0x7f800000)
+
+// STATS: the instance autograd's forward takes for a stats backward, which
+// also writes lse and o32; the serving path's instance has no such code
+template <int D, bool STATS>
 __global__ void __launch_bounds__(fw::THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
-                   long long o_sb, long long o_sh, long long o_ss, int Hq, int Hkv, int S,
-                   int Sk, int causal, int window, float sl2, int qpos, int kpos, int vpos) {
+                   long long o_sb, long long o_sh, long long o_ss, float* __restrict__ lse,
+                   float* __restrict__ o32, int Sp, int Hq, int Hkv, int S, int Sk, int causal,
+                   int window, float sl2, int qpos, int kpos, int vpos) {
     // the names of fw, not the simt kernel's BQ and BK
     constexpr int BQ = fw::BQ, BK = fw::BK, STAGES = fw::STAGES, BOX = fw::BOX;
     using L = fw::Smem<D>;
@@ -371,6 +390,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
             for (int j = 0; j < tiles; ++j) {
                 const int s = j % STAGES, k0 = k_lo + j * BK;
                 if (j >= STAGES) mbar_wait(&empty[s], ((j / STAGES) - 1) & 1);
+#ifdef FLASH_NO_KV_LOADS
+                // testing/flash_probe.py --cross: the stages' first tiles
+                // again, no load (wrong results; the time without the loads)
+                if (j >= STAGES) {
+                    mbar_arrive(&full[s]);
+                    continue;
+                }
+#endif
                 unsigned char* st = ring + s * L::STAGE;
                 mbar_expect_tx(&full[s], L::STAGE);   // zero-filled bytes count too
                 for (int x = 0; x < L::BOXES; ++x) {
@@ -445,7 +472,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     // o[4i + e]: row r0 + 8 (e >> 1), column 8 i + 2 tig + (e & 1); the rows'
     // sums from their 4 threads; a row with no visible key writes zeros.
     // Only the D columns of a row are stored: in the model's (B, S, H, D)
-    // layout the next ones are the next head's
+    // layout the next ones are the next head's.  STATS (autograd's forward
+    // for the stats backward) also writes each row's L2 = m sl2 + log2 l
+    // (+inf past S or with no visible key) in rows padded to Sp, and the f32
+    // output (B, Hq, S, D)
     float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -454,10 +484,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
         inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
     }
     bf16* ob = out + b * o_sb + h * o_sh;
+    const long long row0 = static_cast<long long>(bh) * Sp;    // bh = b Hq + h
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         const int qi = r0 + 8 * r;
+        if (STATS && tig == 0 && qi < Sp)
+            lse[row0 + qi] = l[r] > 0.f && qi < S ? m[r] * sl2 + log2f(l[r]) : POS_INF;
         if (qi >= S) continue;
+        float* of = STATS ? o32 + (static_cast<long long>(bh) * S + qi) * D : nullptr;
 #pragma unroll
         for (int i = 0; i < D / 8; ++i) {
             // o is never read where no tile ran (l == 0)
@@ -465,6 +499,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
             const float x1 = l[r] > 0.f ? o[4 * i + 2 * r + 1] * inv[r] : 0.f;
             *reinterpret_cast<__nv_bfloat162*>(ob + qi * o_ss + 8 * i + 2 * tig) =
                 __floats2bfloat162_rn(x0, x1);
+            if (STATS)
+                *reinterpret_cast<float2*>(of + 8 * i + 2 * tig) = make_float2(x0, x1);
         }
     }
     STAMP(31);
@@ -475,33 +511,46 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 // ---------------------------------------------------------------------------
 
 template <int D>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
-                 int S, int Sk, int causal, int window, const long long* st, cudaStream_t s) {
-    static bool done[64] = {};
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, float* o32,
+                 int B, int Hq, int Hkv, int S, int Sk, int causal, int window,
+                 const long long* st, cudaStream_t s) {
+    static bool done[2][64] = {};
     alignas(64) CUtensorMap tq, tk, tv;
     const int pq = encode_bhsd(&tq, q, B, Hq, S, D, st[0], st[1], st[2], fw::BQ);
     const int pk = encode_bhsd(&tk, k, B, Hkv, Sk, D, st[3], st[4], st[5], fw::BK);
     const int pv = encode_bhsd(&tv, v, B, Hkv, Sk, D, st[6], st[7], st[8], fw::BK);
     if (pq < 0 || pk < 0 || pv < 0) return static_cast<int>(cudaErrorInvalidValue);
-    if (!allow_smem(reinterpret_cast<const void*>(flash_wgmma_kernel<D>), fw::Smem<D>::BYTES,
-                    done))
+    const bool stats = lse != nullptr;
+    const void* kernel = stats ? reinterpret_cast<const void*>(flash_wgmma_kernel<D, true>)
+                               : reinterpret_cast<const void*>(flash_wgmma_kernel<D, false>);
+    if (!allow_smem(kernel, fw::Smem<D>::BYTES, done[stats]))
         return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid(B * Hq, (S + fw::BQ - 1) / fw::BQ);
+    const int Sp = (S + fw::BQ - 1) / fw::BQ * fw::BQ;
     // the scale of the real D (96, not the 128 columns its tiles hold)
-    flash_wgmma_kernel<D><<<grid, fw::THREADS, fw::Smem<D>::BYTES, s>>>(
-        tq, tk, tv, static_cast<bf16*>(o), st[9], st[10], st[11], Hq, Hkv, S, Sk, causal,
-        window, fw::LOG2E / sqrtf(static_cast<float>(D)), pq, pk, pv);
+    const float sl2 = fw::LOG2E / sqrtf(static_cast<float>(D));
+    if (stats)
+        flash_wgmma_kernel<D, true><<<grid, fw::THREADS, fw::Smem<D>::BYTES, s>>>(
+            tq, tk, tv, static_cast<bf16*>(o), st[9], st[10], st[11], lse, o32, Sp, Hq, Hkv,
+            S, Sk, causal, window, sl2, pq, pk, pv);
+    else
+        flash_wgmma_kernel<D, false><<<grid, fw::THREADS, fw::Smem<D>::BYTES, s>>>(
+            tq, tk, tv, static_cast<bf16*>(o), st[9], st[10], st[11], nullptr, nullptr, Sp,
+            Hq, Hkv, S, Sk, causal, window, sl2, pq, pk, pv);
     return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
-                   int S, int Sk, int D, int causal, int window, const long long* st,
-                   cudaStream_t s) {
+int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, float* o32,
+                   int B, int Hq, int Hkv, int S, int Sk, int D, int causal, int window,
+                   const long long* st, cudaStream_t s) {
     if (Sk <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
     switch (D) {
-        case 64: return launch_wgmma<64>(q, k, v, o, B, Hq, Hkv, S, Sk, causal, window, st, s);
-        case 96: return launch_wgmma<96>(q, k, v, o, B, Hq, Hkv, S, Sk, causal, window, st, s);
-        case 128: return launch_wgmma<128>(q, k, v, o, B, Hq, Hkv, S, Sk, causal, window, st, s);
+        case 64: return launch_wgmma<64>(q, k, v, o, lse, o32, B, Hq, Hkv, S, Sk, causal,
+                                         window, st, s);
+        case 96: return launch_wgmma<96>(q, k, v, o, lse, o32, B, Hq, Hkv, S, Sk, causal,
+                                         window, st, s);
+        case 128: return launch_wgmma<128>(q, k, v, o, lse, o32, B, Hq, Hkv, S, Sk, causal,
+                                           window, st, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -509,22 +558,29 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, int B, 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  variant: 0 = simt (D 16, 32, 64, 96
-// or 128), 1 = wgmma (bf16, D 64, 96 or 128, S and Sk > 0).  `strides` holds 12
-// element strides: (batch, head, seq) of q, k, v and out, in that order; the
-// last dim of each is contiguous and every pointer and stride is 16-byte
-// aligned (the caller checks).  window <= 0 means no window.  The launch goes
-// on `stream` and does not synchronise.  Returns cudaGetLastError() after the
+// or 128), 1 = wgmma (bf16, D 64, 96 or 128, S and Sk > 0).  `strides` holds
+// 12 element strides: (batch, head, seq) of q, k, v and out, in that order;
+// the last dim of each is contiguous and every pointer and stride is
+// 16-byte aligned (the caller checks).  window <= 0 means no window.  lse
+// and o32 (wgmma only; both null on the serving path) take each row's L2
+// (f32, B * Hq * Sp with Sp = S rounded up to 64) and the f32 output (B,
+// Hq, S, D, contiguous) for the stats backward.  The launch goes on
+// `stream` and does not synchronise.  Returns cudaGetLastError() after the
 // launch (0 = success), or cudaErrorInvalidValue for arguments the variant
 // does not take.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
                                      int B, int Hq, int Hkv, int S, int Sk, int D,
                                      int causal, int window, const long long* strides,
-                                     int dtype, int variant, void* stream) {
+                                     int dtype, int variant, void* lse, void* o32,
+                                     void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if ((lse == nullptr) != (o32 == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
     if (variant == 1) {
         if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-        return dispatch_wgmma(q, k, v, out, B, Hq, Hkv, S, Sk, D, causal, window, strides, s);
+        return dispatch_wgmma(q, k, v, out, static_cast<float*>(lse), static_cast<float*>(o32),
+                              B, Hq, Hkv, S, Sk, D, causal, window, strides, s);
     }
+    if (lse != nullptr) return static_cast<int>(cudaErrorInvalidValue);
     if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
     if (dtype == 0)
         return dispatch<float>(q, k, v, out, B, Hq, Hkv, S, Sk, D, causal, window, strides, s);

@@ -17,16 +17,25 @@
 // sqrt(D), dk = dS^T q / sqrt(D); dk and dv of a kv head summed over its G
 // query heads.
 //
-// Two kernels each for two variants; kernels/flash_attention.py::bwd_variant
-// picks one from (S, Sk, D, dtype), by the forward's rule.  Both keep the
-// same two-kernel split and order: the dq kernel first, writing each row's
-// L (log-sum-exp) and Dd = rowsum(P dP) to two f32 workspaces, then the dkv
-// kernel, reading them.  The forward keeps m and l in registers, so the dq
-// kernel's first pass recomputes them, with rowsum(P dP) online beside them:
-// one more pass than FlashAttention-2 (which saves L in the forward and
-// takes Dd = rowsum(do o) from the bf16 output), but no change to the
-// serving forward and no rounded o in Dd.  No atomics: every sum runs in a
-// fixed order, so the bits do not vary between runs.
+// Three variants; kernels/flash_attention.py::bwd_variant picks one from
+// (S, Sk, D, dtype).  All keep the same split and order: the dq kernel
+// first, then the dkv kernel, which reads each row's L (log-sum-exp) and
+// Dd = rowsum(P dP) from two f32 workspaces.  simt and wgmma (the forward's
+// rule) write them in a first pass of their dq kernel, recomputing m and l
+// with rowsum(P dP) online beside them, so the forward keeps nothing.
+// stats (bf16, D 64, 96 or 128, Sk >= STATS_MIN_SK: cross-attention over
+// 6,404 image tokens) reads L2 as the wgmma forward wrote it under autograd
+// and takes Dd = rowsum(dO o) from that forward's f32 output in a prologue
+// kernel of the same call (flash_bwd_dd_kernel): FlashAttention-2's way,
+// but from the f32 output, since Dd from the bf16 one moves dq, dk and dv
+// 14-39x past the check's limit (tests/test_torch_flash_bwd.py).  Its dq
+// kernel walks K/V once (4 products a tile pair, not 6: 10 a pair in all,
+// not 12), and both grids run in kv-head order, a kv head's blocks
+// consecutive, so the K/V (dq) or Q/dO (dkv) they stream stays in L2.  Two
+// consumer warpgroups a block (384 threads with setmaxnreg, or 288) spilled
+// both grids: ptxas allocates for the launch bound, 168 registers a thread
+// at either size, against the 191-255 these consumers hold.  No atomics:
+// every sum runs in a fixed order, so the bits do not vary between runs.
 //
 // * wgmma (bf16, D = 64, 96 or 128; the training path).  What bounds it on an
 //   H100: at the training shape (B = 4, 32 q heads over 8 kv heads of 128,
@@ -612,13 +621,33 @@ __device__ __forceinline__ void store_rows(bf16* out, long long rs,
     }
 }
 
+// Cycle stamps of the stats grids' consumers (thread 0 of each block, 32
+// slots a block: the dq grid's from 0, the dkv grid's from 1 << 20), read
+// by repro_flash_cycles; compiled only with -DFLASH_CYCLES
+// (testing/flash_probe.py --cross), so the library the port loads has none
+#ifdef FLASH_CYCLES
+__device__ long long flash_cycles[1 << 21];
+#define BSTAMP(grid, slot)                                                                    \
+    if (STATS && threadIdx.x == 0)                                                           \
+        flash_cycles[(grid) * (1 << 20) +                                                    \
+                     (static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x) * 32 +    \
+                     (slot)] = clock64()
+#else
+#define BSTAMP(grid, slot)
+#endif
+
 // pos: where each tensor map keeps its h, s and b dims (encode_bhsd), of q,
 // k, v and do in turn
 struct MapPos {
     int q, k, v, o;
 };
 
-template <int D>
+// STATS (the stats backward): L2 and Dd come in through lse and dd (the
+// wgmma forward's L2, written under autograd; Dd from flash_bwd_dd_kernel), so the K/V tiles are walked
+// once (4 products a tile pair, not 6), and the blocks run in kv-head order
+// (the forward's ws_block_order at 64-row tiles: a kv head's blocks
+// consecutive, so the K/V set they stream stays in L2)
+template <bool STATS, int D>
 __global__ void __launch_bounds__(bw::THREADS, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -633,8 +662,19 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     extern __shared__ unsigned char raw[];
     const Ring sm = carve<D>(raw);
 
-    const int bh = blockIdx.x, b = bh / Hq, h = bh % Hq, hk = h / (Hq / Hkv);
-    const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;    // the longest walks first
+    int b, h, q0;                         // the longest walks first
+    if (STATS) {
+        const int G = Hq / Hkv, T = Sp / BQ;
+        const int bhk = blockIdx.x / (G * T), inner = blockIdx.x % (G * T);
+        b = bhk / Hkv;
+        h = (bhk % Hkv) * G + inner / T;
+        q0 = (T - 1 - inner % T) * BQ;
+    } else {
+        b = blockIdx.x / Hq;
+        h = blockIdx.x % Hq;
+        q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+    }
+    const int bh = b * Hq + h, hk = h / (Hq / Hkv);
     // the forward's walk (kernels/flash_attention.py::tile_plan)
     int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
     k_lo = (k_lo / BK) * BK;
@@ -642,7 +682,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int tiles = k_hi > k_lo ? (k_hi - k_lo + BK - 1) / BK : 0;
 
     if (threadIdx.x >= 128) {             // the producer warp: Q and dO, then
-        if (threadIdx.x == 128 && tiles > 0) {   // the K/V tiles twice
+        if (threadIdx.x == 128 && tiles > 0) {   // the K/V tiles twice (STATS: once)
             asm volatile("prefetch.tensormap [%0];\n"
                          :: "l"(reinterpret_cast<uint64_t>(&tk)) : "memory");
             asm volatile("prefetch.tensormap [%0];\n"
@@ -653,7 +693,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                 tma_rows(sm.fixed + L::TILE + x * BOX, &tdo, pos.o, 64 * x, h, q0, b,
                          sm.fixed_bar);
             }
-            for (int n = 0; n < 2 * tiles; ++n) {
+            for (int n = 0; n < (STATS ? 1 : 2) * tiles; ++n) {
                 const int s = n % STAGES, k0 = k_lo + (n % tiles) * BK;
                 if (n >= STAGES) mbar_wait(&sm.empty[s], ((n / STAGES) - 1) & 1);
                 unsigned char* st = sm.ring + s * L::STAGE;
@@ -680,9 +720,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, pd[2] = {0.f, 0.f}, alpha[2];
     uint32_t hi[4][4], lo[4][4];
     if (tiles > 0) mbar_wait(sm.fixed_bar, 0);
+    float L2[2], Dd[2];
+    const int first = STATS ? 0 : tiles;  // the ring index of pass 2's first tile
 
     // pass 1: m, l and rowsum(P dP) of each row, online over the key tiles
-    for (int j = 0; j < tiles; ++j) {
+    for (int j = 0; j < (STATS ? 0 : tiles); ++j) {
         const int s = j % STAGES, k0 = k_lo + j * BK;
         mbar_wait(&sm.full[s], (j / STAGES) & 1);
         qk_issue<D>(sc, qs, rs + s * L::STAGE);
@@ -701,9 +743,15 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     // each row's L2 = L log2(e) and Dd = rowsum(P dP), from its 4 threads;
     // rows past S (the workspace's padding) read as no row: L2 = +inf, Dd = 0
-    float L2[2], Dd[2];
+    // (STATS: read as the forward and the prologue wrote them)
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
+    for (int r = 0; r < 2 && STATS; ++r) {
+        const long long row = static_cast<long long>(bh) * Sp + r0 + 8 * r;
+        L2[r] = lse[row];
+        Dd[r] = dd[row];
+    }
+#pragma unroll
+    for (int r = 0; r < 2 && !STATS; ++r) {
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
         pd[r] += __shfl_xor_sync(0xffffffffu, pd[r], 1);
@@ -723,8 +771,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // them back to back, and both waited for before dS is formed (a read of
     // S while dS K is in flight makes ptxas serialise every wgmma, C7514)
     if (tiles > 0) {
-        const int s = tiles % STAGES;
-        mbar_wait(&sm.full[s], (tiles / STAGES) & 1);
+        const int s = first % STAGES;
+        mbar_wait(&sm.full[s], (first / STAGES) & 1);
         qk_issue<D>(sc, qs, rs + s * L::STAGE);
         qk_issue<D>(dp, os, rs + s * L::STAGE + L::TILE);
         wgmma_wait<0>();
@@ -733,17 +781,20 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         ds_rows(sc, dp, L2, Dd, needs_mask(k_lo), r0, k_lo + 2 * tig, Sk, causal, window, sl2);
         split_p(sc, hi, lo);
     }
+    BSTAMP(0, 0);
     for (int j = 0; j < tiles; ++j) {
-        const int n = tiles + j, s = n % STAGES;
+        const int n = first + j, s = n % STAGES;
         const bool next = j + 1 < tiles;
         if (next) {
             const int sn = (n + 1) % STAGES;
             mbar_wait(&sm.full[sn], ((n + 1) / STAGES) & 1);
+            BSTAMP(0, 1 + 3 * min(j, 9));
             qk_issue<D>(sc, qs, rs + sn * L::STAGE);
             qk_issue<D>(dp, os, rs + sn * L::STAGE + L::TILE);
         }
         pv_issue<D>(acc, hi, lo, rs + s * L::STAGE, j == 0);     // K read MN-major
         wgmma_wait<0>();                  // this tile's dS K is done: free its stage
+        BSTAMP(0, 2 + 3 * min(j, 9));
         fence_operands(sc);
         fence_operands(dp);
         fence_operands(acc);
@@ -755,11 +806,18 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             ds_rows(sc, dp, L2, Dd, needs_mask(k0), r0, k0 + 2 * tig, Sk, causal, window, sl2);
             split_p(sc, hi, lo);
         }
+        BSTAMP(0, 3 + 3 * min(j, 9));
     }
     store_rows<D>(dq + b * dq_sb + h * dq_sh, dq_ss, acc, r0, S, tig, scale, tiles > 0);
+    BSTAMP(0, 31);
 }
 
-template <int D>
+// STATS (the stats backward): the blocks in kv-head order, a kv head's key
+// tiles consecutive, so the Q and dO of its G query heads stay in L2.  One
+// block an SM at D = 128 (255 registers): bound to two blocks (204
+// registers) it spilled, and a call at rows 3f/3g's shape took 9.5 ms
+// against 4.3 (testing/flash_probe.py --cross)
+template <bool STATS, int D>
 __global__ void __launch_bounds__(bw::THREADS, 1)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -775,8 +833,10 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     extern __shared__ unsigned char raw[];
     const Ring sm = carve<D>(raw);
 
-    const int bh = blockIdx.x, b = bh / Hkv, hk = bh % Hkv, G = Hq / Hkv;
-    const int k0 = blockIdx.y * BK;      // causal: the first keys, the heaviest, first
+    const int KT = (Sk + BK - 1) / BK, G = Hq / Hkv;
+    const int bh = STATS ? blockIdx.x / KT : blockIdx.x, b = bh / Hkv, hk = bh % Hkv;
+    // causal: the first keys, the heaviest, first
+    const int k0 = (STATS ? blockIdx.x % KT : blockIdx.y) * BK;
     // the q tiles that see a key of this tile, from the diagonal (causal) to
     // the window's far edge (kernels/flash_attention.py::bwd_q_plan), for
     // each of the G query heads in turn
@@ -823,13 +883,16 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     float st[32], dpt[32], gk[ROW_COLS<D> / 2], gv[ROW_COLS<D> / 2];
     uint32_t hp[4][4], lp[4][4], hs[4][4], ls[4][4];
     if (tiles > 0) mbar_wait(sm.fixed_bar, 0);
+    BSTAMP(1, 0);
     for (int n = 0; n < tiles; ++n) {
         const int s = n % STAGES, q0 = q_lo + (n % per) * BQ;
         mbar_wait(&sm.full[s], (n / STAGES) & 1);
+        BSTAMP(1, 1 + 4 * min(n, 6));
         const uint32_t qs = rs + s * L::STAGE, os = qs + L::TILE;
         qk_issue<D>(st, ks, qs);          // S^T = K Q^T
         qk_issue<D>(dpt, vs, os);         // dP^T = V dO^T
         wgmma_wait<0>();
+        BSTAMP(1, 2 + 4 * min(n, 6));
         fence_operands(st);
         fence_operands(dpt);
         if (q0 + BQ > S || k0 + BK > Sk || (causal && k0 + BK - 1 > q0) ||
@@ -852,9 +915,11 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         }
         split_p(st, hp, lp);
         split_p(dpt, hs, ls);
+        BSTAMP(1, 3 + 4 * min(n, 6));
         pv_issue<D>(gv, hp, lp, os, n == 0);     // dV += P^T dO, dO read MN-major
         pv_issue<D>(gk, hs, ls, qs, n == 0);     // dK += dS^T Q, Q read MN-major
         wgmma_wait<0>();                  // both done: free the stage
+        BSTAMP(1, 4 + 4 * min(n, 6));
         fence_operands(gv);
         fence_operands(gk);
         fence_operands(hp);
@@ -865,6 +930,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     store_rows<D>(dk + b * dk_sb + hk * dk_sh, dk_ss, gk, j0, Sk, tig, scale, tiles > 0);
     store_rows<D>(dv + b * dv_sb + hk * dv_sh, dv_ss, gv, j0, Sk, tig, 1.f, tiles > 0);
+    BSTAMP(1, 31);
 }
 
 template <int D>
@@ -881,22 +947,104 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* dout, 
     if (pos.q < 0 || pos.k < 0 || pos.v < 0 || pos.o < 0)
         return static_cast<int>(cudaErrorInvalidValue);
     constexpr int bytes = bw::Smem<D>::BYTES;
-    if (!allow_smem(reinterpret_cast<const void*>(flash_bwd_dq_wgmma_kernel<D>), bytes,
+    if (!allow_smem(reinterpret_cast<const void*>(flash_bwd_dq_wgmma_kernel<false, D>), bytes,
                     done_dq) ||
-        !allow_smem(reinterpret_cast<const void*>(flash_bwd_dkv_wgmma_kernel<D>), bytes,
+        !allow_smem(reinterpret_cast<const void*>(flash_bwd_dkv_wgmma_kernel<false, D>), bytes,
                     done_dkv))
         return static_cast<int>(cudaErrorInvalidValue);
     const int Sp = (S + bw::BQ - 1) / bw::BQ * bw::BQ;
     // the scales of the real D (96, not the 128 columns its tiles hold)
     const float sl2 = wg::LOG2E / sqrtf(static_cast<float>(D));
     const float scale = 1.0f / sqrtf(static_cast<float>(D));
-    flash_bwd_dq_wgmma_kernel<D><<<dim3(B * Hq, Sp / bw::BQ), bw::THREADS, bytes, s>>>(
+    flash_bwd_dq_wgmma_kernel<false, D><<<dim3(B * Hq, Sp / bw::BQ), bw::THREADS, bytes, s>>>(
         tq, tk, tv, tdo, static_cast<bf16*>(dq), st.dq[0], st.dq[1], st.dq[2], lse, dd, Sp, Hq,
         Hkv, S, Sk, causal, window, sl2, scale, pos);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
-    flash_bwd_dkv_wgmma_kernel<D><<<dim3(B * Hkv, (Sk + bw::BK - 1) / bw::BK), bw::THREADS,
+    flash_bwd_dkv_wgmma_kernel<false, D><<<dim3(B * Hkv, (Sk + bw::BK - 1) / bw::BK), bw::THREADS,
                                     bytes, s>>>(
+        tq, tk, tv, tdo, static_cast<bf16*>(dk), st.dk[0], st.dk[1], st.dk[2],
+        static_cast<bf16*>(dv), st.dv[0], st.dv[1], st.dv[2], lse, dd, Sp, Hq, Hkv, S, Sk,
+        causal, window, sl2, scale, pos);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// stats: bf16, D = 64, 96 or 128, the long key walks (bwd_variant's rule):
+// L2 from the wgmma forward, Dd from its f32 output (flash_bwd_dd_kernel),
+// then the wgmma kernels with STATS: one walk of the dq grid, both grids in
+// kv-head order
+// ---------------------------------------------------------------------------
+
+// Dd = rowsum(dO o) of each row from the forward's f32 output o32 (B, Hq,
+// S, D): a warp a row of the (B, Hq, Sp) workspace, each lane's columns in
+// order, then a butterfly over the lanes (a fixed order); rows past S 0
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_dd_kernel(const bf16* __restrict__ dout, long long sb, long long sh, long long ss,
+                    const float* __restrict__ o32, float* __restrict__ dd, int Hq, int S,
+                    int Sp, long long rows) {
+    const long long row = static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
+    if (row >= rows) return;
+    const int lane = threadIdx.x & 31, i = static_cast<int>(row % Sp);
+    const long long bh = row / Sp;
+    float acc = 0.f;
+    if (i < S) {
+        const bf16* d = dout + (bh / Hq) * sb + (bh % Hq) * sh + i * ss;
+        const float* o = o32 + (bh * S + i) * D;
+        for (int c = 2 * lane; c < D; c += 64) {
+            const float2 dv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(d + c));
+            const float2 ov = *reinterpret_cast<const float2*>(o + c);
+            acc = fmaf(dv.x, ov.x, acc);
+            acc = fmaf(dv.y, ov.y, acc);
+        }
+    }
+#pragma unroll
+    for (int off = 16; off; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) dd[row] = acc;
+}
+
+template <int D>
+int launch_stats(const void* q, const void* k, const void* v, const void* dout, void* dq,
+              void* dk, void* dv, const float* lse, float* dd, const float* o32, int B, int Hq,
+              int Hkv, int S, int Sk, int causal, int window, const Strides& st,
+              cudaStream_t s) {
+    static bool done_dq[64] = {}, done_dkv[64] = {};
+    alignas(64) CUtensorMap tq, tk, tv, tdo;
+    MapPos pos;
+    pos.q = encode_bhsd(&tq, q, B, Hq, S, D, st.q[0], st.q[1], st.q[2], bw::BQ);
+    pos.k = encode_bhsd(&tk, k, B, Hkv, Sk, D, st.k[0], st.k[1], st.k[2], bw::BK);
+    pos.v = encode_bhsd(&tv, v, B, Hkv, Sk, D, st.v[0], st.v[1], st.v[2], bw::BK);
+    pos.o = encode_bhsd(&tdo, dout, B, Hq, S, D, st.dout[0], st.dout[1], st.dout[2], bw::BQ);
+    if (pos.q < 0 || pos.k < 0 || pos.v < 0 || pos.o < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    constexpr int bytes = bw::Smem<D>::BYTES;
+    if (!allow_smem(reinterpret_cast<const void*>(flash_bwd_dq_wgmma_kernel<true, D>), bytes,
+                    done_dq) ||
+        !allow_smem(reinterpret_cast<const void*>(flash_bwd_dkv_wgmma_kernel<true, D>), bytes,
+                    done_dkv))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int Sp = (S + bw::BQ - 1) / bw::BQ * bw::BQ;
+    const long long rows = static_cast<long long>(B) * Hq * Sp;
+    const long long dq_blocks = rows / bw::BQ;
+    const long long dkv_blocks = static_cast<long long>(B) * Hkv * ((Sk + bw::BK - 1) / bw::BK);
+    if ((rows + 7) / 8 >= (1LL << 31) || dq_blocks >= (1LL << 31) || dkv_blocks >= (1LL << 31))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const float sl2 = wg::LOG2E / sqrtf(static_cast<float>(D));
+    const float scale = 1.0f / sqrtf(static_cast<float>(D));
+    flash_bwd_dd_kernel<D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(
+        static_cast<const bf16*>(dout), st.dout[0], st.dout[1], st.dout[2], o32, dd, Hq, S, Sp,
+        rows);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    flash_bwd_dq_wgmma_kernel<true, D><<<static_cast<unsigned>(dq_blocks), bw::THREADS, bytes,
+                                         s>>>(
+        tq, tk, tv, tdo, static_cast<bf16*>(dq), st.dq[0], st.dq[1], st.dq[2],
+        const_cast<float*>(lse), dd, Sp, Hq, Hkv, S, Sk, causal, window, sl2, scale, pos);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    flash_bwd_dkv_wgmma_kernel<true, D><<<static_cast<unsigned>(dkv_blocks), bw::THREADS,
+                                          bytes, s>>>(
         tq, tk, tv, tdo, static_cast<bf16*>(dk), st.dk[0], st.dk[1], st.dk[2],
         static_cast<bf16*>(dv), st.dv[0], st.dv[1], st.dv[2], lse, dd, Sp, Hq, Hkv, S, Sk,
         causal, window, sl2, scale, pos);
@@ -907,20 +1055,24 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* dout, 
 
 // dq (B, Hq, S, D), dk and dv (B, Hkv, Sk, D) of the forward on q, k, v for the
 // output's gradient dout; lse and dd are f32 workspaces of each row's
-// log-sum-exp and rowsum(P dP), written by the first kernel and read by the
-// second: B * Hq * S floats for variant 0 (simt; natural log), B * Hq * Sp
-// for variant 1 (wgmma; log2 units, rows padded to Sp = S rounded up to 64).
-// strides: 21 element strides, (batch, head, row) of q, k, v, dout, dq, dk,
-// dv in turn; every row 16-byte aligned with a contiguous last dim.  dtype 0
-// = float32, 1 = bfloat16; variant 0 = simt (D in {16, 32, 64, 96, 128}), 1 =
-// wgmma (bf16, D 64, 96 or 128); window 0 = none.  Two launches on `stream`, no
-// synchronisation.  Returns the first launch error (0 = success).
+// log-sum-exp and rowsum(P dP): B * Hq * S floats for variant 0 (simt;
+// natural log), B * Hq * Sp for variants 1 and 2 (wgmma, stats; log2 units,
+// rows padded to Sp = S rounded up to 64).  Variants 0 and 1 write both
+// (their dq kernel's first pass) and read them in their dkv kernel; variant
+// 2 reads lse as the wgmma forward wrote it under autograd and computes dd
+// from o32, that forward's f32 output (B, Hq, S, D, contiguous; null for
+// the others).  strides: 21 element strides, (batch, head, row) of q, k, v,
+// dout, dq, dk, dv in turn; every row 16-byte aligned with a contiguous
+// last dim.  dtype 0 = float32, 1 = bfloat16; variant 0 = simt (D in {16,
+// 32, 64, 96, 128}), 1 = wgmma, 2 = stats (bf16, D 64, 96 or 128); window 0
+// = none.  Two launches (stats: three) on `stream`, no synchronisation.
+// Returns the first launch error (0 = success).
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* dout, void* dq, void* dk, void* dv,
                                          void* lse, void* dd, int B, int Hq, int Hkv, int S,
                                          int Sk, int D, int causal, int window,
                                          const long long* strides, int dtype, int variant,
-                                         void* stream) {
+                                         const void* o32, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (B <= 0 || Hkv <= 0 || Hq % Hkv || S <= 0 || Sk <= 0 || window < 0)
         return static_cast<int>(cudaErrorInvalidValue);
@@ -936,6 +1088,20 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
     }
     float* pl = static_cast<float*>(lse);
     float* pd = static_cast<float*>(dd);
+    if (variant == 2) {
+        if (dtype != 1 || o32 == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+        const float* po = static_cast<const float*>(o32);
+        switch (D) {
+            case 64: return launch_stats<64>(q, k, v, dout, dq, dk, dv, pl, pd, po, B, Hq, Hkv, S,
+                                          Sk, causal, window, st, s);
+            case 96: return launch_stats<96>(q, k, v, dout, dq, dk, dv, pl, pd, po, B, Hq, Hkv, S,
+                                          Sk, causal, window, st, s);
+            case 128: return launch_stats<128>(q, k, v, dout, dq, dk, dv, pl, pd, po, B, Hq, Hkv,
+                                            S, Sk, causal, window, st, s);
+            default: return static_cast<int>(cudaErrorInvalidValue);
+        }
+    }
+    if (o32 != nullptr) return static_cast<int>(cudaErrorInvalidValue);
     if (variant == 1) {
         if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
         switch (D) {
@@ -957,3 +1123,12 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
                                        causal, window, st, s);
     return static_cast<int>(cudaErrorInvalidValue);
 }
+
+#ifdef FLASH_CYCLES
+// the first n stamps of the last call of the cycle-stamped build, from
+// slot `at` (the dkv grid's at 1 << 20)
+extern "C" int repro_flash_cycles(long long* host, int n, int at) {
+    return static_cast<int>(cudaMemcpyFromSymbol(host, flash_cycles, n * sizeof(long long),
+                                                 at * sizeof(long long)));
+}
+#endif

@@ -15,15 +15,25 @@ whose backward is ``csrc/flash_attention_bwd.cu`` (:func:`backward`: dq,
 dk, dv from q, k, v and the output's gradient, each in the (B, S, H, D)
 layout of the model's activations, read back as (B, H, S, D) views; one
 call, two grids -- dq, then dk and dv; counted in
-``LAUNCHES["flash_attention_bwd"]``).  It recomputes each row's softmax
-statistics, so the forward keeps nothing but q, k and v.  The TPU kernel
-has no VJP: the reference trains through jnp attention under
-``jax.grad``.  ``bwd_variant`` picks the backward's kernels by the
-forward's rule: ``"wgmma"`` (every product on the tensor cores, P and dS
-as two bf16 halves; the dq grid walks ``tile_plan``'s key tiles, the dkv
-grid ``bwd_q_plan``'s q tiles) or ``"simt"`` (CUDA-core f32).
+``LAUNCHES["flash_attention_bwd"]``).  The TPU kernel has no VJP: the
+reference trains through jnp attention under ``jax.grad``.
+``bwd_variant`` picks the backward's kernels:
+  * ``"stats"``: bf16, D in ``WGMMA_HEAD_DIMS``, aligned, Sk >=
+    ``STATS_MIN_SK`` (cross-attention over llama-3.2-vision's 6,404 image
+    tokens): the wgmma forward under autograd keeps each row's
+    log-sum-exp L and its f32 output (:class:`Stats`); a prologue of the
+    backward's call takes Dd = rowsum(dO o) from them, so the dq grid walks
+    the keys once, and both grids run in kv-head order
+    (``bwd_block_order``, ``bwd_dkv_order``);
+  * ``"wgmma"``: the other bf16 calls the wgmma forward takes; the dq
+    grid's first pass recomputes each row's statistics, so the forward
+    keeps nothing but q, k and v;
+  * ``"simt"``: CUDA-core f32, by the forward's rule.
+The tensor-core kernels run every product on the tensor cores, P and dS
+as two bf16 halves; their dq grids walk ``tile_plan``'s key tiles, their
+dkv grids ``bwd_q_plan``'s q tiles.
 
-Which of the two kernels a call takes is ``variant(S, Sk, D, dtype,
+Which of the two forward kernels a call takes is ``variant(S, Sk, D, dtype,
 aligned)``, a pure function of the shapes and the dtype:
   * ``"wgmma"``: bf16, D in ``WGMMA_HEAD_DIMS`` (64, 96, 128), Sk > 0,
     every operand 16-byte aligned: a 64-row q tile a block, TMA-fed 64-key
@@ -50,6 +60,7 @@ from .launches import LAUNCHES, plain, wants_grad
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 96, 128)
 VARIANTS = {"simt": 0, "wgmma": 1}
+BWD_VARIANTS = {"simt": 0, "wgmma": 1, "stats": 2}
 #: the head dims the wgmma kernels take (each carves a row into 64-column
 #: boxes of 128 bytes; D = 96 into two, the second zero-filled past column
 #: 96: ``box_plan``), and their q rows a block and keys a tile (csrc
@@ -63,6 +74,12 @@ WGMMA_BQ, WGMMA_BK = 64, 64
 #: and P in f32, Q's, K's and P's rows padded by one)
 WGMMA_THREADS, WGMMA_STAGES = 160, 2
 SIMT_THREADS, SIMT_BQ, SIMT_BK = 128, 64, 32
+#: the fewest keys at which ``bwd_variant`` takes ``stats``: on the card
+#: (``testing/flash_ab.py``) it beats ``wgmma`` at llama-3.2-vision's 6,404
+#: keys and at the training shapes' 1,024 and loses at seamless's 256;
+#: 2,048 leaves the training shapes on ``wgmma``, whose forward keeps
+#: nothing for them
+STATS_MIN_SK = 2048
 _FN = None
 _BWD = None
 
@@ -105,9 +122,11 @@ def tuned_variant(B: int, Hq: int, Hkv: int, S: int, Sk: int, D: int,
 
 def bwd_variant(S: int, Sk: int, D: int, dtype: torch.dtype,
                 aligned: bool = True) -> str:
-    """The backward's kernels for a call: ``"wgmma"`` or ``"simt"``, by the
-    forward's rule (bf16, D in ``WGMMA_HEAD_DIMS``, Sk > 0, aligned)."""
-    return variant(S, Sk, D, dtype, aligned)
+    """The backward's kernels for a call: ``"stats"`` (the wgmma
+    forward's rule and Sk >= ``STATS_MIN_SK``), ``"wgmma"`` or ``"simt"``
+    (the forward's rule, :func:`variant`)."""
+    kind = variant(S, Sk, D, dtype, aligned)
+    return "stats" if kind == "wgmma" and Sk >= STATS_MIN_SK else kind
 
 
 class BoxPlan(NamedTuple):
@@ -168,12 +187,37 @@ def bwd_q_plan(k0: int, S: int, causal: bool, window: int | None, *,
             for q0 in range(q_lo, q_hi, bq)]
 
 
+def bwd_block_order(B: int, Hq: int, Hkv: int, S: int) -> list[tuple[int, int, int]]:
+    """The (b, q head, q0) of each ``stats`` dq block in launch order
+    (csrc ``flash_bwd_dq_wgmma_kernel<true, D>``): the blocks of a (b, kv
+    head) consecutive, its G q heads and 64-row q tiles fastest, the
+    longest walks first within each head, so the K/V set they stream stays
+    in L2."""
+    G, T = Hq // Hkv, -(-S // WGMMA_BQ)
+    out = []
+    for x in range(B * Hq * T):
+        bhk, inner = divmod(x, G * T)
+        b, hk = divmod(bhk, Hkv)
+        out.append((b, hk * G + inner // T, (T - 1 - inner % T) * WGMMA_BQ))
+    return out
+
+
+def bwd_dkv_order(B: int, Hkv: int, Sk: int, bk: int = WGMMA_BK
+                  ) -> list[tuple[int, int, int]]:
+    """The (b, kv head, k0) of each ``stats`` dkv block in launch order
+    (csrc ``flash_bwd_dkv_wgmma_kernel<true, D>``): a kv head's key tiles
+    consecutive, the first keys (causal: the heaviest) first, so the Q and
+    dO of its G query heads stay in L2."""
+    KT = -(-Sk // bk)
+    return [(x // KT // Hkv, x // KT % Hkv, x % KT * bk) for x in range(B * Hkv * KT)]
+
+
 def _fn():
     global _FN
     if _FN is None:
         fn = _build.library("flash_attention").repro_flash_attention
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
@@ -184,7 +228,7 @@ def _bwd_fn():
     if _BWD is None:
         fn = _build.library("flash_attention_bwd").repro_flash_attention_bwd
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
         _BWD = fn
     return _BWD
@@ -241,29 +285,59 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _forward(q, k, v, causal, window)
 
 
+class Stats(NamedTuple):
+    """What the wgmma forward keeps under autograd for the ``stats``
+    backward: each row's L in log2 units (m sl2 + log2 l, +inf past S or
+    with no visible key; f32 (B, Hq, Sp), rows padded to Sp = S rounded up
+    to 64) and the output in f32 (B, Hq, S, D), from which the backward
+    takes Dd = rowsum(dO o) exactly (from the bf16 output it misses
+    ``ATTN_BWD_TOL``: ``tests/test_torch_flash_bwd.py``)."""
+    lse: torch.Tensor
+    o32: torch.Tensor
+
+
+def stats_rows(S: int) -> int:
+    """Sp: the rows of a ``Stats.lse`` row block, S rounded up to 64."""
+    return -(-S // WGMMA_BQ) * WGMMA_BQ
+
+
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-             window: int | None) -> torch.Tensor:
-    """The forward, on inputs :func:`_check` has passed."""
+             window: int | None, stats: bool = False):
+    """The forward, on inputs :func:`_check` has passed; with ``stats``
+    (autograd's forward) ``(out, Stats or None)``: the statistics where the
+    backward is ``stats`` (:func:`bwd_variant`), which reads them; the
+    wgmma kernel writes them, whatever an autotune table says."""
     B, Hq, S, D = q.shape
     out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     if out.numel() == 0:                # nothing to write: no launch
-        return out
-    _launch(q, k, v, out, causal, window)
-    return out
+        return (out, None) if stats else out
+    st = None
+    if stats and bwd_variant(S, k.shape[2], D, q.dtype) == "stats":
+        st = Stats(torch.empty((B, Hq, stats_rows(S)), dtype=torch.float32, device=q.device),
+                   torch.empty((B, Hq, S, D), dtype=torch.float32, device=q.device))
+        _launch(q, k, v, out, causal, window, st, kind="wgmma")
+    else:
+        _launch(q, k, v, out, causal, window)
+    return (out, st) if stats else out
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-            causal: bool, window: int | None) -> None:
+            causal: bool, window: int | None, stats: Stats | None = None,
+            kind: str | None = None) -> None:
     """The forward launch into ``out``, a (B, Hq, S, D) view with aligned
-    rows (the tests' outputs with guard columns after each row too)."""
+    rows (the tests' outputs with guard columns after each row too), by
+    ``kind`` (default the autotune table's or the rule's); ``stats`` (a
+    wgmma launch only) takes each row's L and the f32 output."""
     B, Hq, S, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *out.stride()[:3])
-    kind = tuned_variant(B, Hq, Hkv, S, Sk, D, q.dtype)   # aligned: checked above
+    if kind is None:
+        kind = tuned_variant(B, Hq, Hkv, S, Sk, D, q.dtype)   # aligned: checked above
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
             Hkv, S, Sk, D, int(causal), window or 0, ctypes.addressof(strides),
-            _DTYPES[q.dtype], VARIANTS[kind])
+            _DTYPES[q.dtype], VARIANTS[kind],
+            stats.lse.data_ptr() if stats else None, stats.o32.data_ptr() if stats else None)
     # the device guard only where q is not on the current device, and the
     # raw handle of the current stream, without a Stream object: a prefill
     # makes 32 of these calls
@@ -281,10 +355,13 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor
 
 def backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              do: torch.Tensor, *, causal: bool = True,
-             window: int | None = None):
+             window: int | None = None, stats: Stats | None = None):
     """dq, dk, dv of the forward on (q, k, v) for the output's gradient do
     (B, Hq, S, D), by one call of the backward kernels; q, k, v as
-    :func:`flash_attention` takes them, do any strides."""
+    :func:`flash_attention` takes them, do any strides.  A ``stats``
+    backward reads ``stats``, the forward's (:class:`FlashAttention` passes
+    them); a call without them runs that forward first, one more launch of
+    ``flash_attention``."""
     _check(q, k, v, window)
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"flash_attention backward needs do like q, got "
@@ -300,29 +377,36 @@ def backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty((B, Sk, Hkv, D), **opts).transpose(1, 2)
     if S == 0 or Sk == 0 or B == 0:     # nothing seen: no launch
         return dq.zero_(), dk.zero_(), dv.zero_()
-    _launch_bwd(q, k, v, do, dq, dk, dv, causal, window)
+    _launch_bwd(q, k, v, do, dq, dk, dv, causal, window, stats)
     return dq, dk, dv
 
 
 def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
                 dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor, causal: bool,
-                window: int | None) -> None:
+                window: int | None, stats: Stats | None = None) -> None:
     """The backward's launch into dq, dk, dv, (B, H, S, D) views with
     aligned rows (the tests' outputs with guard columns after each row too),
     on inputs :func:`backward` has passed."""
     B, Hq, S, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     kind = bwd_variant(S, Sk, D, q.dtype)   # aligned: checked above
-    # each row's L and Dd, from the dq grid to the dkv grid; the wgmma
-    # kernels' rows padded to whole 64-row tiles (one bulk copy a tile)
-    rows = -(-S // WGMMA_BQ) * WGMMA_BQ if kind == "wgmma" else S
-    lse = torch.empty((B, Hq, rows), dtype=torch.float32, device=q.device)
-    dd = torch.empty_like(lse)
+    if kind == "stats":
+        if stats is None:
+            _, stats = _forward(q, k, v, causal, window, stats=True)
+        # the forward's L; Dd from its f32 output by the call's prologue
+        lse, o32 = stats
+        dd = torch.empty_like(lse)
+    else:
+        # each row's L and Dd, from the dq grid to the dkv grid; the wgmma
+        # kernels' rows padded to whole 64-row tiles (one bulk copy a tile)
+        rows = stats_rows(S) if kind == "wgmma" else S
+        lse = torch.empty((B, Hq, rows), dtype=torch.float32, device=q.device)
+        dd, o32 = torch.empty_like(lse), None
     ts = (q, k, v, do, dq, dk, dv)
     strides = (ctypes.c_longlong * 21)(*[s for t in ts for s in t.stride()[:3]])
     args = (*[t.data_ptr() for t in ts], lse.data_ptr(), dd.data_ptr(), B, Hq,
             Hkv, S, Sk, D, int(causal), window or 0, ctypes.addressof(strides),
-            _DTYPES[q.dtype], VARIANTS[kind])
+            _DTYPES[q.dtype], BWD_VARIANTS[kind], o32.data_ptr() if o32 is not None else None)
     # the forward's lean path: a device guard only off the current device
     idx = q.device.index
     if idx == torch.cuda.current_device():
@@ -339,19 +423,28 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Ten
 class FlashAttention(torch.autograd.Function):
     """Attention with its backward: the kernels for CUDA tensors (checked by
     :func:`flash_attention`), the plain versions ``ref.attention`` and
-    ``ref.attention_bwd`` for CPU tensors (``ops.attention``'s CPU path)."""
+    ``ref.attention_bwd`` for CPU tensors (``ops.attention``'s CPU path).
+    On the card, where the backward is ``stats`` (:func:`bwd_variant`), the
+    forward is the wgmma kernel whatever an autotune table says and saves
+    its :class:`Stats` beside q, k and v; the serving path (no autograd)
+    writes none."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        out = (ref.attention(q, k, v, causal=causal, window=window)
-               if plain(q) else _forward(q, k, v, causal, window))
-        ctx.save_for_backward(q, k, v)
+        if plain(q):
+            out, st = ref.attention(q, k, v, causal=causal, window=window), None
+        else:
+            out, st = _forward(q, k, v, causal, window, stats=True)
+        ctx.save_for_backward(q, k, v, *(st if st is not None else (None, None)))
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
-        bwd = ref.attention_bwd if plain(q) else backward
-        dq, dk, dv = bwd(q, k, v, do, causal=ctx.causal, window=ctx.window)
+        q, k, v, lse, o32 = ctx.saved_tensors
+        if plain(q):
+            dq, dk, dv = ref.attention_bwd(q, k, v, do, causal=ctx.causal, window=ctx.window)
+        else:
+            st = Stats(lse, o32) if lse is not None else None
+            dq, dk, dv = backward(q, k, v, do, causal=ctx.causal, window=ctx.window, stats=st)
         return dq, dk, dv, None, None

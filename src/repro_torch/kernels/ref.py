@@ -79,6 +79,27 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+def attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int | None = None):
+    """:func:`attention`'s output and each row's log-sum-exp L (natural
+    log, f32 (B, Hq, S)) of its masked scaled scores, +inf on a row with no
+    visible key (the ``ws`` forward's convention, in its log2 units L
+    log2(e): its backward's P = 2^(s - L) is then 0 there)."""
+    B, Hq, S, D = q.shape
+    Sk = k.shape[2]
+    s = torch.einsum("bhsd,bhtd->bhst", q.float(), expand_kv(k, Hq).float()) / math.sqrt(D)
+    q_pos = torch.arange(S, device=q.device)[:, None]
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((S, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window is not None:
+        mask &= (q_pos - k_pos) < window
+    lse = torch.logsumexp(torch.where(mask, s, -math.inf), dim=-1)
+    lse = torch.where(mask.any(-1), lse, math.inf)
+    return attention(q, k, v, causal=causal, window=window), lse
+
+
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   do: torch.Tensor, *, causal: bool = True,
                   window: int | None = None):

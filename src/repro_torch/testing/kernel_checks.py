@@ -97,6 +97,7 @@ fails.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -990,20 +991,105 @@ def check_flash_cross(B, S, Sk, Hq, Hkv, D, dtype, device="cuda") -> dict:
     """Cross-attention's forward and backward, non-causal and without a
     window, over Sk keys that are not S (or are, for the encoder): out, dq,
     dk, dv each against its plain version (ATTN_TOL, ATTN_BWD_TOL), each
-    call twice for the same bits; k, v and dk, dv at Sk.  ``variant`` and
-    ``bwd_variant`` name the kernels taken."""
+    call twice for the same bits; k, v and dk, dv at Sk; where the
+    backward is ``stats``, the statistics the forward keeps for it too
+    (:func:`check_flash_stats`).  ``variant`` and ``bwd_variant`` name the
+    kernels taken."""
     q, k, v, do = cross_inputs(B, S, Sk, Hq, Hkv, D, dtype, device)
-    fwd = lambda: _fa.flash_attention(q, k, v, causal=False)
-    bwd = lambda: _fa.backward(q, k, v, do, causal=False)
+    return _fwd_bwd(q, k, v, do, False, None)
+
+
+#: the statistics the wgmma forward keeps under autograd for the stats
+#: backward, against ref.attention_lse in f32: L (natural log) within 1e-4 +
+#: 1e-5 |L| -- f32 sums of up to 6,404 terms in another order, ex2.approx and
+#: log2f (~2^-22 relative) on scores that differ from the plain einsum's in
+#: the last bits -- and the f32 output within ATTN_TOL's bf16 limit (P as
+#: two bf16 halves, ~2^-16)
+LSE_TOL = (1e-5, 1e-4)
+
+
+def check_flash_stats(q, k, v, causal, window) -> dict:
+    """The wgmma forward's :class:`Stats` under autograd: L2 / log2(e)
+    against ``ref.attention_lse``'s L on the rows that see a key (+inf on
+    the others and on the padding past S, exactly), and the f32 output
+    against the plain one in f32; twice for the same bits."""
+    S = q.shape[2]
+    run = lambda: _fa._forward(q, k, v, causal, window, stats=True)[1]
+    got, again = run(), run()
+    out, lse = ref.attention_lse(q.float(), k.float(), v.float(), causal=causal,
+                                 window=window)
+    fin = torch.isfinite(lse)
+    L = got.lse[..., :S] / math.log2(math.e)
+    res = _pair(L[fin], again.lse[..., :S][fin] / math.log2(math.e), lse[fin], LSE_TOL)
+    res["inf_rows_match"] = (torch.equal(torch.isinf(got.lse[..., :S]), ~fin)
+                             and bool(torch.isinf(got.lse[..., S:]).all()))
+    res["ok"] = res["ok"] and res["inf_rows_match"] and torch.equal(got.lse, again.lse)
+    return worst({"lse": res, "o32": _pair(got.o32, again.o32, out,
+                                           ATTN_TOL[torch.bfloat16])})
+
+
+def _fwd_bwd(q, k, v, do, causal, window) -> dict:
+    """out, dq, dk, dv of the kernels against the plain versions, each call
+    twice; the forward's statistics where the backward is ``stats``."""
+    B, Hq, S, D = q.shape
+    Sk, dtype = k.shape[2], q.dtype
+    fwd = lambda: _fa.flash_attention(q, k, v, causal=causal, window=window)
+    bwd = lambda: _fa.backward(q, k, v, do, causal=causal, window=window)
     got, again = (fwd(), *bwd()), (fwd(), *bwd())
-    want = (ref.attention(q, k, v, causal=False),
-            *ref.attention_bwd(q, k, v, do, causal=False))
+    want = (ref.attention(q, k, v, causal=causal, window=window),
+            *ref.attention_bwd(q, k, v, do, causal=causal, window=window))
     tols = (ATTN_TOL, ATTN_BWD_TOL, ATTN_BWD_TOL, ATTN_BWD_TOL)
-    res = worst({name: _pair(g, a, w, t[dtype]) for name, g, a, w, t in
-                 zip(("out", "dq", "dk", "dv"), got, again, want, tols)})
+    parts = {name: _pair(g, a, w, t[dtype]) for name, g, a, w, t in
+             zip(("out", "dq", "dk", "dv"), got, again, want, tols)}
+    if _fa.bwd_variant(S, Sk, D, dtype) == "stats":
+        parts["stats"] = check_flash_stats(q, k, v, causal, window)
+    res = worst(parts)
     res["variant"] = _fa.variant(S, Sk, D, dtype)
     res["bwd_variant"] = _fa.bwd_variant(S, Sk, D, dtype)
     return res
+
+
+#: the stats backward where the rule does not give it, (name, B, S, Sk, Hq,
+#: Hkv, D, causal, window), bf16, each call run with it forced
+#: (:func:`check_flash_stats_bwd`): causal prompts ragged and whole, a
+#: window across tile edges, GQA 4/1 to 1/1 at every head dim, the training
+#: shapes (llama3-8b's and phi3-mini's), non-causal with a window; and
+#: mixtral's 4,608-token prompt with its 4,096 window, which the rule does
+#: give it
+STATS_FLASH_CASES = (
+    ("llama3-8b train", 4, 1024, 1024, 32, 8, 128, True, None),
+    ("phi3-mini train", 4, 1024, 1024, 32, 32, 96, True, None),
+    ("prompt of 223", 1, 223, 223, 32, 8, 128, True, None),
+    ("prompt of 37", 1, 37, 37, 32, 8, 128, True, None),
+    ("window 100", 2, 445, 445, 32, 8, 128, True, 100),
+    ("D=64 window 9", 2, 70, 70, 4, 2, 64, True, 9),
+    ("D=96 G=4", 1, 445, 445, 32, 8, 96, True, None),
+    ("full window 9", 2, 130, 130, 4, 1, 128, False, 9),
+    ("mixtral prompt", 1, 4608, 4608, 32, 8, 128, True, 4096),
+)
+
+
+@contextlib.contextmanager
+def forced_bwd_variant(kind):
+    """Within the block every flash backward takes ``kind`` (``bwd_variant``
+    replaced; a ``stats`` one finds the forward's statistics)."""
+    rule = _fa.bwd_variant
+    _fa.bwd_variant = lambda *a, **kw: kind
+    try:
+        yield
+    finally:
+        _fa.bwd_variant = rule
+
+
+def check_flash_stats_bwd(B, S, Sk, Hq, Hkv, D, causal, window, device="cuda") -> dict:
+    """:func:`check_flash_cross`'s readings for one of
+    ``STATS_FLASH_CASES`` with the stats backward forced, bf16."""
+    g = torch.Generator(device=device).manual_seed(0)
+    q, k, v, do = (torch.randn((B, n, h, D), generator=g, device=device)
+                   .to(torch.bfloat16).transpose(1, 2)
+                   for n, h in ((S, Hq), (Sk, Hkv), (Sk, Hkv), (S, Hq)))
+    with forced_bwd_variant("stats"):
+        return _fwd_bwd(q, k, v, do, causal, window)
 
 
 def xattn_tol(p, x, ctx, cfg, cache=None) -> tuple:

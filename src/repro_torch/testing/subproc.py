@@ -26,7 +26,7 @@ def pinned_env() -> dict[str, str]:
 
 
 def run_ranks(module: str, world: int, *args: str, device: str = "cuda",
-              workdir: str | None = None, timeout: float = 600) -> pathlib.Path:
+              workdir: str | None = None, timeout: float = 300) -> pathlib.Path:
     """Run ``python -m <module> --rank r --world <world> --dir <d> --device
     <device> <args>`` for every rank r at once, the ranks meeting on a
     ``file://`` store in ``d`` (``workdir``, or a new temporary

@@ -10,6 +10,7 @@ from repro.kernels import flash_attention as jfa
 from repro.kernels import paged_attention as jpa
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 # f32: both sides accumulate in f32 and differ only in summation order.
 # bf16: each side rounds its f32 result to bf16 once; an order difference

@@ -27,6 +27,7 @@ import torch
 from repro.kernels import ops as jops
 from repro_torch.kernels import (flash_attention, launches, matmul, ops,
                                  paged_attention, reduction, rmsnorm, stencil)
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 

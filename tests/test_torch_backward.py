@@ -19,6 +19,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import flash_attention, launches, matmul, ref, rmsnorm
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 RTOL, ATOL_SHARE = 1e-4, 1e-5
 

@@ -36,6 +36,7 @@ from repro_torch.ft import RescaleError
 from repro_torch.launch import train as launch
 from repro_torch.params import params_from_jax
 from repro_torch.testing import check_chaos
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 LOSS_RTOL = 1e-5
 #: check_chaos's geometry: 2 hosts of 4 devices, model axis 2, batch 8 x 32

@@ -21,6 +21,7 @@ from repro.launch import train as jlaunch
 from repro.testing.x64 import x64_mode
 from repro_torch.testing import check_chaos
 from repro_torch.testing.subproc import run_ranks
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 LOSS_RTOL = 1e-5
 SAME = ("restarts", "n_restarts", "timeline", "fingerprints", "steps_executed",

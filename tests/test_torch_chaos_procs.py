@@ -17,6 +17,7 @@ from repro_torch.ft import cluster
 from repro_torch.ft.cluster import (ROLE_PRIMARY, ClusterSupervisor, Framer,
                                     WorkerSpec, drill, encode_msg)
 from repro_torch.testing.subproc import SRC, pinned_env
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 MSGS = [{"kind": "beat", "host": h, "n": 10 * h} for h in range(3)] + [
     {"kind": "step", "step": 4, "loss": 6.5, "fp": "ab" * 8},
@@ -107,6 +108,6 @@ def test_check_chaos_procs_on_the_cpu():
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.testing.check_chaos_procs",
          "--device", "cpu"], capture_output=True, text=True, env=pinned_env(),
-        timeout=600)
+        timeout=300)
     assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
     assert "check_chaos_procs OK on cpu" in proc.stdout

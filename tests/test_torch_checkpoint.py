@@ -40,6 +40,7 @@ from repro_torch.testing import train_checks as tc
 from repro_torch.train import (OptConfig, TrainState, abstract_train_state,
                                make_train_step)
 from repro_torch.train.trainer import init_train_state
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 
 def _tree(seed=0):
@@ -92,7 +93,7 @@ def test_async_round_trip_and_retention(tmp_path):
     trees = {s: _tree(seed=s) for s in (1, 2, 3)}
     for s in (1, 2, 3):
         mgr.save_async(trees[s], step=s)
-    mgr.wait()
+    mgr.wait(timeout=120)
     assert valid_steps(tmp_path) == [2, 3]         # keep=2 pruned step 1
     got, step, _ = restore_checkpoint(tmp_path, trees[3], device="cpu")
     assert step == 3
@@ -371,7 +372,7 @@ def test_save_async_keeps_the_state_of_its_step(tmp_path, monkeypatch):
     tokens = torch.from_numpy(tc.smoke_batches(1)[0]).to(torch.int64)
     state, _ = make_train_step(cfg, opt_cfg)(state, {"tokens": tokens})
     go.set()
-    mgr.wait()
+    mgr.wait(timeout=120)
     after = flatten(state)
     assert not all(torch.equal(a, b) for a, b in zip(after, before))
     got, step, _ = restore_checkpoint(tmp_path, abstract_train_state(cfg, opt_cfg),

@@ -23,6 +23,7 @@ from repro_torch.testing import check_core as cc
 from repro_torch.topology import parse_topology
 
 import torch_core_jax as J
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 GRIDS = ("1x1", "2x4", "4x2", "2x2x2")
 

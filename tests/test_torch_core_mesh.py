@@ -26,6 +26,7 @@ from repro_torch.testing.subproc import run_ranks
 from repro_torch.topology import hier_name
 
 import torch_core_jax as J
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 WORLD = 8
 GRIDS = ("2x4", "4x2", "2x2x2")
@@ -53,7 +54,7 @@ def _id(k):
 def ranks():
     d = run_ranks("repro_torch.testing.check_core", WORLD, str(WORLD),
                   "--parts", "core,topology,collectives", device="cpu",
-                  timeout=600)
+                  timeout=300)
     return cc.load(d, WORLD)
 
 

@@ -13,6 +13,7 @@ from repro_torch.core import isa_kernels
 from repro_torch.testing import check_core as cc
 
 import torch_core_jax as J
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 NAMES = ('fconv2d', 'fdotproduct', 'exp')
 

@@ -11,6 +11,7 @@ import pytest
 from repro_torch.testing import check_core as cc
 
 import torch_core_jax as J
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 NAMES = ('fmatmul', 'jacobi2d', 'softmax')
 

@@ -11,6 +11,7 @@ import pytest
 from repro.data import pipeline as jpipe
 from repro_torch.data import (DataConfig, Pipeline, SyntheticCorpus,
                               global_batch, make_pipeline)
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 KW = dict(vocab_size=256, seq_len=32, global_batch=8, seed=0)
 CFG = DataConfig(**KW)

@@ -20,6 +20,7 @@ from repro.parallel.sharding import default_rules as jax_rules
 from repro_torch.testing import check_dist_decode as cdd
 from repro_torch.testing import train_checks as tc
 from repro_torch.testing.subproc import run_ranks
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 MESHES = [(2, 2), (1, 4)]
 ARCHS = cdd.SIZES["smoke"][0]

@@ -27,6 +27,7 @@ from repro_torch.testing import check_dist_families as cdf
 from repro_torch.testing import train_checks as tc
 from repro_torch.testing.subproc import run_ranks
 import torch_jax_smoke as J
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 SUB_MESHES = [(1, 2), (1, 4)]
 TRAIN_MESH = (2, 2)

@@ -19,6 +19,7 @@ from repro.models import layers as JL
 from repro.parallel.sharding import default_rules as jax_rules
 from repro_torch.testing import check_dist_moe as cdm
 from repro_torch.testing.subproc import run_ranks
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 MESHES = [(2, 2), (1, 4), (2, 4)]
 KEYS = [(name, mode) for name in cdm.SMOKE for mode in cdm.SMOKE[name][2]]

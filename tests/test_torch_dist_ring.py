@@ -11,6 +11,7 @@ import pytest
 from repro.kernels import ref as jref
 from repro_torch.testing import check_dist_ring as cdr
 from repro_torch.testing.subproc import run_ranks
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 WORLDS = (4, 8)
 

@@ -39,6 +39,7 @@ from repro_torch.parallel import comm
 from repro_torch.parallel.sharding import (ShardingRules, default_rules, gather_tree,
                                            param_placements, shard_tree)
 from repro_torch.params import init_params, tree_leaves
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 MESHES = [((2, 4), ("data", "model")), ((1, 8), ("data", "model")),

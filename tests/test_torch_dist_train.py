@@ -17,6 +17,7 @@ from repro_torch.testing import train_checks as tc
 from repro_torch.testing.subproc import run_ranks
 from repro_torch.train import global_norm
 import torch_jax_smoke as J
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 ARCH = "llama3-8b"
 MESHES = [(2, 2), (1, 4)]

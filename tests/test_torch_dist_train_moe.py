@@ -14,6 +14,7 @@ from repro_torch.testing import check_dist_train as cdt
 from repro_torch.train.trainer import step_launches
 from test_torch_dist_train import (MESHES, check_run, check_sync_norm_and_launches,
                                    jax_runs, ranks_of)
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 ARCH = "mixtral-8x7b"
 

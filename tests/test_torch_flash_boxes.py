@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 from repro_torch.kernels import flash_attention as fa
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 
 @pytest.mark.parametrize("D", fa.WGMMA_HEAD_DIMS)

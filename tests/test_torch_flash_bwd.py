@@ -38,6 +38,7 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.testing import kernel_checks as kc
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 BQ, BK = fa.WGMMA_BQ, fa.WGMMA_BK
 TOL = kc.ATTN_BWD_TOL[torch.bfloat16]
@@ -189,8 +190,12 @@ def _visible(r0, rows, c0, cols, S, Sk, causal, window):
     return vis
 
 
-def emulate_bwd(q, k, v, do, causal, window, rounding="split"):
-    """dq, dk, dv as the wgmma kernels compute them (module docstring)."""
+def emulate_bwd(q, k, v, do, causal, window, rounding="split", kind="wgmma", dd_from="f32"):
+    """dq, dk, dv as the wgmma kernels compute them (module docstring), or
+    with ``kind="stats"`` as the stats backward does: the same kernels
+    reading L2 from the forward and Dd from its prologue
+    (:func:`_fwd_stats`; ``dd_from`` the output Dd is taken from) instead
+    of the dq kernel's first pass, so the key tiles are walked once."""
     B, Hq, S, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -201,9 +206,11 @@ def emulate_bwd(q, k, v, do, causal, window, rounding="split"):
     qf, kf, vf, of = (t.float() for t in (q, k, v, do))
     kq = kf.repeat_interleave(G, dim=1)               # kv head of each q head
     vq = vf.repeat_interleave(G, dim=1)
-    Sp = -(-S // BQ) * BQ
+    Sp = fa.stats_rows(S)
     L2 = torch.full((B, Hq, Sp), math.inf)
     Dd = torch.zeros((B, Hq, Sp))
+    if kind == "stats":                               # the forward's, the prologue's
+        L2, Dd = _fwd_stats(q, k, v, do, causal, window, dd_from)
     dq = torch.zeros((B, Hq, Sp, D))
     # the dq kernel: a block a (b, h, q tile)
     for q0 in range(0, S, BQ):
@@ -213,13 +220,16 @@ def emulate_bwd(q, k, v, do, causal, window, rounding="split"):
         l = torch.zeros((B, Hq, BQ, 1))
         pd = torch.zeros((B, Hq, BQ, 1))
         tiles = []
-        for k0, masked in plan:                       # pass 1
+        for k0, masked in plan:                       # pass 1 (stats: the products only)
             Kt, Vt = _tile(kq, k0, BK), _tile(vq, k0, BK)
             s = Qt[..., :kk] @ Kt[..., :kk].transpose(-1, -2)
             dp = Ot[..., :kk] @ Vt[..., :kk].transpose(-1, -2)
             if masked:
                 vis = _visible(q0, BQ, k0, BK, 1 << 30, Sk, causal, window)
                 s = torch.where(vis, s, NEG)
+            tiles.append((k0, masked, Kt, s, dp))
+            if kind == "stats":
+                continue
             mx = torch.maximum(m, s.amax(-1, keepdim=True))
             alpha = torch.exp2((m - mx) * sl2)
             msl = torch.where(mx == NEG, 0.0, mx) * sl2
@@ -227,11 +237,11 @@ def emulate_bwd(q, k, v, do, causal, window, rounding="split"):
             l = l * alpha + p.sum(-1, keepdim=True)
             pd = pd * alpha + (p * dp).sum(-1, keepdim=True)
             m = mx
-            tiles.append((k0, masked, Kt, s, dp))
-        rows = (torch.arange(q0, q0 + BQ) < S)[:, None]
-        ok = (l > 0) & rows
-        L2[:, :, q0:q0 + BQ] = torch.where(ok, m * sl2 + torch.log2(l), math.inf)[..., 0]
-        Dd[:, :, q0:q0 + BQ] = torch.where(ok, pd / torch.where(ok, l, 1.0), 0.0)[..., 0]
+        if kind != "stats":
+            rows = (torch.arange(q0, q0 + BQ) < S)[:, None]
+            ok = (l > 0) & rows
+            L2[:, :, q0:q0 + BQ] = torch.where(ok, m * sl2 + torch.log2(l), math.inf)[..., 0]
+            Dd[:, :, q0:q0 + BQ] = torch.where(ok, pd / torch.where(ok, l, 1.0), 0.0)[..., 0]
         acc = torch.zeros((B, Hq, BQ, cols))
         for k0, masked, Kt, s, dp in tiles:           # pass 2
             p = torch.exp2(s * sl2 - L2[:, :, q0:q0 + BQ, None])
@@ -317,10 +327,13 @@ def test_one_bf16_rounding_of_p_and_ds_is_not_enough(D):
 
 # -- the forward kernel's arithmetic ------------------------------------------------
 
-def emulate_fwd(q, k, v, causal, window, scale=None):
+def emulate_fwd(q, k, v, causal, window, scale=None, stats=False):
     """out as ``flash_wgmma_kernel`` computes it (module docstring), and the
     largest magnitude its accumulators hold past D; ``scale`` (default the
-    plan's) replaces the scores' scale."""
+    plan's) replaces the scores' scale.  With ``stats`` also what it writes
+    under autograd for the stats backward, ``(L2, o32)``: L2 = m sl2 +
+    log2 l (+inf past S or with no visible key) in rows padded to 64, and
+    the f32 output."""
     B, Hq, S, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     plan = fa.box_plan(D)
@@ -330,6 +343,7 @@ def emulate_fwd(q, k, v, causal, window, scale=None):
     kq = kf.repeat_interleave(Hq // Hkv, dim=1)      # kv head of each q head
     vq = vf.repeat_interleave(Hq // Hkv, dim=1)
     out = torch.zeros((B, Hq, S, D))
+    L2 = torch.full((B, Hq, fa.stats_rows(S)), math.inf)
     pad = 0.0
     for q0 in range(0, S, BQ):
         Qt = _tile(qf, q0, BQ)
@@ -355,6 +369,10 @@ def emulate_fwd(q, k, v, causal, window, scale=None):
         res = torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)
         rows = min(BQ, S - q0)
         out[:, :, q0:q0 + rows] = res[:, :, :rows, :plan.store_cols]
+        lr = torch.where(l > 0, m * sl2 + torch.log2(torch.where(l > 0, l, 1.0)), math.inf)
+        L2[:, :, q0:q0 + rows] = lr[:, :, :rows, 0]
+    if stats:
+        return out.to(q.dtype), pad, (L2, out)
     return out.to(q.dtype), pad
 
 
@@ -386,3 +404,85 @@ def test_the_padded_width_as_the_scale_is_outside_the_limit():
     wrong, _ = emulate_fwd(q, k, v, True, None, scale=1 / math.sqrt(128))
     assert kc.compare(right, want, FWD_TOL)["ok"]
     assert kc.compare(wrong, want, FWD_TOL)["limit_use"] > 10
+
+
+# -- the stats backward: the forward's statistics, one walk of the dq grid -------------
+
+def _fwd_stats(q, k, v, do, causal, window, dd_from="f32"):
+    """L2 from the wgmma forward under autograd (:func:`emulate_fwd`) and
+    Dd = rowsum(dO o) as ``flash_bwd_dd_kernel`` takes it from the
+    forward's f32 output (or, with ``dd_from="bf16"``, from the bf16 one),
+    rows padded to 64."""
+    B, Hq, S, _ = q.shape
+    out, _, (L2, o32) = emulate_fwd(q, k, v, causal, window, stats=True)
+    o = o32 if dd_from == "f32" else out.float()
+    Dd = torch.zeros((B, Hq, fa.stats_rows(S)))
+    Dd[:, :, :S] = (do.float() * o).sum(-1)
+    return L2, Dd
+
+
+def _cross(B, S, Sk, D, Hq=4, Hkv=1, seed=1):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal((B, h, n, D), dtype=np.float32))
+                 .bfloat16() for n, h in ((S, Hq), (Sk, Hkv), (Sk, Hkv), (S, Hq)))
+
+
+@pytest.mark.parametrize("D", fa.WGMMA_HEAD_DIMS)
+@pytest.mark.parametrize("B,S,Hq,Hkv,causal,window", FWD_CASES, ids=str)
+def test_forward_statistics_are_the_plain_l(B, S, Hq, Hkv, causal, window, D):
+    """What the forward keeps under autograd: its L2 / log2(e) equal to
+    ref.attention_lse's L within 2e-6 (f32 sums in another order; +inf
+    where ref's is, and on the padding past S), its f32 output the bf16
+    one before rounding."""
+    q, k, v, _ = _inputs(B, S, D, Hq, Hkv)
+    got, _, (L2, o32) = emulate_fwd(q, k, v, causal, window, stats=True)
+    _, lse = ref.attention_lse(q, k, v, causal=causal, window=window)
+    assert torch.equal(o32.to(q.dtype), got)
+    assert torch.equal(torch.isinf(L2[..., :S]), torch.isinf(lse))
+    assert bool(torch.isinf(L2[..., S:]).all())
+    fin = torch.isfinite(lse)
+    torch.testing.assert_close(L2[..., :S][fin] / math.log2(math.e), lse[fin],
+                               rtol=2e-6, atol=2e-6)
+
+
+@pytest.mark.parametrize("D", fa.WGMMA_HEAD_DIMS)
+@pytest.mark.parametrize("B,S,window", EMU_CASES)
+def test_stats_backward_arithmetic_is_within_the_cards_limit(B, S, window, D):
+    """The stats backward (L2 from the forward, Dd from its f32 output, one
+    walk of the dq grid) within ATTN_BWD_TOL at the wgmma kernels' cases."""
+    q, k, v, do = _inputs(B, S, D)
+    got = emulate_bwd(q, k, v, do, True, window, kind="stats")
+    want = ref.attention_bwd(q, k, v, do, causal=True, window=window)
+    for g, w in zip(got, want):
+        res = kc.compare(g, w, TOL)
+        assert res["ok"], res
+
+
+#: cross-attention at cut widths, (B, S, Sk, D): vlm's 32/8 heads cut to
+#: 4/1, its 6,404 image tokens cut to 700 (a 60-key edge tile), a q tile
+#: of 35 rows; seamless's decoder rows against fewer frames; the encoder
+STATS_CROSS_CASES = [(1, 130, 700, 128), (1, 35, 700, 128), (2, 200, 77, 64),
+                     (1, 200, 200, 96)]
+
+
+@pytest.mark.parametrize("B,S,Sk,D", STATS_CROSS_CASES)
+def test_stats_backward_across_is_within_the_cards_limit(B, S, Sk, D):
+    """Non-causal, no window, Sk != S: the forward and the stats backward."""
+    q, k, v, do = _cross(B, S, Sk, D)
+    got, _ = emulate_fwd(q, k, v, False, None)
+    assert kc.compare(got, ref.attention(q, k, v, causal=False), FWD_TOL)["ok"]
+    want = ref.attention_bwd(q, k, v, do, causal=False)
+    assert _reading(emulate_bwd(q, k, v, do, False, None, kind="stats"), want) <= 1
+
+
+@pytest.mark.parametrize("D", fa.WGMMA_HEAD_DIMS)
+def test_dd_from_the_bf16_output_is_not_enough(D):
+    """The reason the forward keeps its output in f32 under autograd: with
+    Dd = rowsum(dO o) taken from the bf16 output (FlashAttention-2's way)
+    the training case's cut (1, 256, causal) reads past its limit (14-39x
+    at EMU_CASES), while Dd from the f32 output stays inside."""
+    q, k, v, do = _inputs(1, 256, D)
+    want = ref.attention_bwd(q, k, v, do, causal=True)
+    f32 = _reading(emulate_bwd(q, k, v, do, True, None, kind="stats"), want)
+    bf16 = _reading(emulate_bwd(q, k, v, do, True, None, kind="stats", dd_from="bf16"), want)
+    assert f32 <= 1 < bf16

@@ -15,6 +15,7 @@ from repro import ft as J
 from repro.ft import chaos as jchaos
 from repro_torch import ft as T
 from repro_torch.ft import chaos as tchaos
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 
 class FakeClock:

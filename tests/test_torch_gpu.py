@@ -846,13 +846,52 @@ def test_flash_attention_at_mixtrals_train_shape(cuda, dtype):
 def test_flash_attention_cross_forward_and_backward(cuda, case, dtype):
     """Non-causal, no window, Sk != S (and the encoder's S = Sk): out, dq,
     dk, dv within their limits, the same bits twice; bf16 at head dims 64
-    and 128 on the wgmma kernels both ways, the rest simt."""
+    and 128 on the wgmma forward and the tensor-core backward (stats over
+    vlm's 6,404 image tokens, with the forward's statistics held too; wgmma
+    below ``STATS_MIN_SK`` keys), the rest simt."""
     _, B, S, Sk, Hq, Hkv, D = next(c for c in kc.XATTN_FLASH_CASES if c[0] == case)
     res = kc.check_flash_cross(B, S, Sk, Hq, Hkv, D, dtype, cuda)
     assert res["ok"], res
     want = ("wgmma" if dtype == torch.bfloat16 and D in flash_attention.WGMMA_HEAD_DIMS
             else "simt")
-    assert (res["variant"], res["bwd_variant"]) == (want, want)
+    want_bwd = "stats" if want == "wgmma" and Sk >= flash_attention.STATS_MIN_SK else want
+    assert (res["variant"], res["bwd_variant"]) == (want, want_bwd)
+    assert ("stats" in res["parts"]) == (want_bwd == "stats")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [c[0] for c in kc.STATS_FLASH_CASES])
+def test_flash_stats_backward_forced_matches_plain(cuda, case):
+    """The stats backward (and the forward's statistics) where the rule
+    does not give it: causal, windowed, every head dim, both training
+    shapes; within their limits, the same bits twice."""
+    _, B, S, Sk, Hq, Hkv, D, causal, window = next(
+        c for c in kc.STATS_FLASH_CASES if c[0] == case)
+    res = kc.check_flash_stats_bwd(B, S, Sk, Hq, Hkv, D, causal, window, cuda)
+    assert res["ok"] and "stats" in res["parts"], res
+
+
+@pytest.mark.gpu
+def test_flash_stats_under_autograd_and_serving_writes_none(cuda):
+    """Autograd's forward of a stats call writes L and the f32 output (one
+    launch) and its backward reads them (one launch, no forward); the same
+    call without autograd writes neither and launches once."""
+    q, k, v, do = kc.cross_inputs(1, 64, 2048, 4, 1, 128, torch.bfloat16, cuda)
+    assert flash_attention.bwd_variant(64, 2048, 128, torch.bfloat16) == "stats"
+    launches.reset()
+    with torch.no_grad():
+        flash_attention.flash_attention(q, k, v, causal=False)
+    assert launches.LAUNCHES["flash_attention"] == 1
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = flash_attention.flash_attention(qg, kg, vg, causal=False)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 5 and saved[3].shape == (1, 4, 64) and saved[4].dtype == torch.float32
+    grads = torch.autograd.grad(out, (qg, kg, vg), do)
+    assert launches.LAUNCHES["flash_attention"] == 2
+    assert launches.LAUNCHES["flash_attention_bwd"] == 1
+    want = ref.attention_bwd(q, k, v, do, causal=False)
+    for g, w in zip(grads, want):
+        assert kc.compare(g, w, kc.ATTN_BWD_TOL[torch.bfloat16])["ok"]
 
 
 @pytest.mark.gpu

@@ -9,6 +9,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import rmsnorm as jrms
 from repro_torch.kernels import ops
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 # f32: both sides accumulate in f32 and differ only in summation order.
 # bf16: each side rounds its f32 result to bf16 once; an order difference

@@ -17,6 +17,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import ref
 from repro_torch.models import layers as L
 from repro_torch.params import params_from_jax
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 RULES = default_rules(None)
 # f32 on both sides; only the summation order of the products differs

@@ -40,6 +40,7 @@ from repro_torch.serve import (PagedServeConfig, PagedServingEngine, Request,
 from repro_torch.testing import train_checks as tc
 from repro_torch.train import trainer
 import torch_jax_smoke as J
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 RULES = default_rules(None)
 # f32 on both sides; only the summation order of the products differs
@@ -350,22 +351,6 @@ def test_forward_train_loss_and_every_grad_leaf_match_jax(case):
         sp = jax.tree.map(lambda t: t[0], tp["period"]["l0"]["s1_moe"])
         assert _port_drops(L.moe_route(sp, L.rmsnorm(x, sp["norm"], cfg.norm_eps), cfg))
     J.assert_grads_match_jax(jcfg, cfg, jp, tp, toks)
-
-
-@pytest.mark.parametrize("n_microbatches", [1, 2])
-@pytest.mark.parametrize("case", ["mixtral", "qwen3-binding"])
-def test_train_steps_match_jax(case, n_microbatches):
-    """Three ``make_train_step`` steps from the JAX initialiser's weights
-    (``testing/train_checks.py``) against JAX's on the same batches.  With
-    two microbatches the batch splits before routing, as in the reference:
-    at the binding factor each microbatch's capacity counts its own rows."""
-    name, over = GRAD_CASES[case]
-    cfg = dataclasses.replace(get_smoke_config(name), **over)
-    got = tc.run_smoke("cpu", steps=3, n_microbatches=n_microbatches, arch=name,
-                       cfg=cfg)
-    res = tc.compare_runs(got, J.jax_smoke_run(name, 3, n_microbatches, **over),
-                          arch=name)
-    assert res["ok"] and res["held"] == "run", res
 
 
 def test_capacity_counts_a_microbatchs_rows():

@@ -20,6 +20,7 @@ import torch
 from repro.train import optimizer as jopt
 from repro_torch.params import PV, params_from_jax, tree_leaves
 from repro_torch.train import optimizer as opt
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 F32_RTOL, BF16_RTOL, ATOL_SHARE = 2e-6, 8e-3, 1e-6
 

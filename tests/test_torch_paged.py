@@ -29,6 +29,7 @@ from repro_torch.serve import (BlockAllocator, BlockLeakError,
                                ServeConfig, ServingEngine, kv_token_bytes,
                                max_block_tokens, validate_prompt)
 from repro_torch.serve import traffic
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 RULES = default_rules(None)
 # f32 on both sides; only the summation order of the products differs

@@ -31,6 +31,7 @@ from repro_torch.params import params_from_jax
 from repro_torch.serve import Request, ServeConfig, ServingEngine
 from repro_torch.testing import kernel_checks as kc
 from repro_torch.train import trainer
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 RULES = default_rules(None)
 # as tests/test_torch_train.py states them
@@ -55,13 +56,16 @@ def test_every_dense_arch_head_dim_has_both_attention_kernels(name):
     """At its published width (phi3-mini: 3072 / 32 = 96), and the MoE
     archs', jamba's and llama-3.2-vision's too (128), and seamless's (64);
     in bf16 each takes the wgmma kernels, forward and backward, at its
-    self-attention's S = Sk and its cross-attention's Sk != S."""
+    self-attention's S = Sk and its cross-attention's Sk != S; the backward
+    over vlm's 6,404 image tokens (``STATS_MIN_SK`` keys or more) their
+    stats instances, which read the forward's statistics."""
     D = get_config(name).head_dim
     assert D in flash_attention.HEAD_DIMS
     assert D in paged_attention.HEAD_DIMS
     for S, Sk in ((1024, 1024), (35, 6404), (1024, 256)):
+        want = "stats" if Sk >= flash_attention.STATS_MIN_SK else "wgmma"
         assert flash_attention.variant(S, Sk, D, torch.bfloat16) == "wgmma"
-        assert flash_attention.bwd_variant(S, Sk, D, torch.bfloat16) == "wgmma"
+        assert flash_attention.bwd_variant(S, Sk, D, torch.bfloat16) == want
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

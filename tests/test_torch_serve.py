@@ -18,6 +18,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.models import lm
 from repro_torch.params import params_from_jax
 from repro_torch.serve import Request, ServeConfig, ServingEngine
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 RULES = default_rules(None)
 CONFIGS = {

@@ -29,6 +29,7 @@ from repro_torch.serve.engine import pod_local_cache_rules, prefix_key
 from repro_torch.testing import check_serve_paged as csp
 from repro_torch.testing import check_serve_topology as cst
 from repro_torch.testing.subproc import run_ranks
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 
 @pytest.fixture(scope="module")

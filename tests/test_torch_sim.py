@@ -20,6 +20,7 @@ from repro_torch import sim
 from repro_torch.core import isa_kernels
 from repro_torch.sim import paper, ppa
 from repro_torch.testing import check_core as cc
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 KERNELS = tuple(sim.KERNEL_BUILDERS)
 #: the builders' sizes for the equality sweep (the defaults' loops, shorter)

@@ -45,6 +45,7 @@ from repro_torch.models import lm
 from repro_torch.params import params_from_jax
 from repro_torch.serve import (PagedServeConfig, PagedServingEngine, Request,
                                ServeConfig, ServingEngine)
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 RULES = default_rules(None)
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -310,21 +311,6 @@ def _drive(engine, prompts, req=Request, new=12):
         engine.submit(r)
     engine.run()
     return {r.rid: list(r.out) for r in reqs}
-
-
-@pytest.mark.parametrize("name", SSM)
-def test_dense_engine_streams_match_jax(name):
-    """6 requests of 5-19 tokens through 4 slots, max_seq 64: a slot's Mamba
-    state is the prefill's at admit, and a dead slot's runs on, as in JAX."""
-    jcfg, cfg, jp, tp = _setup(name)
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, cfg.vocab_size, int(rng.integers(5, 20))).astype(np.int32)
-               for _ in range(6)]
-    jeng = JServingEngine(jcfg, jp, RULES, JServeConfig(max_batch=4, max_seq=64))
-    eng = ServingEngine(lm.Model(cfg, tp), ServeConfig(max_batch=4, max_seq=64),
-                        device="cpu")
-    want = _drive(jeng, prompts, JRequest)
-    assert _drive(eng, prompts) == want and len(want) == 6
 
 
 @pytest.mark.parametrize("name", SSM)

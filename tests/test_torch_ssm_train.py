@@ -17,6 +17,7 @@ from repro_torch.testing import train_checks as tc
 from repro_torch.train import trainer
 from test_torch_ssm import SSM, _drive, _setup
 import torch_jax_smoke as J
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 
 # ---------------------------------------------------------------------------
@@ -49,20 +50,6 @@ def test_forward_train_loss_and_every_grad_leaf_match_jax(case):
     jcfg, cfg, jp, tp = _setup(name, **over)
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
     J.assert_grads_match_jax(jcfg, cfg, jp, tp, toks, grad_tol=tol)
-
-
-@pytest.mark.parametrize("n_microbatches", [1, 2])
-@pytest.mark.parametrize("name", SSM)
-def test_train_steps_match_jax(name, n_microbatches):
-    """Three ``make_train_step`` steps from the JAX initialiser's weights
-    against JAX's on the same batches; jamba, held at its start, one (its
-    later steps would be read and not held)."""
-    steps = 1 if name in tc.START_ONLY else 3
-    got = tc.run_smoke("cpu", steps=steps, n_microbatches=n_microbatches, arch=name)
-    res = tc.compare_runs(got, J.jax_smoke_run(name, steps, n_microbatches),
-                          arch=name)
-    assert res["ok"], res
-    assert res["held"] == ("start" if name in tc.START_ONLY else "run")
 
 
 @pytest.mark.parametrize("name", SSM)

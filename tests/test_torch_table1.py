@@ -38,6 +38,7 @@ from repro.kernels import reduction as jred
 from repro_torch.kernels import ops, reduction, ref, stencil
 from repro_torch.launch import kern
 from repro_torch.testing import kernel_checks as kc
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 HIERARCHIES = ["two-level", "flat"]
 

@@ -26,6 +26,7 @@ from repro_torch.kernels import stencil as st
 from repro_torch.models import lm
 from repro_torch.params import init_params
 from repro_torch.testing import timing
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 TAG = "test-card"
 #: one signature a family, at small shapes of each plan's kind

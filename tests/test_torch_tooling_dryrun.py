@@ -23,6 +23,7 @@ from repro_torch.launch.specs import SHAPES, ShapeSpec, input_specs, skip_reason
 from repro_torch.models import lm
 from repro_torch.parallel.sharding import local_shape, param_placements
 from repro_torch.topology import Topology
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 KINDS = ("train", "prefill", "decode")
@@ -53,7 +54,7 @@ def jax_args():
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu",
            "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
     out = subprocess.run([sys.executable, "-c", JAX_SIDE, *KINDS], capture_output=True,
-                         text=True, timeout=600, env=env, cwd=ROOT)
+                         text=True, timeout=300, env=env, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
     return json.loads(out.stdout.strip().splitlines()[-1])
 

@@ -17,6 +17,7 @@ from repro_torch.analysis import RULES, lint, record_check, schedule_check
 from repro_torch.launch import dryrun as dr
 from repro_torch.parallel import comm
 from repro_torch.topology import Topology
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -215,7 +216,7 @@ def test_rules_are_the_references_names():
 
 def test_the_cli_exits_zero_on_the_tree():
     out = subprocess.run([sys.executable, "-m", "repro_torch.analysis"],
-                         capture_output=True, text=True, timeout=600, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120, cwd=ROOT,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
     assert "clean (L1, L2, L3, L4, S1, S2, S3 active)" in out.stdout

@@ -22,6 +22,7 @@ from repro_torch.launch.specs import SHAPES
 from repro_torch.parallel import comm
 from repro_torch.roofline import analysis as ta
 from repro_torch.topology import Level, Topology
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 DATA = pathlib.Path(__file__).parent / "data"
 JHW = dict(ja.HW)

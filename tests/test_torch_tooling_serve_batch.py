@@ -11,6 +11,7 @@ import pytest
 from repro_torch.examples import serve_batch
 from repro_torch.launch import serve
 from repro_torch.testing import train_checks as tc
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 

@@ -7,6 +7,7 @@ import pytest
 
 from repro import topology as jt
 from repro_torch import topology as pt
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 
 def _pairs():

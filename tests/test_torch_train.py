@@ -39,6 +39,7 @@ from repro_torch.params import params_from_jax, tree_leaves
 from repro_torch.testing import train_checks as tc
 from repro_torch.train import trainer
 import torch_jax_smoke as J
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 RULES = default_rules(None)
 LOSS_RTOL = 1e-5

@@ -10,6 +10,7 @@ import shutil
 import pytest
 
 from repro_torch.examples import train_lm
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 

@@ -39,6 +39,7 @@ from repro_torch.params import params_from_jax
 from repro_torch.train import trainer
 from test_torch_ssm_train import _serve_counting
 from torch_jax_smoke import _paths
+import torch_one_thread  # noqa: F401  (one intra-op thread: tests/torch_one_thread.py)
 
 RULES = default_rules(None)
 TOL = dict(rtol=1e-5, atol=1e-5)
