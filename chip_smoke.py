@@ -17,7 +17,8 @@ Phases, each of which raises on failure (nothing is caught):
      tile edges, mixtral's window of 4,096 at 4,608 tokens (twice for the
      same bits), every head dim causal and not, and
      phi3-mini's heads (32 over 32 of 96) at S = 512, twice for the same
-     bits (bf16 must take wgmma, f32 simt); the matmul at mamba2-370m's
+     bits (bf16 must take wgmma, f32 tf32x3: three TF32 products, at head
+     dims 64, 96 and 128; simt at 16 and 32); the matmul at mamba2-370m's
      ``in_proj`` (N = 4,384, its 32-column edge tile read alone too) and
      ``out_proj`` (K = 2,048) at M = 4, 223 and 4,096, rmsnorm at D = 1,024
      and 2,048, mixtral's expert products at its train step's C = 1,280
@@ -47,7 +48,7 @@ Phases, each of which raises on failure (nothing is caught):
      through simt there), rmsnorm's at D = 1,024 and 2,048, in bf16 and
      f32; each
      line naming the kernels taken (flash attention's ``bwd_variant``: bf16
-     at the llama3-8b and phi3-mini heads must take wgmma, f32 simt;
+     at the llama3-8b and phi3-mini heads must take wgmma, f32 tf32x3;
      rmsnorm's ``bwd_path``); then head dim 96 in bf16 forward and
      backward at ``kernel_checks.D96_CASES`` (phi3-mini's train step,
      ragged prompts, a window, GQA 32/8), from the model's (B, S, H, D)
@@ -295,14 +296,24 @@ Phases, each of which raises on failure (nothing is caught):
      attention's also through the simt kernels, forced, for the same call);
      flash attention non-causal at the cross-attention families' shapes
      (``XATTN_TIMED``), forward and backward, beside SDPA and autograd of
-     SDPA with the kv heads expanded.
+     SDPA with the kv heads expanded; the f32 rows of the kernel table
+     (``_f32_rows``: 3b, flash attention's forward at (1, 32/8, 512, 128);
+     3h, its backward at (4, 32/8, 1024, 128), the dq and dkv grids apart;
+     2d, the f32 matmul at (333, 4096) @ (4096, 14336)), each checked
+     first, beside the simt kernels forced in the same run, SDPA and
+     autograd of SDPA with the kv heads expanded (and with ``enable_gqa``,
+     which takes the math path in f32; each naming the backend that ran
+     by its kernels) or ``torch.matmul`` in full f32, and the bound at f32
+     accuracy both ways:
+     three TF32 products on the tensor cores and the CUDA cores.
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  ``--only PART`` runs one part alone
 (``ONLY``: ``matmul-bwd``, phase 6's matmul backward rows; ``phi3``, phase
 7b and phase 6's phi3-mini flash rows; ``moe``, phase 8's serving;
 ``moe-train``, phase 8's training; ``ssm``, phase 5's Mamba smoke models
 and phase 9; ``xattn``, phases 3 and 3c's cross-attention checks, phase 10
-and phase 6's cross-attention rows; ``state``, phase 11; ``dist``, phase
+and phase 6's cross-attention rows; ``f32``, phase 6's f32 rows and the
+flash libraries' ptxas lines; ``state``, phase 11; ``dist``, phase
 12; ``mesh``, phase 13; ``machine``, phase 14; ``tooling``, phase 15), so that a copy
 of this file at another checkout's root reads that tree's kernels with
 this file's readings.  Imports nothing of JAX.  Without a
@@ -321,13 +332,14 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and
-# operations/s by type (bf16 on the tensor cores, f32 on the CUDA cores)
+# operations/s by type (bf16 on the tensor cores, f32 on the CUDA cores, and
+# f32-accurate work as three TF32 products at the dense TF32 rate)
 HBM_BYTES_S = 3.35e12
 CUDA_LIBS = ("matmul", "flash_attention", "flash_attention_bwd",
              "paged_attention", "reduction", "stencil", "rmsnorm")
 # open-loop arrival rate of the paged serve phase (requests / second)
 PAGED_RATE = 1.5
-PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12, "tf32x3": 494.7e12 / 3}
 
 
 def _ms_bound(nbytes: float, nops: float, kind: str) -> tuple[float, str]:
@@ -351,6 +363,8 @@ PORT_KERNELS = {"matmul_bwd dX wgmma": "matmul_bwd_kernel<0,0>",
                 "flash_attention_bwd dkv stats": "flash_bwd_dkv_wgmma_kernel<true",
                 "flash_attention_bwd dq wgmma": "flash_bwd_dq_wgmma_kernel",
                 "flash_attention_bwd dkv wgmma": "flash_bwd_dkv_wgmma_kernel",
+                "flash_attention_bwd dq tf32x3": "flash_bwd_dq_tf32_kernel",
+                "flash_attention_bwd dkv tf32x3": "flash_bwd_dkv_tf32_kernel",
                 "flash_attention_bwd dq simt": "flash_bwd_dq_kernel",
                 "flash_attention_bwd dkv simt": "flash_bwd_dkv_kernel",
                 "matmul decode": "matmul_decode_kernel",
@@ -358,6 +372,8 @@ PORT_KERNELS = {"matmul_bwd dX wgmma": "matmul_bwd_kernel<0,0>",
                 "matmul simt": "matmul_kernel", "rmsnorm": "rms_vec_kernel",
                 "rmsnorm scalar": "rms_scalar_kernel",
                 "flash_attention wgmma": "flash_wgmma_kernel",
+                "flash_attention tf32x3 split": "flash_tf32_split_kernel",
+                "flash_attention tf32x3": "flash_tf32_kernel",
                 "flash_attention simt": "flash_kernel",
                 "paged_attention": "paged_kernel",
                 "softmax_rows regs": "softmax_regs_kernel",
@@ -423,16 +439,30 @@ def _ptxas_summary(log: str) -> list:
     beside it."""
     import re
 
+    def nested(sym: str) -> tuple[str, str]:
+        """The last name of a mangled nested name (_ZN, then names each
+        after its length: the namespace's, the kernel's) and what follows."""
+        pos, last = 3, ""
+        while pos < len(sym) and sym[pos].isdigit():
+            end = pos
+            while sym[end].isdigit():
+                end += 1
+            n = int(sym[pos:end])
+            last, pos = sym[end:end + n], end + n
+        return last, sym[pos:]
+
     out, name = [], None
     for line in log.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties for) '?"
-                      r"_ZN\w*?(\d+)([a-z_]+kernel)I(\w+?)E+v", line)
-        if m:
-            args = re.sub(r"Li(\d+)E?", r" \1", m.group(3).replace("13__nv_bfloat16", "bf16")
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(_ZN\w+)", line)
+        kernel, rest = nested(m.group(1)) if m else ("", "")
+        t = re.match(r"I(\w+?)E+v", rest)
+        if kernel.endswith("kernel") and t:
+            args = re.sub(r"Li(\d+)E?", r" \1", t.group(1).replace("13__nv_bfloat16", "bf16")
+                          .replace("Lb1E", " vec ").replace("Lb0E", " scalar ")
                           .replace("Lb1", " vec").replace("Lb0", " scalar"))
             if args.startswith("f"):
                 args = "f32" + args[1:]
-            name = f"{m.group(2)}<{', '.join(args.split())}>"
+            name = f"{kernel}<{', '.join(args.split())}>"
         if name and ("spill" in line or "registers" in line):
             out.append(f"{name}: {line.replace('ptxas info    :', '').strip()}")
         if "C75" in line:
@@ -706,6 +736,175 @@ def _json_numbers(v):
     return v
 
 
+def _ms_bound_f32(nbytes: float, nops: float) -> tuple[float, str, float, float]:
+    """An f32 row's bound at f32 accuracy: the lesser of the card's two ways
+    to do its operations, three TF32 products on the tensor cores
+    (``"tf32x3"``) or the CUDA cores (``"f32"``), each the larger of its
+    bytes and operations time; returns (bound, what bounds it, the TF32
+    bound, the CUDA-core bound)."""
+    tc, tc_by = _ms_bound(nbytes, nops, "tf32x3")
+    cc, cc_by = _ms_bound(nbytes, nops, "f32")
+    return (tc, tc_by, tc, cc) if tc <= cc else (cc, cc_by, tc, cc)
+
+
+def _sdpa_kernels(fn) -> str:
+    """The kernel names of one library call in a trace (which SDPA backend
+    ran), the longest first."""
+    by = {}
+    for e in _kernel_events(fn, 3):
+        by[e.name] = by.get(e.name, 0.0) + e.time_range.end - e.time_range.start
+    return "; ".join(n[:90] for n, _ in sorted(by.items(), key=lambda kv: -kv[1])[:3])
+
+
+def _f32_rows(kc, kfa, kmm, ref, time_ms) -> dict:
+    """Phase 6's f32 rows of the kernel table, each checked against its
+    plain version first, then timed beside the CUDA-core (simt) kernels
+    forced in the same run (``variant`` / ``bwd_variant`` lifted to them)
+    and the library call (SDPA and its autograd on the KV heads expanded,
+    and with ``enable_gqa`` beside them): 3b, flash attention's forward at
+    S = 512 (1, 32/8 heads of 128, causal); 3h, its backward at ``FLASH_BWD_CASES[0]`` (4,
+    32/8, 1024, 128, causal), the dq and dkv grids apart; 2d, the matmul at
+    row 2b's shape (333, 4096) @ (4096, 14336) on its f32 kernel beside
+    ``torch.matmul`` in full f32 (TF32 off).  Kernel, plain and library ms
+    between CUDA events, device ms from traces, and the bound at f32
+    accuracy both ways (``_ms_bound_f32``).  It uses only what the package
+    has had since the flash backward came, so ``--only f32`` in a copy of
+    this file at an older tree's root reads that tree's kernels.  Returns
+    rows "3b", "3h", "2d"."""
+    import torch
+    import torch.nn.functional as F
+
+    f32 = torch.float32
+    Hq, Hkv, D = kc.HQ, kc.HKV, kc.HEAD_DIM
+    rows = {}
+    # 3b: q and out once, k and v once; 4 D operations a visible pair
+    S = 512
+    q, k, v = kc.flash_inputs(S, f32)
+    kern = lambda: kfa.flash_attention(q, k, v, causal=True)
+    # the library on the KV heads expanded (the copy not timed), as
+    # _xattn_times: its memory-efficient kernel takes f32 but no GQA, so
+    # with enable_gqa SDPA falls to its math path (read beside it)
+    ke, ve = (t.repeat_interleave(Hq // Hkv, dim=1) for t in (k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True)
+    gqa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    r = kc.check_flash_attention(S, f32)
+    var = kfa.variant(S, S, D, f32)
+    print(f"[check] flash_attention B=1 Hq={Hq} Hkv={Hkv} D={D} S={S} causal float32 {var} "
+          f"same bits twice: {r['same_bits']} {_reading(r)}")
+    if not r["ok"]:
+        raise AssertionError(f"flash_attention f32 ({var}) disagrees at row 3b: {r}")
+    t_k, t_l = time_ms(kern, 50), time_ms(sdpa, 50)
+    t_p = time_ms(lambda: ref.attention(q, k, v, causal=True), 10)
+    d_k, d_l, d_g = _device_call(kern, 20), _device_call(sdpa, 20), _device_call(gqa, 20)
+    pro, _ = _device_ms(kern, "flash_tf32_split", 20)
+    chooser = kfa.variant
+    kfa.variant = lambda *a, **kw: "simt"
+    try:
+        t_s, d_s = time_ms(kern, 20), _device_call(kern, 20)
+    finally:
+        kfa.variant = chooser
+    bound, by, b_tc, b_cc = _ms_bound_f32(4 * S * D * (2 * Hq + 2 * Hkv),
+                                          4.0 * D * Hq * S * (S + 1) / 2)
+    rows["3b"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound, bound_by=by,
+                      tf32x3_bound_ms=b_tc, cuda_core_bound_ms=b_cc, device_ms=d_k,
+                      prologue_device_ms=pro, library_device_ms=d_l,
+                      library_gqa_device_ms=d_g, simt_ms=t_s, simt_device_ms=d_s, variant=var,
+                      max_abs_err=r["max_abs_err"],
+                      shape=f"B=1,Hq={Hq},Hkv={Hkv},S={S},D={D},causal,f32")
+    print(f"[time] 3b flash_attention B=1 Hq={Hq} Hkv={Hkv} D={D} S={S} causal f32 {var} "
+          f"kernel {t_k:.4f} ms (simt {t_s:.4f})  plain {t_p:.4f} ms  SDPA {t_l:.4f} ms  "
+          f"bound {bound:.5f} ms ({by}; three TF32 products {b_tc:.5f}, CUDA cores "
+          f"{b_cc:.5f}); device: kernel {d_k:.4f} ms (its K/V split {pro:.4f}), simt "
+          f"{d_s:.4f} ms, SDPA {d_l:.4f} ms, {d_k / d_l:.2f}x SDPA, {d_s / d_k:.2f}x "
+          f"faster than simt, {d_k / bound:.1f}x bound; SDPA ran {_sdpa_kernels(sdpa)}; "
+          f"with enable_gqa dev {d_g:.4f} ms, ran {_sdpa_kernels(gqa)}")
+    del q, k, v, ke, ve
+    # 3h: q, k, v, do read, dq, dk, dv written; five products a visible pair
+    B, S, _ = kc.FLASH_BWD_CASES[0]
+    q, k, v, do = kc.attention_bwd_inputs(B, S, f32)
+    r = kc.check_flash_bwd(B, S, f32)
+    var = kfa.bwd_variant(S, S, D, f32)
+    print(f"[check] flash_attention_bwd B={B} Hq={Hq} Hkv={Hkv} D={D} S={S} causal float32 "
+          f"{var} same bits twice: {r['same_bits']} {_reading(r)}")
+    if not r["ok"]:
+        raise AssertionError(f"flash_attention_bwd f32 ({var}) disagrees at row 3h: {r}")
+    fk = lambda: kfa.backward(q, k, v, do, causal=True)
+    # autograd of SDPA on the KV heads expanded, as at 3b (dk and dv left
+    # per q head), and with enable_gqa beside it
+    ke, ve = (t.repeat_interleave(Hq // Hkv, dim=1) for t in (k, v))
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, ke, ve))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    fl = lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+    fg = lambda: torch.autograd.grad(og, (qg, kg, vg), do, retain_graph=True)
+    t_k, t_l = time_ms(fk, 10), time_ms(fl, 10)
+    t_p = time_ms(lambda: ref.attention_bwd(q, k, v, do, causal=True), 1)
+    tags = {"tf32x3": ("flash_bwd_dq_tf32", "flash_bwd_dkv_tf32"),
+            "simt": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
+    (dq, _), (dkv, _) = (_device_ms(fk, tag, 10) for tag in tags[var])
+    d_l, d_g = _device_call(fl, 10), _device_call(fg, 10)
+    chooser = kfa.bwd_variant
+    kfa.bwd_variant = lambda *a, **kw: "simt"
+    try:
+        t_s = time_ms(fk, 5)
+        (sq, _), (skv, _) = (_device_ms(fk, tag, 5) for tag in tags["simt"])
+    finally:
+        kfa.bwd_variant = chooser
+    pairs = B * Hq * S * (S + 1) / 2
+    bound, by, b_tc, b_cc = _ms_bound_f32(4 * B * S * D * (2 * Hq + 2 * Hkv) * 2,
+                                          5 * 2.0 * pairs * D)
+    rows["3h"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound, bound_by=by,
+                      tf32x3_bound_ms=b_tc, cuda_core_bound_ms=b_cc, device_ms=dq + dkv,
+                      dq_device_ms=dq, dkv_device_ms=dkv, library_device_ms=d_l,
+                      library_gqa_device_ms=d_g, simt_ms=t_s,
+                      simt_device_ms=sq + skv, simt_dq_device_ms=sq, simt_dkv_device_ms=skv,
+                      variant=var, max_abs_err=r["max_abs_err"],
+                      shape=f"B={B},Hq={Hq},Hkv={Hkv},S={S},D={D},causal,f32")
+    print(f"[time] 3h flash_attention_bwd B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} causal f32 "
+          f"{var} kernel {t_k:.4f} ms (simt {t_s:.4f})  plain {t_p:.4f} ms  SDPA backward "
+          f"(autograd) {t_l:.4f} ms  bound {bound:.4f} ms ({by}; three TF32 products "
+          f"{b_tc:.4f}, CUDA cores {b_cc:.4f}); device: dq {dq:.4f} + dkv {dkv:.4f} = "
+          f"{dq + dkv:.4f} ms (simt {sq:.4f} + {skv:.4f} = {sq + skv:.4f}), SDPA backward "
+          f"{d_l:.4f} ms, {(dq + dkv) / d_l:.2f}x SDPA's, {(sq + skv) / (dq + dkv):.2f}x "
+          f"faster than simt, {(dq + dkv) / bound:.1f}x bound; SDPA's backward ran "
+          f"{_sdpa_kernels(fl)}; with enable_gqa dev {d_g:.4f} ms, ran {_sdpa_kernels(fg)}")
+    del q, k, v, do, ke, ve, ql, kl, vl, ol, qg, kg, vg, og
+    # 2d: a and b read once, c written once
+    M, K, N = 333, 4096, 14336
+    r = kc.check_matmul(M, K, N, f32)
+    var = kmm.variant(M, K, N, f32)
+    if not r["ok"]:
+        raise AssertionError(f"matmul f32 ({var}) disagrees at row 2d: {r}")
+    a, b = kc.matmul_inputs(M, K, N, f32)
+    kern, lib = (lambda: kmm.matmul(a, b)), (lambda: torch.matmul(a, b))
+    t_k, t_l = time_ms(kern, 10), time_ms(lib, 10)
+    t_p = time_ms(lambda: ref.matmul(a, b), 5)
+    d_k, d_l = _device_call(kern, 10), _device_call(lib, 10)
+    bound, by, b_tc, b_cc = _ms_bound_f32(4 * (M * K + K * N + M * N), 2.0 * M * K * N)
+    rows["2d"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound, bound_by=by,
+                      tf32x3_bound_ms=b_tc, cuda_core_bound_ms=b_cc, device_ms=d_k,
+                      library_device_ms=d_l, variant=var, max_abs_err=r["max_abs_err"],
+                      shape=f"M={M},K={K},N={N},f32")
+    print(f"[time] 2d matmul M={M} K={K} N={N} f32 {var} kernel {t_k:.4f} ms  plain "
+          f"{t_p:.4f} ms  torch.matmul (TF32 off) {t_l:.4f} ms  bound {bound:.4f} ms ({by}; "
+          f"three TF32 products {b_tc:.4f}, CUDA cores {b_cc:.4f}); device: kernel "
+          f"{d_k:.4f} ms, torch.matmul {d_l:.4f} ms, {d_k / d_l:.2f}x torch.matmul, "
+          f"{d_k / bound:.1f}x bound, {d_k / b_cc:.2f}x the CUDA-core bound")
+    return rows
+
+
+def _f32_part(dev, m) -> dict:
+    """``--only f32``: the flash libraries' ptxas lines (phase 2's), then
+    phase 6's f32 rows (``_f32_rows``)."""
+    from repro_torch.kernels import _build
+
+    for lib in ("flash_attention", "flash_attention_bwd"):
+        for line in _ptxas_summary(_build.BUILD_LOGS.get(lib, "")):
+            print(f"[build]   {lib}: {line}")
+    return _f32_rows(m.kc, m.kfa, m.kmm, m.ref, _time_ms)
+
+
 def _time_ms(fn, iters: int) -> float:
     """ms a call of ``fn`` between CUDA events, over ``iters`` calls after
     three warm-up calls."""
@@ -932,8 +1131,8 @@ def _backward_checks(kc, kfa) -> tuple[dict, list]:
             errs[("flash_attention_bwd", B, S, window, dt)] = r["max_abs_err"]
             line(f"flash_attention_bwd B={B} Hq={kc.HQ} Hkv={kc.HKV} D={kc.HEAD_DIM} "
                  f"S={S:<4d} causal window={window} {str(dt)[6:]:8s} {r['variant']:5s}", r)
-            # bf16 at these heads through the tensor cores, f32 through simt
-            if not r["ok"] or r["variant"] != ("wgmma" if dt == torch.bfloat16 else "simt"):
+            # bf16 and f32 at these heads through the tensor cores
+            if not r["ok"] or r["variant"] != ("wgmma" if dt == torch.bfloat16 else "tf32x3"):
                 failed.append(("flash_attention_bwd", B, S, window, dt))
     # the wgmma kernels' other head dim at the training length
     B, S, D = kc.FLASH_BWD_D64
@@ -943,7 +1142,7 @@ def _backward_checks(kc, kfa) -> tuple[dict, list]:
     if not r["ok"] or r["variant"] != "wgmma":
         failed.append(("flash_attention_bwd", B, S, D))
     # phi3-mini's heads (32 over 32 of 96) at the training length: wgmma in
-    # bf16, simt in f32
+    # bf16, tf32x3 in f32
     B, S = kc.PHI3_FLASH_BWD
     for dt in dts:
         r = kc.check_flash_bwd(B, S, dt, None, True, kc.PHI3_HQ, kc.PHI3_HKV, kc.PHI3_HEAD_DIM)
@@ -951,7 +1150,7 @@ def _backward_checks(kc, kfa) -> tuple[dict, list]:
         line(f"flash_attention_bwd B={B} Hq={kc.PHI3_HQ} Hkv={kc.PHI3_HKV} "
              f"D={kc.PHI3_HEAD_DIM} S={S:<4d} causal window=None {str(dt)[6:]:8s} "
              f"{r['variant']:5s}", r)
-        if not r["ok"] or r["variant"] != ("wgmma" if dt == torch.bfloat16 else "simt"):
+        if not r["ok"] or r["variant"] != ("wgmma" if dt == torch.bfloat16 else "tf32x3"):
             failed.append(("flash_attention_bwd phi3", B, S, dt))
     # head dim 96 in bf16, forward and backward, every head, into outputs
     # with guard columns after each row
@@ -1961,8 +2160,8 @@ def _xattn_checks(kc, kfa, kmm) -> tuple[dict, list]:
     (Sk != S, and the encoder's S = Sk) in bf16 and f32, bf16 at the head
     dims 64 and 128 taking wgmma forward and the rule's tensor-core
     backward (stats over 6,404 keys, with the forward's statistics held to
-    the plain L and f32 output; wgmma below ``STATS_MIN_SK``), f32 and the
-    smoke heads simt; the stats backward forced at
+    the plain L and f32 output; wgmma below ``STATS_MIN_SK``), f32 there
+    tf32x3 both ways, the smoke heads simt; the stats backward forced at
     ``kernel_checks.STATS_FLASH_CASES`` (causal, windowed, every head dim,
     the training shapes); the matmul at ``XATTN_MATMUL`` forward and at
     ``XATTN_MATMUL_BWD`` dX and dW; rmsnorm at seamless's width.  Returns
@@ -1983,8 +2182,11 @@ def _xattn_checks(kc, kfa, kmm) -> tuple[dict, list]:
     for name, B, S, Sk, Hq, Hkv, D in kc.XATTN_FLASH_CASES:
         for dt in dts:
             r = kc.check_flash_cross(B, S, Sk, Hq, Hkv, D, dt)
-            want = ("wgmma" if dt == torch.bfloat16 and D in kfa.WGMMA_HEAD_DIMS
-                    else "simt")
+            # f32 on the TF32 kernels where the tree has them (an older tree,
+            # where this file is copied for an A/B, takes simt)
+            tc = {torch.bfloat16: "wgmma",
+                  torch.float32: "tf32x3" if "tf32x3" in kfa.VARIANTS else "simt"}
+            want = tc[dt] if D in kfa.WGMMA_HEAD_DIMS else "simt"
             # (a tree before the stats backward, where this file is copied
             # for an A/B, has no STATS_MIN_SK)
             min_sk = getattr(kfa, "STATS_MIN_SK", None)
@@ -3918,6 +4120,7 @@ ONLY = {
     "mesh": (("matmul", "rmsnorm", "flash_attention", "flash_attention_bwd",
               "paged_attention"), lambda dev, m: _mesh_path(dev, m.smi)),
     "machine": ((), lambda dev, m: _machine_path(dev, m.smi)),
+    "f32": (("matmul", "flash_attention", "flash_attention_bwd"), _f32_part),
     "tooling": (("matmul", "rmsnorm", "flash_attention", "paged_attention",
                  "reduction", "stencil"), lambda dev, m: _tooling_path(dev, m.smi)),
 }
@@ -3934,7 +4137,8 @@ def main(argv: list | None = None) -> int:
                          "moe: phase 8's serving; moe-train: phase 8's training; "
                          "ssm: phase 5's Mamba smoke models and phase 9; xattn: "
                          "phase 3's and 3c's cross-attention checks, phase 10 and "
-                         "phase 6's cross-attention rows; state: phase 11; dist: "
+                         "phase 6's cross-attention rows; f32: phase 6's f32 rows "
+                         "3b, 3h and 2d; state: phase 11; dist: "
                          "phase 12; mesh: phase 13; machine: phase 14; tooling: "
                          "phase 15); "
                          "a copy of this file at the root of another checkout reads "
@@ -3970,6 +4174,8 @@ def main(argv: list | None = None) -> int:
     from repro_torch.train.trainer import serve_launches
 
     t_all = now()
+    ends = []                               # (phase, s from the start at its end)
+    ended = lambda phase: ends.append(f"{phase} {now() - t_all:.0f}")
     # f32 products in full f32 on both sides of every comparison
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4008,6 +4214,7 @@ def main(argv: list | None = None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build]   {lib}: {line.strip()}")
 
+    ended("2")
     # -- 3. kernels vs plain versions ------------------------------------------
     errs = {}
     failed = []
@@ -4094,7 +4301,8 @@ def main(argv: list | None = None) -> int:
                   f"D={kc.HEAD_DIM} S={S:<4d} causal window={window} "
                   f"{str(dt)[6:]:8s} {r['variant']:5s} same bits twice: "
                   f"{r['same_bits']} {_reading(r)}")
-            if not r["ok"]:
+            # bf16 and f32 at these heads through the tensor cores
+            if not r["ok"] or r["variant"] != ("wgmma" if dt == torch.bfloat16 else "tf32x3"):
                 failed.append(("flash_attention", B, S, window, dt))
         for D in kfa.HEAD_DIMS:
             for causal in (True, False):
@@ -4105,14 +4313,14 @@ def main(argv: list | None = None) -> int:
                 if not r["ok"]:
                     failed.append(("flash_attention head dim", D, causal, dt))
         # phi3-mini's heads (32 over 32 of 96) at a whole prompt: wgmma in
-        # bf16, simt in f32
+        # bf16, tf32x3 in f32
         S = kc.PHI3_FLASH_S
         r = kc.check_flash_phi3(S, dt)
         errs[("flash_attention phi3", S, dt)] = r["max_abs_err"]
         print(f"[check] flash_attention B=1 Hq={kc.PHI3_HQ} Hkv={kc.PHI3_HKV} "
               f"D={kc.PHI3_HEAD_DIM} S={S:<4d} causal window=None {str(dt)[6:]:8s} "
               f"{r['variant']:5s} same bits twice: {r['same_bits']} {_reading(r)}")
-        if not r["ok"] or r["variant"] != ("wgmma" if dt == torch.bfloat16 else "simt"):
+        if not r["ok"] or r["variant"] != ("wgmma" if dt == torch.bfloat16 else "tf32x3"):
             failed.append(("flash_attention phi3", S, dt))
     # -- 3c. the backward kernels vs plain versions -----------------------------
     bwd_errs, bwd_failed = _backward_checks(kc, kfa)
@@ -4141,6 +4349,7 @@ def main(argv: list | None = None) -> int:
     print(f"[sweep] in {now() - t0:.1f}s")
     if failed:
         raise AssertionError(f"kernels disagree with their plain versions: {failed}")
+    ended("3")
 
     # -- 4. smoke model: kernel path on the card vs plain path on the CPU ------
     scfg = get_smoke_config("llama3-8b")
@@ -4151,6 +4360,7 @@ def main(argv: list | None = None) -> int:
     _smoke_paged(scfg, cpu_params, gpu_params, dev)
     # -- 4b. smoke training: kernel path on the card vs plain path on the CPU --
     _smoke_train(dev)
+    ended("4")
 
     # -- 5. main path: llama3-8b at full width, full depth --------------------
     cfg = get_config("llama3-8b")
@@ -4323,31 +4533,43 @@ def main(argv: list | None = None) -> int:
     del model
     torch.cuda.empty_cache()
 
+    ended("5")
     # -- 5e. the Table I path: both configurations through ops -------------------
     path_launches["table1"] = _table1_path(kc, ops, ref, dev)
+    ended("5e")
 
     # -- 7. the training path: llama3-8b at full width, 8 of 32 layers -------
     path_launches["train"] = _train_path(cfg, dev)
+    ended("7")
     # -- 7b. phi3-mini at full width, 2 of 32 layers: head dim 96 --------------
     path_launches.update(_phi3_path(dev))
+    ended("7b")
     # -- 8. the MoE family: mixtral-8x7b at full width, 24 of 32 layers --------
     path_launches["moe"] = _moe_path(dev)
     # ... and its training at full width, 2 of 32 layers
     path_launches["moe_train"] = _moe_train_path(dev)
+    ended("8")
     # -- 9. the Mamba2 family: mamba2-370m at full width and depth -------------
     path_launches.update(_ssm_path(dev))
+    ended("9")
     # -- 10. the cross-attention families: llama-3.2-vision-11b, seamless ------
     path_launches.update(_xattn_path(dev))
+    ended("10")
     # -- 11. state and resilience: llama3-8b resumes; the chaos harnesses -------
     path_launches["state"] = _state_path(dev)
+    ended("11")
     # -- 12. distributed compute: four ranks share the card ---------------------
     path_launches["dist"] = _dist_path(dev, smi.splitlines()[0])
+    ended("12")
     # -- 13. state and serving on a mesh: eight ranks share the card ------------
     path_launches["mesh"] = _mesh_path(dev, smi.splitlines()[0])
+    ended("13")
     # -- 14. the paper's machine: one rank a lane, 1, 8 and 16 lanes ------------
     _machine_path(dev, smi.splitlines()[0])
+    ended("14")
     # -- 15. the tooling: the autotuner on the card, the dry run, serve_batch -------
     path_launches["tooling"] = _tooling_path(dev, smi.splitlines()[0])
+    ended("15")
 
     # -- 6. kernel times ---------------------------------------------------------
     time_ms = _time_ms
@@ -4457,11 +4679,11 @@ def main(argv: list | None = None) -> int:
 
     # flash attention at whole-prompt lengths (bf16, the model's dtype: the
     # dense path's 37 and 223, the paged path's 445, and 512; f32 at the
-    # longest), beside SDPA on the same causal GQA function: between events,
-    # and the device's own ms a call from a trace of each
+    # longest in _f32_rows), beside SDPA on the same causal GQA function:
+    # between events, and the device's own ms a call from a trace of each
     Hq, Hkv, D = kc.HQ, kc.HKV, kc.HEAD_DIM
     for S, dt in ((37, torch.bfloat16), (223, torch.bfloat16), (445, torch.bfloat16),
-                  (512, torch.bfloat16), (512, torch.float32)):
+                  (512, torch.bfloat16)):
         q, k, v = kc.flash_inputs(S, dt)
         iters = 50 if S > 100 else 200
         kern = lambda: kfa.flash_attention(q, k, v, causal=True)
@@ -4549,6 +4771,7 @@ def main(argv: list | None = None) -> int:
         raise AssertionError("paged_attention disagrees at the decode inputs")
     t1_rows = _table1_times(kc, kred, kst, ref, time_ms, dev)
     bwd_rows = _backward_times(kc, kfa, kmm, krms, ref, time_ms)
+    f32_rows = _f32_rows(kc, kfa, kmm, ref, time_ms)
     xattn_rows = _xattn_times(kc, kfa, ref, time_ms)
 
     # the decode-step shapes, where serving spends most of its time, and the
@@ -4580,6 +4803,8 @@ def main(argv: list | None = None) -> int:
                         "max_abs_err": errs[err_key or key], "ms": t_k,
                         "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
                         "library_ms": t_l, "shape": shape})
+        if kname == "matmul":            # f32 at the prefill shape (row 2d)
+            kernels[-1]["f32"] = f32_rows["2d"]
         if kname == "matmul":            # the prefill regime beside decode's
             p_k, p_p, p_l, p_bound, p_by = rows[("matmul", 333, 4096, 14336,
                                                  torch.bfloat16)]
@@ -4596,9 +4821,12 @@ def main(argv: list | None = None) -> int:
         if kname in ("flash_attention", "rmsnorm"):
             kernels[-1]["device_ms"], kernels[-1]["library_device_ms"] = \
                 device_rows[key]
-        if kname == "flash_attention":   # phi3-mini's head dim, cross-attention
+        if kname == "flash_attention":   # phi3-mini's head dim, cross-attention, f32
             key3 = ("flash_attention phi3", kc.PHI3_FLASH_S, torch.bfloat16)
             kernels[-1]["phi3"] = {**phi3_rows["fwd"], "max_abs_err": errs[key3]}
+            kernels[-1]["f32"] = {**f32_rows["3b"], "kernels": [
+                PORT_KERNELS["flash_attention tf32x3 split"],
+                PORT_KERNELS["flash_attention tf32x3"]]}
             kernels[-1]["cross"] = {n: r["fwd"] for n, r in xattn_rows.items()}
             kernels[-1]["cross"]["max_abs_err"] = max(
                 v for k, v in errs.items() if k[0] == "flash_attention cross")
@@ -4657,8 +4885,11 @@ def main(argv: list | None = None) -> int:
         row = bwd_rows[kname]
         if kname == "matmul_bwd":
             row = {**row["wg/wi"], "projections": row}
-        if kname == "flash_attention_bwd":   # phi3-mini's head dim, cross-attention
-            row = {**row, "phi3": {**phi3_rows["bwd"], "max_abs_err":
+        if kname == "flash_attention_bwd":   # phi3-mini's head dim, cross-attention, f32
+            row = {**row, "f32": {**f32_rows["3h"], "kernels": [
+                       PORT_KERNELS["flash_attention_bwd dq tf32x3"],
+                       PORT_KERNELS["flash_attention_bwd dkv tf32x3"]]},
+                   "phi3": {**phi3_rows["bwd"], "max_abs_err":
                                    errs[("flash_attention_bwd phi3", *kc.PHI3_FLASH_BWD,
                                          torch.bfloat16)]},
                    "cross": {**{n: r["bwd"] for n, r in xattn_rows.items()},
@@ -4677,7 +4908,9 @@ def main(argv: list | None = None) -> int:
                         "max_abs_err": worst, **row})
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError(f"a kernel never launched on the main paths: {total}")
-    print(f"[done] chip_smoke.py in {now() - t_all:.1f}s")
+    ended("6")
+    print(f"[done] chip_smoke.py in {now() - t_all:.1f}s; each phase ended at (s): "
+          + ", ".join(ends))
     print(json.dumps({"kernels": _json_numbers(kernels)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -302,8 +302,8 @@ def model_cost(kernel: str, shape, dtype: str, cfg: dict) -> dict:
         B, Hq, Hkv, S, Sk, D = shape
         flops = 4.0 * B * Hq * S * Sk * D * (0.5 if S == Sk else 1.0)
         nbytes = (2 * B * Hq * S * D + 2 * B * Hkv * Sk * D) * isz
-        if cfg["variant"] == "wgmma":
-            peak = hopper.PEAK_OPS_S["bf16"]
+        peak = hopper.PEAK_OPS_S[{"wgmma": "bf16", "tf32x3": "tf32x3"}.get(cfg["variant"],
+                                                                            "f32")]
     elif kernel == "paged_attention":
         B, Hq, Hkv, T, D = shape
         p = pa.plan_with_splits(B, Hkv, Hq // Hkv, T, cfg["splits"])

@@ -15,8 +15,8 @@
 // innermost, sequential kv axis carries the online softmax's m, l and acc in
 // VMEM scratch, with the GQA head mapping h // (Hq / Hkv) in the index maps.
 //
-// Two kernels; kernels/flash_attention.py::variant picks one from (S, Sk, D,
-// dtype):
+// Three kernels; kernels/flash_attention.py::variant picks one from (S, Sk,
+// D, dtype):
 //
 // * wgmma (bf16, D = 64, 96 or 128, Sk > 0): the serving path's prefills
 //   (llama3-8b: B = 1, 32 q heads over 8 kv heads of 128, S = 35-445;
@@ -83,8 +83,36 @@
 //   rescaled nor stored (in the model's (B, S, H, D) layout they would be
 //   the next head's); 1/sqrt(96) scales the scores.
 //
-// * simt (f32, and any head dim or input the wgmma kernel does not take:
-//   D = 16, 32, unaligned views): the first port's kernel, unchanged.  One
+// * tf32x3 (f32, D = 64, 96 or 128, Sk > 0, aligned): f32 attention at real
+//   width on the tensor cores.  What bounds it on an H100: causal S = 512
+//   (1, 32/8 heads of 128) is 2.15 GFLOP; at f32 accuracy that is 0.032 ms
+//   on the CUDA cores (67 TFLOP/s) and 0.013 ms as three TF32 products
+//   (494.7 / 3 TFLOP/s), on ~21 MB (0.006 ms): operations.  So Q K^T and
+//   P V are TF32 wgmma (flash_wgmma.cuh), each f32 operand split into hi =
+//   TF32(x) and lo = x - hi (read as TF32) and each product taken as lo hi + hi lo +
+//   hi hi, within ATTN_TOL[f32] where one TF32 product is ~60x past it
+//   (tests/test_torch_flash_f32.py).  TF32 wgmma reads both operands
+//   K-major, and the split doubles every tile, so:
+//     - a prologue of the same call (flash_tf32_split_kernel, one count in
+//       LAUNCHES) writes each 32-key tile of K and V once as the ring's
+//       stage image: K hi, K lo (32 rows K-major in boxes of 32 f32), V^T
+//       hi, V^T lo (D rows of the 32 keys, each 8 in the order 0 2 4 6 1 3
+//       5 7, so that the S accumulator is P V's A fragment as it lies), all
+//       in the 128-byte swizzle, keys past Sk zero; the split is paid once
+//       a key, not once for each of the G x S / 64 blocks that read it;
+//     - one block a (b, q head, 64-row q tile), the longest walks first:
+//       the consumer warpgroup splits its Q tile into hi and lo in shared
+//       memory (64 KB at D = 128), a producer warp bulk-copies the walk's
+//       stage images into a 2-stage ring of 32 keys (64 KB a stage): 197,664
+//       bytes, one block an SM at D = 128, and 32-key tiles (64 would not
+//       fit two stages);
+//     - S (m64n32k8, 3 D / 8 wgmmas from shared memory), the online softmax
+//       and mask rule of the wgmma kernel, P split in registers, O += P V
+//       (m64nDk8, 12 wgmmas with A from registers), the next tile's S
+//       issued with this tile's P V; D = 96 is three whole boxes of 32 f32.
+//   The row 3b reading is in PERF.md.
+// * simt (f32 and bf16 at D = 16, 32, unaligned views, Sk = 0): the first
+//   port's kernel, unchanged.  One
 //   block of threads owns one (b, h, 64-row q tile) and loops over the
 //   32-key k tiles itself, from the window's lower edge up to the causal
 //   limit; CUDA-core f32 math (each thread a 4 x 4 block of scores and a
@@ -555,32 +583,279 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, float* 
     }
 }
 
+// ---------------------------------------------------------------------------
+// tf32x3: f32, D = 64, 96 or 128 (the PTX forms and the split:
+// flash_wgmma.cuh)
+// ---------------------------------------------------------------------------
+
+namespace t3 {
+constexpr int BQ = 64, BK = 32;        // q rows of a block, keys of a ring stage
+constexpr int STAGES = 2;
+constexpr int THREADS = 160;           // a consumer warpgroup and a producer warp
+constexpr int SPLIT_THREADS = 256;     // the prologue's block
+template <int D> struct Smem {
+    // Q hi or lo: D / 32 boxes of 64 rows x 128 bytes
+    static constexpr int QT = BQ * D * 4;
+    // K hi or lo: D / 32 boxes of 32 keys x 128 bytes; V^T hi or lo: D rows
+    // of the 32 keys (128 bytes)
+    static constexpr int KT = BK * D * 4;
+    // a stage: K hi, K lo, V^T hi, V^T lo, as one tile of the workspace
+    static constexpr int STAGE = 4 * KT;
+    static constexpr int BYTES = 2 * QT + STAGES * STAGE + 2 * STAGES * 8 + 1024;
+};
+}  // namespace t3
+
+// The prologue: K and V of each (b, kv head, 32-key tile) as a stage of the
+// forward's ring holds them, one stage a tile of `work` (B * Hkv * KTn
+// stages in (b, kv head, tile) order): K hi and lo, 32 rows K-major in D /
+// 32 boxes of 128 bytes; V^T hi and lo, D rows of the tile's 32 keys, the
+// keys of each group of 8 in the order 0 2 4 6 1 3 5 7 (split_p_tf32's); the
+// 128-byte swizzle throughout, keys past Sk zero.  The ring then takes a
+// tile by four bulk copies, and the split is paid once a key and not once
+// a block that reads it (G q heads, S / 64 q tiles)
+template <int D>
+__global__ void __launch_bounds__(t3::SPLIT_THREADS)
+flash_tf32_split_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                        unsigned char* __restrict__ work, int Hkv, int Sk, int KTn,
+                        long long k_sb, long long k_sh, long long k_ss, long long v_sb,
+                        long long v_sh, long long v_ss) {
+    using L = t3::Smem<D>;
+    const int tile = blockIdx.x, bh = blockIdx.y, b = bh / Hkv, hk = bh % Hkv;
+    const int k0 = tile * t3::BK;
+    unsigned char* out = work + (static_cast<long long>(bh) * KTn + tile) * L::STAGE;
+    const float* kb = k + b * k_sb + hk * k_sh;
+    const float* vb = v + b * v_sb + hk * v_sh;
+    // K: 32 rows of D / 4 chunks of 4 columns
+    for (int c = threadIdx.x; c < t3::BK * (D / 4); c += t3::SPLIT_THREADS) {
+        const int r = c / (D / 4), col = (c % (D / 4)) * 4;
+        const float4 x = k0 + r < Sk
+            ? *reinterpret_cast<const float4*>(kb + (k0 + r) * k_ss + col)
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+        store_split4(out + (col / 32) * tf::KBOX + swz128(r, (col % 32) / 4), L::KT, x);
+    }
+    // V^T: D rows of 8 chunks of 4 key positions; chunk j holds keys 8 (j /
+    // 2) + (j & 1) + 0, 2, 4, 6.  d runs fastest, so a warp's reads of a key
+    // row are one contiguous stretch
+    for (int c = threadIdx.x; c < D * 8; c += t3::SPLIT_THREADS) {
+        const int d = c % D, j = c / D, key = k0 + 8 * (j / 2) + (j & 1);
+        float x[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            x[e] = key + 2 * e < Sk ? vb[(key + 2 * e) * v_ss + d] : 0.f;
+        store_split4(out + 2 * L::KT + swz128(d, j), L::KT, make_float4(x[0], x[1], x[2], x[3]));
+    }
+}
+
+// One block a (b, q head, 64-row q tile), the longest walks first, as the
+// wgmma kernel's; the consumer warpgroup splits its Q tile into shared
+// memory itself (read once a block), the producer warp copies the
+// prologue's tiles of the walk into a 2-stage ring of 32 keys
+template <int D>
+__global__ void __launch_bounds__(t3::THREADS, 1)
+flash_tf32_kernel(const float* __restrict__ q, const unsigned char* __restrict__ work,
+                  float* __restrict__ out, long long q_sb, long long q_sh, long long q_ss,
+                  long long o_sb, long long o_sh, long long o_ss, int Hq, int Hkv, int S, int Sk,
+                  int KTn, int causal, int window, float sl2) {
+    constexpr int BQ = t3::BQ, BK = t3::BK, STAGES = t3::STAGES;
+    using L = t3::Smem<D>;
+    extern __shared__ unsigned char raw[];
+    // the 128-byte swizzle wants each box 1024-byte aligned
+    unsigned char* buf = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+    unsigned char* ring = buf + 2 * L::QT;               // Q hi, Q lo, then the stages
+    uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * L::STAGE);
+    uint64_t* empty = full + STAGES;
+
+    const int bh = blockIdx.x, b = bh / Hq, h = bh % Hq, hk = h / (Hq / Hkv);
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+    int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+    k_lo = (k_lo / BK) * BK;
+    const int k_hi = causal ? min(Sk, q0 + BQ) : Sk;
+    const int tiles = k_hi > k_lo ? (k_hi - k_lo + BK - 1) / BK : 0;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(&full[s], 1);       // the producer's expect_tx
+            mbar_init(&empty[s], 4);      // each consumer warp, once P V is done
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (threadIdx.x >= 128) {             // the producer warp
+        if (threadIdx.x == 128) {
+            const unsigned char* src =
+                work + (static_cast<long long>(b) * Hkv + hk) * KTn * L::STAGE;
+            for (int j = 0; j < tiles; ++j) {
+                const int s = j % STAGES, t = k_lo / BK + j;
+                if (j >= STAGES) mbar_wait(&empty[s], ((j / STAGES) - 1) & 1);
+                mbar_expect_tx(&full[s], L::STAGE);
+                for (int x = 0; x < 4; ++x)
+                    bulk_load(ring + s * L::STAGE + x * L::KT,
+                              src + static_cast<long long>(t) * L::STAGE + x * L::KT, L::KT,
+                              &full[s]);
+            }
+        }
+        return;
+    }
+
+    // the consumer warpgroup: thread (warp, g, tig) holds rows r0 and r0 + 8
+    const int lt = threadIdx.x, warp = lt / 32, g = (lt & 31) >> 2, tig = lt & 3;
+    const int r0 = q0 + warp * 16 + g;
+    // Q hi and lo, K-major in D / 32 boxes of 64 rows; rows past S zero
+    const float* qb = q + b * q_sb + h * q_sh;
+    for (int c = lt; c < BQ * (D / 4); c += 128) {
+        const int r = c / (D / 4), col = (c % (D / 4)) * 4;
+        const float4 x = q0 + r < S
+            ? *reinterpret_cast<const float4*>(qb + (q0 + r) * q_ss + col)
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+        store_split4(buf + (col / 32) * tf::QBOX + swz128(r, (col % 32) / 4), L::QT, x);
+    }
+    // the stores are the generic proxy's, wgmma reads through the async one
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+
+    const uint32_t qhi = smem_u32(buf), qlo = qhi + L::QT, rs = smem_u32(ring);
+    auto needs_mask = [&](int k0) {
+        return k0 + BK > Sk || (causal && k0 + BK - 1 > q0) ||
+               (window > 0 && k0 < q0 + BQ - window);
+    };
+    float o[D / 2], sc[16];
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
+    uint32_t hi[4][4], lo[4][4];
+    if (tiles > 0) {
+        mbar_wait(&full[0], 0);
+        qk_issue_tf32<D>(sc, qhi, qlo, rs, rs + L::KT);
+        wgmma_wait<0>();
+        fence_operands(sc);
+        online_softmax(sc, m, l, alpha, needs_mask(k_lo), r0, k_lo + 2 * tig, Sk, causal,
+                       window, sl2);
+        split_p_tf32(sc, hi, lo);
+    }
+    for (int j = 0; j < tiles; ++j) {
+        const int s = j % STAGES;
+        const bool next = j + 1 < tiles;
+        // as the wgmma kernel: the next tile's S with this tile's P V, both
+        // waited for before the softmax
+        if (next) {
+            const uint32_t sn = rs + ((j + 1) % STAGES) * L::STAGE;
+            mbar_wait(&full[(j + 1) % STAGES], ((j + 1) / STAGES) & 1);
+            qk_issue_tf32<D>(sc, qhi, qlo, sn, sn + L::KT);
+        }
+        const uint32_t st = rs + s * L::STAGE;
+        pv_issue_tf32<D>(o, hi, lo, st + 2 * L::KT, st + 3 * L::KT, j == 0);
+        wgmma_wait<0>();                  // this tile's P V is done: free its stage
+        fence_operands(sc);
+        fence_operands(o);
+        fence_operands(hi);
+        fence_operands(lo);
+        if ((lt & 31) == 0) mbar_arrive(&empty[s]);
+        if (next) {
+            const int k0 = k_lo + (j + 1) * BK;
+            online_softmax(sc, m, l, alpha, needs_mask(k0), r0, k0 + 2 * tig, Sk, causal,
+                           window, sl2);
+#pragma unroll
+            for (int x = 0; x < D / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
+            split_p_tf32(sc, hi, lo);
+        }
+    }
+
+    // o[4i + e]: row r0 + 8 (e >> 1), column 8 i + 2 tig + (e & 1); a row
+    // with no visible key writes zeros
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    }
+    float* ob = out + b * o_sb + h * o_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int qi = r0 + 8 * r;
+        if (qi >= S) continue;
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+            const float x0 = l[r] > 0.f ? o[4 * i + 2 * r] * inv[r] : 0.f;
+            const float x1 = l[r] > 0.f ? o[4 * i + 2 * r + 1] * inv[r] : 0.f;
+            *reinterpret_cast<float2*>(ob + qi * o_ss + 8 * i + 2 * tig) = make_float2(x0, x1);
+        }
+    }
+}
+
+template <int D>
+int launch_tf32(const void* q, const void* k, const void* v, void* o, void* work, int B,
+                int Hq, int Hkv, int S, int Sk, int causal, int window, const long long* st,
+                cudaStream_t s) {
+    static bool done[64] = {};
+    if (!allow_smem(reinterpret_cast<const void*>(flash_tf32_kernel<D>), t3::Smem<D>::BYTES,
+                    done))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int KTn = (Sk + t3::BK - 1) / t3::BK;
+    if (static_cast<long long>(B) * Hkv > 65535 || static_cast<long long>(S) / t3::BQ >= 65535)
+        return static_cast<int>(cudaErrorInvalidValue);
+    auto* w = static_cast<unsigned char*>(work);
+    flash_tf32_split_kernel<D><<<dim3(KTn, B * Hkv), t3::SPLIT_THREADS, 0, s>>>(
+        static_cast<const float*>(k), static_cast<const float*>(v), w, Hkv, Sk, KTn, st[3],
+        st[4], st[5], st[6], st[7], st[8]);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const float sl2 = fw::LOG2E / sqrtf(static_cast<float>(D));
+    flash_tf32_kernel<D><<<dim3(B * Hq, (S + t3::BQ - 1) / t3::BQ), t3::THREADS,
+                           t3::Smem<D>::BYTES, s>>>(
+        static_cast<const float*>(q), w, static_cast<float*>(o), st[0], st[1], st[2], st[9],
+        st[10], st[11], Hq, Hkv, S, Sk, KTn, causal, window, sl2);
+    return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_tf32(const void* q, const void* k, const void* v, void* o, void* work, int B,
+                  int Hq, int Hkv, int S, int Sk, int D, int causal, int window,
+                  const long long* st, cudaStream_t s) {
+    if (Sk <= 0 || S <= 0 || work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    switch (D) {
+        case 64: return launch_tf32<64>(q, k, v, o, work, B, Hq, Hkv, S, Sk, causal, window,
+                                        st, s);
+        case 96: return launch_tf32<96>(q, k, v, o, work, B, Hq, Hkv, S, Sk, causal, window,
+                                        st, s);
+        case 128: return launch_tf32<128>(q, k, v, o, work, B, Hq, Hkv, S, Sk, causal, window,
+                                          st, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  variant: 0 = simt (D 16, 32, 64, 96
-// or 128), 1 = wgmma (bf16, D 64, 96 or 128, S and Sk > 0).  `strides` holds
-// 12 element strides: (batch, head, seq) of q, k, v and out, in that order;
-// the last dim of each is contiguous and every pointer and stride is
-// 16-byte aligned (the caller checks).  window <= 0 means no window.  lse
-// and o32 (wgmma only; both null on the serving path) take each row's L2
-// (f32, B * Hq * Sp with Sp = S rounded up to 64) and the f32 output (B,
-// Hq, S, D, contiguous) for the stats backward.  The launch goes on
-// `stream` and does not synchronise.  Returns cudaGetLastError() after the
-// launch (0 = success), or cudaErrorInvalidValue for arguments the variant
-// does not take.
+// or 128), 1 = wgmma (bf16, D 64, 96 or 128, S and Sk > 0), 2 = tf32x3
+// (f32, D 64, 96 or 128, S and Sk > 0).  `strides` holds 12 element
+// strides: (batch, head, seq) of q, k, v and out, in that order; the last
+// dim of each is contiguous and every pointer and stride is 16-byte
+// aligned (the caller checks).  window <= 0 means no window.  lse and o32
+// (wgmma only; both null on the serving path) take each row's L2 (f32, B *
+// Hq * Sp with Sp = S rounded up to 64) and the f32 output (B, Hq, S, D,
+// contiguous) for the stats backward.  work (tf32x3 only, else null): the
+// prologue's split K and V, B * Hkv * ceil(Sk / 32) * 512 * D bytes,
+// 16-byte aligned.  The launches go on `stream` and do not synchronise.
+// Returns cudaGetLastError() after the launch (0 = success), or
+// cudaErrorInvalidValue for arguments the variant does not take.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
                                      int B, int Hq, int Hkv, int S, int Sk, int D,
                                      int causal, int window, const long long* strides,
-                                     int dtype, int variant, void* lse, void* o32,
+                                     int dtype, int variant, void* lse, void* o32, void* work,
                                      void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if ((lse == nullptr) != (o32 == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+    if ((work != nullptr) != (variant == 2)) return static_cast<int>(cudaErrorInvalidValue);
     if (variant == 1) {
         if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
         return dispatch_wgmma(q, k, v, out, static_cast<float*>(lse), static_cast<float*>(o32),
                               B, Hq, Hkv, S, Sk, D, causal, window, strides, s);
     }
     if (lse != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    if (variant == 2) {
+        if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+        return dispatch_tf32(q, k, v, out, work, B, Hq, Hkv, S, Sk, D, causal, window, strides,
+                             s);
+    }
     if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
     if (dtype == 0)
         return dispatch<float>(q, k, v, out, B, Hq, Hkv, S, Sk, D, causal, window, strides, s);

@@ -17,7 +17,7 @@
 // sqrt(D), dk = dS^T q / sqrt(D); dk and dv of a kv head summed over its G
 // query heads.
 //
-// Three variants; kernels/flash_attention.py::bwd_variant picks one from
+// Four variants; kernels/flash_attention.py::bwd_variant picks one from
 // (S, Sk, D, dtype).  All keep the same split and order: the dq kernel
 // first, then the dkv kernel, which reads each row's L (log-sum-exp) and
 // Dd = rowsum(P dP) from two f32 workspaces.  simt and wgmma (the forward's
@@ -87,8 +87,38 @@
 //   persistent walk); the dq grid runs its longest walks first.  L2
 //   is L in log2 units (m sl2 + log2 l), so P is one FFMA and one
 //   ex2.approx a score (~2^-22 from the reference's exp).
-// * simt (f32, D = 16 and 32, and what the wgmma kernels do not take:
-//   unaligned views): the first port's kernels, unchanged but for the
+// * tf32x3 (f32, D = 64, 96 or 128, aligned; the f32 training path at real
+//   width).  What bounds it on an H100: at (4, 32/8 heads, 1024, 128)
+//   causal the five products are 86 GFLOP, 1.28 ms on the CUDA cores and
+//   0.52 ms as three TF32 products on the tensor cores: operations.  So
+//   every product is TF32 on the tensor cores, each operand split into hi
+//   = TF32(x) and lo = x - hi (read as TF32) and each product taken as lo hi + hi lo
+//   + hi hi (flash_wgmma.cuh), within ATTN_BWD_TOL[f32] where one TF32
+//   product is ~20x past it.  TF32 wgmma reads both operands K-major from
+//   shared memory, split: the dkv block would hold K and V hi and lo (128
+//   KB at D = 128) and, a q tile, Q, dO and their transposes hi and lo (8
+//   tiles), which does not fit 227 KB at any useful tile.  So the grids
+//   are simt's (the same blocks, walks, passes and workspaces, L2 in log2
+//   units) on mma.sync m16n8k8 TF32, four warps of 16 rows (dq) or keys
+//   (dkv), rows padded by 4 in shared memory so that every fragment load
+//   reads 32 banks once, each fragment split as it is read, but for the
+//   dkv grid's streamed 16-row tiles of Q and dO, which the block splits
+//   once as it loads them (load_split) and its warps read as hi and lo
+//   (the dkv grid 1.92 -> 1.78 ms at row 3h; the dq grid's 32-key K and V
+//   tiles split so would leave two blocks an SM only at 16 keys, which
+//   read 2.08 -> 2.30-2.38 ms: chip_smoke.py --only f32 in turns with the
+//   tree before, PERF.md); S and dP, and S^T and dP^T, from A B^T fragments, a tile's
+//   two in one loop (abt2_tf32); dQ, dV and dK with the score fragment as
+//   A as it lies, its B rows taken in the order 0 2 4 6 1 3 5 7 (pv_tf32);
+//   dq 32-key tiles, dkv 16-row q tiles; two blocks an SM (101,376 and
+//   101,504 bytes at D = 128); each tile sum
+//   of dQ, dV and dK added to the accumulators by f32 adds (pv_tf32: the
+//   tensor core's accumulation alone moved dV past the limit over the
+//   4,096 rows a key takes at the training shape).  The row 3h reading
+//   and the splits it was chosen over (an earlier testing/flash_probe.py) are
+//   in PERF.md.
+// * simt (f32 and bf16 at D = 16 and 32, and what the tensor-core kernels
+//   do not take: unaligned views): the first port's kernels, unchanged but for the
 //   D = 96 instances (f32 phi3-mini: 12 accumulator columns a thread; the
 //   dkv block takes 91,648 bytes of shared memory).  CUDA-core f32 FMAs;
 //   32-key tiles staged through shared memory in f32; a thread holds a
@@ -518,24 +548,17 @@ template <int D> struct Smem {
 };
 }  // namespace bw
 
-// `bytes` (a multiple of 16) from global memory to shared, counted on `bar`
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-                 "[%0], [%1], %2, [%3];\n"
-                 :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
-}
-
 // pass 2 of the dq kernel on a tile's S (sc) and dP fragments: P = 2^(s sl2
 // - L2) (0 where masked, and on a row with no visible key, whose L2 is +inf),
 // and dS = P (dP - Dd) left in sc
-__device__ __forceinline__ void ds_rows(float (&sc)[32], const float (&dp)[32],
+template <int N>
+__device__ __forceinline__ void ds_rows(float (&sc)[N], const float (&dp)[N],
                                         const float (&L2)[2], const float (&Dd)[2], bool masked,
                                         int r0, int kc, int Sk, int causal, int window,
                                         float sl2) {
     if (masked) mask_scores(sc, r0, kc, Sk, causal, window);
 #pragma unroll
-    for (int x = 0; x < 32; ++x) {
+    for (int x = 0; x < N; ++x) {
         const int r = (x >> 1) & 1;
         sc[x] = ex2(fmaf(sc[x], sl2, -L2[r])) * (dp[x] - Dd[r]);
     }
@@ -545,7 +568,8 @@ __device__ __forceinline__ void ds_rows(float (&sc)[32], const float (&dp)[32],
 // NEG_INF: st[4i + e] pairs key j0 + 8 (e >> 1) with q row qc + 8 i + (e &
 // 1) (qc = q0 + 2 tig); the row is seen when it is < S, >= the key
 // (causal) and < key + window, and the key when it is < Sk.
-__device__ __forceinline__ void mask_pairs_t(float (&st)[32], int j0, int qc, int S, int Sk,
+template <int N>
+__device__ __forceinline__ void mask_pairs_t(float (&st)[N], int j0, int qc, int S, int Sk,
                                              int causal, int window) {
     // key r is seen by q rows qc + lo[r] .. qc + hi[r]
     int lo[2], hi[2];
@@ -558,7 +582,7 @@ __device__ __forceinline__ void mask_pairs_t(float (&st)[32], int j0, int qc, in
         if (j >= Sk) hi[r] = lo[r] - 1;
     }
 #pragma unroll
-    for (int x = 0; x < 32; ++x) {
+    for (int x = 0; x < N; ++x) {
         const int c = 8 * (x >> 2) + (x & 1), r = (x >> 1) & 1;
         if (c < lo[r] || c > hi[r]) st[x] = NEG_INF;
     }
@@ -1051,21 +1075,386 @@ int launch_stats(const void* q, const void* k, const void* v, const void* dout, 
     return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// tf32x3: f32, D = 64, 96 or 128 (the split and mma_tf32: flash_wgmma.cuh)
+// ---------------------------------------------------------------------------
+
+namespace t3 {
+constexpr int NT = 128;                // four warps of 16 rows (dq) or keys (dkv)
+constexpr int BQ = 64, BK = 32;        // dq kernel: q rows, keys of a tile
+constexpr int BKV = 64, BQ2 = 16;      // dkv kernel: keys, q rows of a tile
+// a row of D f32 in shared memory, padded by 4: each fragment load below
+// reads 32 banks once
+template <int D> constexpr int LD = D + 4;
+// dq: Q and dO, each key tile's K and V, raw; dkv: K and V raw, each q
+// tile's Q and dO hi and lo, its L2 and Dd
+template <int D> constexpr int SMEM_DQ = 4 * LD<D> * (2 * BQ + 2 * BK);
+template <int D> constexpr int SMEM_DKV = 4 * (LD<D> * (2 * BKV + 4 * BQ2) + 2 * BQ2);
+}  // namespace t3
+
+__device__ __forceinline__ uint32_t bits(float x) { return __float_as_uint(x); }
+
+// B elements y[0] and y[next] of a fragment as TF32 hi and lo: split here
+// from raw f32, or (SPLIT) read as load_split left them, lo `lo` floats
+// past hi
+template <bool SPLIT>
+__device__ __forceinline__ void b_pair(const float* y, int next, int lo, uint32_t& h0,
+                                       uint32_t& h1, uint32_t& l0, uint32_t& l1) {
+    if (SPLIT) {
+        h0 = bits(y[0]);
+        h1 = bits(y[next]);
+        l0 = bits(y[lo]);
+        l1 = bits(y[lo + next]);
+    } else {
+        split_tf32(y[0], h0, l0);
+        split_tf32(y[next], h1, l1);
+    }
+}
+
+// rows x D f32 from global memory (row stride `rs`) into shared memory as
+// their TF32 halves (split_tf32), hi at `hi`, lo at `lo`, rows of LD<D>;
+// rows at or past `valid` zeros.  The tile's B fragments are then read
+// split: a block splits each element once, not each warp that reads it
+template <int D>
+__device__ __forceinline__ void load_split(float* hi, float* lo, const float* src, long long rs,
+                                           int rows, int valid) {
+    constexpr int LDs = t3::LD<D>;
+    for (int c = threadIdx.x; c < rows * (D / 4); c += t3::NT) {
+        const int r = c / (D / 4), d = (c % (D / 4)) * 4;
+        const float4 x = r < valid ? *reinterpret_cast<const float4*>(src + r * rs + d)
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+        uint4 h, l;
+        split_tf32(x.x, h.x, l.x);
+        split_tf32(x.y, h.y, l.y);
+        split_tf32(x.z, h.z, l.z);
+        split_tf32(x.w, h.w, l.w);
+        *reinterpret_cast<uint4*>(hi + r * LDs + d) = h;
+        *reinterpret_cast<uint4*>(lo + r * LDs + d) = l;
+    }
+}
+
+// a warp's 16 x 8 TF32 A fragment (rows g and g + 8, columns tig and tig +
+// 4 of k8 step kk) of 16 rows of D f32 at stride LD<D> from x, hi and lo
+template <int D>
+__device__ __forceinline__ void a_frag(const float* x, int kk, int g, int tig, uint32_t (&ah)[4],
+                                       uint32_t (&al)[4]) {
+    constexpr int LDs = t3::LD<D>;
+    const float* p = x + g * LDs + 8 * kk + tig;
+    split_tf32(p[0], ah[0], al[0]);
+    split_tf32(p[8 * LDs], ah[1], al[1]);
+    split_tf32(p[4], ah[2], al[2]);
+    split_tf32(p[8 * LDs + 4], ah[3], al[3]);
+}
+
+// a[4 nb + e] = X1 Y1^T and b[4 nb + e] = X2 Y2^T of a warp's 16 rows of
+// X1, X2 (raw f32) and 8 NB rows of Y1, Y2 (raw, or SPLIT: hi at Y, lo `lo`
+// floats on), all rows of D at stride LD<D>, over D in k8 steps, as
+// accumulator fragments (row g + 8 (e >> 1), column 8 nb + 2 tig
+// + (e & 1)): the two products of a tile (S and dP, or S^T and dP^T) in one
+// loop, so that 2 NB chains of dependent mma.sync run side by side
+template <int D, int NB, bool SPLIT>
+__device__ __forceinline__ void abt2_tf32(float (&a)[4 * NB], const float* X1, const float* Y1,
+                                          float (&b)[4 * NB], const float* X2, const float* Y2,
+                                          int lo, int g, int tig) {
+    constexpr int LDs = t3::LD<D>;
+#pragma unroll
+    for (int x = 0; x < 4 * NB; ++x) {
+        a[x] = 0.f;
+        b[x] = 0.f;
+    }
+    // two k steps in flight where the B halves are split here (the dq
+    // grid); one where they are read split (the dkv grid, whose dK and dV
+    // fragments leave no room for a second step's A fragments: 8 bytes of
+    // spill at D = 128 with two)
+#pragma unroll(SPLIT ? 1 : 2)
+    for (int kk = 0; kk < D / 8; ++kk) {
+        uint32_t h1[4], l1[4], h2[4], l2[4];
+        a_frag<D>(X1, kk, g, tig, h1, l1);
+        a_frag<D>(X2, kk, g, tig, h2, l2);
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+            const int at = (8 * nb + g) * LDs + 8 * kk + tig;
+            uint32_t bh0, bh1, bl0, bl1;
+            b_pair<SPLIT>(Y1 + at, 4, lo, bh0, bh1, bl0, bl1);
+            mma3_tf32(a + 4 * nb, h1, l1, bh0, bh1, bl0, bl1);
+            b_pair<SPLIT>(Y2 + at, 4, lo, bh0, bh1, bl0, bl1);
+            mma3_tf32(b + 4 * nb, h2, l2, bh0, bh1, bl0, bl1);
+        }
+    }
+}
+
+// acc += P Y: P a warp's 16 x 8 KB accumulator fragment (p[4 kb + e]: row
+// g + 8 (e >> 1), column 8 kb + 2 tig + (e & 1)), Y 8 KB rows of D at
+// stride LD<D> (raw, or SPLIT: hi at Y, lo `lo` floats on);
+// acc[4 nd + e] row g + 8 (e >> 1), column 8 nd + 2 tig + (e & 1).  A k8 step's columns in the order 0 2 4 6 1 3 5 7, so that p's
+// entries are the A fragment as they lie: B's rows 2 tig and 2 tig + 1.
+// Each 8-column block's tile sum is taken in a fresh fragment and added to
+// acc by an f32 add: the tensor core's own accumulation loses low bits
+// at every product, which over the dkv grid's 4,096 rows a key (G x S at
+// the training shape) moved dV past ATTN_BWD_TOL[f32] (limit use 1.08)
+template <int D, int KB, bool SPLIT>
+__device__ __forceinline__ void pv_tf32(float (&acc)[D / 2], const float (&p)[4 * KB],
+                                        const float* Y, int lo, int g, int tig) {
+    constexpr int LDs = t3::LD<D>;
+    uint32_t ah[KB][4], al[KB][4];
+#pragma unroll
+    for (int kb = 0; kb < KB; ++kb) {
+        split_tf32(p[4 * kb], ah[kb][0], al[kb][0]);
+        split_tf32(p[4 * kb + 2], ah[kb][1], al[kb][1]);
+        split_tf32(p[4 * kb + 1], ah[kb][2], al[kb][2]);
+        split_tf32(p[4 * kb + 3], ah[kb][3], al[kb][3]);
+    }
+    const float* y = Y + 2 * tig * LDs + g;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+        float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kb = 0; kb < KB; ++kb) {
+            uint32_t bh0, bh1, bl0, bl1;
+            b_pair<SPLIT>(y + 8 * kb * LDs + 8 * nd, LDs, lo, bh0, bh1, bl0, bl1);
+            mma3_tf32(t, ah[kb], al[kb], bh0, bh1, bl0, bl1);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[4 * nd + e] += t[e];
+    }
+}
+
+// the 16 rows r0, r0 + 8 of a warp's fragment acc (D / 2 f32) times `scale`
+// into a f32 (rows, D) output by row stride rs, rows at or past `valid`
+// skipped
+template <int D>
+__device__ __forceinline__ void store_rows_f32(float* out, long long rs, const float (&acc)[D / 2],
+                                               int r0, int valid, int tig, float scale) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 8 * r;
+        if (row >= valid) continue;
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i)
+            *reinterpret_cast<float2*>(out + row * rs + 8 * i + 2 * tig) =
+                make_float2(acc[4 * i + 2 * r] * scale, acc[4 * i + 2 * r + 1] * scale);
+    }
+}
+
+// One block a (b, q head, 64-row q tile), the longest walks first; a warp
+// its 16 rows.  Pass 1: S = Q K^T, dP = dO V^T, online m, l and rowsum(P
+// dP) as the wgmma kernel's; pass 2: S, dP again, dS = P (dP - Dd), dQ +=
+// dS K.  K and V tiles of 32 keys staged through shared memory by the
+// block's threads (two blocks an SM: one's loads beside the other's
+// products); L2 and Dd written to the workspaces (rows of S, log2 units)
+template <int D>
+__global__ void __launch_bounds__(t3::NT, 2)
+flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         float* __restrict__ dq, float* __restrict__ lse, float* __restrict__ dd,
+                         int Hq, int Hkv, int S, int Sk, int causal, int window,
+                         const Strides st, float sl2, float scale) {
+    constexpr int LDs = t3::LD<D>, BQ = t3::BQ, BK = t3::BK, NB = t3::BK / 8;
+    extern __shared__ float smem[];
+    float* Qs = smem;                              // [BQ][LDs]
+    float* Os = Qs + BQ * LDs;                     // [BQ][LDs]  do
+    float* Ks = Os + BQ * LDs;                     // [BK][LDs]
+    float* Vs = Ks + BK * LDs;                     // [BK][LDs]
+
+    const int bh = blockIdx.x, b = bh / Hq, h = bh % Hq, hk = h / (Hq / Hkv);
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+    const int warp = threadIdx.x / 32, g = (threadIdx.x & 31) >> 2, tig = threadIdx.x & 3;
+    const int r0 = q0 + 16 * warp + g;
+    const float* kb = k + b * st.k[0] + hk * st.k[1];
+    const float* vb = v + b * st.v[0] + hk * st.v[1];
+    load_tile<float, D>(Qs, LDs, q + b * st.q[0] + h * st.q[1] + q0 * st.q[2], st.q[2], BQ,
+                        S - q0);
+    load_tile<float, D>(Os, LDs, dout + b * st.dout[0] + h * st.dout[1] + q0 * st.dout[2],
+                        st.dout[2], BQ, S - q0);
+    const float* Qw = Qs + 16 * warp * LDs;
+    const float* Ow = Os + 16 * warp * LDs;
+
+    int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+    k_lo = (k_lo / BK) * BK;
+    const int k_hi = causal ? min(Sk, q0 + BQ) : Sk;
+    auto needs_mask = [&](int k0) {
+        return k0 + BK > Sk || (causal && k0 + BK - 1 > q0) ||
+               (window > 0 && k0 < q0 + BQ - window);
+    };
+
+    // pass 1: m, l and rowsum(P dP) of each row, online over the key tiles
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, pd[2] = {0.f, 0.f}, alpha[2];
+    for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
+        __syncthreads();                           // the previous tile is consumed
+        load_tile<float, D>(Ks, LDs, kb + k0 * st.k[2], st.k[2], BK, Sk - k0);
+        load_tile<float, D>(Vs, LDs, vb + k0 * st.v[2], st.v[2], BK, Sk - k0);
+        __syncthreads();
+        float s[4 * NB], dp[4 * NB];
+        abt2_tf32<D, NB, false>(s, Qw, Ks, dp, Ow, Vs, 0, g, tig);
+        online_softmax(s, m, l, alpha, needs_mask(k0), r0, k0 + 2 * tig, Sk, causal, window,
+                       sl2);
+        float t[2] = {0.f, 0.f};
+#pragma unroll
+        for (int x = 0; x < 4 * NB; ++x) t[(x >> 1) & 1] = fmaf(s[x], dp[x], t[(x >> 1) & 1]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) pd[r] = pd[r] * alpha[r] + t[r];
+    }
+    // each row's L2 and Dd from its 4 threads; rows past S: L2 = +inf, Dd = 0
+    float L2[2], Dd[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        pd[r] += __shfl_xor_sync(0xffffffffu, pd[r], 1);
+        pd[r] += __shfl_xor_sync(0xffffffffu, pd[r], 2);
+        const int qi = r0 + 8 * r;
+        L2[r] = l[r] > 0.f && qi < S ? m[r] * sl2 + log2f(l[r]) : POS_INF;
+        Dd[r] = l[r] > 0.f && qi < S ? pd[r] / l[r] : 0.f;
+        if (tig == 0 && qi < S) {
+            const long long row = static_cast<long long>(bh) * S + qi;
+            lse[row] = L2[r];
+            dd[row] = Dd[r];
+        }
+    }
+
+    // pass 2: dQ = sum over the key tiles of dS K, in tile order
+    float acc[D / 2];
+#pragma unroll
+    for (int x = 0; x < D / 2; ++x) acc[x] = 0.f;
+    for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
+        __syncthreads();
+        load_tile<float, D>(Ks, LDs, kb + k0 * st.k[2], st.k[2], BK, Sk - k0);
+        load_tile<float, D>(Vs, LDs, vb + k0 * st.v[2], st.v[2], BK, Sk - k0);
+        __syncthreads();
+        float s[4 * NB], dp[4 * NB];
+        abt2_tf32<D, NB, false>(s, Qw, Ks, dp, Ow, Vs, 0, g, tig);
+        ds_rows(s, dp, L2, Dd, needs_mask(k0), r0, k0 + 2 * tig, Sk, causal, window, sl2);
+        pv_tf32<D, NB, false>(acc, s, Ks, 0, g, tig);
+    }
+    store_rows_f32<D>(dq + b * st.dq[0] + h * st.dq[1], st.dq[2], acc, r0, S, tig, scale);
+}
+
+// One block a (b, kv head, 64-key tile), the first keys (causal: the
+// heaviest) first; a warp its 16 keys.  For each of the G query heads in
+// turn, the q tiles bwd_q_plan gives (in tiles of 16 rows, so that the dV
+// and dK fragments, the split P^T and dS^T and a tile sum fit 255
+// registers beside each other): S^T = K Q^T,
+// dP^T = V dO^T, P^T and dS^T from each row's L2 and Dd, dV += P^T dO, dK +=
+// dS^T Q
+template <int D>
+__global__ void __launch_bounds__(t3::NT, 2)
+flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ dout,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          const float* __restrict__ lse, const float* __restrict__ dd, int Hq,
+                          int Hkv, int S, int Sk, int causal, int window, const Strides st,
+                          float sl2, float scale) {
+    constexpr int LDs = t3::LD<D>, BKV = t3::BKV, BQ2 = t3::BQ2, NB = t3::BQ2 / 8;
+    extern __shared__ float smem[];
+    float* Ks = smem;                              // [BKV][LDs]
+    float* Vs = Ks + BKV * LDs;                    // [BKV][LDs]
+    float* Qs = Vs + BKV * LDs;                    // [BQ2][LDs]  hi, then lo
+    float* Os = Qs + 2 * BQ2 * LDs;                // [BQ2][LDs]  do hi, then lo
+    float* Ls = Os + 2 * BQ2 * LDs;                // [BQ2]
+    float* Ds = Ls + BQ2;                          // [BQ2]
+    constexpr int LO = BQ2 * LDs;                  // a tile's lo past its hi
+
+    const int bh = blockIdx.x, b = bh / Hkv, hk = bh % Hkv, G = Hq / Hkv;
+    const int k0 = blockIdx.y * BKV;
+    const int warp = threadIdx.x / 32, g = (threadIdx.x & 31) >> 2, tig = threadIdx.x & 3;
+    const int j0 = k0 + 16 * warp + g;
+    load_tile<float, D>(Ks, LDs, k + b * st.k[0] + hk * st.k[1] + k0 * st.k[2], st.k[2], BKV,
+                        Sk - k0);
+    load_tile<float, D>(Vs, LDs, v + b * st.v[0] + hk * st.v[1] + k0 * st.v[2], st.v[2], BKV,
+                        Sk - k0);
+    const float* Kw = Ks + 16 * warp * LDs;
+    const float* Vw = Vs + 16 * warp * LDs;
+
+    const int q_lo = causal ? (k0 / BQ2) * BQ2 : 0;
+    const int q_hi = window > 0 ? min(S, k0 + BKV - 1 + window) : S;
+    float gk[D / 2], gv[D / 2];
+#pragma unroll
+    for (int x = 0; x < D / 2; ++x) {
+        gk[x] = 0.f;
+        gv[x] = 0.f;
+    }
+    for (int gh = 0; gh < G; ++gh) {
+        const int h = hk * G + gh;
+        const float* qb = q + b * st.q[0] + h * st.q[1];
+        const float* ob = dout + b * st.dout[0] + h * st.dout[1];
+        const long long rows = static_cast<long long>(b * Hq + h) * S;
+        for (int q0 = q_lo; q0 < q_hi; q0 += BQ2) {
+            __syncthreads();                       // the previous tile is consumed
+            load_split<D>(Qs, Qs + LO, qb + q0 * st.q[2], st.q[2], BQ2, S - q0);
+            load_split<D>(Os, Os + LO, ob + q0 * st.dout[2], st.dout[2], BQ2, S - q0);
+            if (threadIdx.x < BQ2) {
+                const bool in = q0 + threadIdx.x < S;
+                Ls[threadIdx.x] = in ? lse[rows + q0 + threadIdx.x] : POS_INF;
+                Ds[threadIdx.x] = in ? dd[rows + q0 + threadIdx.x] : 0.f;
+            }
+            __syncthreads();
+            // s[4 nb + e]: key j0 + 8 (e >> 1), q row q0 + 8 nb + 2 tig + (e & 1)
+            float s[4 * NB], dpt[4 * NB];
+            abt2_tf32<D, NB, true>(s, Kw, Qs, dpt, Vw, Os, LO, g, tig);
+            if (q0 + BQ2 > S || k0 + BKV > Sk || (causal && k0 + BKV - 1 > q0) ||
+                (window > 0 && k0 < q0 + BQ2 - window))
+                mask_pairs_t(s, j0, q0 + 2 * tig, S, Sk, causal, window);
+#pragma unroll
+            for (int x = 0; x < 4 * NB; ++x) {
+                const int c = 8 * (x >> 2) + 2 * tig + (x & 1);
+                const float p = ex2(fmaf(s[x], sl2, -Ls[c]));
+                dpt[x] = p * (dpt[x] - Ds[c]);
+                s[x] = p;
+            }
+            pv_tf32<D, NB, true>(gv, s, Os, LO, g, tig);     // dV += P^T dO
+            pv_tf32<D, NB, true>(gk, dpt, Qs, LO, g, tig);   // dK += dS^T Q
+        }
+    }
+    store_rows_f32<D>(dk + b * st.dk[0] + hk * st.dk[1], st.dk[2], gk, j0, Sk, tig, scale);
+    store_rows_f32<D>(dv + b * st.dv[0] + hk * st.dv[1], st.dv[2], gv, j0, Sk, tig, 1.f);
+}
+
+template <int D>
+int launch_tf32(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                void* dk, void* dv, float* lse, float* dd, int B, int Hq, int Hkv, int S,
+                int Sk, int causal, int window, const Strides& st, cudaStream_t s) {
+    static bool done_dq[64] = {}, done_dkv[64] = {};
+    if (!allow_smem(reinterpret_cast<const void*>(flash_bwd_dq_tf32_kernel<D>),
+                    t3::SMEM_DQ<D>, done_dq) ||
+        !allow_smem(reinterpret_cast<const void*>(flash_bwd_dkv_tf32_kernel<D>),
+                    t3::SMEM_DKV<D>, done_dkv))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const float sl2 = wg::LOG2E / sqrtf(static_cast<float>(D));
+    const float scale = 1.0f / sqrtf(static_cast<float>(D));
+    const float* pq = static_cast<const float*>(q);
+    const float* pk = static_cast<const float*>(k);
+    const float* pv = static_cast<const float*>(v);
+    const float* po = static_cast<const float*>(dout);
+    flash_bwd_dq_tf32_kernel<D><<<dim3(B * Hq, (S + t3::BQ - 1) / t3::BQ), t3::NT,
+                                  t3::SMEM_DQ<D>, s>>>(
+        pq, pk, pv, po, static_cast<float*>(dq), lse, dd, Hq, Hkv, S, Sk, causal, window, st,
+        sl2, scale);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    flash_bwd_dkv_tf32_kernel<D><<<dim3(B * Hkv, (Sk + t3::BKV - 1) / t3::BKV), t3::NT,
+                                   t3::SMEM_DKV<D>, s>>>(
+        pq, pk, pv, po, static_cast<float*>(dk), static_cast<float*>(dv), lse, dd, Hq, Hkv, S,
+        Sk, causal, window, st, sl2, scale);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dq (B, Hq, S, D), dk and dv (B, Hkv, Sk, D) of the forward on q, k, v for the
 // output's gradient dout; lse and dd are f32 workspaces of each row's
-// log-sum-exp and rowsum(P dP): B * Hq * S floats for variant 0 (simt;
-// natural log), B * Hq * Sp for variants 1 and 2 (wgmma, stats; log2 units,
-// rows padded to Sp = S rounded up to 64).  Variants 0 and 1 write both
-// (their dq kernel's first pass) and read them in their dkv kernel; variant
+// log-sum-exp and rowsum(P dP): B * Hq * S floats for variants 0 and 3
+// (simt: natural log; tf32x3: log2 units), B * Hq * Sp for variants 1 and 2
+// (wgmma, stats; log2 units, rows padded to Sp = S rounded up to 64).
+// Variants 0, 1 and 3 write both (their dq kernel's first pass) and read
+// them in their dkv kernel; variant
 // 2 reads lse as the wgmma forward wrote it under autograd and computes dd
 // from o32, that forward's f32 output (B, Hq, S, D, contiguous; null for
 // the others).  strides: 21 element strides, (batch, head, row) of q, k, v,
 // dout, dq, dk, dv in turn; every row 16-byte aligned with a contiguous
 // last dim.  dtype 0 = float32, 1 = bfloat16; variant 0 = simt (D in {16,
-// 32, 64, 96, 128}), 1 = wgmma, 2 = stats (bf16, D 64, 96 or 128); window 0
-// = none.  Two launches (stats: three) on `stream`, no synchronisation.
+// 32, 64, 96, 128}), 1 = wgmma, 2 = stats (bf16, D 64, 96 or 128), 3 =
+// tf32x3 (f32, D 64, 96 or 128); window 0 = none.  Two launches (stats:
+// three) on `stream`, no synchronisation.
 // Returns the first launch error (0 = success).
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* dout, void* dq, void* dk, void* dv,
@@ -1102,6 +1491,18 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
         }
     }
     if (o32 != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    if (variant == 3) {
+        if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+        switch (D) {
+            case 64: return launch_tf32<64>(q, k, v, dout, dq, dk, dv, pl, pd, B, Hq, Hkv, S,
+                                            Sk, causal, window, st, s);
+            case 96: return launch_tf32<96>(q, k, v, dout, dq, dk, dv, pl, pd, B, Hq, Hkv, S,
+                                            Sk, causal, window, st, s);
+            case 128: return launch_tf32<128>(q, k, v, dout, dq, dk, dv, pl, pd, B, Hq, Hkv,
+                                              S, Sk, causal, window, st, s);
+            default: return static_cast<int>(cudaErrorInvalidValue);
+        }
+    }
     if (variant == 1) {
         if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
         switch (D) {

@@ -28,22 +28,34 @@ reference trains through jnp attention under ``jax.grad``.
   * ``"wgmma"``: the other bf16 calls the wgmma forward takes; the dq
     grid's first pass recomputes each row's statistics, so the forward
     keeps nothing but q, k and v;
+  * ``"tf32x3"``: f32 by the forward's rule: the wgmma pair's split and
+    order (a dq grid whose first pass writes L and Dd, then a dkv grid) on
+    ``mma.sync`` m16n8k8 TF32 products, each operand split into two TF32
+    halves and each product taken as three (lo hi + hi lo + hi hi);
   * ``"simt"``: CUDA-core f32, by the forward's rule.
-The tensor-core kernels run every product on the tensor cores, P and dS
-as two bf16 halves; their dq grids walk ``tile_plan``'s key tiles, their
-dkv grids ``bwd_q_plan``'s q tiles.
+The bf16 tensor-core kernels run every product on the tensor cores, P and
+dS as two bf16 halves; their dq grids walk ``tile_plan``'s key tiles,
+their dkv grids ``bwd_q_plan``'s q tiles (tf32x3: in tiles of 32 and 16).
 
-Which of the two forward kernels a call takes is ``variant(S, Sk, D, dtype,
-aligned)``, a pure function of the shapes and the dtype:
+Which of the three forward kernels a call takes is ``variant(S, Sk, D,
+dtype, aligned)``, a pure function of the shapes and the dtype:
   * ``"wgmma"``: bf16, D in ``WGMMA_HEAD_DIMS`` (64, 96, 128), Sk > 0,
     every operand 16-byte aligned: a 64-row q tile a block, TMA-fed 64-key
     K/V tiles, Q K^T and P V on the tensor cores (the serving path's
     prefills, llama3-8b's and phi3-mini's); a row of D = 96 is loaded as
     two 64-column boxes whose last 32 columns are zeros (``box_plan``);
-  * ``"simt"``: everything else: f32, the head dims 16 and 32, unaligned
-    views, Sk = 0.  CUDA-core FMAs, as the first port had them.
-The wgmma kernel walks the key tiles ``tile_plan`` gives; the simt kernel
-takes the same walk in 32-key tiles.
+  * ``"tf32x3"``: f32 on the same rule (D in ``WGMMA_HEAD_DIMS``, Sk > 0,
+    aligned): Q K^T and P V by TF32 wgmma, each operand split into hi =
+    TF32(x) and lo = x - hi (read as TF32) and each product taken as three
+    (lo hi + hi lo + hi hi, ``csrc/flash_wgmma.cuh``), within
+    ``ATTN_TOL[f32]`` where one TF32 product is ~60x past it; a prologue
+    in the same call splits K and V once into the ring's stage images (K
+    hi/lo, V^T hi/lo, ``tf32_work_elems``), and the kernel walks 32-key
+    tiles;
+  * ``"simt"``: everything else: f32 and bf16 at the head dims 16 and 32,
+    unaligned views, Sk = 0.  CUDA-core FMAs, as the first port had them.
+The wgmma kernel walks the key tiles ``tile_plan`` gives; the simt and
+tf32x3 kernels take the same walk in 32-key tiles.
 """
 from __future__ import annotations
 
@@ -59,8 +71,8 @@ from .launches import LAUNCHES, plain, wants_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 96, 128)
-VARIANTS = {"simt": 0, "wgmma": 1}
-BWD_VARIANTS = {"simt": 0, "wgmma": 1, "stats": 2}
+VARIANTS = {"simt": 0, "wgmma": 1, "tf32x3": 2}
+BWD_VARIANTS = {"simt": 0, "wgmma": 1, "stats": 2, "tf32x3": 3}
 #: the head dims the wgmma kernels take (each carves a row into 64-column
 #: boxes of 128 bytes; D = 96 into two, the second zero-filled past column
 #: 96: ``box_plan``), and their q rows a block and keys a tile (csrc
@@ -74,6 +86,10 @@ WGMMA_BQ, WGMMA_BK = 64, 64
 #: and P in f32, Q's, K's and P's rows padded by one)
 WGMMA_THREADS, WGMMA_STAGES = 160, 2
 SIMT_THREADS, SIMT_BQ, SIMT_BK = 128, 64, 32
+#: the tf32x3 forward's block (csrc ``t3::``): a consumer warpgroup and a
+#: producer warp, a 64-row q tile split into hi and lo in shared memory,
+#: a ring of 2 stages of 32 keys (K hi, K lo, V^T hi, V^T lo)
+TF32_THREADS, TF32_STAGES, TF32_BK = 160, 2, 32
 #: the fewest keys at which ``bwd_variant`` takes ``stats``: on the card
 #: (``testing/flash_ab.py``) it beats ``wgmma`` at llama-3.2-vision's 6,404
 #: keys and at the training shapes' 1,024 and loses at seamless's 256;
@@ -85,16 +101,18 @@ _BWD = None
 
 
 def variant(S: int, Sk: int, D: int, dtype: torch.dtype, aligned: bool = True) -> str:
-    """The kernel a call takes: ``"wgmma"`` or ``"simt"``."""
-    if dtype != torch.bfloat16 or D not in WGMMA_HEAD_DIMS or Sk <= 0 or not aligned:
+    """The kernel a call takes: ``"wgmma"`` (bf16), ``"tf32x3"`` (f32) or
+    ``"simt"``."""
+    if D not in WGMMA_HEAD_DIMS or Sk <= 0 or not aligned:
         return "simt"
-    return "wgmma"
+    return {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}.get(dtype, "simt")
 
 
 def legal_variants(S: int, Sk: int, D: int, dtype: torch.dtype) -> tuple[str, ...]:
     """The forward kernels that take a call: ``simt`` takes every one,
-    ``wgmma`` those :func:`variant` gives it."""
-    return ("simt",) if variant(S, Sk, D, dtype) == "simt" else ("simt", "wgmma")
+    ``wgmma`` and ``tf32x3`` those :func:`variant` gives them."""
+    kind = variant(S, Sk, D, dtype)
+    return ("simt",) if kind == "simt" else ("simt", kind)
 
 
 def block_resources(kind: str, B: int, Hq: int, S: int, D: int) -> dict:
@@ -106,8 +124,19 @@ def block_resources(kind: str, B: int, Hq: int, S: int, D: int) -> dict:
         tile = math.ceil(D / 64) * 64 * WGMMA_BK * 2
         return {"smem": tile + WGMMA_STAGES * 2 * tile + (2 * WGMMA_STAGES + 1) * 8 + 1024,
                 "threads": WGMMA_THREADS, "static": False, "blocks": blocks}
+    if kind == "tf32x3":
+        # Q hi and lo, then each stage's K hi, K lo, V^T hi and V^T lo
+        q_tile, k_tile = WGMMA_BQ * D * 4, TF32_BK * D * 4
+        return {"smem": 2 * q_tile + TF32_STAGES * 4 * k_tile + 2 * TF32_STAGES * 8 + 1024,
+                "threads": TF32_THREADS, "static": False, "blocks": blocks}
     smem = 4 * (SIMT_BQ * (D + 1) + SIMT_BK * (D + 1) + SIMT_BK * D + SIMT_BQ * (SIMT_BK + 1))
     return {"smem": smem, "threads": SIMT_THREADS, "static": False, "blocks": blocks}
+
+
+def tf32_work_elems(B: int, Hkv: int, Sk: int, D: int) -> int:
+    """f32 elements of the tf32x3 forward's workspace: one ring stage (K hi,
+    K lo, V^T hi, V^T lo, 4 x 32 x D) a (b, kv head, 32-key tile)."""
+    return B * Hkv * math.ceil(Sk / TF32_BK) * 4 * TF32_BK * D
 
 
 def tuned_variant(B: int, Hq: int, Hkv: int, S: int, Sk: int, D: int,
@@ -123,8 +152,8 @@ def tuned_variant(B: int, Hq: int, Hkv: int, S: int, Sk: int, D: int,
 def bwd_variant(S: int, Sk: int, D: int, dtype: torch.dtype,
                 aligned: bool = True) -> str:
     """The backward's kernels for a call: ``"stats"`` (the wgmma
-    forward's rule and Sk >= ``STATS_MIN_SK``), ``"wgmma"`` or ``"simt"``
-    (the forward's rule, :func:`variant`)."""
+    forward's rule and Sk >= ``STATS_MIN_SK``), ``"wgmma"``, ``"tf32x3"``
+    or ``"simt"`` (the forward's rule, :func:`variant`)."""
     kind = variant(S, Sk, D, dtype, aligned)
     return "stats" if kind == "wgmma" and Sk >= STATS_MIN_SK else kind
 
@@ -217,7 +246,7 @@ def _fn():
     if _FN is None:
         fn = _build.library("flash_attention").repro_flash_attention
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4)
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
@@ -327,17 +356,23 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor
     """The forward launch into ``out``, a (B, Hq, S, D) view with aligned
     rows (the tests' outputs with guard columns after each row too), by
     ``kind`` (default the autotune table's or the rule's); ``stats`` (a
-    wgmma launch only) takes each row's L and the f32 output."""
+    wgmma launch only) takes each row's L and the f32 output.  A tf32x3
+    launch is the prologue and the kernel, one count in ``LAUNCHES``."""
     B, Hq, S, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *out.stride()[:3])
     if kind is None:
         kind = tuned_variant(B, Hq, Hkv, S, Sk, D, q.dtype)   # aligned: checked above
+    # tf32x3: the prologue's split K and V, freed when the launch is queued
+    # (the caching allocator keeps it for the stream's later work)
+    work = (torch.empty(tf32_work_elems(B, Hkv, Sk, D), dtype=torch.float32, device=q.device)
+            if kind == "tf32x3" else None)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
             Hkv, S, Sk, D, int(causal), window or 0, ctypes.addressof(strides),
             _DTYPES[q.dtype], VARIANTS[kind],
-            stats.lse.data_ptr() if stats else None, stats.o32.data_ptr() if stats else None)
+            stats.lse.data_ptr() if stats else None, stats.o32.data_ptr() if stats else None,
+            work.data_ptr() if work is not None else None)
     # the device guard only where q is not on the current device, and the
     # raw handle of the current stream, without a Stream object: a prefill
     # makes 32 of these calls

@@ -44,10 +44,11 @@ MAX_GRID_YZ = 65535
 #: (``autotune.measure_candidate``)
 L2_BYTES = 50 * 2 ** 20
 #: HBM bytes a second, and the tensor cores' dense bf16 and the CUDA cores'
-#: f32 peak operations a second (``chip_smoke.HBM_BYTES_S``,
-#: ``chip_smoke.PEAK_OPS_S``)
+#: f32 peak operations a second, and f32-accurate work as three TF32
+#: products at the dense TF32 rate (the tf32x3 flash kernels)
+#: (``chip_smoke.HBM_BYTES_S``, ``chip_smoke.PEAK_OPS_S``)
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12, "tf32x3": 494.7e12 / 3}
 #: NVLink 4 bytes a second in each direction of one card (18 links)
 NVLINK_BYTES_S = 450e9
 

@@ -17,10 +17,23 @@ reads the cross-attention rows (3f and 3g, ``CROSS``) instead: the wgmma
 forward's and the stats backward's ms a call and their grids' phases in
 cycles (a ``-DFLASH_CYCLES`` build of ``csrc/flash_attention_bwd.cu`` too),
 and the forward's ms without its K/V loads (``-DFLASH_NO_KV_LOADS``).
+
+    PYTHONPATH=src python -m repro_torch.testing.flash_probe --f32
+
+reads the f32 kernels (``tf32x3``) at rows 3b and 3h (``F32_ROWS``): the
+forward as committed (TF32 wgmma) beside the same forward on the
+backward's ``mma.sync`` helpers (``csrc/flash_fwd_mma_probe.cu``, a probe
+built here, with K and V split as a warp reads them and split once at
+load), each one's limit use against the plain version and its us a call
+(``timing.measure_us``, behind a spin kernel) in turns, then the reverse
+order, and the probe's registers and spills; the backward's limit use and
+ms a call; then the opcodes of the f32 kernels' SASS (``cuobjdump
+-sass``), most frequent first.
 """
 from __future__ import annotations
 
 import ctypes
+import pathlib
 import subprocess
 import sys
 
@@ -48,6 +61,11 @@ def _stamped_library(source: str = "flash_attention", defs=()) -> ctypes.CDLL:
 
 #: the cross-attention rows (3f, 3g): vlm's (B, Hq, Hkv, S, Sk, D), non-causal
 CROSS = (4, 32, 8, 1024, 6404, 128)
+#: the f32 rows: 3b's forward (B, S) and 3h's backward, the llama3-8b heads,
+#: causal
+F32_ROWS = {"3b": (1, 512), "3h": (4, 1024)}
+#: the f32 forward on the backward's mma.sync helpers, built by ``--f32``
+MMA_PROBE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_fwd_mma_probe.cu"
 
 
 def _events_ms(run, calls: int) -> float:
@@ -129,6 +147,97 @@ def cross() -> None:
               f"{labels} cycles {phases}, whole block {med(t, 0, 31)}")
 
 
+def _mma_probe_library() -> tuple[ctypes.CDLL, str]:
+    """``MMA_PROBE`` built, and ptxas's lines for it."""
+    out = _build.BUILD_DIR / "libflash_fwd_mma_probe.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(MMA_PROBE)],
+                       check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(out))
+    fn = lib.repro_flash_fwd_mma_probe
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, r.stdout + r.stderr
+
+
+def _mma_forward(lib, q, k, v, split: int) -> torch.Tensor:
+    """Causal attention through the probe's forward (``split`` as its csrc
+    header says)."""
+    B, Hq, S, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    out = torch.empty((B, Hq, S, D), device=q.device, dtype=torch.float32)
+    st = (ctypes.c_longlong * 12)(*(x for t in (q, k, v, out) for x in t.stride()[:3]))
+    rc = lib.repro_flash_fwd_mma_probe(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                       out.data_ptr(), B, Hq, Hkv, S, Sk, D, 1, 0, st, split,
+                                       torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"the mma.sync forward probe failed to launch: CUDA error {rc}")
+    return out
+
+
+def f32() -> None:
+    """``--f32`` (module docstring)."""
+    import re
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import ref
+    from repro_torch.testing.timing import measure_us
+
+    with ThreadPoolExecutor(1) as pool:           # the probe's nvcc beside the package's
+        job = pool.submit(_mma_probe_library)
+        kfa._fn(), kfa._bwd_fn()
+    lib, log = job.result()
+    fn = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = "flash_fwd_mma" in line and re.search(r"ILi(\d+)ELb(\d)E", line)
+        elif fn and ("registers" in line or "spill" in line):
+            print(f"[probe] ptxas mma.sync forward D={fn.group(1)} split={fn.group(2)}: "
+                  f"{line.split(':', 1)[-1].strip()}")
+    B, S = F32_ROWS["3b"]
+    q, k, v = kc.flash_inputs(S, torch.float32, B=B)
+    want = ref.attention(q, k, v, causal=True)
+    runs = {"tf32x3 (TF32 wgmma)": lambda *a: kfa.flash_attention(*a, causal=True),
+            "mma.sync, K/V split as read": lambda *a: _mma_forward(lib, *a, 0),
+            "mma.sync, K/V split at load": lambda *a: _mma_forward(lib, *a, 1)}
+    for name, run in runs.items():
+        out = run(q, k, v)
+        use = kc.compare(out, want, kc.ATTN_TOL[torch.float32])["limit_use"]
+        print(f"[probe] f32 forward 3b {name}: limit use {use:.3f}, same bits twice "
+              f"{bool(torch.equal(out, run(q, k, v)))}")
+    us = {name: [] for name in runs}
+    for name in list(runs) + list(reversed(runs)):
+        # between events behind a spin kernel (q, k, v on the card)
+        us[name].append(measure_us(runs[name], q, k, v, reps=10, inner=20).median_us)
+    for name, ts in us.items():
+        print(f"[probe] f32 forward 3b {name}: us a call in turns "
+              + " / ".join(f"{t:.2f}" for t in ts))
+    B2, S2 = F32_ROWS["3h"]
+    q2, k2, v2, do = kc.attention_bwd_inputs(B2, S2, torch.float32)
+    want2 = ref.attention_bwd(q2, k2, v2, do, causal=True)
+    use2 = max(kc.compare(g, w, kc.ATTN_BWD_TOL[torch.float32])["limit_use"] for g, w
+               in zip(kfa.backward(q2, k2, v2, do, causal=True), want2))
+    ms2 = _events_ms(lambda: kfa.backward(q2, k2, v2, do, causal=True), 10)
+    print(f"[probe] f32 backward 3h tf32x3: limit use {use2:.3f}, {ms2:.4f} ms a call")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for lib in ("flash_attention", "flash_attention_bwd"):
+        out = subprocess.run([tool, "-sass", str(_build._target(lib))], capture_output=True,
+                             text=True, check=True).stdout
+        for func in re.split(r"\n\s*Function : ", out)[1:]:
+            name = func.split("\n", 1)[0]
+            if "tf32" not in name or "128" not in name:
+                continue
+            ops = {}
+            for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", func):
+                ops[op] = ops.get(op, 0) + 1
+            top = sorted(ops.items(), key=lambda kv: -kv[1])[:14]
+            short = re.sub(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", name)[:60]
+            print(f"[probe] sass {short}: {sum(ops.values())} instructions, "
+                  + ", ".join(f"{o} {n}" for o, n in top))
+
+
 def main(lengths) -> int:
     if not torch.cuda.is_available():
         print("flash_probe: needs a CUDA card", file=sys.stderr)
@@ -169,10 +278,10 @@ def main(lengths) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--cross"]:
+    if sys.argv[1:] in (["--cross"], ["--f32"]):
         if not torch.cuda.is_available():
             print("flash_probe: needs a CUDA card", file=sys.stderr)
             sys.exit(2)
-        cross()
+        (cross if sys.argv[1] == "--cross" else f32)()
         sys.exit(0)
     sys.exit(main([int(a) for a in sys.argv[1:]] or [223, 445, 512]))

@@ -55,8 +55,8 @@ NEG = -1e30                             # the kernels' NEG_INF
     (1, 1, 64, torch.bfloat16, True, "wgmma"),
     (1024, 1024, 96, torch.bfloat16, True, "wgmma"),     # phi3-mini's
     (1, 1, 96, torch.bfloat16, True, "wgmma"),
-    (1024, 1024, 128, torch.float32, True, "simt"),
-    (1024, 1024, 96, torch.float32, True, "simt"),
+    (1024, 1024, 128, torch.float32, True, "tf32x3"),   # f32 on the tensor cores
+    (1024, 1024, 96, torch.float32, True, "tf32x3"),
     (445, 445, 96, torch.bfloat16, False, "simt"),
     (70, 0, 96, torch.bfloat16, True, "simt"),
     (70, 70, 32, torch.bfloat16, True, "simt"),
@@ -70,10 +70,10 @@ def test_bwd_variant_by_dtype_head_dim_and_alignment(S, Sk, D, dtype, aligned, w
 
 def test_every_bf16_backward_check_case_takes_the_wgmma_kernels():
     """Phase 3c's bf16 cases at the llama3-8b heads, and its D = 64 case at
-    the training length, go through wgmma; their f32 twins through simt."""
+    the training length, go through wgmma; their f32 twins through tf32x3."""
     for _, S, _ in kc.FLASH_BWD_CASES:
         assert fa.bwd_variant(S, S, kc.HEAD_DIM, torch.bfloat16) == "wgmma"
-        assert fa.bwd_variant(S, S, kc.HEAD_DIM, torch.float32) == "simt"
+        assert fa.bwd_variant(S, S, kc.HEAD_DIM, torch.float32) == "tf32x3"
     _, S, D = kc.FLASH_BWD_D64
     assert fa.bwd_variant(S, S, D, torch.bfloat16) == "wgmma"
 

@@ -35,14 +35,16 @@ BQ, BK = fa.WGMMA_BQ, fa.WGMMA_BK
     (70, fa.STATS_MIN_SK - 1, 128, torch.bfloat16, True, "wgmma"),
     (1024, 1024, 128, torch.bfloat16, True, "wgmma"),    # the training shape
     (1024, 256, 64, torch.bfloat16, True, "wgmma"),      # seamless cross
-    (1024, 6404, 128, torch.float32, True, "simt"),
+    (1024, 6404, 128, torch.float32, True, "tf32x3"),
     (1024, 6404, 128, torch.bfloat16, False, "simt"),
     (1024, 6404, 32, torch.bfloat16, True, "simt")])
 def test_the_stats_backward_takes_the_long_key_walks(S, Sk, D, dtype, aligned, want):
-    """The rule by Sk; the forward stays the wgmma kernel (or simt) at
-    every shape, and writes the statistics only for a stats backward."""
+    """The rule by Sk; the forward stays the wgmma kernel (or simt, or
+    tf32x3 in f32) at every shape, and writes the statistics only for a
+    stats backward."""
     assert fa.bwd_variant(S, Sk, D, dtype, aligned) == want
-    assert fa.variant(S, Sk, D, dtype, aligned) == ("simt" if want == "simt" else "wgmma")
+    assert fa.variant(S, Sk, D, dtype, aligned) == (want if want in ("simt", "tf32x3")
+                                                    else "wgmma")
 
 
 @pytest.mark.parametrize("B,Hkv,Sk", [(4, 8, 6404), (1, 8, 37), (2, 16, 256)])

@@ -209,7 +209,7 @@ def test_fconv2d_kernel_every_filter(cuda, fr, fc, off, dtype):
 def test_flash_attention_kernel_matches_plain(cuda, B, S, window, dtype):
     res = kc.check_flash_attention(S, dtype, window, cuda, B=B)
     assert res["ok"], res
-    assert res["variant"] == ("wgmma" if dtype == torch.bfloat16 else "simt")
+    assert res["variant"] == ("wgmma" if dtype == torch.bfloat16 else "tf32x3")
 
 
 @pytest.mark.gpu
@@ -233,8 +233,8 @@ def test_flash_attention_kernel_head_dims(cuda, D, causal, dtype):
 
 
 # one shape of each flash kernel: wgmma at D = 128 (ragged S), 64 and 96
-# (phi3-mini's heads), a B = 2 window case, simt in f32 (at 96 too) and at
-# head dims wgmma does not take
+# (phi3-mini's heads), a B = 2 window case, tf32x3 in f32 (at 96 too), simt
+# at head dims the tensor-core kernels do not take
 FLASH_VARIANT_SHAPES = [(1, 32, 8, 223, 128, None, torch.bfloat16),
                         (2, 4, 2, 70, 64, 9, torch.bfloat16),
                         (1, 32, 8, 445, 128, 100, torch.bfloat16),
@@ -270,21 +270,24 @@ def test_flash_attention_kernel_gives_the_same_bits_every_call(cuda, B, Hq, Hkv,
 def test_flash_attention_kernel_one_launch_per_call(cuda, B, Hq, Hkv, S, D, window,
                                                     dtype):
     """Each variant is one launch a call: over 20 calls the profiler sees the
-    variant's kernel only, at most 20 times, and the count adds 20."""
+    variant's kernels only, at most 20 times each (tf32x3: its prologue
+    that splits K and V, then its kernel), and the count adds 20."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     q, k, v = _flash_case(B, Hq, Hkv, S, D, dtype, cuda)
     flash_attention.flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
     launches.reset()
-    tag = {"wgmma": "flash_wgmma_kernel", "simt": "flash_kernel"}[
-        flash_attention.variant(S, S, D, dtype)]
+    kind = flash_attention.variant(S, S, D, dtype)
+    tag = {"wgmma": "flash_wgmma_kernel", "simt": "flash_kernel",
+           "tf32x3": "flash_tf32_"}[kind]
+    kernels = 2 if kind == "tf32x3" else 1
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(20):
             flash_attention.flash_attention(q, k, v, window=window)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    assert 1 <= len(names) <= 20 and all(tag in n for n in names), names
+    assert 1 <= len(names) <= 20 * kernels and all(tag in n for n in names), names
     assert launches.LAUNCHES == {**{k: 0 for k in launches.LAUNCHES},
                                  "flash_attention": 20}
 
@@ -662,9 +665,9 @@ def test_matmul_backward_products_one_launch_and_the_same_bits(cuda, mkn, which)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_attention_phi3_heads(cuda, dtype):
     """phi3-mini's 32 over 32 heads of 96 at a whole prompt, forward, and at
-    the training length, backward: the wgmma kernels in bf16, the simt ones
-    in f32, within their limits, the same bits twice."""
-    want = "wgmma" if dtype == torch.bfloat16 else "simt"
+    the training length, backward: the wgmma kernels in bf16, the tf32x3
+    ones in f32, within their limits, the same bits twice."""
+    want = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     res = kc.check_flash_phi3(kc.PHI3_FLASH_S, dtype, cuda)
     assert res["ok"] and res["variant"] == want, res
     B, S = kc.PHI3_FLASH_BWD
@@ -712,7 +715,7 @@ def test_rmsnorm_backward_scalar_path_matches_the_vector_path(cuda, dtype, R, D)
 def test_flash_backward_kernel_matches_plain(cuda, B, S, window, dtype):
     res = kc.check_flash_bwd(B, S, dtype, window, device=cuda)
     assert res["ok"], res
-    assert res["variant"] == ("wgmma" if dtype == torch.bfloat16 else "simt")
+    assert res["variant"] == ("wgmma" if dtype == torch.bfloat16 else "tf32x3")
 
 
 @pytest.mark.gpu
@@ -733,6 +736,44 @@ def test_flash_backward_wgmma_reads_any_layout(cuda, D):
                                      causal=True, window=77)
     for a, b in zip(views, dense):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", flash_attention.WGMMA_HEAD_DIMS)
+def test_flash_tf32x3_forward_and_backward_read_any_layout(cuda, D):
+    """f32 on the TF32 tensor-core kernels: the model's (B, S, H, D) views
+    and (B, H, S, D)-contiguous operands give the same bits, forward and
+    backward, within the limits; a ragged prompt, a window across tiles,
+    GQA 8/2."""
+    q, k, v, do = kc.attention_bwd_inputs(2, 200, torch.float32, 8, 2, D, cuda)
+    assert flash_attention.variant(200, 200, D, torch.float32) == "tf32x3"
+    assert flash_attention.bwd_variant(200, 200, D, torch.float32) == "tf32x3"
+    dense = [t.contiguous() for t in (q, k, v, do)]
+    outs = [flash_attention.flash_attention(*ts[:3], causal=True, window=77)
+            for ts in ((q, k, v), dense)]
+    grads = [flash_attention.backward(*ts, causal=True, window=77) for ts in ((q, k, v, do),
+                                                                              dense)]
+    assert torch.equal(outs[0], outs[1])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    want = ref.attention(q, k, v, causal=True, window=77)
+    res = kc.compare(outs[0], want, kc.ATTN_TOL[torch.float32])
+    assert res["ok"], res
+    for g, w in zip(grads[0], ref.attention_bwd(q, k, v, do, causal=True, window=77)):
+        res = kc.compare(g, w, kc.ATTN_BWD_TOL[torch.float32])
+        assert res["ok"], res
+
+
+@pytest.mark.gpu
+def test_flash_tf32x3_at_the_kernel_table_rows(cuda):
+    """Row 3b's forward (1, 32/8, 512, 128) and row 3h's backward (4,
+    32/8, 1024, 128), causal f32, on the TF32 kernels: within the limits,
+    the same bits twice."""
+    res = kc.check_flash_attention(512, torch.float32, None, cuda)
+    assert res["ok"] and res["variant"] == "tf32x3", res
+    B, S, _ = kc.FLASH_BWD_CASES[0]
+    res = kc.check_flash_bwd(B, S, torch.float32, None, device=cuda)
+    assert res["ok"] and res["variant"] == "tf32x3", res
 
 
 @pytest.mark.gpu
@@ -830,12 +871,12 @@ def test_matmul_expert_products_at_the_train_steps_rows(cuda, C, proj, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_attention_at_mixtrals_train_shape(cuda, dtype):
     """(4, 32/8, 1024, 128) with the 4,096-token window, forward and
-    backward: bf16 on wgmma, f32 on simt."""
+    backward: bf16 on wgmma, f32 on tf32x3."""
     B, S, window = kc.MIXTRAL_TRAIN_FLASH
     fwd = kc.check_flash_attention(S, dtype, window, cuda, B=B)
     bwd = kc.check_flash_bwd(B, S, dtype, window, device=cuda)
     assert fwd["ok"] and bwd["ok"], (fwd, bwd)
-    assert bwd["variant"] == ("wgmma" if dtype == torch.bfloat16 else "simt")
+    assert bwd["variant"] == ("wgmma" if dtype == torch.bfloat16 else "tf32x3")
 
 
 # -- the cross-attention families (chip_smoke.py phases 3, 3c and 10) ----------
@@ -848,12 +889,12 @@ def test_flash_attention_cross_forward_and_backward(cuda, case, dtype):
     dk, dv within their limits, the same bits twice; bf16 at head dims 64
     and 128 on the wgmma forward and the tensor-core backward (stats over
     vlm's 6,404 image tokens, with the forward's statistics held too; wgmma
-    below ``STATS_MIN_SK`` keys), the rest simt."""
+    below ``STATS_MIN_SK`` keys), f32 there on tf32x3, the rest simt."""
     _, B, S, Sk, Hq, Hkv, D = next(c for c in kc.XATTN_FLASH_CASES if c[0] == case)
     res = kc.check_flash_cross(B, S, Sk, Hq, Hkv, D, dtype, cuda)
     assert res["ok"], res
-    want = ("wgmma" if dtype == torch.bfloat16 and D in flash_attention.WGMMA_HEAD_DIMS
-            else "simt")
+    want = ((("wgmma" if dtype == torch.bfloat16 else "tf32x3")
+             if D in flash_attention.WGMMA_HEAD_DIMS else "simt"))
     want_bwd = "stats" if want == "wgmma" and Sk >= flash_attention.STATS_MIN_SK else want
     assert (res["variant"], res["bwd_variant"]) == (want, want_bwd)
     assert ("stats" in res["parts"]) == (want_bwd == "stats")

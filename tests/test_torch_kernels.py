@@ -167,23 +167,23 @@ _PREFILL_S = [1, 35, 37, 64, 65, 223, 256, 333, 445, 512]
 @pytest.mark.parametrize("S", _PREFILL_S)
 def test_flash_variant_on_the_main_path(S):
     """bf16 prefills at llama3-8b's head dim take the wgmma kernel; f32
-    keeps the CUDA-core kernel."""
+    the TF32 tensor-core kernel (three products)."""
     from repro_torch.kernels import flash_attention as fa
     assert fa.variant(S, S, 128, torch.bfloat16) == "wgmma"
-    assert fa.variant(S, S, 128, torch.float32) == "simt"
+    assert fa.variant(S, S, 128, torch.float32) == "tf32x3"
 
 
 @pytest.mark.parametrize("S,Sk,D,dtype,aligned,want", [
     (70, 70, 64, torch.bfloat16, True, "wgmma"),
     (70, 70, 96, torch.bfloat16, True, "wgmma"),
-    (70, 70, 96, torch.float32, True, "simt"),
+    (70, 70, 96, torch.float32, True, "tf32x3"),
     (70, 70, 96, torch.bfloat16, False, "simt"),
     (70, 70, 96, torch.float32, False, "simt"),
     (70, 0, 96, torch.bfloat16, True, "simt"),
     (70, 0, 96, torch.float32, True, "simt"),
     (70, 70, 16, torch.bfloat16, True, "simt"),
     (70, 70, 32, torch.bfloat16, True, "simt"),
-    (70, 70, 64, torch.float32, True, "simt"),
+    (70, 70, 64, torch.float32, True, "tf32x3"),
     (70, 0, 128, torch.bfloat16, True, "simt"),
     (223, 223, 128, torch.bfloat16, False, "simt"),
     (5, 300, 128, torch.bfloat16, True, "wgmma")])

@@ -71,10 +71,12 @@ def test_every_dense_arch_head_dim_has_both_attention_kernels(name):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("S", [1, 70, 512, 1024])
 def test_head_dim_96_takes_wgmma_in_bf16_and_simt_in_f32(S, dtype):
-    """Aligned calls with keys; unaligned views and Sk = 0 are rows of the
+    """Aligned calls with keys (f32 there takes the TF32 tensor-core
+    kernels, tf32x3; simt keeps f32's unaligned views and Sk = 0); those
+    and bf16's unaligned views and Sk = 0 are rows of the
     variant tables of ``tests/test_torch_kernels.py`` and
     ``tests/test_torch_flash_bwd.py``."""
-    want = "wgmma" if dtype == torch.bfloat16 else "simt"
+    want = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     assert flash_attention.variant(S, S, 96, dtype) == want
     assert flash_attention.bwd_variant(S, S, 96, dtype) == want
     # D = 96 on the two boxes of D = 128, its last 32 columns zero
