@@ -276,7 +276,8 @@ def model_cost(kernel: str, shape, dtype: str, cfg: dict) -> dict:
     """Price one plan on the H100: bytes each input read once and each
     output written once (partials of a split both ways), operations on the
     unit the plan runs on (the tensor cores' bf16 peak for ``decode``,
-    ``wgmma``; the CUDA cores' f32 for ``simt`` and the others), the core
+    ``wgmma``, a third of their TF32 peak for the ``tf32x3`` kernels; the
+    CUDA cores' f32 for ``simt`` and the others), the core
     time the larger of the two over the share of the SMs the blocks fill,
     plus ``WAVE_US`` a wave and a split charge.  Returns the µs
     breakdown."""
@@ -295,7 +296,7 @@ def model_cost(kernel: str, shape, dtype: str, cfg: dict) -> dict:
         nbytes = (M * K + K * N + M * N) * isz + (2 * splits * M * N * 4
                                                  if splits > 1 else 0)
         if kind != "simt":
-            peak = hopper.PEAK_OPS_S["bf16"]
+            peak = hopper.PEAK_OPS_S["tf32x3" if kind == "tf32x3" else "bf16"]
         if kind == "wgmma":
             split_us = mm.WGMMA_SPLIT_US
     elif kernel == "flash_attention":

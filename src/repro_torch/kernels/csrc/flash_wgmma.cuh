@@ -3,9 +3,10 @@
 // backward (flash_attention_bwd.cu: flash_bwd_dq_wgmma_kernel,
 // flash_bwd_dkv_wgmma_kernel and the tf32x3 pair): mbarriers, TMA loads of
 // (B, H, S, D) tensors through 4-D tensor maps, bulk copies, the online
-// softmax on an accumulator fragment, the f32 kernels' TF32 split and their
-// wgmma and mma.sync forms (below, "TF32 in three products"), and the two
-// bf16 wgmma forms every product of the bf16 kernels is one of:
+// softmax on an accumulator fragment, the f32 kernels' TF32 products
+// (below, "TF32 in three products"; the split and the TF32 wgmma forms
+// from tf32.cuh), and the two bf16 wgmma forms every product of the bf16
+// kernels is one of:
 //
 //   qk_issue   C (64 x 64 f32) = A B^T, A and B 64-row tiles of D columns,
 //              both K-major in shared memory (m64n64k16, D / 16 steps);
@@ -38,6 +39,8 @@
 
 #include <algorithm>
 #include <cstdint>
+
+#include "tf32.cuh"
 
 namespace {
 
@@ -127,12 +130,6 @@ template <int N> __device__ __forceinline__ void wgmma_wait() {
 template <int N> __device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
     for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-__device__ __forceinline__ void fence_operands(uint32_t (&a)[4][4]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j]) :: "memory");
 }
 
 // d (64 x 64 f32) = A (64 x 16, K-major, shared) * B (16 x 64, K-major,
@@ -324,146 +321,18 @@ __device__ __forceinline__ void split_p(const float (&sc)[32], uint32_t (&hi)[4]
 }
 
 // ---------------------------------------------------------------------------
-// TF32 in three products: the f32 kernels (tf32x3).  Each f32 operand x is
-// split into hi = TF32(x), rounded to nearest (cvt.rna's rounding: ties
-// away from zero), and lo = x - hi, exact in f32 and passed raw: the tensor
-// core reads a TF32 operand's top 19 bits, so it takes lo truncated, and x
-// - hi - TF32(lo) is below 2^-21 |x|; a product x y is taken as lo_x hi_y +
-// hi_x lo_y + hi_x hi_y, each TF32 product accumulated in f32 (the lo lo
-// term, below 2^-22 |x y|, is dropped).  CUTLASS's fast f32 GEMMs split so.
-// One TF32 product alone moves attention's output ~60x past ATTN_TOL[f32]
-// (tests/test_torch_flash_f32.py emulates both).  TF32 wgmma has no
-// transpose bits: A and B are K-major in shared memory, so a product that
-// contracts over keys (P V) reads V^T; and its A fragment in registers,
-// thread (warp w, g, tig) holding rows 16 w + g and + 8, columns tig and
-// tig + 4 of a k8 step, is not an m64nN accumulator's (columns 2 tig, 2 tig
-// + 1).  The kernels take the step's columns in the order 0 2 4 6 1 3 5 7
-// instead: the accumulator's entries are then the A fragment as they lie
-// (split_p_tf32), and the B operand's keys are stored in that order.
+// TF32 in three products: the f32 kernels (tf32x3).  The split, the TF32
+// wgmma forms and why three products are taken are in tf32.cuh, which the
+// f32 matmul (matmul.cu) shares.  One TF32 product alone moves attention's
+// output ~60x past ATTN_TOL[f32] (tests/test_torch_flash_f32.py emulates
+// both).  A product that contracts over keys (P V) reads V^T; and the TF32
+// A fragment in registers, thread (warp w, g, tig) holding rows 16 w + g
+// and + 8, columns tig and tig + 4 of a k8 step, is not an m64nN
+// accumulator's (columns 2 tig, 2 tig + 1).  The kernels take the step's
+// columns in the order 0 2 4 6 1 3 5 7 instead: the accumulator's entries
+// are then the A fragment as they lie (split_p_tf32), and the B operand's
+// keys are stored in that order.
 // ---------------------------------------------------------------------------
-
-// TF32(x) rounded to nearest, ties away from zero: cvt.rna.tf32.f32's
-// result for every finite x, by two integer ops (2^12 added to the bit
-// pattern's magnitude, the low 13 bits cleared), where the cvt compiles to
-// four or five with its NaN and Inf cases.  The operands are finite:
-// inputs, scores and probabilities.  PERF.md has the readings of the two
-// splits this one was chosen over (both halves by cvt.rna; hi truncated)
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-    return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-    hi = tf32_rna(x);
-    lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// the byte offset of 16-byte chunk `chunk` (0-7) of row `row` in a block of
-// 128-byte rows under the 128-byte swizzle (TMA's and wgmma's: the chunk
-// index XORed with the row's index in its 1,024-byte group)
-__device__ __forceinline__ int swz128(int row, int chunk) {
-    return row * 128 + ((chunk ^ (row & 7)) << 4);
-}
-
-// four f32 values split and stored as hi (at dst) and lo (at dst + lo_off)
-__device__ __forceinline__ void store_split4(unsigned char* dst, int lo_off, float4 x) {
-    uint4 h, l;
-    split_tf32(x.x, h.x, l.x);
-    split_tf32(x.y, h.y, l.y);
-    split_tf32(x.z, h.z, l.z);
-    split_tf32(x.w, h.w, l.w);
-    *reinterpret_cast<uint4*>(dst) = h;
-    *reinterpret_cast<uint4*>(dst + lo_off) = l;
-}
-
-// d (64 x 32 f32) (+)= A (64 x 8 tf32, K-major, shared) * B (8 x 32, K-major,
-// shared); scale_d 0 starts d.  TF32 has no transpose bits: both K-major
-__device__ __forceinline__ void wgmma_tf32_m64n32k8_ss(float (&d)[16], uint64_t da, uint64_t db,
-                                                      int scale_d) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "%16, %17, p, 1, 1;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-          "+f"(d[14]), "+f"(d[15])
-        : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (64 x 64 f32) (+)= A (64 x 8 tf32, registers) * B (8 x 64, K-major, shared)
-__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
-                                              int scale_d) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-// d (64 x 96 f32) (+)= A (64 x 8 tf32, registers) * B (8 x 96, K-major, shared)
-__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[48], const uint32_t (&a)[4], uint64_t db,
-                                              int scale_d) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %53, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
-        "{%48, %49, %50, %51}, %52, p, 1, 1;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-          "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-// d (64 x 128 f32) (+)= A (64 x 8 tf32, registers) * B (8 x 128, K-major, shared)
-__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
-                                              int scale_d) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-        "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-          "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-          "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
 
 namespace tf {
 constexpr int QBOX = 64 * 128;         // 64 rows of 32 f32: a box of the q tile

@@ -8,7 +8,7 @@
 // the kernels, so the caller never pads.  Each call is one launch, and the
 // same inputs give the same bits on every run.
 //
-// Three variants (four kernels); kernels/matmul.py::variant picks one from
+// Four variants (five kernels); kernels/matmul.py::variant picks one from
 // (M, K, N, dtype, trans):
 //
 // * decode (bf16, M <= 8, K and N multiples of 8).  Bound on an H100 by the
@@ -112,12 +112,66 @@
 //       partial out and the tile's last slice summing them in slice order:
 //       no float atomics, the same bits on every run.
 //
-// * simt: f32 (the tensor cores have no full-f32 product, and TF32 would
-//   break the f32 tolerance) and bf16 shapes whose rows are not 16-byte
-//   aligned.  The kernel of the first port, unchanged: a BM x BN tile a
-//   block, f32 accumulators in registers, BK-deep tiles staged through
-//   shared memory as f32 with one tile prefetched in registers; an 8 x 32
-//   tile with a 128-deep K step for M <= 8, 64 x 64 x 16 otherwise.
+// * tf32x3 (f32, the forward, M > 8, M N K at least 2^25, K and N multiples
+//   of 4 (16-byte rows, as TMA needs), 16-byte aligned operands: the rule is
+//   matmul.variant's, the boundary matmul.TF32_MIN_WORK's): the f32 product on the
+//   tensor cores, each product of two f32 operands taken as three TF32
+//   products of their hi and lo halves (tf32.cuh: hi rounded by cvt.rna's
+//   rule, lo passed raw), summed in f32.  At row 2d's shape, (333, 4096) @
+//   (4096, 14336), that is 117 G TF32 operations on 259 MB: 0.237 ms of
+//   tensor-core time against 0.077 ms of bytes, so the tensor cores set the
+//   pace, and only wgmma reaches their rate.  TF32 wgmma reads a shared-
+//   memory operand only K-major; A (M, K) is, the weight B (K, N) is not.
+//   So each block computes its output tile transposed, C^T = B^T A^T:
+//     - a prologue in the same call (matmul_tf32_split_kernel) splits A
+//       once into hi and lo, each (M, K rounded up to 8), a workspace of
+//       8 M K bytes (11 MB at row 2d); each block would otherwise split the
+//       A tile of every stage itself (N / 128 times an element);
+//     - a block a 128 (N) x 128 (M) tile of C, K in 32-deep stages (one
+//       128-byte row of f32); one thread of a producer warpgroup copies A's
+//       hi and lo 128 x 32 boxes (K-major) and B's four 32 x 32 boxes into
+//       a 4-stage ring by TMA (128-byte swizzle, zero fill past M, N and
+//       K);
+//     - two consumer warpgroups, 64 of the tile's N columns each: B^T is
+//       the wgmma's A operand, from registers: each thread loads its
+//       fragment of the f32 B box (two 8-byte loads a k8 step) and splits
+//       it in registers; A^T is its B operand (m64n128k8).  A consumer
+//       holds 64 accumulators, a fresh fragment of 64 and the four k8
+//       steps' fragments, hi and lo (32): setmaxnreg gives it 224
+//       registers and the producer 56 (at an even share, 168, ptxas
+//       spills);
+//     - shared memory carries a stage's 96 KB of wgmma operand reads, 48
+//       KB of TMA writes and 16 KB of fragment loads in ~1,250 cycles at
+//       128 bytes a cycle, under its 1,536 tensor-core cycles; a split of
+//       A in the ring (16 KB read, 32 KB written a stage) would make it
+//       ~1,650, and such a kernel read 0.487 ms at row 2d against this
+//       one's 0.383 (PERF.md);
+//     - a k8 step's fragment columns tig and tig + 4 hold K 2 tig and 2 tig
+//       + 1, so a thread's loads are two rows of B that fall in distinct
+//       banks, and the prologue stores each group of 8 of A's columns in
+//       the order 0 2 4 6 1 3 5 7 to match; a fragment row g (+ 8) holds
+//       B's column 2 g (+ 1), so the accumulators' rows are pairs of
+//       adjacent columns of C, stored as 8-byte words without a transpose;
+//     - the tensor core's f32 accumulation loses low bits at each product
+//       (the f32 flash backward's dV: 1,536 products into one register
+//       moved it past its limit), so each stage's 12 products (4 k8 steps, lo hi + hi lo +
+//       hi hi) start a fresh fragment, added to the running sum by f32
+//       adds: 128 adds at K = 4,096 where one register would take 1,536
+//       products;
+//     - no split-K, no float atomics: the same bits on every run; rows past
+//       M and columns past N are masked at the store; the prologue and the
+//       kernel are one call (one count in LAUNCHES).
+//
+// * simt: f32 where tf32x3 does not take it (M <= 8: streaming the weight
+//   is bound by its bytes, and the CUDA cores suffice; M N K under 2^25,
+//   where both take a few microseconds on the card and tf32x3's two
+//   launches and three tensor-map encodes cost the host more; K or N not a
+//   multiple of 4; unaligned views; K = 0; the backward's products), and
+//   bf16 shapes whose rows are not 16-byte aligned.  The kernel of the
+//   first port, unchanged: a BM x BN tile a block, f32 accumulators in
+//   registers, BK-deep tiles staged through shared memory as f32 with one
+//   tile prefetched in registers; an 8 x 32 tile with a 128-deep K step for
+//   M <= 8, 64 x 64 x 16 otherwise.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -131,6 +185,8 @@
 #include <map>
 #include <mutex>
 #include <tuple>
+
+#include "tf32.cuh"
 
 namespace {
 
@@ -988,6 +1044,183 @@ matmul_bwd_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
 }
 
 // ---------------------------------------------------------------------------
+// tf32x3: the f32 forward on the tensor cores, C^T = B^T A^T in three TF32
+// products a product
+// ---------------------------------------------------------------------------
+
+namespace t3 {
+constexpr int BM = 128, BN = 128, BK = 32;        // C rows (the wgmma's N), columns, K a stage
+constexpr int STAGES = 4;
+constexpr int THREADS = 384;                      // two consumer warpgroups and a producer one
+constexpr int CONSUMERS = 256;
+// registers a thread once the producer warpgroup gives its own back
+// (setmaxnreg: 128 x 56 + 256 x 224 <= 65,536)
+constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
+constexpr int SPLIT_THREADS = 256;                // the prologue's block
+constexpr int A_BYTES = BM * BK * 4;              // 16 KB: A's hi or lo tile, 128 rows of 128 bytes
+constexpr int B_BOX = BK * 32 * 4;                // 4 KB: 32 k rows of 32 columns of B
+constexpr int B_BYTES = (BN / 32) * B_BOX;        // 16 KB
+// a stage: A hi, A lo, B, all by TMA
+constexpr int STAGE_BYTES = 2 * A_BYTES + B_BYTES;
+// + two barriers a stage (loaded, free) and alignment
+constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+}  // namespace t3
+
+template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// The prologue: A (M, K) split once into hi and lo, each (M, Kp) with Kp =
+// K rounded up to 8 (zeros past K), each group of 8 columns stored in the
+// order 0 2 4 6 1 3 5 7 (the wgmma fragment's), so that the kernel's ring
+// takes A's hi and lo tiles by TMA as they are, and the split is paid once
+// an element and not once a block that reads it (N / 128 column tiles)
+__global__ void __launch_bounds__(t3::SPLIT_THREADS)
+matmul_tf32_split_kernel(const float* __restrict__ A, float* __restrict__ work, int M, int K,
+                         int Kp) {
+    const long long unit = static_cast<long long>(blockIdx.x) * t3::SPLIT_THREADS + threadIdx.x;
+    const int groups = Kp / 8;
+    if (unit >= static_cast<long long>(M) * groups) return;
+    const int row = static_cast<int>(unit / groups), k = static_cast<int>(unit % groups) * 8;
+    const float* a = A + static_cast<size_t>(row) * K + k;
+    const float4 x = *reinterpret_cast<const float4*>(a);   // K % 4 == 0: k < K
+    const float4 y = k + 4 < K ? *reinterpret_cast<const float4*>(a + 4)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+    uint4* hi = reinterpret_cast<uint4*>(work + static_cast<size_t>(row) * Kp + k);
+    uint4* lo = reinterpret_cast<uint4*>(work + static_cast<size_t>(M + row) * Kp + k);
+    auto put = [](uint4* h, uint4* l, float4 v) {
+        split_tf32(v.x, h->x, l->x);
+        split_tf32(v.y, h->y, l->y);
+        split_tf32(v.z, h->z, l->z);
+        split_tf32(v.w, h->w, l->w);
+    };
+    uint4 h[2], l[2];
+    put(&h[0], &l[0], make_float4(x.x, x.z, y.x, y.z));    // columns 0 2 4 6
+    put(&h[1], &l[1], make_float4(x.y, x.w, y.y, y.w));    // columns 1 3 5 7
+    hi[0] = h[0];
+    hi[1] = h[1];
+    lo[0] = l[0];
+    lo[1] = l[1];
+}
+
+// tah, tal: A's hi and lo (M, Kp) from the prologue in 128 x 32 boxes; tb:
+// B (K, N) in 32 x 32 boxes; all f32, 128-byte swizzle.  Block (x, y)
+// computes C rows 128 x .. and columns 128 y .., consumer warpgroup cw
+// (threads 128 cw ..) the columns 64 cw .. of them; one thread of the
+// producer warpgroup (threads 256 ..) loads the ring
+__global__ void __launch_bounds__(t3::THREADS, 1)
+matmul_tf32_kernel(const __grid_constant__ CUtensorMap tah,
+                   const __grid_constant__ CUtensorMap tal,
+                   const __grid_constant__ CUtensorMap tb, float* __restrict__ C, int M, int N,
+                   int K) {
+    using namespace t3;
+    extern __shared__ unsigned char raw[];
+    // TMA's 128-byte swizzle wants each box 1024-byte aligned
+    unsigned char* buf = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+    uint64_t* full = reinterpret_cast<uint64_t*>(buf + STAGES * STAGE_BYTES);
+    uint64_t* empty = full + STAGES;
+    const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+    const int steps = (K + BK - 1) / BK;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(&full[s], 1);       // the producer's expect_tx
+            mbar_init(&empty[s], 8);      // each consumer warp, once its products are done
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (threadIdx.x >= CONSUMERS) {       // the producer warpgroup
+        setmaxnreg_dec<PRODUCER_REGS>();
+        if (threadIdx.x == CONSUMERS) {
+            for (int j = 0; j < steps; ++j) {
+                const int s = j % STAGES, k = j * BK;
+                if (j >= STAGES) mbar_wait(&empty[s], ((j / STAGES) - 1) & 1);
+                unsigned char* st = buf + s * STAGE_BYTES;
+                mbar_expect_tx(&full[s], STAGE_BYTES);   // zero-filled bytes count too
+                tma_load_2d(st, &tah, k, m0, &full[s]);
+                tma_load_2d(st + A_BYTES, &tal, k, m0, &full[s]);
+#pragma unroll
+                for (int q = 0; q < BN / 32; ++q)
+                    tma_load_2d(st + 2 * A_BYTES + q * B_BOX, &tb, n0 + 32 * q, k, &full[s]);
+            }
+        }
+        return;
+    }
+    setmaxnreg_inc<CONSUMER_REGS>();
+
+    const int cw = threadIdx.x / 128, lt = threadIdx.x % 128;
+    const int warp = lt / 32, g = (lt & 31) >> 2, tig = lt & 3;
+    // the wgmma's A fragment rows g and g + 8 of this warp's 16 are C's
+    // columns nl and nl + 1 of the block (nl even), in B's box nl / 32
+    const int nl = 64 * cw + 16 * warp + 2 * g;
+    const int b_off = 2 * A_BYTES + (nl / 32) * B_BOX + (nl % 4) * 4;
+    const int b_chunk = (nl % 32) / 4;
+
+    float acc[64], f[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    uint32_t bh[4][4], bl[4][4];
+    for (int j = 0; j < steps; ++j) {
+        const int s = j % STAGES;
+        unsigned char* st = buf + s * STAGE_BYTES;
+        mbar_wait(&full[s], (j / STAGES) & 1);
+        // k8 step kk's fragment: columns tig and tig + 4 are K rows 8 kk +
+        // 2 tig and + 1 of B, each read as C's columns nl and nl + 1
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            const int r = 8 * kk + 2 * tig;
+            const float2 x = *reinterpret_cast<const float2*>(st + b_off + swz128(r, b_chunk));
+            const float2 y = *reinterpret_cast<const float2*>(st + b_off + swz128(r + 1, b_chunk));
+            split_tf32(x.x, bh[kk][0], bl[kk][0]);
+            split_tf32(x.y, bh[kk][1], bl[kk][1]);
+            split_tf32(y.x, bh[kk][2], bl[kk][2]);
+            split_tf32(y.y, bh[kk][3], bl[kk][3]);
+        }
+        // this stage's 12 products in a fresh fragment, small first; A^T is
+        // K-major: 8-row groups 1024 bytes apart, a k8 step 32 bytes on
+        const uint32_t ahi = smem_u32(st), alo = ahi + A_BYTES;
+        fence_operands(f);
+        fence_operands(bh);
+        fence_operands(bl);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t dh = gmma_desc(ahi + kk * 32, 16, 1024);
+            wgmma_tf32_rs(f, bl[kk], dh, kk > 0);
+            wgmma_tf32_rs(f, bh[kk], gmma_desc(alo + kk * 32, 16, 1024), 1);
+            wgmma_tf32_rs(f, bh[kk], dh, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(f);
+        fence_operands(bh);
+        fence_operands(bl);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] += f[i];
+        if ((lt & 31) == 0) mbar_arrive(&empty[s]);
+    }
+
+    // acc[4i + e]: C column n0 + nl + (e >> 1), row m0 + 8 i + 2 tig + (e &
+    // 1); N % 4 == 0, so column nl + 1 is in where nl is
+    const int n = n0 + nl;
+    if (n >= N) return;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+        const int m = m0 + 8 * i + 2 * tig;
+        if (m < M)
+            *reinterpret_cast<float2*>(C + (size_t)m * N + n) = make_float2(acc[4 * i], acc[4 * i + 2]);
+        if (m + 1 < M)
+            *reinterpret_cast<float2*>(C + (size_t)(m + 1) * N + n) =
+                make_float2(acc[4 * i + 1], acc[4 * i + 3]);
+    }
+}
+
+// ---------------------------------------------------------------------------
 // host: tensor maps (cuTensorMapEncodeTiled from libcuda.so.1, found at run
 // time, so nothing links against libcuda) and B's map cache
 // ---------------------------------------------------------------------------
@@ -1006,19 +1239,20 @@ EncodeTiled encode_fn() {
     return fn;
 }
 
-// a row-major (rows, cols) bf16 matrix, boxes of (box_rows, box_cols), 128-byte
-// swizzle, zeros outside
-bool encode(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows, int box_cols) {
+// a row-major (rows, cols) bf16 (or, f32, float) matrix, boxes of (box_rows,
+// box_cols), 128-byte swizzle, zeros outside
+bool encode(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows, int box_cols,
+            bool f32 = false) {
     const EncodeTiled fn = encode_fn();
     if (!fn) return false;
     const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * (f32 ? 4 : 2)};
     const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
                                static_cast<cuuint32_t>(box_rows)};
     const cuuint32_t estr[2] = {1, 1};
-    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
-              box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+    return fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+              const_cast<void*>(ptr), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -1147,6 +1381,34 @@ int launch_wgmma(const void* a, const void* b, void* c, int M, int N, int K, int
         : launch_bwd<1, 1>(ta, tb, tc, c, M, N, K, splits, slice, tickets, partials, s);
 }
 
+// the f32 forward on the tensor cores: the prologue splits A into `work`
+// (2 M Kp floats), then a block a 128 x 128 tile of C, no split; the maps
+// encoded every call (a few microseconds against the product's hundreds)
+int launch_tf32(const void* a, const void* b, void* c, int M, int N, int K, void* work,
+                cudaStream_t s) {
+    static bool done[64] = {};
+    const long long tiles_n = (N + t3::BN - 1) / t3::BN;
+    const int Kp = (K + 7) / 8 * 8;
+    const long long units = static_cast<long long>(M) * (Kp / 8);
+    const long long split_blocks = (units + t3::SPLIT_THREADS - 1) / t3::SPLIT_THREADS;
+    if (!work || tiles_n > 65535 || split_blocks >= (1ll << 31))
+        return static_cast<int>(cudaErrorInvalidValue);
+    float* hi = static_cast<float*>(work);
+    float* lo = hi + static_cast<size_t>(M) * Kp;
+    alignas(64) CUtensorMap tah, tal, tb;
+    if (!encode(&tah, hi, M, Kp, t3::BM, t3::BK, true) ||
+        !encode(&tal, lo, M, Kp, t3::BM, t3::BK, true) ||
+        !encode(&tb, b, K, N, t3::BK, 32, true) ||
+        !allow_smem(reinterpret_cast<const void*>(matmul_tf32_kernel), t3::SMEM, done))
+        return static_cast<int>(cudaErrorInvalidValue);
+    matmul_tf32_split_kernel<<<static_cast<unsigned>(split_blocks), t3::SPLIT_THREADS, 0, s>>>(
+        static_cast<const float*>(a), hi, M, K, Kp);
+    const dim3 grid((M + t3::BM - 1) / t3::BM, static_cast<unsigned>(tiles_n));
+    matmul_tf32_kernel<<<grid, t3::THREADS, t3::SMEM, s>>>(tah, tal, tb, static_cast<float*>(c),
+                                                            M, N, K);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // C (M, N) = op(A) op(B), K the contraction; trans names the product, on
@@ -1155,7 +1417,10 @@ int launch_wgmma(const void* a, const void* b, void* c, int M, int N, int K, int
 // dC (M, K) and b = B, the row-major (N, K) B^T; 2, its dB = A^T dC, passed
 // as a = A, the row-major (K, M) A^T, and b = dC (K, N).
 // dtype: 0 = float32, 1 = bfloat16.  variant: 0 = simt (any dtype, any
-// trans), 1 = decode (bf16, trans 0, M <= 8), 2 = wgmma (bf16); decode and
+// trans), 1 = decode (bf16, trans 0, M <= 8), 2 = wgmma (bf16), 3 = tf32x3
+// (f32, trans 0, K > 0, K and N multiples of 4, 16-byte aligned operands;
+// no split: splits, slice and tickets are not read, and partials is the
+// prologue's workspace of 2 M Kp floats, Kp = K rounded up to 8); decode and
 // wgmma need K > 0, K and N multiples of 8 (M too for trans 2) and 16-byte
 // aligned operands, and take a split-K plan (splits slices of slice
 // elements of K) and, for splits > 1, the workspace: tickets (one per
@@ -1187,6 +1452,11 @@ extern "C" int repro_matmul(const void* a, const void* b, void* c, int M, int N,
     }
     const bool aligned = (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)
                           | reinterpret_cast<uintptr_t>(c)) % 16 == 0;
+    if (variant == 3) {
+        if (dtype != 0 || trans != 0 || K <= 0 || K % 4 || N % 4 || !aligned)
+            return static_cast<int>(cudaErrorInvalidValue);
+        return launch_tf32(a, b, c, M, N, K, partials, s);
+    }
     if (dtype != 1 || K <= 0 || K % 8 || N % 8 || (trans == 2 && M % 8) || !aligned)
         return static_cast<int>(cudaErrorInvalidValue);
     if (variant == 1 && trans == 0)

@@ -91,7 +91,7 @@ SIMT_THREADS, SIMT_BQ, SIMT_BK = 128, 64, 32
 #: a ring of 2 stages of 32 keys (K hi, K lo, V^T hi, V^T lo)
 TF32_THREADS, TF32_STAGES, TF32_BK = 160, 2, 32
 #: the fewest keys at which ``bwd_variant`` takes ``stats``: on the card
-#: (``testing/flash_ab.py``) it beats ``wgmma`` at llama-3.2-vision's 6,404
+#: (``testing/kernel_ab.py flash``) it beats ``wgmma`` at llama-3.2-vision's 6,404
 #: keys and at the training shapes' 1,024 and loses at seamless's 256;
 #: 2,048 leaves the training shapes on ``wgmma``, whose forward keeps
 #: nothing for them

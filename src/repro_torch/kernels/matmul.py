@@ -3,9 +3,10 @@
 Counterpart of ``repro.kernels.matmul.matmul``; the kernels and their design
 notes are in ``csrc/matmul.cu``.  f32 accumulation, output in ``a``'s dtype,
 bf16 or f32.  Ragged edges are masked in the kernels, so nothing is padded.
-Each call is exactly one launch, and the same inputs give the same bits.
+Each call is exactly one launch (tf32x3's prologue and kernel are one
+call), and the same inputs give the same bits.
 
-Which of the three kernels a call takes is ``variant(M, K, N, dtype,
+Which of the four kernels a call takes is ``variant(M, K, N, dtype,
 aligned, trans)``, a pure function of the shapes, the dtype and the
 product (``trans`` 0 the forward ``A B``):
   * ``"decode"``: bf16, M <= 8 (the engines' decode batches), K and N
@@ -16,10 +17,27 @@ product (``trans`` 0 the forward ``A B``):
     leave SMs idle; the forward (``matmul_wgmma_kernel``) a block a 128 x
     128 tile, the backward's products (``matmul_bwd_kernel``) a persistent
     block an SM walking 128 x 256 tiles in ``bwd_walk``'s grouped order;
-  * ``"simt"``: everything else: f32 (the tensor cores have no full-f32
-    product), and bf16 with K or N not a multiple of 8, K = 0, or an
-    operand whose address is not 16-byte aligned (``aligned`` False; only a
-    view can be).  CUDA-core FMAs, as the first port had them.
+  * ``"tf32x3"``: f32, the forward, M > 8, M N K at least
+    ``TF32_MIN_WORK``, K > 0, K and N multiples of 4 (16-byte rows, as TMA
+    needs) and 16-byte aligned operands: the f32
+    product on the tensor cores (``matmul_tf32_kernel``), each product of
+    two f32 operands taken as three TF32 products of their halves (hi =
+    TF32(x) rounded as ``cvt.rna``, lo = x - hi read as TF32: lo hi + hi lo
+    + hi hi, ``csrc/tf32.cuh``), each 32-deep K stage's twelve products in
+    a fresh fragment added to the running f32 sum, within
+    ``MATMUL_TOL[f32]`` where one TF32 product is far past it; a prologue
+    in the same call (``matmul_tf32_split_kernel``) splits A once into a
+    workspace (``tf32_work_elems``), then a block a 128 x 128 tile of C,
+    computed as C^T = B^T A^T (TF32 wgmma reads a shared-memory operand
+    only K-major, and B (K, N) is not), B split in registers; no split-K;
+  * ``"simt"``: everything else: f32 where tf32x3 does not take it (M <= 8,
+    whose weight streaming is bound by bytes; a product under
+    ``TF32_MIN_WORK``, where the launches' host cost decides; K or N not a
+    multiple of 4;
+    unaligned views; K = 0; the backward's products), and bf16 with K or N
+    not a multiple of 8, K = 0, or an operand whose address is not 16-byte
+    aligned (``aligned`` False; only a view can be).  CUDA-core FMAs, as the
+    first port had them.
 
 Where autograd records the call, the wrapper is :class:`Matmul`, whose
 backward makes the two products of the gradient with the backward's wgmma
@@ -44,7 +62,7 @@ from .autotune import tuned_config
 from .launches import LAUNCHES, plain, wants_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-VARIANTS = {"simt": 0, "decode": 1, "wgmma": 2}
+VARIANTS = {"simt": 0, "decode": 1, "wgmma": 2, "tf32x3": 3}
 _FN = None
 
 #: the decode kernel's column tile and K step (csrc ``dec::BN``, ``dec::BK``)
@@ -91,20 +109,44 @@ BWD_THREADS = 288
 BWD_SMEM = 4 * (BWD_BM + BWD_BN) * WGMMA_BK * 2 + 4 * 64 * 64 * 2 + 2 * 4 * 8 + 1024
 SIMT_TILES = {True: (8, 32, 128), False: (64, 64, 16)}
 SIMT_THREADS = 256
-#: the split-K workspace for each (device, stream), shared by the decode and
-#: wgmma kernels: one ticket an output tile, zeroed when made and left at
-#: zero by every launch, and the f32 partials of the K slices; grown when a
-#: call needs more.  Launches on one stream run in order, so they share it.
+#: the tf32x3 kernel's output tile (csrc ``t3::BM``, ``t3::BN``), its K
+#: stage and ring (``t3::BK``, ``t3::STAGES``), threads (``t3::THREADS``:
+#: two consumer warpgroups and a producer one) and shared memory
+#: (``t3::SMEM``: a stage holds A's hi and lo tiles and B's, all f32; two
+#: barriers a stage, alignment); K and N multiples of ``TF32_ALIGN``
+TF32_BM, TF32_BN, TF32_BK = 128, 128, 32
+TF32_STAGES = 4
+TF32_THREADS = 384
+TF32_SMEM = TF32_STAGES * (2 * TF32_BM + TF32_BN) * TF32_BK * 4 + 2 * TF32_STAGES * 8 + 1024
+TF32_ALIGN = 4
+#: the least M N K that tf32x3 takes.  Between CUDA events over back-to-back
+#: calls on an H100 80GB HBM3 at 700 W (``chip_smoke.py --only f32``,
+#: ``F32_SWEEP``), simt was the faster at 17 of the 20 f32 smoke products
+#: (M 9-128, K and N 32-512, M N K 1.8e4-4.2e6: both ~5 us on the card, and
+#: tf32x3's two launches and three tensor-map encodes ~5-10 us more of the
+#: host's time a call) and at kern/matmul_256 (1.7e7: 0.0239 ms against
+#: 0.0322), tf32x3 at every llama3-8b projection from M = 16 (6.7e7 and
+#: up: 1.9-5.2x); 2^25 lies between the two checked shapes
+TF32_MIN_WORK = 1 << 25
+#: the workspace for each (device, stream), shared by the decode and wgmma
+#: kernels' split-K and tf32x3's prologue: one ticket an output tile, zeroed
+#: when made and left at zero by every launch, and f32 room for the K
+#: slices' partials or A's hi and lo; grown when a call needs more.
+#: Launches on one stream run in order, so they share it.
 _WORK: dict = {}
 
 
 def variant(M: int, K: int, N: int, dtype: torch.dtype, aligned: bool = True,
             trans: int = 0) -> str:
-    """The kernel a call takes: ``"decode"``, ``"wgmma"`` or ``"simt"``.
-    C is (M, N) and K the contraction of the product ``trans`` names: 0 the
-    forward A B, 1 the backward's A B^T, 2 its A^T B.  Only the forward has
-    the decode form, and A^T B takes wgmma only where M, A^T's row, is a
-    multiple of 8 too."""
+    """The kernel a call takes: ``"decode"``, ``"wgmma"``, ``"tf32x3"`` or
+    ``"simt"``.  C is (M, N) and K the contraction of the product ``trans``
+    names: 0 the forward A B, 1 the backward's A B^T, 2 its A^T B.  Only the
+    forward has the decode and tf32x3 forms, and A^T B takes wgmma only
+    where M, A^T's row, is a multiple of 8 too."""
+    if dtype == torch.float32:
+        tensor_cores = (trans == 0 and M > 8 and M * N * K >= TF32_MIN_WORK
+                        and K % TF32_ALIGN == 0 and N % TF32_ALIGN == 0 and aligned)
+        return "tf32x3" if tensor_cores else "simt"
     if (dtype != torch.bfloat16 or K <= 0 or K % 8 or N % 8 or not aligned
             or (trans == 2 and M % 8)):
         return "simt"
@@ -182,7 +224,7 @@ def plan(kind: str, M: int, K: int, N: int, trans: int = 0) -> tuple[int, int, i
     (``autotune.tuned_config``: ``(M, K, N)`` for the forward, ``(M, K, N,
     trans)`` for the backward's products; never outside ``tuned()``), else
     :func:`default_plan`'s."""
-    if kind != "simt":
+    if kind in ("decode", "wgmma"):      # the autotuner's family is bf16 only
         cfg = tuned_config("matmul", (M, K, N) if trans == 0 else (M, K, N, trans),
                            "bfloat16")
         if cfg is not None:
@@ -221,7 +263,7 @@ def legal_splits(kind: str, M: int, K: int, N: int, trans: int = 0) -> tuple[int
     ``DECODE_SLICE_MAX``, up to ``DECODE_MAX_SPLITS`` (and the rule's own);
     wgmma, those that keep tiles times slices within one wave of
     ``WGMMA_SMS``, at most ``WGMMA_MAX_SPLITS`` of at least
-    ``WGMMA_MIN_STEPS`` K steps; simt, one."""
+    ``WGMMA_MIN_STEPS`` K steps; simt and tf32x3, one."""
     if kind == "decode":
         units, unit, lo = (max(1, math.ceil(K / DECODE_BK)), DECODE_BK,
                            math.ceil(K / DECODE_SLICE_MAX))
@@ -247,7 +289,7 @@ def plan_with_splits(kind: str, M: int, K: int, N: int, trans: int,
         raise ValueError(f"matmul ({kind}, trans {trans}) at M={M} K={K} N={N}: "
                          f"{n} splits is not a legal plan "
                          f"{legal_splits(kind, M, K, N, trans)}")
-    if kind == "simt":
+    if kind in ("simt", "tf32x3"):
         return 1, 0, 0
     if kind == "decode":
         splits, slice_len = _slices(math.ceil(K / DECODE_BK), n, DECODE_BK)
@@ -276,9 +318,18 @@ def block_resources(kind: str, M: int, K: int, N: int, trans: int = 0,
                          else (BWD_SMEM, BWD_THREADS))
         return {"smem": smem, "threads": threads, "static": False,
                 "blocks": math.ceil(M / bm) * math.ceil(N / bn) * splits}
+    if kind == "tf32x3":
+        return {"smem": TF32_SMEM, "threads": TF32_THREADS, "static": False,
+                "blocks": math.ceil(M / TF32_BM) * math.ceil(N / TF32_BN)}
     bm, bn, bk = SIMT_TILES[M <= 8]
     return {"smem": bk * (bm + 1 + bn) * 4, "threads": SIMT_THREADS, "static": True,
             "blocks": math.ceil(M / bm) * math.ceil(N / bn)}
+
+
+def tf32_work_elems(M: int, K: int) -> int:
+    """f32 elements of the tf32x3 prologue's workspace: A's hi and lo, each
+    (M, Kp), Kp = K rounded up to 8."""
+    return 2 * M * (-(-K // 8) * 8)
 
 
 def _fn():
@@ -293,7 +344,7 @@ def _fn():
 
 
 def _workspace(device, stream: int, tiles: int, floats: int):
-    """The (tickets, partials) pointers of a split launch on ``stream``."""
+    """The (tickets, partials) pointers of a launch on ``stream``."""
     key = (device, stream)
     work = _WORK.get(key)
     if work is None or work[0].numel() < tiles or work[1].numel() < floats:
@@ -310,8 +361,10 @@ def _call(a, b, c, M: int, K: int, N: int, trans: int, kind: str, idx: int) -> i
     # the raw handle of the current stream, without a Stream object
     stream = torch._C._cuda_getCurrentRawStream(idx)
     splits, slice_len, tiles = plan(kind, M, K, N, trans)
-    tickets, partials = (_workspace(a.device, stream, tiles, splits * M * N)
-                         if tiles else (0, 0))
+    # a split's partials, or tf32x3's A hi and lo from its prologue
+    floats = tf32_work_elems(M, K) if kind == "tf32x3" else splits * M * N
+    tickets, partials = (_workspace(a.device, stream, tiles, floats)
+                         if tiles or kind == "tf32x3" else (0, 0))
     return _fn()(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K, trans,
                  _DTYPES[a.dtype], VARIANTS[kind], splits, slice_len, tickets,
                  partials, stream)

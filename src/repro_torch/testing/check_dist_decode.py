@@ -13,7 +13,7 @@ held to :func:`expected` (one process) at f32's limits, and each rank's
 calls of the kernels' Functions to ``trainer.serve_launches``.
 ``tests/test_torch_dist_decode.py`` also holds them to the JAX package's
 single-device decode; ``chip_smoke.py`` runs llama3-8b at its published
-width, 2 layers, a 4,096-slot cache (1,024 a rank) for 16 steps with four
+width, 1 layer, a 4,096-slot cache (1,024 a rank) for 16 steps with four
 ranks on one card (``--size full``).  Imports only the port.
 """
 from __future__ import annotations
@@ -29,8 +29,8 @@ RTOL = ATOL = 1e-5
 #: smoke: (archs, batch, prompt, cache slots, steps); full: llama3-8b's
 SIZES = {"smoke": (("llama3-8b", "mixtral-8x7b"), 2, 12, 32, 8),
          "full": (("llama3-8b",), 4, 512, 4096, 16)}
-#: the full size's cut: 2 of llama3-8b's 32 layers
-FULL_LAYERS = 2
+#: the full size's cut: 1 of llama3-8b's 32 layers
+FULL_LAYERS = 1
 #: the cache rules each run takes
 CACHES = ("cache_seq", "kv")
 

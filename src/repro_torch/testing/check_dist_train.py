@@ -15,7 +15,7 @@ of the kernels' Functions, which launch the kernels on the card, against
 ranks' blocks (``gather_tree``) and holds the runs to one process's
 (``train_checks.compare_runs``); ``tests/test_torch_dist_train.py`` holds
 them to the JAX package's ``jax.grad`` and train steps.  ``chip_smoke.py``
-runs llama3-8b at its published width (``--size full``: 2 of 32 layers,
+runs llama3-8b at its published width (``--size full``: 1 of 32 layers,
 4 x 1024 tokens, remat) with four ranks on one card.  Imports only the
 port.
 """
@@ -34,8 +34,8 @@ BUCKET_MB = 2**-10
 STEPS, BATCH, SEQ = 3, 4, 32
 MICRO = (1, 2)
 SMOKE_ARCHS = ("llama3-8b", "mixtral-8x7b")
-#: the full run: llama3-8b at its published width, 2 of its 32 layers
-FULL_LAYERS, FULL_BATCH, FULL_SEQ = 2, 4, 1024
+#: the full run: llama3-8b at its published width, 1 of its 32 layers
+FULL_LAYERS, FULL_BATCH, FULL_SEQ = 1, 4, 1024
 #: the leaves whose step-1 gradient (summed over the mesh) the full run
 #: brings back: one of each kind of cut (vocab over `model`; d_model over
 #: the data dimensions and heads or d_ff over `model`; whole)

@@ -21,7 +21,7 @@ Each engine's greedy logits are kept (``logit_log``) and each rank's
 kernel calls are held to ``trainer.serve_launches``.
 ``tests/test_torch_serve_mesh.py`` also holds the streams to the JAX
 package's single-device engine; ``chip_smoke.py`` (phase 13, ``--size
-full``) runs llama3-8b at its published width, 2 of 32 layers.
+full``) runs llama3-8b at its published width, 1 of 32 layers.
 
     PYTHONPATH=src python -m repro_torch.testing.check_serve_paged --device cpu
 """

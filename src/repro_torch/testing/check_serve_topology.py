@@ -25,7 +25,7 @@ kernel calls (the calls of the kernels' Functions on the CPU, ``ops``'
 launch counters on the card) against ``trainer.serve_launches``.
 ``tests/test_torch_serve_mesh.py`` also holds the streams to the JAX
 package's single-device engine; ``chip_smoke.py`` (phase 13, ``--size
-full``) runs llama3-8b at its published width, 2 of 32 layers, with 8
+full``) runs llama3-8b at its published width, 1 of 32 layers, with 8
 ranks on one card and holds the logits to the same engines in one process.
 
     PYTHONPATH=src python -m repro_torch.testing.check_serve_topology --device cpu
@@ -42,8 +42,8 @@ import torch
 MESH, NAMES = (2, 2, 2), ("pod", "data", "model")
 RANKS = 8
 ARCH = "llama3-8b"
-#: the full size's cut: 2 of llama3-8b's 32 layers
-FULL_LAYERS = 2
+#: the full size's cut: 1 of llama3-8b's 32 layers
+FULL_LAYERS = 1
 #: (max_batch, max_seq, new tokens a request, prompt lengths)
 SIZES = {"smoke": (4, 64, 6, (4, 12)), "full": (4, 640, 16, (64, 512))}
 #: f32 on both sides, sums over other row counts (``check_dist_decode``'s)

@@ -24,10 +24,8 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import pathlib
 import statistics
-import subprocess
 import sys
 
 
@@ -112,7 +110,7 @@ def _turn(runs: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="repro_torch.testing.decode_ab",
                                  description=__doc__.split("\n\n")[0])
-    ap.add_argument("--tree", action="append", required=True,
+    ap.add_argument("--tree", action="append", default=[],
                     help="NAME=DIR, a checkout's root; two of them")
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--out", type=pathlib.Path)
@@ -124,21 +122,12 @@ def main(argv=None) -> int:
     trees = [t.split("=", 1) for t in args.tree]
     if len(trees) != 2:
         ap.error("give two --tree NAME=DIR")
-    (na, da), (nb, db) = trees
-    results = []
-    for name, root in ((na, da), (nb, db), (nb, db), (na, da)):
-        root = pathlib.Path(root).resolve()
-        proc = subprocess.run(
-            [sys.executable, str(pathlib.Path(__file__).resolve()), "--turn",
-             "--runs", str(args.runs), "--tree", f"{name}={root}"],
-            capture_output=True, text=True, timeout=900, cwd=root,
-            env={**os.environ, "PYTHONPATH": str(root / "src")})
-        if proc.returncode:
-            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
-            raise SystemExit(f"decode_ab: the turn of {name} failed")
-        r = {"tree": name, **json.loads(proc.stdout.strip().splitlines()[-1])}
-        print(json.dumps(r), flush=True)
-        results.append(r)
+    (na, _), (nb, _) = trees
+    # here, not at the top: a turn imports the other tree's port
+    from repro_torch.testing.kernel_ab import in_turns
+
+    results = in_turns(str(pathlib.Path(__file__).resolve()), trees,
+                       ("--runs", str(args.runs)), timeout=900)
     for name in (na, nb):
         mine = [r for r in results if r["tree"] == name]
         ms = [m for r in mine for m in r["decode_ms"]]

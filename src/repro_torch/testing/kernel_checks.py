@@ -18,7 +18,17 @@ Each element is held to ``|kernel - plain| <= rtol * |plain| + atol``:
     the value for rmsnorm, whose error is relative (atol 1e-6);
   * f32 matmul: the order of up to K = 14336 f32 additions differs, which
     moves a unit-scale output by ~sqrt(K) * 2**-24 * (partial sums of a few
-    units), ~2e-5: atol 1e-4, rtol 1e-5;
+    units), ~2e-5: atol 1e-4, rtol 1e-5.  The tensor-core kernel
+    (``tf32x3``) takes each product as three TF32 products of the
+    operands' halves (hi = TF32(x), lo = x - hi read as TF32): what it
+    drops, lo lo and lo's bits below TF32, is below ~2**-21 of each
+    product, and products of random sign add it as a walk, ~1e-7 on these
+    outputs; the tensor core's accumulation loses low bits at each add,
+    which over one stage's twelve products in a fresh fragment, added to
+    the sum in f32, stays at that size (over 1,536 products in one
+    register it would reach the limit: ``tests/test_torch_matmul_f32.py``
+    models both).  So the limit holds unchanged; one TF32 product alone
+    (~2**-11 of each product) reads ~10x past it;
   * f32 rmsnorm: one D-long sum of squares, an approximate rsqrt and two
     products, ~1e-6 of the value: rtol 1e-5, atol 1e-6.
   * attention (flash and paged), f32: both sides form f32 dot products of
@@ -122,14 +132,26 @@ MATMUL_M = (1, 4, 8, 128, 333, 512)
 #: ragged (M, K, N, dtype): each bf16 kernel's M, N and K edges (K = 4104
 #: leaves an 8-deep last K step, N = 1032 and 4104 an 8-wide last column
 #: tile), tiny K and N, bf16 shapes whose rows are not 16-byte aligned
-#: (the simt kernel), and the f32 edges
+#: (the simt kernel), the f32 simt edges, and the f32 tf32x3 kernel's
+#: edges: M 9, 65, 130 and 333 against its 128-row tile, K = 4100 and 4104
+#: a 4- and an 8-deep last 32-deep stage, N = 1028 and 1032 a 4- and an
+#: 8-wide last 128-column tile (each M N K at least ``matmul.TF32_MIN_WORK``,
+#: 9 x 4100 x 1028 within 13 % of it); N = 1030 (rows of 4,120 bytes, which TMA
+#: cannot map) stays on simt
 MATMUL_RAGGED = (
     [(m, 4104, n, torch.bfloat16) for m in (5, 9, 65, 130) for n in (1032, 4104)]
     + [(1, 8, 8, torch.bfloat16), (16, 8, 8, torch.bfloat16),
        (5, 130, 33, torch.bfloat16), (9, 130, 33, torch.bfloat16),
        (12, 4100, 1030, torch.bfloat16)]
     + [(m, k, n, torch.float32) for m, k, n in
-       ((1, 1, 1), (8, 130, 33), (9, 130, 33), (17, 33, 65), (3, 0, 5))])
+       ((1, 1, 1), (8, 130, 33), (9, 130, 33), (17, 33, 65), (3, 0, 5))]
+    + [(m, k, n, torch.float32) for m in (9, 65, 130, 333)
+       for k, n in ((4100, 1028), (4104, 1032))]
+    + [(9, 4096, 1030, torch.float32)])
+#: (M, K, N) of an f32 product whose A is a view one element into its
+#: buffer (contiguous, not 16-byte aligned): simt takes it
+#: (``check_matmul_view``)
+MATMUL_UNALIGNED_F32 = (65, 4096, 1024)
 RMSNORM_R = (1, 4, 333)
 D_MODEL = 4096
 EPS = 1e-5                               # llama3-8b's norm_eps
@@ -341,6 +363,20 @@ def check_matmul(M, K, N, dtype, device="cuda") -> dict:
     res = _pair(got, _mm.matmul(a, b), want, MATMUL_TOL[dtype])
     lo = N - (N % _mm.WGMMA_BN or N)
     res["edge"] = compare(got[:, lo:], want[:, lo:], MATMUL_TOL[dtype])
+    return res
+
+
+def check_matmul_view(M, K, N, dtype, device="cuda") -> dict:
+    """``check_matmul`` with A a view one element into its buffer
+    (contiguous, its address not 16-byte aligned); ``variant`` names the
+    kernel the wrapper takes for it."""
+    a, b = matmul_inputs(M, K, N, dtype, device)
+    flat = torch.empty(M * K + 1, dtype=dtype, device=device)
+    flat[1:].copy_(a.reshape(-1))
+    view = flat[1:].view(M, K)
+    res = _pair(_mm.matmul(view, b), _mm.matmul(view, b), ref.matmul(view, b),
+                MATMUL_TOL[dtype])
+    res["variant"] = _mm.variant(M, K, N, dtype, view.data_ptr() % 16 == 0)
     return res
 
 

@@ -66,11 +66,12 @@ _MAIN_M = [1, 4, 8, 128, 333, 512]
 @pytest.mark.parametrize("K,N", _PROJ)
 def test_matmul_variant_on_the_main_path(K, N, M):
     """bf16 decode batches take the split-K kernel, prefill the wgmma one;
-    f32 keeps the CUDA-core kernel."""
+    f32 decode batches keep the CUDA-core kernel, f32 prefill takes the
+    tensor cores in three TF32 products."""
     from repro_torch.kernels import matmul
     want = "decode" if M <= 8 else "wgmma"
     assert matmul.variant(M, K, N, torch.bfloat16) == want
-    assert matmul.variant(M, K, N, torch.float32) == "simt"
+    assert matmul.variant(M, K, N, torch.float32) == ("simt" if M <= 8 else "tf32x3")
 
 
 @pytest.mark.parametrize("M,K,N,aligned", [(4, 4100, 4096, True),
